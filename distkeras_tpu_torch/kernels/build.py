@@ -1,0 +1,145 @@
+"""Build the port's hand-written CUDA kernels from this checkout's sources.
+
+Each ``csrc/<name>.cu`` exports one ``extern "C"`` launcher. ``nvcc``
+compiles it for Hopper (``-gencode arch=compute_90a,code=sm_90a``) into a
+shared library with a plain C interface, which ``ctypes`` loads; tensors
+pass as ``data_ptr()`` integers and the launch rides PyTorch's current
+stream. Sources include only the CUDA headers, never PyTorch's, so a build
+takes seconds rather than the minutes a ``torch/extension.h`` translation
+unit costs.
+
+Builds happen at first use, one ``nvcc`` per source, all started together,
+into ``_build/`` beside this file (listed in ``.gitignore``). A library is
+named after its source's content hash, so an edited source rebuilds and an
+unchanged one is reused by later processes on the same machine. A missing
+``nvcc``, a failed compile or a failed load raises ``RuntimeError``: there
+is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+#: kernel name -> (source file, exported symbol, ctypes argtypes)
+KERNELS = {
+    "layernorm_fwd": (
+        "layernorm_fwd.cu",
+        "dk_layernorm_fwd",
+        [_P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float, _I, _P],
+    ),
+    "flash_fwd": (
+        "flash_fwd.cu",
+        "dk_flash_fwd",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
+    ),
+}
+
+_lock = threading.Lock()
+_fns: dict[str, object] = {}
+#: nvcc's ``-Xptxas -v`` report per kernel (registers, shared memory,
+#: spills) from the builds this process ran
+build_logs: dict[str, str] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, ``/usr/local/cuda``'s,
+    or the one on ``PATH``. Raises when none exists."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    cands.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in cands:
+        if c.is_file():
+            return str(c)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the port's CUDA kernels are "
+            "built from source at first use on a machine with the CUDA "
+            "toolkit"
+        )
+    return found
+
+
+def _library_path(name: str) -> Path:
+    src = CSRC / KERNELS[name][0]
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(ARCH_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _compile_all(names) -> None:
+    """Start one nvcc per missing library, wait for all, raise on any
+    failure with the compiler's output."""
+    todo = [n for n in names if not _library_path(n).is_file()]
+    if not todo:
+        return
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in todo:
+        out = _library_path(name)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [
+            nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            "-o", str(tmp), str(CSRC / KERNELS[name][0]),
+        ]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+    errors = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        build_logs[name] = log
+        if proc.returncode != 0:
+            errors.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+
+
+def build(names=None) -> dict:
+    """Compile (where needed) and load the named kernels (default: all);
+    returns ``{name: ctypes function}``."""
+    names = list(KERNELS if names is None else names)
+    with _lock:
+        missing = [n for n in names if n not in _fns]
+        if missing:
+            _compile_all(missing)
+            for name in missing:
+                _, symbol, argtypes = KERNELS[name]
+                try:
+                    lib = ctypes.CDLL(str(_library_path(name)))
+                    fn = getattr(lib, symbol)
+                except (OSError, AttributeError) as e:
+                    raise RuntimeError(
+                        f"kernel {name}: loading {_library_path(name)} "
+                        f"failed: {e}"
+                    ) from e
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _fns[name] = fn
+        return {n: _fns[n] for n in names}
+
+
+def kernel(name: str):
+    """The loaded launcher of one kernel, built on first use."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = build([name])[name]
+    return fn

@@ -1,0 +1,41 @@
+"""Model zoo (PyTorch port of ``distkeras_tpu.models.zoo``): the causal
+language model the serving slice runs."""
+
+from __future__ import annotations
+
+from distkeras_tpu_torch.models.layers import (
+    Dense,
+    Embedding,
+    LayerNorm,
+    TransformerBlock,
+)
+from distkeras_tpu_torch.models.sequential import Sequential
+
+
+def transformer_lm(
+    vocab_size=256,
+    seq_len=128,
+    d_model=128,
+    num_heads=4,
+    depth=2,
+    seed=0,
+    remat=False,
+    dropout=0.0,
+    device=None,
+):
+    """Causal language model: Embedding -> causal TransformerBlock xN ->
+    LayerNorm -> logits over the vocabulary (no softmax). Weights come from
+    a seeded ``torch.Generator``; ``device=None`` builds on CUDA."""
+    model = Sequential(
+        [
+            Embedding(vocab_size, d_model),
+            *[
+                TransformerBlock(num_heads, causal=True, remat=remat,
+                                 dropout=dropout)
+                for _ in range(depth)
+            ],
+            LayerNorm(),
+            Dense(vocab_size),
+        ]
+    )
+    return model.build((seq_len,), seed=seed, device=device)
