@@ -18,6 +18,13 @@ Phases, each fatal on failure (exit code 1, no result line):
    (CUDA-graph replay) and the eager per-call time (CUDA events) of the
    kernel, the plain version and — for context only, never on the port's
    path — the PyTorch library call computing the same function.
+2b. The training kernels vs their plain versions on the card, at the
+   shapes the training step gives them: ``adam_fused`` over the 110
+   leaves of the d512/L8 model (|dp|, |dm|, |dv| <= 1e-6 absolute),
+   ``flash_bwd_dq``/``flash_bwd_dkv`` (dQ, dK, dV within 1e-4 * max(1,
+   max|ref|)) and ``layernorm_bwd`` (dx to 1e-5 absolute in f32, one bf16
+   step in bf16; dgamma/dbeta to 1e-4 of their largest magnitude), timed
+   as in phase 2.
 3. Predict: a ``ServingEngine`` on ``transformer_lm(8192, 512, 512, 8, 8)``
    (random weights from a seed) with the flash and LayerNorm hooks answers
    ``predict`` on 8 full 512-token sequences; the logits must agree with
@@ -32,6 +39,18 @@ Phases, each fatal on failure (exit code 1, no result line):
    must agree between the kernel and the plain path to 1e-4. Token
    agreement with solo ``CachedSequenceGenerator`` decode and tokens/s are
    printed.
+5. Train: ``SingleTrainer`` with ``pallas_adam`` on the d512/L8 model with
+   the flash and LayerNorm hooks, one shuffled epoch of the in-repo corpus
+   (``loaders.text_corpus(seq_len=512)``: 136 windows, 17 steps of batch 8,
+   device-resident), then the same model from the same seed with no hooks
+   and ``adam`` (the plain path on the card). Every loss must be finite,
+   the last below the first, every step's loss within 1e-3 (relative) of
+   the plain path's, the caller's model unchanged, and the kernels launched
+   exactly 17 x (17 LN forward, 17 LN backward, 8 flash forward, 8 dQ, 8
+   dK/dV, 1 Adam). Samples/s and tokens/s are printed.
+
+``--profile`` adds where the time goes: a decode step, a predict forward
+and a training step (host wall, device time, idle share, top kernels).
 
 The last lines are the kernels JSON, the ``nvidia-smi`` name/power line,
 and ``{"ok": true, "device": {...}}``.
@@ -57,6 +76,12 @@ LN_TOL_BF16 = 1e-2
 FLASH_TOL_O = 2e-5
 FLASH_TOL_LSE = 1e-5
 LOGIT_TOL = 1e-4
+ADAM_TOL = 1e-6  # same operation order; only pow() for c1/c2 may differ
+FLASH_BWD_TOL = 1e-4  # times max(1, max|ref|): f32, summation order
+LN_BWD_TOL_DX = 1e-5
+LN_BWD_TOL_DGB = 1e-4  # times max|ref|: sums over 4096 rows, other order
+TRAIN_LOSS_RTOL = 1e-3  # kernel vs plain path, per step, over 17 steps
+TRAIN_STEPS = 17
 
 
 class SmokeFailure(Exception):
@@ -101,13 +126,15 @@ def call_time_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def device_time_ms(fn, iters=20, reps=5):
+def device_time_ms(fn, iters=20, reps=5, stream=None):
     """Device time per call: ``iters`` calls captured into one CUDA graph,
     replayed ``reps`` times between CUDA events — the host is out of the
-    measurement, so this is what the card spends on the call's kernels."""
+    measurement, so this is what the card spends on the call's kernels.
+    ``stream``: capture there (an autograd backward must be captured on
+    the stream its forward ran on)."""
     import torch
 
-    side = torch.cuda.Stream()
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
@@ -115,7 +142,7 @@ def device_time_ms(fn, iters=20, reps=5):
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -130,14 +157,32 @@ def device_time_ms(fn, iters=20, reps=5):
     return start.elapsed_time(end) / (reps * iters)
 
 
-def timings(kernel, plain, library):
+def timings(kernel, plain, library, library_stream=None):
     """Device and eager per-call times of the kernel, its plain version
-    and the library call (each a zero-argument callable)."""
+    and the library call (each a zero-argument callable; a library call
+    that is an autograd backward names the stream its forward ran on)."""
     out = {}
-    for key, fn in (("", kernel), ("plain_", plain), ("library_", library)):
-        out[f"{key}ms"] = device_time_ms(fn)
+    for key, fn, stream in (("", kernel, None), ("plain_", plain, None),
+                            ("library_", library, library_stream)):
+        out[f"{key}ms"] = device_time_ms(fn, stream=stream)
         out[f"{key}call_ms"] = call_time_ms(fn)
     return out
+
+
+def backward_call(torch, forward, inputs, grad_out):
+    """A library backward to time: ``forward(*inputs)`` recorded once on a
+    stream of its own; the returned call runs its backward again (graph
+    kept) and the stream is returned for the capture."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        out = forward(*inputs)
+    torch.cuda.current_stream().wait_stream(stream)
+
+    def call():
+        torch.autograd.grad(out, inputs, grad_out, retain_graph=True)
+
+    return call, stream
 
 
 def rotating(sets):
@@ -265,6 +310,201 @@ def check_flash(torch, F):
     return rows
 
 
+# ----------------------------------------------------------------- phase 2b
+
+
+def check_adam(torch, lm):
+    """adam_fused vs its plain version over the model's 110 leaves, from
+    step count 4 (so c1/c2 are not the first step's)."""
+    from distkeras_tpu_torch.ops.pallas_kernels import (
+        _AdamTable,
+        adam_fused,
+        adam_step_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    shapes = [p.shape for p in lm.parameters()]
+
+    def rand(scale, fn=torch.randn):
+        return [fn(s, device="cuda", generator=gen) * scale for s in shapes]
+
+    params, grads, ms = rand(0.05), rand(1e-3), rand(1e-4)
+    vs = [v * v for v in rand(1e-3)]
+    hyper = (1e-3, 0.9, 0.999, 1e-8)
+
+    def state():
+        return ([p.clone() for p in params], [m.clone() for m in ms],
+                [v.clone() for v in vs],
+                torch.tensor([4, 0], dtype=torch.int32, device="cuda"))
+
+    kp, km, kv, ks = state()
+    table = _AdamTable()
+    adam_fused(kp, grads, km, kv, ks, *hyper, table)
+    rp, rm, rv, rs = state()
+    adam_step_plain(rp, grads, rm, rv, rs, *hyper)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max())
+              for a, b in zip(kp + km + kv, rp + rm + rv))
+    steps = (ks.tolist(), rs.tolist())
+    ok = err <= ADAM_TOL and steps == ([5, 0], [5, 0])
+    lp = [p.clone().requires_grad_() for p in params]
+    for p, g in zip(lp, grads):
+        p.grad = g
+    lib = torch.optim.Adam(lp, lr=1e-3, fused=True, capturable=True)
+    times = timings(
+        lambda: adam_fused(kp, grads, km, kv, ks, *hyper, table),
+        lambda: adam_step_plain(rp, grads, rm, rv, rs, *hyper),
+        lib.step,
+    )
+    n = sum(p.numel() for p in params)
+    bound_ms, bound_by = bound(28 * n, 14 * n, "float32")
+    row = {
+        "shape": [len(shapes), n], "dtype": "float32", "max_abs_err": err,
+        "steps_after": steps, "table_builds": table.builds,
+        "grad_pointer_uploads": table.grad_uploads, "ok": ok,
+        **times, "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    log(f"adam_fused {row}")
+    check(ok, f"adam_fused disagrees with its plain version: {row}")
+    return [row]
+
+
+def check_flash_bwd(torch, F):
+    """flash_bwd_dq / flash_bwd_dkv vs the plain backward, on the forward
+    kernel's O and lse (what the training step hands them)."""
+    from distkeras_tpu_torch.ops.flash_attention import (
+        _reference_flash_bwd_dkv,
+        _reference_flash_bwd_dq,
+        flash_bwd_dkv,
+        flash_bwd_dq,
+        flash_fwd,
+    )
+
+    rows = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for (b, t, h, d), causal in [
+        ((8, 512, 8, 64), True), ((8, 512, 8, 64), False),
+        ((2, 200, 8, 64), True),
+    ]:
+        q, k, v, do = (torch.randn(b, t, h, d, device="cuda", generator=gen)
+                       for _ in range(4))
+        o, lse = flash_fwd(q, k, v, causal)
+        dq, delta = flash_bwd_dq(q, k, v, o, lse, do, causal)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+        rdq, rdelta = _reference_flash_bwd_dq(q, k, v, o, lse, do, causal)
+        rdk, rdv = _reference_flash_bwd_dkv(q, k, v, do, lse, rdelta, causal)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, r in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv),
+                           ("delta", delta, rdelta)):
+            errs[name] = (float((a - r).abs().max()),
+                          FLASH_BWD_TOL * max(1.0, float(r.abs().max())))
+        ok = all(e <= tol for e, tol in errs.values())
+        # the library call: SDPA's backward (dQ, dK, dV at once), timed
+        # for context only
+        library, lib_stream = backward_call(
+            torch,
+            lambda a, b_, c: F.scaled_dot_product_attention(
+                a, b_, c, is_causal=causal),
+            tuple(x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v)),
+            do.transpose(1, 2).contiguous(),
+        )
+
+        pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+        io = b * t * h * d * 4
+        stats = b * h * t * 4
+        for kname, kernel_fn, plain_fn, nbytes, flops, kerr in (
+            ("flash_bwd_dq",
+             lambda: flash_bwd_dq(q, k, v, o, lse, do, causal),
+             lambda: _reference_flash_bwd_dq(q, k, v, o, lse, do, causal),
+             6 * io + 2 * stats, 6 * d * pairs, ("dq", "delta")),
+            ("flash_bwd_dkv",
+             lambda: flash_bwd_dkv(q, k, v, do, lse, delta, causal),
+             lambda: _reference_flash_bwd_dkv(q, k, v, do, lse, rdelta,
+                                              causal),
+             6 * io + 2 * stats, 8 * d * pairs, ("dk", "dv")),
+        ):
+            times = timings(kernel_fn, plain_fn, library, lib_stream)
+            bound_ms, bound_by = bound(nbytes, flops, "float32")
+            row = {
+                "shape": [b, t, h, d], "causal": causal, "dtype": "float32",
+                "max_abs_err": max(errs[e][0] for e in kerr),
+                "errs": {e: errs[e] for e in kerr}, "ok": ok, **times,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            }
+            log(f"{kname} {row}")
+            rows[kname].append(row)
+        check(ok, f"flash backward disagrees with its plain version: {errs}")
+    return rows
+
+
+def check_layernorm_bwd(torch, F):
+    from distkeras_tpu_torch.ops.fused_layernorm import (
+        _reference_layer_norm_bwd,
+        layernorm_bwd,
+    )
+
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    for (n, d), dtype in [
+        ((8, 512), torch.float32), ((4096, 512), torch.float32),
+        ((4096, 512), torch.bfloat16), ((3, 96), torch.float32),
+    ]:
+        isz = torch.tensor([], dtype=dtype).element_size()
+        nsets = max(1, min(16, (96 << 20) // (2 * n * d * isz)))
+        sets = [tuple((torch.randn(n, d, device="cuda", generator=gen) * 2
+                       + 0.5).to(dtype) for _ in range(2))
+                for _ in range(nsets)]
+        g = 1 + 0.1 * torch.randn(d, device="cuda", generator=gen)
+        x, dy = sets[0]
+        dx, dg, db = layernorm_bwd(x, g, dy, 1e-5)
+        rdx, rdg, rdb = _reference_layer_norm_bwd(x, g, dy, 1e-5)
+        again = layernorm_bwd(x, g, dy, 1e-5)
+        torch.cuda.synchronize()
+        ex = (dx.float() - rdx.float()).abs()
+        if dtype == torch.float32:
+            ok = float(ex.max()) <= LN_BWD_TOL_DX
+        else:
+            ok = bool((ex <= LN_TOL_BF16 + LN_TOL_BF16 * rdx.float().abs()).all())
+        egb = [float((a - r).abs().max()) / max(1e-30, float(r.abs().max()))
+               for a, r in ((dg, rdg), (db, rdb))]
+        deterministic = torch.equal(again[1], dg) and torch.equal(again[2], db)
+        ok = ok and max(egb) <= LN_BWD_TOL_DGB and deterministic
+        nxt = rotating(sets)
+        library, lib_stream = backward_call(
+            torch,
+            lambda a, b_, c: F.layer_norm(a, (d,), b_, c, 1e-5),
+            (x.detach().clone().requires_grad_(),
+             g.to(dtype).requires_grad_(),
+             torch.zeros(d, device="cuda", dtype=dtype, requires_grad=True)),
+            dy,
+        )
+
+        def kernel_call():
+            xx, dd = nxt()
+            return layernorm_bwd(xx, g, dd, 1e-5)
+
+        def plain_call():
+            xx, dd = nxt()
+            return _reference_layer_norm_bwd(xx, g, dd, 1e-5)
+
+        times = timings(kernel_call, plain_call, library, lib_stream)
+        dname = "float32" if dtype == torch.float32 else "bfloat16"
+        bound_ms, bound_by = bound(3 * n * d * isz + 3 * d * 4, 16 * n * d,
+                                   dname)
+        row = {
+            "shape": [n, d], "dtype": dname,
+            "max_abs_err": float(ex.max()), "dgamma_dbeta_rel_err": egb,
+            "deterministic": deterministic, "ok": ok, **times,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        log(f"layernorm_bwd {row}")
+        check(ok, f"layernorm_bwd disagrees with its plain version: {row}")
+        rows.append(row)
+    return rows
+
+
 # ------------------------------------------------------------- phases 3, 4
 
 
@@ -316,7 +556,8 @@ def run_predict(torch, np, lm):
         eng.stop()
     check(y.shape == (8, 512, 8192) and np.isfinite(y).all(),
           f"predict output malformed: {y.shape}")
-    check(counts == {"layernorm_fwd": 17, "flash_fwd": 8},
+    check({k: n for k, n in counts.items() if n}
+          == {"layernorm_fwd": 17, "flash_fwd": 8},
           f"predict did not run through the kernels: {counts}")
     detach_hooks(lm)
     plain = forward(torch, lm, x).cpu().numpy()
@@ -407,6 +648,111 @@ def run_generate(torch, np, lm):
     return res
 
 
+# ------------------------------------------------------------------ phase 5
+
+
+def make_lm(zoo):
+    return zoo.transformer_lm(vocab_size=8192, seq_len=512, d_model=512,
+                              num_heads=8, depth=8, seed=0)
+
+
+def train_once(torch, lm, optimizer, ds):
+    from distkeras_tpu_torch.trainers import SingleTrainer
+
+    trainer = SingleTrainer(
+        lm, optimizer, "next_token_crossentropy",
+        metrics=["next_token_accuracy"], batch_size=8, window=4,
+        learning_rate=1e-3, seed=0, device_resident=True,
+    )
+    t0 = time.monotonic()
+    result = trainer.train(ds, shuffle=True)
+    torch.cuda.synchronize()
+    return trainer, result, time.monotonic() - t0
+
+
+def run_train(torch, np, zoo):
+    """SingleTrainer on the kernel path, then on the plain path."""
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.data import loaders
+    from distkeras_tpu_torch.ops.flash_attention import attach_flash_attention
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+
+    ds = loaders.text_corpus(seq_len=512, vocab_size=8192)
+    check(len(ds) == 8 * TRAIN_STEPS, f"corpus windows: {len(ds)}")
+    lm = make_lm(zoo)
+    check(attach_flash_attention(lm) == 8, "flash hook not on 8 blocks")
+    check(attach_fused_layernorm(lm) == 17, "LN hook not on 17 norms")
+    before = {k: v.clone() for k, v in lm.state_dict().items()}
+    kernels.reset_launch_counts()
+    trainer, result, secs = train_once(torch, lm, "pallas_adam", ds)
+    counts = kernels.launch_counts()
+    hist = trainer.get_history()
+    unchanged = all(torch.equal(before[k], v)
+                    for k, v in lm.state_dict().items())
+    del lm, before, result
+    plain_lm = make_lm(zoo)
+    kernels.reset_launch_counts()
+    plain_trainer, plain_result, plain_secs = train_once(
+        torch, plain_lm, "adam", ds)
+    plain_counts = kernels.launch_counts()
+    plain_hist = plain_trainer.get_history()
+    del plain_lm, plain_result
+    torch.cuda.empty_cache()
+
+    per_step = {"layernorm_fwd": 17, "layernorm_bwd": 17, "flash_fwd": 8,
+                "flash_bwd_dq": 8, "flash_bwd_dkv": 8, "adam_fused": 1}
+    expected = {k: TRAIN_STEPS * n for k, n in per_step.items()}
+    losses = [r["loss"] for r in hist]
+    plain_losses = [r["loss"] for r in plain_hist]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+    windows = trainer.history.get_timings()
+    steady = windows[1:]  # the first window pays cuBLAS/allocator warm-up
+    steady_sps = sum(n for n, _ in steady) / sum(t for _, t in steady)
+    res = {
+        "steps": len(hist), "seconds": secs, "plain_seconds": plain_secs,
+        "samples_per_s": trainer.history.samples_per_second(),
+        "tokens_per_s": trainer.history.samples_per_second() * 512,
+        "steady_samples_per_s": steady_sps,
+        "steady_tokens_per_s": steady_sps * 512,
+        "plain_samples_per_s": plain_trainer.history.samples_per_second(),
+        "window_seconds": [t for _, t in windows],
+        "first_loss": losses[0], "last_loss": losses[-1],
+        "first_accuracy": hist[0]["next_token_accuracy"],
+        "last_accuracy": hist[-1]["next_token_accuracy"],
+        "max_rel_loss_diff_vs_plain": rel,
+        "adam_table_builds": trainer.optimizer._table.builds,
+        "adam_grad_pointer_uploads": trainer.optimizer._table.grad_uploads,
+        "launches": counts,
+        "plain_launches": plain_counts, "caller_unchanged": unchanged,
+        "losses": losses, "plain_losses": plain_losses,
+    }
+    log(f"train: { {k: v for k, v in res.items() if 'losses' not in k} }")
+    check(len(hist) == TRAIN_STEPS and len(plain_hist) == TRAIN_STEPS,
+          f"expected {TRAIN_STEPS} steps, got {len(hist)}, {len(plain_hist)}")
+    check(all(np.isfinite(losses)) and all(np.isfinite(plain_losses)),
+          f"a loss is not finite: {losses} {plain_losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    check(rel <= TRAIN_LOSS_RTOL,
+          f"kernel-path losses differ from the plain path by {rel:.3e}")
+    check(unchanged, "train() changed the caller's model")
+    check(counts == expected,
+          f"training did not run through the kernels: {counts} != {expected}")
+    check(set(plain_counts.values()) == {0},
+          f"the plain path launched a kernel: {plain_counts}")
+    return res
+
+
+#: (category, substrings of the kernel names that fall in it), first match
+#: wins: the port's kernels by name, then the matrix products
+KERNEL_CATEGORIES = (
+    ("flash_bwd", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
+    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("layernorm", ("ln_fwd_", "ln_bwd_")),
+    ("adam_fused", ("adam_fused_kernel",)),
+    ("gemm", ("gemm", "splitKreduce")),
+)
+
+
 def device_profile(torch, fn, calls):
     """``torch.profiler`` over ``calls`` calls of ``fn``: device kernel
     time per call (ms), kernels per call, and the top kernels by time."""
@@ -424,8 +770,14 @@ def device_profile(torch, fn, calls):
         return getattr(a, "self_device_time_total", 0.0)
 
     top = sorted(kern, key=dev_us, reverse=True)[:10]
+    by_category = {}
+    for a in kern:
+        cat = next((c for c, keys in KERNEL_CATEGORIES
+                    if any(k in a.key for k in keys)), "other")
+        by_category[cat] = by_category.get(cat, 0.0) + dev_us(a) / calls / 1e3
     return {
         "device_ms": sum(dev_us(a) for a in kern) / calls / 1e3 if kern else None,
+        "device_ms_by_category": by_category,
         "kernels": sum(a.count for a in kern) / calls,
         "top_kernels": [
             {"name": a.key[:80], "per_call": a.count / calls,
@@ -435,12 +787,92 @@ def device_profile(torch, fn, calls):
     }
 
 
+def profile_train_step(torch, np, lm, window=4, windows=3):
+    """One training step as ``SingleTrainer`` runs it (flash + LN hooks,
+    pallas_adam, batch 8 x 512): windows of 4 steps ending in the one host
+    read of their metrics; per-step wall and device time."""
+    from distkeras_tpu_torch.ops.flash_attention import attach_flash_attention
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+    from distkeras_tpu_torch.ops.pallas_kernels import FusedAdam
+    from distkeras_tpu_torch.utils.rng import RngSeq
+    from distkeras_tpu_torch.workers import WorkerCore, _metrics_to_records
+
+    model = lm.copy()
+    attach_flash_attention(model)
+    attach_fused_layernorm(model)
+    core = WorkerCore(model, FusedAdam(1e-3), "next_token_crossentropy",
+                      metrics=["next_token_accuracy"])
+    opt_state = core.init_opt_state(list(model.parameters()))
+    rng = RngSeq(0)
+    xs = torch.as_tensor(np.random.default_rng(4).integers(
+        0, 8192, (window, 8, 512)), device="cuda")
+
+    def run_window():
+        _, mets = core.window(model, opt_state, rng, xs, xs)
+        _metrics_to_records(mets)
+
+    run_window()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(windows):
+        run_window()
+    torch.cuda.synchronize()
+    wall = (time.monotonic() - t0) / (windows * window) * 1e3
+    prof = device_profile(torch, run_window, windows)
+    prof["device_ms"] = (None if prof["device_ms"] is None
+                         else prof["device_ms"] / window)
+    prof["kernels"] /= window
+    prof["device_ms_by_category"] = {
+        c: ms / window for c, ms in prof["device_ms_by_category"].items()}
+    for k in prof["top_kernels"]:
+        k["per_call"] /= window
+        k["device_us_per_call"] /= window
+    del model, core, opt_state
+    return {"wall_ms": wall, **prof}
+
+
+def profile_train_epoch(torch, np, lm):
+    """Phase 5's kernel-path epoch once more, on a warm process: per-window
+    wall times, with the Python collector's runs and the Adam table builds
+    counted, to tell a slow window's cause."""
+    import gc
+
+    from distkeras_tpu_torch.data import loaders
+    from distkeras_tpu_torch.ops.flash_attention import attach_flash_attention
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+
+    model = lm.copy()
+    attach_flash_attention(model)
+    attach_fused_layernorm(model)
+    ds = loaders.text_corpus(seq_len=512, vocab_size=8192)
+    runs = []
+    for collector in (True, False):
+        gc.collect()
+        if not collector:
+            gc.disable()
+        before = sum(st["collections"] for st in gc.get_stats())
+        try:
+            trainer, _, secs = train_once(torch, model, "pallas_adam", ds)
+        finally:
+            gc.enable()
+        runs.append({
+            "gc_enabled": collector, "seconds": secs,
+            "window_seconds": [t for _, t in trainer.history.get_timings()],
+            "gc_collections": sum(st["collections"] for st in gc.get_stats())
+            - before,
+            "adam_table_builds": trainer.optimizer._table.builds,
+            "adam_grad_pointer_uploads": trainer.optimizer._table.grad_uploads,
+        })
+    log(f"profile train_epoch_again: {runs}")
+    return runs
+
+
 def profile_paths(torch, np, lm, steps=20):
     """Where the time goes (``--profile``): a decode step with 8 busy slots
-    on the LayerNorm-hooked model, and one predict forward (8 x 512) with
-    both hooks — host wall per call (synchronized), device kernel time per
-    call, the device's idle share, and the kernels that take the most
-    device time."""
+    on the LayerNorm-hooked model, one predict forward (8 x 512) with both
+    hooks, and one training step — host wall per call (synchronized),
+    device kernel time per call, the device's idle share, and the kernels
+    that take the most device time."""
     from distkeras_tpu_torch.ops.flash_attention import attach_flash_attention
     from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
     from distkeras_tpu_torch.serving.engine import DecodeStepper
@@ -472,7 +904,10 @@ def profile_paths(torch, np, lm, steps=20):
 
     predict = {"wall_ms": wall_ms(fwd, 5), **device_profile(torch, fwd, 5)}
     detach_hooks(lm)
-    for name, r in (("decode_step", decode), ("predict_forward", predict)):
+    train = profile_train_step(torch, np, lm)
+    out["train_epoch_again"] = profile_train_epoch(torch, np, lm)
+    for name, r in (("decode_step", decode), ("predict_forward", predict),
+                    ("train_step", train)):
         if r["device_ms"] is not None:
             r["device_idle_share"] = 1 - r["device_ms"] / r["wall_ms"]
         out[name] = r
@@ -532,17 +967,28 @@ def main(argv):
     ln_rows = check_layernorm(torch, F)
     flash_rows = check_flash(torch, F)
 
-    lm = zoo.transformer_lm(vocab_size=8192, seq_len=512, d_model=512,
-                            num_heads=8, depth=8, seed=0)
-    log(f"transformer_lm d512/L8: {lm.num_params()} parameters")
+    lm = make_lm(zoo)
+    log(f"transformer_lm d512/L8: {lm.num_params()} parameters in "
+        f"{len(list(lm.parameters()))} leaves")
+    adam_rows = check_adam(torch, lm)
+    fbwd_rows = check_flash_bwd(torch, F)
+    lnb_rows = check_layernorm_bwd(torch, F)
+    torch.cuda.empty_cache()
+
     pred = run_predict(torch, np, lm)
     gen = run_generate(torch, np, lm)
     log(f"generate: {gen['requests']} requests, "
         f"{gen['tokens_per_s']:.1f} tokens/s on {smi}")
+    train = run_train(torch, np, zoo)
+    log(f"train: {train['steps']} steps, {train['samples_per_s']:.1f} "
+        f"samples/s = {train['tokens_per_s']:.0f} tokens/s (steady "
+        f"{train['steady_tokens_per_s']:.0f} tokens/s) on {smi}")
     profile = profile_paths(torch, np, lm) if args.profile else None
 
     launches = {
-        k: pred["launches"][k] + gen["launches"][k] for k in kernels.LAUNCHES
+        k: pred["launches"].get(k, 0) + gen["launches"].get(k, 0)
+        + train["launches"][k]
+        for k in kernels.LAUNCHES
     }
     check(all(n > 0 for n in launches.values()),
           f"a kernel of the path never launched: {launches}")
@@ -569,6 +1015,20 @@ def main(argv):
         entry("flash_fwd", "distkeras_tpu_torch/kernels/csrc/flash_fwd.cu",
               "distkeras_tpu/ops/flash_attention.py:123", flash_rows,
               [8, 512, 8, 64]),
+        entry("layernorm_bwd",
+              "distkeras_tpu_torch/kernels/csrc/layernorm_bwd.cu",
+              "distkeras_tpu/ops/fused_layernorm.py:135", lnb_rows,
+              [4096, 512]),
+        entry("flash_bwd_dq", "distkeras_tpu_torch/kernels/csrc/flash_bwd.cu",
+              "distkeras_tpu/ops/flash_attention.py:285",
+              fbwd_rows["flash_bwd_dq"], [8, 512, 8, 64]),
+        entry("flash_bwd_dkv",
+              "distkeras_tpu_torch/kernels/csrc/flash_bwd.cu",
+              "distkeras_tpu/ops/flash_attention.py:295",
+              fbwd_rows["flash_bwd_dkv"], [8, 512, 8, 64]),
+        entry("adam_fused", "distkeras_tpu_torch/kernels/csrc/adam_fused.cu",
+              "distkeras_tpu/ops/pallas_kernels.py:168", adam_rows,
+              adam_rows[0]["shape"]),
     ]}
     check(not any(m == "jax" or m.startswith(("jax.", "distkeras_tpu."))
                   or m == "distkeras_tpu" for m in sys.modules),
@@ -579,7 +1039,7 @@ def main(argv):
         with open(args.out, "w") as f:
             json.dump({"nvidia_smi": smi, "device": device,
                        "kernels": kline["kernels"], "predict": pred,
-                       "generate": gen, "profile": profile},
+                       "generate": gen, "train": train, "profile": profile},
                       f, indent=1)
     print(json.dumps(kline), flush=True)
     print(smi, flush=True)

@@ -1,10 +1,12 @@
 """Hand-written Hopper kernels of the port and their launch counts.
 
 Each kernel's wrapper lives beside its plain PyTorch version in ``ops``
-(``fused_layernorm.layernorm_fwd``, ``flash_attention.flash_fwd``); this
-package holds the CUDA sources (``csrc/``), the build module (``build``), and
-the per-kernel launch counters the wrappers bump exactly where they launch
-— so a run can show which kernels its main path went through.
+(``fused_layernorm.layernorm_fwd``/``layernorm_bwd``,
+``flash_attention.flash_fwd``/``flash_bwd``, ``pallas_kernels.FusedAdam``);
+this package holds the CUDA sources (``csrc/``), the build module
+(``build``), and the per-kernel launch counters the wrappers bump exactly
+where they launch — so a run can show which kernels its main path went
+through.
 """
 
 from __future__ import annotations
@@ -14,7 +16,14 @@ import threading
 import torch
 
 #: kernel name -> launches since the last reset
-LAUNCHES = {"layernorm_fwd": 0, "flash_fwd": 0}
+LAUNCHES = {
+    "layernorm_fwd": 0,
+    "layernorm_bwd": 0,
+    "flash_fwd": 0,
+    "flash_bwd_dq": 0,
+    "flash_bwd_dkv": 0,
+    "adam_fused": 0,
+}
 _lock = threading.Lock()
 
 

@@ -1,12 +1,14 @@
 """Build the port's hand-written CUDA kernels from this checkout's sources.
 
-Each ``csrc/<name>.cu`` exports one ``extern "C"`` launcher. ``nvcc``
-compiles it for Hopper (``-gencode arch=compute_90a,code=sm_90a``) into a
-shared library with a plain C interface, which ``ctypes`` loads; tensors
-pass as ``data_ptr()`` integers and the launch rides PyTorch's current
-stream. Sources include only the CUDA headers, never PyTorch's, so a build
-takes seconds rather than the minutes a ``torch/extension.h`` translation
-unit costs.
+Each ``csrc/*.cu`` exports one ``extern "C"`` launcher per kernel
+(``flash_bwd.cu`` has two). ``nvcc`` compiles it for Hopper (``-gencode
+arch=compute_90a,code=sm_90a``) into a shared library with a plain C
+interface, which ``ctypes`` loads; tensors pass as ``data_ptr()`` integers
+and the launch rides PyTorch's current stream. Sources include only the
+CUDA headers, never PyTorch's, so a build takes seconds rather than the
+minutes a ``torch/extension.h`` translation unit costs. No
+``--use_fast_math``: sqrt, division and exp are IEEE, as in the plain
+versions.
 
 Builds happen at first use, one ``nvcc`` per source, all started together,
 into ``_build/`` beside this file (listed in ``.gitignore``). A library is
@@ -32,24 +34,46 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_L = ctypes.c_longlong
 #: kernel name -> (source file, exported symbol, ctypes argtypes)
 KERNELS = {
     "layernorm_fwd": (
         "layernorm_fwd.cu",
         "dk_layernorm_fwd",
-        [_P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float, _I, _P],
+        [_P, _P, _P, _P, _L, _I, _F, _I, _P],
+    ),
+    "layernorm_bwd": (
+        "layernorm_bwd.cu",
+        "dk_layernorm_bwd",
+        [_P, _P, _P, _P, _P, _L, _I, _F, _I, _I, _P],
     ),
     "flash_fwd": (
         "flash_fwd.cu",
         "dk_flash_fwd",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+    ),
+    "flash_bwd_dq": (
+        "flash_bwd.cu",
+        "dk_flash_bwd_dq",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+    ),
+    "flash_bwd_dkv": (
+        "flash_bwd.cu",
+        "dk_flash_bwd_dkv",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+    ),
+    "adam_fused": (
+        "adam_fused.cu",
+        "dk_adam_fused",
+        [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P, _I, _P],
     ),
 }
 
 _lock = threading.Lock()
 _fns: dict[str, object] = {}
-#: nvcc's ``-Xptxas -v`` report per kernel (registers, shared memory,
-#: spills) from the builds this process ran
+#: nvcc's ``-Xptxas -v`` report per source file (registers, shared
+#: memory, spills) from the builds this process ran
 build_logs: dict[str, str] = {}
 
 
@@ -78,35 +102,39 @@ def _library_path(name: str) -> Path:
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(ARCH_FLAGS).encode()
     ).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 
 def _compile_all(names) -> None:
-    """Start one nvcc per missing library, wait for all, raise on any
-    failure with the compiler's output."""
-    todo = [n for n in names if not _library_path(n).is_file()]
+    """Start one nvcc per missing library (one per source, however many
+    kernels it holds), wait for all, raise on any failure with the
+    compiler's output."""
+    todo = {}
+    for name in names:
+        out = _library_path(name)
+        if not out.is_file():
+            todo.setdefault(out, KERNELS[name][0])
     if not todo:
         return
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
-    for name in todo:
-        out = _library_path(name)
+    for out, src in todo.items():
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [
             nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
             "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", str(tmp), str(CSRC / KERNELS[name][0]),
+            "-o", str(tmp), str(CSRC / src),
         ]
-        procs.append((name, out, tmp, subprocess.Popen(
+        procs.append((src, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )))
     errors = []
-    for name, out, tmp, proc in procs:
+    for src, out, tmp, proc in procs:
         log, _ = proc.communicate()
-        build_logs[name] = log
+        build_logs[src] = log
         if proc.returncode != 0:
-            errors.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            errors.append(f"{src}: nvcc exited {proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)
     if errors:

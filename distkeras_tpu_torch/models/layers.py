@@ -7,9 +7,12 @@ package's names (``kernel``/``bias``, ``tokens``/``positions``,
 ``state_dict`` keys are the JAX params tree flattened with dots and
 ``utils.convert.params_from_jax`` loads one into the other. ``init(gen,
 in_shape)`` creates the parameters from an explicit ``torch.Generator``
-and returns the output shape; ``forward`` is the eval-mode computation
-(dropout is the identity; backward through the kernels belongs to the
-training slice). ``get_config`` is JSON-identical to the JAX layer's.
+and returns the output shape; ``forward`` computes, in training mode under
+``nn.Module.train()`` (dropout live) and in eval mode under ``eval()``
+(dropout the identity). Layers that draw random bits in training mode
+(``uses_train_rng``) take ``forward(x, rng=seed)``, an integer seed from
+``utils.rng``; their bits match JAX's in distribution only.
+``get_config`` is JSON-identical to the JAX layer's.
 
 ``Dense.kernel`` keeps the JAX layout ``(in, out)``: ``y = x @ kernel``.
 """
@@ -21,8 +24,10 @@ import logging
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from distkeras_tpu_torch.ops.quantization import qmatmul, qshape
+from distkeras_tpu_torch.utils.rng import split_seed
 
 # ---------------------------------------------------------------- activations
 
@@ -91,6 +96,9 @@ def _normal(gen, shape, std):
 class Layer(nn.Module):
     """Base layer: ``init`` creates parameters, ``forward`` computes."""
 
+    # True for layers that take ``forward(x, rng=seed)`` (dropout)
+    uses_train_rng = False
+
     def init(self, gen, in_shape):
         return in_shape
 
@@ -141,6 +149,39 @@ class Dense(Layer):
             "activation": self.activation,
             "use_bias": self.use_bias,
         }
+
+
+def _dropout(x, rate, seed):
+    """Inverted dropout of ``x`` with its mask drawn from ``seed`` on x's
+    device — the one copy, shared by ``Dropout`` and the residual dropout
+    of ``TransformerBlock``."""
+    keep = 1.0 - rate
+    gen = torch.Generator(device=x.device).manual_seed(int(seed))
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
+
+
+@register_layer
+class Dropout(Layer):
+    """Inverted dropout; the identity in eval mode. Needs a seed in
+    training mode: the mask is drawn from a generator built from it on
+    x's device, so a recomputation (``remat``) draws the same mask."""
+
+    uses_train_rng = True
+
+    def __init__(self, rate):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x, rng=None):
+        if not self.training or self.rate == 0.0:
+            return x
+        if rng is None:
+            raise ValueError("Dropout in training mode requires an rng seed")
+        return _dropout(x, self.rate, rng)
+
+    def get_config(self):
+        return {"layer": "Dropout", "rate": self.rate}
 
 
 @register_layer
@@ -288,9 +329,14 @@ class MultiHeadSelfAttention(Layer):
 @register_layer
 class TransformerBlock(Layer):
     """Pre-LN transformer block: x + MHSA(LN(x)), then x + MLP(LN(x)), the
-    MLP being Dense(mlp_ratio*d, gelu) -> Dense(d). Eval only: ``dropout``
-    is the identity and ``remat`` (a training-memory knob) changes
-    nothing; both ride the config for parity with the JAX layer."""
+    MLP being Dense(mlp_ratio*d, gelu) -> Dense(d).
+
+    ``remat=True`` runs the block under ``torch.utils.checkpoint``
+    (non-reentrant) while gradients are recorded: the backward recomputes
+    the block's activations instead of keeping them, trading FLOPs for
+    memory; numerics are unchanged. ``dropout`` applies inverted residual
+    dropout to the attention and MLP branch outputs in training mode
+    (identity in eval), its masks drawn from seeds split off ``rng``."""
 
     def __init__(self, num_heads, mlp_ratio=4, causal=False, remat=False,
                  dropout=0.0):
@@ -300,6 +346,8 @@ class TransformerBlock(Layer):
         self.causal = bool(causal)
         self.remat = bool(remat)
         self.dropout = float(dropout)
+        # declare the rng only when dropout is live (as the JAX layer does)
+        self.uses_train_rng = self.dropout > 0.0
         self.ln1 = LayerNorm()
         self.mhsa = MultiHeadSelfAttention(self.num_heads, causal=self.causal)
         self.ln2 = LayerNorm()
@@ -321,9 +369,24 @@ class TransformerBlock(Layer):
         self.fc2.init(gen, (t, self.mlp_ratio * d))
         return in_shape
 
-    def forward(self, x):
-        x = x + self.mhsa(self.ln1(x))
-        return x + self.fc2(self.fc1(self.ln2(x)))
+    def forward(self, x, rng=None):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(self._forward, x, rng, use_reentrant=False)
+        return self._forward(x, rng)
+
+    def _forward(self, x, rng):
+        drop = self.training and self.dropout > 0.0
+        if drop:
+            if rng is None:
+                raise ValueError(
+                    "TransformerBlock(dropout>0) in training mode requires "
+                    "an rng seed"
+                )
+            r1, r2 = split_seed(rng, 2)
+        a = self.mhsa(self.ln1(x))
+        x = x + (_dropout(a, self.dropout, r1) if drop else a)
+        h = self.fc2(self.fc1(self.ln2(x)))
+        return x + (_dropout(h, self.dropout, r2) if drop else h)
 
     def get_config(self):
         return {

@@ -6,15 +6,26 @@ named ``"0".."N"`` like the JAX params tree, so ``state_dict()`` keys read
 ``build(input_shape, seed, device)`` creates every parameter from one
 seeded ``torch.Generator`` (the numbers differ from JAX's init; load JAX
 weights through ``utils.convert.params_from_jax`` to compare the two).
+
+A built model starts in eval mode (what serving runs); ``train()`` /
+``eval()`` — ``nn.Module``'s switch — select training mode, in which
+``forward(x, rng=seed)`` hands each random-drawing layer its own seed.
+``copy()`` is an independent model with the same weights and hooks;
+``get_weights``/``set_weights`` move flat numpy lists in the JAX
+package's leaf order (its dicts flatten with sorted keys).
 """
 
 from __future__ import annotations
 
+import copy
+
+import numpy as np
 import torch
 from torch import nn
 
 from distkeras_tpu_torch.models.layers import Layer, layer_from_config
 from distkeras_tpu_torch.utils.device import resolve_device
+from distkeras_tpu_torch.utils.rng import split_seed
 
 
 def walk_layers(model_or_layers):
@@ -55,13 +66,48 @@ class Sequential(nn.Module):
         self.to(dev)
         return self.eval()
 
-    def forward(self, x):
-        for layer in self.layers:
-            x = layer(x)
+    def forward(self, x, rng=None):
+        """``rng``: an integer seed, split one per layer (as the JAX model
+        splits its key); only layers with ``uses_train_rng`` receive theirs."""
+        rngs = (split_seed(rng, len(self.layers)) if rng is not None
+                else [None] * len(self.layers))
+        for layer, r in zip(self.layers, rngs):
+            x = layer(x, rng=r) if layer.uses_train_rng else layer(x)
         return x
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+    def copy(self) -> "Sequential":
+        """An independent model: same layers, hooks and mode, its own
+        parameter buffers."""
+        return copy.deepcopy(self)
+
+    def _leaf_order(self):
+        """Parameter names in the JAX package's ``jax.tree.leaves`` order:
+        nested dicts flatten with their keys sorted at every level."""
+        return sorted(dict(self.named_parameters()),
+                      key=lambda name: name.split("."))
+
+    def get_weights(self):
+        """Flat list of numpy arrays in the JAX leaf order (the
+        parameter-server wire format)."""
+        own = dict(self.named_parameters())
+        return [own[n].detach().cpu().numpy().copy()
+                for n in self._leaf_order()]
+
+    def set_weights(self, weights):
+        """Load a ``get_weights``-ordered list in place."""
+        names = self._leaf_order()
+        if len(weights) != len(names):
+            raise ValueError(
+                f"expected {len(names)} weight arrays, got {len(weights)}"
+            )
+        own = dict(self.named_parameters())
+        with torch.no_grad():
+            for n, w in zip(names, weights):
+                p = own[n]
+                p.copy_(torch.tensor(np.asarray(w)).reshape(p.shape))
 
     def get_config(self):
         return [layer.get_config() for layer in self.layers]

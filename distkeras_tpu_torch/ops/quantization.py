@@ -65,6 +65,18 @@ def is_quantized(w) -> bool:
     )
 
 
+def count_quantized(model) -> int:
+    """How many quantized weights the model's layers hold (a layer whose
+    weight attribute was replaced by a quantized form)."""
+    from distkeras_tpu_torch.models.sequential import walk_layers
+
+    return sum(
+        is_quantized(v)
+        for layer in walk_layers(model)
+        for k, v in vars(layer).items() if not k.startswith("_")
+    )
+
+
 def dequantize(w):
     """Quantized form -> f32 matrix (testing/debugging)."""
     if isinstance(w, Int4Weight):
