@@ -25,6 +25,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    max|ref|)) and ``layernorm_bwd`` (dx to 1e-5 absolute in f32, one bf16
    step in bf16; dgamma/dbeta to 1e-4 of their largest magnitude), timed
    as in phase 2.
+2c. The fused SGD kernels vs their plain versions on the card over the
+   same 110 leaves: ``sgd_fused`` (B1) in f32 and bf16, and
+   ``sgd_momentum_fused`` (B2) in f32 with momentum 0.9 plain and Nesterov
+   and in bf16 with Nesterov, two steps each: bit-equal (the same
+   operation order, every step rounded), timed as in phase 2.
 3. Predict: a ``ServingEngine`` on ``transformer_lm(8192, 512, 512, 8, 8)``
    (random weights from a seed) with the flash and LayerNorm hooks answers
    ``predict`` on 8 full 512-token sequences; the logits must agree with
@@ -48,9 +53,28 @@ Phases, each fatal on failure (exit code 1, no result line):
    the plain path's, the caller's model unchanged, and the kernels launched
    exactly 17 x (17 LN forward, 17 LN backward, 8 flash forward, 8 dQ, 8
    dK/dV, 1 Adam). Samples/s and tokens/s are printed.
+6a. Async, simulated mode: DOWNPOUR and ADAG with ``pallas_sgd`` (B1),
+   DynSGD and AEASGD with ``FusedSGD`` at momentum 0.9 (B2; AEASGD with
+   Nesterov) and EAMSGD with its own ``sgd``-Nesterov, each on a fresh
+   d512/L8 model with the flash and LN hooks, 2 workers, window 4, batch
+   8, one shuffled device-resident epoch of the corpus (16 steps, 4
+   commits), then the same trainer with no hooks and ``sgd`` at the same
+   momentum (the plain path). Every step's loss within 1e-3 (relative) of
+   the plain path's, the final centers within 1e-4, 4 updates on both
+   paths (DynSGD's version equal to them), no worker failure, the kernels
+   launched exactly 16 x (17 LN forward, 17 LN backward, 8 flash forward,
+   8 dQ, 8 dK/dV) plus 16 of the SGD kernel, none on the plain path, and
+   DOWNPOUR's loss falling.
+6b. Async, threads mode: DOWNPOUR + ``pallas_sgd`` with 2 worker threads
+   on the card: both commit, 4 updates, no failure, exact launches for 20
+   steps (the warm-up window included), one B1 table per worker. Prints
+   tokens/s (over ``train()``, and over the worker threads after the
+   warm-up window), the per-window host split (pull, window, commit) and
+   the device's idle share (a second run under the profiler).
 
-``--profile`` adds where the time goes: a decode step, a predict forward
-and a training step (host wall, device time, idle share, top kernels).
+``--profile`` adds where the time goes: a decode step, a predict forward,
+a training step and an async window (host wall, device time, idle share,
+top kernels).
 
 The last lines are the kernels JSON, the ``nvidia-smi`` name/power line,
 and ``{"ok": true, "device": {...}}``.
@@ -59,7 +83,9 @@ and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -82,6 +108,16 @@ LN_BWD_TOL_DX = 1e-5
 LN_BWD_TOL_DGB = 1e-4  # times max|ref|: sums over 4096 rows, other order
 TRAIN_LOSS_RTOL = 1e-3  # kernel vs plain path, per step, over 17 steps
 TRAIN_STEPS = 17
+# phase 6: 136 corpus windows over 2 workers, batch 8, window 4 -> 2
+# windows of 4 steps each
+ASYNC_STEPS = 16
+ASYNC_COMMITS = 4
+ASYNC_LR = 0.02  # plain SGD; DOWNPOUR's loss must fall at this rate
+ASYNC_LR_MOMENTUM = 0.002  # momentum 0.9: the same effective step
+# kernel vs plain center after 16 steps: the paths differ only in the flash
+# and LN kernels' summation order (per-step losses agree to ~1e-7 relative
+# in phase 5); a missed or doubled commit moves weights by a whole window
+ASYNC_CENTER_TOL = 1e-4
 
 
 class SmokeFailure(Exception):
@@ -317,7 +353,7 @@ def check_adam(torch, lm):
     """adam_fused vs its plain version over the model's 110 leaves, from
     step count 4 (so c1/c2 are not the first step's)."""
     from distkeras_tpu_torch.ops.pallas_kernels import (
-        _AdamTable,
+        _TableCache,
         adam_fused,
         adam_step_plain,
     )
@@ -338,7 +374,7 @@ def check_adam(torch, lm):
                 torch.tensor([4, 0], dtype=torch.int32, device="cuda"))
 
     kp, km, kv, ks = state()
-    table = _AdamTable()
+    table = _TableCache()
     adam_fused(kp, grads, km, kv, ks, *hyper, table)
     rp, rm, rv, rs = state()
     adam_step_plain(rp, grads, rm, rv, rs, *hyper)
@@ -367,6 +403,100 @@ def check_adam(torch, lm):
     log(f"adam_fused {row}")
     check(ok, f"adam_fused disagrees with its plain version: {row}")
     return [row]
+
+
+def sgd_library_call(torch, params, grads, lr, mu, nesterov):
+    """The library step computing B1/B2's function, for context only:
+    ``torch._foreach_add_`` without momentum; with it ``torch.optim.SGD``,
+    fused where this torch offers ``fused=True`` for SGD, else foreach."""
+    if mu == 0.0:
+        return (lambda: torch._foreach_add_(params, grads, alpha=-lr)), \
+            "torch._foreach_add_"
+    lp = [p.clone().requires_grad_() for p in params]
+    for p, g in zip(lp, grads):
+        p.grad = g
+    try:
+        opt = torch.optim.SGD(lp, lr=lr, momentum=mu, nesterov=nesterov,
+                              fused=True)
+        name = "torch.optim.SGD(fused=True)"
+    except (RuntimeError, TypeError, ValueError):
+        opt = torch.optim.SGD(lp, lr=lr, momentum=mu, nesterov=nesterov,
+                              foreach=True)
+        name = "torch.optim.SGD(foreach=True)"
+    opt.step()  # the momentum buffers exist before the capture
+    return opt.step, name
+
+
+def check_sgd(torch, lm):
+    """sgd_fused (B1) and sgd_momentum_fused (B2) vs their plain versions
+    over the model's 110 leaves: f32 with momentum 0, 0.9 and 0.9
+    Nesterov, and one bf16 set of each kernel. Bit-equal: the same
+    operation order, each step rounded (``__f*_rn``), the same final
+    rounding to bf16."""
+    from distkeras_tpu_torch.ops.pallas_kernels import (
+        _TableCache,
+        sgd_fused,
+        sgd_momentum_fused,
+        sgd_momentum_step_plain,
+        sgd_step_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    shapes = [p.shape for p in lm.parameters()]
+    n = sum(math.prod(s) for s in shapes)
+    rows = {"sgd_fused": [], "sgd_momentum_fused": []}
+    lr = 0.02
+    for dtype, mu, nesterov in [
+        (torch.float32, 0.0, False), (torch.float32, 0.9, False),
+        (torch.float32, 0.9, True), (torch.bfloat16, 0.0, False),
+        (torch.bfloat16, 0.9, True),
+    ]:
+        params = [(torch.randn(s, device="cuda", generator=gen) * 0.05)
+                  .to(dtype) for s in shapes]
+        grads = [(torch.randn(s, device="cuda", generator=gen) * 1e-2)
+                 .to(dtype) for s in shapes]
+        ms = [torch.randn(s, device="cuda", generator=gen) * 1e-2
+              for s in shapes]
+        kp, km = [p.clone() for p in params], [m.clone() for m in ms]
+        rp, rm = [p.clone() for p in params], [m.clone() for m in ms]
+        tables = _TableCache()
+        if mu == 0.0:
+            kname = "sgd_fused"
+            kernel_fn = lambda: sgd_fused(kp, grads, lr, tables)  # noqa: E731
+            plain_fn = lambda: sgd_step_plain(rp, grads, lr)  # noqa: E731
+        else:
+            kname = "sgd_momentum_fused"
+            kernel_fn = lambda: sgd_momentum_fused(  # noqa: E731
+                kp, grads, km, lr, mu, nesterov, tables)
+            plain_fn = lambda: sgd_momentum_step_plain(  # noqa: E731
+                rp, grads, rm, lr, mu, nesterov)
+        for _ in range(2):  # two steps: the momenta feed back
+            kernel_fn()
+            plain_fn()
+        torch.cuda.synchronize()
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(kp + km, rp + rm))
+        equal = all(torch.equal(a, b) for a, b in zip(kp + km, rp + rm))
+        library, lib_name = sgd_library_call(torch, params, grads, lr, mu,
+                                             nesterov)
+        times = timings(kernel_fn, plain_fn, library)
+        isz = torch.tensor([], dtype=dtype).element_size()
+        nbytes = 3 * isz * n + (8 * n if mu else 0)
+        flops = (2 + (2 if mu else 0) + (2 if nesterov else 0)) * n
+        dname = "float32" if dtype == torch.float32 else "bfloat16"
+        bound_ms, bound_by = bound(nbytes, flops, "float32")
+        row = {
+            "shape": [len(shapes), n], "dtype": dname, "momentum": mu,
+            "nesterov": nesterov, "max_abs_err": err, "bit_equal": equal,
+            "ok": equal, "table_builds": tables.builds,
+            "grad_pointer_uploads": tables.grad_uploads, **times,
+            "library": lib_name, "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        log(f"{kname} {row}")
+        check(equal, f"{kname} differs from its plain version: {row}")
+        rows[kname].append(row)
+        del params, grads, ms, kp, km, rp, rm
+    return rows
 
 
 def check_flash_bwd(torch, F):
@@ -720,8 +850,8 @@ def run_train(torch, np, zoo):
         "first_accuracy": hist[0]["next_token_accuracy"],
         "last_accuracy": hist[-1]["next_token_accuracy"],
         "max_rel_loss_diff_vs_plain": rel,
-        "adam_table_builds": trainer.optimizer._table.builds,
-        "adam_grad_pointer_uploads": trainer.optimizer._table.grad_uploads,
+        "adam_table_builds": trainer.optimizer._tables.builds,
+        "adam_grad_pointer_uploads": trainer.optimizer._tables.grad_uploads,
         "launches": counts,
         "plain_launches": plain_counts, "caller_unchanged": unchanged,
         "losses": losses, "plain_losses": plain_losses,
@@ -735,21 +865,225 @@ def run_train(torch, np, zoo):
     check(rel <= TRAIN_LOSS_RTOL,
           f"kernel-path losses differ from the plain path by {rel:.3e}")
     check(unchanged, "train() changed the caller's model")
-    check(counts == expected,
-          f"training did not run through the kernels: {counts} != {expected}")
+    launched = {k: n for k, n in counts.items() if n}
+    check(launched == expected,
+          f"training did not run through the kernels: {launched} != {expected}")
     check(set(plain_counts.values()) == {0},
           f"the plain path launched a kernel: {plain_counts}")
     return res
 
 
+# ------------------------------------------------------------ phases 6a, 6b
+
+
+def async_runs():
+    """Phase 6a's runs: (trainer, kernel-path optimizer, plain-path
+    optimizer, learning rate, the fused SGD kernel expected per step)."""
+    from functools import partial
+
+    from distkeras_tpu_torch.ops.optimizers import Sgd
+    from distkeras_tpu_torch.ops.pallas_kernels import FusedSGD
+
+    def fused(nesterov):
+        return partial(FusedSGD, momentum=0.9, nesterov=nesterov)
+
+    def plain(nesterov):
+        return partial(Sgd, momentum=0.9, nesterov=nesterov)
+
+    return [
+        ("DOWNPOUR", "pallas_sgd", "sgd", ASYNC_LR, "sgd_fused"),
+        ("ADAG", "pallas_sgd", "sgd", ASYNC_LR, "sgd_fused"),
+        ("DynSGD", fused(False), plain(False), ASYNC_LR_MOMENTUM,
+         "sgd_momentum_fused"),
+        ("AEASGD", fused(True), plain(True), ASYNC_LR_MOMENTUM,
+         "sgd_momentum_fused"),
+        # EAMSGD installs its own "sgd" with Nesterov momentum 0.9
+        ("EAMSGD", "sgd", "sgd", ASYNC_LR_MOMENTUM, None),
+    ]
+
+
+def train_async(torch, zoo, name, optimizer, lr, ds, hooked, mode):
+    """One async trainer run on a fresh d512/L8 model (seed 0), the kernel
+    path (flash + LN hooks) or the plain one; the launch counts are set to
+    0 just before ``train`` and read just after it. Returns the trainer,
+    the initial center, the seconds of ``train``, the counts and, in
+    threads mode, the seconds from the threads' start to their join (after
+    the warm-up window; None otherwise)."""
+    import distkeras_tpu_torch as dk
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.ops.flash_attention import attach_flash_attention
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+
+    lm = make_lm(zoo)
+    if hooked:
+        check(attach_flash_attention(lm) == 8, "flash hook not on 8 blocks")
+        check(attach_fused_layernorm(lm) == 17, "LN hook not on 17 norms")
+    start = dict(zip(lm._leaf_order(), lm.get_weights()))
+    trainer = getattr(dk, name)(
+        lm, optimizer, "next_token_crossentropy",
+        metrics=["next_token_accuracy"], learning_rate=lr, batch_size=8,
+        num_epoch=1, num_workers=2, communication_window=4, mode=mode,
+        device_resident=True, seed=0,
+    )
+    spans = []
+    run_threads = trainer._run_threads
+
+    def timed_threads(*args):
+        t = time.monotonic()
+        run_threads(*args)
+        torch.cuda.synchronize()
+        spans.append(time.monotonic() - t)
+
+    trainer._run_threads = timed_threads
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    trainer.train(ds, shuffle=True)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    counts = kernels.launch_counts()
+    return trainer, start, secs, counts, (spans[0] if spans else None)
+
+
+def async_step_launches(steps, sgd_kernel):
+    """The launches ``steps`` async training steps of the hooked model
+    must make."""
+    per_step = {"layernorm_fwd": 17, "layernorm_bwd": 17, "flash_fwd": 8,
+                "flash_bwd_dq": 8, "flash_bwd_dkv": 8}
+    if sgd_kernel is not None:
+        per_step[sgd_kernel] = 1
+    return {k: steps * n for k, n in per_step.items()}
+
+
+def run_async_simulated(torch, np, zoo, ds):
+    """Phase 6a: each async trainer in simulated mode on the kernel path,
+    then on the plain path (no hooks, ``sgd`` at the same momentum)."""
+    out = {}
+    for name, kopt, popt, lr, sgd_kernel in async_runs():
+        runs = {}
+        for path, hooked, opt in (("kernel", True, kopt),
+                                  ("plain", False, popt)):
+            trainer, start, secs, counts, _ = train_async(
+                torch, zoo, name, opt, lr, ds, hooked, "simulated")
+            ps = trainer.parameter_server
+            runs[path] = {
+                "losses": [r["loss"] for r in trainer.get_history()],
+                "center": ps.get_params(), "num_updates": ps.num_updates,
+                "tag": ps.pull()[1], "failures": trainer.failures,
+                "counts": counts, "seconds": secs,
+                "optimizer": type(trainer.optimizer).__name__,
+            }
+            del trainer
+            torch.cuda.empty_cache()
+        k, p = runs["kernel"], runs["plain"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(k["losses"], p["losses"]))
+        center_err = max(float(np.abs(k["center"][n] - p["center"][n]).max())
+                         for n in start)
+        moved = max(float(np.abs(p["center"][n] - start[n]).max())
+                    for n in start)
+        expected = async_step_launches(ASYNC_STEPS, sgd_kernel)
+        launched = {c: n for c, n in k["counts"].items() if n}
+        res = {
+            "learning_rate": lr, "optimizer": k["optimizer"],
+            "plain_optimizer": p["optimizer"], "steps": len(k["losses"]),
+            "num_updates": k["num_updates"], "max_rel_loss_diff": rel,
+            "center_max_abs_err": center_err, "center_max_moved": moved,
+            "launches": launched, "seconds": k["seconds"],
+            "plain_seconds": p["seconds"], "first_loss": k["losses"][0],
+            "last_loss": k["losses"][-1], "losses": k["losses"],
+            "plain_losses": p["losses"],
+        }
+        log(f"async {name}: { {a: b for a, b in res.items() if 'losses' not in a} }")
+        check(len(k["losses"]) == len(p["losses"]) == ASYNC_STEPS,
+              f"{name}: expected {ASYNC_STEPS} steps per path")
+        check(all(np.isfinite(k["losses"] + p["losses"])),
+              f"{name}: a loss is not finite")
+        check(k["failures"] == [] == p["failures"],
+              f"{name}: worker failures {k['failures']} {p['failures']}")
+        check(k["num_updates"] == p["num_updates"] == ASYNC_COMMITS,
+              f"{name}: num_updates {k['num_updates']} / {p['num_updates']}")
+        if name == "DynSGD":
+            check(k["tag"] == k["num_updates"] and p["tag"] == p["num_updates"],
+                  f"DynSGD version != num_updates: {k['tag']}, {p['tag']}")
+        check(rel <= TRAIN_LOSS_RTOL,
+              f"{name}: kernel-path losses differ from the plain path by {rel}")
+        check(center_err <= ASYNC_CENTER_TOL,
+              f"{name}: final centers differ by {center_err}")
+        check(launched == expected,
+              f"{name} did not run through the kernels: {launched} != {expected}")
+        check(set(p["counts"].values()) == {0},
+              f"{name}: the plain path launched a kernel: {p['counts']}")
+        if name == "DOWNPOUR":
+            # each worker's last window against its first
+            ls = np.array(k["losses"]).reshape(2, 2, 4).mean(-1)
+            check((ls[:, -1] < ls[:, 0]).all(),
+                  f"DOWNPOUR's loss did not fall: {k['losses']}")
+        out[name] = res
+    return out
+
+
+def run_async_threads(torch, np, zoo, ds):
+    """Phase 6b: DOWNPOUR + pallas_sgd with 2 worker threads on the card:
+    both commit, nothing fails, exact launches (the warm-up window
+    included), one B1 table per worker; tokens/s, the per-window host
+    split and the device idle share (a second run under the profiler)."""
+    trainer, _, secs, counts, span = train_async(
+        torch, zoo, "DOWNPOUR", "pallas_sgd", ASYNC_LR, ds, True, "threads")
+    ps = trainer.parameter_server
+    workers = trainer.workers
+    expected = async_step_launches(ASYNC_STEPS + 4, "sgd_fused")
+    launched = {c: n for c, n in counts.items() if n}
+    splits = {key: float(np.mean([s[key] for w in workers for s in w.splits]))
+              for key in ("pull", "window", "commit")}
+    tokens = ASYNC_STEPS * 8 * 512
+    res = {
+        "seconds": secs, "tokens_per_s": tokens / secs,
+        "threads_seconds": span, "threads_tokens_per_s": tokens / span,
+        "commits": {w.worker_id: len(w.splits) for w in workers},
+        "num_updates": ps.num_updates, "failures": trainer.failures,
+        "table_builds": trainer.optimizer._tables.builds,
+        "grad_pointer_uploads": trainer.optimizer._tables.grad_uploads,
+        "window_split_s": splits, "launches": launched,
+        "losses": [r["loss"] for r in trainer.get_history()],
+    }
+    del trainer, workers
+    torch.cuda.empty_cache()
+    log(f"async threads: {res}")
+    check(res["failures"] == [], f"worker failures: {res['failures']}")
+    check(all(n > 0 for n in res["commits"].values())
+          and len(res["commits"]) == 2, f"a worker did not commit: {res}")
+    check(res["num_updates"] == ASYNC_COMMITS,
+          f"num_updates {res['num_updates']} != {ASYNC_COMMITS}")
+    check(launched == expected,
+          f"threads run did not run through the kernels: {launched} != "
+          f"{expected}")
+    check(res["table_builds"] == 2,
+          f"B1 tables built {res['table_builds']} times for 2 workers")
+    check(all(np.isfinite(res["losses"])), "a loss is not finite")
+    prof = device_profile(torch, lambda: train_async(
+        torch, zoo, "DOWNPOUR", "pallas_sgd", ASYNC_LR, ds, True,
+        "threads"), 1)
+    res["device"] = prof
+    if prof["device_ms"] is not None:
+        busy = prof["device_ms"] / 1e3
+        copies = prof["device_ms_by_category"].get("memcpy", 0.0) / 1e3
+        res["device_idle_share"] = 1 - busy / secs
+        res["compute_idle_share"] = 1 - (busy - copies) / secs
+    log(f"async threads device: idle {res.get('device_idle_share')}, "
+        f"kernels-only idle {res.get('compute_idle_share')}, "
+        f"{ {k: v for k, v in prof.items() if k != 'top_kernels'} }")
+    return res
+
+
 #: (category, substrings of the kernel names that fall in it), first match
-#: wins: the port's kernels by name, then the matrix products
+#: wins: the port's kernels by name, then the matrix products and copies
 KERNEL_CATEGORIES = (
     ("flash_bwd", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
     ("flash_fwd", ("flash_fwd_kernel",)),
     ("layernorm", ("ln_fwd_", "ln_bwd_")),
     ("adam_fused", ("adam_fused_kernel",)),
+    ("sgd_fused", ("sgd_fused_kernel", "sgd_momentum_fused_kernel")),
     ("gemm", ("gemm", "splitKreduce")),
+    ("memcpy", ("Memcpy", "Memset")),
 )
 
 
@@ -860,19 +1194,62 @@ def profile_train_epoch(torch, np, lm):
             "window_seconds": [t for _, t in trainer.history.get_timings()],
             "gc_collections": sum(st["collections"] for st in gc.get_stats())
             - before,
-            "adam_table_builds": trainer.optimizer._table.builds,
-            "adam_grad_pointer_uploads": trainer.optimizer._table.grad_uploads,
+            "adam_table_builds": trainer.optimizer._tables.builds,
+            "adam_grad_pointer_uploads": trainer.optimizer._tables.grad_uploads,
         })
     log(f"profile train_epoch_again: {runs}")
     return runs
 
 
-def profile_paths(torch, np, lm, steps=20):
+def profile_async_window(torch, np, zoo, windows=3):
+    """One async window as a ``DOWNPOURWorker`` runs it (flash + LN hooks,
+    pallas_sgd, 4 steps of 8 x 512, device-resident): pull (center copy +
+    H2D), the window, the commit (delta on the card, D2H, PS add) — host
+    wall, the split, device time and the top kernels per window."""
+    from distkeras_tpu_torch.data import loaders
+    from distkeras_tpu_torch.ops.flash_attention import attach_flash_attention
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+    from distkeras_tpu_torch.ops.pallas_kernels import FusedSGD
+    from distkeras_tpu_torch.parameter_servers import DeltaParameterServer
+    from distkeras_tpu_torch.workers import DOWNPOURWorker, WorkerCore
+
+    lm = make_lm(zoo)
+    attach_flash_attention(lm)
+    attach_fused_layernorm(lm)
+    core = WorkerCore(lm, FusedSGD(ASYNC_LR), "next_token_crossentropy",
+                      metrics=["next_token_accuracy"])
+    ps = DeltaParameterServer(dict(zip(lm._leaf_order(), lm.get_weights())))
+    worker = DOWNPOURWorker(core, ps, 0, "features", "label", 4)
+    worker.stage_resident(loaders.text_corpus(seq_len=512, vocab_size=8192))
+    full = itertools.cycle(list(worker.iter_index_windows(1, 8, 0))[:4])
+
+    def run_window():
+        worker.begin_window_indexed(next(full))
+        worker.finish_window()
+
+    run_window()  # the replica, its table and cuBLAS warm
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(windows):
+        run_window()
+    torch.cuda.synchronize()
+    wall = (time.monotonic() - t0) / windows * 1e3
+    splits = worker.splits[1:1 + windows]
+    prof = device_profile(torch, run_window, windows)
+    out = {"wall_ms": wall, **prof,
+           "split_ms": {k: 1e3 * float(np.mean([s[k] for s in splits]))
+                        for k in ("pull", "window", "commit")}}
+    del worker, core, ps, lm
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_paths(torch, np, lm, zoo, steps=20):
     """Where the time goes (``--profile``): a decode step with 8 busy slots
     on the LayerNorm-hooked model, one predict forward (8 x 512) with both
-    hooks, and one training step — host wall per call (synchronized),
-    device kernel time per call, the device's idle share, and the kernels
-    that take the most device time."""
+    hooks, one training step and one async window — host wall per call
+    (synchronized), device kernel time per call, the device's idle share,
+    and the kernels that take the most device time."""
     from distkeras_tpu_torch.ops.flash_attention import attach_flash_attention
     from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
     from distkeras_tpu_torch.serving.engine import DecodeStepper
@@ -906,8 +1283,9 @@ def profile_paths(torch, np, lm, steps=20):
     detach_hooks(lm)
     train = profile_train_step(torch, np, lm)
     out["train_epoch_again"] = profile_train_epoch(torch, np, lm)
+    async_window = profile_async_window(torch, np, zoo)
     for name, r in (("decode_step", decode), ("predict_forward", predict),
-                    ("train_step", train)):
+                    ("train_step", train), ("async_window", async_window)):
         if r["device_ms"] is not None:
             r["device_idle_share"] = 1 - r["device_ms"] / r["wall_ms"]
         out[name] = r
@@ -945,6 +1323,7 @@ def main(argv):
     import torch.nn.functional as F
 
     from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.data import loaders
     from distkeras_tpu_torch.kernels import build
     from distkeras_tpu_torch.models import zoo
 
@@ -971,6 +1350,7 @@ def main(argv):
     log(f"transformer_lm d512/L8: {lm.num_params()} parameters in "
         f"{len(list(lm.parameters()))} leaves")
     adam_rows = check_adam(torch, lm)
+    sgd_rows = check_sgd(torch, lm)
     fbwd_rows = check_flash_bwd(torch, F)
     lnb_rows = check_layernorm_bwd(torch, F)
     torch.cuda.empty_cache()
@@ -983,13 +1363,18 @@ def main(argv):
     log(f"train: {train['steps']} steps, {train['samples_per_s']:.1f} "
         f"samples/s = {train['tokens_per_s']:.0f} tokens/s (steady "
         f"{train['steady_tokens_per_s']:.0f} tokens/s) on {smi}")
-    profile = profile_paths(torch, np, lm) if args.profile else None
+    ds = loaders.text_corpus(seq_len=512, vocab_size=8192)
+    async_sim = run_async_simulated(torch, np, zoo, ds)
+    async_thr = run_async_threads(torch, np, zoo, ds)
+    log(f"async threads: {async_thr['threads_tokens_per_s']:.0f} tokens/s "
+        f"after the warm-up ({async_thr['tokens_per_s']:.0f} over train()), "
+        f"window split {async_thr['window_split_s']} on {smi}")
+    profile = profile_paths(torch, np, lm, zoo) if args.profile else None
 
-    launches = {
-        k: pred["launches"].get(k, 0) + gen["launches"].get(k, 0)
-        + train["launches"][k]
-        for k in kernels.LAUNCHES
-    }
+    phases = [pred["launches"], gen["launches"], train["launches"],
+              async_thr["launches"],
+              *(r["launches"] for r in async_sim.values())]
+    launches = {k: sum(c.get(k, 0) for c in phases) for k in kernels.LAUNCHES}
     check(all(n > 0 for n in launches.values()),
           f"a kernel of the path never launched: {launches}")
 
@@ -1029,6 +1414,14 @@ def main(argv):
         entry("adam_fused", "distkeras_tpu_torch/kernels/csrc/adam_fused.cu",
               "distkeras_tpu/ops/pallas_kernels.py:168", adam_rows,
               adam_rows[0]["shape"]),
+        entry("sgd_fused", "distkeras_tpu_torch/kernels/csrc/sgd_fused.cu",
+              "distkeras_tpu/ops/pallas_kernels.py:98", sgd_rows["sgd_fused"],
+              sgd_rows["sgd_fused"][0]["shape"]),
+        entry("sgd_momentum_fused",
+              "distkeras_tpu_torch/kernels/csrc/sgd_fused.cu",
+              "distkeras_tpu/ops/pallas_kernels.py:120",
+              sgd_rows["sgd_momentum_fused"],
+              sgd_rows["sgd_momentum_fused"][0]["shape"]),
     ]}
     check(not any(m == "jax" or m.startswith(("jax.", "distkeras_tpu."))
                   or m == "distkeras_tpu" for m in sys.modules),
@@ -1039,7 +1432,9 @@ def main(argv):
         with open(args.out, "w") as f:
             json.dump({"nvidia_smi": smi, "device": device,
                        "kernels": kline["kernels"], "predict": pred,
-                       "generate": gen, "train": train, "profile": profile},
+                       "generate": gen, "train": train,
+                       "async_simulated": async_sim,
+                       "async_threads": async_thr, "profile": profile},
                       f, indent=1)
     print(json.dumps(kline), flush=True)
     print(smi, flush=True)

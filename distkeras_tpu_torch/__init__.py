@@ -10,16 +10,31 @@ PyTorch version. On CUDA the hand-written Hopper kernels run (built from
 
 Ported so far: the serving slice — the transformer LM family
 (``models``), ``ModelPredictor`` and the sequence generators
-(``predictors``), the dense-bank ``ServingEngine`` (``serving``) — and
-the training slice — ``SingleTrainer`` (``trainers``, ``workers``),
-losses, metrics and the sgd/adam/pallas_adam optimizers (``ops``), the
-data loaders and prefetcher (``data``). Kernels (``kernels/csrc``):
+(``predictors``), the dense-bank ``ServingEngine`` (``serving``); the
+training slice — ``SingleTrainer`` (``trainers``, ``workers``), losses,
+metrics and the sgd/adam/pallas_sgd/pallas_adam optimizers (``ops``), the
+data loaders and prefetcher (``data``); and the asynchronous
+parameter-server tier — ``DOWNPOUR``, ``AEASGD``, ``EAMSGD``, ``ADAG``,
+``DynSGD`` over the in-process parameter servers
+(``parameter_servers``), in thread or seeded simulated mode, with the
+``mnist_mlp`` model, the numpy feature transformers
+(``data.transformers``) and the evaluators. Kernels (``kernels/csrc``):
 LayerNorm forward and backward, FlashAttention forward and backward (dQ,
-dK/dV), and the fused multi-tensor Adam.
+dK/dV), the fused multi-tensor Adam, and the fused multi-tensor SGD
+without and with momentum.
 """
 
 from distkeras_tpu_torch.data import loaders
 from distkeras_tpu_torch.data.dataset import Dataset
+from distkeras_tpu_torch.data.transformers import (
+    DenseTransformer,
+    LabelIndexTransformer,
+    MinMaxTransformer,
+    OneHotTransformer,
+    ReshapeTransformer,
+    StandardScaleTransformer,
+)
+from distkeras_tpu_torch.evaluators import AccuracyEvaluator, LossEvaluator
 from distkeras_tpu_torch.models import zoo
 from distkeras_tpu_torch.models.layers import (
     Dense,
@@ -41,7 +56,13 @@ from distkeras_tpu_torch.ops.fused_layernorm import (
 from distkeras_tpu_torch.ops.losses import get_loss
 from distkeras_tpu_torch.ops.metrics import get_metric
 from distkeras_tpu_torch.ops.optimizers import get_optimizer
-from distkeras_tpu_torch.ops.pallas_kernels import FusedAdam
+from distkeras_tpu_torch.ops.pallas_kernels import FusedAdam, FusedSGD
+from distkeras_tpu_torch.parameter_servers import (
+    ADAGParameterServer,
+    DeltaParameterServer,
+    DynSGDParameterServer,
+    ParameterServer,
+)
 from distkeras_tpu_torch.predictors import (
     CachedSequenceGenerator,
     ModelPredictor,
@@ -49,28 +70,56 @@ from distkeras_tpu_torch.predictors import (
 )
 from distkeras_tpu_torch.serving.engine import DecodeStepper, ServingEngine
 from distkeras_tpu_torch.serving.sampling import SamplingParams
-from distkeras_tpu_torch.trainers import SingleTrainer, Trainer
+from distkeras_tpu_torch.trainers import (
+    ADAG,
+    AEASGD,
+    DOWNPOUR,
+    EAMSGD,
+    DistributedTrainer,
+    DynSGD,
+    SingleTrainer,
+    Trainer,
+)
 from distkeras_tpu_torch.utils.convert import params_from_jax
 from distkeras_tpu_torch.utils.history import TrainingHistory
 from distkeras_tpu_torch.workers import SingleTrainerWorker, WorkerCore
 
 __all__ = [
+    "ADAG",
+    "ADAGParameterServer",
+    "AEASGD",
+    "AccuracyEvaluator",
     "CachedSequenceGenerator",
     "Dataset",
+    "DOWNPOUR",
     "DecodeStepper",
+    "DeltaParameterServer",
     "Dense",
+    "DenseTransformer",
+    "DistributedTrainer",
     "Dropout",
+    "DynSGD",
+    "DynSGDParameterServer",
+    "EAMSGD",
     "Embedding",
     "FusedAdam",
+    "FusedSGD",
+    "LabelIndexTransformer",
     "LayerNorm",
+    "LossEvaluator",
+    "MinMaxTransformer",
     "ModelPredictor",
     "MultiHeadSelfAttention",
+    "OneHotTransformer",
+    "ParameterServer",
+    "ReshapeTransformer",
     "SamplingParams",
     "Sequential",
     "SequenceGenerator",
     "ServingEngine",
     "SingleTrainer",
     "SingleTrainerWorker",
+    "StandardScaleTransformer",
     "Trainer",
     "TrainingHistory",
     "TransformerBlock",

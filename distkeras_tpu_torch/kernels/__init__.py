@@ -2,7 +2,8 @@
 
 Each kernel's wrapper lives beside its plain PyTorch version in ``ops``
 (``fused_layernorm.layernorm_fwd``/``layernorm_bwd``,
-``flash_attention.flash_fwd``/``flash_bwd``, ``pallas_kernels.FusedAdam``);
+``flash_attention.flash_fwd``/``flash_bwd``, ``pallas_kernels.FusedAdam``
+and ``FusedSGD``);
 this package holds the CUDA sources (``csrc/``), the build module
 (``build``), and the per-kernel launch counters the wrappers bump exactly
 where they launch — so a run can show which kernels its main path went
@@ -23,6 +24,8 @@ LAUNCHES = {
     "flash_bwd_dq": 0,
     "flash_bwd_dkv": 0,
     "adam_fused": 0,
+    "sgd_fused": 0,
+    "sgd_momentum_fused": 0,
 }
 _lock = threading.Lock()
 

@@ -1,10 +1,10 @@
 """Build the port's hand-written CUDA kernels from this checkout's sources.
 
 Each ``csrc/*.cu`` exports one ``extern "C"`` launcher per kernel
-(``flash_bwd.cu`` has two). ``nvcc`` compiles it for Hopper (``-gencode
-arch=compute_90a,code=sm_90a``) into a shared library with a plain C
-interface, which ``ctypes`` loads; tensors pass as ``data_ptr()`` integers
-and the launch rides PyTorch's current stream. Sources include only the
+(``flash_bwd.cu`` and ``sgd_fused.cu`` have two). ``nvcc`` compiles it
+for Hopper (``-gencode arch=compute_90a,code=sm_90a``) into a shared
+library with a plain C interface, which ``ctypes`` loads; tensors pass as
+``data_ptr()`` integers and the launch rides PyTorch's current stream. Sources include only the
 CUDA headers, never PyTorch's, so a build takes seconds rather than the
 minutes a ``torch/extension.h`` translation unit costs. No
 ``--use_fast_math``: sqrt, division and exp are IEEE, as in the plain
@@ -67,6 +67,16 @@ KERNELS = {
         "adam_fused.cu",
         "dk_adam_fused",
         [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P, _I, _P],
+    ),
+    "sgd_fused": (
+        "sgd_fused.cu",
+        "dk_sgd_fused",
+        [_P, _P, _P, _I, _I, _I, _F, _I, _P],
+    ),
+    "sgd_momentum_fused": (
+        "sgd_fused.cu",
+        "dk_sgd_momentum_fused",
+        [_P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _P],
     ),
 }
 

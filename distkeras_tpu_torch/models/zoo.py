@@ -1,5 +1,6 @@
 """Model zoo (PyTorch port of ``distkeras_tpu.models.zoo``): the causal
-language model the serving slice runs."""
+language model the serving and training slices run, and the MNIST MLP the
+asynchronous trainers' tests and examples run."""
 
 from __future__ import annotations
 
@@ -10,6 +11,18 @@ from distkeras_tpu_torch.models.layers import (
     TransformerBlock,
 )
 from distkeras_tpu_torch.models.sequential import Sequential
+
+
+def mnist_mlp(hidden=500, num_classes=10, seed=0, device=None):
+    """MLP over flattened 28x28 inputs (input shape (784,)): two ReLU
+    ``Dense`` layers and a softmax one. ``device=None`` builds on CUDA."""
+    return Sequential(
+        [
+            Dense(hidden, activation="relu"),
+            Dense(hidden, activation="relu"),
+            Dense(num_classes, activation="softmax"),
+        ]
+    ).build((784,), seed=seed, device=device)
 
 
 def transformer_lm(

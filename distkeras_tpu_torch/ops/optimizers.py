@@ -7,12 +7,14 @@ and ``update(grads, state, params) -> (updates, state)``, applied by
 ``apply_updates`` — whose arithmetic is optax's, operation for operation
 (not ``torch.optim``'s, which differs in where eps sits, in the bias
 correction and in the momentum convention). Fused-apply optimizers
-(``FusedAdam``) expose ``fused_apply`` instead, as in the JAX package.
+(``FusedSGD``, ``FusedAdam``) expose ``fused_apply`` instead, as in the
+JAX package.
 Parameters, grads and states are lists of tensors in one order; step
 counts live on the device as int32, as optax keeps them.
 
-Ported: "sgd" (momentum, nesterov), "adam", "pallas_adam". The other names
-of the table and ``get_schedule`` raise until they are ported.
+Ported: "sgd" (momentum, nesterov), "adam", "pallas_sgd", "pallas_adam".
+The other names of the table and ``get_schedule`` raise until they are
+ported.
 """
 
 from __future__ import annotations
@@ -108,7 +110,9 @@ def _sgd(learning_rate=0.01, momentum=0.0, nesterov=False):
 
 
 def _pallas_sgd(learning_rate=0.01, momentum=0.0, nesterov=False):
-    """Kernels B1/B2: ``FusedSGD`` raises until they are ported."""
+    """Fused single-pass SGD, kernels B1 (no momentum) and B2 (momentum,
+    plain or Nesterov; see ops/pallas_kernels.py); the same arithmetic as
+    "sgd"."""
     from distkeras_tpu_torch.ops.pallas_kernels import FusedSGD
 
     return FusedSGD(learning_rate, momentum=momentum, nesterov=nesterov)
@@ -126,7 +130,7 @@ def _not_ported(name):
     def make(*args, **kwargs):
         raise NotImplementedError(
             f"optimizer {name!r} is not ported yet; ported: sgd, adam, "
-            "pallas_adam"
+            "pallas_sgd, pallas_adam"
         )
 
     return make

@@ -35,3 +35,16 @@ def check_model_device(model, device=None) -> torch.device:
             f"for; build the model there (zoo.transformer_lm(device=...))"
         )
     return have
+
+
+def local_devices(device=None) -> list:
+    """The devices a trainer places its workers on, round-robin (the role
+    of ``jax.local_devices()`` in the JAX package's distributed trainer):
+    the one device ``device`` resolves to, with a CUDA index made explicit
+    (the current card's when none is given). Every worker of a trainer
+    runs on that card; spreading workers over several cards waits for the
+    multi-card slices of the port."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return [dev]

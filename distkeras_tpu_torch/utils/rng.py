@@ -38,6 +38,10 @@ class RngSeq:
     def next_n(self, n: int):
         return _draw(self._gen, n)
 
+    def get_state(self):
+        """The generator's state (a byte tensor), for snapshots."""
+        return self._gen.get_state()
+
     def fork(self, index: int) -> "RngSeq":
         """Deterministic per-worker fork (worker index -> independent
         stream); the parent stream does not advance."""

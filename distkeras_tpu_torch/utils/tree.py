@@ -1,8 +1,9 @@
 """Parameter-dict arithmetic (PyTorch port of ``distkeras_tpu.utils.tree``).
 
 The JAX package's parameters are pytrees; the port's are ``state_dict``-
-keyed dicts of tensors (``"1.mhsa.wq"`` -> tensor). The parameter-server
-delta rules and the member trainers' merges are written against these.
+keyed dicts (``"1.mhsa.wq"`` -> tensor or, for the parameter server's
+host-resident center and the workers' snapshots, numpy array); these
+helpers take tensors and arrays alike.
 """
 
 from __future__ import annotations
@@ -50,6 +51,14 @@ def host_copy(a):
     with weights that its in-place updates must not reach."""
     return {k: torch.as_tensor(v).detach().to("cpu", copy=True)
             for k, v in a.items()}
+
+
+def host_numpy(a):
+    """Owned host numpy copies of every value (tensors detached and moved
+    off the device), key-wise."""
+    return {k: (x.detach().cpu().numpy().copy()
+                if isinstance(x, torch.Tensor) else np.array(x, copy=True))
+            for k, x in a.items()}
 
 
 def tree_allclose(a, b, rtol=1e-5, atol=1e-6):

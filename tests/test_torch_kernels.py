@@ -25,7 +25,7 @@ from distkeras_tpu_torch.ops import pallas_kernels as tpk
 
 ZERO_COUNTS = dict.fromkeys(
     ["layernorm_fwd", "layernorm_bwd", "flash_fwd", "flash_bwd_dq",
-     "flash_bwd_dkv", "adam_fused"], 0)
+     "flash_bwd_dkv", "adam_fused", "sgd_fused", "sgd_momentum_fused"], 0)
 
 torch.set_num_threads(2)
 
@@ -57,6 +57,9 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing():
     opt = tpk.FusedAdam(1e-3)
     params = [x.detach(), q.detach()]
     opt.fused_apply(params, [x.grad, q.grad], opt.init(params))
+    for mu in (0.0, 0.9):
+        sgd = tpk.FusedSGD(1e-3, momentum=mu)
+        sgd.fused_apply(params, [x.grad, q.grad], sgd.init(params))
     assert kernels.launch_counts() == ZERO_COUNTS
     assert tfa.effective_path(64, 64, "cpu") == ("plain", 64, 64)
     assert tfa.effective_path(200, 64, "cuda") == ("flash", 64, 64)
@@ -106,9 +109,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     step = torch.zeros(2, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         tpk.adam_fused([x], [x], [x], [x], step, 1e-3, 0.9, 0.999, 1e-8,
-                       tpk._AdamTable())
-    with pytest.raises(NotImplementedError, match="B1/B2"):
-        tpk.FusedSGD(0.01)
+                       tpk._TableCache())
+    with pytest.raises(ValueError, match="CUDA"):
+        tpk.sgd_fused([x], [x], 0.01, tpk._TableCache())
+    with pytest.raises(ValueError, match="CUDA"):
+        tpk.sgd_momentum_fused([x], [x], [x], 0.01, 0.9, True,
+                               tpk._TableCache())
 
 
 def test_kernel_sources_target_hopper():
@@ -129,6 +135,7 @@ def test_kernel_sources_target_hopper():
     assert sources["adam_fused"] == "adam_fused.cu"
     assert sources["flash_bwd_dq"] == sources["flash_bwd_dkv"] == "flash_bwd.cu"
     assert sources["layernorm_bwd"] == "layernorm_bwd.cu"
+    assert sources["sgd_fused"] == sources["sgd_momentum_fused"] == "sgd_fused.cu"
     assert build._library_path("flash_bwd_dq") == build._library_path("flash_bwd_dkv")
     assert "--use_fast_math" not in " ".join(build.ARCH_FLAGS)
 
@@ -221,3 +228,51 @@ def test_adam_kernel_on_card(cuda_device):
     assert step.tolist() == [3, 0] and rstep.tolist() == [3, 0]
     for a, b in zip(kp + ms + vs, rp + rm + rv):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mu,nesterov,dtype", [
+    (0.0, False, torch.float32), (0.9, False, torch.float32),
+    (0.9, True, torch.float32), (0.0, False, torch.bfloat16),
+    (0.9, True, torch.bfloat16)])
+def test_sgd_kernels_on_card(cuda_device, mu, nesterov, dtype):
+    """B1/B2 vs their plain versions, 3 steps over leaves that are small,
+    unaligned and larger than a chunk: bit-equal (same operation order,
+    each step rounded, the same rounding to bf16)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    shapes = [(513, 7), (1000,), (4096, 3), (12,), (3,)]
+    params = [torch.randn(s, device=cuda_device, generator=gen).to(dtype)
+              for s in shapes]
+    grads = [torch.randn(s, device=cuda_device, generator=gen).to(dtype)
+             for s in shapes]
+    opt = tpk.FusedSGD(0.05, momentum=mu, nesterov=nesterov)
+    kp = [p.clone() for p in params]
+    km = opt.init(kp)
+    rp = [p.clone() for p in params]
+    rm = [m.clone() for m in km]
+    kernels.reset_launch_counts()
+    for _ in range(3):
+        opt.fused_apply(kp, grads, km)
+        if mu:
+            tpk.sgd_momentum_step_plain(rp, grads, rm, 0.05, mu, nesterov)
+        else:
+            tpk.sgd_step_plain(rp, grads, 0.05)
+    name = "sgd_momentum_fused" if mu else "sgd_fused"
+    assert kernels.launch_counts()[name] == 3
+    assert opt._tables.builds == 1
+    for a, b in zip(kp + list(km), rp + rm):
+        assert torch.equal(a, b)
+
+
+def test_sgd_launcher_argtypes_match_the_source():
+    """The ctypes argument lists of the two SGD launchers follow their C
+    signatures: pointers, then ints for the chunk walk, float lr (and mu,
+    int nesterov), the dtype code and the stream."""
+    P, I, F = build._P, build._I, build._F
+    assert build.KERNELS["sgd_fused"][2] == [P, P, P, I, I, I, F, I, P]
+    assert build.KERNELS["sgd_momentum_fused"][2] == [
+        P, P, P, I, I, I, F, F, I, I, P]
+    text = (build.CSRC / "sgd_fused.cu").read_text()
+    assert "__fsub_rn(p, __fmul_rn(lr, g))" in text
+    assert "__float2bfloat16_rn" in text
+    assert "_sgd_kernel" in text and "_sgd_momentum_kernel" in text
