@@ -22,7 +22,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    shapes the training step gives them: ``adam_fused`` over the 110
    leaves of the d512/L8 model (|dp|, |dm|, |dv| <= 1e-6 absolute),
    ``flash_bwd_dq``/``flash_bwd_dkv`` (dQ, dK, dV within 1e-4 * max(1,
-   max|ref|)) and ``layernorm_bwd`` (dx to 1e-5 absolute in f32, one bf16
+   max|ref|) in f32 at (8, 512, 8, 64) causal and not and (2, 200, 8, 64);
+   in bf16 at (8, 512, 8, 64) causal within 2^-7 * (sum |x||y| + |ref|)
+   elementwise, the rounding of P/dS and of the output; a second launch
+   bit-equal) and ``layernorm_bwd`` (dx to 1e-5 absolute in f32, one bf16
    step in bf16; dgamma/dbeta to 1e-4 of their largest magnitude), timed
    as in phase 2.
 2c. The fused SGD kernels vs their plain versions on the card over the
@@ -95,7 +98,8 @@ import traceback
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # dense, no TF32
+# dense peaks: f32 on the CUDA cores, TF32 and bf16 on the tensor cores
+PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
 
 LN_TOL_F32 = 1e-5
 LN_TOL_BF16 = 1e-2
@@ -104,6 +108,7 @@ FLASH_TOL_LSE = 1e-5
 LOGIT_TOL = 1e-4
 ADAM_TOL = 1e-6  # same operation order; only pow() for c1/c2 may differ
 FLASH_BWD_TOL = 1e-4  # times max(1, max|ref|): f32, summation order
+BWD_16BIT_ROUNDING = 2.0 ** -8  # bf16's unit roundoff (8 significant bits)
 LN_BWD_TOL_DX = 1e-5
 LN_BWD_TOL_DGB = 1e-4  # times max|ref|: sums over 4096 rows, other order
 TRAIN_LOSS_RTOL = 1e-3  # kernel vs plain path, per step, over 17 steps
@@ -499,9 +504,33 @@ def check_sgd(torch, lm):
     return rows
 
 
+def bf16_bwd_tolerances(torch, q, k, v, do, lse, delta, causal, refs):
+    """Elementwise tolerances of the 16-bit backward: the kernel rounds P
+    and dS to the input type before the second product (at most 2^-8 of
+    each term, so 2^-8 * sum |x||y| over the reduced index) and the output
+    is rounded like the reference's (one ulp, 2^-7 * |ref|); twice the
+    first term covers the f32 sums' order."""
+    from distkeras_tpu_torch.ops.flash_attention import _reference_p_ds
+
+    p, ds = _reference_p_ds(q, k, v, do, lse, delta, causal)
+    ads = ds.abs()
+    sums = {
+        "dq": torch.einsum("bhqk,bkhd->bqhd", ads, k.float().abs()),
+        "dk": torch.einsum("bhqk,bqhd->bkhd", ads, q.float().abs()),
+        "dv": torch.einsum("bhqk,bqhd->bkhd", p, do.float().abs()),
+    }
+    return {n: BWD_16BIT_ROUNDING * (2 * sums[n] + 2 * refs[n].float().abs())
+            + 1e-6 for n in sums}
+
+
 def check_flash_bwd(torch, F):
     """flash_bwd_dq / flash_bwd_dkv vs the plain backward, on the forward
-    kernel's O and lse (what the training step hands them)."""
+    kernel's O and lse (what the training step hands them): f32 within
+    FLASH_BWD_TOL * max(1, max|ref|), bf16 within the elementwise bound of
+    ``bf16_bwd_tolerances``; a second launch must give the same bits (no
+    atomics). Bound: the path the kernels take — 3xTF32 on the tensor
+    cores in f32 (three products per FLOP at the TF32 peak), one bf16 pass
+    in bf16 — with the CUDA-core f32 figure beside it."""
     from distkeras_tpu_torch.ops.flash_attention import (
         _reference_flash_bwd_dkv,
         _reference_flash_bwd_dq,
@@ -512,24 +541,38 @@ def check_flash_bwd(torch, F):
 
     rows = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
     gen = torch.Generator(device="cuda").manual_seed(17)
-    for (b, t, h, d), causal in [
-        ((8, 512, 8, 64), True), ((8, 512, 8, 64), False),
-        ((2, 200, 8, 64), True),
+    for (b, t, h, d), causal, dtype in [
+        ((8, 512, 8, 64), True, torch.float32),
+        ((8, 512, 8, 64), False, torch.float32),
+        ((2, 200, 8, 64), True, torch.float32),
+        ((8, 512, 8, 64), True, torch.bfloat16),
     ]:
         q, k, v, do = (torch.randn(b, t, h, d, device="cuda", generator=gen)
-                       for _ in range(4))
+                       .to(dtype) for _ in range(4))
         o, lse = flash_fwd(q, k, v, causal)
         dq, delta = flash_bwd_dq(q, k, v, o, lse, do, causal)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+        dq2, delta2 = flash_bwd_dq(q, k, v, o, lse, do, causal)
+        dk2, dv2 = flash_bwd_dkv(q, k, v, do, lse, delta2, causal)
         rdq, rdelta = _reference_flash_bwd_dq(q, k, v, o, lse, do, causal)
         rdk, rdv = _reference_flash_bwd_dkv(q, k, v, do, lse, rdelta, causal)
         torch.cuda.synchronize()
+        deterministic = all(torch.equal(a, a2) for a, a2 in (
+            (dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2)))
+        refs = {"dq": rdq, "dk": rdk, "dv": rdv, "delta": rdelta}
+        got = {"dq": dq, "dk": dk, "dv": dv, "delta": delta}
+        if dtype == torch.float32:
+            tols = {n: FLASH_BWD_TOL * max(1.0, float(r.abs().max()))
+                    for n, r in refs.items()}
+        else:
+            tols = bf16_bwd_tolerances(torch, q, k, v, do, lse, rdelta,
+                                       causal, refs)
+            tols["delta"] = FLASH_BWD_TOL * max(1.0, float(rdelta.abs().max()))
         errs = {}
-        for name, a, r in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv),
-                           ("delta", delta, rdelta)):
-            errs[name] = (float((a - r).abs().max()),
-                          FLASH_BWD_TOL * max(1.0, float(r.abs().max())))
-        ok = all(e <= tol for e, tol in errs.values())
+        for n in refs:
+            diff = (got[n].float() - refs[n].float()).abs()
+            errs[n] = (float(diff.max()), float((diff / tols[n]).max()))
+        ok = deterministic and all(ratio <= 1.0 for _, ratio in errs.values())
         # the library call: SDPA's backward (dQ, dK, dV at once), timed
         # for context only
         library, lib_stream = backward_call(
@@ -542,8 +585,9 @@ def check_flash_bwd(torch, F):
         )
 
         pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
-        io = b * t * h * d * 4
+        io = b * t * h * d * q.element_size()
         stats = b * h * t * 4
+        dname = "float32" if dtype == torch.float32 else "bfloat16"
         for kname, kernel_fn, plain_fn, nbytes, flops, kerr in (
             ("flash_bwd_dq",
              lambda: flash_bwd_dq(q, k, v, o, lse, do, causal),
@@ -556,16 +600,27 @@ def check_flash_bwd(torch, F):
              6 * io + 2 * stats, 8 * d * pairs, ("dk", "dv")),
         ):
             times = timings(kernel_fn, plain_fn, library, lib_stream)
-            bound_ms, bound_by = bound(nbytes, flops, "float32")
+            if dtype == torch.float32:
+                bound_ms, bound_by = bound(nbytes, 3 * flops, "tf32")
+                path = "3xTF32 mma.sync: 3 x FLOPs at the TF32 peak"
+            else:
+                bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
+                path = "bf16 mma.sync: FLOPs at the bf16 peak"
             row = {
-                "shape": [b, t, h, d], "causal": causal, "dtype": "float32",
+                "shape": [b, t, h, d], "causal": causal, "dtype": dname,
                 "max_abs_err": max(errs[e][0] for e in kerr),
-                "errs": {e: errs[e] for e in kerr}, "ok": ok, **times,
+                "errs": {e: errs[e] for e in kerr},
+                "deterministic": deterministic, "ok": ok, **times,
                 "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_path": path,
+                "cuda_core_bound_ms": bound(nbytes, flops, "float32")[0],
             }
             log(f"{kname} {row}")
             rows[kname].append(row)
-        check(ok, f"flash backward disagrees with its plain version: {errs}")
+        check(ok, f"flash backward disagrees with its plain version or "
+                  f"differs between two launches: {dname} {errs} "
+                  f"deterministic={deterministic}")
+        del q, k, v, do, o, lse, library
     return rows
 
 
@@ -1379,7 +1434,8 @@ def main(argv):
           f"a kernel of the path never launched: {launches}")
 
     def entry(kname, source, replaces, rows, main_shape):
-        main = next(r for r in rows if r["shape"] == main_shape)
+        main = next(r for r in rows if r["shape"] == main_shape
+                    and r.get("dtype", "float32") == "float32")
         return {
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "jax": replaces.split("/")[-1],

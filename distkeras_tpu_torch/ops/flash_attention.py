@@ -5,8 +5,10 @@ On CUDA tensors ``flash_attention`` launches the hand-written Hopper
 kernels: the forward ``kernels/csrc/flash_fwd.cu`` (online softmax over
 64-row K/V tiles, causal tiles above the diagonal skipped) and, under
 autograd, the FlashAttention-2 backward ``kernels/csrc/flash_bwd.cu`` (a dQ
-kernel over query tiles, then a dK/dV kernel over key tiles), each for any
-T (the tail tile is masked) and head dim up to 128 — or raises. The TPU
+kernel over query tiles, then a dK/dV kernel over key tiles, no atomics;
+every product on the tensor cores with ``mma.sync``, 3xTF32 for f32 inputs,
+the streamed tiles double-buffered with ``cp.async``), each for any T (the
+tail tile is masked) and head dim up to 128 — or raises. The TPU
 module's "dense" and "blockwise" fallbacks were VMEM/tiling artifacts and
 do not exist here: on CUDA ``effective_path`` is always "flash". On CPU
 tensors the same autograd function runs the plain versions

@@ -175,17 +175,71 @@ def test_flash_kernel_on_card(cuda_device, t, causal):
     torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=0)
 
 
+def _bwd_16bit_tolerances(q, k, v, do, lse, delta, causal, ref):
+    """Elementwise tolerances of (dQ, dK, dV) for 16-bit inputs. The kernel
+    rounds P and dS to the input type before the second product: at most
+    u = 2^-8 of each term, so u * sum |x||y| over the reduced index. Both
+    sides round the output to the input type: one ulp, 2u * |ref|. The
+    first term is doubled to cover the f32 sums' order."""
+    u = 2.0 ** -8  # unit roundoff of bf16 (f16's is smaller)
+    p, ds = tfa._reference_p_ds(q, k, v, do, lse, delta, causal)
+    sums = (torch.einsum("bhqk,bkhd->bqhd", ds.abs(), k.float().abs()),
+            torch.einsum("bhqk,bqhd->bkhd", ds.abs(), q.float().abs()),
+            torch.einsum("bhqk,bqhd->bkhd", p, do.float().abs()))
+    return [u * (2 * s + 2 * r.float().abs()) + 1e-6 for s, r in zip(sums, ref)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("t,causal", [(512, True), (512, False), (200, True)])
-def test_flash_bwd_kernels_on_card(cuda_device, t, causal):
+@pytest.mark.parametrize("t,causal,d,dtype", [
+    (512, True, 64, torch.float32), (512, False, 64, torch.float32),
+    (200, True, 64, torch.float32), (512, True, 64, torch.bfloat16),
+    (200, False, 64, torch.float16), (512, True, 32, torch.float32),
+    (512, True, 128, torch.float32), (200, False, 128, torch.bfloat16),
+    (1, True, 64, torch.float32), (65, True, 64, torch.float32),
+    (65, False, 32, torch.bfloat16), (100, True, 36, torch.float16),
+    (70, False, 40, torch.float32)])
+def test_flash_bwd_kernels_on_card(cuda_device, t, causal, d, dtype):
+    """dQ, dK, dV against the plain backward at every head-dim
+    instantiation (32/64/128, and 36/40 zero-padded; 36 halves is the
+    element-load path), tails of one row (T = 1, 65), f32/bf16/f16; a
+    second identical call gives the same bits (no atomics)."""
     rng = np.random.default_rng(1)
-    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, t, 8, 64))
-                                    .astype(np.float32)).to(cuda_device)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, t, 8, d))
+                                    .astype(np.float32)).to(cuda_device, dtype)
                    for _ in range(4))
     o, lse = tfa.flash_fwd(q, k, v, causal)
     got = tfa.flash_bwd(q, k, v, o, lse, do, causal)
+    again = tfa.flash_bwd(q, k, v, o, lse, do, causal)
+    ref = tfa._reference_flash_bwd(q, k, v, o, lse, do, causal)
+    if dtype == torch.float32:
+        tols = [1e-4 * max(1.0, float(r.abs().max())) for r in ref]
+    else:
+        _, delta = tfa._reference_flash_bwd_dq(q, k, v, o, lse, do, causal)
+        tols = _bwd_16bit_tolerances(q, k, v, do, lse, delta, causal, ref)
+    for a, r, tol in zip(got, ref, tols):
+        assert a.dtype == dtype
+        assert bool(((a.float() - r.float()).abs() <= tol).all()), (
+            float((a.float() - r.float()).abs().max()))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_row_that_attends_nothing_on_card(cuda_device, causal):
+    """A row whose lse is -inf (it attends nothing) shifts by 0, the JAX
+    kernels' guard, in both backward kernels as in the plain version."""
+    rng = np.random.default_rng(2)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 130, 4, 64))
+                                    .astype(np.float32)).to(cuda_device)
+                   for _ in range(4))
+    o, lse = tfa.flash_fwd(q, k, v, causal)
+    lse[0, 1, 5] = float("-inf")
+    lse[1, 3, 129] = float("-inf")
+    got = tfa.flash_bwd(q, k, v, o, lse, do, causal)
     ref = tfa._reference_flash_bwd(q, k, v, o, lse, do, causal)
     for a, r in zip(got, ref):
+        assert torch.isfinite(a).all()
         tol = 1e-4 * max(1.0, float(r.abs().max()))
         torch.testing.assert_close(a, r, atol=tol, rtol=0)
 
