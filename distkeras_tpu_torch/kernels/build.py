@@ -12,7 +12,9 @@ versions.
 
 Builds happen at first use, one ``nvcc`` per source, all started together,
 into ``_build/`` beside this file (listed in ``.gitignore``). A library is
-named after its source's content hash, so an edited source rebuilds and an
+named after the content hash of its source and of every header the source
+includes with quotes (``flash_common.cuh``, shared by both flash sources),
+so an edited source or header rebuilds every library built from it and an
 unchanged one is reused by later processes on the same machine. A missing
 ``nvcc``, a failed compile or a failed load raises ``RuntimeError``: there
 is no fallback.
@@ -23,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -107,12 +110,30 @@ def nvcc_path() -> str:
     return found
 
 
+_QUOTED_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _source_files(src: Path) -> list[Path]:
+    """``src`` and every header it includes with quotes, directly or
+    through another header (resolved beside the including file)."""
+    files, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        todo += [path.parent / inc
+                 for inc in _QUOTED_INCLUDE.findall(path.read_text())]
+    return files
+
+
 def _library_path(name: str) -> Path:
     src = CSRC / KERNELS[name][0]
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(ARCH_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    h = hashlib.sha256()
+    for path in _source_files(src):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(ARCH_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def _compile_all(names) -> None:

@@ -6,7 +6,8 @@ kernels or raises: the forward ``kernels/csrc/layernorm_fwd.cu`` (one pass
 per row: mean, biased variance, normalize, affine, f32 compute, output in
 x's dtype) and, under autograd, the backward
 ``kernels/csrc/layernorm_bwd.cu`` (statistics recomputed from x, dx in x's
-dtype, per-block f32 partial sums of dgamma/dbeta reduced by one ``sum``).
+dtype, per-block f32 partial sums of dgamma/dbeta folded in the same
+launch, in a fixed order).
 On a CPU tensor the same autograd function runs the plain versions,
 ``_reference_layer_norm`` and ``_reference_layer_norm_bwd``, with the same
 math.
@@ -18,8 +19,9 @@ import torch
 
 from distkeras_tpu_torch import kernels
 
-#: rows each warp of the backward kernel walks (D <= 1024; 4 warps a block)
-_BWD_ROWS_PER_WARP = 4
+#: warps per block of the backward kernel (D <= 1024) and rows each walks
+_BWD_WARPS = 8
+_BWD_ROWS_PER_WARP = 2
 
 
 def _reference_layer_norm(x, gamma, beta, epsilon):
@@ -86,20 +88,24 @@ def layernorm_fwd(x2, gamma, beta, epsilon):
 
 
 def bwd_blocks(rows, d):
-    """Blocks (and so partial rows) the backward kernel runs with: 4 warps
-    of ``_BWD_ROWS_PER_WARP`` rows each for D <= 1024, else one block per
-    row up to 1024 blocks. Fixed by the shape, so dgamma/dbeta are summed
-    in one order run after run."""
+    """Blocks (and so partial rows) the backward kernel runs with:
+    ``_BWD_WARPS`` warps of ``_BWD_ROWS_PER_WARP`` rows each for D <= 1024
+    (256 blocks at 4096 rows: one wave at two per SM of an H100, 16 warps
+    each with a row in flight), else one block per row up to 1024 blocks.
+    Fixed by the shape, so dgamma/dbeta are summed in one order run after
+    run."""
     if d <= 1024:
-        return max(1, min(-(-rows // (4 * _BWD_ROWS_PER_WARP)), 65535))
+        per_block = _BWD_WARPS * _BWD_ROWS_PER_WARP
+        return max(1, min(-(-rows // per_block), 65535))
     return max(1, min(rows, 1024))
 
 
 def layernorm_bwd(x2, gamma, dy2, epsilon):
     """Launch the CUDA backward kernel on contiguous (rows, D) ``x2`` and
     ``dy2`` (one dtype); returns (dx in x2's dtype, dgamma f32 (D,),
-    dbeta f32 (D,)), the per-block partials reduced by one ``sum``.
-    Raises on anything the kernel does not take."""
+    dbeta f32 (D,)). One launch: the kernel folds its per-block partial
+    rows into row 0 of its (2, nblocks, D) workspace, and dgamma/dbeta are
+    views of that row. Raises on anything the kernel does not take."""
     code = _check_rows("layernorm_bwd", x2, (gamma,))
     if dy2.shape != x2.shape or dy2.dtype != x2.dtype or not (
             dy2.is_contiguous() and dy2.device == x2.device):
@@ -126,8 +132,7 @@ def layernorm_bwd(x2, gamma, dy2, epsilon):
             torch.cuda.current_stream(x2.device).cuda_stream,
         )
     kernels.check_launch("layernorm_bwd", err)
-    dgb = partials.sum(dim=1)
-    return dx, dgb[0], dgb[1]
+    return dx, partials[0, 0], partials[1, 0]
 
 
 class _FusedLayerNorm(torch.autograd.Function):

@@ -140,6 +140,57 @@ def test_kernel_sources_target_hopper():
     assert "--use_fast_math" not in " ".join(build.ARCH_FLAGS)
 
 
+def test_flash_sources_share_one_helper_header():
+    """The fragment, mma, ldmatrix, cp.async and split helpers live once,
+    in flash_common.cuh, which both flash sources include."""
+    header = (build.CSRC / "flash_common.cuh").read_text()
+    defs = ['asm("mma.sync', '"ldmatrix.sync', '"cp.async.cg',
+            "uint32_t to_tf32(float", "struct Split", "void tile_pb(",
+            "void tile_abt("]
+    for src in ("flash_fwd.cu", "flash_bwd.cu"):
+        text = (build.CSRC / src).read_text()
+        assert '#include "flash_common.cuh"' in text
+        assert build._source_files(build.CSRC / src) == [
+            build.CSRC / src, build.CSRC / "flash_common.cuh"]
+        for needle in defs:
+            assert needle in header and needle not in text, (src, needle)
+    assert "sP" not in (build.CSRC / "flash_fwd.cu").read_text()
+
+
+def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
+    """A library is named after its source and every header it includes
+    with quotes, through other headers too: editing flash_common.cuh
+    renames (so rebuilds) both flash libraries and nothing else."""
+    for f in build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {n: build._library_path(n) for n in build.KERNELS}
+    header = tmp_path / "flash_common.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {n: build._library_path(n) for n in build.KERNELS}
+    assert {n for n in before if before[n] != after[n]} == {
+        "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"}
+    assert after["flash_bwd_dq"] == after["flash_bwd_dkv"]
+    (tmp_path / "nested.cuh").write_text("// one\n")
+    header.write_text('#include "nested.cuh"\n' + header.read_text())
+    mid = build._library_path("flash_fwd")
+    (tmp_path / "nested.cuh").write_text("// two\n")
+    assert build._library_path("flash_fwd") != mid
+    assert build._library_path("layernorm_bwd") == before["layernorm_bwd"]
+
+
+def test_layernorm_bwd_block_count():
+    """bwd_blocks alone fixes the backward's blocks (so the fold's order):
+    8 warps of 2 rows each up to D = 1024, one block per row above."""
+    assert tln.bwd_blocks(4096, 512) == 256
+    assert tln.bwd_blocks(8, 512) == 1
+    assert tln.bwd_blocks(1000, 512) == 63
+    assert tln.bwd_blocks(37, 510) == 3
+    assert tln.bwd_blocks(3, 2048) == 3
+    assert tln.bwd_blocks(10 ** 7, 64) == 65535
+    assert tln.bwd_blocks(5000, 2048) == 1024
+
+
 def test_build_without_nvcc_raises(monkeypatch):
     if shutil.which("nvcc") or Path("/usr/local/cuda/bin/nvcc").exists():
         pytest.skip("a CUDA toolkit is installed here")
@@ -164,14 +215,88 @@ def test_layernorm_kernel_on_card(cuda_device, shape):
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
 
 
+#: (T, causal, head dim, dtype) of the flash kernels' card tests: every
+#: head-dim instantiation (32/64/128, and 36/40 zero-padded; 36 halves is
+#: the element-load path), tails of one row (T = 1, 65), f32/bf16/f16
+FLASH_CASES = [
+    (512, True, 64, torch.float32), (512, False, 64, torch.float32),
+    (200, True, 64, torch.float32), (512, True, 64, torch.bfloat16),
+    (200, False, 64, torch.float16), (512, True, 32, torch.float32),
+    (512, True, 128, torch.float32), (200, False, 128, torch.bfloat16),
+    (1, True, 64, torch.float32), (65, True, 64, torch.float32),
+    (65, False, 32, torch.bfloat16), (100, True, 36, torch.float16),
+    (70, False, 40, torch.float32)]
+
+
+def _fwd_16bit_tolerance(q, k, v, causal, ref_o):
+    """Elementwise tolerance of O for 16-bit inputs. The kernel rounds P to
+    the input type before P V: at most u = 2^-8 of each term, so u * sum
+    p |v| over the keys (p normalized). Both sides round O to the input
+    type: one ulp, 2u * |ref|. The first term is doubled to cover the f32
+    sums' order."""
+    u = 2.0 ** -8  # unit roundoff of bf16 (f16's is smaller)
+    p = torch.softmax(tfa._scores(q, k, causal), dim=-1)
+    pv = torch.einsum("bhqk,bkhd->bqhd", p, v.float().abs())
+    return u * (2 * pv + 2 * ref_o.float().abs()) + 1e-6
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("t,causal", [(512, True), (512, False), (200, True), (1, True)])
-def test_flash_kernel_on_card(cuda_device, t, causal):
-    q, k, v = (torch.from_numpy(a).to(cuda_device)
-               for a in _qkv(b=2, t=t, h=8, d=64))
+@pytest.mark.parametrize("t,causal,d,dtype", FLASH_CASES)
+def test_flash_kernel_on_card(cuda_device, t, causal, d, dtype):
+    """O and lse against the plain forward: f32 O to 2e-5 and lse to 1e-5
+    absolute (3xTF32 keeps f32-level error); 16-bit O within the rounding
+    bound of ``_fwd_16bit_tolerance``, lse to 1e-5; a second identical
+    call gives the same bits."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, t, 8, d))
+                                .astype(np.float32)).to(cuda_device, dtype)
+               for _ in range(3))
+    o, lse = tfa.flash_fwd(q, k, v, causal)
+    again = tfa.flash_fwd(q, k, v, causal)
+    ro, rlse = tfa._reference_flash_fwd(q, k, v, causal)
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, ro, atol=2e-5, rtol=0)
+    else:
+        tol = _fwd_16bit_tolerance(q, k, v, causal, ro)
+        err = (o.float() - ro.float()).abs()
+        assert bool((err <= tol).all()), float((err / tol).max())
+    torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=0)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_fwd_row_that_attends_nothing_on_card(cuda_device, dtype,
+                                                    causal):
+    """A query row whose every score is -inf (q = (+inf, 0, ..., 0) against
+    keys whose first component is negative) keeps m = -inf: its O is 0 (l
+    = 0 divides by 1) and its lse -inf, the JAX kernel's guards, and every
+    other row matches the plain version. 16-bit inputs: their products
+    are exact, so the score is -inf itself; in f32 the 3xTF32 split of an
+    infinite operand is inf - inf = NaN (the kernel's note says so)."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 130, 4, 64))
+                                .astype(np.float32)).to(cuda_device)
+               for _ in range(3))
+    k[..., 0] = -k[..., 0].abs() - 0.5
+    empty = [(0, 5, 1), (1, 129, 3)]  # (b, t, h)
+    for b, t, h in empty:
+        q[b, t, h] = 0.0
+        q[b, t, h, 0] = float("inf")
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
     o, lse = tfa.flash_fwd(q, k, v, causal)
     ro, rlse = tfa._reference_flash_fwd(q, k, v, causal)
-    torch.testing.assert_close(o, ro, atol=2e-5, rtol=0)
+    keep = torch.ones(o.shape[:3], dtype=torch.bool, device=cuda_device)
+    for b, t, h in empty:
+        assert bool((o[b, t, h] == 0).all())
+        assert float(lse[b, h, t, 0]) == float("-inf")
+        keep[b, t, h] = False
+    assert torch.isfinite(o).all()
+    tol = _fwd_16bit_tolerance(q, k, v, causal, ro)
+    err = (o.float() - ro.float()).abs()
+    assert bool((err <= tol)[keep].all())
     torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=0)
 
 
@@ -190,14 +315,7 @@ def _bwd_16bit_tolerances(q, k, v, do, lse, delta, causal, ref):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("t,causal,d,dtype", [
-    (512, True, 64, torch.float32), (512, False, 64, torch.float32),
-    (200, True, 64, torch.float32), (512, True, 64, torch.bfloat16),
-    (200, False, 64, torch.float16), (512, True, 32, torch.float32),
-    (512, True, 128, torch.float32), (200, False, 128, torch.bfloat16),
-    (1, True, 64, torch.float32), (65, True, 64, torch.float32),
-    (65, False, 32, torch.bfloat16), (100, True, 36, torch.float16),
-    (70, False, 40, torch.float32)])
+@pytest.mark.parametrize("t,causal,d,dtype", FLASH_CASES)
 def test_flash_bwd_kernels_on_card(cuda_device, t, causal, d, dtype):
     """dQ, dK, dV against the plain backward at every head-dim
     instantiation (32/64/128, and 36/40 zero-padded; 36 halves is the
@@ -249,8 +367,16 @@ def test_flash_bwd_row_that_attends_nothing_on_card(cuda_device, causal):
                                          ((4096, 512), torch.float32),
                                          ((4096, 512), torch.bfloat16),
                                          ((5, 96), torch.float32),
-                                         ((3, 2048), torch.float32)])
+                                         ((3, 2048), torch.float32),
+                                         ((37, 510), torch.float32),
+                                         ((4096, 512), torch.float16),
+                                         ((1000, 512), torch.float32)])
 def test_layernorm_bwd_kernel_on_card(cuda_device, shape, dtype):
+    """dx, dgamma, dbeta against the plain backward: the 16-byte vector
+    path (D = 512 in f32 and in 16-bit), the element path (D = 510, 96),
+    the block kernel (D = 2048), the fold over one group (<= 16 blocks),
+    two levels (1000 rows: 63 blocks, a short last group) and 16 full
+    groups (4096 rows); a second call gives the same bits."""
     x, g, _ = (torch.from_numpy(a).to(cuda_device) for a in _ln_inputs(shape))
     dy = torch.from_numpy(_ln_inputs(shape, seed=2)[0]).to(cuda_device)
     x, dy = x.to(dtype), dy.to(dtype)
