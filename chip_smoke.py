@@ -13,7 +13,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    all started together).
 2. Kernels vs their plain PyTorch versions on the card, at the shapes the
    serving path gives them: ``layernorm_fwd`` (tolerance 1e-5 absolute in
-   f32; 1e-2 absolute + 1e-2 relative in bf16, one bf16 rounding step) and
+   f32; 1e-2 absolute + 1e-2 relative in bf16/f16, one rounding step; on
+   each of its paths — 16-byte chunks at D = 512 and 96, one-element
+   chunks at D = 510 and for a view with a storage offset, the block
+   kernel above D = 1024 — a second launch bit-equal) and
    ``flash_fwd`` (f32: O to 2e-5, lse to 1e-5 absolute, at D = 64 and a
    D = 128 row; bf16 at (8, 512, 8, 64) causal: O within 2^-7 * (sum
    p|v| + |ref|) elementwise, the rounding of P and of the output, lse to
@@ -32,6 +35,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    step in bf16; dgamma/dbeta to 1e-4 of their largest magnitude and
    bit-equal between two launches; D = 512 on the 16-byte vector path,
    (37, 510) and (3, 96) on the element path), timed as in phase 2.
+   Then the f32 flash kernels on query rows with an infinite element
+   (every score -inf): the forward gives them O = 0 and lse = -inf as
+   JAX's kernel does, and the backward dQ = 0 there, dQ and dV finite and
+   within 1e-4 * max(1, max|ref|), dK NaN exactly where the plain
+   version's is (0 * inf).
 2c. The fused SGD kernels vs their plain versions on the card over the
    same 110 leaves: ``sgd_fused`` (B1) in f32 and bf16, and
    ``sgd_momentum_fused`` (B2) in f32 with momentum 0.9 plain and Nesterov
@@ -253,29 +261,49 @@ def bound(bytes_moved, flops, dtype_name):
 
 
 def check_layernorm(torch, F):
+    """layernorm_fwd vs its plain version on each of its paths — 16-byte
+    chunks (the main path's D = 512), one-element chunks (D = 510, and x a
+    view with a storage offset), the block kernel (D > 1024) — in f32,
+    bf16 and f16; a second launch must give the same bits. The path is the
+    launcher's own rule (``fwd_path``). At (8, 512), the decode and
+    prefill shape, the eager time of the hook as decode calls it
+    (``fused_layer_norm`` under ``no_grad``) is timed too."""
     from distkeras_tpu_torch.ops.fused_layernorm import (
         _reference_layer_norm,
+        fused_layer_norm,
+        fwd_path,
         layernorm_fwd,
     )
 
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(7)
-    for (n, d), dtype in [
-        ((8, 512), torch.float32), ((512, 512), torch.float32),
-        ((4096, 512), torch.float32), ((4096, 512), torch.bfloat16),
-        ((3, 96), torch.float32),
+    for (n, d), dtype, offset, path, timed in [
+        ((8, 512), torch.float32, 0, "vector", True),
+        ((512, 512), torch.float32, 0, "vector", True),
+        ((4096, 512), torch.float32, 0, "vector", True),
+        ((4096, 512), torch.bfloat16, 0, "vector", True),
+        ((3, 96), torch.float32, 0, "vector", True),
+        ((8, 512), torch.float16, 0, "vector", False),
+        ((37, 510), torch.float32, 0, "scalar", True),
+        ((37, 510), torch.bfloat16, 0, "scalar", False),
+        ((8, 512), torch.float32, 1, "scalar", True),
+        ((2, 2048), torch.float32, 0, "block", False),
+        ((3, 2050), torch.float16, 0, "block", False),
     ]:
         isz = torch.tensor([], dtype=dtype).element_size()
         nsets = max(1, min(16, (96 << 20) // (n * d * isz)))
         sets = []
         for _ in range(nsets):
-            x = (torch.randn(n, d, device="cuda", generator=gen) * 2 + 0.5
-                 ).to(dtype)
-            sets.append(x)
+            base = torch.empty(n * d + offset, device="cuda", dtype=dtype)
+            base[offset:] = (torch.randn(n * d, device="cuda", generator=gen)
+                             * 2 + 0.5).to(dtype)
+            sets.append(base[offset:].view(n, d))
         g = 1 + 0.1 * torch.randn(d, device="cuda", generator=gen)
         b = 0.1 * torch.randn(d, device="cuda", generator=gen)
         x = sets[0]
+        took = fwd_path(x, g, b, torch.empty_like(x))
         y = layernorm_fwd(x, g, b, 1e-5)
+        again = layernorm_fwd(x, g, b, 1e-5)
         ref = _reference_layer_norm(x, g, b, 1e-5)
         torch.cuda.synchronize()
         err = (y.float() - ref.float()).abs()
@@ -285,22 +313,45 @@ def check_layernorm(torch, F):
         else:
             ok = bool((err <= LN_TOL_BF16 + LN_TOL_BF16
                        * ref.float().abs()).all())
-        nxt = rotating(sets)
-        gl, bl = g.to(dtype), b.to(dtype)
-        times = timings(
-            lambda: layernorm_fwd(nxt(), g, b, 1e-5),
-            lambda: _reference_layer_norm(nxt(), g, b, 1e-5),
-            lambda: F.layer_norm(nxt(), (d,), gl, bl, 1e-5),
-        )
-        dname = "float32" if dtype == torch.float32 else "bfloat16"
-        bound_ms, bound_by = bound(2 * n * d * isz + 2 * d * 4, 8 * n * d, dname)
+        deterministic = torch.equal(y, again)
+        ok = ok and deterministic and took == path
+        dname = str(dtype).replace("torch.", "")
         row = {
-            "shape": [n, d], "dtype": dname, "max_abs_err": max_err,
-            "ok": ok, **times, "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": [n, d], "dtype": dname, "storage_offset": offset,
+            "path": took, "max_abs_err": max_err,
+            "deterministic": deterministic, "ok": ok,
         }
+        if timed:
+            nxt = rotating(sets)
+            gl, bl = g.to(dtype), b.to(dtype)
+            row.update(timings(
+                lambda: layernorm_fwd(nxt(), g, b, 1e-5),
+                lambda: _reference_layer_norm(nxt(), g, b, 1e-5),
+                lambda: F.layer_norm(nxt(), (d,), gl, bl, 1e-5),
+            ))
+            if (n, d, offset) == (8, 512, 0) and dtype == torch.float32:
+                # the host bounds these: three rounds in turns, medians
+                eager = {"layernorm_fwd": lambda: layernorm_fwd(
+                             nxt(), g, b, 1e-5),
+                         "fused_layer_norm_no_grad": lambda: fused_layer_norm(
+                             nxt(), g, b, 1e-5),
+                         "F.layer_norm": lambda: F.layer_norm(
+                             nxt(), (d,), gl, bl, 1e-5)}
+                reads = {k: [] for k in eager}
+                with torch.no_grad():
+                    for _ in range(3):
+                        for k, fn in eager.items():
+                            reads[k].append(call_time_ms(fn, iters=200))
+                row["eager_call_ms_median"] = {
+                    k: sorted(r)[1] for k, r in reads.items()}
+            bound_ms, bound_by = bound(2 * n * d * isz + 2 * d * 4, 8 * n * d,
+                                       "float32" if isz == 4 else "bfloat16")
+            row.update(bound_ms=bound_ms, bound_by=bound_by)
         log(f"layernorm_fwd {row}")
-        check(ok, f"layernorm_fwd disagrees with its plain version: {row}")
+        check(ok, f"layernorm_fwd disagrees with its plain version, differs "
+                  f"between two launches or took another path: {row}")
         rows.append(row)
+        del sets, x, y, again, ref
     return rows
 
 
@@ -668,6 +719,84 @@ def check_flash_bwd(torch, F):
                   f"deterministic={deterministic}")
         del q, k, v, do, o, lse, library
     return rows
+
+
+def infinite_q_rows(torch, causal, rows, gen, grad=False):
+    """q, k, v (and dO) of shape (2, 130, 4, 64) f32: every key's first
+    component negative and each (b, t, h) of ``rows`` a query (+inf, 0,
+    ..., 0), whose every score is inf * (negative) + 0 = -inf."""
+    ts = [torch.randn(2, 130, 4, 64, device="cuda", generator=gen)
+          for _ in range(4 if grad else 3)]
+    ts[1][..., 0] = -ts[1][..., 0].abs() - 0.5
+    for b, t, h in rows:
+        ts[0][b, t, h] = 0.0
+        ts[0][b, t, h, 0] = float("inf")
+    return ts
+
+
+def check_flash_infinite_rows(torch):
+    """The f32 flash kernels on rows with an infinite q element, held to
+    the JAX kernels' answers (their blocks run the guarded split): the
+    forward gives each such row O = 0 and lse = -inf, everything finite,
+    the other rows within FLASH_TOL_O / FLASH_TOL_LSE; on the forward's
+    output the backward gives those rows dQ = 0, dQ and dV finite and
+    within FLASH_BWD_TOL of the plain version, and dK NaN exactly where
+    the plain version's is (that row's dS = 0 times the infinity). The
+    backward's rows lie in the last query tile, which every key tile
+    visits under causal masking too."""
+    from distkeras_tpu_torch.ops.flash_attention import (
+        _reference_flash_bwd,
+        _reference_flash_fwd,
+        flash_bwd,
+        flash_fwd,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    out = []
+    for causal in (True, False):
+        empty = [(0, 5, 1), (1, 129, 3)]
+        q, k, v = infinite_q_rows(torch, causal, empty, gen)
+        o, lse = flash_fwd(q, k, v, causal)
+        ro, rlse = _reference_flash_fwd(q, k, v, causal)
+        keep = torch.ones(o.shape[:3], dtype=torch.bool, device="cuda")
+        rows_ok = True
+        for b, t, h in empty:
+            rows_ok &= bool((o[b, t, h] == 0).all()) and \
+                float(lse[b, h, t, 0]) == float("-inf")
+            keep[b, t, h] = False
+        err_o = float((o - ro).abs()[keep].max())
+        lkeep = keep.transpose(1, 2).unsqueeze(-1)
+        err_lse = float((lse - rlse).abs()[lkeep].max())
+        fwd_ok = (rows_ok and bool(torch.isfinite(o).all())
+                  and err_o <= FLASH_TOL_O and err_lse <= FLASH_TOL_LSE)
+
+        last = [(0, 128, 1), (1, 129, 3)]
+        q, k, v, do = infinite_q_rows(torch, causal, last, gen, grad=True)
+        o, lse = flash_fwd(q, k, v, causal)
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, causal)
+        rdq, rdk, rdv = _reference_flash_bwd(q, k, v, o, lse, do, causal)
+        torch.cuda.synchronize()
+        zero_rows = all(bool((dq[b, t, h] == 0).all()) for b, t, h in last)
+        nan_where = torch.equal(torch.isnan(dk), torch.isnan(rdk)) and \
+            bool(torch.isnan(rdk).any()) and not bool(torch.isinf(dk).any())
+        fin = torch.isfinite(rdk)
+        errs = {}
+        for name, a, r in (("dq", dq, rdq), ("dv", dv, rdv),
+                           ("dk", dk[fin], rdk[fin])):
+            tol = FLASH_BWD_TOL * max(1.0, float(r.abs().max()))
+            errs[name] = (float((a - r).abs().max()), tol)
+        bwd_ok = (zero_rows and nan_where and bool(torch.isfinite(dq).all())
+                  and bool(torch.isfinite(dv).all())
+                  and all(e <= t for e, t in errs.values()))
+        row = {"causal": causal, "fwd_rows_zero_and_lse_neg_inf": rows_ok,
+               "fwd_err_o": err_o, "fwd_err_lse": err_lse,
+               "bwd_dq_rows_zero": zero_rows,
+               "bwd_dk_nan_where_plain": nan_where, "bwd_errs": errs,
+               "ok": fwd_ok and bwd_ok}
+        log(f"flash f32 infinite q element {row}")
+        check(row["ok"], f"flash kernels on an infinite q element: {row}")
+        out.append(row)
+    return out
 
 
 def check_layernorm_bwd(torch, F):
@@ -1454,6 +1583,7 @@ def main(argv):
     adam_rows = check_adam(torch, lm)
     sgd_rows = check_sgd(torch, lm)
     fbwd_rows = check_flash_bwd(torch, F)
+    inf_rows = check_flash_infinite_rows(torch)
     lnb_rows = check_layernorm_bwd(torch, F)
     torch.cuda.empty_cache()
 
@@ -1537,7 +1667,8 @@ def main(argv):
                        "kernels": kline["kernels"], "predict": pred,
                        "generate": gen, "train": train,
                        "async_simulated": async_sim,
-                       "async_threads": async_thr, "profile": profile},
+                       "async_threads": async_thr, "profile": profile,
+                       "flash_infinite_q": inf_rows},
                       f, indent=1)
     print(json.dumps(kline), flush=True)
     print(smi, flush=True)

@@ -32,6 +32,14 @@
 //     3x the FLOPs at the 495 TFLOP/s TF32 peak.
 //   * bf16/f16 inputs: m16n8k16 in one pass; P and dS are rounded to the
 //     input type before the second product.
+//   * A non-finite f32 input (see flash_fwd.cu's note): each kernel's tile
+//     loop is a pass that reports a non-finite dS value or accumulator (dS
+//     is checked before its split, which would turn the card's canonical
+//     NaN into -0); a block that meets one runs its loop again with the
+//     guarded split, which gives the exact f32 products. So a query row
+//     with an infinite element gets dQ = 0 (its P is 0), dV stays finite,
+//     and dK is NaN where 0 * inf makes JAX's NaN. Finite inputs keep their
+//     bits.
 //
 // Design (what it does about the SIMT kernels' limits):
 //   * Tiles: 64 query rows x 64 key rows, one 128-thread block (four warps,
@@ -93,6 +101,81 @@ constexpr int dkv_smem_bytes() {
 
 // ------------------------------------------------------------------- dQ
 
+// One pass of a dQ block's loop over key tiles 0..nk-1 (tile 0 already in
+// flight in buffer 0 of sK/sV) with split G, then this warp's 16 dQ rows
+// stored. Returns NaN if a dS value or a dQ accumulator of this lane was
+// not finite, else 0; dS is checked before dS K, whose split would round
+// the card's canonical NaN to -0. dlt and shift are the lane's two rows'
+// delta and lse shift; kb, vb, dqb point at time step 0 of this (batch,
+// head).
+template <typename T, int DMAX, bool G>
+__device__ __forceinline__ float dq_pass(
+    const T* sQw, const T* sdOw, T* sK, T* sV, const T* __restrict__ kb,
+    const T* __restrict__ vb, T* __restrict__ dqb, long long rs, int t_len,
+    int d, int q0w, int nk, int causal, int vec, float scale, float dlt0,
+    float dlt1, float shift0, float shift1) {
+  constexpr int LD = tile_ld<T, DMAX>();
+  constexpr int TILE = kB * LD;
+  const int g = frag_g(), t4 = frag_t();
+  const float dlt[2] = {dlt0, dlt1};
+  const float shift[2] = {shift0, shift1};
+  const int qpos[2] = {q0w + g, q0w + g + 8};
+
+  float acc[DMAX / 8][4];
+#pragma unroll
+  for (int n = 0; n < DMAX / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float bad = 0.f;
+
+  for (int j = 0; j < nk; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // tile j landed for all; tile j-1 fully consumed
+    if (j + 1 < nk) {
+      const int nb = (j + 1) & 1;
+      load_tile<T, DMAX>(sK + nb * TILE, kb, rs, (j + 1) * kB, t_len, d, vec);
+      load_tile<T, DMAX>(sV + nb * TILE, vb, rs, (j + 1) * kB, t_len, d, vec);
+    }
+    cp_async_commit();
+    const T* cK = sK + (j & 1) * TILE;
+    const T* cV = sV + (j & 1) * TILE;
+    const int k0 = j * kB;
+
+    float p[8][4], ds[8][4];
+    tile_abt<T, DMAX, G>(p, sQw, cK);
+    tile_abt<T, DMAX, G>(ds, sdOw, cV);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int kpos = k0 + n * 8 + 2 * t4 + (e & 1);
+        const bool ok = kpos < t_len && qpos[r] < t_len &&
+                        (!causal || kpos <= qpos[r]);
+        const float pv = ok ? expf(scale * p[n][e] - shift[r]) : 0.f;
+        ds[n][e] = pv * (ds[n][e] - dlt[r]) * scale;
+        bad = nonfinite(bad, ds[n][e]);
+      }
+    }
+    tile_pb<T, DMAX, G>(acc, ds, cK);
+  }
+#pragma unroll
+  for (int n = 0; n < DMAX / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) bad = nonfinite(bad, acc[n][e]);
+  store_rows<T, DMAX>(dqb, acc, qpos, rs, t_len, d);
+  return bad;
+}
+
+// The guarded pass, compiled apart from the kernel (see flash_fwd.cu)
+template <typename T, int DMAX>
+__device__ __noinline__ void dq_pass_guarded(
+    const T* sQw, const T* sdOw, T* sK, T* sV, const T* __restrict__ kb,
+    const T* __restrict__ vb, T* __restrict__ dqb, long long rs, int t_len,
+    int d, int q0w, int nk, int causal, int vec, float scale, float dlt0,
+    float dlt1, float shift0, float shift1) {
+  dq_pass<T, DMAX, true>(sQw, sdOw, sK, sV, kb, vb, dqb, rs, t_len, d, q0w,
+                         nk, causal, vec, scale, dlt0, dlt1, shift0, shift1);
+}
+
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -111,7 +194,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   T* sV = sK + 2 * TILE;  // two buffers
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = frag_g(), t4 = frag_t();
+  const int g = frag_g();
   // the tile index is the grid's slowest dimension, so blocks start tile
   // by tile over all (b, h); reversed, the longest causal tiles go first
   const int qt = gridDim.z - 1 - blockIdx.z;
@@ -121,12 +204,14 @@ __global__ void __launch_bounds__(kThreads, 2)
   const long long base = (long long)b * t_len * rs + (long long)h * d;
   const long long stat = ((long long)b * heads + h) * t_len;
   const int nk = causal ? qt + 1 : (t_len + kB - 1) / kB;
+  const T* kb = k + base;
+  const T* vb = v + base;
 
   if (vec && d < DMAX) zero_pad_columns<T, DMAX>(sQ, 6, d);
   load_tile<T, DMAX>(sQ, q + base, rs, q0, t_len, d, vec);
   load_tile<T, DMAX>(sdO, dout + base, rs, q0, t_len, d, vec);
-  load_tile<T, DMAX>(sK, k + base, rs, 0, t_len, d, vec);
-  load_tile<T, DMAX>(sV, v + base, rs, 0, t_len, d, vec);
+  load_tile<T, DMAX>(sK, kb, rs, 0, t_len, d, vec);
+  load_tile<T, DMAX>(sV, vb, rs, 0, t_len, d, vec);
   cp_async_commit();
 
   // delta = rowsum(dO * O) for the warp's 16 rows, read while the first
@@ -149,53 +234,36 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (i == g + 8) dlt[1] = part;
     if (lane == 0 && t < t_len) delta[stat + t] = part;
   }
-  int qpos[2];
+  const int q0w = q0 + warp * 16;  // this warp's first row
   float shift[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    qpos[r] = q0 + warp * 16 + g + 8 * r;
+    const int qp = q0w + g + 8 * r;
     shift[r] = 0.f;
-    if (qpos[r] < t_len) {
-      const float l = lse[stat + qpos[r]];
+    if (qp < t_len) {
+      const float l = lse[stat + qp];
       shift[r] = l == -INFINITY ? 0.f : l;  // a row that attends nothing
     }
   }
 
-  float acc[DMAX / 8][4];
-#pragma unroll
-  for (int n = 0; n < DMAX / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int j = 0; j < nk; ++j) {
-    cp_async_wait_all();
-    __syncthreads();  // tile j landed for all; tile j-1 fully consumed
-    if (j + 1 < nk) {
-      const int nb = (j + 1) & 1;
-      load_tile<T, DMAX>(sK + nb * TILE, k + base, rs, (j + 1) * kB, t_len, d, vec);
-      load_tile<T, DMAX>(sV + nb * TILE, v + base, rs, (j + 1) * kB, t_len, d, vec);
+  const T* sQw = sQ + warp * 16 * LD;
+  const T* sdOw = sdO + warp * 16 * LD;
+  const float bad = dq_pass<T, DMAX, false>(
+      sQw, sdOw, sK, sV, kb, vb, dq + base, rs, t_len, d, q0w, nk, causal,
+      vec, scale, dlt[0], dlt[1], shift[0], shift[1]);
+  if constexpr (std::is_same<T, float>::value) {
+    // a non-finite input (or an overflow) met anywhere in the block:
+    // restart the K/V stream and run the loop again with the guarded
+    // split; its dQ replaces the first pass's
+    if (__syncthreads_or(bad != 0.f)) {
+      load_tile<T, DMAX>(sK, kb, rs, 0, t_len, d, vec);
+      load_tile<T, DMAX>(sV, vb, rs, 0, t_len, d, vec);
+      cp_async_commit();
+      dq_pass_guarded<T, DMAX>(sQw, sdOw, sK, sV, kb, vb, dq + base, rs,
+                               t_len, d, q0w, nk, causal, vec, scale, dlt[0],
+                               dlt[1], shift[0], shift[1]);
     }
-    cp_async_commit();
-    const T* cK = sK + (j & 1) * TILE;
-    const T* cV = sV + (j & 1) * TILE;
-    const int k0 = j * kB;
-
-    float p[8][4], ds[8][4];
-    tile_abt<T, DMAX>(p, sQ + warp * 16 * LD, cK);
-    tile_abt<T, DMAX>(ds, sdO + warp * 16 * LD, cV);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int kpos = k0 + n * 8 + 2 * t4 + (e & 1);
-        const bool ok = kpos < t_len && qpos[r] < t_len &&
-                        (!causal || kpos <= qpos[r]);
-        const float pv = ok ? expf(scale * p[n][e] - shift[r]) : 0.f;
-        ds[n][e] = pv * (ds[n][e] - dlt[r]) * scale;
-      }
-    }
-    tile_pb<T, DMAX>(acc, ds, cK);
   }
-  store_rows<T, DMAX>(dq + base, acc, qpos, rs, t_len, d);
 }
 
 // ----------------------------------------------------------------- dK/dV
@@ -211,6 +279,104 @@ __device__ __forceinline__ void load_stats(float* s_lse, float* s_dlt,
   const bool is_lse = threadIdx.x < kB;
   cp_async4((is_lse ? s_lse : s_dlt) + r, (is_lse ? lse : dlt) + (in ? t : 0),
             in ? 4 : 0);
+}
+
+// One pass of a dK/dV block's loop over query tiles q_start.. (the first
+// already in flight in buffer 0 of sQ/sdO/sLse/sDlt) with split G, then
+// this warp's 16 dK and dV rows stored. Returns NaN if a dS^T value or a
+// dK/dV accumulator of this lane was not finite, else 0; dS^T = P^T * (...)
+// carries a non-finite P too, and is checked before its split (see
+// dq_pass). sKw, sVw: this warp's 16 key rows; qb, dob, dkb, dvb point at
+// time step 0 of this (batch, head), lse_bh and dlt_bh at its statistics.
+template <typename T, int DMAX, bool G>
+__device__ __forceinline__ float dkv_pass(
+    const T* sKw, const T* sVw, T* sQ, T* sdO, float* sLse, float* sDlt,
+    const T* __restrict__ qb, const T* __restrict__ dob,
+    const float* __restrict__ lse_bh, const float* __restrict__ dlt_bh,
+    T* __restrict__ dkb, T* __restrict__ dvb, long long rs, int t_len, int d,
+    int k0w, int q_start, int n_it, int causal, int vec, float scale) {
+  constexpr int LD = tile_ld<T, DMAX>();
+  constexpr int TILE = kB * LD;
+  const int g = frag_g(), t4 = frag_t();
+  const int kpos[2] = {k0w + g, k0w + g + 8};
+
+  float acc_k[DMAX / 8][4], acc_v[DMAX / 8][4];
+#pragma unroll
+  for (int n = 0; n < DMAX / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+  float bad = 0.f;
+
+  for (int j = 0; j < n_it; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // tile j landed for all; tile j-1 fully consumed
+    if (j + 1 < n_it) {
+      const int nb = (j + 1) & 1, t0 = (q_start + j + 1) * kB;
+      load_tile<T, DMAX>(sQ + nb * TILE, qb, rs, t0, t_len, d, vec);
+      load_tile<T, DMAX>(sdO + nb * TILE, dob, rs, t0, t_len, d, vec);
+      load_stats(sLse + nb * kB, sDlt + nb * kB, lse_bh, dlt_bh, t0, t_len);
+    }
+    cp_async_commit();
+    const int cb = j & 1;
+    const T* cQ = sQ + cb * TILE;
+    const T* cdO = sdO + cb * TILE;
+    const float* cLse = sLse + cb * kB;
+    const float* cDlt = sDlt + cb * kB;
+    const int q0 = (q_start + j) * kB;
+
+    // P^T (16 keys x 64 queries) = exp(scale * K Q^T - lse), masked
+    float p[8][4];
+    tile_abt<T, DMAX, G>(p, sKw, cQ);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, col = n * 8 + 2 * t4 + (e & 1);
+        const int qp = q0 + col;
+        const bool ok = qp < t_len && kpos[r] < t_len &&
+                        (!causal || kpos[r] <= qp);
+        const float l = cLse[col];
+        const float sh = l == -INFINITY ? 0.f : l;  // a row that attends nothing
+        p[n][e] = ok ? expf(scale * p[n][e] - sh) : 0.f;
+      }
+    }
+    tile_pb<T, DMAX, G>(acc_v, p, cdO);  // dV += P^T dO
+
+    // dS^T = P^T * (V dO^T - delta) * scale
+    float ds[8][4];
+    tile_abt<T, DMAX, G>(ds, sVw, cdO);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n * 8 + 2 * t4 + (e & 1);
+        ds[n][e] = p[n][e] * (ds[n][e] - cDlt[col]) * scale;
+        bad = nonfinite(bad, ds[n][e]);
+      }
+    }
+    tile_pb<T, DMAX, G>(acc_k, ds, cQ);  // dK += dS^T Q
+  }
+#pragma unroll
+  for (int n = 0; n < DMAX / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      bad = nonfinite(nonfinite(bad, acc_k[n][e]), acc_v[n][e]);
+  store_rows<T, DMAX>(dkb, acc_k, kpos, rs, t_len, d);
+  store_rows<T, DMAX>(dvb, acc_v, kpos, rs, t_len, d);
+  return bad;
+}
+
+// The guarded pass, compiled apart from the kernel (see flash_fwd.cu)
+template <typename T, int DMAX>
+__device__ __noinline__ void dkv_pass_guarded(
+    const T* sKw, const T* sVw, T* sQ, T* sdO, float* sLse, float* sDlt,
+    const T* __restrict__ qb, const T* __restrict__ dob,
+    const float* __restrict__ lse_bh, const float* __restrict__ dlt_bh,
+    T* __restrict__ dkb, T* __restrict__ dvb, long long rs, int t_len, int d,
+    int k0w, int q_start, int n_it, int causal, int vec, float scale) {
+  dkv_pass<T, DMAX, true>(sKw, sVw, sQ, sdO, sLse, sDlt, qb, dob, lse_bh,
+                          dlt_bh, dkb, dvb, rs, t_len, d, k0w, q_start, n_it,
+                          causal, vec, scale);
 }
 
 template <typename T, int DMAX>
@@ -232,7 +398,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* sDlt = sLse + 2 * kB;                             // [2][kB]
 
   const int warp = threadIdx.x >> 5;
-  const int g = frag_g(), t4 = frag_t();
   // the tile index is the grid's slowest dimension; under causal masking
   // the first key tiles see the most queries, so they start first
   const int kt = blockIdx.z;
@@ -245,76 +410,39 @@ __global__ void __launch_bounds__(kThreads, 2)
   // masked; start at the diagonal
   const int q_start = causal ? kt : 0;
   const int n_it = (t_len + kB - 1) / kB - q_start;
+  const T* qb = q + base;
+  const T* dob = dout + base;
 
   if (vec && d < DMAX) zero_pad_columns<T, DMAX>(sK, 6, d);
   load_tile<T, DMAX>(sK, k + base, rs, k0, t_len, d, vec);
   load_tile<T, DMAX>(sV, v + base, rs, k0, t_len, d, vec);
-  load_tile<T, DMAX>(sQ, q + base, rs, q_start * kB, t_len, d, vec);
-  load_tile<T, DMAX>(sdO, dout + base, rs, q_start * kB, t_len, d, vec);
+  load_tile<T, DMAX>(sQ, qb, rs, q_start * kB, t_len, d, vec);
+  load_tile<T, DMAX>(sdO, dob, rs, q_start * kB, t_len, d, vec);
   load_stats(sLse, sDlt, lse + stat, delta + stat, q_start * kB, t_len);
   cp_async_commit();
 
-  int kpos[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) kpos[r] = k0 + warp * 16 + g + 8 * r;
-
-  float acc_k[DMAX / 8][4], acc_v[DMAX / 8][4];
-#pragma unroll
-  for (int n = 0; n < DMAX / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
-
-  for (int j = 0; j < n_it; ++j) {
-    cp_async_wait_all();
-    __syncthreads();  // tile j landed for all; tile j-1 fully consumed
-    if (j + 1 < n_it) {
-      const int nb = (j + 1) & 1, t0 = (q_start + j + 1) * kB;
-      load_tile<T, DMAX>(sQ + nb * TILE, q + base, rs, t0, t_len, d, vec);
-      load_tile<T, DMAX>(sdO + nb * TILE, dout + base, rs, t0, t_len, d, vec);
-      load_stats(sLse + nb * kB, sDlt + nb * kB, lse + stat, delta + stat, t0,
-                 t_len);
+  const T* sKw = sK + warp * 16 * LD;
+  const T* sVw = sV + warp * 16 * LD;
+  const int k0w = k0 + warp * 16;  // this warp's first key row
+  const float bad = dkv_pass<T, DMAX, false>(
+      sKw, sVw, sQ, sdO, sLse, sDlt, qb, dob, lse + stat, delta + stat,
+      dk + base, dv + base, rs, t_len, d, k0w, q_start, n_it, causal, vec,
+      scale);
+  if constexpr (std::is_same<T, float>::value) {
+    // a non-finite input (or an overflow) met anywhere in the block:
+    // restart the Q/dO stream and run the loop again with the guarded
+    // split; its dK and dV replace the first pass's
+    if (__syncthreads_or(bad != 0.f)) {
+      load_tile<T, DMAX>(sQ, qb, rs, q_start * kB, t_len, d, vec);
+      load_tile<T, DMAX>(sdO, dob, rs, q_start * kB, t_len, d, vec);
+      load_stats(sLse, sDlt, lse + stat, delta + stat, q_start * kB, t_len);
+      cp_async_commit();
+      dkv_pass_guarded<T, DMAX>(sKw, sVw, sQ, sdO, sLse, sDlt, qb, dob,
+                                lse + stat, delta + stat, dk + base,
+                                dv + base, rs, t_len, d, k0w, q_start, n_it,
+                                causal, vec, scale);
     }
-    cp_async_commit();
-    const int cb = j & 1;
-    const T* cQ = sQ + cb * TILE;
-    const T* cdO = sdO + cb * TILE;
-    const float* cLse = sLse + cb * kB;
-    const float* cDlt = sDlt + cb * kB;
-    const int q0 = (q_start + j) * kB;
-
-    // P^T (16 keys x 64 queries) = exp(scale * K Q^T - lse), masked
-    float p[8][4];
-    tile_abt<T, DMAX>(p, sK + warp * 16 * LD, cQ);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, col = n * 8 + 2 * t4 + (e & 1);
-        const int qp = q0 + col;
-        const bool ok = qp < t_len && kpos[r] < t_len &&
-                        (!causal || kpos[r] <= qp);
-        const float l = cLse[col];
-        const float sh = l == -INFINITY ? 0.f : l;  // a row that attends nothing
-        p[n][e] = ok ? expf(scale * p[n][e] - sh) : 0.f;
-      }
-    }
-    tile_pb<T, DMAX>(acc_v, p, cdO);  // dV += P^T dO
-
-    // dS^T = P^T * (V dO^T - delta) * scale
-    float ds[8][4];
-    tile_abt<T, DMAX>(ds, sV + warp * 16 * LD, cdO);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + 2 * t4 + (e & 1);
-        ds[n][e] = p[n][e] * (ds[n][e] - cDlt[col]) * scale;
-      }
-    }
-    tile_pb<T, DMAX>(acc_k, ds, cQ);  // dK += dS^T Q
   }
-  store_rows<T, DMAX>(dk + base, acc_k, kpos, rs, t_len, d);
-  store_rows<T, DMAX>(dv + base, acc_v, kpos, rs, t_len, d);
 }
 
 template <typename T, int DMAX>

@@ -1,9 +1,10 @@
 // Shared pieces of the FlashAttention kernels for Hopper (sm_90a), included
 // by flash_fwd.cu and flash_bwd.cu: tile geometry, dtype conversions,
 // 16-byte `cp.async` tile loads, the `ldmatrix` fragment loaders, the
-// 3xTF32 split (rounded on the integer pipe) and the `mma.sync` wrappers
-// (m16n8k8 TF32 for f32, m16n8k16 for bf16/f16), the two tile products
-// every kernel is built from, the row store and the launch helpers.
+// 3xTF32 split (rounded on the integer pipe; plain, and guarded for a
+// non-finite operand) and the `mma.sync` wrappers (m16n8k8 TF32 for f32,
+// m16n8k16 for bf16/f16), the two tile products every kernel is built
+// from, the row store and the launch helpers.
 //
 // Each source that includes this header builds into its own library, so
 // the anonymous namespace gives each its own copy; kernels/build.py hashes
@@ -203,20 +204,66 @@ __device__ __forceinline__ int ldm_blk_x4() { return (threadIdx.x >> 4) & 1; }
 __device__ __forceinline__ int ldm_row_x2() { return threadIdx.x & 7; }
 __device__ __forceinline__ int ldm_blk_x2() { return (threadIdx.x >> 3) & 1; }
 
-// 3xTF32 operand: x ~ hi + lo, both exact in TF32
-template <int N>
+// 3xTF32 operand: x ~ hi + lo, both exact in TF32. a.b is taken as
+// a.lo.b.fin + a.fin.b.lo + a.hi.b.hi (Mma<float>::mma), where fin is the
+// hi that the two cross terms read. Here fin is hi itself: an infinite x
+// gives hi = inf and lo = tf32(inf - inf), where inf - inf is the card's
+// canonical NaN 0x7fffffff and the rounding carries it into -0; a cross
+// term inf * lo (or inf * -0) then turns a score NaN whenever the other
+// operand's lo is 0 or has the other sign from its hi.
+template <int N, bool kGuard = false>
 struct Split {
   uint32_t hi[N], lo[N];
   __device__ __forceinline__ void set(int i, float x) {
     hi[i] = to_tf32(x);
     lo[i] = to_tf32(x - __uint_as_float(hi[i]));
   }
+  __device__ __forceinline__ const uint32_t (&fin() const)[N] { return hi; }
   // split raw f32 bits in place (hi holds them on entry)
   __device__ __forceinline__ void split_all() {
 #pragma unroll
     for (int i = 0; i < N; ++i) set(i, __uint_as_float(hi[i]));
   }
 };
+
+// The guarded split, which the kernels' second pass takes (see below):
+// an infinite x keeps hi = +-inf but gets lo = 0 and fin = 0, so only the
+// hi.hi term sees the infinity and a.b is what the exact f32 product gives
+// (+-inf, or NaN for inf * 0); a NaN x stays NaN in all three (the plain
+// split rounds the card's canonical NaN, 0x7fffffff, to -0). Every finite x
+// splits exactly as above, so a finite product keeps its bits.
+template <int N>
+struct Split<N, true> {
+  uint32_t hi[N], lo[N], hf[N];
+  __device__ __forceinline__ void set(int i, float x) {
+    const uint32_t h = to_tf32(x);
+    const uint32_t l = to_tf32(x - __uint_as_float(h));
+    const bool inf = fabsf(x) == INFINITY;
+    const bool nan = x != x;
+    hi[i] = inf ? __float_as_uint(x) : nan ? 0x7fffffffu : h;
+    hf[i] = inf ? 0u : hi[i];
+    lo[i] = inf ? 0u : nan ? 0x7fffffffu : l;
+  }
+  __device__ __forceinline__ const uint32_t (&fin() const)[N] { return hf; }
+  __device__ __forceinline__ void split_all() {
+#pragma unroll
+    for (int i = 0; i < N; ++i) set(i, __uint_as_float(hi[i]));
+  }
+};
+
+// The f32 kernels run each block's tile loop once with the plain split; a
+// non-finite value in a pass's scores or accumulators (`nonfinite`) can
+// only come from a non-finite input or an overflow, and then the block
+// runs the loop again with the guarded split (a `__noinline__` copy of the
+// pass, so the first pass keeps its registers). Finite inputs never take
+// the second pass, so their results keep the plain split's bits; 16-bit
+// products are exact and take no second pass.
+
+// 0 while every value folded in is finite, NaN after an inf or a NaN
+// (x * 0 is +-0 for finite x and NaN otherwise; no fast-math folds it)
+__device__ __forceinline__ float nonfinite(float acc, float x) {
+  return acc + x * 0.f;
+}
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
@@ -229,97 +276,115 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 template <typename T>
 struct Mma;
 
-// f32: m16n8k8 TF32, three passes (lo.hi + hi.lo + hi.hi)
+// f32: m16n8k8 TF32, three passes (lo.fin + fin.lo + hi.hi). Every
+// loader takes the split (G: guarded or plain).
 template <>
 struct Mma<float> {
   static constexpr int kK = 8;
-  using A = Split<4>;
-  using B = Split<2>;
+  template <bool G>
+  using A = Split<4, G>;
+  template <bool G>
+  using B = Split<2, G>;
 
   // A (16 x 8) of a row-major tile: a0..a3 at (g, t), (g + 8, t),
   // (g, t + 4), (g + 8, t + 4), one ldmatrix.x4 of 8 x 4 f32 matrices
-  static __device__ __forceinline__ A load_a(const float* s, int ld) {
-    A a;
+  template <bool G>
+  static __device__ __forceinline__ A<G> load_a(const float* s, int ld) {
+    A<G> a;
     ldmatrix_x4(a.hi, s + ldm_row_x4() * ld + 4 * ldm_blk_x4());
     a.split_all();
     return a;
   }
   // B[k][n] = s[n * ld + k], the transpose of a row-major tile: b0, b1 at
   // (k = t, n = g), (t + 4, g), one ldmatrix.x2
-  static __device__ __forceinline__ B load_b_rows(const float* s, int ld) {
-    B b;
+  template <bool G>
+  static __device__ __forceinline__ B<G> load_b_rows(const float* s, int ld) {
+    B<G> b;
     ldmatrix_x2(b.hi, s + ldm_row_x2() * ld + 4 * ldm_blk_x2());
     b.split_all();
     return b;
   }
   // B[k][n] = s[k * ld + n] with k permuted as in a_from_acc: fragment row
   // t reads tile row 2t, fragment row t + 4 reads tile row 2t + 1
-  static __device__ __forceinline__ B load_b_cols(const float* s, int ld) {
+  template <bool G>
+  static __device__ __forceinline__ B<G> load_b_cols(const float* s, int ld) {
     const int g = frag_g(), t = frag_t();
-    B b;
+    B<G> b;
     b.set(0, s[2 * t * ld + g]);
     b.set(1, s[(2 * t + 1) * ld + g]);
     return b;
   }
   // A (16 x 8) from one accumulator n-block, k permuted (see load_b_cols)
-  static __device__ __forceinline__ A a_from_acc(const float (*c)[4]) {
-    A a;
+  template <bool G>
+  static __device__ __forceinline__ A<G> a_from_acc(const float (*c)[4]) {
+    A<G> a;
     a.set(0, c[0][0]);
     a.set(1, c[0][2]);
     a.set(2, c[0][1]);
     a.set(3, c[0][3]);
     return a;
   }
-  static __device__ __forceinline__ void mma(float (&c)[4], const A& a,
-                                             const B& b) {
-    mma_tf32(c, a.lo, b.hi);
-    mma_tf32(c, a.hi, b.lo);
+  template <bool G>
+  static __device__ __forceinline__ void mma(float (&c)[4], const A<G>& a,
+                                             const B<G>& b) {
+    mma_tf32(c, a.lo, b.fin());
+    mma_tf32(c, a.fin(), b.lo);
     mma_tf32(c, a.hi, b.hi);
   }
 };
 
-// bf16 / f16: m16n8k16, one pass
+// bf16 / f16: m16n8k16, one pass; products of 16-bit values are exact,
+// so the split choice G has nothing to guard and is ignored
 template <typename T>
 struct Mma16 {
   static constexpr int kK = 16;
-  struct A {
+  struct Frag4 {
     uint32_t r[4];
   };
-  struct B {
+  struct Frag2 {
     uint32_t r[2];
   };
+  template <bool G>
+  using A = Frag4;
+  template <bool G>
+  using B = Frag2;
 
   // A (16 x 16) of a row-major tile: pairs at (g, 2t), (g + 8, 2t),
   // (g, 2t + 8), (g + 8, 2t + 8), one ldmatrix.x4
-  static __device__ __forceinline__ A load_a(const T* s, int ld) {
-    A a;
+  template <bool G>
+  static __device__ __forceinline__ Frag4 load_a(const T* s, int ld) {
+    Frag4 a;
     ldmatrix_x4(a.r, s + ldm_row_x4() * ld + 8 * ldm_blk_x4());
     return a;
   }
   // B[k][n] = s[n * ld + k]: pairs at (k = 2t, n = g), (2t + 8, g)
-  static __device__ __forceinline__ B load_b_rows(const T* s, int ld) {
-    B b;
+  template <bool G>
+  static __device__ __forceinline__ Frag2 load_b_rows(const T* s, int ld) {
+    Frag2 b;
     ldmatrix_x2(b.r, s + ldm_row_x2() * ld + 8 * ldm_blk_x2());
     return b;
   }
   // B[k][n] = s[k * ld + n]: the same pairs from k-major rows, one
   // ldmatrix.x2.trans (lanes 0-15 give rows k = 0..15)
-  static __device__ __forceinline__ B load_b_cols(const T* s, int ld) {
-    B b;
+  template <bool G>
+  static __device__ __forceinline__ Frag2 load_b_cols(const T* s, int ld) {
+    Frag2 b;
     ldmatrix_x2_trans(b.r, s + (threadIdx.x & 15) * ld);
     return b;
   }
   // A (16 x 16) from two accumulator n-blocks, rounded to T
-  static __device__ __forceinline__ A a_from_acc(const float (*c)[4]) {
-    A a;
+  template <bool G>
+  static __device__ __forceinline__ Frag4 a_from_acc(const float (*c)[4]) {
+    Frag4 a;
     a.r[0] = pack_rn<T>(c[0][0], c[0][1]);
     a.r[1] = pack_rn<T>(c[0][2], c[0][3]);
     a.r[2] = pack_rn<T>(c[1][0], c[1][1]);
     a.r[3] = pack_rn<T>(c[1][2], c[1][3]);
     return a;
   }
-  static __device__ __forceinline__ void mma(float (&c)[4], const A& a,
-                                             const B& b) {
+  template <bool G>
+  static __device__ __forceinline__ void mma(float (&c)[4], const Frag4& a,
+                                             const Frag2& b) {
     if constexpr (std::is_same<T, __half>::value) {
       asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
           "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
@@ -342,8 +407,9 @@ template <>
 struct Mma<__half> : Mma16<__half> {};
 
 // c (16 x 64) = A . B^T over DMAX: A is this warp's 16 rows of a row-major
-// tile, B the 64 rows of another (S = Q K^T, dP = dO V^T, S^T = K Q^T, ...)
-template <typename T, int DMAX>
+// tile, B the 64 rows of another (S = Q K^T, dP = dO V^T, S^T = K Q^T, ...);
+// G: the guarded split or the plain one
+template <typename T, int DMAX, bool G>
 __device__ __forceinline__ void tile_abt(float (&c)[8][4], const T* sa,
                                          const T* sb) {
   using M = Mma<T>;
@@ -352,26 +418,28 @@ __device__ __forceinline__ void tile_abt(float (&c)[8][4], const T* sa,
   for (int n = 0; n < 8; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
 #pragma unroll
   for (int k0 = 0; k0 < DMAX; k0 += M::kK) {
-    const typename M::A a = M::load_a(sa + k0, LD);
+    const typename M::template A<G> a = M::template load_a<G>(sa + k0, LD);
 #pragma unroll
     for (int n = 0; n < 8; ++n)
-      M::mma(c[n], a, M::load_b_rows(sb + n * 8 * LD + k0, LD));
+      M::template mma<G>(
+          c[n], a, M::template load_b_rows<G>(sb + n * 8 * LD + k0, LD));
   }
 }
 
 // acc (16 x DMAX) += P . B: P (16 x 64) in accumulator registers, B the 64
 // rows of a row-major tile (dQ += dS K, dV += P^T dO, dK += dS^T Q)
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool G>
 __device__ __forceinline__ void tile_pb(float (&acc)[DMAX / 8][4],
                                         const float (&p)[8][4], const T* sb) {
   using M = Mma<T>;
   constexpr int LD = tile_ld<T, DMAX>();
 #pragma unroll
   for (int kk = 0; kk < kB; kk += M::kK) {
-    const typename M::A a = M::a_from_acc(p + kk / 8);
+    const typename M::template A<G> a = M::template a_from_acc<G>(p + kk / 8);
 #pragma unroll
     for (int n = 0; n < DMAX / 8; ++n)
-      M::mma(acc[n], a, M::load_b_cols(sb + kk * LD + n * 8, LD));
+      M::template mma<G>(
+          acc[n], a, M::template load_b_cols<G>(sb + kk * LD + n * 8, LD));
   }
 }
 

@@ -28,9 +28,17 @@
 //     level. The bound is 3x the FLOPs at the 495 TFLOP/s TF32 peak.
 //   * bf16/f16 inputs: m16n8k16 in one pass; the scores are scaled in f32
 //     after the product, and P is rounded to the input type before P V.
-//   * An infinite f32 input gives NaN scores (the split's lo is inf - inf);
-//     16-bit products are exact, so there an infinite input scores +-inf
-//     as in the plain version.
+//   * A non-finite f32 input: the split of an infinite element has lo =
+//     tf32(inf - inf) (the card's canonical NaN, which tf32 rounding turns
+//     into -0), so a cross term inf * lo can make a score NaN where the f32
+//     product is +-inf. The K loop therefore runs as a pass (`fwd_pass`)
+//     that reports a non-finite row sum or accumulator; a block where any
+//     warp reports one restarts the K/V stream and runs the pass again with
+//     the guarded split of flash_common.cuh (`Split<N, true>`: only hi.hi
+//     sees the infinity), which gives the exact f32 product, so a row whose
+//     every score is -inf keeps O = 0 and lse = -inf as in JAX. Finite
+//     inputs never take the second pass and keep their bits; 16-bit
+//     products are exact and take none.
 //
 // Design:
 //   * One 128-thread block (four warps, 16 query rows each) per (b, h,
@@ -72,67 +80,43 @@ constexpr int fwd_smem_bytes() {
   return 5 * kB * tile_ld<T, DMAX>() * (int)sizeof(T);
 }
 
-// DMAX: compile-time head-dim capacity (32, 64 or 128); d <= DMAX at run
-// time, columns past d are zero in shared memory and never written out.
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads, 2)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int t_len, int heads, int d,
-                     float scale, int causal, int vec) {
+// One pass of a block's K loop over key tiles 0..nk-1 (tile 0 already in
+// flight in buffer 0 of sK/sV) with split G, then O and lse of this warp's
+// 16 rows stored. Returns NaN if a row sum or an accumulator of this lane
+// was not finite before the division, else 0: a score that is not finite
+// makes its row's P (so l) NaN, unless it is masked, where -inf replaces
+// it. kb, vb, ob point at time step 0 of this (batch, head); Q is this
+// warp's 16 rows in shared memory, pre-scaled in f32.
+template <typename T, int DMAX, bool G>
+__device__ __forceinline__ float fwd_pass(
+    const T* sQw, T* sK, T* sV, const T* __restrict__ kb,
+    const T* __restrict__ vb, T* __restrict__ ob, float* __restrict__ lse_bh,
+    long long rs, int t_len, int d, int qt, int nk, int causal, int vec,
+    float scale) {
   using M = Mma<T>;
   constexpr bool kF32 = std::is_same<T, float>::value;
   // Q's A fragments stay in registers across the K loop, except f32 at
-  // D = 128 (DMAX registers of split fragments would spill)
-  constexpr bool kQRegs = !(kF32 && DMAX > 64);
+  // D = 128 (DMAX registers of split fragments would spill) and in the
+  // guarded pass (its split is wider)
+  constexpr bool kQRegs = !(kF32 && DMAX > 64) && !G;
   constexpr int LD = tile_ld<T, DMAX>();
   constexpr int TILE = kB * LD;
   constexpr int NKK = DMAX / M::kK;  // k steps of S = Q K^T
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + TILE;      // two buffers
-  T* sV = sK + 2 * TILE;  // two buffers
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = frag_g(), t4 = frag_t();
-  // the tile index is the grid's slowest dimension, so blocks start tile
-  // by tile over all (b, h); reversed, the longest causal tiles go first
-  const int qt = gridDim.z - 1 - blockIdx.z;
-  const int q0 = qt * kB;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const long long rs = (long long)heads * d;
-  const long long base = (long long)b * t_len * rs + (long long)h * d;
-  // causal: key tiles past the diagonal tile are fully masked
-  const int nk = causal ? qt + 1 : (t_len + kB - 1) / kB;
+  const int q0 = qt * kB + (threadIdx.x >> 5) * 16;  // this warp's first row
 
-  if (vec && d < DMAX) zero_pad_columns<T, DMAX>(sQ, 5, d);
-  load_tile<T, DMAX>(sQ, q + base, rs, q0, t_len, d, vec);
-  load_tile<T, DMAX>(sK, k + base, rs, 0, t_len, d, vec);
-  load_tile<T, DMAX>(sV, v + base, rs, 0, t_len, d, vec);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  // this warp's 16 query rows; only this warp reads them
-  T* sQw = sQ + warp * 16 * LD;
-  if constexpr (kF32) {
-    for (int i = lane; i < 16 * DMAX; i += 32) {
-      float* e = sQw + (i / DMAX) * LD + (i % DMAX);
-      *e *= scale;
-    }
-    __syncwarp();
-  }
-  typename M::A qa[kQRegs ? NKK : 1];
+  typename M::template A<G> qa[kQRegs ? NKK : 1];
   if constexpr (kQRegs) {
 #pragma unroll
-    for (int kk = 0; kk < NKK; ++kk) qa[kk] = M::load_a(sQw + kk * M::kK, LD);
+    for (int kk = 0; kk < NKK; ++kk)
+      qa[kk] = M::template load_a<G>(sQw + kk * M::kK, LD);
   }
 
   int qpos[2];
   float m[2], l[2];  // l: this lane's part of the row sum
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    qpos[r] = q0 + warp * 16 + g + 8 * r;
+    qpos[r] = q0 + g + 8 * r;
     m[r] = -INFINITY;
     l[r] = 0.f;
   }
@@ -145,8 +129,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();  // tile j landed for all; tile j-1 fully consumed
     if (j + 1 < nk) {
       const int nb = (j + 1) & 1;
-      load_tile<T, DMAX>(sK + nb * TILE, k + base, rs, (j + 1) * kB, t_len, d, vec);
-      load_tile<T, DMAX>(sV + nb * TILE, v + base, rs, (j + 1) * kB, t_len, d, vec);
+      load_tile<T, DMAX>(sK + nb * TILE, kb, rs, (j + 1) * kB, t_len, d, vec);
+      load_tile<T, DMAX>(sV + nb * TILE, vb, rs, (j + 1) * kB, t_len, d, vec);
     }
     cp_async_commit();
     const T* cK = sK + (j & 1) * TILE;
@@ -159,15 +143,16 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < NKK; ++kk) {
-      typename M::A a;
+      typename M::template A<G> a;
       if constexpr (kQRegs) {
         a = qa[kk];
       } else {
-        a = M::load_a(sQw + kk * M::kK, LD);
+        a = M::template load_a<G>(sQw + kk * M::kK, LD);
       }
 #pragma unroll
       for (int n = 0; n < 8; ++n)
-        M::mma(s[n], a, M::load_b_rows(cK + n * 8 * LD + kk * M::kK, LD));
+        M::template mma<G>(
+            s[n], a, M::template load_b_rows<G>(cK + n * 8 * LD + kk * M::kK, LD));
     }
     if constexpr (!kF32) {
 #pragma unroll
@@ -218,10 +203,14 @@ __global__ void __launch_bounds__(kThreads, 2)
         acc[n][2 * r + 1] *= corr;
       }
     }
-    tile_pb<T, DMAX>(acc, s, cV);  // O += P V
+    tile_pb<T, DMAX, G>(acc, s, cV);  // O += P V
   }
 
-  float* lse_bh = lse + ((long long)b * heads + h) * t_len;
+  float bad = nonfinite(nonfinite(0.f, l[0]), l[1]);
+#pragma unroll
+  for (int n = 0; n < DMAX / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) bad = nonfinite(bad, acc[n][e]);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float lt = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -236,7 +225,85 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (t4 == 0 && qpos[r] < t_len)
       lse_bh[qpos[r]] = m[r] == -INFINITY ? -INFINITY : m[r] + logf(l_safe);
   }
-  store_rows<T, DMAX>(o + base, acc, qpos, rs, t_len, d);
+  store_rows<T, DMAX>(ob, acc, qpos, rs, t_len, d);
+  return bad;
+}
+
+// The guarded pass, compiled apart from the kernel so that its wider split
+// leaves the first pass's registers and schedule as they were
+template <typename T, int DMAX>
+__device__ __noinline__ void fwd_pass_guarded(
+    const T* sQw, T* sK, T* sV, const T* __restrict__ kb,
+    const T* __restrict__ vb, T* __restrict__ ob, float* __restrict__ lse_bh,
+    long long rs, int t_len, int d, int qt, int nk, int causal, int vec,
+    float scale) {
+  fwd_pass<T, DMAX, true>(sQw, sK, sV, kb, vb, ob, lse_bh, rs, t_len, d, qt,
+                          nk, causal, vec, scale);
+}
+
+// DMAX: compile-time head-dim capacity (32, 64 or 128); d <= DMAX at run
+// time, columns past d are zero in shared memory and never written out.
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int t_len, int heads, int d,
+                     float scale, int causal, int vec) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int LD = tile_ld<T, DMAX>();
+  constexpr int TILE = kB * LD;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sK = sQ + TILE;      // two buffers
+  T* sV = sK + 2 * TILE;  // two buffers
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the tile index is the grid's slowest dimension, so blocks start tile
+  // by tile over all (b, h); reversed, the longest causal tiles go first
+  const int qt = gridDim.z - 1 - blockIdx.z;
+  const int q0 = qt * kB;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const long long rs = (long long)heads * d;
+  const long long base = (long long)b * t_len * rs + (long long)h * d;
+  // causal: key tiles past the diagonal tile are fully masked
+  const int nk = causal ? qt + 1 : (t_len + kB - 1) / kB;
+  const T* kb = k + base;
+  const T* vb = v + base;
+  float* lse_bh = lse + ((long long)b * heads + h) * t_len;
+
+  if (vec && d < DMAX) zero_pad_columns<T, DMAX>(sQ, 5, d);
+  load_tile<T, DMAX>(sQ, q + base, rs, q0, t_len, d, vec);
+  load_tile<T, DMAX>(sK, kb, rs, 0, t_len, d, vec);
+  load_tile<T, DMAX>(sV, vb, rs, 0, t_len, d, vec);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // this warp's 16 query rows; only this warp reads them
+  T* sQw = sQ + warp * 16 * LD;
+  if constexpr (kF32) {
+    for (int i = lane; i < 16 * DMAX; i += 32) {
+      float* e = sQw + (i / DMAX) * LD + (i % DMAX);
+      *e *= scale;
+    }
+    __syncwarp();
+  }
+
+  const float bad = fwd_pass<T, DMAX, false>(
+      sQw, sK, sV, kb, vb, o + base, lse_bh, rs, t_len, d, qt, nk, causal,
+      vec, scale);
+  if constexpr (kF32) {
+    // a non-finite input (or an overflow) met anywhere in the block: every
+    // warp is past the loop, so restart the K/V stream and run it again
+    // with the guarded split; its O and lse replace the first pass's
+    if (__syncthreads_or(bad != 0.f)) {
+      load_tile<T, DMAX>(sK, kb, rs, 0, t_len, d, vec);
+      load_tile<T, DMAX>(sV, vb, rs, 0, t_len, d, vec);
+      cp_async_commit();
+      fwd_pass_guarded<T, DMAX>(sQw, sK, sV, kb, vb, o + base, lse_bh, rs,
+                                t_len, d, qt, nk, causal, vec, scale);
+    }
+  }
 }
 
 template <typename T, int DMAX>

@@ -10,7 +10,10 @@ kernel over key tiles, no atomics). Every product of both runs on the
 tensor cores with ``mma.sync`` (3xTF32 for f32 inputs, one pass for
 bf16/f16), the streamed tiles double-buffered with ``cp.async``, through
 the helpers of ``kernels/csrc/flash_common.cuh``; each kernel takes any T
-(the tail tile is masked) and head dim up to 128 — or raises. The TPU
+(the tail tile is masked) and head dim up to 128 — or raises. An f32 block
+that meets an infinite or NaN value runs its loop again with a guarded
+3xTF32 split, so an infinite operand gives the exact f32 product (a row
+whose every score is -inf gets O = 0 and lse = -inf, as in JAX). The TPU
 module's "dense" and "blockwise" fallbacks were VMEM/tiling artifacts and
 do not exist here: on CUDA ``effective_path`` is always "flash". On CPU
 tensors the same autograd function runs the plain versions
@@ -23,7 +26,6 @@ from __future__ import annotations
 import torch
 
 from distkeras_tpu_torch import kernels
-from distkeras_tpu_torch.parallel.ring_attention import dense_attention
 
 #: the CUDA kernels' tiles (query rows per block, keys per K/V tile), the
 #: same for the forward and both backward kernels
@@ -45,9 +47,19 @@ def _scores(q, k, causal):
 
 def _reference_flash_fwd(q, k, v, causal):
     """Plain version of the kernel: (B, T, H, D) -> (O in q's dtype, lse
-    (B, H, T, 1) f32), lse being the scaled-score logsumexp."""
-    lse = torch.logsumexp(_scores(q, k, causal), dim=-1, keepdim=True)
-    return dense_attention(q, k, v, causal=causal), lse
+    (B, H, T, 1) f32), lse being the scaled-score logsumexp. A row whose
+    every score is -inf (it attends nothing) keeps the JAX kernel's guards
+    (flash_attention.py:82,102,104 there): the shift is 0, l == 0 divides
+    by 1, so O = 0 and lse = -inf where a plain softmax gives NaN."""
+    s = _scores(q, k, causal)
+    m = s.amax(dim=-1, keepdim=True)
+    empty = torch.isneginf(m)
+    p = torch.exp(s - torch.where(empty, torch.zeros_like(m), m))
+    l = p.sum(dim=-1, keepdim=True)
+    l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    o = torch.einsum("bhqk,bkhd->bqhd", p / l_safe, v.float())
+    lse = torch.where(empty, m, m + torch.log(l_safe))
+    return o.to(q.dtype), lse
 
 
 def _reference_p_ds(q, k, v, do, lse, delta, causal):

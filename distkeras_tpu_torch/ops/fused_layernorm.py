@@ -2,15 +2,17 @@
 ``distkeras_tpu.ops.fused_layernorm``).
 
 On a CUDA tensor ``fused_layer_norm`` launches the hand-written Hopper
-kernels or raises: the forward ``kernels/csrc/layernorm_fwd.cu`` (one pass
-per row: mean, biased variance, normalize, affine, f32 compute, output in
-x's dtype) and, under autograd, the backward
+kernels or raises: the forward ``kernels/csrc/layernorm_fwd.cu`` (one
+memory trip per row: mean, biased variance, normalize, affine, f32
+compute, output in x's dtype) and, under autograd, the backward
 ``kernels/csrc/layernorm_bwd.cu`` (statistics recomputed from x, dx in x's
 dtype, per-block f32 partial sums of dgamma/dbeta folded in the same
 launch, in a fixed order).
-On a CPU tensor the same autograd function runs the plain versions,
+On a CPU tensor the same functions run the plain versions,
 ``_reference_layer_norm`` and ``_reference_layer_norm_bwd``, with the same
-math.
+math. Where no gradient can flow (under ``torch.no_grad``, or when none
+of x, gamma, beta requires grad: decode, prefill, predict) the forward is
+called directly, without the autograd function.
 """
 
 from __future__ import annotations
@@ -49,40 +51,81 @@ def _reference_layer_norm_bwd(x2, gamma, dy2, epsilon):
     return dx.to(x2.dtype), (dy * xhat).sum(0), dy.sum(0)
 
 
-def _check_rows(name, x2, d_like):
+def _check_rows(name, x2, d_like, any_rank=False):
+    """The wrappers' checks: a contiguous CUDA (rows, D) tensor (with
+    ``any_rank``, any contiguous (..., D)) and (D,) gamma/beta; returns the
+    launcher's dtype code."""
     if not x2.is_cuda:
         raise ValueError(f"{name} launches on CUDA tensors only")
-    if x2.ndim != 2 or not x2.is_contiguous():
+    if (x2.ndim != 2 and not (any_rank and x2.ndim)) or not x2.is_contiguous():
         raise ValueError(
             f"{name} wants a contiguous (rows, D) tensor; got shape "
             f"{tuple(x2.shape)}, strides {x2.stride()}"
         )
-    d = x2.shape[1]
-    if any(tuple(t.shape) != (d,) for t in d_like):
-        raise ValueError(
-            f"{name}: gamma/beta must be ({d},); got "
-            + ", ".join(str(tuple(t.shape)) for t in d_like)
-        )
+    d = x2.shape[-1]
+    for t in d_like:
+        if t.shape != (d,):
+            raise ValueError(
+                f"{name}: gamma/beta must be ({d},); got "
+                + ", ".join(str(tuple(t.shape)) for t in d_like)
+            )
     return kernels.cuda_dtype_code(x2.dtype)
+
+
+def _f32_like(t, x):
+    """``t`` as a contiguous f32 tensor on ``x``'s device: itself when it
+    already is one (the layer's own f32 parameters), else a copy."""
+    if (t.dtype == torch.float32 and t.get_device() == x.get_device()
+            and t.is_contiguous()):
+        return t
+    return t.to(device=x.device, dtype=torch.float32).contiguous()
+
+
+#: the forward's ctypes launcher, loaded (built where needed) at first use
+_fwd_launcher = None
+
+
+def fwd_path(x2, gamma, beta, y):
+    """The path ``dk_layernorm_fwd`` takes for these tensors, by the
+    launcher's own rule (layernorm_fwd.cu, ``launch``): "block" for D >
+    1024, else "vector" (16-byte chunks) when a row is a whole number of
+    16-byte chunks and all four pointers are 16-byte aligned, else
+    "scalar"."""
+    d = x2.shape[-1]
+    if d > 1024:
+        return "block"
+    aligned = not any(t.data_ptr() % 16 for t in (x2, gamma, beta, y))
+    return "vector" if aligned and d * x2.element_size() % 16 == 0 else "scalar"
 
 
 def layernorm_fwd(x2, gamma, beta, epsilon):
     """Launch the CUDA kernel on contiguous (rows, D) ``x2``; returns y in
     x2's dtype. Raises on anything the kernel does not take."""
-    code = _check_rows("layernorm_fwd", x2, (gamma, beta))
-    rows, d = x2.shape
-    g = gamma.to(device=x2.device, dtype=torch.float32).contiguous()
-    b = beta.to(device=x2.device, dtype=torch.float32).contiguous()
-    y = torch.empty_like(x2)
-    from distkeras_tpu_torch.kernels.build import kernel
+    return _launch_fwd(x2, gamma, beta, epsilon,
+                       _check_rows("layernorm_fwd", x2, (gamma, beta)))
 
-    fn = kernel("layernorm_fwd")
-    with torch.cuda.device(x2.device):
-        err = fn(
-            x2.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
-            rows, d, float(epsilon), code,
-            torch.cuda.current_stream(x2.device).cuda_stream,
-        )
+
+def _launch_fwd(x, gamma, beta, epsilon, code):
+    """The launch on a checked contiguous CUDA ``x`` (..., D), whose
+    leading dimensions are the rows; y has x's shape and dtype."""
+    global _fwd_launcher
+    d = x.shape[-1]
+    g, b = _f32_like(gamma, x), _f32_like(beta, x)
+    y = torch.empty_like(x)
+    if _fwd_launcher is None:
+        from distkeras_tpu_torch.kernels.build import kernel
+
+        _fwd_launcher = kernel("layernorm_fwd")
+    index = x.get_device()
+    # the current stream's raw handle, without building a Stream object
+    args = (x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
+            x.numel() // max(d, 1), d, float(epsilon), code,
+            torch._C._cuda_getCurrentRawStream(index))
+    if index == torch.cuda.current_device():
+        err = _fwd_launcher(*args)
+    else:
+        with torch.cuda.device(index):
+            err = _fwd_launcher(*args)
     kernels.check_launch("layernorm_fwd", err)
     return y
 
@@ -162,9 +205,18 @@ class _FusedLayerNorm(torch.autograd.Function):
 def fused_layer_norm(x, gamma, beta, epsilon=1e-5):
     """LayerNorm over the trailing axis. ``x``: (..., D); ``gamma``/``beta``:
     (D,). CUDA: the kernels, for any D and any row count. CPU: the plain
-    versions. Differentiable in x, gamma and beta."""
-    if x.device.type not in ("cpu", "cuda"):
+    versions. Differentiable in x, gamma and beta; where no gradient can
+    flow, the forward runs without the autograd function (and on a
+    contiguous CUDA x without reshaping it)."""
+    if not (x.is_cuda or x.is_cpu):
         raise ValueError(f"fused_layer_norm: unsupported device {x.device}")
+    if not torch.is_grad_enabled() or not (
+            x.requires_grad or gamma.requires_grad or beta.requires_grad):
+        if x.is_cpu:
+            return _reference_layer_norm(x, gamma, beta, float(epsilon))
+        x = x.contiguous()
+        return _launch_fwd(x, gamma, beta, epsilon, _check_rows(
+            "layernorm_fwd", x, (gamma, beta), any_rank=True))
     d = x.shape[-1]
     x2 = x.reshape(-1, d).contiguous()
     return _FusedLayerNorm.apply(x2, gamma, beta, float(epsilon)).reshape(

@@ -6,13 +6,18 @@ The kernel runs both of its products on the tensor cores as 3xTF32
 tf32(x - hi), rounded on the integer pipe (add half a TF32 ulp to the
 bits, clear the 13 low bits: ``to_tf32`` in ``flash_common.cuh``), and a.b
 is taken as lo.hi + hi.lo + hi.hi with f32 accumulation (lo.lo dropped).
-Q is pre-scaled by 1/sqrt(D) in f32 before its split; P is split straight
-from the f32 scores. The online softmax keeps m = -inf for a row that has
-seen nothing (shift 0), divides by 1 where l = 0 and gives lse = -inf
-there. This file checks that this arithmetic stays within the card tests'
-tolerances (``chip_smoke.py``'s FLASH_TOL_O and FLASH_TOL_LSE), which
-single-pass TF32 does not. The kernel itself is held against the same
-plain version on the card (``test_torch_kernels.py``, marker ``gpu``).
+An infinite element would make a cross term inf * lo or inf * 0, so a
+block that meets a non-finite value runs its loop again with the guarded
+split, where such an element's lo and its hi in the cross terms are 0
+(``_split``): the product is then the exact f32 one, and on finite inputs
+nothing changes. Q is pre-scaled by 1/sqrt(D) in f32 before its split; P
+is split straight from the f32 scores. The online softmax keeps m = -inf
+for a row that has seen nothing (shift 0), divides by 1 where l = 0 and
+gives lse = -inf there. This file checks that this arithmetic stays within
+the card tests' tolerances (``chip_smoke.py``'s FLASH_TOL_O and
+FLASH_TOL_LSE), which single-pass TF32 does not. The kernel itself is held
+against the same plain version on the card (``test_torch_kernels.py``,
+marker ``gpu``).
 """
 
 import math
@@ -36,16 +41,43 @@ def _tf32(x):
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def _split(x):
+def _split_plain(x):
+    """The split the kernels' first pass runs: hi = tf32(x), lo = tf32(x -
+    hi). An infinite x gives lo = tf32(inf - inf), not 0."""
     hi = _tf32(x)
     return hi, _tf32(x - hi)
 
 
-def _mm3(a, b):
-    """a @ b as 3xTF32 ``mma.sync``: lo.hi + hi.lo + hi.hi, f32 sums."""
-    ah, al = _split(a)
-    bh, bl = _split(b)
+def _split(x):
+    """The guarded split (``Split<N, true>`` in ``flash_common.cuh``):
+    (hi, fin, lo) with fin = hi, except that an infinite x keeps hi = +-inf
+    and gets fin = 0 and lo = 0, and a NaN x stays NaN in all three. On a
+    finite x it is the plain split, with fin = hi."""
+    hi, lo = _split_plain(x)
+    inf, nan = torch.isinf(x), torch.isnan(x)
+    hi = torch.where(inf | nan, x, hi)
+    fin = torch.where(inf, 0.0, hi)
+    lo = torch.where(inf, 0.0, torch.where(nan, x, lo))
+    return hi, fin, lo
+
+
+def _mm3_plain(a, b):
+    """a @ b as the first pass's 3xTF32 ``mma.sync``: lo.hi + hi.lo +
+    hi.hi, f32 sums."""
+    ah, al = _split_plain(a)
+    bh, bl = _split_plain(b)
     return al @ bh + ah @ bl + ah @ bh
+
+
+def _mm3(a, b):
+    """a @ b as the kernels compute it: lo.fin + fin.lo + hi.hi with the
+    guarded split. Only hi.hi sees an infinite element, so the result is
+    the exact f32 product's +-inf (or NaN for inf * 0). On finite inputs it
+    is ``_mm3_plain`` bit for bit: that is what the kernels' first pass
+    gives, and a second, guarded pass runs only after a non-finite value."""
+    ah, af, al = _split(a)
+    bh, bf, bl = _split(b)
+    return al @ bf + af @ bl + ah @ bh
 
 
 def _mm1(a, b):
@@ -106,7 +138,7 @@ def test_tf32_rounding_and_split():
     assert _tf32(half_ulp).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10)]
     assert _tf32(below).tolist() == [1.0]
     x = _qkv((4096,), 0)[0] * 100
-    hi, lo = _split(x)
+    hi, lo = _split_plain(x)
     assert bool(((hi.view(torch.int32) & 0x1FFF) == 0).all())
     assert bool(((lo.view(torch.int32) & 0x1FFF) == 0).all())
     assert bool(((hi + lo - x).abs() <= 2.0 ** -21 * x.abs()).all())
@@ -153,3 +185,72 @@ def test_row_that_attends_nothing_keeps_the_guards(causal):
     assert float((o - ro).abs()[keep].max()) <= FLASH_TOL_O
     lkeep = keep.transpose(1, 2)[..., None]
     assert float((lse - rlse).abs()[lkeep].max()) <= FLASH_TOL_LSE
+
+
+def test_guarded_split_is_the_plain_split_on_finite_inputs():
+    """On finite operands the guarded product is the plain one bit for bit
+    (the mask is the identity there), in the product and through the
+    whole emulated forward."""
+    a, b = _qkv((2, 96, 64), 5)[:2]
+    a = a * torch.logspace(-20, 20, 64)
+    hi, fin, lo = _split(a)
+    phi, plo = _split_plain(a)
+    assert torch.equal(hi, phi) and torch.equal(fin, phi)
+    assert torch.equal(lo, plo)
+    assert torch.equal(_mm3(a, b.transpose(-1, -2)),
+                       _mm3_plain(a, b.transpose(-1, -2)))
+    q, k, v = _qkv((1, 130, 2, 64), seed=6)
+    for got, want in zip(emulate_flash_fwd(q, k, v, True),
+                         emulate_flash_fwd(q, k, v, True, mm=_mm3_plain)):
+        assert torch.equal(got, want)
+
+
+def test_guarded_product_of_infinite_elements_is_exact():
+    """+-inf in either operand: the guarded product gives what the f32
+    product gives (+-inf, NaN for inf * 0 or inf - inf); the plain split
+    turns such entries NaN (inf * lo); finite entries are unchanged."""
+    a = torch.tensor([[float("inf"), 1.5, -2.0],
+                      [float("-inf"), 0.25, 3.0],
+                      [float("inf"), 0.0, 1.0],
+                      [1.0, -1.0, 0.5]])
+    b = torch.tensor([[2.0, 0.0, -1e-3, float("inf")],
+                      [1.0, 3.0, 2.0, 1.0],
+                      [0.5, -1.0, 4.0, 1.0]])
+    want, got = a @ b, _mm3(a, b)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    inf = torch.isinf(want)
+    assert torch.equal(got[inf], want[inf])
+    fin = torch.isfinite(want)
+    assert float((got - want)[fin].abs().max()) <= 1e-6
+    assert bool(torch.isnan(_mm3_plain(a, b)[inf]).any())
+
+
+def _infinite_q_row(causal):
+    """q, k, v (1, 16, 1, 64) f32 from ``default_rng(3)`` with every key's
+    first component negative and q row 5 = (+inf, 0, ..., 0): each score
+    of that row is inf * (negative) + 0 = -inf, so the row attends
+    nothing, as in the JAX kernel."""
+    q, k, v = _qkv((1, 16, 1, 64), seed=3)
+    k[..., 0] = -k[..., 0].abs() - 0.5
+    q[0, 5, 0] = 0.0
+    q[0, 5, 0, 0] = float("inf")
+    return q, k, v
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_infinite_q_element_gives_a_row_that_attends_nothing(causal):
+    """An infinite q element (no forced ``empty`` row): with the guarded
+    product the row's scores are -inf, so O = 0 and lse = -inf as in JAX's
+    kernel and in the plain version; the plain split gives that row NaN.
+    Every other row is within the card tolerances."""
+    q, k, v = _infinite_q_row(causal)
+    o, lse = emulate_flash_fwd(q, k, v, causal)
+    ro, rlse = tfa._reference_flash_fwd(q, k, v, causal)
+    assert bool((o[0, 5, 0] == 0).all()) and bool((ro[0, 5, 0] == 0).all())
+    assert float(lse[0, 0, 5, 0]) == float(rlse[0, 0, 5, 0]) == float("-inf")
+    keep = torch.ones(16, dtype=torch.bool)
+    keep[5] = False
+    assert float((o - ro)[0, keep].abs().max()) <= FLASH_TOL_O
+    assert float((lse - rlse)[0, 0, keep].abs().max()) <= FLASH_TOL_LSE
+    po, _ = emulate_flash_fwd(q, k, v, causal, mm=_mm3_plain)
+    assert bool(torch.isnan(po[0, 5, 0]).all())

@@ -191,6 +191,26 @@ def test_layernorm_bwd_block_count():
     assert tln.bwd_blocks(5000, 2048) == 1024
 
 
+def test_layernorm_fwd_paths_follow_the_launcher_rule():
+    """``fwd_path`` mirrors ``launch`` in layernorm_fwd.cu: 16-byte chunks
+    where a row is whole chunks and every pointer is 16-byte aligned, one
+    element per chunk otherwise, the block kernel above D = 1024; the C
+    signature (so the ctypes argtypes) is the one it always had."""
+    P, I, F, L = build._P, build._I, build._F, build._L
+    assert build.KERNELS["layernorm_fwd"][2] == [P, P, P, P, L, I, F, I, P]
+    g = torch.ones(512)
+    for shape, dtype, offset, path in LN_FWD_CASES:
+        d = shape[1]
+        base = torch.empty(4 * d + offset, dtype=dtype)
+        x = base[offset:offset + 2 * d].view(2, d)
+        gd = g[:1].expand(d).contiguous() if d != 512 else g
+        y = torch.empty_like(x)
+        if x.data_ptr() % 16 == 0 or offset:
+            assert tln.fwd_path(x, gd, gd, y) == path, (shape, dtype, offset)
+    text = (build.CSRC / "layernorm_fwd.cu").read_text()
+    assert "d > 1024" in text and "% 16 == 0" in text and "& 15) == 0" in text
+
+
 def test_build_without_nvcc_raises(monkeypatch):
     if shutil.which("nvcc") or Path("/usr/local/cuda/bin/nvcc").exists():
         pytest.skip("a CUDA toolkit is installed here")
@@ -206,13 +226,62 @@ def cuda_device():
     return torch.device("cuda")
 
 
+#: (shape, dtype, storage offset in elements, path the launcher takes)
+LN_FWD_CASES = [
+    ((8, 512), torch.float32, 0, "vector"),
+    ((4096, 512), torch.float32, 0, "vector"),
+    ((4096, 512), torch.bfloat16, 0, "vector"),
+    ((8, 512), torch.float16, 0, "vector"),
+    ((3, 96), torch.float32, 0, "vector"),
+    ((5, 96), torch.bfloat16, 0, "vector"),
+    ((37, 510), torch.float32, 0, "scalar"),
+    ((37, 510), torch.bfloat16, 0, "scalar"),
+    ((16, 512), torch.float32, 1, "scalar"),
+    ((16, 512), torch.float16, 3, "scalar"),
+    ((3, 1000), torch.float32, 0, "vector"),
+    ((2, 2048), torch.float32, 0, "block"),
+    ((3, 2048), torch.bfloat16, 0, "block"),
+    ((3, 2050), torch.float16, 0, "block"),
+    ((2, 60000), torch.float32, 0, "block"),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(8, 512), (4096, 512), (3, 96), (2, 2048)])
-def test_layernorm_kernel_on_card(cuda_device, shape):
+@pytest.mark.parametrize("shape,dtype,offset,path", LN_FWD_CASES)
+def test_layernorm_kernel_on_card(cuda_device, shape, dtype, offset, path):
+    """The forward kernel against the plain version on its three paths:
+    16-byte chunks (f32 float4, 8 halves in bf16/f16), one-element chunks
+    where a row is not a whole number of 16-byte chunks (D = 510) or x is
+    a view with a storage offset, and the block kernel above D = 1024
+    (its row in shared memory; D = 60000 is read again from L2). f32 to
+    1e-5 absolute; bf16/f16 within one rounding of the output (1e-2
+    absolute + 1e-2 relative). A second launch gives the same bits, and so
+    does the hook under ``no_grad`` (no autograd function; a (1, rows, D)
+    input launched without a reshape)."""
     x, g, b = (torch.from_numpy(a).to(cuda_device) for a in _ln_inputs(shape))
-    got = tln.fused_layer_norm(x, g, b)
+    n = x.numel()
+    base = torch.empty(n + offset, dtype=dtype, device=cuda_device)
+    base[offset:] = x.reshape(-1).to(dtype)
+    x = base[offset:].view(shape)
+    assert x.storage_offset() == offset and x.is_contiguous()
+    y = torch.empty_like(x)
+    assert tln.fwd_path(x, g, b, y) == path
+    kernels.reset_launch_counts()
+    got = tln.layernorm_fwd(x, g, b, 1e-5)
+    again = tln.layernorm_fwd(x, g, b, 1e-5)
+    with torch.no_grad():
+        hooked = tln.fused_layer_norm(x, g, b)
+        hooked3 = tln.fused_layer_norm(x.unsqueeze(0), g, b)
+    assert kernels.launch_counts()["layernorm_fwd"] == 4
     ref = tln._reference_layer_norm(x, g, b, 1e-5)
-    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
+                                   rtol=1e-2)
+    assert torch.equal(got, again) and torch.equal(got, hooked)
+    assert hooked3.shape == (1, *shape) and torch.equal(hooked3[0], got)
 
 
 #: (T, causal, head dim, dtype) of the flash kernels' card tests: every
@@ -265,28 +334,40 @@ def test_flash_kernel_on_card(cuda_device, t, causal, d, dtype):
     assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
 
 
+def _infinite_q_rows(device, causal, rows, seed=3, grad=False):
+    """q, k, v (and dO with ``grad``) of shape (2, 130, 4, 64) f32 on
+    ``device``: every key's first component negative and each (b, t, h)
+    of ``rows`` a query (+inf, 0, ..., 0), whose every score is then
+    inf * (negative) + 0 = -inf: the row attends nothing."""
+    rng = np.random.default_rng(seed)
+    ts = [torch.from_numpy(rng.standard_normal((2, 130, 4, 64))
+                           .astype(np.float32)).to(device)
+          for _ in range(4 if grad else 3)]
+    ts[1][..., 0] = -ts[1][..., 0].abs() - 0.5
+    for b, t, h in rows:
+        ts[0][b, t, h] = 0.0
+        ts[0][b, t, h, 0] = float("inf")
+    return ts
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_flash_fwd_row_that_attends_nothing_on_card(cuda_device, dtype,
                                                     causal):
     """A query row whose every score is -inf (q = (+inf, 0, ..., 0) against
     keys whose first component is negative) keeps m = -inf: its O is 0 (l
     = 0 divides by 1) and its lse -inf, the JAX kernel's guards, and every
-    other row matches the plain version. 16-bit inputs: their products
-    are exact, so the score is -inf itself; in f32 the 3xTF32 split of an
-    infinite operand is inf - inf = NaN (the kernel's note says so)."""
-    rng = np.random.default_rng(3)
-    q, k, v = (torch.from_numpy(rng.standard_normal((2, 130, 4, 64))
-                                .astype(np.float32)).to(cuda_device)
-               for _ in range(3))
-    k[..., 0] = -k[..., 0].abs() - 0.5
+    other row matches the plain version. 16-bit products are exact, so the
+    score is -inf itself; in f32 the blocks that meet the infinity run
+    their loop again with the guarded 3xTF32 split, whose product is the
+    exact -inf too."""
     empty = [(0, 5, 1), (1, 129, 3)]  # (b, t, h)
-    for b, t, h in empty:
-        q[b, t, h] = 0.0
-        q[b, t, h, 0] = float("inf")
-    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    q, k, v = (t.to(dtype) for t in _infinite_q_rows(cuda_device, causal,
+                                                      empty))
     o, lse = tfa.flash_fwd(q, k, v, causal)
+    again = tfa.flash_fwd(q, k, v, causal)
     ro, rlse = tfa._reference_flash_fwd(q, k, v, causal)
     keep = torch.ones(o.shape[:3], dtype=torch.bool, device=cuda_device)
     for b, t, h in empty:
@@ -294,10 +375,43 @@ def test_flash_fwd_row_that_attends_nothing_on_card(cuda_device, dtype,
         assert float(lse[b, h, t, 0]) == float("-inf")
         keep[b, t, h] = False
     assert torch.isfinite(o).all()
-    tol = _fwd_16bit_tolerance(q, k, v, causal, ro)
     err = (o.float() - ro.float()).abs()
-    assert bool((err <= tol)[keep].all())
+    if dtype == torch.float32:
+        assert float(err[keep].max()) <= 2e-5
+    else:
+        tol = _fwd_16bit_tolerance(q, k, v, causal, ro)
+        assert bool((err <= tol)[keep].all())
     torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=0)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_infinite_q_element_on_card(cuda_device, causal):
+    """The f32 backward on the forward's output for rows with an infinite
+    q element, held to what JAX's kernels give: the row's dQ is 0 (its P
+    is 0), dV is finite and equal to the plain version's, and dK is NaN
+    exactly where the plain version's is (dS^T Q multiplies that row's
+    dS = 0 by the infinity, 0 * inf). The rows lie in the last query tile,
+    which every key tile visits under causal masking too, so the kernel's
+    NaN pattern is the plain version's over all keys."""
+    rows = [(0, 128, 1), (1, 129, 3)]
+    q, k, v, do = _infinite_q_rows(cuda_device, causal, rows, grad=True)
+    o, lse = tfa.flash_fwd(q, k, v, causal)
+    dq, dk, dv = tfa.flash_bwd(q, k, v, o, lse, do, causal)
+    rdq, rdk, rdv = tfa._reference_flash_bwd(q, k, v, o, lse, do, causal)
+    for b, t, h in rows:
+        assert bool((dq[b, t, h] == 0).all())
+        assert bool(torch.isnan(rdk[b, :, h, 0]).all())
+    assert torch.isfinite(dq).all() and torch.isfinite(dv).all()
+    assert torch.equal(torch.isnan(dk), torch.isnan(rdk))
+    assert not torch.isinf(dk).any()
+    for a, r in ((dq, rdq), (dv, rdv)):
+        torch.testing.assert_close(
+            a, r, atol=1e-4 * max(1.0, float(r.abs().max())), rtol=0)
+    fin = torch.isfinite(rdk)
+    tol = 1e-4 * max(1.0, float(rdk[fin].abs().max()))
+    assert float((dk - rdk)[fin].abs().max()) <= tol
 
 
 def _bwd_16bit_tolerances(q, k, v, do, lse, delta, causal, ref):

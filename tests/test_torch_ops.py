@@ -60,26 +60,71 @@ def test_fused_layer_norm_bf16_matches_jax():
     np.testing.assert_allclose(got.float().numpy(), ref, atol=1e-2, rtol=1e-2)
 
 
+@pytest.mark.parametrize("shape", [(16, 128), (2, 8, 512), (5, 7, 510)])
+def test_fused_layer_norm_shortcut_without_grad(shape, monkeypatch):
+    """Where no gradient can flow (``torch.no_grad``, or nothing requiring
+    grad) ``fused_layer_norm`` skips the autograd function: the same bits
+    as the autograd path, JAX's ``fused_layer_norm`` to 1e-5, and no
+    launch counted on CPU tensors."""
+    from distkeras_tpu_torch import kernels
+
+    x, g, b = _ln_inputs(shape, seed=2)
+    ref = np.asarray(jln.fused_layer_norm(jnp.asarray(x), g, b, 1e-5))
+    tx, tg, tb = (torch.from_numpy(a) for a in (x, g, b))
+    pg, pb = tg.clone().requires_grad_(), tb.clone().requires_grad_()
+    graded = tln.fused_layer_norm(tx, pg, pb, 1e-5)
+    assert graded.grad_fn is not None
+    kernels.reset_launch_counts()
+
+    def refuse(*args):
+        raise AssertionError("the autograd function ran")
+
+    monkeypatch.setattr(tln._FusedLayerNorm, "apply", refuse)
+    with torch.no_grad():
+        quiet = tln.fused_layer_norm(tx, pg, pb, 1e-5)
+    plain = tln.fused_layer_norm(tx, tg, tb, 1e-5)
+    assert quiet.grad_fn is None and plain.grad_fn is None
+    assert torch.equal(quiet, graded.detach()) and torch.equal(plain, quiet)
+    np.testing.assert_allclose(plain.numpy(), ref, atol=1e-5, rtol=0)
+    assert not any(kernels.launch_counts().values())
+
+
 def _qkv(b=2, t=64, h=2, d=64, seed=0):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal((b, t, h, d)).astype(np.float32)
             for _ in range(3)]
 
 
+def _infinite_q_row():
+    """(1, 16, 1, 64) f32 from ``default_rng(3)``: every key's first
+    component negative, q row 5 = (+inf, 0, ..., 0), so each score of that
+    row is -inf and the row attends nothing."""
+    q, k, v = _qkv(b=1, t=16, h=1, seed=3)
+    k[..., 0] = -np.abs(k[..., 0]) - 0.5
+    q[0, 5, 0] = 0.0
+    q[0, 5, 0, 0] = np.inf
+    return q, k, v
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_fwd_plain_matches_jax_kernel(causal):
     """O and lse of the kernel's plain version vs the Pallas forward
-    (``_fwd`` in interpret mode, 32x32 blocks). O to 2e-5, lse to 1e-5."""
-    q, k, v = _qkv()
-    jq_, jk, jv = (jnp.swapaxes(jnp.asarray(a), 1, 2) for a in (q, k, v))
-    out, lse = jfa._fwd(jq_, jk, jv, causal, 32, 32, True)
-    o, tlse = tfa._reference_flash_fwd(
-        *(torch.from_numpy(a) for a in (q, k, v)), causal
-    )
-    np.testing.assert_allclose(
-        o.numpy(), np.swapaxes(np.asarray(out), 1, 2), atol=2e-5, rtol=0
-    )
-    np.testing.assert_allclose(tlse.numpy(), np.asarray(lse), atol=1e-5, rtol=0)
+    (``_fwd`` in interpret mode, 32x32 blocks; 16x16 for the second
+    input). O to 2e-5, lse to 1e-5. The second input has a row whose
+    scores are all -inf (an infinite q element): JAX's guards give it O = 0
+    and lse = -inf, and so must the plain version."""
+    for (q, k, v), blk in ((_qkv(), 32), (_infinite_q_row(), 16)):
+        jq_, jk, jv = (jnp.swapaxes(jnp.asarray(a), 1, 2) for a in (q, k, v))
+        out, lse = jfa._fwd(jq_, jk, jv, causal, blk, blk, True)
+        o, tlse = tfa._reference_flash_fwd(
+            *(torch.from_numpy(a) for a in (q, k, v)), causal
+        )
+        out, lse = np.swapaxes(np.asarray(out), 1, 2), np.asarray(lse)
+        assert not np.isnan(out).any() and not np.isnan(lse).any()
+        np.testing.assert_allclose(o.numpy(), out, atol=2e-5, rtol=0)
+        np.testing.assert_allclose(tlse.numpy(), lse, atol=1e-5, rtol=0)
+    assert (o.numpy()[0, 5, 0] == 0).all() and (out[0, 5, 0] == 0).all()
+    assert tlse[0, 0, 5, 0] == lse[0, 0, 5, 0] == -np.inf
 
 
 @pytest.mark.parametrize("causal", [True, False])
