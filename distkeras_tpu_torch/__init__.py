@@ -12,16 +12,19 @@ Ported so far: the serving slice — the transformer LM family
 (``models``), ``ModelPredictor`` and the sequence generators
 (``predictors``), the dense-bank ``ServingEngine`` (``serving``); the
 training slice — ``SingleTrainer`` (``trainers``, ``workers``), losses,
-metrics and the sgd/adam/pallas_sgd/pallas_adam optimizers (``ops``), the
-data loaders and prefetcher (``data``); and the asynchronous
+metrics and the sgd/adam/pallas_sgd/pallas_adam optimizers (``ops``),
+the data loaders and prefetcher (``data``); and the asynchronous
 parameter-server tier — ``DOWNPOUR``, ``AEASGD``, ``EAMSGD``, ``ADAG``,
 ``DynSGD`` over the in-process parameter servers
 (``parameter_servers``), in thread or seeded simulated mode, with the
-``mnist_mlp`` model, the numpy feature transformers
-(``data.transformers``) and the evaluators. Kernels (``kernels/csrc``):
-LayerNorm forward and backward, FlashAttention forward and backward (dQ,
-dK/dV), the fused multi-tensor Adam, and the fused multi-tensor SGD
-without and with momentum.
+numpy feature transformers (``data.transformers``) and the evaluators;
+and the CNN and tabular model zoo — ``Conv2D``, the pools, ``Flatten``,
+``BatchNorm``, ``Residual`` and the ``mnist_cnn``/``higgs_mlp``/
+``cifar10_cnn``/``resnet18``/MLP/transformer-classifier models
+(``models``), with the weight and state bridge (``utils.convert``).
+Kernels (``kernels/csrc``): LayerNorm forward and backward,
+FlashAttention forward and backward (dQ, dK/dV), the fused multi-tensor
+Adam, and the fused multi-tensor SGD without and with momentum.
 """
 
 from distkeras_tpu_torch.data import loaders
@@ -37,14 +40,22 @@ from distkeras_tpu_torch.data.transformers import (
 from distkeras_tpu_torch.evaluators import AccuracyEvaluator, LossEvaluator
 from distkeras_tpu_torch.models import zoo
 from distkeras_tpu_torch.models.layers import (
+    Activation,
+    AvgPool2D,
+    BatchNorm,
+    Conv2D,
     Dense,
     Dropout,
     Embedding,
+    Flatten,
+    GlobalAvgPool1D,
+    GlobalAvgPool2D,
     LayerNorm,
+    MaxPool2D,
     MultiHeadSelfAttention,
     TransformerBlock,
 )
-from distkeras_tpu_torch.models.sequential import Sequential
+from distkeras_tpu_torch.models.sequential import Residual, Sequential
 from distkeras_tpu_torch.ops.flash_attention import (
     attach_flash_attention,
     flash_attention,
@@ -80,16 +91,20 @@ from distkeras_tpu_torch.trainers import (
     SingleTrainer,
     Trainer,
 )
-from distkeras_tpu_torch.utils.convert import params_from_jax
+from distkeras_tpu_torch.utils.convert import params_from_jax, state_from_jax
 from distkeras_tpu_torch.utils.history import TrainingHistory
 from distkeras_tpu_torch.workers import SingleTrainerWorker, WorkerCore
 
 __all__ = [
     "ADAG",
     "ADAGParameterServer",
+    "Activation",
     "AEASGD",
     "AccuracyEvaluator",
+    "BatchNorm",
+    "AvgPool2D",
     "CachedSequenceGenerator",
+    "Conv2D",
     "Dataset",
     "DOWNPOUR",
     "DecodeStepper",
@@ -103,16 +118,21 @@ __all__ = [
     "EAMSGD",
     "Embedding",
     "FusedAdam",
+    "Flatten",
     "FusedSGD",
+    "GlobalAvgPool2D",
+    "GlobalAvgPool1D",
     "LabelIndexTransformer",
     "LayerNorm",
     "LossEvaluator",
+    "MaxPool2D",
     "MinMaxTransformer",
     "ModelPredictor",
     "MultiHeadSelfAttention",
     "OneHotTransformer",
     "ParameterServer",
     "ReshapeTransformer",
+    "Residual",
     "SamplingParams",
     "Sequential",
     "SequenceGenerator",
@@ -133,5 +153,6 @@ __all__ = [
     "get_optimizer",
     "loaders",
     "params_from_jax",
+    "state_from_jax",
     "zoo",
 ]

@@ -1,13 +1,16 @@
-"""Layers of the transformer LM family (PyTorch port of
-``distkeras_tpu.models.layers``, the subset the serving path runs).
+"""Layers (PyTorch port of ``distkeras_tpu.models.layers``): the dense,
+convolutional, pooling, normalization and transformer layers of the zoo.
 
 Each layer is an ``nn.Module`` that owns its parameters under the JAX
 package's names (``kernel``/``bias``, ``tokens``/``positions``,
 ``gamma``/``beta``, ``wq``/``wk``/``wv``/``wo``/``bo``), so a model's
 ``state_dict`` keys are the JAX params tree flattened with dots and
-``utils.convert.params_from_jax`` loads one into the other. ``init(gen,
-in_shape)`` creates the parameters from an explicit ``torch.Generator``
-and returns the output shape; ``forward`` computes, in training mode under
+``utils.convert.params_from_jax`` loads one into the other. Non-
+trainable state (``BatchNorm``'s moving ``mean``/``var``) lives in
+buffers under the JAX state tree's names;
+``utils.convert.state_from_jax`` loads it. ``init(gen, in_shape)``
+creates the parameters from an explicit ``torch.Generator`` and returns
+the output shape; ``forward`` computes, in training mode under
 ``nn.Module.train()`` (dropout live) and in eval mode under ``eval()``
 (dropout the identity). Layers that draw random bits in training mode
 (``uses_train_rng``) take ``forward(x, rng=seed)``, an integer seed from
@@ -15,11 +18,18 @@ and returns the output shape; ``forward`` computes, in training mode under
 ``get_config`` is JSON-identical to the JAX layer's.
 
 ``Dense.kernel`` keeps the JAX layout ``(in, out)``: ``y = x @ kernel``.
+Images stay NHWC at every layer boundary and ``Conv2D.kernel`` stays HWIO;
+the convolutions and pools view NHWC memory as cuDNN's channels-last NCHW
+inside the layer. ``SAME`` padding is XLA's: ``lo = total // 2`` and
+``hi = total - lo`` per spatial axis, so a strided window pads more at the
+bottom/right, which the layers pad explicitly where it is asymmetric.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -90,6 +100,39 @@ def _normal(gen, shape, std):
     return torch.empty(shape).normal_(0.0, std, generator=gen)
 
 
+# ---------------------------------------------------------------------- remat
+
+_RECOMPUTE = threading.local()
+
+
+class _Recomputing(contextlib.AbstractContextManager):
+    """Marks the thread that replays a checkpointed forward in the
+    backward (autograd's device thread on CUDA)."""
+
+    def __enter__(self):
+        _RECOMPUTE.depth = getattr(_RECOMPUTE, "depth", 0) + 1
+
+    def __exit__(self, *exc):
+        _RECOMPUTE.depth -= 1
+
+
+def recomputing() -> bool:
+    """True while a ``remat`` forward is being replayed: layers that update
+    state in their forward (``BatchNorm``) skip the update then, so the
+    state advances once per forward, as JAX threads it once."""
+    return getattr(_RECOMPUTE, "depth", 0) > 0
+
+
+def remat(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): the
+    backward replays ``fn`` instead of keeping its activations, with
+    ``recomputing()`` true during the replay."""
+    return checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), _Recomputing()),
+    )
+
+
 # ---------------------------------------------------------------------- base
 
 
@@ -151,6 +194,177 @@ class Dense(Layer):
         }
 
 
+def _pair(v):
+    return (v, v) if isinstance(v, int) else tuple(int(a) for a in v)
+
+
+def _check_padding(padding):
+    if padding not in ("SAME", "VALID"):
+        raise ValueError(f"padding must be 'SAME' or 'VALID'; got {padding!r}")
+    return padding
+
+
+def _same_pads(size, k, s):
+    """XLA's SAME split of one spatial axis: (lo, hi)."""
+    total = max((-(-size // s) - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _window_out(in_hw, window, strides, padding):
+    """Output (H, W) of a conv or pool window, as XLA computes it."""
+    if padding == "SAME":
+        return tuple(-(-n // s) for n, s in zip(in_hw, strides))
+    return tuple((n - k) // s + 1 for n, k, s in zip(in_hw, window, strides))
+
+
+def _pad_nchw(x, window, strides, padding, value):
+    """``x`` (an NCHW view) and the symmetric padding left for the op
+    itself: ``SAME`` pads that differ between the two sides are applied
+    here with ``value``, symmetric ones are handed to the op."""
+    if padding == "VALID":
+        return x, (0, 0)
+    (t, b), (l, r) = (_same_pads(n, k, s) for n, k, s in
+                      zip(x.shape[2:], window, strides))
+    if t == b and l == r:
+        return x, (t, l)
+    return F.pad(x, (l, r, t, b), value=value), (0, 0)
+
+
+class _HWIOGrad(torch.autograd.Function):
+    """The identity whose backward makes the gradient contiguous: the
+    convolution reads the HWIO kernel through a permuted OIHW view, so its
+    gradient arrives in the view's layout, and the fused optimizers take
+    contiguous gradients only."""
+
+    @staticmethod
+    def forward(ctx, w):
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+@register_layer
+class Conv2D(Layer):
+    """NHWC convolution with an HWIO ``kernel`` (and ``bias`` (filters,));
+    the kernel is cast to the input's dtype."""
+
+    def __init__(self, filters, kernel_size, strides=1, padding="SAME",
+                 activation=None, use_bias=True):
+        super().__init__()
+        self.filters = int(filters)
+        self.kernel_size = _pair(kernel_size)
+        self.strides = _pair(strides)
+        self.padding = _check_padding(padding)
+        self.activation = activation
+        self.use_bias = bool(use_bias)
+
+    def init(self, gen, in_shape):
+        h, w, cin = in_shape
+        kh, kw = self.kernel_size
+        self.kernel = _param(_glorot_uniform(
+            gen, (kh, kw, cin, self.filters), kh * kw * cin,
+            kh * kw * self.filters,
+        ))
+        if self.use_bias:
+            self.bias = _param(torch.zeros(self.filters))
+        return (*_window_out((h, w), self.kernel_size, self.strides,
+                             self.padding), self.filters)
+
+    def forward(self, x):
+        w = _HWIOGrad.apply(self.kernel).to(x.dtype).permute(3, 2, 0, 1)
+        xc, pad = _pad_nchw(x.permute(0, 3, 1, 2), self.kernel_size,
+                            self.strides, self.padding, 0.0)
+        y = F.conv2d(xc, w.contiguous(memory_format=torch.channels_last),
+                     stride=self.strides, padding=pad).permute(0, 2, 3, 1)
+        if self.use_bias:
+            y = y + self.bias.to(x.dtype)
+        return get_activation(self.activation)(y)
+
+    def get_config(self):
+        return {
+            "layer": "Conv2D",
+            "filters": self.filters,
+            "kernel_size": list(self.kernel_size),
+            "strides": list(self.strides),
+            "padding": self.padding,
+            "activation": self.activation,
+            "use_bias": self.use_bias,
+        }
+
+
+class _Pool2D(Layer):
+    def __init__(self, pool_size=2, strides=None, padding="VALID"):
+        super().__init__()
+        self.pool_size = _pair(pool_size)
+        self.strides = _pair(strides if strides is not None
+                             else self.pool_size)
+        self.padding = _check_padding(padding)
+
+    def init(self, gen, in_shape):
+        h, w, c = in_shape
+        return (*_window_out((h, w), self.pool_size, self.strides,
+                             self.padding), c)
+
+    def get_config(self):
+        return {
+            "layer": type(self).__name__,
+            "pool_size": list(self.pool_size),
+            "strides": list(self.strides),
+            "padding": self.padding,
+        }
+
+
+@register_layer
+class MaxPool2D(_Pool2D):
+    """Window max; ``SAME`` pads with -inf."""
+
+    def forward(self, x):
+        xc, pad = _pad_nchw(x.permute(0, 3, 1, 2), self.pool_size,
+                            self.strides, self.padding, float("-inf"))
+        return F.max_pool2d(xc, self.pool_size, self.strides,
+                            padding=pad).permute(0, 2, 3, 1)
+
+
+@register_layer
+class AvgPool2D(_Pool2D):
+    """Window sum over zero padding divided by the full window size (the
+    JAX layer's ``reduce_window`` sum / (ph * pw))."""
+
+    def forward(self, x):
+        xc, pad = _pad_nchw(x.permute(0, 3, 1, 2), self.pool_size,
+                            self.strides, self.padding, 0.0)
+        return F.avg_pool2d(xc, self.pool_size, self.strides, padding=pad,
+                            count_include_pad=True).permute(0, 2, 3, 1)
+
+
+@register_layer
+class GlobalAvgPool2D(Layer):
+    """(B, H, W, C) -> (B, C): mean over the spatial axes."""
+
+    def init(self, gen, in_shape):
+        return (in_shape[-1],)
+
+    def forward(self, x):
+        return x.mean(dim=(1, 2))
+
+
+@register_layer
+class Flatten(Layer):
+    """(B, ...) -> (B, prod(...)) in row-major order: (H, W, C) for NHWC
+    images, the order the JAX layer's reshape gives."""
+
+    def init(self, gen, in_shape):
+        size = 1
+        for d in in_shape:
+            size *= d
+        return (size,)
+
+    def forward(self, x):
+        return x.reshape(x.shape[0], -1)
+
+
 def _dropout(x, rate, seed):
     """Inverted dropout of ``x`` with its mask drawn from ``seed`` on x's
     device — the one copy, shared by ``Dropout`` and the residual dropout
@@ -182,6 +396,19 @@ class Dropout(Layer):
 
     def get_config(self):
         return {"layer": "Dropout", "rate": self.rate}
+
+
+@register_layer
+class Activation(Layer):
+    def __init__(self, activation):
+        super().__init__()
+        self.activation = activation
+
+    def forward(self, x):
+        return get_activation(self.activation)(x)
+
+    def get_config(self):
+        return {"layer": "Activation", "activation": self.activation}
 
 
 @register_layer
@@ -253,6 +480,18 @@ class LayerNorm(Layer):
                 "fused kernel is re-attached"
             )
         return {"layer": "LayerNorm", "epsilon": self.epsilon}
+
+
+@register_layer
+class GlobalAvgPool1D(Layer):
+    """(B, T, D) -> (B, D): mean over the sequence axis."""
+
+    def init(self, gen, in_shape):
+        t, d = in_shape
+        return (d,)
+
+    def forward(self, x):
+        return x.mean(dim=1)
 
 
 @register_layer
@@ -371,7 +610,7 @@ class TransformerBlock(Layer):
 
     def forward(self, x, rng=None):
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(self._forward, x, rng, use_reentrant=False)
+            return remat(self._forward, x, rng)
         return self._forward(x, rng)
 
     def _forward(self, x, rng):
@@ -396,4 +635,64 @@ class TransformerBlock(Layer):
             "causal": self.causal,
             "remat": self.remat,
             "dropout": self.dropout,
+        }
+
+
+@register_layer
+class BatchNorm(Layer):
+    """Batch normalization over every axis but the last (the channels).
+
+    ``gamma``/``beta`` are parameters; the moving statistics are the
+    buffers ``mean``/``var`` (f32). In training mode the layer normalizes
+    with the batch's statistics, taken in f32 (the biased variance), and
+    updates the buffers in place, without gradient: ``new = momentum * old
+    + (1 - momentum) * batch`` — once per forward, never in a ``remat``
+    replay. In eval mode it normalizes with the buffers. The normalization
+    runs in the input's dtype."""
+
+    def __init__(self, momentum=0.99, epsilon=1e-5, scale=True, center=True):
+        super().__init__()
+        self.momentum = float(momentum)
+        self.epsilon = float(epsilon)
+        self.scale = bool(scale)
+        self.center = bool(center)
+
+    def init(self, gen, in_shape):
+        c = in_shape[-1]
+        if self.scale:
+            self.gamma = _param(torch.ones(c))
+        if self.center:
+            self.beta = _param(torch.zeros(c))
+        self.register_buffer("mean", torch.zeros(c))
+        self.register_buffer("var", torch.ones(c))
+        return in_shape
+
+    def forward(self, x):
+        if self.training:
+            axes = tuple(range(x.ndim - 1))
+            x32 = x.float()
+            mean = x32.mean(dim=axes)
+            var = (x32 - mean).square().mean(dim=axes)
+            if not recomputing():
+                m = self.momentum
+                with torch.no_grad():
+                    self.mean.copy_(m * self.mean + (1 - m) * mean)
+                    self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        inv = torch.rsqrt(var + self.epsilon)
+        y = (x - mean.to(x.dtype)) * inv.to(x.dtype)
+        if self.scale:
+            y = y * self.gamma.to(x.dtype)
+        if self.center:
+            y = y + self.beta.to(x.dtype)
+        return y
+
+    def get_config(self):
+        return {
+            "layer": "BatchNorm",
+            "momentum": self.momentum,
+            "epsilon": self.epsilon,
+            "scale": self.scale,
+            "center": self.center,
         }

@@ -1,4 +1,5 @@
-"""Sequential model container (PyTorch port of ``distkeras_tpu.models.sequential``).
+"""Sequential model container and the ``Residual`` block (PyTorch port of
+``distkeras_tpu.models.sequential``).
 
 A ``Sequential`` is an ``nn.Module`` over a layer list; its children are
 named ``"0".."N"`` like the JAX params tree, so ``state_dict()`` keys read
@@ -10,7 +11,8 @@ weights through ``utils.convert.params_from_jax`` to compare the two).
 A built model starts in eval mode (what serving runs); ``train()`` /
 ``eval()`` — ``nn.Module``'s switch — select training mode, in which
 ``forward(x, rng=seed)`` hands each random-drawing layer its own seed.
-``copy()`` is an independent model with the same weights and hooks;
+``copy()`` is an independent model with the same weights, buffers and
+hooks;
 ``get_weights``/``set_weights`` move flat numpy lists in the JAX
 package's leaf order (its dicts flatten with sorted keys).
 """
@@ -23,9 +25,69 @@ import numpy as np
 import torch
 from torch import nn
 
-from distkeras_tpu_torch.models.layers import Layer, layer_from_config
+from distkeras_tpu_torch.models.layers import (
+    Layer,
+    get_activation,
+    layer_from_config,
+    register_layer,
+)
 from distkeras_tpu_torch.utils.device import resolve_device
 from distkeras_tpu_torch.utils.rng import split_seed
+
+
+@register_layer
+class Residual(Layer):
+    """y = act(main(x) + shortcut(x)); the shortcut defaults to the
+    identity. The branches' layers are the children ``main_{i}`` and
+    ``short_{i}``, so parameter and buffer names are the JAX tree's."""
+
+    def __init__(self, layers, shortcut=None, activation="relu"):
+        super().__init__()
+        self.layers = [l if isinstance(l, Layer) else layer_from_config(l)
+                       for l in layers]
+        self.shortcut = [l if isinstance(l, Layer) else layer_from_config(l)
+                         for l in (shortcut or [])]
+        self.activation = activation
+        for i, layer in enumerate(self.layers):
+            self.add_module(f"main_{i}", layer)
+        for i, layer in enumerate(self.shortcut):
+            self.add_module(f"short_{i}", layer)
+        self.uses_train_rng = any(l.uses_train_rng for l in self.sublayers())
+
+    def init(self, gen, in_shape):
+        shape = in_shape
+        for layer in self.layers:
+            shape = layer.init(gen, shape)
+        sshape = in_shape
+        for layer in self.shortcut:
+            sshape = layer.init(gen, sshape)
+        if tuple(sshape) != tuple(shape):
+            raise ValueError(
+                f"Residual branch shapes differ: main {tuple(shape)} vs "
+                f"shortcut {tuple(sshape)}"
+            )
+        return shape
+
+    def forward(self, x, rng=None):
+        n = len(self.layers) + len(self.shortcut)
+        rngs = split_seed(rng, n) if rng is not None else [None] * n
+        y, s = x, x
+        for layer, r in zip(self.layers, rngs):
+            y = layer(y, rng=r) if layer.uses_train_rng else layer(y)
+        for layer, r in zip(self.shortcut, rngs[len(self.layers):]):
+            s = layer(s, rng=r) if layer.uses_train_rng else layer(s)
+        return get_activation(self.activation)(y + s)
+
+    def get_config(self):
+        return {
+            "layer": "Residual",
+            "layers": [l.get_config() for l in self.layers],
+            "shortcut": [l.get_config() for l in self.shortcut],
+            "activation": self.activation,
+        }
+
+    def sublayers(self):
+        return list(self.layers) + list(self.shortcut)
 
 
 def walk_layers(model_or_layers):
@@ -80,7 +142,7 @@ class Sequential(nn.Module):
 
     def copy(self) -> "Sequential":
         """An independent model: same layers, hooks and mode, its own
-        parameter buffers."""
+        parameters and buffers."""
         return copy.deepcopy(self)
 
     def _leaf_order(self):

@@ -33,9 +33,9 @@ import time
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from distkeras_tpu_torch.data.prefetch import Prefetcher
+from distkeras_tpu_torch.models.layers import remat
 from distkeras_tpu_torch.models.sequential import walk_layers
 from distkeras_tpu_torch.ops.losses import get_loss
 from distkeras_tpu_torch.ops.metrics import get_metric
@@ -66,10 +66,13 @@ class WorkerCore:
         self.loss_fn = get_loss(loss)
         self.metric_names = list(metrics)
         self.metric_fns = [get_metric(m) for m in metrics]
-        self.compute_dtype = compute_dtype
+        # the dtype the input is cast to ("bfloat16", torch.bfloat16, ...);
+        # every layer casts its weights to the input's dtype
+        self.compute_dtype = _resolve_dtype(compute_dtype)
         # rematerialize the whole forward in the backward (the JAX core's
         # jax.checkpoint around train_fwd): activations are recomputed
-        # instead of kept, at ~1/3 extra FLOPs
+        # instead of kept, at ~1/3 extra FLOPs; BatchNorm updates its
+        # moving statistics in the first forward only
         self.remat = bool(remat)
         # gradient accumulation: each optimizer step runs its batch as
         # accum_steps sequential microbatches, averaging the gradients
@@ -83,7 +86,7 @@ class WorkerCore:
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
         if self.remat:
-            y_pred = checkpoint(model, x, seed, use_reentrant=False)
+            y_pred = remat(model, x, seed)
         else:
             y_pred = model(x, rng=seed)
         y_pred = y_pred.float()
@@ -208,6 +211,17 @@ class WorkerCore:
         finally:
             model.train(was_training)
         return mets
+
+
+def _resolve_dtype(dtype):
+    """A compute dtype given by name (as the JAX package takes it) or as a
+    ``torch.dtype``; None stays None."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    resolved = getattr(torch, str(dtype), None)
+    if not isinstance(resolved, torch.dtype):
+        raise ValueError(f"unknown compute dtype {dtype!r}")
+    return resolved
 
 
 def _collect_aux_losses(model):
@@ -474,9 +488,10 @@ class AsyncWorker:
         """Restart this worker's training after a failure, from scratch:
         the commit sequence restarts at 0, so the PS deduplicates the
         re-run's commits up to the last one it absorbed — a retry cannot
-        double-apply work. The replica keeps its buffers (re-adopting the
-        center at the next pull), so the fused optimizers' tables stay
-        valid; the optimizer state starts anew."""
+        double-apply work. The replica keeps its parameter buffers
+        (re-adopting the center at the next pull), so the fused optimizers'
+        tables stay valid; the optimizer state and the moving statistics
+        start anew."""
         self.records = []
         self.timings = []
         self.splits = []
@@ -485,6 +500,8 @@ class AsyncWorker:
         self._seq = 0
         self._opt_state = None
         self._adopted = False
+        if self._model is not None:
+            self._reset_buffers()
 
     # -- algorithm hooks ----------------------------------------------------
 
@@ -510,6 +527,14 @@ class AsyncWorker:
             self._leaf_order = self._model._leaf_order()
         if self._opt_state is None:
             self._opt_state = self.core.init_opt_state(self._params)
+
+    def _reset_buffers(self):
+        """The replica's buffers (moving statistics) := the caller's
+        model's, in place: the state a JAX worker starts from."""
+        with torch.no_grad():
+            for b, src in zip(self._model.buffers(),
+                              self.core.model.buffers(), strict=True):
+                b.copy_(src)
 
     def _load_center(self):
         """The replica's parameters := the pulled center, in place."""
@@ -585,6 +610,7 @@ class AsyncWorker:
         _metrics_to_records(out[1])  # waits for the window
         with torch.no_grad():
             _zero_state(self._opt_state)
+        self._reset_buffers()
         self._adopted = False
 
     def stage_resident(self, dataset):

@@ -570,3 +570,53 @@ def test_sgd_launcher_argtypes_match_the_source():
     assert "__fsub_rn(p, __fmul_rn(lr, g))" in text
     assert "__float2bfloat16_rn" in text
     assert "_sgd_kernel" in text and "_sgd_momentum_kernel" in text
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model,opt", [
+    ("resnet18", "adam"), ("resnet18", "sgd"),
+    ("cifar10_cnn", "adam"), ("cifar10_cnn", "sgd")])
+def test_fused_optimizers_on_conv_gradients_on_card(cuda_device, model, opt):
+    """B3/B1 over a CNN's parameter set whose gradients came through
+    ``Conv2D`` in bf16 (``resnet18`` at (64, 64, 3), 62 leaves;
+    ``cifar10_cnn``, 16 leaves): every gradient arrives contiguous (the
+    HWIO kernels' too, which the convolution reads through a permuted
+    view), the kernel launches once and its result is bit-equal to the
+    plain version's, over two steps."""
+    from distkeras_tpu_torch.models import zoo
+    from distkeras_tpu_torch.ops.losses import get_loss
+
+    kw = {"resnet18": dict(num_classes=10, input_shape=(64, 64, 3)),
+          "cifar10_cnn": {}}[model]
+    net = getattr(zoo, model)(device=cuda_device, **kw).train()
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.rand((8, *net.input_shape), device=cuda_device, generator=gen)
+    y = torch.eye(10, device=cuda_device)[torch.arange(8) % 10]
+    params = [p.detach().clone() for p in net.parameters()]
+    kernels.reset_launch_counts()
+    steps = []
+    for _ in range(2):
+        loss = get_loss("categorical_crossentropy")(
+            net(x.to(torch.bfloat16), rng=0).float(), y)
+        grads = torch.autograd.grad(loss, list(net.parameters()))
+        assert all(g.is_contiguous() for g in grads)
+        steps.append(grads)
+    assert kernels.launch_counts() == ZERO_COUNTS
+    fused = tpk.FusedAdam(1e-3) if opt == "adam" else tpk.FusedSGD(0.05)
+    kp = [p.clone() for p in params]
+    state = fused.init(kp)
+    rp = [p.clone() for p in params]
+    rstate = fused.init(rp)
+    for grads in steps:
+        fused.fused_apply(kp, grads, state)
+        if opt == "adam":
+            tpk.adam_step_plain(rp, grads, *rstate, 1e-3, 0.9, 0.999, 1e-8)
+        else:
+            tpk.sgd_step_plain(rp, grads, 0.05)
+    name = "adam_fused" if opt == "adam" else "sgd_fused"
+    assert kernels.launch_counts() == {**ZERO_COUNTS, name: 2}
+    assert fused._tables.builds == 1
+    kept = list(state[0]) + list(state[1]) if opt == "adam" else []
+    ref = list(rstate[0]) + list(rstate[1]) if opt == "adam" else []
+    for a, b in zip(kp + kept, rp + ref, strict=True):
+        assert torch.equal(a, b)
