@@ -108,6 +108,27 @@ Phases, each fatal on failure (exit code 1, no result line):
    print its distance. Prints samples/s, the window split and the
    held-out accuracy (``AccuracyEvaluator``) per config.
 
+8. Checkpoint and resume. 8a: phase 5's trainer over two epochs, run
+   twice uninterrupted (is the card path deterministic?), then one epoch
+   with ``checkpoint_dir`` and, in a new trainer with ``metrics_path``
+   and ``profile_dir``, resumed to epoch 2. The resumed parameters must
+   equal the uninterrupted runs' bit for bit when those two are
+   bit-identical (else stay within their own distance, and the ops
+   PyTorch flags as nondeterministic are named); the resumed epoch must
+   launch exactly 17 x (17, 17, 8, 8, 8, 1) of (LN forward, LN backward,
+   flash forward, dQ, dK/dV, Adam); the JSONL must hold its
+   ``train_end`` row and the profiler trace must name those six
+   kernels. Prints the checkpoint's bytes and the save and restore
+   seconds. 8b: configs 3 (AEASGD/``higgs_mlp``, ``pallas_sgd``) and 5
+   (DynSGD/``resnet18``, ``pallas_adam``) as in phase 7, one epoch with
+   ``checkpoint_dir``, then resumed to two epochs on the kernel path and,
+   from a copy of the checkpoint, on the plain path: the center, the
+   replicas and the BatchNorm buffers round-trip the checkpoint bit for
+   bit, exactly twice the first epoch's commits with no duplicate, every
+   worker restored with a commit seq > 0, DynSGD's version restored, one
+   B1/B3 launch per step on the kernel path and none on the plain path,
+   kernel and plain resumes within phase 7's bars.
+
 ``--profile`` adds where the time goes: a decode step, a predict forward,
 a training step, an async window and a config-5 DynSGD/``resnet18``
 window (host wall, device time by category, idle share, top kernels).
@@ -1468,24 +1489,32 @@ def plain_adam(lr):
     return PlainFusedAdam(lr)
 
 
+def baseline_trainer(cfg, optimizer, num_epoch=1, device=None, **kw):
+    """One config's trainer on a fresh model (seed 0): window 4, simulated
+    mode, ``num_epoch`` epochs; ``kw`` adds trainer options."""
+    import distkeras_tpu_torch as dk
+    from distkeras_tpu_torch.models import zoo
+
+    name, model_kw = cfg["model"]
+    model = getattr(zoo, name)(seed=0, device=device, **model_kw)
+    return getattr(dk, cfg["trainer"])(
+        model, optimizer, "categorical_crossentropy",
+        learning_rate=cfg["lr"], batch_size=cfg["batch"],
+        num_epoch=num_epoch, num_workers=cfg["workers"],
+        communication_window=4, mode="simulated", label_col="label_onehot",
+        compute_dtype=cfg["dtype"], seed=0, device=device, **cfg["extra"],
+        **kw,
+    )
+
+
 def train_baseline(torch, cfg, optimizer, train):
     """One config's trainer on a fresh model (seed 0) over one shuffled
     epoch; the launch counts are set to 0 just before ``train`` and read
     just after. Returns the trainer, the result model, the seconds and
     the counts."""
-    import distkeras_tpu_torch as dk
     from distkeras_tpu_torch import kernels
-    from distkeras_tpu_torch.models import zoo
 
-    name, kw = cfg["model"]
-    model = getattr(zoo, name)(seed=0, **kw)
-    trainer = getattr(dk, cfg["trainer"])(
-        model, optimizer, "categorical_crossentropy",
-        learning_rate=cfg["lr"], batch_size=cfg["batch"], num_epoch=1,
-        num_workers=cfg["workers"], communication_window=4,
-        mode="simulated", label_col="label_onehot",
-        compute_dtype=cfg["dtype"], seed=0, **cfg["extra"],
-    )
+    trainer = baseline_trainer(cfg, optimizer)
     kernels.reset_launch_counts()
     t0 = time.monotonic()
     result = trainer.train(train, shuffle=True)
@@ -1651,6 +1680,338 @@ def run_baseline(torch, np, smi):
     finally:
         (torch.backends.cudnn.deterministic,
          torch.backends.cudnn.benchmark) = saved
+    return out, launches
+
+
+# ------------------------------------------------------------------ phase 8
+
+
+#: what each of the resumed LM epoch's kernels is called in a profiler
+#: trace (its ``__global__`` function)
+TRACE_KERNELS = {"layernorm_fwd": "ln_fwd_", "layernorm_bwd": "ln_bwd_",
+                 "flash_fwd": "flash_fwd_kernel",
+                 "flash_bwd_dq": "flash_bwd_dq_kernel",
+                 "flash_bwd_dkv": "flash_bwd_dkv_kernel",
+                 "adam_fused": "adam_fused_kernel"}
+LM_STEP_LAUNCHES = {"layernorm_fwd": 17, "layernorm_bwd": 17, "flash_fwd": 8,
+                    "flash_bwd_dq": 8, "flash_bwd_dkv": 8, "adam_fused": 1}
+RESUME_CONFIGS = (3, 5)  # phase 8b: AEASGD/higgs_mlp, DynSGD/resnet18
+
+
+def lm_trainer(zoo, num_epoch, make=None, device=None, **kw):
+    """Phase 5's trainer (``pallas_adam``, batch 8, window 4, lr 1e-3,
+    seed 0, device-resident) over ``num_epoch`` epochs, on a fresh
+    d512/L8 model (``make(zoo)``) with the flash and LayerNorm hooks."""
+    from distkeras_tpu_torch.ops.flash_attention import attach_flash_attention
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+    from distkeras_tpu_torch.trainers import SingleTrainer
+
+    lm = (make or make_lm)(zoo)
+    attach_flash_attention(lm)
+    attach_fused_layernorm(lm)
+    return SingleTrainer(
+        lm, "pallas_adam", "next_token_crossentropy",
+        metrics=["next_token_accuracy"], batch_size=8, window=4,
+        learning_rate=1e-3, seed=0, device_resident=True,
+        num_epoch=num_epoch, device=device, **kw,
+    )
+
+
+def state_copy(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def max_distance(a, b):
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a.values(), b.values()))
+
+
+def timed(record, fn):
+    """``fn`` with the seconds of each call appended to ``record``."""
+    def call(*args, **kwargs):
+        t0 = time.monotonic()
+        out = fn(*args, **kwargs)
+        record.append(time.monotonic() - t0)
+        return out
+    return call
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def nondeterministic_ops(torch, trainer, ds):
+    """The ops PyTorch itself flags as nondeterministic on one epoch of
+    ``trainer`` (``use_deterministic_algorithms(warn_only=True)``)."""
+    import warnings
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            trainer.train(ds, shuffle=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(" does not have")[0]
+                   for w in caught if "deterministic" in str(w.message)})
+
+
+def trace_kernel_names(prof_dir):
+    """The device kernels named in the Chrome trace(s) under ``prof_dir``."""
+    names = set()
+    for name in os.listdir(prof_dir):
+        with open(os.path.join(prof_dir, name)) as f:
+            events = json.load(f)["traceEvents"]
+        names.update(e.get("name", "") for e in events
+                     if str(e.get("cat", "")).lower() == "kernel")
+    return names
+
+
+def sync(torch):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def run_resume_lm(torch, np, zoo, ds, make=None, device=None):
+    """Phase 8a: the LM trainer checkpointed after epoch 1 and resumed to
+    epoch 2 in a new trainer (with ``metrics_path`` and ``profile_dir``),
+    against two uninterrupted 2-epoch runs."""
+    import shutil
+    import tempfile
+
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.utils.checkpoint import Checkpointer
+    from distkeras_tpu_torch.utils.profiling import read_metrics
+
+    steps = len(ds) // 8
+    tmp = tempfile.mkdtemp(prefix="dkt_resume_lm_")
+    try:
+        full = []
+        for _ in range(2):
+            result = lm_trainer(zoo, 2, make, device).train(ds, shuffle=True)
+            full.append(state_copy(result))
+            del result
+        runs_distance = max_distance(full[0], full[1])
+        ck = os.path.join(tmp, "ck")
+        first = lm_trainer(zoo, 1, make, device, checkpoint_dir=ck)
+        save_s = []
+        first.checkpointer.save = timed(save_s, first.checkpointer.save)
+        first.train(ds, shuffle=True)
+        sync(torch)
+        ck_bytes = dir_bytes(ck)
+        del first
+        metrics, prof = os.path.join(tmp, "m.jsonl"), os.path.join(tmp, "prof")
+        resumed = lm_trainer(zoo, 2, make, device, checkpoint_dir=ck,
+                             metrics_path=metrics, profile_dir=prof)
+        restore_s = []
+        resumed._restore_latest = timed(restore_s, resumed._restore_latest)
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        result = resumed.train(ds, shuffle=True, resume=True)
+        sync(torch)
+        secs = time.monotonic() - t0
+        counts = kernels.launch_counts()
+        got = state_copy(result)
+        rows = read_metrics(metrics)
+        traced = trace_kernel_names(prof) if device is None else None
+        steps_ck = Checkpointer(ck).all_steps()
+        hist = resumed.get_history()
+        del result, resumed
+        res = {
+            "runs_distance": runs_distance,
+            "resumed_distance": [max_distance(got, f) for f in full],
+            "checkpoint_bytes": ck_bytes, "save_seconds": save_s,
+            "restore_seconds": restore_s, "resumed_seconds": secs,
+            "resumed_steps": len(hist), "checkpoint_steps": steps_ck,
+            "launches": counts, "metrics_rows": [r["event"] for r in rows],
+        }
+        if runs_distance > 0:
+            res["nondeterministic_ops"] = nondeterministic_ops(
+                torch, lm_trainer(zoo, 1, make, device), ds)
+        del full, got
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"resume lm: {res}")
+    expected = {k: steps * n for k, n in LM_STEP_LAUNCHES.items()}
+    launched = {k: n for k, n in counts.items() if n}
+    check(res["resumed_steps"] == steps,
+          f"the resumed run trained {res['resumed_steps']} steps, not {steps}")
+    if runs_distance == 0:
+        check(res["resumed_distance"] == [0.0, 0.0],
+              "the resumed run is not bit-identical to the uninterrupted "
+              f"ones: {res['resumed_distance']}")
+    else:
+        check(max(res["resumed_distance"]) <= runs_distance,
+              f"the resumed run is {res['resumed_distance']} from the "
+              f"uninterrupted ones, which are {runs_distance} apart "
+              f"(nondeterministic: {res['nondeterministic_ops']})")
+    check(launched == expected,
+          f"the resumed epoch did not run through the kernels: {launched} "
+          f"!= {expected}")
+    check(res["metrics_rows"] == ["train_end"]
+          and rows[0]["num_updates"] == steps,
+          f"metrics rows: {res['metrics_rows']}")
+    check(steps_ck == [1, 2], f"checkpoints {steps_ck}")
+    if traced is not None:
+        missing = [k for k, sub in TRACE_KERNELS.items()
+                   if not any(sub in n for n in traced)]
+        check(not missing, f"the profiler trace does not name {missing}")
+    return res
+
+
+def run_resume_baseline(torch, np, cfg, train, device=None):
+    """Phase 8b for one BASELINE config: one epoch on the kernel path with
+    ``checkpoint_dir``, then resumed to two epochs on the kernel path and,
+    from a copy of the same checkpoint, on the plain path."""
+    import shutil
+    import tempfile
+
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.utils.checkpoint import Checkpointer
+
+    opt = cfg["optimizer"]
+    kname = {"adam": "adam_fused", "sgd": "sgd_fused"}[opt]
+    plain = plain_adam(cfg["lr"]) if opt == "adam" else "sgd"
+    tag = f"resume config {cfg['id']}"
+    tmp = tempfile.mkdtemp(prefix="dkt_resume_cfg_")
+    try:
+        ck = os.path.join(tmp, "ck")
+        first = baseline_trainer(cfg, f"pallas_{opt}", 1, device,
+                                 checkpoint_dir=ck)
+        save_s = []
+        first.checkpointer.save = timed(save_s, first.checkpointer.save)
+        kernels.reset_launch_counts()
+        first.train(train, shuffle=True)
+        sync(torch)
+        first_counts = kernels.launch_counts()
+        ck_bytes = dir_bytes(ck)
+        ps = first.parameter_server
+        n1, steps1 = ps.num_updates, len(first.get_history())
+        # the checkpoint holds the first run's end state, bit for bit
+        _, trees, meta = Checkpointer(ck).restore()
+        center = ps.get_params()
+        center_equal = all(np.array_equal(trees["center"][n], center[n])
+                           for n in center)
+        replicas_equal = buffers_equal = True
+        for w in first.workers:
+            snap = trees["workers"][str(w.worker_id)]
+            replicas_equal &= int(snap["seq"]) == w._seq and all(
+                np.array_equal(snap["params"][n], p.detach().cpu().numpy())
+                for n, p in zip(w._names, w._params))
+            buffers_equal &= all(
+                np.array_equal(snap["state"][n], b.detach().cpu().numpy())
+                for n, b in w._model.named_buffers())
+        n_buffers = len(dict(first.workers[0]._model.named_buffers()))
+        saved_version = meta["ps_meta"].get("version")
+        del first, ps, trees
+        shutil.copytree(ck, os.path.join(tmp, "ck_plain"))
+        runs = {}
+        for path, optimizer, d in (("kernel", f"pallas_{opt}", ck),
+                                   ("plain", plain,
+                                    os.path.join(tmp, "ck_plain"))):
+            t = baseline_trainer(cfg, optimizer, 2, device, checkpoint_dir=d)
+            restore_s = []
+            t._restore_latest = timed(restore_s, t._restore_latest)
+            kernels.reset_launch_counts()
+            t0 = time.monotonic()
+            result = t.train(train, shuffle=True, resume=True)
+            sync(torch)
+            secs = time.monotonic() - t0
+            ps = t.parameter_server
+            runs[path] = {
+                "counts": kernels.launch_counts(), "seconds": secs,
+                "restore_seconds": restore_s,
+                "losses": [r["loss"] for r in t.get_history()],
+                "num_updates": ps.num_updates,
+                "num_duplicates": ps.num_duplicates,
+                "version": ps._meta.get("version"),
+                "start_seqs": [w._start_seq for w in t.workers],
+                "restored": all(w._restore_point is not None
+                                for w in t.workers),
+                "failures": t.failures, "center": ps.get_params(),
+                "buffers": {n: b.detach().cpu().numpy()
+                            for n, b in result.named_buffers()},
+            }
+            del t, result, ps
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    k, p = runs["kernel"], runs["plain"]
+    rel, cen, st = run_distance(np, k, p)
+    res = {
+        "trainer": cfg["trainer"], "model": cfg["model"][0],
+        "first_updates": n1, "first_steps": steps1,
+        "checkpoint_bytes": ck_bytes, "save_seconds": save_s,
+        "first_launches": {c: n for c, n in first_counts.items() if n},
+        "center_roundtrip_bit_equal": center_equal,
+        "replicas_roundtrip_bit_equal": replicas_equal,
+        "buffers_roundtrip_bit_equal": buffers_equal, "buffers": n_buffers,
+        "saved_version": saved_version,
+        **{f"{path}_{key}": r[key] for path, r in runs.items()
+           for key in ("num_updates", "num_duplicates", "version",
+                       "start_seqs", "restored", "seconds",
+                       "restore_seconds")},
+        "resumed_steps": len(k["losses"]),
+        "launches": {c: n for c, n in k["counts"].items() if n},
+        "plain_launches": {c: n for c, n in p["counts"].items() if n},
+        "max_rel_loss_diff": rel, "center_max_abs_err": cen,
+        "buffers_max_abs_err": st,
+    }
+    log(f"{tag}: {res}")
+    check(first_counts == {**{c: 0 for c in first_counts}, kname: steps1},
+          f"{tag}: the first epoch did not launch {kname} once per step")
+    check(center_equal and replicas_equal and buffers_equal,
+          f"{tag}: the checkpoint does not round-trip bit for bit")
+    for path, r in runs.items():
+        check(r["num_updates"] == 2 * n1 and r["num_duplicates"] == 0,
+              f"{tag} ({path}): {r['num_updates']} updates after the "
+              f"resume, not exactly twice {n1}")
+        check(r["restored"] and all(s > 0 for s in r["start_seqs"]),
+              f"{tag} ({path}): workers not restored: {r['start_seqs']}")
+        check(r["failures"] == [], f"{tag} ({path}): {r['failures']}")
+        if cfg["trainer"] == "DynSGD":
+            check(saved_version == n1 and r["version"] == 2 * n1,
+                  f"{tag} ({path}): DynSGD version {saved_version} -> "
+                  f"{r['version']}, not {n1} -> {2 * n1}")
+    check(len(k["losses"]) == len(p["losses"]) > 0,
+          f"{tag}: resumed step counts differ")
+    check(res["launches"] == {kname: len(k["losses"])},
+          f"{tag}: the resumed kernel path did not launch {kname} once per "
+          f"step: {res['launches']}")
+    check(res["plain_launches"] == {},
+          f"{tag}: the plain path launched {res['plain_launches']}")
+    check(rel <= BASELINE_LOSS_RTOL and cen <= BASELINE_CENTER_TOL
+          and st <= BASELINE_STATE_TOL,
+          f"{tag}: kernel and plain resumes differ: losses {rel}, center "
+          f"{cen}, buffers {st}")
+    return res
+
+
+def run_resume(torch, np, zoo, ds):
+    """Phase 8: 8a (the LM) and 8b (configs 3 and 5, cuDNN
+    deterministic); returns the results and the launches of the resumed
+    runs on the kernel path."""
+    lm = run_resume_lm(torch, np, zoo, ds)
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = {"lm": lm}
+    try:
+        for cfg in BASELINE:
+            if cfg["id"] in RESUME_CONFIGS:
+                train, _, _ = baseline_data(cfg["data"])
+                out[f"config{cfg['id']}"] = run_resume_baseline(
+                    torch, np, cfg, train)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+    launches = {}
+    for r in out.values():
+        for c, n in r["launches"].items():
+            launches[c] = launches.get(c, 0) + n
     return out, launches
 
 
@@ -2052,10 +2413,17 @@ def main(argv):
     t7 = time.monotonic()
     baseline, baseline_launches = run_baseline(torch, np, smi)
     log(f"baseline configs 2-5 in {time.monotonic() - t7:.1f} s")
+    t8 = time.monotonic()
+    resume, resume_launches = run_resume(torch, np, zoo, ds)
+    lm_resume = resume["lm"]
+    log(f"resume: LM checkpoint {lm_resume['checkpoint_bytes']} bytes, "
+        f"save {lm_resume['save_seconds']} s, restore "
+        f"{lm_resume['restore_seconds']} s on {smi}; phase 8 in "
+        f"{time.monotonic() - t8:.1f} s")
     profile = profile_paths(torch, np, lm, zoo) if args.profile else None
 
     phases = [pred["launches"], gen["launches"], train["launches"],
-              async_thr["launches"], baseline_launches,
+              async_thr["launches"], baseline_launches, resume_launches,
               *(r["launches"] for r in async_sim.values())]
     launches = {k: sum(c.get(k, 0) for c in phases) for k in kernels.LAUNCHES}
     check(all(n > 0 for n in launches.values()),
@@ -2119,6 +2487,7 @@ def main(argv):
                        "generate": gen, "train": train,
                        "async_simulated": async_sim,
                        "async_threads": async_thr, "baseline": baseline,
+                       "resume": resume,
                        "profile": profile,
                        "flash_infinite_q": inf_rows},
                       f, indent=1)

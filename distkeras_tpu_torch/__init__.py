@@ -21,7 +21,11 @@ numpy feature transformers (``data.transformers``) and the evaluators;
 and the CNN and tabular model zoo — ``Conv2D``, the pools, ``Flatten``,
 ``BatchNorm``, ``Residual`` and the ``mnist_cnn``/``higgs_mlp``/
 ``cifar10_cnn``/``resnet18``/MLP/transformer-classifier models
-(``models``), with the weight and state bridge (``utils.convert``).
+(``models``), with the weight and state bridge (``utils.convert``); and
+checkpoint/resume (``utils.checkpoint`` over the pickle-free codec of
+``utils.serialization``), the JSONL metrics sink and the profiler trace
+(``utils.profiling``), the whole optimizer table and the named
+learning-rate schedules (``ops.optimizers``).
 Kernels (``kernels/csrc``): LayerNorm forward and backward,
 FlashAttention forward and backward (dQ, dK/dV), the fused multi-tensor
 Adam, and the fused multi-tensor SGD without and with momentum.
@@ -66,7 +70,7 @@ from distkeras_tpu_torch.ops.fused_layernorm import (
 )
 from distkeras_tpu_torch.ops.losses import get_loss
 from distkeras_tpu_torch.ops.metrics import get_metric
-from distkeras_tpu_torch.ops.optimizers import get_optimizer
+from distkeras_tpu_torch.ops.optimizers import get_optimizer, get_schedule
 from distkeras_tpu_torch.ops.pallas_kernels import FusedAdam, FusedSGD
 from distkeras_tpu_torch.parameter_servers import (
     ADAGParameterServer,
@@ -91,8 +95,14 @@ from distkeras_tpu_torch.trainers import (
     SingleTrainer,
     Trainer,
 )
-from distkeras_tpu_torch.utils.convert import params_from_jax, state_from_jax
+from distkeras_tpu_torch.utils.checkpoint import Checkpointer
+from distkeras_tpu_torch.utils.convert import (
+    opt_state_from_jax,
+    params_from_jax,
+    state_from_jax,
+)
 from distkeras_tpu_torch.utils.history import TrainingHistory
+from distkeras_tpu_torch.utils.profiling import MetricsLogger
 from distkeras_tpu_torch.workers import SingleTrainerWorker, WorkerCore
 
 __all__ = [
@@ -104,6 +114,7 @@ __all__ = [
     "BatchNorm",
     "AvgPool2D",
     "CachedSequenceGenerator",
+    "Checkpointer",
     "Conv2D",
     "Dataset",
     "DOWNPOUR",
@@ -126,6 +137,7 @@ __all__ = [
     "LayerNorm",
     "LossEvaluator",
     "MaxPool2D",
+    "MetricsLogger",
     "MinMaxTransformer",
     "ModelPredictor",
     "MultiHeadSelfAttention",
@@ -151,7 +163,9 @@ __all__ = [
     "get_loss",
     "get_metric",
     "get_optimizer",
+    "get_schedule",
     "loaders",
+    "opt_state_from_jax",
     "params_from_jax",
     "state_from_jax",
     "zoo",

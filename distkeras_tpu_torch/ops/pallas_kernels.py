@@ -31,6 +31,8 @@ import numpy as np
 import torch
 
 from distkeras_tpu_torch import kernels
+from distkeras_tpu_torch.ops.optimizers import StateIO
+from distkeras_tpu_torch.utils.tree import copy_tree_
 
 #: elements per chunk of the multi-tensor tables (a multiple of 4: float4)
 CHUNK = 4096
@@ -194,7 +196,7 @@ def sgd_momentum_fused(params, grads, ms, lr, mu, nesterov, tables):
             table.grid, float(lr), float(mu), int(bool(nesterov)), code)
 
 
-class FusedSGD:
+class FusedSGD(StateIO):
     """Fused-apply SGD, kernels B1 (momentum 0) and B2 (momentum > 0, plain
     or Nesterov): the update and the parameter write in one pass.
 
@@ -288,7 +290,7 @@ def adam_fused(params, grads, ms, vs, step, lr, b1, b2, eps, tables):
             float(1.0 - b2), float(eps), step.data_ptr(), code)
 
 
-class FusedAdam:
+class FusedAdam(StateIO):
     """Fused-apply Adam: moments, bias correction, and the parameter write
     in one pass; numerically matches ``optax.adam`` (the JAX package's
     ``FusedAdam``).
@@ -296,7 +298,9 @@ class FusedAdam:
     State is ``(m_list, v_list, step)``: f32 moments shaped like the
     parameters, and ``step`` an int32 device tensor ``[count, 0]`` — the
     optax step counter (first apply uses t = 1) and the kernel's scratch
-    counter of arrived blocks, which is 0 between launches.
+    counter of arrived blocks, which is 0 between launches. A checkpoint
+    holds the JAX ``FusedAdam``'s ``(m, v, count)``: the scalar count,
+    without the scratch counter.
     """
 
     def __init__(self, learning_rate=1e-3, b1=0.9, b2=0.999, eps=1e-8):
@@ -321,6 +325,20 @@ class FusedAdam:
             [z.clone() for z in zeros],
             torch.zeros(2, dtype=torch.int32, device=params[0].device),
         )
+
+    def export_state(self, state):
+        ms, vs, step = state
+        return ms, vs, step[0]
+
+    def load_state(self, state, saved):
+        """Copy a saved ``(m, v, count)`` into the live buffers (the ones
+        the kernel's tables point at), the scratch counter set to 0."""
+        ms, vs, step = state
+        m_saved, v_saved, count = saved
+        copy_tree_((ms, vs), (m_saved, v_saved))
+        with torch.no_grad():
+            step.copy_(torch.tensor([int(count), 0], dtype=torch.int32))
+        return state
 
     def fused_apply(self, params, grads, state):
         """Update ``params`` in place from ``grads``; returns (params,

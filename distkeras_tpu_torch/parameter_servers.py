@@ -15,10 +15,9 @@ section (worker-snapshot custody).
 
 Not ported yet, and refused where a caller would reach them: the socket
 tier and warm-standby replication (``SocketParameterServer``,
-``RemoteParameterServerClient``, ``networking.py``,
-``utils/serialization.py``), compressed pulls (``utils/compression.py``),
-the metrics registry, time-series history and flight recorder
-(``obs/*``), and the chaos seams (``faults.py``).
+``RemoteParameterServerClient``, ``networking.py``), compressed pulls
+(``utils/compression.py``), the metrics registry, time-series history
+and flight recorder (``obs/*``), and the chaos seams (``faults.py``).
 
 Every commit rule is also a pure function
 (``center', meta' = RULE(center, meta, delta, tag)``), so tests can hold
@@ -262,8 +261,7 @@ class ParameterServer:
     # -- not ported yet -----------------------------------------------------
 
     def attach_replica(self, sink, announce=None):
-        _not_ported("warm-standby replication",
-                    "SocketParameterServer and utils/serialization.py")
+        _not_ported("warm-standby replication", "SocketParameterServer")
 
     def metrics_snapshot(self):
         _not_ported("the parameter-server metrics registry", "obs/metrics.py")

@@ -7,16 +7,17 @@
 Same constructor vocabulary (``worker_optimizer``, ``loss``, ``metrics``,
 ``learning_rate``, ``batch_size``, ``num_epoch``, ``seed``, ...) and the
 same contract: ``trainer.train(dataset) -> trained model``, a new model;
-the caller's keeps its weights. ``checkpoint_dir=``, ``profile_dir=`` and
-``metrics_path=`` raise until ``utils/checkpoint.py`` and
-``utils/profiling.py`` are ported; the async trainers' socket tier,
-standby replication and compression raise until their modules are. The
-synchronous data-parallel and other multi-card strategies come with a
-machine of more than one card.
+the caller's keeps its weights. ``checkpoint_dir=`` with
+``train(..., resume=True)``, ``profile_dir=`` (a ``torch.profiler`` Chrome
+trace) and ``metrics_path=`` (JSONL rows) work as in the JAX package; the
+async trainers' socket tier, standby replication and compression raise
+until their modules are ported. The synchronous data-parallel and other
+multi-card strategies come with a machine of more than one card.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 
 import numpy as np
@@ -24,6 +25,7 @@ import torch
 
 from distkeras_tpu_torch.ops.optimizers import (
     effective_learning_rate,
+    export_state,
     get_optimizer,
 )
 from distkeras_tpu_torch.ops.quantization import count_quantized
@@ -32,8 +34,16 @@ from distkeras_tpu_torch.parameter_servers import (
     DeltaParameterServer,
     DynSGDParameterServer,
 )
-from distkeras_tpu_torch.utils.device import check_model_device, local_devices
+from distkeras_tpu_torch.utils.checkpoint import Checkpointer
+from distkeras_tpu_torch.utils.device import (
+    check_model_device,
+    local_devices,
+    resolve_device,
+)
 from distkeras_tpu_torch.utils.history import TrainingHistory
+from distkeras_tpu_torch.utils.profiling import MetricsLogger
+from distkeras_tpu_torch.utils.profiling import trace as profiler_trace
+from distkeras_tpu_torch.utils.tree import tree_signature
 from distkeras_tpu_torch.workers import (
     ADAGWorker,
     AEASGDWorker,
@@ -43,6 +53,15 @@ from distkeras_tpu_torch.workers import (
     SingleTrainerWorker,
     WorkerCore,
 )
+
+logger = logging.getLogger(__name__)
+
+
+def _maybe_len(dataset):
+    try:
+        return len(dataset)
+    except TypeError:
+        return None
 
 
 def _not_ported(option, module):
@@ -85,10 +104,6 @@ class Trainer:
                 "training cannot differentiate through round(); train the "
                 "f32 master and quantize a serving copy instead"
             )
-        if profile_dir is not None:
-            _not_ported("profile_dir", "utils/profiling.py")
-        if metrics_path is not None:
-            _not_ported("metrics_path", "utils/profiling.MetricsLogger")
         # accum_steps=k: each optimizer step processes its batch as k
         # sequential microbatches of B/k, averaging the gradients. B must
         # divide by k.
@@ -128,6 +143,13 @@ class Trainer:
                 "ModelPredictor/AccuracyEvaluator instead"
             )
         self.validation_data = validation_data
+        # observability: a torch.profiler trace of train() into
+        # profile_dir, JSONL rows (validation, failures, the train_end
+        # summary) into metrics_path
+        self.profile_dir = profile_dir
+        self.metrics_logger = MetricsLogger(metrics_path) if metrics_path else None
+        self.checkpointer = None
+        self.checkpoint_every = 0
 
     def _make_core(self) -> WorkerCore:
         return WorkerCore(
@@ -192,14 +214,103 @@ class Trainer:
         n = int(np.sum(sizes))
         avg = {f"val_{k}": v / n for k, v in totals.items()}
         self.history.record_validation(epoch, avg)
+        if self.metrics_logger is not None:
+            self.metrics_logger.log(event="validation", epoch=epoch, **avg)
         return avg
 
-    def train(self, dataset, shuffle=False):
-        """Train on ``dataset`` (``shuffle``: reshuffle every epoch with
-        ``seed + epoch``); returns the trained model."""
-        return self._train(dataset, shuffle=shuffle)
+    # -- checkpointing ------------------------------------------------------
 
-    def _train(self, dataset, shuffle=False):
+    def _init_checkpointing(self, checkpoint_dir, checkpoint_every, max_to_keep):
+        self.checkpointer = (
+            Checkpointer(checkpoint_dir, max_to_keep=max_to_keep)
+            if checkpoint_dir
+            else None
+        )
+        self.checkpoint_every = int(checkpoint_every)
+
+    def _restore_latest(self):
+        """(step, trees, meta) of the latest checkpoint, or None."""
+        if self.checkpointer is None or self.checkpointer.latest_step() is None:
+            return None
+        return self.checkpointer.restore()
+
+    def _should_checkpoint(self, done: int) -> bool:
+        """THE epoch-snapshot policy: every ``checkpoint_every`` epochs
+        (0 = final only) and always at the last epoch."""
+        every = self.checkpoint_every
+        return (every > 0 and done % every == 0) or done == self.num_epoch
+
+    def _epoch_end(self, core, epoch, model, opt_state, rng):
+        """THE per-epoch finalization: validate, then checkpoint (both
+        no-ops when unconfigured)."""
+        self._run_validation(core, model, epoch + 1)
+        self._save_epoch_checkpoint(epoch + 1, model, opt_state, rng)
+
+    def _reconcile_opt_state(self, candidate, core):
+        """The restored optimizer state, or None when the checkpoint holds
+        another layout (another optimizer, or a JAX optax state not yet
+        converted by ``utils.convert.opt_state_from_jax``). The reference
+        layout is built on the meta device: no moment is allocated."""
+        meta_params = [torch.empty_like(p, device="meta")
+                       for p in core.model.parameters()]
+        reference = export_state(core.optimizer,
+                                 core.init_opt_state(meta_params))
+        if tree_signature(candidate) == tree_signature(reference):
+            return candidate
+        logger.warning(
+            "checkpoint opt_state layout does not match this trainer; "
+            "reinitializing optimizer state"
+        )
+        return None
+
+    def _save_epoch_checkpoint(self, done, model, opt_state, rng):
+        """Epoch-granular snapshot (policy: ``_should_checkpoint``): the
+        parameters and buffers by ``state_dict`` name, the optimizer's
+        exported state and the rng."""
+        if self.checkpointer is None or not self._should_checkpoint(done):
+            return
+        self.checkpointer.save(
+            done,
+            {
+                "params": dict(model.named_parameters()),
+                "state": dict(model.named_buffers()),
+                "opt_state": export_state(self.optimizer, opt_state),
+                "rng": rng.get_state(),
+            },
+            {"epoch": done},
+        )
+
+    def train(self, dataset, shuffle=False, resume=False):
+        """Train on ``dataset`` (``shuffle``: reshuffle every epoch with
+        ``seed + epoch``); returns the trained model. ``resume``: continue
+        from the latest checkpoint in ``checkpoint_dir``. With
+        ``profile_dir`` the run is traced; with ``metrics_path`` a
+        ``train_end`` summary row closes it."""
+        if self.profile_dir:
+            device = getattr(self, "device", None)
+            with profiler_trace(self.profile_dir,
+                                cuda=resolve_device(device).type == "cuda"):
+                result = self._train(dataset, shuffle=shuffle, resume=resume)
+        else:
+            result = self._train(dataset, shuffle=shuffle, resume=resume)
+        self._log_summary()
+        return result
+
+    def _log_summary(self):
+        if self.metrics_logger is None:
+            return
+        avg = {f"avg_{k}": v for k, v in self.get_averaged_metrics().items()}
+        self.metrics_logger.log(
+            event="train_end",
+            trainer=type(self).__name__,
+            training_time=self.get_training_time(),
+            num_updates=self.history.num_updates(),
+            total_samples=self.history.total_samples(),
+            samples_per_sec=self.history.samples_per_second(),
+            **avg,
+        )
+
+    def _train(self, dataset, shuffle=False, resume=False):
         raise NotImplementedError
 
 
@@ -212,7 +323,10 @@ class SingleTrainer(Trainer):
     metrics. ``prefetch``: windows staged ahead on a background thread
     (default 0: synchronous). ``device_resident``: the dataset is copied to
     the device once and each step gathers its batch by index;
-    bit-identical to the streamed path."""
+    bit-identical to the streamed path. ``checkpoint_dir``: a checkpoint
+    every ``checkpoint_every`` epochs (0: the last only) and at the last,
+    ``max_to_keep`` of them kept; ``train(..., resume=True)`` runs the
+    remaining epochs from the latest one."""
 
     def __init__(
         self,
@@ -222,17 +336,18 @@ class SingleTrainer(Trainer):
         prefetch=0,
         device_resident=False,
         checkpoint_dir=None,
+        checkpoint_every=1,
+        max_to_keep=3,
         **kwargs,
     ):
-        if checkpoint_dir is not None:
-            _not_ported("checkpoint_dir", "utils/checkpoint.py")
         super().__init__(*args, **kwargs)
         self.window = int(window)
         self.device = device
         self.prefetch = int(prefetch)
         self.device_resident = bool(device_resident)
+        self._init_checkpointing(checkpoint_dir, checkpoint_every, max_to_keep)
 
-    def _train(self, dataset, shuffle=False):
+    def _train(self, dataset, shuffle=False, resume=False):
         self.history.record_training_start()
         core = self._make_core()
         worker = SingleTrainerWorker(
@@ -242,10 +357,23 @@ class SingleTrainer(Trainer):
             seed=self.seed,
             device=self.device,
         )
+        initial_full, start_epoch = None, 0
+        if resume:
+            restored = self._restore_latest()
+            if restored is not None:
+                _, trees, meta = restored
+                initial_full = (
+                    trees["params"],
+                    trees.get("state", {}),
+                    self._reconcile_opt_state(trees["opt_state"], core),
+                    trees.get("rng"),
+                )
+                start_epoch = int(meta["epoch"])
+
         on_epoch_end = None
-        if self.validation_data is not None:
+        if self.checkpointer is not None or self.validation_data is not None:
             def on_epoch_end(epoch, model, opt_state, rng):
-                self._run_validation(core, model, epoch + 1)
+                self._epoch_end(core, epoch, model, opt_state, rng)
 
         model, records = worker.train(
             dataset,
@@ -253,6 +381,8 @@ class SingleTrainer(Trainer):
             num_epoch=self.num_epoch,
             window=self.window,
             shuffle_seed=self.seed if shuffle else None,
+            initial_full=initial_full,
+            start_epoch=start_epoch,
             on_epoch_end=on_epoch_end,
             prefetch=self.prefetch,
             device_resident=self.device_resident,
@@ -275,8 +405,18 @@ class DistributedTrainer(Trainer):
     commits across workers — reproducible staleness, bit for bit the JAX
     package's schedule). ``device=None`` means CUDA (raises without a GPU;
     the model must live there). The PS is in-process; ``serve_socket``,
-    ``remote_ps``, ``standby``, ``compress``, ``pull_compress`` and
-    ``checkpoint_dir`` raise until their modules are ported.
+    ``remote_ps``, ``standby``, ``compress`` and ``pull_compress`` raise
+    until their modules are ported.
+
+    ``checkpoint_dir``: a checkpoint every ``checkpoint_every`` PS commits
+    (0: the final snapshot only) and at the end of the run, ``max_to_keep``
+    of them kept — the center, the PS meta (update count, DynSGD's version,
+    the exactly-once dedup table) and each worker's local state (replica,
+    buffers, optimizer state, rng, commit seq; handed to the PS every
+    ``worker_snapshot_stride`` commits). ``train(..., resume=True)``
+    restores them, and each worker skips the windows the restored center
+    already absorbed; a checkpoint of another window stream (batch size,
+    workers, window, seed, shuffle, rows) is refused.
     """
 
     supports_validation = False
@@ -294,9 +434,9 @@ class DistributedTrainer(Trainer):
         remote_ps=False,
         standby=False,
         checkpoint_dir=None,
-        checkpoint_every=0,  # checkpoint_every, max_to_keep and
-        max_to_keep=3,  # worker_snapshot_stride act only with
-        worker_snapshot_stride=1,  # checkpoint_dir, which raises
+        checkpoint_every=0,
+        max_to_keep=3,
+        worker_snapshot_stride=1,
         worker_retries=1,
         heartbeat_timeout=None,
         elastic=False,
@@ -310,13 +450,10 @@ class DistributedTrainer(Trainer):
             ("serve_socket", serve_socket,
              "networking.py and SocketParameterServer"),
             ("remote_ps", remote_ps,
-             "networking.py, RemoteParameterServerClient and "
-             "utils/serialization.py"),
-            ("standby", standby,
-             "SocketParameterServer replication and utils/serialization.py"),
+             "networking.py and RemoteParameterServerClient"),
+            ("standby", standby, "SocketParameterServer replication"),
             ("compress", compress, "utils/compression.py"),
             ("pull_compress", pull_compress, "utils/compression.py"),
-            ("checkpoint_dir", checkpoint_dir, "utils/checkpoint.py"),
         ):
             if value:
                 _not_ported(option, module)
@@ -337,6 +474,13 @@ class DistributedTrainer(Trainer):
         self.worker_retries = int(worker_retries)
         self.heartbeat_timeout = heartbeat_timeout
         self.elastic = bool(elastic)
+        # checkpoint_every counts PS commits here; every
+        # worker_snapshot_stride-th commit hands the worker's local state
+        # to the PS (a resumed worker replays at most stride-1 windows,
+        # which the PS dedup absorbs)
+        self._init_checkpointing(checkpoint_dir, checkpoint_every, max_to_keep)
+        self.worker_snapshot_stride = int(worker_snapshot_stride)
+        self._stream_fp = None
         self.parameter_server = None
         # the last run's workers: their records, timings and per-window
         # host splits (pull / window / commit seconds)
@@ -356,7 +500,7 @@ class DistributedTrainer(Trainer):
         return {}
 
     def allocate_worker(self, core, worker_id, device):
-        return self.worker_cls(
+        w = self.worker_cls(
             core,
             self.parameter_server,
             worker_id,
@@ -367,15 +511,96 @@ class DistributedTrainer(Trainer):
             device=device,
             **self.worker_kwargs(),
         )
+        # periodic checkpoints need the workers' local state at each
+        # commit; with checkpoint_every=0 only the end-of-run save reads
+        # it (fresh, from final_snapshot), so the copies are skipped
+        w.keep_snapshot = (self.checkpointer is not None
+                           and self.checkpoint_every > 0)
+        w.snapshot_stride = self.worker_snapshot_stride
+        return w
+
+    # -- checkpointing ------------------------------------------------------
+
+    def _attach_checkpointing(self, ps):
+        """A checkpoint every ``checkpoint_every`` commits, from the copies
+        the PS takes inside the commit's locked section: the checkpoint
+        labelled n is exactly the n-update center, and each worker state
+        it holds is at or behind that center, never ahead."""
+        if self.checkpointer is None or self.checkpoint_every <= 0:
+            return
+
+        def on_snapshot(n, center, meta, worker_snaps):
+            trees = {"center": center}
+            workers = {str(wid): snap for wid, snap in worker_snaps.items()
+                       if snap is not None}
+            if workers:
+                trees["workers"] = workers
+            self.checkpointer.save(
+                n, trees, {"ps_meta": meta, "stream": self._stream_fp})
+
+        ps.add_snapshot_listener(on_snapshot, every=self.checkpoint_every)
+
+    def _restore_run(self):
+        """Restore the PS from the latest checkpoint; returns the saved
+        worker states ({worker id as str: snapshot}), empty when there is
+        none. Refuses a checkpoint of another window stream: the resume
+        skip maps commit seqs back to positions in it."""
+        restored = self._restore_latest()
+        if restored is None:
+            return {}
+        _, trees, meta = restored
+        saved_fp = meta.get("stream")
+        if saved_fp is not None and saved_fp != self._stream_fp:
+            raise ValueError(
+                "resume config does not match the checkpoint's window "
+                f"stream: checkpoint {saved_fp}, current {self._stream_fp}. "
+                "Resuming with a different batch_size/num_workers/"
+                "communication_window/seed/shuffle/dataset misaligns the "
+                "skip positions; start fresh or restore the config."
+            )
+        self.parameter_server.restore_snapshot(trees["center"],
+                                               meta.get("ps_meta", {}))
+        workers = trees.get("workers", {})
+        # checkpoints taken before a worker's first post-resume commit
+        # keep its restored state
+        self.parameter_server.restore_worker_snapshots(workers)
+        return workers
+
+    def _save_final_checkpoint(self, workers):
+        """The end-of-run checkpoint, at the final commit count: the workers
+        are idle, so each one's fresh snapshot is exact even where the
+        stride skipped its last commits. ``overwrite``: a periodic snapshot
+        at the same count holds staler worker states."""
+        center, meta = self.parameter_server.snapshot()
+        trees = {"center": center}
+        snaps = {str(w.worker_id): w.final_snapshot() for w in workers}
+        snaps = {k: v for k, v in snaps.items() if v is not None}
+        if snaps:
+            trees["workers"] = snaps
+        self.checkpointer.save(
+            meta.get("num_updates", 0), trees,
+            {"ps_meta": meta, "stream": self._stream_fp}, overwrite=True)
 
     # -- run ----------------------------------------------------------------
 
-    def _train(self, dataset, shuffle=False):
+    def _train(self, dataset, shuffle=False, resume=False):
         self.history.record_training_start()
         self.failures, self.suspicions, self.adoptions = [], [], []
         check_model_device(self.model, self.device)
         core = self._make_core()
         self.parameter_server = self.allocate_parameter_server()
+        # the window-stream fingerprint: everything that fixes which
+        # windows a worker's commit seqs stand for
+        self._stream_fp = {
+            "batch_size": self.batch_size,
+            "num_workers": self.num_workers,
+            "communication_window": self.communication_window,
+            "seed": self.seed,
+            "shuffle": bool(shuffle),
+            "rows": _maybe_len(dataset),
+        }
+        restored_workers = self._restore_run() if resume else {}
+        self._attach_checkpointing(self.parameter_server)
         self.parameter_server.start()
         self.workers = workers = []
         try:
@@ -386,6 +611,10 @@ class DistributedTrainer(Trainer):
                 self.allocate_worker(core, i, devices[i % len(devices)])
                 for i in range(self.num_workers)
             )
+            for w in workers:
+                snap = restored_workers.get(str(w.worker_id))
+                if snap is not None:
+                    w.restore_snapshot(snap)
             if self.mode == "threads":
                 self._warmup(core, workers[0], parts[0])
                 self._run_threads(workers, parts)
@@ -399,6 +628,8 @@ class DistributedTrainer(Trainer):
                     self.history.record_window(w.worker_id, s, dt)
         finally:
             self.parameter_server.stop()
+        if self.checkpointer is not None:
+            self._save_final_checkpoint(workers)
         self.history.record_training_end()
         return self._finish_center(self.parameter_server.get_params(),
                                    self._aggregate_worker_states(workers))
@@ -473,6 +704,9 @@ class DistributedTrainer(Trainer):
                     if adopted_by is not None:
                         failure["adopted_by"] = adopted_by
                     self.failures.append(failure)
+                    if self.metrics_logger is not None:
+                        self.metrics_logger.log(event="worker_failure",
+                                                **failure)
                     if attempt == self.worker_retries:
                         return False  # give up; others keep training
 
@@ -483,6 +717,9 @@ class DistributedTrainer(Trainer):
                 if not ok and self.elastic:
                     with done_lock:
                         orphans.append((w, part))
+                    if self.metrics_logger is not None:
+                        self.metrics_logger.log(event="partition_orphaned",
+                                                worker_id=w.worker_id)
             finally:
                 # done BEFORE any adoption: this worker never commits under
                 # its own id again, so the monitor must not suspect it
@@ -510,11 +747,17 @@ class DistributedTrainer(Trainer):
             finally:
                 with done_lock:
                     done.add(dead_w.worker_id)
-            self.adoptions.append({
+            adoption = {
                 "worker_id": dead_w.worker_id,
                 "adopted_by": adopter_id,
                 "ok": bool(adopted_ok),
-            })
+            }
+            self.adoptions.append(adoption)
+            if self.metrics_logger is not None:
+                self.metrics_logger.log(
+                    event=("partition_adopted" if adopted_ok
+                           else "partition_abandoned"),
+                    **adoption)
             return True
 
         stop_monitor = threading.Event()
@@ -555,6 +798,9 @@ class DistributedTrainer(Trainer):
                 suspicion = {"worker_id": wid, "timeout": timeout}
                 if suspicion not in self.suspicions:
                     self.suspicions.append(suspicion)
+                    if self.metrics_logger is not None:
+                        self.metrics_logger.log(event="worker_suspected",
+                                                **suspicion)
 
     def _run_simulated(self, workers, parts):
         """Deterministic async: repeatedly pick a worker with a seeded numpy
@@ -574,7 +820,10 @@ class DistributedTrainer(Trainer):
                 windows = list(w.iter_window_batches(
                     part, self.batch_size, self.num_epoch,
                     self.seed + w.worker_id))
-            queues.append(windows)
+            # a resumed worker skips the windows whose commits the
+            # restored center already holds (the same seeded shuffles, so
+            # the same stream)
+            queues.append(windows[w._start_seq:])
         rng = np.random.default_rng(self.seed)
         inflight = [False] * len(workers)
         while any(queues) or any(inflight):

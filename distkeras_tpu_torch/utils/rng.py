@@ -42,6 +42,11 @@ class RngSeq:
         """The generator's state (a byte tensor), for snapshots."""
         return self._gen.get_state()
 
+    def set_state(self, state):
+        """Continue from a ``get_state`` snapshot (a byte tensor or the
+        uint8 array a checkpoint holds)."""
+        self._gen.set_state(torch.as_tensor(state, dtype=torch.uint8))
+
     def fork(self, index: int) -> "RngSeq":
         """Deterministic per-worker fork (worker index -> independent
         stream); the parent stream does not advance."""

@@ -53,14 +53,6 @@ def host_copy(a):
             for k, v in a.items()}
 
 
-def host_numpy(a):
-    """Owned host numpy copies of every value (tensors detached and moved
-    off the device), key-wise."""
-    return {k: (x.detach().cpu().numpy().copy()
-                if isinstance(x, torch.Tensor) else np.array(x, copy=True))
-            for k, x in a.items()}
-
-
 def tree_allclose(a, b, rtol=1e-5, atol=1e-6):
     """Host-side structural + numerical equality check (for tests)."""
     if a.keys() != b.keys():
@@ -71,3 +63,55 @@ def tree_allclose(a, b, rtol=1e-5, atol=1e-6):
                     rtol=rtol, atol=atol)
         for _, x, y in _zip(a, b)
     )
+
+
+def to_host(tree):
+    """The same structure (dicts, lists, tuples, namedtuples) with every
+    tensor and array leaf an owned host numpy copy — a snapshot that later
+    in-place updates of the live tensors cannot reach. Tensors are copied
+    off the device in one pass over the tree."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True).numpy()
+    if isinstance(tree, np.ndarray):
+        return tree.copy()
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_host(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_host(v) for v in tree)
+    return tree
+
+
+def copy_tree_(dst, src):
+    """Copy ``src`` (tensors, arrays or numbers in ``dst``'s structure)
+    into ``dst``'s tensors in place, each cast to its target's dtype and
+    device; the structures and shapes must match."""
+    if isinstance(dst, torch.Tensor):
+        value = torch.as_tensor(np.asarray(src) if not isinstance(
+            src, torch.Tensor) else src)
+        if tuple(value.shape) != tuple(dst.shape):
+            raise ValueError(
+                f"shape {tuple(value.shape)} != {tuple(dst.shape)}")
+        with torch.no_grad():
+            dst.copy_(value)
+        return
+    if isinstance(dst, dict):
+        if set(dst) != set(src):
+            raise ValueError(f"keys differ: {sorted(set(dst) ^ set(src))}")
+        for k in dst:
+            copy_tree_(dst[k], src[k])
+        return
+    for d, s in zip(dst, src, strict=True):
+        copy_tree_(d, s)
+
+
+def tree_signature(tree):
+    """The structure and leaf shapes of a tree, with lists and tuples
+    alike (a decoded checkpoint keeps each container's kind, but two
+    layouts that differ only in it hold the same state)."""
+    if isinstance(tree, dict):
+        return ("dict", tuple((k, tree_signature(v)) for k, v in tree.items()))
+    if isinstance(tree, (list, tuple)):
+        return ("seq", tuple(tree_signature(v) for v in tree))
+    return ("leaf", tuple(np.shape(tree)))

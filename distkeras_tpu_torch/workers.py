@@ -20,15 +20,22 @@ so the fused optimizers' pointer tables stay valid from window to window,
 and the pulled center stays on the device, so the delta is computed there
 and crosses to the host once per commit.
 
+A checkpoint resume hands ``SingleTrainerWorker.train`` its restore
+point (``initial_full``, ``start_epoch``); an async worker adopts its
+saved local state (``restore_snapshot``) and skips the windows the
+restored center already holds. Either way the saved values are copied
+into the live parameters, buffers and optimizer state in place, so the
+fused optimizers' tables keep pointing at them.
+
 Left out of the port: ``_window_unroll`` (an XLA:CPU while-loop
 workaround), the core cache (``WorkerCore.cached`` saves jit retrace
-time, which eager PyTorch does not pay), commit compression
-(``utils/compression.py``) and the resume of worker-local snapshots
-(``utils/checkpoint.py``).
+time, which eager PyTorch does not pay) and commit compression
+(``utils/compression.py``).
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 
 import numpy as np
@@ -39,10 +46,15 @@ from distkeras_tpu_torch.models.layers import remat
 from distkeras_tpu_torch.models.sequential import walk_layers
 from distkeras_tpu_torch.ops.losses import get_loss
 from distkeras_tpu_torch.ops.metrics import get_metric
-from distkeras_tpu_torch.ops.optimizers import apply_updates
+from distkeras_tpu_torch.ops.optimizers import (
+    apply_updates,
+    export_state,
+    load_state,
+)
+from distkeras_tpu_torch.utils.convert import params_from_jax, state_from_jax
 from distkeras_tpu_torch.utils.device import check_model_device
 from distkeras_tpu_torch.utils.rng import RngSeq, split_seed
-from distkeras_tpu_torch.utils.tree import host_numpy
+from distkeras_tpu_torch.utils.tree import copy_tree_, to_host
 
 
 class WorkerCore:
@@ -324,6 +336,8 @@ class SingleTrainerWorker:
         num_epoch=1,
         window=8,
         shuffle_seed=None,
+        initial_full=None,
+        start_epoch=0,
         on_epoch_end=None,
         prefetch=2,
         device_resident=False,
@@ -331,6 +345,12 @@ class SingleTrainerWorker:
         """Train a copy of the core's model; returns (trained model,
         per-step records).
 
+        ``initial_full``: optional (params, state, opt_state, rng state) —
+        the restore point a checkpoint resume supplies (params and state as
+        ``{state_dict name: array}`` or a JAX tree, opt_state as the
+        optimizer exports it or None for a fresh one, rng None to keep the
+        worker's seed); with ``start_epoch`` the continuation is
+        bit-identical to an uninterrupted run.
         ``on_epoch_end(epoch, model, opt_state, rng)`` is called after each
         epoch's last window. ``prefetch``: windows staged (stack, pinned
         copy to the device) by a background thread while the device
@@ -342,14 +362,22 @@ class SingleTrainerWorker:
         trajectories — instead of streaming sample windows."""
         model = self.core.model.copy()
         opt_state = self.core.init_opt_state(list(model.parameters()))
+        if initial_full is not None:
+            params, state, saved_opt, rng_state = initial_full
+            params_from_jax(model, params)
+            state_from_jax(model, state)
+            if saved_opt is not None:
+                load_state(self.core.optimizer, opt_state, saved_opt)
+            if rng_state is not None:
+                self.rng.set_state(rng_state)
         if device_resident:
             return self._train_resident(
                 model, dataset, batch_size, num_epoch, window, shuffle_seed,
-                opt_state, on_epoch_end,
+                opt_state, start_epoch, on_epoch_end,
             )
         records = []
         cols = [self.features_col, self.label_col]
-        for epoch in range(num_epoch):
+        for epoch in range(start_epoch, num_epoch):
             ds = (
                 dataset.shuffle(shuffle_seed + epoch)
                 if shuffle_seed is not None
@@ -371,7 +399,7 @@ class SingleTrainerWorker:
         return model, records
 
     def _train_resident(self, model, dataset, batch_size, num_epoch, window,
-                        shuffle_seed, opt_state, on_epoch_end):
+                        shuffle_seed, opt_state, start_epoch, on_epoch_end):
         """Device-resident epoch loop: dataset on the device, indices from
         the host, batch assembly exactly as the streamed path's."""
         n = len(dataset)
@@ -381,7 +409,7 @@ class SingleTrainerWorker:
             data_x, data_y = (torch.from_numpy(np.ascontiguousarray(a))
                               .to(self.device) for a in (data_x, data_y))
         records = []
-        for epoch in range(num_epoch):
+        for epoch in range(start_epoch, num_epoch):
             for idx in epoch_index_windows(
                 n, batch_size, window, shuffle_seed, epoch
             ):
@@ -413,25 +441,6 @@ class SingleTrainerWorker:
 
 
 # -------------------------------------------------------------- async workers
-
-
-def _host_state(state):
-    """Host numpy copies of an optimizer state's tensors, structure kept."""
-    if isinstance(state, torch.Tensor):
-        return state.detach().cpu().numpy().copy()
-    if isinstance(state, (list, tuple)):
-        return type(state)(_host_state(s) for s in state)
-    return state
-
-
-def _zero_state(state):
-    """Zero an optimizer state's tensors in place: every ported optimizer
-    starts from zeros, so this is ``init`` without new buffers."""
-    if isinstance(state, torch.Tensor):
-        state.zero_()
-    elif isinstance(state, (list, tuple)):
-        for s in state:
-            _zero_state(s)
 
 
 class AsyncWorker:
@@ -476,6 +485,17 @@ class AsyncWorker:
         # PS add)
         self.splits = []
         self._seq = 0  # per-worker commit sequence (exactly-once at the PS)
+        self._start_seq = 0  # windows to skip on resume (already absorbed)
+        # checkpoints: with keep_snapshot, every snapshot_stride-th commit
+        # hands host copies of this worker's local state (replica, buffers,
+        # optimizer state, rng, seq) to the PS, which stores them in the
+        # commit's locked section — so a checkpoint never holds a worker
+        # state ahead of its center (behind is safe: the replayed windows
+        # dedup at the PS)
+        self.keep_snapshot = False
+        self.snapshot_stride = 1
+        self._snap = None  # the latest committed local state
+        self._restore_point = None  # the snapshot adopted at resume
         self._model = None  # the replica, made at first use
         self._center = None  # the pulled center on the device
         self._opt_state = None
@@ -485,23 +505,67 @@ class AsyncWorker:
         self._resident_n = 0
 
     def reset_for_retry(self):
-        """Restart this worker's training after a failure, from scratch:
-        the commit sequence restarts at 0, so the PS deduplicates the
-        re-run's commits up to the last one it absorbed — a retry cannot
-        double-apply work. The replica keeps its parameter buffers
+        """Restart this worker's training after a failure: from its resume
+        restore point when it has one, else from scratch. From scratch the
+        commit sequence restarts at 0, so the PS deduplicates the re-run's
+        commits up to the last one it absorbed — a retry cannot
+        double-apply work; the replica keeps its parameter buffers
         (re-adopting the center at the next pull), so the fused optimizers'
-        tables stay valid; the optimizer state and the moving statistics
-        start anew."""
+        tables stay valid, and the optimizer state and the moving
+        statistics start anew. After a resume the scratch seqs may predate
+        the restored dedup table, so the retry goes back to the restore
+        point instead."""
         self.records = []
         self.timings = []
         self.splits = []
         self._pending = None
+        if self._restore_point is not None:
+            self._adopt(self._restore_point)
+            return
         self.rng = RngSeq(self._rng_seed)
         self._seq = 0
+        self._start_seq = 0
         self._opt_state = None
         self._adopted = False
         if self._model is not None:
             self._reset_buffers()
+
+    # -- worker-local checkpoint/resume --------------------------------------
+
+    def restore_snapshot(self, snap):
+        """Adopt a worker-local checkpoint (see ``keep_snapshot``): replica
+        parameters, buffers, optimizer state, rng position and commit
+        sequence. ``train`` then skips the first ``seq`` windows of the
+        partition's stream — the ones whose commits the restored center
+        already holds."""
+        self._restore_point = snap
+        self._snap = snap  # checkpoints before the first post-resume commit
+        self._adopt(snap)
+
+    def _adopt(self, snap):
+        """Copy a snapshot into the replica, its buffers and the optimizer
+        state in place (the fused optimizers' tables stay valid)."""
+        self._ensure_replica()
+        copy_tree_(self._params, [snap["params"][n] for n in self._names])
+        copy_tree_(dict(self._model.named_buffers()), snap["state"])
+        load_state(self.core.optimizer, self._opt_state, snap["opt_state"])
+        self.rng = RngSeq(self._rng_seed)
+        self.rng.set_state(snap["rng"])
+        self._seq = self._start_seq = int(snap["seq"])
+        # the replica holds its trained state: AEASGD must not re-adopt
+        # the center at the next pull
+        self._adopted = True
+
+    def _make_snap(self, seq):
+        """Host copies of this worker's local state, labelled ``seq``."""
+        return {
+            "params": to_host(dict(zip(self._names, self._params))),
+            "state": to_host(dict(self._model.named_buffers())),
+            "opt_state": to_host(export_state(self.core.optimizer,
+                                              self._opt_state)),
+            "rng": to_host(self.rng.get_state()),
+            "seq": np.int64(seq),
+        }
 
     # -- algorithm hooks ----------------------------------------------------
 
@@ -608,8 +672,12 @@ class AsyncWorker:
                                    self.features_col, self.label_col))
             out = window(self._model, self._opt_state, RngSeq(0), xs, ys)
         _metrics_to_records(out[1])  # waits for the window
-        with torch.no_grad():
-            _zero_state(self._opt_state)
+        if self._restore_point is not None:
+            self._adopt(self._restore_point)
+            return
+        opt = self.core.optimizer
+        load_state(opt, self._opt_state,
+                   export_state(opt, self.core.init_opt_state(self._params)))
         self._reset_buffers()
         self._adopted = False
 
@@ -654,9 +722,15 @@ class AsyncWorker:
         with torch.no_grad():
             delta = self.make_delta(pend["acc"])
             delta_np = {n: delta[n].cpu().numpy() for n in self._leaf_order}
+        local_snap = None
+        if self.keep_snapshot and (self._seq + 1) % self.snapshot_stride == 0:
+            local_snap = self._make_snap(self._seq + 1)
         self.ps.commit(delta_np, pend["tag"],
-                       commit_id=(self.worker_id, self._seq))
+                       commit_id=(self.worker_id, self._seq),
+                       local_snap=local_snap)
         self._seq += 1
+        if local_snap is not None:
+            self._snap = local_snap
         t3 = time.perf_counter()
         self.timings.append((pend["samples"], t3 - pend["t0"]))
         self.splits.append({"pull": pend["t1"] - pend["t0"],
@@ -665,16 +739,12 @@ class AsyncWorker:
     def final_snapshot(self):
         """Fresh host-copy snapshot of the worker's end-of-run state (after
         the threads joined, so no window is in flight): the replica's
-        parameters, the optimizer state, the RNG state and the commit
-        sequence. None if the worker never trained a window."""
+        parameters and buffers, the optimizer state, the RNG state and the
+        commit sequence. None if the worker never trained a window and
+        was not restored."""
         if not self._adopted:
-            return None
-        return {
-            "params": host_numpy(dict(zip(self._names, self._params))),
-            "opt_state": _host_state(self._opt_state),
-            "rng": self.rng.get_state(),
-            "seq": np.int64(self._seq),
-        }
+            return self._snap
+        return self._make_snap(self._seq)
 
     def iter_window_batches(self, dataset, batch_size, num_epoch, shuffle_seed):
         """The worker's window stream: lists of batches, one list per commit
@@ -691,20 +761,24 @@ class AsyncWorker:
 
     def train(self, dataset, batch_size, num_epoch=1, shuffle_seed=None,
               device_resident=False):
-        """Thread-mode entry: run all windows of this worker's partition.
-        ``device_resident``: ship the partition to the device once and
-        drive the indexed windows; the window stream (same shuffles, same
-        batch contents, same ragged tails) is the streamed one, so commit
-        sequences stay aligned across the two feeds."""
+        """Thread-mode entry: run all windows of this worker's partition,
+        skipping the first ``_start_seq`` after a resume (their commits are
+        in the restored center). ``device_resident``: ship the partition to
+        the device once and drive the indexed windows; the window stream
+        (same shuffles, same batch contents, same ragged tails) is the
+        streamed one, so commit sequences — and with them the resume skip
+        and the PS dedup — stay aligned across the two feeds."""
         if device_resident:
             self.stage_resident(dataset)
-            for idx in self.iter_index_windows(num_epoch, batch_size,
-                                               shuffle_seed):
+            windows = self.iter_index_windows(num_epoch, batch_size,
+                                              shuffle_seed)
+            for idx in itertools.islice(windows, self._start_seq, None):
                 self.begin_window_indexed(idx)
                 self.finish_window()
             return self.records
-        for pend in self.iter_window_batches(dataset, batch_size, num_epoch,
-                                             shuffle_seed):
+        windows = self.iter_window_batches(dataset, batch_size, num_epoch,
+                                           shuffle_seed)
+        for pend in itertools.islice(windows, self._start_seq, None):
             self.begin_window(pend)
             self.finish_window()
         return self.records

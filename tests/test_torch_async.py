@@ -477,18 +477,20 @@ def test_worker_retry_and_adoption_stay_exactly_once(elastic):
         assert t.adoptions == []
 
 
-def test_async_refusals_and_device_contract():
+def test_async_refusals_and_device_contract(tmp_path):
     _, tm = _mlps()
     for option, module in (("serve_socket", "networking"),
                            ("remote_ps", "RemoteParameterServerClient"),
                            ("standby", "replication"),
                            ("compress", "compression"),
-                           ("pull_compress", "compression"),
-                           ("checkpoint_dir", "checkpoint")):
+                           ("pull_compress", "compression")):
         with pytest.raises(NotImplementedError, match=module):
             DOWNPOUR(tm, "sgd", device="cpu", **{option: "int8"})
-    with pytest.raises(NotImplementedError, match="MetricsLogger"):
-        DOWNPOUR(tm, "sgd", device="cpu", metrics_path="/nonexistent")
+    # checkpoint_dir and metrics_path are ported: accepted
+    t = DOWNPOUR(tm, "sgd", device="cpu", checkpoint_dir=str(tmp_path / "ck"),
+                 checkpoint_every=4, metrics_path=str(tmp_path / "m.jsonl"))
+    assert t.checkpointer.directory == str(tmp_path / "ck")
+    assert t.checkpoint_every == 4 and t.metrics_logger is not None
     with pytest.raises(TypeError, match="validation_data"):
         DOWNPOUR(tm, "sgd", device="cpu", validation_data=_port_data(8))
     for cls in (AEASGD, ADAG, EAMSGD):
@@ -503,7 +505,7 @@ def test_async_refusals_and_device_contract():
         tps.DeltaParameterServer(_center(), pull_compress="bfloat16")
     with pytest.raises(NotImplementedError, match="obs/metrics"):
         tps.DeltaParameterServer(_center()).metrics_snapshot()
-    with pytest.raises(NotImplementedError, match="serialization"):
+    with pytest.raises(NotImplementedError, match="SocketParameterServer"):
         tps.DeltaParameterServer(_center()).attach_replica(None)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -1,0 +1,55 @@
+"""``examples/mnist_torch.py`` as a user runs it: a subprocess on the CPU
+(``--device cpu``) at a small ``--n``, through a checkpoint and a resume
+that continues where the first invocation stopped, with the metrics rows
+and the profiler trace of the resumed run; and BASELINE config 6 on the
+real digits. The process must not load JAX or the JAX package."""
+
+import glob
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCRIPT = os.path.join(REPO, "examples", "mnist_torch.py")
+
+
+def run(tmp_path, *args):
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{SCRIPT!r}, *{list(args)!r}]\n"
+        f"runpy.run_path({SCRIPT!r}, run_name='__main__')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'distkeras_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, (out.stdout[-2000:], out.stderr[-2000:])
+    return out.stdout
+
+
+def test_mnist_torch_checkpoint_then_resume(tmp_path):
+    ck, metrics, prof = (str(tmp_path / p) for p in ("ck", "m.jsonl", "prof"))
+    common = ["--device", "cpu", "--n", "1024", "--checkpoint-dir", ck,
+              "--metrics-path", metrics]
+    first = run(tmp_path, *common, "--epochs", "1")
+    assert "trained 14 steps" in first and "test accuracy:" in first
+    assert sorted(os.listdir(ck)) == ["ckpt_0000000001"]
+    second = run(tmp_path, *common, "--epochs", "2", "--resume",
+                 "--profile-dir", prof)
+    # the resumed run trains only epoch 2
+    assert "trained 14 steps" in second
+    assert sorted(os.listdir(ck)) == ["ckpt_0000000001", "ckpt_0000000002"]
+    with open(metrics) as f:
+        rows = [json.loads(line) for line in f]
+    assert [(r["event"], r.get("epoch")) for r in rows] == [
+        ("validation", 1), ("train_end", None),
+        ("validation", 2), ("train_end", None)]
+    assert len(glob.glob(os.path.join(prof, "trace_*.json"))) == 1
+
+
+def test_mnist_torch_digits_config_6(tmp_path):
+    out = run(tmp_path, "--device", "cpu", "--digits", "--epochs", "2")
+    acc = float(out.split("test accuracy:")[1])
+    assert "trained 100 steps" in out and acc > 0.5

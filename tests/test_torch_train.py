@@ -328,10 +328,13 @@ def test_optimizer_table_and_refusals():
     assert topt.effective_learning_rate("x", lambda step: 0.5) == 0.5
     assert isinstance(topt.get_optimizer("pallas_sgd"), FusedSGD)
     assert topt.get_optimizer("pallas_sgd", momentum=0.9).momentum == 0.9
-    with pytest.raises(NotImplementedError, match="not ported"):
-        topt.get_optimizer("rmsprop")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        topt.get_schedule("warmup_cosine")
+    # the rest of the table and the named schedules are ported
+    assert isinstance(topt.get_optimizer("rmsprop"), topt.RMSProp)
+    sched = topt.get_schedule("warmup_cosine", init_value=0.0,
+                              peak_value=1e-3, warmup_steps=10,
+                              decay_steps=100)
+    assert float(sched(0)) == 0.0 and float(sched(10)) == pytest.approx(1e-3)
+    assert topt.get_optimizer("adam", sched).learning_rate is sched
     with pytest.raises(TypeError, match="schedules"):
         FusedAdam(lambda step: 1e-3)
     with pytest.raises(ValueError, match="unknown optimizer"):
@@ -475,14 +478,16 @@ def test_weights_follow_the_jax_leaf_order(jlm):
     assert torch.equal(twin.layers[0].tokens, lm.layers[0].tokens)
 
 
-def test_trainer_refusals(jlm):
+def test_trainer_refusals(jlm, tmp_path):
     lm = _port_lm(jlm, hooks=False)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        SingleTrainer(lm, "adam", "mse", checkpoint_dir="/nonexistent", device="cpu")
-    with pytest.raises(NotImplementedError, match="profil"):
-        SingleTrainer(lm, "adam", "mse", profile_dir="/nonexistent", device="cpu")
-    with pytest.raises(NotImplementedError, match="MetricsLogger"):
-        SingleTrainer(lm, "adam", "mse", metrics_path="/nonexistent", device="cpu")
+    # checkpoint_dir, profile_dir and metrics_path are ported: accepted
+    t = SingleTrainer(lm, "adam", "mse", checkpoint_dir=str(tmp_path / "ck"),
+                      profile_dir=str(tmp_path / "prof"),
+                      metrics_path=str(tmp_path / "m.jsonl"), device="cpu")
+    assert t.checkpointer.directory == str(tmp_path / "ck")
+    assert t.checkpointer.latest_step() is None
+    assert t.profile_dir == str(tmp_path / "prof")
+    assert t.metrics_logger.path == str(tmp_path / "m.jsonl")
     with pytest.raises(ValueError, match="divisible"):
         SingleTrainer(lm, "adam", "mse", batch_size=6, accum_steps=4, device="cpu")
     with pytest.raises(ValueError, match="built"):
