@@ -27,8 +27,9 @@ Phases, each fatal on failure (exit code 1, no result line):
 2b. The training kernels vs their plain versions on the card, at the
    shapes the training step gives them: ``adam_fused`` over the 110
    leaves of the d512/L8 model, and over ``resnet18``'s 62 and
-   ``mnist_cnn``'s 12 (phase 7's tables) (|dp|, |dm|, |dv| <= 1e-6
-   absolute),
+   ``mnist_cnn``'s 12 (phase 7's tables), and over the member-stacked
+   tables phase 9 launches once per joint step — 4 x ``mnist_cnn``'s 12
+   and 2 x d512/L8's 110 (|dp|, |dm|, |dv| <= 1e-6 absolute),
    ``flash_bwd_dq``/``flash_bwd_dkv`` (dQ, dK, dV within 1e-4 * max(1,
    max|ref|) in f32 at (8, 512, 8, 64) causal and not and (2, 200, 8, 64);
    in bf16 at (8, 512, 8, 64) causal within 2^-7 * (sum |x||y| + |ref|)
@@ -47,7 +48,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``sgd_momentum_fused`` (B2) in f32 with momentum 0.9 plain and Nesterov
    and in bf16 with Nesterov, two steps each, and ``sgd_fused`` in f32
    over ``cifar10_cnn``'s 16 and ``higgs_mlp``'s 6 leaves (phase 7's
-   tables): bit-equal (the same operation order, every step rounded),
+   tables) and over 4 x ``higgs_mlp``'s 6 (phase 9's replicas): bit-equal (the same operation order, every step rounded),
    timed as in phase 2.
 3. Predict: a ``ServingEngine`` on ``transformer_lm(8192, 512, 512, 8, 8)``
    (random weights from a seed) with the flash and LayerNorm hooks answers
@@ -128,6 +129,36 @@ Phases, each fatal on failure (exit code 1, no result line):
    worker restored with a commit seq > 0, DynSGD's version restored, one
    B1/B3 launch per step on the kernel path and none on the plain path,
    kernel and plain resumes within phase 7's bars.
+
+9. The streaming and native data layer, the member trainers and commit
+   compression (cuDNN deterministic). 9a: config 5's smoke training rows
+   written to 4 uint8 shards with ``ShardWriter`` and preprocessed per
+   shard with ``.map``; DynSGD/``resnet18`` with ``pallas_adam`` from
+   ``open_shards`` (one shard per worker) against B3's plain version,
+   phase 7's bars, its samples/s printed beside phase 7's in-memory run;
+   the same shards through ``SingleTrainer`` with prefetch 2 and 0
+   (bit-identical); config 6: the native library built and loaded, its
+   parse of ``digits.csv`` equal to the csv module's bit for bit, and
+   ``digits_mlp`` one epoch with ``pallas_adam`` against the plain path.
+   9b: ``EnsembleTrainer`` (4 ``mnist_cnn`` members, config 2's data,
+   adam 2.5e-4, batch 32, window 4, bf16) and ``AveragingTrainer`` (4
+   ``higgs_mlp`` replicas, config 3's data, sgd 0.02, batch 64, window 4,
+   2 epochs), each threaded and vmapped, each on the kernel and the plain
+   path: per-member losses within 1e-3 relative and weights within 1e-4
+   between the paths and between vmapped and threaded; exactly one B3/B1
+   launch per joint step vmapped, one per member and step threaded. 9c:
+   ``EnsembleTrainer(vmapped=True)`` with 2 d512/L8 members carrying the
+   flash and LayerNorm hooks, ``pallas_adam``, batch 8, one window of 4:
+   per-step losses within 1e-3 relative of the plain path (no hooks, B3's
+   plain version), exactly 2 x 4 x (17, 17, 8, 8, 8) of B7/B8/B4/B5/B6
+   and 4 of B3. 9d: config 2 with ``compress="int8"`` and
+   ``pull_compress="bfloat16"``, config 3 with ``compress="topk:0.05"``,
+   kernel against plain path under phase 7's bars, commit bytes per window
+   printed against the uncompressed run (at least 3x / 4x fewer); a
+   config-2 checkpoint after epoch 1 carries every worker's residual bit
+   for bit and the kernel and plain resumes keep phase 8b's contract;
+   with one worker (whose simulated schedule a resume keeps) the resumed
+   compressed run is bit-identical to an uninterrupted one.
 
 ``--profile`` adds where the time goes: a decode step, a predict forward,
 a training step, an async window and a config-5 DynSGD/``resnet18``
@@ -2015,6 +2046,650 @@ def run_resume(torch, np, zoo, ds):
     return out, launches
 
 
+# ------------------------------------------------------------------ phase 9
+
+
+#: vmapped vs threaded member training, per step and on the weights: the
+#: phase 7 bars (the two paths run the same per-member arithmetic; the
+#: Averaging mean sums in another order on the host than on the card)
+MEMBER_LOSS_RTOL = 1e-3
+MEMBER_WEIGHT_TOL = 1e-4
+#: phase 9b's runs: (trainer, config whose model/data/optimizer it takes,
+#: member count, epochs)
+MEMBER_RUNS = (("EnsembleTrainer", 2, 4, 1), ("AveragingTrainer", 3, 4, 2))
+
+
+def stream_prep(chunk):
+    """Config 5's preprocessing per loaded shard (``StreamingDataset.map``):
+    the phase 7 transformers on the chunk's uint8 pixels."""
+    from distkeras_tpu_torch.data.dataset import Dataset
+    from distkeras_tpu_torch.data.transformers import (
+        MinMaxTransformer,
+        OneHotTransformer,
+    )
+
+    ds = MinMaxTransformer(0, 1, o_min=0, o_max=255).transform(Dataset(chunk))
+    ds = OneHotTransformer(10, output_col="label_onehot").transform(ds)
+    return {k: ds[k] for k in ds.columns}
+
+
+def write_config5_shards(np, out_dir, shards=4):
+    """Config 5's smoke training rows (phase 7's split of
+    ``synthetic_imagenet`` 64 x 64, 768 rows) written with ``ShardWriter``
+    as ``examples/imagenet_resnet.py`` writes them: uint8 pixels, one
+    shard per chunk."""
+    from distkeras_tpu_torch.data import loaders
+    from distkeras_tpu_torch.data.streaming import ShardWriter
+
+    raw = loaders.synthetic_imagenet(n=768, num_classes=10, size=64, seed=3,
+                                     label_noise=0.1)
+    train, _ = raw.split(0.9, seed=7)
+    bounds = np.linspace(0, len(train), shards + 1).astype(int)
+    with ShardWriter(out_dir) as writer:
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            writer.add({"features": train["features"][lo:hi].astype(np.uint8),
+                        "label": train["label"][lo:hi]})
+    return len(train)
+
+
+def path_runs(torch, np, make, paths):
+    """Run ``make(optimizer)`` -> (trainer, train thunk) on each
+    (path, optimizer); the launch counts set to 0 just before each train
+    and read just after."""
+    from distkeras_tpu_torch import kernels
+
+    runs = {}
+    for path, optimizer in paths:
+        trainer, go = make(optimizer)
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        result = go()
+        sync(torch)
+        runs[path] = {
+            "trainer": trainer, "result": result,
+            "seconds": time.monotonic() - t0,
+            "counts": {c: n for c, n in kernels.launch_counts().items()
+                       if n},
+            "samples_per_s": trainer.history.samples_per_second(),
+        }
+    return runs
+
+
+def add_counts(total, counts):
+    """Add one run's launch counts into ``total``."""
+    for c, n in counts.items():
+        total[c] = total.get(c, 0) + n
+    return total
+
+
+def model_state(result):
+    """(weights by leaf-order name, buffers) of a trained model."""
+    return ({n: w for n, w in zip(result._leaf_order(), result.get_weights())},
+            {n: b.detach().cpu().numpy() for n, b in result.named_buffers()})
+
+
+def history_distance(np, a, b, members=1):
+    """Largest per-step relative loss difference, member by member."""
+    worst = 0.0
+    for i in range(members):
+        ha = [r["loss"] for r in a.get_history(i if members > 1 else None)]
+        hb = [r["loss"] for r in b.get_history(i if members > 1 else None)]
+        check(len(ha) == len(hb) > 0, "step counts differ between paths")
+        worst = max(worst, max(abs(x - y) / abs(y) for x, y in zip(ha, hb)))
+    return worst
+
+
+def models_distance(np, a, b):
+    """Largest weight and buffer difference over lists of models."""
+    wd = bd = 0.0
+    for x, y in zip(a, b, strict=True):
+        (wx, bx), (wy, by) = model_state(x), model_state(y)
+        wd = max(wd, max(float(np.abs(wx[n] - wy[n]).max()) for n in wy))
+        bd = max([bd] + [float(np.abs(bx[n] - by[n]).max()) for n in by])
+    return wd, bd
+
+
+def run_streaming(torch, np, smi, phase7):
+    """9a: config 5 from shards (DynSGD/``resnet18``, kernel and plain
+    path, phase 7's bars), the same shards through ``SingleTrainer`` with
+    prefetch 2 and 0 (bit-identical), and config 6 through the native CSV
+    reader."""
+    import shutil
+    import tempfile
+
+    from distkeras_tpu_torch.data import native
+    from distkeras_tpu_torch.data.streaming import open_shards
+
+    cfg = next(c for c in BASELINE if c["id"] == 5)
+    tmp = tempfile.mkdtemp(prefix="dkt_shards_")
+    out = {}
+    try:
+        rows = write_config5_shards(np, tmp)
+        stream = open_shards(tmp).map(stream_prep)
+        check(len(stream) == rows and len(stream._paths) == 4,
+              f"config 5 shards: {len(stream)} rows in "
+              f"{len(stream._paths)} shards")
+
+        def dynsgd(optimizer):
+            t = baseline_trainer(cfg, optimizer)
+            return t, lambda: t.train(stream, shuffle=True)
+
+        runs = path_runs(torch, np, dynsgd,
+                         (("kernel", "pallas_adam"),
+                          ("plain", plain_adam(cfg["lr"]))))
+        k, p = runs["kernel"], runs["plain"]
+        kt, pt = k["trainer"], p["trainer"]
+        steps = len(kt.get_history())
+        rel = history_distance(np, kt, pt)
+        (kw, kb), (pw, pb) = model_state(k["result"]), model_state(p["result"])
+        cen = max(float(np.abs(kw[n] - pw[n]).max()) for n in pw)
+        st = max(float(np.abs(kb[n] - pb[n]).max()) for n in pb)
+        res = {
+            "shards": 4, "rows": rows, "steps": steps,
+            "num_updates": kt.parameter_server.num_updates,
+            "max_rel_loss_diff": rel, "center_max_abs_err": cen,
+            "buffers_max_abs_err": st, "launches": k["counts"],
+            "samples_per_s": k["samples_per_s"],
+            "plain_samples_per_s": p["samples_per_s"],
+            "in_memory_samples_per_s": phase7["samples_per_s"],
+            "seconds": k["seconds"],
+        }
+        log(f"stream config 5: {res}")
+        log(f"stream config 5 (DynSGD / resnet18 from 4 shards): "
+            f"{res['samples_per_s']:.1f} samples/s streamed against "
+            f"{res['in_memory_samples_per_s']:.1f} in memory (phase 7) on "
+            f"{smi}")
+        check(kt.failures == [] and pt.failures == [],
+              "stream config 5: worker failures")
+        check(kt.parameter_server.num_updates
+              == pt.parameter_server.num_updates == 8,
+              "stream config 5: not 8 commits on both paths")
+        check(rel <= BASELINE_LOSS_RTOL and cen <= BASELINE_CENTER_TOL
+              and st <= BASELINE_STATE_TOL,
+              f"stream config 5: kernel and plain paths differ: losses "
+              f"{rel}, center {cen}, buffers {st}")
+        check(k["counts"] == {"adam_fused": steps} and p["counts"] == {},
+              f"stream config 5: launches {k['counts']} / {p['counts']}")
+        out["config5"] = res
+        launches = dict(k["counts"])
+
+        # the same shards through SingleTrainer's prefetcher
+        from distkeras_tpu_torch.models import zoo
+        from distkeras_tpu_torch.trainers import SingleTrainer
+
+        def single(prefetch):
+            name, kw = cfg["model"]
+            t = SingleTrainer(
+                getattr(zoo, name)(seed=0, **kw), "pallas_adam",
+                "categorical_crossentropy", learning_rate=cfg["lr"],
+                batch_size=cfg["batch"], window=4, prefetch=prefetch,
+                label_col="label_onehot", compute_dtype=cfg["dtype"], seed=0)
+            return t, lambda: t.train(stream, shuffle=True)
+
+        runs = path_runs(torch, np, single, (("prefetch2", 2),
+                                             ("prefetch0", 0)))
+        a, b = runs["prefetch2"], runs["prefetch0"]
+        wd, bd = models_distance(np, [a["result"]], [b["result"]])
+        sres = {"steps": len(a["trainer"].get_history()),
+                "launches": a["counts"], "samples_per_s": a["samples_per_s"],
+                "prefetch0_samples_per_s": b["samples_per_s"],
+                "weights_max_abs_err": wd, "buffers_max_abs_err": bd}
+        log(f"stream single trainer: {sres}")
+        check(wd == 0 and bd == 0 and a["counts"] == b["counts"]
+              == {"adam_fused": sres["steps"]},
+              f"stream single trainer: prefetch 2 and 0 differ: {sres}")
+        out["single_prefetch"] = sres
+        add_counts(launches, a["counts"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # config 6: the real digits through the native reader
+    import csv as csvmod
+
+    from distkeras_tpu_torch.data import loaders
+    from distkeras_tpu_torch.data.transformers import (
+        MinMaxTransformer,
+        OneHotTransformer,
+    )
+
+    check(native.available(), "the native data library did not build")
+    path = os.path.join(HERE, "distkeras_tpu_torch", "data", "digits.csv")
+    t0 = time.monotonic()
+    parsed, had_header = native.read_csv(path)
+    native_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    with open(path, newline="") as f:
+        reader = csvmod.reader(f)
+        next(reader)
+        python = np.asarray([[float(v) for v in row] for row in reader],
+                            np.float32)
+    python_s = time.monotonic() - t0
+    check(had_header and parsed.dtype == python.dtype
+          and np.array_equal(parsed, python),
+          "digits.csv: the native parse differs from the csv module's")
+    ds = MinMaxTransformer(0, 1, o_min=0, o_max=16)(loaders.digits(flat=True))
+    ds = OneHotTransformer(10, output_col="label_onehot")(ds)
+    train, test = ds.split(0.9, seed=7)
+
+    def digits(optimizer):
+        from distkeras_tpu_torch.models import zoo
+        from distkeras_tpu_torch.trainers import SingleTrainer
+
+        t = SingleTrainer(zoo.digits_mlp(seed=0), optimizer,
+                          "categorical_crossentropy", learning_rate=1e-3,
+                          batch_size=32, label_col="label_onehot", seed=0)
+        return t, lambda: t.train(train, shuffle=True)
+
+    runs = path_runs(torch, np, digits, (("kernel", "pallas_adam"),
+                                         ("plain", plain_adam(1e-3))))
+    k, p = runs["kernel"], runs["plain"]
+    steps = len(k["trainer"].get_history())
+    rel = history_distance(np, k["trainer"], p["trainer"])
+    wd, _ = models_distance(np, [k["result"]], [p["result"]])
+    dres = {"rows": int(parsed.shape[0]), "native_parse_s": native_s,
+            "csv_module_parse_s": python_s, "steps": steps,
+            "launches": k["counts"], "max_rel_loss_diff": rel,
+            "weights_max_abs_err": wd,
+            "accuracy": baseline_accuracy(k["result"], test, []),
+            "samples_per_s": k["samples_per_s"]}
+    log(f"config 6 (digits_mlp, native CSV): {dres} on {smi}")
+    check(rel <= BASELINE_LOSS_RTOL and wd <= BASELINE_CENTER_TOL,
+          f"config 6: kernel and plain paths differ: {rel}, {wd}")
+    check(k["counts"] == {"adam_fused": steps} and p["counts"] == {},
+          f"config 6: launches {k['counts']} / {p['counts']}")
+    out["config6"] = dres
+    return out, add_counts(launches, k["counts"])
+
+
+def member_trainer(cfg, cls_name, members, epochs, optimizer, vmapped,
+                   **kw):
+    """A member trainer over config ``cfg``'s model (seed 0), optimizer
+    settings, batch and compute dtype, window 4."""
+    import distkeras_tpu_torch as dk
+    from distkeras_tpu_torch.models import zoo
+
+    name, model_kw = cfg["model"]
+    count = ("num_models" if cls_name == "EnsembleTrainer"
+             else "num_workers")
+    return getattr(dk, cls_name)(
+        getattr(zoo, name)(seed=0, **model_kw), optimizer,
+        "categorical_crossentropy", learning_rate=cfg["lr"],
+        batch_size=cfg["batch"], num_epoch=epochs, window=4,
+        label_col="label_onehot", compute_dtype=cfg["dtype"], seed=0,
+        vmapped=vmapped, **{count: members}, **kw)
+
+
+def run_members(torch, np, smi):
+    """9b: ``EnsembleTrainer`` (config 2's ``mnist_cnn``, ``pallas_adam``)
+    and ``AveragingTrainer`` (config 3's ``higgs_mlp``, ``pallas_sgd``),
+    each threaded and vmapped, each on the kernel and the plain path."""
+    out, launches = {}, {}
+    for cls_name, cfg_id, members, epochs in MEMBER_RUNS:
+        cfg = next(c for c in BASELINE if c["id"] == cfg_id)
+        train, _, _ = baseline_data(cfg["data"])
+        opt = cfg["optimizer"]
+        kname = {"adam": "adam_fused", "sgd": "sgd_fused"}[opt]
+        plain = plain_adam(cfg["lr"]) if opt == "adam" else "sgd"
+        runs = {}
+        for mode, vmapped in (("threaded", False), ("vmapped", True)):
+            def make(optimizer, vmapped=vmapped):
+                t = member_trainer(cfg, cls_name, members, epochs, optimizer,
+                                   vmapped)
+                return t, lambda: t.train(train, shuffle=True)
+
+            for path, r in path_runs(torch, np, make,
+                                     (("kernel", f"pallas_{opt}"),
+                                      ("plain", plain))).items():
+                runs[f"{mode}_{path}"] = r
+        ensemble = cls_name == "EnsembleTrainer"
+
+        def models(r):
+            return r["result"] if ensemble else [r["result"]]
+
+        steps = len(runs["vmapped_kernel"]["trainer"].get_history(0))
+        res = {"trainer": cls_name, "model": cfg["model"][0],
+               "members": members, "epochs": epochs, "optimizer":
+               f"pallas_{opt}", "steps_per_member": steps}
+        for a, b, tag in (("threaded_kernel", "threaded_plain", "threaded"),
+                          ("vmapped_kernel", "vmapped_plain", "vmapped"),
+                          ("vmapped_kernel", "threaded_kernel",
+                           "vmapped_vs_threaded")):
+            rel = history_distance(np, runs[a]["trainer"], runs[b]["trainer"],
+                                   members)
+            wd, bd = models_distance(np, models(runs[a]), models(runs[b]))
+            res[tag] = {"max_rel_loss_diff": rel, "weights_max_abs_err": wd,
+                        "buffers_max_abs_err": bd}
+            check(rel <= MEMBER_LOSS_RTOL and wd <= MEMBER_WEIGHT_TOL
+                  and bd <= BASELINE_STATE_TOL,
+                  f"{cls_name} {tag}: losses {rel}, weights {wd}, "
+                  f"buffers {bd}")
+        for name, r in runs.items():
+            res[f"{name}_samples_per_s"] = r["samples_per_s"]
+            res[f"{name}_seconds"] = r["seconds"]
+            res[f"{name}_launches"] = r["counts"]
+        expected = {"vmapped_kernel": {kname: steps},
+                    "threaded_kernel": {kname: members * steps},
+                    "vmapped_plain": {}, "threaded_plain": {}}
+        for name, want in expected.items():
+            check(runs[name]["counts"] == want,
+                  f"{cls_name} {name}: launches {runs[name]['counts']} != "
+                  f"{want}")
+        log(f"members {cls_name}: {res}")
+        log(f"members {cls_name} ({members} x {cfg['model'][0]}): vmapped "
+            f"{res['vmapped_kernel_samples_per_s']:.1f} samples/s, threaded "
+            f"{res['threaded_kernel_samples_per_s']:.1f} on {smi}")
+        out[cls_name] = res
+        for name in ("vmapped_kernel", "threaded_kernel"):
+            add_counts(launches, runs[name]["counts"])
+        del runs
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def run_member_lm(torch, np, zoo, ds, smi):
+    """9c: ``EnsembleTrainer(vmapped=True)``, 2 d512/L8 members with the
+    flash and LayerNorm hooks and ``pallas_adam``, batch 8 x 512, one
+    window of 4 joint steps, against the same run with no hooks and B3's
+    plain version."""
+    from distkeras_tpu_torch.ops.flash_attention import attach_flash_attention
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+    from distkeras_tpu_torch.trainers import EnsembleTrainer
+
+    data = ds.take(64)  # 2 members x 4 batches of 8
+
+    def make(optimizer):
+        lm = make_lm(zoo)
+        if optimizer == "pallas_adam":
+            attach_flash_attention(lm)
+            attach_fused_layernorm(lm)
+        t = EnsembleTrainer(
+            lm, optimizer, "next_token_crossentropy",
+            metrics=["next_token_accuracy"], batch_size=8, window=4,
+            num_models=2, vmapped=True, learning_rate=1e-3, seed=0)
+        return t, lambda: t.train(data)
+
+    runs = path_runs(torch, np, make, (("kernel", "pallas_adam"),
+                                       ("plain", plain_adam(1e-3))))
+    k, p = runs["kernel"], runs["plain"]
+    rel = history_distance(np, k["trainer"], p["trainer"], 2)
+    steps = len(k["trainer"].get_history(0))
+    expected = {c: 2 * steps * n for c, n in LM_STEP_LAUNCHES.items()}
+    expected["adam_fused"] = steps
+    losses = [r["loss"] for r in k["trainer"].get_history()]
+    # the joint windows' own time (the train() wall above also holds the
+    # two members' builds): per member dt / 2, so the sum is the joint time
+    window_s = sum(dt for _, dt in k["trainer"].history.get_timings())
+    res = {"members": 2, "steps_per_member": steps,
+           "window_seconds": window_s,
+           "window_tokens_per_s": 2 * steps * 8 * 512 / window_s,
+           "max_rel_loss_diff": rel, "launches": k["counts"],
+           "plain_launches": p["counts"], "seconds": k["seconds"],
+           "plain_seconds": p["seconds"],
+           "tokens_per_s": k["samples_per_s"] * 512,
+           "plain_tokens_per_s": p["samples_per_s"] * 512,
+           "losses": losses}
+    log(f"member LM: {res} on {smi}")
+    check(steps == 4 and np.isfinite(losses).all(),
+          f"member LM: {steps} steps, losses {losses}")
+    check(rel <= TRAIN_LOSS_RTOL,
+          f"member LM: kernel and plain paths differ by {rel}")
+    check(k["counts"] == expected and p["counts"] == {},
+          f"member LM: launches {k['counts']} != {expected} (plain "
+          f"{p['counts']})")
+    del runs
+    torch.cuda.empty_cache()
+    return res, dict(k["counts"])
+
+
+def payload_bytes(tree):
+    """Bytes of the arrays in a (nested) commit payload."""
+    if isinstance(tree, dict):
+        return sum(payload_bytes(v) for v in tree.values())
+    import numpy as np
+
+    return int(np.asarray(tree).nbytes)
+
+
+def counting_commits(ps_cls, record):
+    """Patch ``ps_cls.commit`` to add each payload's bytes to ``record``;
+    returns the original for restoring."""
+    orig = ps_cls.commit
+
+    def commit(self, delta, *args, **kw):
+        record.append(payload_bytes(delta))
+        return orig(self, delta, *args, **kw)
+
+    ps_cls.commit = commit
+    return orig
+
+
+#: phase 9d: (config, compression options)
+COMPRESSED = ((2, {"compress": "int8", "pull_compress": "bfloat16"}),
+              (3, {"compress": "topk:0.05"}))
+
+
+def run_compressed(torch, np, smi):
+    """9d: configs 2 and 3 with compressed commits (and config 2 with bf16
+    pulls) in simulated mode, kernel and plain path, beside the
+    uncompressed kernel run's commit bytes; then config 2's compressed
+    checkpoint and resume."""
+    from distkeras_tpu_torch.parameter_servers import ParameterServer
+
+    out, launches = {}, {}
+    for cfg_id, comp in COMPRESSED:
+        cfg = next(c for c in BASELINE if c["id"] == cfg_id)
+        train, _, _ = baseline_data(cfg["data"])
+        opt = cfg["optimizer"]
+        kname = {"adam": "adam_fused", "sgd": "sgd_fused"}[opt]
+        plain = plain_adam(cfg["lr"]) if opt == "adam" else "sgd"
+        sizes = {}
+
+        def make(spec):
+            path, optimizer, kw = spec
+            t = baseline_trainer(cfg, optimizer, **kw)
+            record = sizes.setdefault(path, [])
+
+            def go():
+                orig = counting_commits(ParameterServer, record)
+                try:
+                    return t.train(train, shuffle=True)
+                finally:
+                    ParameterServer.commit = orig
+            return t, go
+
+        specs = (("kernel", ("kernel", f"pallas_{opt}", comp)),
+                 ("plain", ("plain", plain, comp)),
+                 ("raw", ("raw", f"pallas_{opt}", {})))
+        runs = path_runs(torch, np, make, specs)
+        k, p, r = runs["kernel"], runs["plain"], runs["raw"]
+        rel = history_distance(np, k["trainer"], p["trainer"])
+        (kw, kb), (pw, pb) = model_state(k["result"]), model_state(p["result"])
+        cen = max(float(np.abs(kw[n] - pw[n]).max()) for n in pw)
+        st = max([0.0] + [float(np.abs(kb[n] - pb[n]).max()) for n in pb])
+        raw_rel = history_distance(np, k["trainer"], r["trainer"])
+        steps = len(k["trainer"].get_history())
+        commits = k["trainer"].parameter_server.num_updates
+        res = {"trainer": cfg["trainer"], "model": cfg["model"][0], **comp,
+               "steps": steps, "num_updates": commits,
+               "max_rel_loss_diff": rel, "center_max_abs_err": cen,
+               "buffers_max_abs_err": st,
+               "commit_bytes_per_window": float(np.mean(sizes["kernel"])),
+               "raw_commit_bytes_per_window": float(np.mean(sizes["raw"])),
+               "vs_uncompressed_max_rel_loss_diff": raw_rel,
+               "launches": k["counts"], "samples_per_s": k["samples_per_s"],
+               "raw_samples_per_s": r["samples_per_s"],
+               "last_loss": k["trainer"].get_history()[-1]["loss"],
+               "raw_last_loss": r["trainer"].get_history()[-1]["loss"]}
+        res["commit_bytes_ratio"] = (res["raw_commit_bytes_per_window"]
+                                     / res["commit_bytes_per_window"])
+        log(f"compressed config {cfg_id}: {res}")
+        log(f"compressed config {cfg_id} ({comp}): "
+            f"{res['commit_bytes_per_window']:.0f} commit bytes per window "
+            f"against {res['raw_commit_bytes_per_window']:.0f} uncompressed "
+            f"({res['commit_bytes_ratio']:.2f}x fewer) on {smi}")
+        tag = f"compressed config {cfg_id}"
+        check(all(x["trainer"].failures == [] for x in runs.values()),
+              f"{tag}: worker failures")
+        check(len(sizes["kernel"]) == len(sizes["plain"]) == commits
+              == p["trainer"].parameter_server.num_updates > 0,
+              f"{tag}: commit counts differ")
+        check(rel <= BASELINE_LOSS_RTOL and cen <= BASELINE_CENTER_TOL
+              and st <= BASELINE_STATE_TOL,
+              f"{tag}: kernel and plain paths differ: losses {rel}, center "
+              f"{cen}, buffers {st}")
+        check(k["counts"] == {kname: steps} and p["counts"] == {},
+              f"{tag}: launches {k['counts']} / {p['counts']}")
+        check(res["commit_bytes_ratio"] > (3.0 if comp["compress"] == "int8"
+                                           else 4.0),
+              f"{tag}: commits only {res['commit_bytes_ratio']:.2f}x "
+              "smaller")
+        out[f"config{cfg_id}"] = res
+        for run in (k, r):
+            add_counts(launches, run["counts"])
+        del runs
+        torch.cuda.empty_cache()
+    resume, resume_launches = run_compressed_resume(torch, np)
+    out["resume"] = resume
+    return out, add_counts(launches, resume_launches)
+
+
+def run_compressed_resume(torch, np):
+    """9d's checkpoint: config 2 compressed, one epoch with
+    ``checkpoint_dir`` — every worker's ``q_residual`` in the checkpoint,
+    bit-equal to the live one — then resumed to two epochs on the kernel
+    and, from a copy, the plain path under phase 8b's contract (twice the
+    commits, every worker restored with its residual, the two resumes
+    within phase 7's bars). Then the same with one worker, whose simulated
+    schedule is the same resumed or not: the resumed run must be
+    bit-identical to an uninterrupted two-epoch run."""
+    import shutil
+    import tempfile
+
+    from distkeras_tpu_torch.utils.checkpoint import Checkpointer
+
+    cfg = next(c for c in BASELINE if c["id"] == 2)
+    comp = dict(COMPRESSED)[2]
+    train, _, _ = baseline_data(cfg["data"])
+    plain = plain_adam(cfg["lr"])
+    tag = "compressed resume config 2"
+    tmp = tempfile.mkdtemp(prefix="dkt_resume_q8_")
+    try:
+        ck = os.path.join(tmp, "ck")
+        first = baseline_trainer(cfg, "pallas_adam", 1, checkpoint_dir=ck,
+                                 **comp)
+        first.train(train, shuffle=True)
+        sync(torch)
+        n1 = first.parameter_server.num_updates
+        _, trees, _ = Checkpointer(ck).restore()
+        residuals_equal = all(
+            set(trees["workers"][str(w.worker_id)]["q_residual"])
+            == set(w._q_residual) and all(
+                np.array_equal(
+                    trees["workers"][str(w.worker_id)]["q_residual"][n], v)
+                for n, v in w._q_residual.items())
+            for w in first.workers)
+        nonzero = all(any(np.abs(v).max() > 0 for v in w._q_residual.values())
+                      for w in first.workers)
+        del first, trees
+        shutil.copytree(ck, os.path.join(tmp, "ck_plain"))
+
+        def resumed(spec):
+            optimizer, d = spec
+            t = baseline_trainer(cfg, optimizer, 2, checkpoint_dir=d, **comp)
+            return t, lambda: t.train(train, shuffle=True, resume=True)
+
+        runs = path_runs(torch, np, resumed,
+                         (("kernel", ("pallas_adam", ck)),
+                          ("plain", (plain, os.path.join(tmp, "ck_plain")))))
+        k, p = runs["kernel"], runs["plain"]
+        rel = history_distance(np, k["trainer"], p["trainer"])
+        wd, bd = models_distance(np, [k["result"]], [p["result"]])
+        steps = len(k["trainer"].get_history())
+
+        # one worker: resumed against uninterrupted, bit for bit
+        one = {**cfg, "workers": 1}
+        whole = baseline_trainer(one, "pallas_adam", 2, **comp)
+        a = whole.train(train, shuffle=True)
+        ck1 = os.path.join(tmp, "one")
+        baseline_trainer(one, "pallas_adam", 1, checkpoint_dir=ck1,
+                         **comp).train(train, shuffle=True)
+        again = baseline_trainer(one, "pallas_adam", 2, checkpoint_dir=ck1,
+                                 **comp)
+        b = again.train(train, shuffle=True, resume=True)
+        sync(torch)
+        one_w, one_b = models_distance(np, [a], [b])
+        tail = [r["loss"] for r in whole.get_history()]
+        tail = tail[len(tail) - len(again.get_history()):]
+        one_losses_equal = tail == [r["loss"] for r in again.get_history()]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = {"first_updates": n1, "residuals_roundtrip_bit_equal":
+           residuals_equal, "residuals_nonzero": nonzero,
+           "resumed_steps": steps,
+           **{f"{path}_{key}": val for path, r in runs.items()
+              for key, val in (
+                  ("num_updates", r["trainer"].parameter_server.num_updates),
+                  ("num_duplicates",
+                   r["trainer"].parameter_server.num_duplicates),
+                  ("restored", all(w._restore_point is not None
+                                   and w._start_seq > 0
+                                   and w._q_residual is not None
+                                   for w in r["trainer"].workers)))},
+           "launches": k["counts"], "plain_launches": p["counts"],
+           "max_rel_loss_diff": rel, "weights_max_abs_err": wd,
+           "buffers_max_abs_err": bd,
+           "one_worker_resumed_vs_uninterrupted": {
+               "losses_equal": one_losses_equal, "weights_max_abs_err": one_w,
+               "buffers_max_abs_err": one_b,
+               "resumed_steps": len(again.get_history())}}
+    log(f"{tag}: {res}")
+    check(residuals_equal and nonzero,
+          f"{tag}: the checkpoint does not carry every worker's residual")
+    for path, r in runs.items():
+        ps = r["trainer"].parameter_server
+        check(ps.num_updates == 2 * n1 and ps.num_duplicates == 0,
+              f"{tag} ({path}): {ps.num_updates} updates, not 2 x {n1}")
+        check(res[f"{path}_restored"] and r["trainer"].failures == [],
+              f"{tag} ({path}): workers not restored with their residual")
+    check(rel <= BASELINE_LOSS_RTOL and wd <= BASELINE_CENTER_TOL
+          and bd <= BASELINE_STATE_TOL,
+          f"{tag}: kernel and plain resumes differ: {rel}, {wd}, {bd}")
+    check(k["counts"] == {"adam_fused": steps} and p["counts"] == {},
+          f"{tag}: launches {k['counts']} / {p['counts']}")
+    check(one_losses_equal and one_w == 0 and one_b == 0,
+          f"{tag}: one worker's resumed run is not bit-identical to the "
+          f"uninterrupted one: {res['one_worker_resumed_vs_uninterrupted']}")
+    return res, dict(k["counts"])
+
+
+def run_phase9(torch, np, zoo, ds, smi, baseline):
+    """Phase 9 (9a-9d), cuDNN deterministic as in phases 7 and 8b; returns
+    the results and the kernel launches of its main-path runs."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out, launches = {}, {}
+    subphases = (
+        ("9a", "streaming",
+         lambda: run_streaming(torch, np, smi, baseline["config5"])),
+        ("9b", "members", lambda: run_members(torch, np, smi)),
+        ("9c", "member_lm", lambda: run_member_lm(torch, np, zoo, ds, smi)),
+        ("9d", "compressed", lambda: run_compressed(torch, np, smi)),
+    )
+    try:
+        for label, key, fn in subphases:
+            t0 = time.monotonic()
+            out[key], counts = fn()
+            out[key]["seconds_total"] = time.monotonic() - t0
+            log(f"phase {label} ({key}) in {out[key]['seconds_total']:.1f} s")
+            add_counts(launches, counts)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+    return out, launches
+
+
 def baseline_leaf_shapes():
     """The parameter shapes of configs 2-5's models (built on the CPU: only
     their leaf tables matter to phases 2b/2c)."""
@@ -2391,6 +3066,16 @@ def main(argv):
         sgd_rows["sgd_fused"] += check_sgd(
             torch, zoo_shapes[mname], mname,
             cases=((0.0, False, "float32"),))["sgd_fused"]
+    # the member-stacked tables of phase 9, one launch over every member's
+    # leaves: 4 x mnist_cnn and 2 x d512/L8 (Ensemble), 4 x higgs_mlp
+    # (Averaging)
+    adam_rows.append(check_adam(torch, zoo_shapes["mnist_cnn"] * 4,
+                                "4 x mnist_cnn, vmapped members"))
+    adam_rows.append(check_adam(torch, lm_shapes * 2,
+                                "2 x transformer_lm d512/L8, vmapped members"))
+    sgd_rows["sgd_fused"] += check_sgd(
+        torch, zoo_shapes["higgs_mlp"] * 4, "4 x higgs_mlp, vmapped replicas",
+        cases=((0.0, False, "float32"),))["sgd_fused"]
     fbwd_rows = check_flash_bwd(torch, F)
     inf_rows = check_flash_infinite_rows(torch)
     lnb_rows = check_layernorm_bwd(torch, F)
@@ -2420,10 +3105,14 @@ def main(argv):
         f"save {lm_resume['save_seconds']} s, restore "
         f"{lm_resume['restore_seconds']} s on {smi}; phase 8 in "
         f"{time.monotonic() - t8:.1f} s")
+    t9 = time.monotonic()
+    members, member_launches = run_phase9(torch, np, zoo, ds, smi, baseline)
+    log(f"phase 9 in {time.monotonic() - t9:.1f} s")
     profile = profile_paths(torch, np, lm, zoo) if args.profile else None
 
     phases = [pred["launches"], gen["launches"], train["launches"],
               async_thr["launches"], baseline_launches, resume_launches,
+              member_launches,
               *(r["launches"] for r in async_sim.values())]
     launches = {k: sum(c.get(k, 0) for c in phases) for k in kernels.LAUNCHES}
     check(all(n > 0 for n in launches.values()),
@@ -2487,7 +3176,7 @@ def main(argv):
                        "generate": gen, "train": train,
                        "async_simulated": async_sim,
                        "async_threads": async_thr, "baseline": baseline,
-                       "resume": resume,
+                       "resume": resume, "phase9": members,
                        "profile": profile,
                        "flash_infinite_q": inf_rows},
                       f, indent=1)

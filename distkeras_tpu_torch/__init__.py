@@ -25,7 +25,12 @@ and the CNN and tabular model zoo — ``Conv2D``, the pools, ``Flatten``,
 checkpoint/resume (``utils.checkpoint`` over the pickle-free codec of
 ``utils.serialization``), the JSONL metrics sink and the profiler trace
 (``utils.profiling``), the whole optimizer table and the named
-learning-rate schedules (``ops.optimizers``).
+learning-rate schedules (``ops.optimizers``); the streaming and native
+data layer: ``StreamingDataset`` over ``.npz`` shards (``data.streaming``)
+and the C++ CSV reader and row gather (``data.native``, built with g++ at
+first use); the member trainers ``EnsembleTrainer`` and
+``AveragingTrainer`` (threaded or stepped together); and commit/pull
+compression for the async tier (``utils.compression``).
 Kernels (``kernels/csrc``): LayerNorm forward and backward,
 FlashAttention forward and backward (dQ, dK/dV), the fused multi-tensor
 Adam, and the fused multi-tensor SGD without and with momentum.
@@ -33,6 +38,12 @@ Adam, and the fused multi-tensor SGD without and with momentum.
 
 from distkeras_tpu_torch.data import loaders
 from distkeras_tpu_torch.data.dataset import Dataset
+from distkeras_tpu_torch.data.streaming import (
+    ShardWriter,
+    StreamingDataset,
+    open_shards,
+    write_shards,
+)
 from distkeras_tpu_torch.data.transformers import (
     DenseTransformer,
     LabelIndexTransformer,
@@ -90,8 +101,10 @@ from distkeras_tpu_torch.trainers import (
     AEASGD,
     DOWNPOUR,
     EAMSGD,
+    AveragingTrainer,
     DistributedTrainer,
     DynSGD,
+    EnsembleTrainer,
     SingleTrainer,
     Trainer,
 )
@@ -111,6 +124,7 @@ __all__ = [
     "Activation",
     "AEASGD",
     "AccuracyEvaluator",
+    "AveragingTrainer",
     "BatchNorm",
     "AvgPool2D",
     "CachedSequenceGenerator",
@@ -127,6 +141,7 @@ __all__ = [
     "DynSGD",
     "DynSGDParameterServer",
     "EAMSGD",
+    "EnsembleTrainer",
     "Embedding",
     "FusedAdam",
     "Flatten",
@@ -149,9 +164,11 @@ __all__ = [
     "Sequential",
     "SequenceGenerator",
     "ServingEngine",
+    "ShardWriter",
     "SingleTrainer",
     "SingleTrainerWorker",
     "StandardScaleTransformer",
+    "StreamingDataset",
     "Trainer",
     "TrainingHistory",
     "TransformerBlock",
@@ -165,8 +182,10 @@ __all__ = [
     "get_optimizer",
     "get_schedule",
     "loaders",
+    "open_shards",
     "opt_state_from_jax",
     "params_from_jax",
     "state_from_jax",
+    "write_shards",
     "zoo",
 ]

@@ -25,8 +25,21 @@ import numpy as np
 
 
 def _take_rows(col: np.ndarray, idx: np.ndarray) -> np.ndarray:
-    """Row gather behind shuffle/partition (plain numpy; the JAX package's
-    native C++ gather is not copied)."""
+    """Row gather behind shuffle/partition: the native C++ memcpy path for
+    contiguous float32 columns (distkeras_tpu_torch/native), numpy
+    otherwise. Negative or out-of-range indices take the numpy path so
+    semantics (negative wrap, IndexError) never depend on the toolchain."""
+    if (
+        col.dtype == np.float32
+        and col.flags["C_CONTIGUOUS"]
+        and idx.size > 0
+        and 0 <= idx.min()
+        and idx.max() < col.shape[0]
+    ):
+        from distkeras_tpu_torch.data import native
+
+        if native.available():
+            return native.gather_rows(col, idx)
     return col[idx]
 
 

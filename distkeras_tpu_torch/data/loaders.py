@@ -26,15 +26,28 @@ def load_csv(path, label_col="label", dtype=np.float32,
              label_dtype=np.int64) -> Dataset:
     """CSV with a header row -> Dataset with 'features' + 'label' columns.
 
-    The numeric body parses with Python's csv module (the JAX package's
-    native C++ reader is not ported). ``label_dtype`` defaults to int64
-    (classification ids); regression CSVs pass a float dtype to keep
-    continuous targets.
+    The numeric body parses through the native C++ reader
+    (distkeras_tpu_torch/native/dkt_data.cpp via data/native.py) when
+    available; a pure-Python csv loop is the fallback (DKT_NO_NATIVE=1
+    forces it). ``label_dtype`` defaults to int64 (classification ids);
+    regression CSVs pass a float dtype to keep continuous targets.
     """
+    from distkeras_tpu_torch.data import native
+
     with open(path, newline="") as f:
-        reader = csv.reader(f)
-        header = next(reader)
-        rows = np.asarray([[float(v) for v in row] for row in reader], dtype)
+        header = next(csv.reader(f))
+    # the native parser is float32; wider dtypes must keep full precision,
+    # so they always take the Python path
+    if np.dtype(dtype).itemsize <= 4 and native.available():
+        rows, had_header = native.read_csv(path)
+        if not had_header:
+            rows = rows[1:]  # contract: first line is always the header
+        rows = rows.astype(dtype, copy=False)
+    else:
+        with open(path, newline="") as f:
+            reader = csv.reader(f)
+            next(reader)  # header
+            rows = np.asarray([[float(v) for v in row] for row in reader], dtype)
     if label_col in header:
         li = header.index(label_col)
         label = rows[:, li].astype(label_dtype)

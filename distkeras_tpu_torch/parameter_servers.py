@@ -13,11 +13,13 @@ In-process workers (threads driving per-device windows) call ``pull`` /
 and committers may hand their local state to the PS in the commit's locked
 section (worker-snapshot custody).
 
-Not ported yet, and refused where a caller would reach them: the socket
-tier and warm-standby replication (``SocketParameterServer``,
-``RemoteParameterServerClient``, ``networking.py``), compressed pulls
-(``utils/compression.py``), the metrics registry, time-series history
-and flight recorder (``obs/*``), and the chaos seams (``faults.py``).
+Commits may arrive compressed (int8 or top-k, ``utils/compression.py``)
+and are reconstructed before the rule; ``pull_compress`` ships the pulled
+center bf16- or int8-encoded. Not ported yet, and refused where a caller
+would reach them: the socket tier and warm-standby replication
+(``SocketParameterServer``, ``RemoteParameterServerClient``,
+``networking.py``), the metrics registry, time-series history and flight
+recorder (``obs/*``), and the chaos seams (``faults.py``).
 
 Every commit rule is also a pure function
 (``center', meta' = RULE(center, meta, delta, tag)``), so tests can hold
@@ -32,6 +34,13 @@ import time
 
 import numpy as np
 import torch
+
+from distkeras_tpu_torch.utils.compression import (
+    bf16_encode_tree,
+    int8_encode_tree,
+    maybe_decompress,
+    validate_pull_compress,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -157,9 +166,9 @@ class ParameterServer:
     commit_rule = staticmethod(delta_rule)
 
     def __init__(self, params, pull_compress=None):
-        if pull_compress is not None:
-            _not_ported("pull_compress", "utils/compression.py")
-        self.pull_compress = None
+        # pull_compress: None, "bfloat16" or "int8" — the encoding of the
+        # pulled center (workers decode on receipt)
+        self.pull_compress = validate_pull_compress(pull_compress)
         self._center = _to_host(params)
         self._meta = {"num_updates": 0}
         self._lock = threading.Lock()
@@ -181,13 +190,18 @@ class ParameterServer:
     # -- protocol verbs -----------------------------------------------------
 
     def pull(self, worker_id=None):
-        """Return (copy of the center, tag). Tag is None unless versioned;
-        ``worker_id`` doubles as the heartbeat."""
+        """Return (copy of the center, tag), the center encoded per
+        ``pull_compress``. Tag is None unless versioned; ``worker_id``
+        doubles as the heartbeat."""
         with self._lock:
             center = _copy(self._center)
             tag = self._pull_tag()
             if worker_id is not None:
                 self._activity[worker_id] = time.monotonic()
+        if self.pull_compress == "bfloat16":
+            center = bf16_encode_tree(center)
+        elif self.pull_compress == "int8":
+            center = int8_encode_tree(center)
         return center, tag
 
     def commit(self, delta, tag=None, commit_id=None, local_snap=None):
@@ -197,7 +211,12 @@ class ParameterServer:
         they are dropped (counted in meta ``num_duplicates``) instead of
         double-applied. ``local_snap``: the committer's host-copied local
         state, stored in the same locked section as the commit (stored even
-        for a deduped replay, which is at or behind the center)."""
+        for a deduped replay, which is at or behind the center).
+
+        Int8-quantized and top-k-sparsified deltas (the workers'
+        ``compress=`` wire formats) are reconstructed here, before the
+        rule: every rule sees plain float arrays."""
+        delta = maybe_decompress(delta)
         if delta.keys() != self._center.keys():
             raise ParameterServerError(
                 "bad_delta", detail="delta leaves differ from the center's"

@@ -1,6 +1,7 @@
 """Trainer orchestration (PyTorch port of the parts of
-``distkeras_tpu.trainers`` the training slices run: ``Trainer``,
-``SingleTrainer`` and the asynchronous parameter-server trainers —
+``distkeras_tpu.trainers`` that run on one card: ``Trainer``,
+``SingleTrainer``, the member trainers ``EnsembleTrainer`` and
+``AveragingTrainer``, and the asynchronous parameter-server trainers —
 ``DistributedTrainer`` and ``DOWNPOUR``, ``AEASGD``, ``EAMSGD``, ``ADAG``,
 ``DynSGD``).
 
@@ -9,19 +10,23 @@ Same constructor vocabulary (``worker_optimizer``, ``loss``, ``metrics``,
 same contract: ``trainer.train(dataset) -> trained model``, a new model;
 the caller's keeps its weights. ``checkpoint_dir=`` with
 ``train(..., resume=True)``, ``profile_dir=`` (a ``torch.profiler`` Chrome
-trace) and ``metrics_path=`` (JSONL rows) work as in the JAX package; the
-async trainers' socket tier, standby replication and compression raise
-until their modules are ported. The synchronous data-parallel and other
-multi-card strategies come with a machine of more than one card.
+trace) and ``metrics_path=`` (JSONL rows) work as in the JAX package, and
+so do the async trainers' commit and pull compression; their socket tier
+and standby replication raise until their modules are ported. The
+synchronous data-parallel and other multi-card strategies come with a
+machine of more than one card.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+import time
 
 import numpy as np
 import torch
+
+from distkeras_tpu_torch.data.prefetch import Prefetcher
 
 from distkeras_tpu_torch.ops.optimizers import (
     effective_learning_rate,
@@ -35,6 +40,10 @@ from distkeras_tpu_torch.parameter_servers import (
     DynSGDParameterServer,
 )
 from distkeras_tpu_torch.utils.checkpoint import Checkpointer
+from distkeras_tpu_torch.utils.compression import (
+    parse_compress_spec,
+    validate_pull_compress,
+)
 from distkeras_tpu_torch.utils.device import (
     check_model_device,
     local_devices,
@@ -43,7 +52,13 @@ from distkeras_tpu_torch.utils.device import (
 from distkeras_tpu_torch.utils.history import TrainingHistory
 from distkeras_tpu_torch.utils.profiling import MetricsLogger
 from distkeras_tpu_torch.utils.profiling import trace as profiler_trace
-from distkeras_tpu_torch.utils.tree import tree_signature
+from distkeras_tpu_torch.utils.rng import RngSeq, split_seed
+from distkeras_tpu_torch.utils.tree import (
+    copy_tree_,
+    to_host,
+    tree_mean,
+    tree_signature,
+)
 from distkeras_tpu_torch.workers import (
     ADAGWorker,
     AEASGDWorker,
@@ -52,6 +67,11 @@ from distkeras_tpu_torch.workers import (
     EAMSGDWorker,
     SingleTrainerWorker,
     WorkerCore,
+    _metrics_to_records,
+    iter_windows,
+    reset_opt_state,
+    stack_window,
+    to_device,
 )
 
 logger = logging.getLogger(__name__)
@@ -151,9 +171,11 @@ class Trainer:
         self.checkpointer = None
         self.checkpoint_every = 0
 
-    def _make_core(self) -> WorkerCore:
+    def _make_core(self, model=None) -> WorkerCore:
+        """The trainer's step core around ``model`` (default: the caller's
+        model, which the workers copy before they train)."""
         return WorkerCore(
-            self.model,
+            self.model if model is None else model,
             self.optimizer,
             self.loss,
             metrics=self.metrics,
@@ -168,6 +190,17 @@ class Trainer:
         mode a built model starts in). The caller's model was never
         touched."""
         return model.eval()
+
+    def _finish_center(self, center, buffers):
+        """The result model: a copy of the caller's with the center's
+        weights and the aggregated buffers, in eval mode."""
+        result = self.model.copy()
+        result.set_weights([center[n] for n in result._leaf_order()])
+        own = dict(result.named_buffers())
+        with torch.no_grad():
+            for name, value in buffers.items():
+                own[name].copy_(torch.from_numpy(value))
+        return self._finish(result)
 
     # -- bookkeeping parity -------------------------------------------------
 
@@ -394,6 +427,319 @@ class SingleTrainer(Trainer):
         return self._finish(model)
 
 
+def _build_member(model, seed):
+    """A member of the member trainers: a copy of the caller's model (its
+    layers and hooks) built anew from ``seed`` on the device it lives on —
+    the JAX package's ``model_i.build(model.input_shape, seed=seed + i)``.
+    The port's ``build`` draws from a torch generator, not a JAX key, so
+    the members' inits are the port's own."""
+    member = model.copy()
+    member.build(model.input_shape, seed=seed,
+                 device=next(model.parameters()).device)
+    return member
+
+
+def _joint_member_windows(parts, batch_size, cols, window):
+    """Joint window stream for vmapped member training: per step, one
+    window from EVERY member's partition, truncated to the shortest
+    (members must step with identical shapes; tails differ by at most one
+    batch across near-equal partitions)."""
+    streams = [iter_windows(p, batch_size, cols, window) for p in parts]
+    while True:
+        wnds = [next(s, None) for s in streams]
+        if any(w is None for w in wnds):
+            return
+        depth = min(len(w) for w in wnds)
+        yield [w[:depth] for w in wnds]
+
+
+def _member_prepare(cols, device):
+    """Host-staging closure for the prefetch thread: stack the member axis
+    and ship it to the device while the device computes."""
+
+    def prepare(wnds):
+        staged = [stack_window(w, *cols) for w in wnds]
+        return tuple(to_device(np.stack([s[k] for s in staged]), device)
+                     for k in (0, 1))
+
+    return prepare
+
+
+def _record_member_step(history, m, mets, xs, dt):
+    """Per-joint-step bookkeeping shared by the vmapped member trainers:
+    split the (member, window) metric tensors into per-member history
+    records (one read from the device) and attribute the step's wall time
+    across members."""
+    names = list(mets)
+    host = torch.stack([mets[k].float() for k in names]).cpu().numpy()
+    for i in range(m):
+        history.extend(i, [{k: float(host[a, i, j])
+                            for a, k in enumerate(names)}
+                           for j in range(host.shape[2])])
+        history.record_window(i, xs.shape[1] * xs.shape[2], dt / m)
+
+
+def _run_threads(fn, n):
+    """``fn(i)`` for i < n, each in its own thread; the first exception a
+    thread raised is re-raised here once all have joined."""
+    errors = []
+
+    def run(i):
+        try:
+            fn(i)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+
+
+class EnsembleTrainer(Trainer):
+    """Train ``num_models`` independent models on disjoint partitions; return
+    the list (reference: distkeras/trainers.py -> EnsembleTrainer).
+
+    Member ``i`` is the caller's model built anew from ``seed + i``, trained
+    with ``SingleTrainerWorker`` seeded ``seed + i``. By default each
+    member trains in a Python thread of its own, all on the one card.
+    ``vmapped=True`` is the single-card counterpart of the JAX package's
+    one ``vmap`` program: the members step together, each joint step
+    running every member's forward and backward in turn and then ONE
+    optimizer apply over all members' parameters (``WorkerCore.
+    member_window``; on CUDA one fused-kernel launch per step for all
+    members). Members see the same per-partition window streams as the
+    threaded path; each joint step truncates to the SHORTEST member's
+    window, so batches past the shortest tail are dropped — size
+    partitions to tile evenly for exact thread-mode parity. ``prefetch``:
+    joint windows staged ahead by a background thread (vmapped path).
+    ``device=None`` means CUDA (the model must live there)."""
+
+    supports_validation = False
+
+    def __init__(
+        self, *args, num_models=2, window=8, vmapped=False, prefetch=0,
+        device=None, **kwargs,
+    ):
+        super().__init__(*args, **kwargs)
+        self.num_models = int(num_models)
+        self.window = int(window)
+        self.vmapped = bool(vmapped)
+        self.prefetch = int(prefetch)
+        self.device = device
+
+    def _train(self, dataset, shuffle=False, resume=False):
+        if resume:
+            raise ValueError("EnsembleTrainer does not support resume")
+        check_model_device(self.model, self.device)
+        if self.vmapped:
+            return self._train_vmapped(dataset, shuffle)
+        self.history.record_training_start()
+        parts = (dataset.shuffle(self.seed) if shuffle else dataset).partition(
+            self.num_models
+        )
+        devices = local_devices(self.device)
+        results = [None] * self.num_models
+
+        def run(i):
+            # independent init per ensemble member
+            member = _build_member(self.model, self.seed + i)
+            worker = SingleTrainerWorker(
+                self._make_core(member),
+                self.features_col,
+                self.label_col,
+                seed=self.seed + i,
+                device=devices[i % len(devices)],
+            )
+            model_i, records = worker.train(
+                parts[i],
+                self.batch_size,
+                num_epoch=self.num_epoch,
+                window=self.window,
+            )
+            self.history.extend(i, records)
+            for s, dt in worker.timings:
+                self.history.record_window(i, s, dt)
+            results[i] = self._finish(model_i)
+
+        _run_threads(run, self.num_models)
+        self.history.record_training_end()
+        return results
+
+    def _train_vmapped(self, dataset, shuffle=False):
+        self.history.record_training_start()
+        m = self.num_models
+        core = self._make_core()
+        parts = (dataset.shuffle(self.seed) if shuffle else dataset).partition(m)
+        device = local_devices(self.device)[0]
+        # independent init per member (the threaded path's contract), one
+        # optimizer state over the members' concatenated parameters
+        members = [_build_member(self.model, self.seed + i) for i in range(m)]
+        opt_state = core.init_opt_state(
+            [p for mm in members for p in mm.parameters()])
+        rngs = [RngSeq(self.seed + i) for i in range(m)]
+        cols = [self.features_col, self.label_col]
+        for _epoch in range(self.num_epoch):
+            with Prefetcher(
+                _joint_member_windows(parts, self.batch_size, cols,
+                                      self.window),
+                _member_prepare(cols, device),
+                depth=self.prefetch,
+            ) as staged_windows:
+                for xs, ys in staged_windows:
+                    t0 = time.perf_counter()
+                    opt_state, mets = core.member_window(
+                        members, opt_state, rngs, xs, ys)
+                    _record_member_step(self.history, m, mets, xs,
+                                        time.perf_counter() - t0)
+        self.history.record_training_end()
+        return [self._finish(mm) for mm in members]
+
+
+class AveragingTrainer(Trainer):
+    """Per epoch: train a replica per partition from the current center, then
+    average the replicas' weights (reference: distkeras/trainers.py ->
+    AveragingTrainer).
+
+    Every replica restarts each epoch from the center with a fresh
+    optimizer and the rng ``seed + epoch`` forked for its index; the new
+    center is the mean of the replicas' parameters and replica 0's buffers
+    (e.g. BatchNorm's moving statistics) its state. Threaded by default
+    (one Python thread per replica on the one card, the mean taken on the
+    host); ``vmapped=True`` steps the replicas together as
+    ``EnsembleTrainer(vmapped=True)`` does (one optimizer apply for all per
+    step, joint steps truncated to the shortest replica window) and takes
+    the epoch-end mean on the device, only the 1/m-sized result going to
+    the host. ``device=None`` means CUDA (the model must live there)."""
+
+    supports_validation = False
+
+    def __init__(
+        self, *args, num_workers=2, window=8, vmapped=False, prefetch=0,
+        device=None, **kwargs,
+    ):
+        super().__init__(*args, **kwargs)
+        self.num_workers = int(num_workers)
+        self.window = int(window)
+        self.vmapped = bool(vmapped)
+        self.prefetch = int(prefetch)
+        self.device = device
+
+    def _replica_rng(self, epoch, i):
+        """Replica ``i``'s seed stream for ``epoch``: the port's fork of
+        ``seed + epoch`` for index ``i`` (the role of JAX's
+        ``fold_in(PRNGKey(seed + epoch), i)``)."""
+        return RngSeq(split_seed(self.seed + epoch, i + 1)[-1])
+
+    def _train(self, dataset, shuffle=False, resume=False):
+        if resume:
+            raise ValueError("AveragingTrainer does not support resume")
+        check_model_device(self.model, self.device)
+        if self.vmapped:
+            return self._train_vmapped(dataset, shuffle)
+        self.history.record_training_start()
+        core = self._make_core()
+        parts = (dataset.shuffle(self.seed) if shuffle else dataset).partition(
+            self.num_workers
+        )
+        devices = local_devices(self.device)
+        cols = [self.features_col, self.label_col]
+        center = to_host(dict(self.model.named_parameters()))
+        state = to_host(dict(self.model.named_buffers()))
+        # one replica (model + optimizer state) per worker, kept across
+        # epochs and reset in place, so the fused kernels' tables stay valid
+        replicas = [None] * self.num_workers
+
+        for epoch in range(self.num_epoch):
+            results = [None] * self.num_workers
+
+            def run(i, epoch=epoch, center=center, state=state):
+                dev = devices[i % len(devices)]
+                if replicas[i] is None:
+                    model = self.model.copy().to(dev)
+                    params = list(model.parameters())
+                    replicas[i] = (model, params,
+                                   core.init_opt_state(params))
+                model, params, opt_i = replicas[i]
+                copy_tree_(dict(model.named_parameters()), center)
+                copy_tree_(dict(model.named_buffers()), state)
+                reset_opt_state(core, opt_i, params)
+                rng = self._replica_rng(epoch, i)
+                records = []
+                for pend in iter_windows(parts[i], self.batch_size, cols,
+                                         self.window):
+                    t0 = time.perf_counter()
+                    xs, ys = (to_device(a, dev)
+                              for a in stack_window(pend, *cols))
+                    opt_i, mets = core.window(model, opt_i, rng, xs, ys)
+                    records.extend(_metrics_to_records(mets))
+                    self.history.record_window(
+                        i, xs.shape[0] * xs.shape[1], time.perf_counter() - t0
+                    )
+                self.history.extend(i, records)
+                results[i] = (to_host(dict(model.named_parameters())),
+                              to_host(dict(model.named_buffers())))
+
+            _run_threads(run, self.num_workers)
+            center = tree_mean([r[0] for r in results])
+            state = results[0][1]
+
+        self.history.record_training_end()
+        return self._finish_center(center, state)
+
+    def _train_vmapped(self, dataset, shuffle=False):
+        self.history.record_training_start()
+        m = self.num_workers
+        core = self._make_core()
+        parts = (dataset.shuffle(self.seed) if shuffle else dataset).partition(m)
+        device = local_devices(self.device)[0]
+        cols = [self.features_col, self.label_col]
+        replicas = [self.model.copy() for _ in range(m)]
+        params = [list(r.parameters()) for r in replicas]
+        flat = [p for ps in params for p in ps]
+        opt_state = core.init_opt_state(flat)
+        with torch.no_grad():
+            center = [p.detach().clone() for p in self.model.parameters()]
+        center_state = dict(self.model.named_buffers())
+
+        for epoch in range(self.num_epoch):
+            # every replica restarts the epoch from the shared center with
+            # a fresh optimizer, exactly like the threaded path
+            with torch.no_grad():
+                for ps in params:
+                    torch._foreach_copy_(ps, center)
+            for r in replicas:
+                copy_tree_(dict(r.named_buffers()), center_state)
+            reset_opt_state(core, opt_state, flat)
+            rngs = [self._replica_rng(epoch, i) for i in range(m)]
+            with Prefetcher(
+                _joint_member_windows(parts, self.batch_size, cols,
+                                      self.window),
+                _member_prepare(cols, device),
+                depth=self.prefetch,
+            ) as staged_windows:
+                for xs, ys in staged_windows:
+                    t0 = time.perf_counter()
+                    opt_state, mets = core.member_window(
+                        replicas, opt_state, rngs, xs, ys)
+                    _record_member_step(self.history, m, mets, xs,
+                                        time.perf_counter() - t0)
+            # epoch-end averaging on the device; state follows the threaded
+            # path's convention (replica 0's)
+            with torch.no_grad():
+                center = [torch.stack(leaf).mean(0) for leaf in zip(*params)]
+            center_state = {k: v.detach().clone()
+                            for k, v in replicas[0].named_buffers()}
+
+        names = [n for n, _ in self.model.named_parameters()]
+        self.history.record_training_end()
+        return self._finish_center(dict(zip(names, to_host(center))),
+                                   to_host(center_state))
+
+
 class DistributedTrainer(Trainer):
     """Template for PS-based distributed training (reference:
     distkeras/trainers.py -> DistributedTrainer): partition the data, start
@@ -405,8 +751,9 @@ class DistributedTrainer(Trainer):
     commits across workers — reproducible staleness, bit for bit the JAX
     package's schedule). ``device=None`` means CUDA (raises without a GPU;
     the model must live there). The PS is in-process; ``serve_socket``,
-    ``remote_ps``, ``standby``, ``compress`` and ``pull_compress`` raise
-    until their modules are ported.
+    ``remote_ps`` and ``standby`` raise until their modules are ported.
+    ``compress`` ("int8", "topk", "topk:<frac>") compresses the commits,
+    ``pull_compress`` ("bfloat16", "int8") the pulled center.
 
     ``checkpoint_dir``: a checkpoint every ``checkpoint_every`` PS commits
     (0: the final snapshot only) and at the end of the run, ``max_to_keep``
@@ -452,12 +799,21 @@ class DistributedTrainer(Trainer):
             ("remote_ps", remote_ps,
              "networking.py and RemoteParameterServerClient"),
             ("standby", standby, "SocketParameterServer replication"),
-            ("compress", compress, "utils/compression.py"),
-            ("pull_compress", pull_compress, "utils/compression.py"),
         ):
             if value:
                 _not_ported(option, module)
         super().__init__(*args, **kwargs)
+        # compress="int8": commit deltas ride quantized with error feedback
+        # (utils/compression), ~4x fewer commit bytes; "topk" /
+        # "topk:<frac>": only the k = ceil(frac*n) largest-|x| entries per
+        # leaf, the unshipped mass carried by the same residual. The PS
+        # reconstructs either before its rule.
+        parse_compress_spec(compress)  # validate the spec (raises early)
+        self.compress = compress
+        # pull_compress="bfloat16" / "int8": the pulled center ships
+        # encoded (half / a quarter of the pull bytes); workers decode on
+        # receipt
+        self.pull_compress = validate_pull_compress(pull_compress)
         self.num_workers = int(num_workers)
         self.communication_window = int(communication_window)
         self.mode = mode
@@ -492,9 +848,11 @@ class DistributedTrainer(Trainer):
     # -- template hooks -----------------------------------------------------
 
     def allocate_parameter_server(self):
-        """The PS over the caller's weights, in the JAX leaf order."""
+        """The PS over the caller's weights, in the JAX leaf order (with
+        ``pull_compress`` when one is set)."""
+        kw = {"pull_compress": self.pull_compress} if self.pull_compress else {}
         return self.ps_cls(dict(zip(self.model._leaf_order(),
-                                    self.model.get_weights())))
+                                    self.model.get_weights())), **kw)
 
     def worker_kwargs(self) -> dict:
         return {}
@@ -509,6 +867,7 @@ class DistributedTrainer(Trainer):
             self.communication_window,
             seed=self.seed,
             device=device,
+            compress=self.compress,
             **self.worker_kwargs(),
         )
         # periodic checkpoints need the workers' local state at each
@@ -633,17 +992,6 @@ class DistributedTrainer(Trainer):
         self.history.record_training_end()
         return self._finish_center(self.parameter_server.get_params(),
                                    self._aggregate_worker_states(workers))
-
-    def _finish_center(self, center, buffers):
-        """The result model: a copy of the caller's with the center's
-        weights and the aggregated buffers, in eval mode."""
-        result = self.model.copy()
-        result.set_weights([center[n] for n in result._leaf_order()])
-        own = dict(result.named_buffers())
-        with torch.no_grad():
-            for name, value in buffers.items():
-                own[name].copy_(torch.from_numpy(value))
-        return self._finish(result)
 
     def _aggregate_worker_states(self, workers):
         """Mutable model state (the replicas' buffers, e.g. moving

@@ -27,10 +27,15 @@ restored center already holds. Either way the saved values are copied
 into the live parameters, buffers and optimizer state in place, so the
 fused optimizers' tables keep pointing at them.
 
+With ``compress=`` an async worker's commits ride int8-quantized or
+top-k-sparsified (``utils/compression.py``, host numpy after the one
+device-to-host copy), the error-feedback residual carried from commit to
+commit and in the worker's snapshots; a pulled center encoded by the
+parameter server's ``pull_compress`` is decoded on receipt.
+
 Left out of the port: ``_window_unroll`` (an XLA:CPU while-loop
-workaround), the core cache (``WorkerCore.cached`` saves jit retrace
-time, which eager PyTorch does not pay) and commit compression
-(``utils/compression.py``).
+workaround) and the core cache (``WorkerCore.cached`` saves jit retrace
+time, which eager PyTorch does not pay).
 """
 
 from __future__ import annotations
@@ -50,6 +55,16 @@ from distkeras_tpu_torch.ops.optimizers import (
     apply_updates,
     export_state,
     load_state,
+)
+from distkeras_tpu_torch.utils.compression import (
+    compress_with_feedback,
+    is_compressed,
+    is_topk,
+    maybe_decode_pull,
+    parse_compress_spec,
+    quantize_tree,
+    topk_compress,
+    topk_compress_with_feedback,
 )
 from distkeras_tpu_torch.utils.convert import params_from_jax, state_from_jax
 from distkeras_tpu_torch.utils.device import check_model_device
@@ -207,6 +222,46 @@ class WorkerCore:
              for ix in idx), acc)
         return opt_state, mets, acc
 
+    def member_window(self, models, opt_state, rngs, xs, ys):
+        """One joint window of member training (``EnsembleTrainer`` and
+        ``AveragingTrainer`` with ``vmapped=True``; the JAX package's
+        ``vmap`` of the window program): W steps over minibatches stacked
+        (m, W, B, ...) on the member axis. Each step runs every member's
+        forward and backward in turn on one stream, member ``i`` drawing
+        from ``rngs[i]``, then ONE optimizer apply over the members'
+        parameters concatenated member by member — on CUDA one launch of
+        the fused kernel over a table of m x leaves. ``opt_state`` is the
+        state of that concatenated list (``init_opt_state`` of it): every
+        rule updates leaf by leaf and the members share one step count,
+        so it steps each member exactly as m separate states would.
+        Returns (opt_state, {metric: (m, W) device tensor})."""
+        params = [list(mm.parameters()) for mm in models]
+        flat = [p for ps in params for p in ps]
+        for mm in models:
+            mm.train()
+        per_step = []
+        for j in range(xs.shape[1]):
+            grads, mets = [], []
+            for i, mm in enumerate(models):
+                x, y = xs[i, j], ys[i, j]
+                loss, y_pred, g = self._batch_grads(mm, params[i],
+                                                    rngs[i].next(), x, y)
+                grads.extend(g)
+                with torch.no_grad():
+                    met = {"loss": loss}
+                    for name, fn in zip(self.metric_names, self.metric_fns):
+                        met[name] = fn(y_pred, y)
+                mets.append(met)
+            with torch.no_grad():
+                opt_state = self._apply_opt(flat, grads, opt_state)
+            per_step.append(mets)
+        stacked = {
+            k: torch.stack([torch.stack([step[i][k] for step in per_step])
+                            for i in range(len(models))])
+            for k in per_step[0][0]
+        }
+        return opt_state, stacked
+
     def eval_step(self, model, x, y):
         """Loss and metrics of one batch in eval mode, without gradients
         (so no backward kernel runs); returns 0-d device tensors."""
@@ -265,6 +320,23 @@ def stack_window(batches: list, features_col: str, label_col: str):
     return xs, ys
 
 
+def to_device(arr, device):
+    """A host array on ``device``: through pinned memory, asynchronously,
+    on CUDA (the prefetch threads' staging copy); a zero-copy view on the
+    CPU."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def reset_opt_state(core, opt_state, params):
+    """A fresh optimizer state copied into ``opt_state`` in place, so the
+    fused kernels' tables keep pointing at its buffers."""
+    opt = core.optimizer
+    load_state(opt, opt_state, export_state(opt, core.init_opt_state(params)))
+
+
 def iter_windows(dataset, batch_size: int, columns: list, window: int):
     """Group a dataset's batches into window-sized lists, flushing the
     ragged remainder window at the end — THE windowing semantics for every
@@ -299,7 +371,9 @@ def epoch_index_windows(n, batch_size, window, shuffle_seed, epoch):
 
 def resident_arrays(dataset, features_col, label_col):
     """Materialize the two training columns for device residency, with a
-    clear error for datasets that cannot be indexed by column."""
+    clear error for datasets that cannot be indexed by column (e.g.
+    ``StreamingDataset``, which exists for data that does not fit in
+    memory: stream it with device_resident=False)."""
     try:
         return (
             np.asarray(dataset[features_col]),
@@ -430,14 +504,8 @@ class SingleTrainerWorker:
     def _stage_window(self, batches):
         """Host-side window prep (runs on the prefetch thread): stack the W
         batch dicts and copy them to the device from pinned memory."""
-        return tuple(self._to_device(a) for a in stack_window(
+        return tuple(to_device(a, self.device) for a in stack_window(
             batches, self.features_col, self.label_col))
-
-    def _to_device(self, arr):
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
 
 
 # -------------------------------------------------------------- async workers
@@ -468,6 +536,7 @@ class AsyncWorker:
         communication_window: int,
         seed=0,
         device=None,
+        compress=None,
     ):
         self.core = core
         self.ps = ps
@@ -475,6 +544,11 @@ class AsyncWorker:
         self.features_col = features_col
         self.label_col = label_col
         self.window_size = int(communication_window)
+        # kinds: None | "int8" | "topk" (the fraction rides the spec
+        # string, e.g. "topk:0.05" — utils/compression.parse_compress_spec)
+        self._compress_kind, self._compress_frac = parse_compress_spec(compress)
+        self.compress = compress
+        self._q_residual = None  # error-feedback state (host numpy)
         self._rng_seed = split_seed(seed, int(worker_id) + 1)[-1]
         self.rng = RngSeq(self._rng_seed)
         self.device = check_model_device(core.model, device)
@@ -526,6 +600,7 @@ class AsyncWorker:
         self._seq = 0
         self._start_seq = 0
         self._opt_state = None
+        self._q_residual = None
         self._adopted = False
         if self._model is not None:
             self._reset_buffers()
@@ -534,8 +609,8 @@ class AsyncWorker:
 
     def restore_snapshot(self, snap):
         """Adopt a worker-local checkpoint (see ``keep_snapshot``): replica
-        parameters, buffers, optimizer state, rng position and commit
-        sequence. ``train`` then skips the first ``seq`` windows of the
+        parameters, buffers, optimizer state, rng position, commit
+        sequence and, in a compressed run, the error-feedback residual. ``train`` then skips the first ``seq`` windows of the
         partition's stream — the ones whose commits the restored center
         already holds."""
         self._restore_point = snap
@@ -552,13 +627,20 @@ class AsyncWorker:
         self.rng = RngSeq(self._rng_seed)
         self.rng.set_state(snap["rng"])
         self._seq = self._start_seq = int(snap["seq"])
+        # the residual stays host-side (commit-path state)
+        residual = snap.get("q_residual")
+        self._q_residual = (None if residual is None
+                            else {k: np.array(v, copy=True)
+                                  for k, v in residual.items()})
         # the replica holds its trained state: AEASGD must not re-adopt
         # the center at the next pull
         self._adopted = True
 
     def _make_snap(self, seq):
-        """Host copies of this worker's local state, labelled ``seq``."""
-        return {
+        """Host copies of this worker's local state, labelled ``seq``; a
+        compressed run's error-feedback residual rides along, so a resumed
+        run keeps carrying the same quantization error."""
+        snap = {
             "params": to_host(dict(zip(self._names, self._params))),
             "state": to_host(dict(self._model.named_buffers())),
             "opt_state": to_host(export_state(self.core.optimizer,
@@ -566,6 +648,9 @@ class AsyncWorker:
             "rng": to_host(self.rng.get_state()),
             "seq": np.int64(seq),
         }
+        if self._q_residual is not None:
+            snap["q_residual"] = to_host(self._q_residual)
+        return snap
 
     # -- algorithm hooks ----------------------------------------------------
 
@@ -575,9 +660,10 @@ class AsyncWorker:
         raise NotImplementedError
 
     def make_delta(self, acc):
-        """The delta to commit, ``{name: device tensor}``, from the trained
-        replica, the pulled center and (grad windows) the summed gradients
-        ``acc``. Override per algorithm."""
+        """The delta to commit, ``{name: device tensor}`` (or a compressed
+        host payload, see ``AEASGDWorker``), from the trained replica, the
+        pulled center and (grad windows) the summed gradients ``acc``.
+        Override per algorithm."""
         raise NotImplementedError
 
     # -- window machinery ---------------------------------------------------
@@ -606,6 +692,7 @@ class AsyncWorker:
 
     def _pull(self):
         center_host, tag = self.ps.pull(worker_id=self.worker_id)
+        center_host = maybe_decode_pull(center_host)
         self._ensure_replica()
         with torch.no_grad():
             for c, name in zip(self._center, self._names):
@@ -675,9 +762,7 @@ class AsyncWorker:
         if self._restore_point is not None:
             self._adopt(self._restore_point)
             return
-        opt = self.core.optimizer
-        load_state(opt, self._opt_state,
-                   export_state(opt, self.core.init_opt_state(self._params)))
+        reset_opt_state(self.core, self._opt_state, self._params)
         self._reset_buffers()
         self._adopted = False
 
@@ -721,7 +806,21 @@ class AsyncWorker:
         t2 = time.perf_counter()
         with torch.no_grad():
             delta = self.make_delta(pend["acc"])
+        if is_compressed(delta) or is_topk(delta):
+            delta_np = delta  # elastic workers compress in make_delta
+        else:
             delta_np = {n: delta[n].cpu().numpy() for n in self._leaf_order}
+            # fold the last commit's compression error in, compress, keep
+            # the new residual for the next commit (error feedback) —
+            # BEFORE the snapshot below, so a checkpoint carries THIS
+            # commit's residual: a snapshot of the previous one would make
+            # a resume re-apply that window's error and drop this one's
+            if self._compress_kind == "topk":
+                delta_np, self._q_residual = topk_compress_with_feedback(
+                    delta_np, self._q_residual, self._compress_frac)
+            elif self._compress_kind == "int8":
+                delta_np, self._q_residual = compress_with_feedback(
+                    delta_np, self._q_residual)
         local_snap = None
         if self.keep_snapshot and (self._seq + 1) % self.snapshot_stride == 0:
             local_snap = self._make_snap(self._seq + 1)
@@ -843,6 +942,21 @@ class AEASGDWorker(AsyncWorker):
         alpha = self.rho * self.learning_rate
         elastic = {n: (p - c) * alpha for n, p, c in
                    zip(self._names, self._params, self._center)}
+        if self._compress_kind is not None:
+            # the elastic rule applies the displacement on BOTH sides
+            # (x_local -= e, center += e); compress BEFORE the local
+            # subtraction so both apply the identical reconstructed value
+            # — raw locally and reconstructed at the PS would make replica
+            # and center drift apart. No residual: the unshipped remainder
+            # stays in x_local and re-enters the next elastic difference.
+            host = {n: elastic[n].cpu().numpy() for n in self._leaf_order}
+            if self._compress_kind == "topk":
+                payload, deq = topk_compress(host, self._compress_frac)
+            else:
+                payload, deq = quantize_tree(host)
+            for n, p in zip(self._names, self._params):
+                p.sub_(torch.from_numpy(deq[n]).to(p.device))
+            return payload
         for n, p in zip(self._names, self._params):
             p.sub_(elastic[n])
         return elastic

@@ -481,11 +481,13 @@ def test_async_refusals_and_device_contract(tmp_path):
     _, tm = _mlps()
     for option, module in (("serve_socket", "networking"),
                            ("remote_ps", "RemoteParameterServerClient"),
-                           ("standby", "replication"),
-                           ("compress", "compression"),
-                           ("pull_compress", "compression")):
+                           ("standby", "replication")):
         with pytest.raises(NotImplementedError, match=module):
             DOWNPOUR(tm, "sgd", device="cpu", **{option: "int8"})
+    # compress and pull_compress are ported: accepted
+    t = DOWNPOUR(tm, "sgd", device="cpu", compress="int8",
+                 pull_compress="int8")
+    assert (t.compress, t.pull_compress) == ("int8", "int8")
     # checkpoint_dir and metrics_path are ported: accepted
     t = DOWNPOUR(tm, "sgd", device="cpu", checkpoint_dir=str(tmp_path / "ck"),
                  checkpoint_every=4, metrics_path=str(tmp_path / "m.jsonl"))
@@ -501,8 +503,8 @@ def test_async_refusals_and_device_contract(tmp_path):
     with pytest.raises(ValueError, match="unknown mode"):
         DOWNPOUR(tm, "sgd", mode="nope", device="cpu", num_workers=2,
                  label_col="label_onehot").train(_port_data(64))
-    with pytest.raises(NotImplementedError, match="compression"):
-        tps.DeltaParameterServer(_center(), pull_compress="bfloat16")
+    assert tps.DeltaParameterServer(
+        _center(), pull_compress="bfloat16").pull_compress == "bfloat16"
     with pytest.raises(NotImplementedError, match="obs/metrics"):
         tps.DeltaParameterServer(_center()).metrics_snapshot()
     with pytest.raises(NotImplementedError, match="SocketParameterServer"):

@@ -53,3 +53,30 @@ def test_mnist_torch_digits_config_6(tmp_path):
     out = run(tmp_path, "--device", "cpu", "--digits", "--epochs", "2")
     acc = float(out.split("test accuracy:")[1])
     assert "trained 100 steps" in out and acc > 0.5
+
+
+IMAGENET = os.path.join(REPO, "examples", "imagenet_resnet_torch.py")
+
+
+def test_imagenet_resnet_torch_from_shards(tmp_path):
+    """BASELINE config 5's shape from shards on the CPU, at a smoke size:
+    the script writes uint8 shards under ``TMPDIR``, streams them through
+    ``.map`` into DynSGD (4 workers, one shard each, seeded simulated
+    schedule) and evaluates; each worker commits its one window."""
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{IMAGENET!r}, '--device', 'cpu', '--n', '256',\n"
+        "            '--size', '16', '--classes', '10', '--batch', '16',\n"
+        "            '--rows-per-shard', '64', '--width', '0.125',\n"
+        "            '--mode', 'simulated']\n"
+        f"runpy.run_path({IMAGENET!r}, run_name='__main__')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'distkeras_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "TMPDIR": str(tmp_path)})
+    assert out.returncode == 0, (out.stdout[-2000:], out.stderr[-2000:])
+    assert "wrote 4 shards" in out.stdout
+    assert "PS updates: 4" in out.stdout and "test accuracy:" in out.stdout
