@@ -160,6 +160,28 @@ Phases, each fatal on failure (exit code 1, no result line):
    with one worker (whose simulated schedule a resume keeps) the resumed
    compressed run is bit-identical to an uninterrupted one.
 
+10. The socket parameter-server tier (cuDNN deterministic). 10a: config 2
+   as in phase 7's kernel path with ``remote_ps=True`` (every pull and
+   commit over a loopback socket): the center bit for bit phase 7's, 16
+   commits, 56 B3 launches; samples/s beside phase 7's and the wire bytes
+   per pull and per commit. 10b: a second OS process (CUDA hidden) hosts a
+   ``SocketParameterServer`` over config 2's initial center; one DOWNPOUR
+   worker runs its windows on the card against it through
+   ``RemoteParameterServerClient``; the center read back over the wire
+   bit for bit the one-worker in-process run's. 10c: phase 6a's hooked
+   d512/L8 DOWNPOUR (B1) and DynSGD (B2) with ``remote_ps=True``: centers
+   and losses bit for bit phase 6a's, launches exactly 16 x (17, 17, 8, 8,
+   8) of B7/B8/B4/B5/B6 plus 16 of B1/B2; then DOWNPOUR with int8 commits
+   and bf16 pulls over the socket, per-step losses within 1e-3 relative
+   of phase 6a's plain path; wire bytes and the window split beside the
+   in-process runs'. 10d: config 3 in threads with ``remote_ps``, a warm
+   standby and ``worker_retries=2``, unfaulted and with the primary killed
+   at half the expected commits: exactly one promotion
+   (``primary-lost``), at least one client failover, a promotion
+   post-mortem and the unfaulted run's commit ledger; the kill-to-promotion
+   seconds and the B1 launches (60 unfaulted: 56 steps and the 4-step
+   warm-up window).
+
 ``--profile`` adds where the time goes: a decode step, a predict forward,
 a training step, an async window and a config-5 DynSGD/``resnet18``
 window (host wall, device time by category, idle share, top kernels).
@@ -1260,10 +1282,11 @@ def async_runs():
     ]
 
 
-def train_async(torch, zoo, name, optimizer, lr, ds, hooked, mode):
+def train_async(torch, zoo, name, optimizer, lr, ds, hooked, mode, **kw):
     """One async trainer run on a fresh d512/L8 model (seed 0), the kernel
-    path (flash + LN hooks) or the plain one; the launch counts are set to
-    0 just before ``train`` and read just after it. Returns the trainer,
+    path (flash + LN hooks) or the plain one (``kw`` adds trainer options);
+    the launch counts are set to 0 just before ``train`` and read just
+    after it. Returns the trainer,
     the initial center, the seconds of ``train``, the counts and, in
     threads mode, the seconds from the threads' start to their join (after
     the warm-up window; None otherwise)."""
@@ -1281,7 +1304,7 @@ def train_async(torch, zoo, name, optimizer, lr, ds, hooked, mode):
         lm, optimizer, "next_token_crossentropy",
         metrics=["next_token_accuracy"], learning_rate=lr, batch_size=8,
         num_epoch=1, num_workers=2, communication_window=4, mode=mode,
-        device_resident=True, seed=0,
+        device_resident=True, seed=0, **kw,
     )
     spans = []
     run_threads = trainer._run_threads
@@ -1312,10 +1335,19 @@ def async_step_launches(steps, sgd_kernel):
     return {k: steps * n for k, n in per_step.items()}
 
 
+def window_split(np, workers):
+    """Mean pull / window / commit host seconds over every worker's
+    windows."""
+    return {key: float(np.mean([s[key] for w in workers for s in w.splits]))
+            for key in ("pull", "window", "commit")}
+
+
 def run_async_simulated(torch, np, zoo, ds):
     """Phase 6a: each async trainer in simulated mode on the kernel path,
-    then on the plain path (no hooks, ``sgd`` at the same momentum)."""
-    out = {}
+    then on the plain path (no hooks, ``sgd`` at the same momentum).
+    Returns the results and the kernel path's final centers (phase 10c
+    holds its socket runs to them)."""
+    out, centers = {}, {}
     for name, kopt, popt, lr, sgd_kernel in async_runs():
         runs = {}
         for path, hooked, opt in (("kernel", True, kopt),
@@ -1329,6 +1361,7 @@ def run_async_simulated(torch, np, zoo, ds):
                 "tag": ps.pull()[1], "failures": trainer.failures,
                 "counts": counts, "seconds": secs,
                 "optimizer": type(trainer.optimizer).__name__,
+                "split": window_split(np, trainer.workers),
             }
             del trainer
             torch.cuda.empty_cache()
@@ -1348,7 +1381,7 @@ def run_async_simulated(torch, np, zoo, ds):
             "launches": launched, "seconds": k["seconds"],
             "plain_seconds": p["seconds"], "first_loss": k["losses"][0],
             "last_loss": k["losses"][-1], "losses": k["losses"],
-            "plain_losses": p["losses"],
+            "plain_losses": p["losses"], "window_split_s": k["split"],
         }
         log(f"async {name}: { {a: b for a, b in res.items() if 'losses' not in a} }")
         check(len(k["losses"]) == len(p["losses"]) == ASYNC_STEPS,
@@ -1376,7 +1409,8 @@ def run_async_simulated(torch, np, zoo, ds):
             check((ls[:, -1] < ls[:, 0]).all(),
                   f"DOWNPOUR's loss did not fall: {k['losses']}")
         out[name] = res
-    return out
+        centers[name] = k["center"]
+    return out, centers
 
 
 def run_async_threads(torch, np, zoo, ds):
@@ -1390,8 +1424,7 @@ def run_async_threads(torch, np, zoo, ds):
     workers = trainer.workers
     expected = async_step_launches(ASYNC_STEPS + 4, "sgd_fused")
     launched = {c: n for c, n in counts.items() if n}
-    splits = {key: float(np.mean([s[key] for w in workers for s in w.splits]))
-              for key in ("pull", "window", "commit")}
+    splits = window_split(np, workers)
     tokens = ASYNC_STEPS * 8 * 512
     res = {
         "seconds": secs, "tokens_per_s": tokens / secs,
@@ -1520,9 +1553,11 @@ def plain_adam(lr):
     return PlainFusedAdam(lr)
 
 
-def baseline_trainer(cfg, optimizer, num_epoch=1, device=None, **kw):
+def baseline_trainer(cfg, optimizer, num_epoch=1, device=None,
+                     mode="simulated", **kw):
     """One config's trainer on a fresh model (seed 0): window 4, simulated
-    mode, ``num_epoch`` epochs; ``kw`` adds trainer options."""
+    mode unless ``mode`` says otherwise, ``num_epoch`` epochs; ``kw`` adds
+    trainer options."""
     import distkeras_tpu_torch as dk
     from distkeras_tpu_torch.models import zoo
 
@@ -1532,20 +1567,20 @@ def baseline_trainer(cfg, optimizer, num_epoch=1, device=None, **kw):
         model, optimizer, "categorical_crossentropy",
         learning_rate=cfg["lr"], batch_size=cfg["batch"],
         num_epoch=num_epoch, num_workers=cfg["workers"],
-        communication_window=4, mode="simulated", label_col="label_onehot",
+        communication_window=4, mode=mode, label_col="label_onehot",
         compute_dtype=cfg["dtype"], seed=0, device=device, **cfg["extra"],
         **kw,
     )
 
 
-def train_baseline(torch, cfg, optimizer, train):
+def train_baseline(torch, cfg, optimizer, train, **kw):
     """One config's trainer on a fresh model (seed 0) over one shuffled
-    epoch; the launch counts are set to 0 just before ``train`` and read
-    just after. Returns the trainer, the result model, the seconds and
-    the counts."""
+    epoch (``kw`` adds trainer options); the launch counts are set to 0
+    just before ``train`` and read just after. Returns the trainer, the
+    result model, the seconds and the counts."""
     from distkeras_tpu_torch import kernels
 
-    trainer = baseline_trainer(cfg, optimizer)
+    trainer = baseline_trainer(cfg, optimizer, **kw)
     kernels.reset_launch_counts()
     t0 = time.monotonic()
     result = trainer.train(train, shuffle=True)
@@ -1618,7 +1653,7 @@ def run_baseline(torch, np, smi):
              torch.backends.cudnn.benchmark)
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
-    out, launches = {}, {}
+    out, launches, centers = {}, {}, {}
     try:
         for cfg in BASELINE:
             train, test, post = baseline_data(cfg["data"])
@@ -1643,9 +1678,7 @@ def run_baseline(torch, np, smi):
                     "samples_per_s": trainer.history.samples_per_second(),
                     "buffers": {n: b.detach().cpu().numpy() for n, b in
                                 result.named_buffers()},
-                    "split": {k: float(np.mean([sp[k] for w in workers
-                                                for sp in w.splits]))
-                              for k in ("pull", "window", "commit")},
+                    "split": window_split(np, workers),
                     "accuracy": baseline_accuracy(result, test, post),
                 }
                 del trainer, result, workers, ps
@@ -1706,12 +1739,13 @@ def run_baseline(torch, np, smi):
                       for path, r in runs.items() if path != "kernel"),
                   f"{tag}: the plain path launched a kernel")
             out[f"config{cfg['id']}"] = res
+            centers[cfg["id"]] = k["center"]
             for c, n in launched.items():
                 launches[c] = launches.get(c, 0) + n
     finally:
         (torch.backends.cudnn.deterministic,
          torch.backends.cudnn.benchmark) = saved
-    return out, launches
+    return out, launches, centers
 
 
 # ------------------------------------------------------------------ phase 8
@@ -2690,6 +2724,454 @@ def run_phase9(torch, np, zoo, ds, smi, baseline):
     return out, launches
 
 
+# ----------------------------------------------------------------- phase 10
+
+
+#: phase 10b's parameter-server process: a port ``SocketParameterServer``
+#: over the center in the file argv[1], on a loopback port it prints, until
+#: a client sends the stop action (or an hour passes)
+PS_PROCESS = """
+import sys
+from distkeras_tpu_torch.parameter_servers import (
+    DeltaParameterServer, SocketParameterServer)
+from distkeras_tpu_torch.utils.serialization import load_params
+srv = SocketParameterServer(DeltaParameterServer(load_params(sys.argv[1])),
+                            host="127.0.0.1")
+srv.start()
+print(srv.port, flush=True)
+srv.ps.stopped.wait(3600)
+srv.stop()
+"""
+
+
+def wire_per_op(workers):
+    """Bytes per pull and per commit the workers' socket clients moved (both
+    directions: action byte, length prefixes, frames, status byte)."""
+    out = {}
+    for verb in ("pull", "commit"):
+        nbytes = sum(w.ps.wire_bytes[verb] for w in workers)
+        ops = sum(w.ps.wire_ops[verb] for w in workers)
+        out[verb] = nbytes / ops if ops else None
+    return out
+
+
+def centers_equal(np, a, b):
+    return a.keys() == b.keys() and all(
+        a[n].dtype == b[n].dtype and np.array_equal(a[n], b[n]) for n in a)
+
+
+def run_remote_config2(torch, np, smi, phase7, center7):
+    """10a: config 2 as in phase 7's kernel path, with ``remote_ps=True``:
+    every pull and commit crosses a loopback socket. The center must be
+    phase 7's bit for bit, 16 commits, 56 B3 launches."""
+    cfg = next(c for c in BASELINE if c["id"] == 2)
+    train, _, _ = baseline_data(cfg["data"])
+    trainer, _, secs, counts = train_baseline(
+        torch, cfg, "pallas_adam", train, remote_ps=True)
+    ps = trainer.parameter_server
+    launched = {c: n for c, n in counts.items() if n}
+    res = {
+        "num_updates": ps.num_updates, "failures": trainer.failures,
+        "center_bit_equal_phase7": centers_equal(np, ps.get_params(),
+                                                 center7),
+        "launches": launched, "seconds": secs,
+        "samples_per_s": trainer.history.samples_per_second(),
+        "phase7_samples_per_s": phase7["samples_per_s"],
+        "wire_bytes_per": wire_per_op(trainer.workers),
+        "window_split_s": window_split(np, trainer.workers),
+        "phase7_window_split_s": phase7["window_split_s"],
+    }
+    log(f"remote config 2: {res}")
+    log(f"remote config 2: {res['samples_per_s']:.1f} samples/s over the "
+        f"socket against {res['phase7_samples_per_s']:.1f} in process "
+        f"(phase 7); wire bytes per pull / commit "
+        f"{res['wire_bytes_per']['pull']:.0f} / "
+        f"{res['wire_bytes_per']['commit']:.0f} on {smi}")
+    check(res["failures"] == [], f"10a: worker failures {res['failures']}")
+    check(res["num_updates"] == 16, f"10a: {res['num_updates']} commits")
+    check(res["center_bit_equal_phase7"],
+          "10a: the remote_ps center differs from phase 7's")
+    check(launched == {"adam_fused": 56},
+          f"10a: launches {launched} != 56 of adam_fused")
+    return res, launched
+
+
+def run_ps_process(torch, np, smi):
+    """10b: the parameter server in its own OS process, as dist-keras runs
+    it apart from its Spark executors. A second process (CUDA hidden)
+    hosts a port ``SocketParameterServer`` over config 2's initial center;
+    this process runs one DOWNPOUR worker's windows on the card against it
+    through ``RemoteParameterServerClient``. The center read back over the
+    wire must be bit for bit the one-worker in-process simulated run's."""
+    import select
+    import shutil
+    import socket
+    import tempfile
+
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.parameter_servers import (
+        RemoteParameterServerClient,
+    )
+    from distkeras_tpu_torch.utils.device import local_devices
+    from distkeras_tpu_torch.utils.serialization import save_params
+
+    cfg = dict(next(c for c in BASELINE if c["id"] == 2), workers=1)
+    train, _, _ = baseline_data(cfg["data"])
+    ref = baseline_trainer(cfg, "pallas_adam")
+    start = dict(zip(ref.model._leaf_order(), ref.model.get_weights()))
+    ref.train(train, shuffle=True)
+    want = ref.parameter_server.get_params()
+    trainer = baseline_trainer(cfg, "pallas_adam")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ps_")
+    proc = None
+    try:
+        path = os.path.join(tmp, "center.dkt")
+        save_params(path, start)
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   PYTHONPATH=os.pathsep.join(
+                       [HERE] + [p for p in [os.environ.get("PYTHONPATH")]
+                                 if p]))
+        proc = subprocess.Popen([sys.executable, "-c", PS_PROCESS, path],
+                                stdout=subprocess.PIPE, env=env, cwd=HERE,
+                                text=True)
+        ready, _, _ = select.select([proc.stdout], [], [], 120)
+        check(ready, "10b: the parameter-server process did not start")
+        port = int(proc.stdout.readline())
+        client = RemoteParameterServerClient("127.0.0.1", port)
+        # the trainer's own worker template, its PS the remote client
+        trainer.parameter_server = client
+        worker = trainer.allocate_worker(trainer._make_core(), 0,
+                                         local_devices(trainer.device)[0])
+        part = train.shuffle(trainer.seed).partition(1)[0]
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        worker.train(part, trainer.batch_size, num_epoch=1,
+                     shuffle_seed=trainer.seed)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        counts = {c: n for c, n in kernels.launch_counts().items() if n}
+        got, _ = client.pull()
+        res = {
+            "center_bit_equal_in_process": centers_equal(np, got, want),
+            "commits": len(worker.splits),
+            "in_process_commits": ref.parameter_server.num_updates,
+            "launches": counts, "seconds": secs,
+            "steps": len(worker.records),
+            "wire_bytes_per": wire_per_op([worker]),
+            "window_split_s": window_split(np, [worker]),
+            "ps_pid": proc.pid,
+        }
+        client.close()
+        with socket.create_connection(("127.0.0.1", port), timeout=10) as s:
+            s.sendall(b"s")  # the stop action
+        res["ps_exit_code"] = proc.wait(timeout=60)
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"ps process config 2: {res}")
+    log(f"ps process config 2: one worker on the card, the PS in process "
+        f"{res['ps_pid']}: {res['commits']} commits in "
+        f"{res['seconds']:.2f} s, window split {res['window_split_s']} "
+        f"on {smi}")
+    check(res["center_bit_equal_in_process"],
+          "10b: the center over the wire differs from the in-process run's")
+    check(res["commits"] == res["in_process_commits"] > 0,
+          f"10b: {res['commits']} commits against "
+          f"{res['in_process_commits']}")
+    check(counts == {"adam_fused": res["steps"]},
+          f"10b: launches {counts} for {res['steps']} steps")
+    check(res["ps_exit_code"] == 0,
+          f"10b: the PS process exited with {res['ps_exit_code']}")
+    return res, counts
+
+
+def remote_lm_runs():
+    """Phase 10c's socket runs of phase 6a's trainers: (trainer,
+    kernel-path optimizer, learning rate, fused SGD kernel, compression
+    options)."""
+    return [(name, kopt, lr, kname, {})
+            for name, kopt, _, lr, kname in async_runs()
+            if name in ("DOWNPOUR", "DynSGD")] + [
+        ("DOWNPOUR", "pallas_sgd", ASYNC_LR, "sgd_fused",
+         {"compress": "int8", "pull_compress": "bfloat16"})]
+
+
+def wire_breakdown(np, center, reps=3):
+    """Host seconds (best of ``reps``) of what one uncompressed pull of
+    ``center`` costs on each side of a loopback socket: the in-process
+    pull's copy, the DKT1 encode, the loopback transfer of the frame
+    (``networking.send_data`` to ``recv_data``) and the decode."""
+    import socket
+    import threading
+
+    from distkeras_tpu_torch import networking
+    from distkeras_tpu_torch.utils.serialization import (
+        deserialize_params,
+        serialize_params,
+    )
+
+    def best(fn):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append(time.perf_counter() - t0)
+        return min(times), out
+
+    copy_s, _ = best(lambda: {k: np.copy(v) for k, v in center.items()})
+    encode_s, blob = best(lambda: serialize_params(center))
+    listener = socket.socket()
+    listener.bind(("127.0.0.1", 0))
+    listener.listen(1)
+    sender = networking.connect("127.0.0.1", listener.getsockname()[1],
+                                timeout=30)
+    receiver, _ = listener.accept()
+    try:
+        def transfer():
+            got = {}
+            t = threading.Thread(
+                target=lambda: got.update(data=networking.recv_data(
+                    receiver)))
+            t.start()
+            networking.send_data(sender, blob)
+            t.join(timeout=60)
+            return got["data"]
+
+        loopback_s, data = best(transfer)
+    finally:
+        for sock in (sender, receiver, listener):
+            sock.close()
+    decode_s, _ = best(lambda: deserialize_params(data))
+    return {"bytes": len(blob), "copy": copy_s, "encode": encode_s,
+            "loopback": loopback_s, "decode": decode_s}
+
+
+def run_remote_lm(torch, np, zoo, ds, smi, phase6a, centers6a):
+    """10c: phase 6a's hooked d512/L8 DOWNPOUR (B1) and DynSGD (B2) with
+    ``remote_ps=True``: centers bit-identical to phase 6a's in-process
+    runs, launches exactly 16 x (17, 17, 8, 8, 8) of B7/B8/B4/B5/B6 plus 16
+    of B1/B2; then DOWNPOUR with int8 commits and bf16 pulls over the
+    socket on the kernel path and on the plain path (no hooks, ``sgd``,
+    the same compression), per-step losses within 1e-3 relative of each
+    other (the distance to phase 6a's uncompressed plain path, which the
+    bf16 pulls move by about bf16's rounding, is printed). Prints wire
+    bytes per pull/commit, the window split beside the in-process run's
+    and where an uncompressed pull's host time goes."""
+    out, launches = {}, {}
+    for name, opt, lr, kname, comp in remote_lm_runs():
+        key = name + ("_int8_bf16" if comp else "")
+        trainer, _, secs, counts, _ = train_async(
+            torch, zoo, name, opt, lr, ds, True, "simulated",
+            remote_ps=True, **comp)
+        ps = trainer.parameter_server
+        losses = [r["loss"] for r in trainer.get_history()]
+        launched = {c: n for c, n in counts.items() if n}
+        ref = phase6a[name]
+        res = {
+            "num_updates": ps.num_updates, "failures": trainer.failures,
+            "steps": len(losses), "launches": launched, "seconds": secs,
+            "in_process_seconds": ref["seconds"],
+            "wire_bytes_per": wire_per_op(trainer.workers),
+            "window_split_s": window_split(np, trainer.workers),
+            "in_process_window_split_s": ref["window_split_s"],
+        }
+        if comp:
+            del trainer
+            torch.cuda.empty_cache()
+            trainer, _, _, pcounts, _ = train_async(
+                torch, zoo, name, "sgd", lr, ds, False, "simulated",
+                remote_ps=True, **comp)
+            plain = [r["loss"] for r in trainer.get_history()]
+            res.update(comp)
+            res["plain_launches"] = {c: n for c, n in pcounts.items() if n}
+            res["max_rel_loss_diff_vs_plain"] = max(
+                abs(a - b) / abs(b) for a, b in zip(losses, plain))
+            res["max_rel_loss_diff_vs_uncompressed_plain"] = max(
+                abs(a - b) / abs(b) for a, b in zip(losses,
+                                                    ref["plain_losses"]))
+        else:
+            res["center_bit_equal_phase6a"] = centers_equal(
+                np, ps.get_params(), centers6a[name])
+            res["losses_equal_phase6a"] = losses == ref["losses"]
+        del trainer, ps
+        torch.cuda.empty_cache()
+        log(f"remote lm {key}: {res}")
+        log(f"remote lm {key}: wire bytes per pull / commit "
+            f"{res['wire_bytes_per']['pull']:.0f} / "
+            f"{res['wire_bytes_per']['commit']:.0f}; window split "
+            f"{res['window_split_s']} over the socket against "
+            f"{res['in_process_window_split_s']} in process on {smi}")
+        tag = f"10c {key}"
+        check(res["failures"] == [], f"{tag}: worker failures")
+        check(res["num_updates"] == ASYNC_COMMITS
+              and res["steps"] == ASYNC_STEPS,
+              f"{tag}: {res['num_updates']} commits, {res['steps']} steps")
+        check(all(np.isfinite(losses)), f"{tag}: a loss is not finite")
+        check(launched == async_step_launches(ASYNC_STEPS, kname),
+              f"{tag}: launches {launched}")
+        if comp:
+            check(res["max_rel_loss_diff_vs_plain"] <= TRAIN_LOSS_RTOL,
+                  f"{tag}: losses differ from the plain path by "
+                  f"{res['max_rel_loss_diff_vs_plain']}")
+            check(res["plain_launches"] == {},
+                  f"{tag}: the plain path launched {res['plain_launches']}")
+        else:
+            check(res["center_bit_equal_phase6a"]
+                  and res["losses_equal_phase6a"],
+                  f"{tag}: the remote_ps run differs from phase 6a's")
+        out[key] = res
+        add_counts(launches, launched)
+    out["wire_breakdown_s"] = wire_breakdown(np, centers6a["DOWNPOUR"])
+    log(f"remote lm: one uncompressed pull's host seconds "
+        f"{out['wire_breakdown_s']} on {smi}")
+    return out, launches
+
+
+def failover_run(torch, cfg, train, kill_at=None):
+    """Config ``cfg`` in threads mode with ``remote_ps``, a warm standby
+    and ``worker_retries=2``; ``kill_at``: kill the primary once it has
+    applied that many commits. Returns the trainer, the launch counts,
+    the seconds and the kill instant (``time.monotonic``)."""
+    import threading
+
+    from distkeras_tpu_torch import kernels
+
+    trainer = baseline_trainer(cfg, "pallas_sgd", mode="threads",
+                               remote_ps=True, standby=True,
+                               worker_retries=2)
+    killed = {}
+
+    def killer():
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline and "done" not in killed:
+            svc = trainer.service
+            if (svc is not None and not svc.killed
+                    and trainer.parameter_server.num_updates >= kill_at):
+                # stamped before the call: the standby may promote
+                # before kill() returns
+                killed["at"] = time.monotonic()
+                svc.kill()
+                return
+            time.sleep(0.001)
+
+    thread = None
+    if kill_at is not None:
+        thread = threading.Thread(target=killer, daemon=True)
+        thread.start()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    try:
+        trainer.train(train, shuffle=True)
+        torch.cuda.synchronize()
+    finally:
+        killed["done"] = True
+        if thread is not None:
+            thread.join(timeout=10)
+    secs = time.monotonic() - t0
+    counts = {c: n for c, n in kernels.launch_counts().items() if n}
+    return trainer, counts, secs, killed.get("at")
+
+
+def run_failover(torch, np, smi):
+    """10d: config 3 (AEASGD, ``higgs_mlp``, 4 workers, ``pallas_sgd``) in
+    threads with ``remote_ps``, a warm standby and ``worker_retries=2``,
+    unfaulted and with the primary killed at half the expected commits.
+    The faulted run must finish with exactly one promotion
+    (``primary-lost``), at least one client failover, a post-mortem bundle,
+    and the unfaulted run's commit ledger (update count, every worker's
+    last commit seq)."""
+    cfg = next(c for c in BASELINE if c["id"] == 3)
+    train, _, _ = baseline_data(cfg["data"])
+    expected = 16
+    runs = {}
+    for label, kill_at in (("unfaulted", None), ("faulted", expected // 2)):
+        trainer, counts, secs, kill = failover_run(torch, cfg, train,
+                                                   kill_at)
+        ps = trainer.active_parameter_server()
+        sb = trainer.standby_service
+        runs[label] = {
+            "ledger": {"num_updates": ps.num_updates,
+                       "seen_seq": {str(k): int(v) for k, v in
+                                    sorted(ps._seen_seq.items())}},
+            "num_duplicates": ps.num_duplicates,
+            "promotions": list(trainer.ps_promotions),
+            "failovers": trainer.ps_failovers,
+            "failures": list(trainer.failures), "launches": counts,
+            "seconds": secs,
+            "kill_to_promotion_s": (None if kill is None or not sb.promoted
+                                    else sb.promoted_at - kill),
+            "postmortem": (None if sb.last_postmortem is None else
+                           {k: sb.last_postmortem[k] for k in
+                            ("reason", "detail")}),
+            "center_finite": all(np.isfinite(v).all()
+                                 for v in ps.get_params().values()),
+        }
+        del trainer, ps, sb
+    clean, fault = runs["unfaulted"], runs["faulted"]
+    res = {**runs, "ledgers_equal": clean["ledger"] == fault["ledger"]}
+    log(f"failover config 3: {res}")
+    log(f"failover config 3: kill -> promotion "
+        f"{fault['kill_to_promotion_s']} s, {fault['failovers']} client "
+        f"failovers, B1 launches {clean['launches']} unfaulted / "
+        f"{fault['launches']} faulted on {smi}")
+    check(clean["promotions"] == [] and clean["failures"] == []
+          and clean["ledger"]["num_updates"] == expected,
+          f"10d: the unfaulted run {clean}")
+    check(clean["launches"] == {"sgd_fused": 60},
+          f"10d: unfaulted launches {clean['launches']} != 56 steps + the "
+          "4-step warm-up of sgd_fused")
+    check(fault["kill_to_promotion_s"] is not None,
+          "10d: the primary was not killed, or the standby never promoted")
+    check(len(fault["promotions"]) == 1
+          and fault["promotions"][0]["reason"] == "primary-lost",
+          f"10d: promotions {fault['promotions']}")
+    check(fault["failovers"] >= 1, "10d: no client failed over")
+    check(res["ledgers_equal"],
+          f"10d: ledgers differ: {clean['ledger']} != {fault['ledger']}")
+    check(fault["postmortem"] is not None
+          and fault["postmortem"]["reason"] == "promotion",
+          "10d: no promotion post-mortem bundle")
+    check(clean["center_finite"] and fault["center_finite"],
+          "10d: a center is not finite")
+    check(fault["launches"].get("sgd_fused", 0) >= 60,
+          f"10d: faulted launches {fault['launches']}")
+    launches = add_counts(dict(clean["launches"]), fault["launches"])
+    return res, launches
+
+
+def run_phase10(torch, np, zoo, ds, smi, phase7, centers7, phase6a,
+                centers6a):
+    """Phase 10 (10a-10d), the socket parameter-server tier on the card,
+    cuDNN deterministic as in phase 7; returns the results and the kernel
+    launches of its main-path runs."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out, launches = {}, {}
+    subphases = (
+        ("10a", "remote_config2", lambda: run_remote_config2(
+            torch, np, smi, phase7["config2"], centers7[2])),
+        ("10b", "ps_process", lambda: run_ps_process(torch, np, smi)),
+        ("10c", "remote_lm", lambda: run_remote_lm(
+            torch, np, zoo, ds, smi, phase6a, centers6a)),
+        ("10d", "failover", lambda: run_failover(torch, np, smi)),
+    )
+    try:
+        for label, key, fn in subphases:
+            t0 = time.monotonic()
+            out[key], counts = fn()
+            out[key]["seconds_total"] = time.monotonic() - t0
+            log(f"phase {label} ({key}) in {out[key]['seconds_total']:.1f} s")
+            add_counts(launches, counts)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+    return out, launches
+
+
 def baseline_leaf_shapes():
     """The parameter shapes of configs 2-5's models (built on the CPU: only
     their leaf tables matter to phases 2b/2c)."""
@@ -3090,13 +3572,14 @@ def main(argv):
         f"samples/s = {train['tokens_per_s']:.0f} tokens/s (steady "
         f"{train['steady_tokens_per_s']:.0f} tokens/s) on {smi}")
     ds = loaders.text_corpus(seq_len=512, vocab_size=8192)
-    async_sim = run_async_simulated(torch, np, zoo, ds)
+    async_sim, async_centers = run_async_simulated(torch, np, zoo, ds)
     async_thr = run_async_threads(torch, np, zoo, ds)
     log(f"async threads: {async_thr['threads_tokens_per_s']:.0f} tokens/s "
         f"after the warm-up ({async_thr['tokens_per_s']:.0f} over train()), "
         f"window split {async_thr['window_split_s']} on {smi}")
     t7 = time.monotonic()
-    baseline, baseline_launches = run_baseline(torch, np, smi)
+    baseline, baseline_launches, baseline_centers = run_baseline(
+        torch, np, smi)
     log(f"baseline configs 2-5 in {time.monotonic() - t7:.1f} s")
     t8 = time.monotonic()
     resume, resume_launches = run_resume(torch, np, zoo, ds)
@@ -3108,11 +3591,17 @@ def main(argv):
     t9 = time.monotonic()
     members, member_launches = run_phase9(torch, np, zoo, ds, smi, baseline)
     log(f"phase 9 in {time.monotonic() - t9:.1f} s")
+    t10 = time.monotonic()
+    socket_tier, socket_launches = run_phase10(
+        torch, np, zoo, ds, smi, baseline, baseline_centers, async_sim,
+        async_centers)
+    del baseline_centers, async_centers
+    log(f"phase 10 in {time.monotonic() - t10:.1f} s")
     profile = profile_paths(torch, np, lm, zoo) if args.profile else None
 
     phases = [pred["launches"], gen["launches"], train["launches"],
               async_thr["launches"], baseline_launches, resume_launches,
-              member_launches,
+              member_launches, socket_launches,
               *(r["launches"] for r in async_sim.values())]
     launches = {k: sum(c.get(k, 0) for c in phases) for k in kernels.LAUNCHES}
     check(all(n > 0 for n in launches.values()),
@@ -3177,6 +3666,7 @@ def main(argv):
                        "async_simulated": async_sim,
                        "async_threads": async_thr, "baseline": baseline,
                        "resume": resume, "phase9": members,
+                       "phase10": socket_tier,
                        "profile": profile,
                        "flash_infinite_q": inf_rows},
                       f, indent=1)

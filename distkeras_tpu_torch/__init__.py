@@ -30,7 +30,11 @@ data layer: ``StreamingDataset`` over ``.npz`` shards (``data.streaming``)
 and the C++ CSV reader and row gather (``data.native``, built with g++ at
 first use); the member trainers ``EnsembleTrainer`` and
 ``AveragingTrainer`` (threaded or stepped together); and commit/pull
-compression for the async tier (``utils.compression``).
+compression for the async tier (``utils.compression``); the socket
+parameter-server tier: ``SocketParameterServer`` with warm-standby
+replication and ``RemoteParameterServerClient`` (``parameter_servers``,
+over ``networking``), the fault-injection seams (``faults``) and the PS's
+metrics, time-series and flight-recorder books (``obs``).
 Kernels (``kernels/csrc``): LayerNorm forward and backward,
 FlashAttention forward and backward (dQ, dK/dV), the fused multi-tensor
 Adam, and the fused multi-tensor SGD without and with momentum.
@@ -88,6 +92,8 @@ from distkeras_tpu_torch.parameter_servers import (
     DeltaParameterServer,
     DynSGDParameterServer,
     ParameterServer,
+    RemoteParameterServerClient,
+    SocketParameterServer,
 )
 from distkeras_tpu_torch.predictors import (
     CachedSequenceGenerator,
@@ -158,6 +164,7 @@ __all__ = [
     "MultiHeadSelfAttention",
     "OneHotTransformer",
     "ParameterServer",
+    "RemoteParameterServerClient",
     "ReshapeTransformer",
     "Residual",
     "SamplingParams",
@@ -167,6 +174,7 @@ __all__ = [
     "ShardWriter",
     "SingleTrainer",
     "SingleTrainerWorker",
+    "SocketParameterServer",
     "StandardScaleTransformer",
     "StreamingDataset",
     "Trainer",

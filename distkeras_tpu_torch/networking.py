@@ -1,0 +1,262 @@
+"""Socket networking primitives for the cross-host parameter-server path
+(PyTorch port: a copy of ``distkeras_tpu.networking``; the wire is
+byte-compatible, so either package's peers talk to the other's).
+
+Behavioral equivalent of the reference's entire communication backend
+(reference: distkeras/networking.py -> determine_host_address / connect /
+send_data / recv_data): length-prefixed messages over TCP with Nagle
+disabled. Two deliberate upgrades over the reference:
+
+- payloads are serialized with the pytree/npz codec from
+  ``utils.serialization`` (no pickled code objects on the wire), and
+- an 8-byte big-endian length prefix replaces pickle-stream framing, so a
+  message is one contiguous read.
+
+Within one host, trainers never touch sockets — workers share the PS object
+in-process. Sockets are only the DCN transport between hosts, where the
+reference used them for everything.
+
+Two robustness facilities live here because BOTH wire consumers (the PS
+path and the serving tier) share them:
+
+- :class:`RetryPolicy` — THE backoff implementation of the repo
+  (exponential, full-jitter, wall-clock retry budget, server-supplied
+  ``Retry-After``-style hints). ``ServingClient`` retries ``overloaded``
+  replies and connection resets through it, a retried worker's
+  ``ps.reconnect()`` redials through it, and the serving engine's
+  supervisor paces scheduler restarts with its ``delay`` schedule — one
+  implementation, so training and serving cannot drift apart on backoff
+  semantics.
+- ``faults.fire`` seams (``net.send`` / ``net.recv``) — the wire-level
+  fault-injection hook points (socket reset mid-frame, truncated frame,
+  corrupted payload, slow peer). Disarmed they are a global load and a
+  ``None`` check; see ``distkeras_tpu_torch/faults.py``.
+"""
+
+from __future__ import annotations
+
+import random
+import socket
+import struct
+import time
+
+from distkeras_tpu_torch import faults
+
+_LEN = struct.Struct(">Q")
+
+
+def determine_host_address() -> str:
+    """Best-effort externally visible address of this host."""
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        s.connect(("10.255.255.255", 1))
+        return s.getsockname()[0]
+    except OSError:
+        return "127.0.0.1"
+    finally:
+        s.close()
+
+
+def connect(host: str, port: int, timeout=30.0) -> socket.socket:
+    sock = socket.create_connection((host, port), timeout=timeout)
+    sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    return sock
+
+
+class EndpointsUnreachableError(ConnectionError):
+    """``connect_any`` exhausted every endpoint. ``causes`` holds the
+    ``((host, port), exception)`` pairs in dial order, and the message
+    names each endpoint with its own failure — a failover caller that
+    only saw the LAST error used to misdiagnose a half-dead fleet (one
+    refused, one timed out) as whichever endpoint happened to die last."""
+
+    def __init__(self, causes):
+        self.causes = list(causes)
+        detail = "; ".join(
+            f"{host}:{port}: {err!r}" for (host, port), err in self.causes
+        )
+        super().__init__(
+            f"all {len(self.causes)} endpoints unreachable ({detail})"
+        )
+
+
+def connect_any(endpoints, timeout=30.0, start=0):
+    """Dial a list of ``(host, port)`` endpoints in rotation starting at
+    index ``start``; return ``(sock, index)`` of the first that answers.
+
+    THE multi-endpoint dial for replicated services (the PS primary +
+    warm-standby pair, the serving fleet's router): a caller that
+    remembers the returned index keeps talking to the endpoint that last
+    worked and only rotates onward when it dies, so failover is sticky
+    rather than thrashing. Raises :class:`EndpointsUnreachableError`
+    (a ``ConnectionError``) naming EVERY endpoint tried and its
+    per-endpoint cause when the whole rotation refuses."""
+    endpoints = list(endpoints)
+    if not endpoints:
+        raise ValueError("connect_any needs at least one endpoint")
+    causes = []
+    for k in range(len(endpoints)):
+        i = (start + k) % len(endpoints)
+        host, port = endpoints[i]
+        try:
+            return connect(host, port, timeout=timeout), i
+        except OSError as e:
+            causes.append(((host, port), e))
+    raise EndpointsUnreachableError(causes)
+
+
+def probe(endpoints, timeout=1.0):
+    """Reachability sweep: dial each ``(host, port)`` once and close.
+    Returns ``{(host, port): None | OSError}`` — ``None`` means the
+    endpoint accepted the connection. The serving fleet's router uses
+    this to cheaply re-test EJECTED replicas before spending a full
+    health round-trip on them; it deliberately proves only that the
+    listener answers, not that the service behind it is healthy."""
+    out = {}
+    for host, port in endpoints:
+        try:
+            sock = connect(host, port, timeout=timeout)
+            try:
+                sock.close()
+            except OSError:
+                pass
+            out[(host, int(port))] = None
+        except OSError as e:
+            out[(host, int(port))] = e
+    return out
+
+
+def send_data(sock: socket.socket, payload: bytes) -> None:
+    act = faults.fire("net.send", nbytes=len(payload))
+    if act is not None:
+        payload = _inject_send_fault(act, sock, payload)
+    sock.sendall(_LEN.pack(len(payload)) + payload)
+
+
+def recv_data(sock: socket.socket, max_len: int | None = None) -> bytes:
+    """``max_len``: refuse frames whose declared length exceeds it BEFORE
+    buffering a byte — on a port that accepts untrusted peers (the
+    serving server), an unchecked 64-bit prefix lets one client grow
+    server memory without bound."""
+    faults.fire("net.recv")
+    header = _recv_exact(sock, _LEN.size)
+    (length,) = _LEN.unpack(header)
+    if max_len is not None and length > max_len:
+        raise ValueError(
+            f"incoming frame of {length} bytes exceeds the {max_len}-byte "
+            "limit"
+        )
+    return _recv_exact(sock, length)
+
+
+def _recv_exact(sock: socket.socket, n: int) -> bytes:
+    chunks = []
+    got = 0
+    while got < n:
+        chunk = sock.recv(min(1 << 20, n - got))
+        if not chunk:
+            raise ConnectionError("socket closed mid-message")
+        chunks.append(chunk)
+        got += len(chunk)
+    return b"".join(chunks)
+
+
+# ------------------------------------------------------- fault behaviors
+
+
+def _inject_send_fault(act: str, sock: socket.socket, payload: bytes) -> bytes:
+    """Wire-level injected failures (armed ``net.send`` seams only).
+
+    ``corrupt`` returns a mangled payload for the normal send path;
+    ``truncate``/``reset`` send a partial frame themselves and raise,
+    because their whole point is that the peer sees a broken stream."""
+    if act == "corrupt":
+        mangled = bytearray(payload)
+        if mangled:
+            mangled[len(mangled) // 2] ^= 0xFF
+        return bytes(mangled)
+    if act in ("truncate", "reset"):
+        # declare the full length, deliver half: the peer's _recv_exact
+        # dies mid-message either on FIN (truncate) or RST (reset)
+        try:
+            sock.sendall(_LEN.pack(len(payload)) + payload[: len(payload) // 2])
+        except OSError:
+            pass
+        if act == "reset":
+            try:  # SO_LINGER 0 close aborts the connection (RST, not FIN)
+                sock.setsockopt(
+                    socket.SOL_SOCKET, socket.SO_LINGER,
+                    struct.pack("ii", 1, 0),
+                )
+            except OSError:
+                pass
+        try:
+            sock.close()
+        except OSError:
+            pass
+        raise ConnectionResetError(f"injected net.send fault: {act}")
+    return payload  # delay already slept inside fire(); raise already threw
+
+
+# ------------------------------------------------------------ retry policy
+
+
+class RetryPolicy:
+    """Exponential backoff with full jitter, a bounded attempt count, and
+    a wall-clock retry budget (AWS-style full jitter: each delay draws
+    uniformly from ``[0, min(max_delay, base_delay * 2**attempt)]``, the
+    schedule that avoids retry synchronization across many clients).
+
+    A server hint (``Retry-After`` semantics — the ``retry_after``
+    attribute the serving client attaches to ``overloaded`` errors)
+    overrides the computed delay, capped at ``max_delay``.
+
+    ``call(fn, retry_on=...)`` is the shared retry loop: it re-invokes
+    ``fn`` on the listed exception types until one succeeds, the attempt
+    count (``max_attempts`` total invocations) is spent, or the next
+    sleep would overrun the wall-clock ``budget`` — then re-raises the
+    last failure unchanged. ``seed=None`` draws real jitter; chaos tests
+    pass a seed so even the sleep schedule replays."""
+
+    def __init__(self, max_attempts: int = 5, base_delay: float = 0.05,
+                 max_delay: float = 2.0, budget: float | None = 30.0,
+                 seed: int | None = None):
+        self.max_attempts = int(max_attempts)
+        if self.max_attempts < 1:
+            raise ValueError("max_attempts must be >= 1")
+        self.base_delay = float(base_delay)
+        self.max_delay = float(max_delay)
+        self.budget = None if budget is None else float(budget)
+        self._rng = random.Random(seed)
+
+    def delay(self, attempt: int, hint: float | None = None) -> float:
+        """Sleep before retry number ``attempt`` (0-based). ``hint``: a
+        server-supplied seconds value (``Retry-After``) that replaces
+        the jittered draw, still capped at ``max_delay``."""
+        if hint is not None:
+            return max(0.0, min(float(hint), self.max_delay))
+        cap = min(self.max_delay, self.base_delay * (2 ** attempt))
+        return self._rng.uniform(0.0, cap)
+
+    def call(self, fn, retry_on=(ConnectionError, OSError), on_retry=None):
+        """Run ``fn()`` under this policy. ``on_retry(exc, attempt,
+        delay)`` observes each retry (logging/counters). The hint is
+        read off the exception's ``retry_after`` attribute when present
+        (seconds)."""
+        attempt = 0
+        start = time.monotonic()
+        while True:
+            try:
+                return fn()
+            except retry_on as e:
+                d = self.delay(attempt, hint=getattr(e, "retry_after", None))
+                attempt += 1
+                if attempt >= self.max_attempts:
+                    raise
+                if self.budget is not None and (
+                    time.monotonic() - start + d > self.budget
+                ):
+                    raise
+                if on_retry is not None:
+                    on_retry(e, attempt, d)
+                time.sleep(d)

@@ -1,0 +1,466 @@
+"""Typed metrics registry: Prometheus-style Counter/Gauge/Histogram
+(PyTorch port: a copy of ``distkeras_tpu.obs.metrics``; pure Python, so
+both packages render and parse the same samples).
+
+Every subsystem used to keep its own hand-rolled counter dict
+(``ContinuousBatcher.counters``, ``FleetRouter.counters``,
+``PrefixStore.counters``, the PS meta counters) with no shared naming,
+no types, and no way to scrape them uniformly — a dashboard had to
+know five ad-hoc ``stats()`` shapes. This module is the standard
+answer: a process-cheap typed registry with
+
+- :class:`Counter` — monotonic event count (hot-path ``inc`` is one
+  attribute add; components already serialize increments under their
+  own locks, exactly as the old dicts did);
+- :class:`Gauge` — a point-in-time value, either ``set()`` by the
+  owner or computed by a callback at snapshot time (queue depth,
+  active slots — values that already live in the component);
+- :class:`Histogram` — log-bucketed distribution (geometric bucket
+  boundaries, so 60 µs..60 s of latency fits in ~20 buckets);
+  ``observe`` is a bisect into a ~20-entry list plus two adds under
+  the histogram's own lock (observations come from concurrent
+  connection threads, unlike counter increments);
+- :class:`CounterGroup` — a ``MutableMapping`` facade over a family of
+  registry counters, so existing ``counters["submitted"] += 1`` call
+  sites (and tests, and the bench's counter resets) keep working while
+  the values become scrapeable typed metrics;
+- :class:`MetricsRegistry` — the collection face: ``snapshot()``
+  returns JSON-able samples (what the ``metrics`` DKT1 verb ships),
+  :func:`render_prometheus` turns samples into the text exposition
+  format, and :func:`parse_prometheus` is the validating reader tests
+  and the bench harness use to prove the dump actually parses.
+
+Naming convention (see docs/ARCHITECTURE.md "Observability"):
+``<subsystem>_<what>[_<unit>]`` in snake_case — e.g.
+``serving_scheduler_submitted``, ``serving_request_total_seconds``,
+``fleet_router_forwards``. Counters get a ``_total`` suffix in the
+Prometheus rendering only (the snapshot keeps the raw name). Labels
+are flat string pairs; the fleet router labels every aggregated
+replica sample with ``replica="host:port"``.
+"""
+
+from __future__ import annotations
+
+import threading
+from bisect import bisect_left
+from collections.abc import MutableMapping
+
+
+def _label_key(labels: dict) -> tuple:
+    return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
+
+
+class Counter:
+    """Monotonic counter. ``inc`` is the hot path: one attribute add,
+    no lock — callers that race increments already hold their own
+    component lock (the same contract the raw dicts had)."""
+
+    kind = "counter"
+    __slots__ = ("name", "help", "labels", "value")
+
+    def __init__(self, name: str, help: str = "", labels: dict | None = None):
+        self.name = name
+        self.help = help
+        self.labels = dict(labels or {})
+        self.value = 0
+
+    def inc(self, n=1) -> None:
+        self.value += n
+
+    def sample(self) -> dict:
+        s = {
+            "name": self.name,
+            "kind": self.kind,
+            "labels": dict(self.labels),
+            "value": self.value,
+        }
+        if self.help:
+            s["help"] = self.help
+        return s
+
+
+class Gauge:
+    """Point-in-time value: ``set()`` by the owner, or computed by
+    ``fn`` at snapshot time (for values that already live in the
+    component — queue depth, heartbeat age — a callback gauge costs
+    nothing between scrapes)."""
+
+    kind = "gauge"
+    __slots__ = ("name", "help", "labels", "value", "fn")
+
+    def __init__(self, name: str, help: str = "", labels: dict | None = None,
+                 fn=None):
+        self.name = name
+        self.help = help
+        self.labels = dict(labels or {})
+        self.value = 0.0
+        self.fn = fn
+
+    def set(self, v) -> None:
+        self.value = v
+
+    def sample(self) -> dict:
+        v = self.value
+        if self.fn is not None:
+            try:
+                v = self.fn()
+            except Exception:  # noqa: BLE001 — a scrape must never crash
+                v = None
+        if v is not None and not isinstance(v, (int, float, bool)):
+            v = float(v)
+        s = {
+            "name": self.name,
+            "kind": self.kind,
+            "labels": dict(self.labels),
+            "value": v,
+        }
+        if self.help:
+            s["help"] = self.help
+        return s
+
+
+class Histogram:
+    """Log-bucketed distribution. Bucket boundaries form a geometric
+    ladder ``start * factor**i`` — the latency-histogram shape where
+    relative error is constant across decades, and 60 µs..60 s fits in
+    ~20 buckets. ``observe`` is a bisect into that ~20-entry list plus
+    two adds, under the histogram's OWN lock: unlike counters (whose
+    increments all sit under component locks already), histograms are
+    observed from concurrent connection threads at request completion,
+    and a request-scale lock is cheap while a torn count/bucket pair
+    would make the exposition internally inconsistent."""
+
+    kind = "histogram"
+    __slots__ = (
+        "name", "help", "labels", "bounds", "bucket_counts", "count",
+        "sum", "_lock",
+    )
+
+    def __init__(self, name: str, help: str = "", labels: dict | None = None,
+                 start: float = 1e-4, factor: float = 2.0,
+                 num_buckets: int = 20):
+        if start <= 0 or factor <= 1.0 or num_buckets < 1:
+            raise ValueError(
+                "need start > 0, factor > 1, num_buckets >= 1; got "
+                f"{start}, {factor}, {num_buckets}"
+            )
+        self.name = name
+        self.help = help
+        self.labels = dict(labels or {})
+        self.bounds = [start * factor ** i for i in range(num_buckets)]
+        self.bucket_counts = [0] * (num_buckets + 1)  # +1 = overflow/+Inf
+        self.count = 0
+        self.sum = 0.0
+        self._lock = threading.Lock()
+
+    def observe(self, v) -> None:
+        v = float(v)
+        i = bisect_left(self.bounds, v)
+        with self._lock:
+            self.bucket_counts[i] += 1
+            self.count += 1
+            self.sum += v
+
+    def quantile(self, q: float) -> float | None:
+        """Bucket-resolution quantile estimate (upper bound of the
+        bucket holding the q-th observation) — what ``dkt_top`` shows.
+        None until the first observation."""
+        with self._lock:
+            count = self.count
+            counts = list(self.bucket_counts)
+        if count == 0:
+            return None
+        target = max(1, int(q * count))
+        seen = 0
+        for i, c in enumerate(counts):
+            seen += c
+            if seen >= target:
+                return (
+                    self.bounds[i]
+                    if i < len(self.bounds)
+                    else self.bounds[-1]
+                )
+        return self.bounds[-1]
+
+    def sample(self) -> dict:
+        with self._lock:
+            counts = list(self.bucket_counts)
+            count, total = self.count, self.sum
+        cum, buckets = 0, []
+        for i, c in enumerate(counts):
+            cum += c
+            le = self.bounds[i] if i < len(self.bounds) else "+Inf"
+            buckets.append([le, cum])
+        s = {
+            "name": self.name,
+            "kind": self.kind,
+            "labels": dict(self.labels),
+            "count": count,
+            "sum": total,
+            "buckets": buckets,
+        }
+        if self.help:
+            s["help"] = self.help
+        return s
+
+
+class CounterGroup(MutableMapping):
+    """Dict-shaped facade over a family of counters, so the components'
+    existing ``counters["key"] += 1`` hot paths (and every test /
+    bench-reset call site written against the old raw dicts) keep
+    working unchanged while the values become registry metrics.
+
+    ``group[key]`` reads the counter's value, ``group[key] = v`` sets
+    it (the bench zeroes counters between timed passes), ``inc(key)``
+    is the explicit face. Iteration order is insertion order, like the
+    dicts it replaces, so ``dict(group)`` snapshots keep their shape.
+    """
+
+    __slots__ = ("_counters",)
+
+    def __init__(self, counters: dict[str, Counter]):
+        self._counters = counters
+
+    def __getitem__(self, key: str):
+        return self._counters[key].value
+
+    def __setitem__(self, key: str, value) -> None:
+        self._counters[key].value = value
+
+    def __delitem__(self, key: str) -> None:
+        raise TypeError("CounterGroup keys are fixed at construction")
+
+    def __iter__(self):
+        return iter(self._counters)
+
+    def __len__(self) -> int:
+        return len(self._counters)
+
+    def inc(self, key: str, n=1) -> None:
+        self._counters[key].value += n
+
+    def counter(self, key: str) -> Counter:
+        return self._counters[key]
+
+
+class MetricsRegistry:
+    """Process-wide (or component-owned) collection of typed metrics.
+
+    Registration is keyed ``(name, labels)``: asking for an existing
+    counter/gauge/histogram returns the live object (two call sites
+    share one metric); ``group(..., fresh=True)`` REPLACES prior
+    registrations instead — a rebuilt component (a supervisor-restarted
+    scheduler) starts its counters at zero exactly like the dict it
+    replaced, while the superseded group object keeps functioning
+    standalone for anyone still holding it."""
+
+    def __init__(self, namespace: str = ""):
+        self.namespace = namespace
+        self._metrics: dict[tuple, object] = {}
+        self._lock = threading.Lock()
+
+    def _full(self, name: str) -> str:
+        return f"{self.namespace}_{name}" if self.namespace else name
+
+    def _get_or_register(self, cls, name, help, labels, fresh=False, **kw):
+        name = self._full(name)
+        key = (name, _label_key(labels or {}))
+        with self._lock:
+            m = self._metrics.get(key)
+            if m is not None and not fresh:
+                if not isinstance(m, cls):
+                    raise ValueError(
+                        f"metric {name!r} already registered as "
+                        f"{type(m).__name__}, not {cls.__name__}"
+                    )
+                return m
+            m = cls(name, help=help, labels=labels, **kw)
+            self._metrics[key] = m
+            return m
+
+    def counter(self, name: str, help: str = "", labels: dict | None = None,
+                fresh: bool = False) -> Counter:
+        return self._get_or_register(Counter, name, help, labels, fresh)
+
+    def gauge(self, name: str, help: str = "", labels: dict | None = None,
+              fn=None, fresh: bool = False) -> Gauge:
+        g = self._get_or_register(Gauge, name, help, labels, fresh)
+        if fn is not None:
+            g.fn = fn
+        return g
+
+    def histogram(self, name: str, help: str = "",
+                  labels: dict | None = None, fresh: bool = False,
+                  **kw) -> Histogram:
+        return self._get_or_register(Histogram, name, help, labels, fresh,
+                                     **kw)
+
+    def group(self, prefix: str, keys, help: str = "",
+              labels: dict | None = None, fresh: bool = True) -> CounterGroup:
+        """A :class:`CounterGroup` of counters named ``<prefix>_<key>``.
+        ``fresh=True`` (the default) replaces prior registrations — a
+        rebuilt component starts at zero like the dict it replaced."""
+        return CounterGroup({
+            k: self.counter(f"{prefix}_{k}", help=help, labels=labels,
+                            fresh=fresh)
+            for k in keys
+        })
+
+    def snapshot(self) -> list[dict]:
+        """JSON-able samples of every registered metric — the payload
+        of the ``metrics`` DKT1 verb."""
+        with self._lock:
+            metrics = list(self._metrics.values())
+        return [m.sample() for m in metrics]
+
+
+def label_samples(samples, **labels) -> list[dict]:
+    """Copies of ``samples`` with ``labels`` merged in (existing keys
+    win — a replica's own labels are not overwritten). The fleet
+    router uses this to stamp ``replica="host:port"`` onto every
+    sample it aggregates."""
+    out = []
+    for s in samples:
+        s = dict(s)
+        merged = dict(labels)
+        merged.update(s.get("labels") or {})
+        s["labels"] = merged
+        out.append(s)
+    return out
+
+
+def _fmt_labels(labels: dict, extra: dict | None = None) -> str:
+    items = dict(labels or {})
+    if extra:
+        items.update(extra)
+    if not items:
+        return ""
+    inner = ",".join(
+        f'{k}="{_escape(v)}"' for k, v in sorted(items.items())
+    )
+    return "{" + inner + "}"
+
+
+def _escape(v) -> str:
+    return str(v).replace("\\", r"\\").replace('"', r"\"").replace(
+        "\n", r"\n"
+    )
+
+
+def _fmt_value(v) -> str:
+    if v is None:
+        return "NaN"
+    if isinstance(v, bool):
+        return "1" if v else "0"
+    if isinstance(v, float):
+        return repr(v)
+    return str(v)
+
+
+def render_prometheus(samples) -> str:
+    """The Prometheus text exposition format over snapshot ``samples``
+    (``# HELP``/``# TYPE`` headers once per metric name, counters
+    suffixed ``_total`` per convention, histograms as cumulative
+    ``_bucket`` series plus ``_sum``/``_count``). Samples are grouped
+    by metric name first — the exposition format requires every line
+    of a family contiguous under its ``# TYPE``, and the fleet
+    aggregate arrives interleaved (router samples, then each
+    replica's full snapshot); first-seen name order and intra-family
+    sample order are preserved. The ``# HELP`` line renders the
+    metric's registered help text when one exists (a strict scraper
+    treats a family without its comment headers as a foreign line —
+    the bare exposition parsed in our reader but not everywhere), and
+    always before ``# TYPE`` per the format's ordering rule."""
+    families: dict[str, list] = {}
+    for s in samples:
+        name = s["name"] + ("_total" if s["kind"] == "counter" else "")
+        families.setdefault(name, []).append(s)
+    lines = []
+    for name, family in families.items():
+        help_text = next(
+            (s["help"] for s in family if s.get("help")), None
+        )
+        if help_text:
+            lines.append(
+                "# HELP " + name + " "
+                + str(help_text).replace("\\", r"\\").replace(
+                    "\n", r"\n"
+                )
+            )
+        lines.append(f"# TYPE {name} {family[0]['kind']}")
+        for s in family:
+            _render_sample(lines, name, s)
+    return "\n".join(lines) + "\n"
+
+
+def _render_sample(lines, name, s) -> None:
+    labels = s.get("labels") or {}
+    if s["kind"] == "histogram":
+        for le, cum in s["buckets"]:
+            lines.append(
+                f"{name}_bucket"
+                f"{_fmt_labels(labels, {'le': le})} {cum}"
+            )
+        lines.append(f"{name}_sum{_fmt_labels(labels)} "
+                     f"{_fmt_value(s['sum'])}")
+        lines.append(f"{name}_count{_fmt_labels(labels)} {s['count']}")
+    else:
+        lines.append(
+            f"{name}{_fmt_labels(labels)} {_fmt_value(s['value'])}"
+        )
+
+
+def parse_prometheus(text: str) -> list[tuple[str, dict, float]]:
+    """Strict-enough validating parser of the text exposition format:
+    returns ``(name, labels, value)`` triples, raising ``ValueError``
+    on any malformed line. The bench harness and the schema tests use
+    this to prove the dump the ``metrics`` verb serves actually
+    parses — 'Prometheus-style' is a checked claim, not a vibe."""
+    out = []
+    for lineno, line in enumerate(text.splitlines(), 1):
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        try:
+            series, value = line.rsplit(" ", 1)
+            labels: dict[str, str] = {}
+            if series.endswith("}"):
+                name, _, inner = series.partition("{")
+                inner = inner[:-1]
+                while inner:
+                    k, _, rest = inner.partition("=")
+                    if not rest.startswith('"'):
+                        raise ValueError("unquoted label value")
+                    v, rest = _read_quoted(rest)
+                    labels[k] = v
+                    inner = rest.lstrip(",")
+            else:
+                name = series
+            if not name or not all(
+                c.isalnum() or c in "_:" for c in name
+            ) or name[0].isdigit():
+                raise ValueError(f"bad metric name {name!r}")
+            out.append((name, labels, float(value)))
+        except ValueError as e:
+            raise ValueError(f"line {lineno}: {line!r}: {e}") from None
+    return out
+
+
+def _read_quoted(s: str) -> tuple[str, str]:
+    """Read a leading double-quoted string (with backslash escapes);
+    returns (value, remainder-after-the-closing-quote)."""
+    assert s.startswith('"')
+    buf, i = [], 1
+    while i < len(s):
+        c = s[i]
+        if c == "\\" and i + 1 < len(s):
+            buf.append({"n": "\n", '"': '"', "\\": "\\"}.get(
+                s[i + 1], s[i + 1]
+            ))
+            i += 2
+            continue
+        if c == '"':
+            return "".join(buf), s[i + 1:]
+        buf.append(c)
+        i += 1
+    raise ValueError("unterminated label value")

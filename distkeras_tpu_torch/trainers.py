@@ -11,10 +11,10 @@ same contract: ``trainer.train(dataset) -> trained model``, a new model;
 the caller's keeps its weights. ``checkpoint_dir=`` with
 ``train(..., resume=True)``, ``profile_dir=`` (a ``torch.profiler`` Chrome
 trace) and ``metrics_path=`` (JSONL rows) work as in the JAX package, and
-so do the async trainers' commit and pull compression; their socket tier
-and standby replication raise until their modules are ported. The
-synchronous data-parallel and other multi-card strategies come with a
-machine of more than one card.
+so do the async trainers' commit and pull compression, their socket tier
+(``serve_socket``, ``remote_ps``) and warm-standby failover
+(``standby``). The synchronous data-parallel and other multi-card
+strategies come with a machine of more than one card.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from distkeras_tpu_torch.data.prefetch import Prefetcher
+from distkeras_tpu_torch.networking import RetryPolicy
 
 from distkeras_tpu_torch.ops.optimizers import (
     effective_learning_rate,
@@ -38,6 +39,8 @@ from distkeras_tpu_torch.parameter_servers import (
     ADAGParameterServer,
     DeltaParameterServer,
     DynSGDParameterServer,
+    RemoteParameterServerClient,
+    SocketParameterServer,
 )
 from distkeras_tpu_torch.utils.checkpoint import Checkpointer
 from distkeras_tpu_torch.utils.compression import (
@@ -82,12 +85,6 @@ def _maybe_len(dataset):
         return len(dataset)
     except TypeError:
         return None
-
-
-def _not_ported(option, module):
-    raise NotImplementedError(
-        f"{option}= is not ported yet (it needs {module})"
-    )
 
 
 class Trainer:
@@ -750,9 +747,14 @@ class DistributedTrainer(Trainer):
     port) or "simulated" (a seeded deterministic interleaving of pulls and
     commits across workers — reproducible staleness, bit for bit the JAX
     package's schedule). ``device=None`` means CUDA (raises without a GPU;
-    the model must live there). The PS is in-process; ``serve_socket``,
-    ``remote_ps`` and ``standby`` raise until their modules are ported.
-    ``compress`` ("int8", "topk", "topk:<frac>") compresses the commits,
+    the model must live there). The PS is host numpy in this process;
+    ``serve_socket`` also serves it over TCP (``SocketParameterServer``),
+    ``remote_ps`` makes the workers reach it through that socket
+    (``RemoteParameterServerClient``, loopback on one host) and
+    ``standby`` runs a warm standby that follows every commit and, with
+    ``remote_ps``, promotes on the primary's loss while the workers'
+    clients fail over to it (both imply ``serve_socket``). ``compress``
+    ("int8", "topk", "topk:<frac>") compresses the commits,
     ``pull_compress`` ("bfloat16", "int8") the pulled center.
 
     ``checkpoint_dir``: a checkpoint every ``checkpoint_every`` PS commits
@@ -793,15 +795,6 @@ class DistributedTrainer(Trainer):
         device=None,
         **kwargs,
     ):
-        for option, value, module in (
-            ("serve_socket", serve_socket,
-             "networking.py and SocketParameterServer"),
-            ("remote_ps", remote_ps,
-             "networking.py and RemoteParameterServerClient"),
-            ("standby", standby, "SocketParameterServer replication"),
-        ):
-            if value:
-                _not_ported(option, module)
         super().__init__(*args, **kwargs)
         # compress="int8": commit deltas ride quantized with error feedback
         # (utils/compression), ~4x fewer commit bytes; "topk" /
@@ -830,6 +823,23 @@ class DistributedTrainer(Trainer):
         self.worker_retries = int(worker_retries)
         self.heartbeat_timeout = heartbeat_timeout
         self.elastic = bool(elastic)
+        # remote_ps: the workers reach the PS through the TCP socket
+        # protocol (the cross-host path) even on one host. standby: a warm
+        # standby PS follows the primary's snapshot and every post-dedup
+        # commit and promotes on primary loss; the remote workers' clients
+        # carry both endpoints and fail over with exactly-once commit
+        # resend. Both ride the socket protocol, so both imply serve_socket
+        # (in-process workers with a standby get replication, not
+        # transparent failover: they hold the primary object)
+        self.remote_ps = bool(remote_ps)
+        self.standby = bool(standby)
+        self.serve_socket = bool(serve_socket) or self.remote_ps or self.standby
+        self.service = None
+        self.standby_service = None
+        # failover ledger: client endpoint rotations and standby promotions
+        self.ps_failovers = 0
+        self.ps_promotions = []
+        self._failover_lock = threading.Lock()
         # checkpoint_every counts PS commits here; every
         # worker_snapshot_stride-th commit hands the worker's local state
         # to the PS (a resumed worker replays at most stride-1 windows,
@@ -858,9 +868,24 @@ class DistributedTrainer(Trainer):
         return {}
 
     def allocate_worker(self, core, worker_id, device):
+        ps = self.parameter_server
+        if self.remote_ps:
+            # the policy paces reconnect() redials AND the client's
+            # in-operation failover: one refused connection must not burn a
+            # whole worker_retries attempt
+            endpoints = [("127.0.0.1", self.service.port)]
+            if self.standby_service is not None:
+                # primary first (sticky), standby second
+                endpoints.append(("127.0.0.1", self.standby_service.port))
+            ps = RemoteParameterServerClient(
+                endpoints=endpoints,
+                retry=RetryPolicy(max_attempts=8, base_delay=0.05,
+                                  budget=30.0),
+                on_failover=self._note_failover,
+            )
         w = self.worker_cls(
             core,
-            self.parameter_server,
+            ps,
             worker_id,
             self.features_col,
             self.label_col,
@@ -877,6 +902,71 @@ class DistributedTrainer(Trainer):
                            and self.checkpoint_every > 0)
         w.snapshot_stride = self.worker_snapshot_stride
         return w
+
+    # -- the socket tier ----------------------------------------------------
+
+    def start_service(self):
+        """Start the PS and, with ``serve_socket``, its socket server; with
+        ``standby``, a warm standby of the same class synced from the
+        primary's consistent snapshot (a resumed primary's restored state
+        replicates too). With ``remote_ps`` the durability gate is armed on
+        both (no commit acked without a live replica; the promoted sole
+        survivor relaxes it): only the remote client's policy-paced resend
+        rides out a re-sync window, and the standby promotes only when the
+        workers can follow it."""
+        self.parameter_server.start()
+        if self.serve_socket:
+            self.service = SocketParameterServer(self.parameter_server,
+                                                 host="127.0.0.1")
+            self.service.start()
+        if self.standby:
+            standby_ps = self.allocate_parameter_server()
+            if self.remote_ps:
+                self.parameter_server.require_replicas(1)
+                standby_ps.require_replicas(1)
+            self.standby_service = SocketParameterServer(
+                standby_ps, host="127.0.0.1",
+                standby_of=("127.0.0.1", self.service.port),
+                on_promote=self._on_standby_promote,
+                auto_promote=self.remote_ps,
+            )
+            self.standby_service.start()
+
+    def stop_service(self):
+        if self.standby_service is not None:
+            self.standby_service.stop()
+        if self.service is not None:
+            self.service.stop()
+            self.service = None
+        self.parameter_server.stop()
+
+    def active_parameter_server(self):
+        """The PS whose state is authoritative now: the promoted standby's
+        after a failover, the primary's otherwise. Remote mode only:
+        in-process workers commit to the primary object to the end, so a
+        promotion never outranks it."""
+        if (self.remote_ps and self.standby_service is not None
+                and self.standby_service.promoted):
+            return self.standby_service.ps
+        return self.parameter_server
+
+    def _note_failover(self, endpoint):
+        with self._failover_lock:
+            self.ps_failovers += 1
+        if self.metrics_logger is not None:
+            self.metrics_logger.log(event="ps_failover",
+                                    endpoint=list(endpoint))
+
+    def _on_standby_promote(self, service):
+        """Checkpointing re-attaches to the promoted standby's PS (its dedup
+        table and worker snapshots rode the replication stream, so its
+        snapshots restore like the primary's)."""
+        self.ps_promotions.append(
+            {"port": service.port, "reason": service.promote_reason})
+        self._attach_checkpointing(service.ps)
+        if self.metrics_logger is not None:
+            self.metrics_logger.log(event="ps_promoted", port=service.port,
+                                    reason=service.promote_reason)
 
     # -- checkpointing ------------------------------------------------------
 
@@ -930,7 +1020,7 @@ class DistributedTrainer(Trainer):
         are idle, so each one's fresh snapshot is exact even where the
         stride skipped its last commits. ``overwrite``: a periodic snapshot
         at the same count holds staler worker states."""
-        center, meta = self.parameter_server.snapshot()
+        center, meta = self.active_parameter_server().snapshot()
         trees = {"center": center}
         snaps = {str(w.worker_id): w.final_snapshot() for w in workers}
         snaps = {k: v for k, v in snaps.items() if v is not None}
@@ -945,6 +1035,7 @@ class DistributedTrainer(Trainer):
     def _train(self, dataset, shuffle=False, resume=False):
         self.history.record_training_start()
         self.failures, self.suspicions, self.adoptions = [], [], []
+        self.ps_failovers, self.ps_promotions = 0, []
         check_model_device(self.model, self.device)
         core = self._make_core()
         self.parameter_server = self.allocate_parameter_server()
@@ -960,7 +1051,7 @@ class DistributedTrainer(Trainer):
         }
         restored_workers = self._restore_run() if resume else {}
         self._attach_checkpointing(self.parameter_server)
-        self.parameter_server.start()
+        self.start_service()
         self.workers = workers = []
         try:
             parts = (dataset.shuffle(self.seed) if shuffle
@@ -986,11 +1077,16 @@ class DistributedTrainer(Trainer):
                 for s, dt in w.timings:
                     self.history.record_window(w.worker_id, s, dt)
         finally:
-            self.parameter_server.stop()
+            # sockets and threads must not outlive a failed train()
+            if self.remote_ps:
+                for w in workers:
+                    w.ps.close()
+            self.stop_service()
         if self.checkpointer is not None:
             self._save_final_checkpoint(workers)
         self.history.record_training_end()
-        return self._finish_center(self.parameter_server.get_params(),
+        # after a failover the promoted standby's center is the run's
+        return self._finish_center(self.active_parameter_server().get_params(),
                                    self._aggregate_worker_states(workers))
 
     def _aggregate_worker_states(self, workers):

@@ -578,32 +578,49 @@ class AsyncWorker:
         self._resident = None  # (data_x, data_y) on the device
         self._resident_n = 0
 
-    def reset_for_retry(self):
+    @property
+    def ps_failovers(self) -> int:
+        """How many times this worker's PS client rotated endpoints (0 for
+        an in-process or single-endpoint PS)."""
+        return int(getattr(self.ps, "failovers", 0))
+
+    def reset_for_retry(self, retry=None):
         """Restart this worker's training after a failure: from its resume
         restore point when it has one, else from scratch. From scratch the
         commit sequence restarts at 0, so the PS deduplicates the re-run's
         commits up to the last one it absorbed — a retry cannot
-        double-apply work; the replica keeps its parameter buffers
-        (re-adopting the center at the next pull), so the fused optimizers'
-        tables stay valid, and the optimizer state and the moving
-        statistics start anew. After a resume the scratch seqs may predate
-        the restored dedup table, so the retry goes back to the restore
-        point instead."""
+        double-apply work, across a PS failover too (the promoted standby's
+        dedup table rode the replication stream); the replica keeps its
+        parameter buffers (re-adopting the center at the next pull), so the
+        fused optimizers' tables stay valid, and the optimizer state and
+        the moving statistics start anew. After a resume the scratch seqs
+        may predate the restored dedup table, so the retry goes back to the
+        restore point instead.
+
+        A remote PS is redialed (a crashed stream may be desynced), under
+        ``retry`` (a ``networking.RetryPolicy``) when given; a
+        multi-endpoint client's redial rotates to whichever replica
+        serves."""
         self.records = []
         self.timings = []
         self.splits = []
         self._pending = None
         if self._restore_point is not None:
             self._adopt(self._restore_point)
-            return
-        self.rng = RngSeq(self._rng_seed)
-        self._seq = 0
-        self._start_seq = 0
-        self._opt_state = None
-        self._q_residual = None
-        self._adopted = False
-        if self._model is not None:
-            self._reset_buffers()
+        else:
+            self.rng = RngSeq(self._rng_seed)
+            self._seq = 0
+            self._start_seq = 0
+            self._opt_state = None
+            self._q_residual = None
+            self._adopted = False
+            if self._model is not None:
+                self._reset_buffers()
+        if hasattr(self.ps, "reconnect"):
+            if retry is not None:
+                retry.call(self.ps.reconnect)
+            else:
+                self.ps.reconnect()
 
     # -- worker-local checkpoint/resume --------------------------------------
 

@@ -479,11 +479,14 @@ def test_worker_retry_and_adoption_stay_exactly_once(elastic):
 
 def test_async_refusals_and_device_contract(tmp_path):
     _, tm = _mlps()
-    for option, module in (("serve_socket", "networking"),
-                           ("remote_ps", "RemoteParameterServerClient"),
-                           ("standby", "replication")):
-        with pytest.raises(NotImplementedError, match=module):
-            DOWNPOUR(tm, "sgd", device="cpu", **{option: "int8"})
+    # the socket tier is ported: each option is accepted, and standby and
+    # remote_ps imply serve_socket
+    for option, want in (("serve_socket", (True, False, False)),
+                         ("remote_ps", (True, True, False)),
+                         ("standby", (True, False, True))):
+        t = DOWNPOUR(tm, "sgd", device="cpu", **{option: True})
+        assert (t.serve_socket, t.remote_ps, t.standby) == want
+        assert (t.ps_failovers, t.ps_promotions) == (0, [])
     # compress and pull_compress are ported: accepted
     t = DOWNPOUR(tm, "sgd", device="cpu", compress="int8",
                  pull_compress="int8")
@@ -505,10 +508,17 @@ def test_async_refusals_and_device_contract(tmp_path):
                  label_col="label_onehot").train(_port_data(64))
     assert tps.DeltaParameterServer(
         _center(), pull_compress="bfloat16").pull_compress == "bfloat16"
-    with pytest.raises(NotImplementedError, match="obs/metrics"):
-        tps.DeltaParameterServer(_center()).metrics_snapshot()
-    with pytest.raises(NotImplementedError, match="SocketParameterServer"):
-        tps.DeltaParameterServer(_center()).attach_replica(None)
+    # the PS's metrics books and replication are ported: they work
+    ps = tps.DeltaParameterServer(_center())
+    names = {m["name"] for m in ps.metrics_snapshot()}
+    assert {"training_ps_pulls", "training_ps_commits",
+            "training_ps_replicas"} <= names
+    sink = object()
+    center, meta, workers = ps.attach_replica(sink)
+    assert ps.num_replicas == 1 and meta["num_updates"] == 0
+    np.testing.assert_array_equal(center["0.bias"], _center()["0.bias"])
+    ps.detach_replica(sink)
+    assert ps.num_replicas == 0 and workers == {}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             DOWNPOUR(tm, "sgd", label_col="label_onehot").train(_port_data(64))
@@ -542,11 +552,13 @@ def test_transformers_and_evaluators_match_jax():
 
 
 def test_async_tier_runs_without_jax():
-    """The new modules import, and a DOWNPOUR run trains, in a process that
-    never loads JAX or the JAX package."""
+    """The new modules import, and a DOWNPOUR run trains — in process and
+    over the socket tier (``remote_ps``) — in a process that never loads
+    JAX or the JAX package."""
     code = (
         "import sys, distkeras_tpu_torch as p\n"
         "from distkeras_tpu_torch import parameter_servers, evaluators\n"
+        "from distkeras_tpu_torch import networking, faults, obs\n"
         "from distkeras_tpu_torch.data import transformers\n"
         "m = p.zoo.mnist_mlp(hidden=8, device='cpu')\n"
         "ds = transformers.OneHotTransformer(10).transform(\n"
@@ -556,6 +568,11 @@ def test_async_tier_runs_without_jax():
         "               mode='threads', device='cpu')\n"
         "t.train(ds)\n"
         "assert t.parameter_server.num_updates == 4, t.failures\n"
+        "r = p.DOWNPOUR(m, 'pallas_sgd', num_workers=2, batch_size=16,\n"
+        "               communication_window=2, label_col='label_onehot',\n"
+        "               mode='simulated', remote_ps=True, device='cpu')\n"
+        "r.train(ds)\n"
+        "assert r.parameter_server.num_updates == 4, r.failures\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'distkeras_tpu' or m.startswith('distkeras_tpu.')]\n"
         "assert not bad, bad\n"
