@@ -182,6 +182,25 @@ Phases, each fatal on failure (exit code 1, no result line):
    seconds and the B1 launches (60 unfaulted: 56 steps and the 4-step
    warm-up window).
 
+11. The serving TCP front on the d512/L8 LM, over loopback. 11a: an
+   LN-hooked 8-slot engine behind a ``ServingServer`` takes phase 4's
+   16-request mix from 8 client threads (one ``ServingClient`` each):
+   every reply equal to phase 4's in-process output, greedy and sampled,
+   B7 launched and B4 not; tokens/s over the wire beside phase 4's. 11b:
+   four of the mix through ``generate_stream``: the chunks concatenate to
+   the unstreamed sequence; TTFT and inter-chunk p50/p99 on the host
+   clock. 11e: a traced generate's timeline complete with queue, prefill
+   and decode spans; ``metrics`` (JSON and Prometheus), ``timeseries``,
+   ``health`` and ``stats`` answer; ``stop`` drains a request still in
+   flight. 11c: a flash+LN-hooked engine scores phase 3's (8, 512) batch
+   in process and over the wire: the (8, 512, 8192) f32 replies bit-equal,
+   exactly 17 B7 and 8 B4 launches for the wire forward; the wall time
+   beside phase 3's and the host split (reply encode, loopback, decode).
+   11d: ``quantize_model`` -> ``save_serving_bundle`` ->
+   ``ServingEngine.from_bundle`` on the card; four greedy wire generates
+   equal to an in-process ``CachedSequenceGenerator`` on the quantized
+   model; the bundle bytes beside ``serialize_model``'s f32 bytes.
+
 ``--profile`` adds where the time goes: a decode step, a predict forward,
 a training step, an async window and a config-5 DynSGD/``resnet18``
 window (host wall, device time by category, idle share, top kernels).
@@ -1155,7 +1174,7 @@ def run_generate(torch, np, lm):
         "mean_batch_occupancy": stats["mean_batch_occupancy"],
     }
     log(f"generate: {res}")
-    return res
+    return res, reqs, outs
 
 
 # ------------------------------------------------------------------ phase 5
@@ -3172,6 +3191,332 @@ def run_phase10(torch, np, zoo, ds, smi, phase7, centers7, phase6a,
     return out, launches
 
 
+# ----------------------------------------------------------------- phase 11
+
+
+def quantiles_ms(np, xs):
+    if not xs:
+        return {"p50": None, "p99": None}
+    arr = np.asarray(xs) * 1e3
+    return {"p50": float(np.percentile(arr, 50)),
+            "p99": float(np.percentile(arr, 99))}
+
+
+def fan_out(jobs, threads):
+    """Run ``jobs`` (callables) on ``threads`` threads, round-robin, one
+    ``ServingClient`` per thread as a user fans out; returns the results
+    in job order and raises the first failure."""
+    import threading
+
+    out = [None] * len(jobs)
+    errs = []
+
+    def work(t):
+        try:
+            for j in range(t, len(jobs), threads):
+                out[j] = jobs[j]()
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errs.append(e)
+
+    ths = [threading.Thread(target=work, args=(t,)) for t in range(threads)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(timeout=600)
+    if errs:
+        raise errs[0]
+    check(not any(th.is_alive() for th in ths), "a client thread hung")
+    return out
+
+
+def run_wire_generate(torch, np, lm, smi, gen, gen_reqs, gen_outs):
+    """11a, 11b and 11e on one LN-hooked 8-slot engine behind a
+    ``ServingServer``: phase 4's mix from 8 client threads, four of it
+    streamed, then the obs verbs and a ``stop`` that drains a request
+    still in flight."""
+    import threading
+
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.obs import parse_prometheus, timeline_complete
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+    from distkeras_tpu_torch.serving import (
+        ServingClient,
+        ServingEngine,
+        ServingServer,
+    )
+
+    detach_hooks(lm)
+    check(attach_fused_layernorm(lm) == 17, "LN hook not on 17 norms")
+    eng = ServingEngine(lm, num_slots=8)
+    srv = ServingServer(eng).start()
+    clients = [ServingClient(srv.host, srv.port, timeout=600,
+                             connect_timeout=2) for _ in range(8)]
+    res = {}
+    try:
+        eng._stepper.warmup()
+        # 11a: the 16-request mix over the wire
+        jobs = [
+            (lambda c, p=p, n=n, s=s: c.generate(p, n, sampling=s))
+            for p, n, s in gen_reqs
+        ]
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        outs = fan_out([
+            (lambda j=j: jobs[j](clients[j % 8])) for j in range(len(jobs))
+        ], 8)
+        secs = time.monotonic() - t0
+        counts_a = kernels.launch_counts()
+        check(all(np.array_equal(a, b) for a, b in zip(outs, gen_outs)),
+              "11a: a wire reply differs from phase 4's in-process output")
+        check(counts_a["layernorm_fwd"] > 0 and counts_a["flash_fwd"] == 0,
+              f"11a: wire generate did not run through the LN kernel "
+              f"alone: {counts_a}")
+        n_tokens = sum(len(o) - len(p) for o, (p, _, _) in zip(outs, gen_reqs))
+        res["generate"] = {
+            "requests": len(outs), "tokens": n_tokens, "seconds": secs,
+            "tokens_per_s": n_tokens / secs,
+            "in_process_tokens_per_s": gen["tokens_per_s"],
+            "launches": counts_a,
+        }
+        log(f"11a wire generate: {len(outs)} requests from 8 client "
+            f"threads, {n_tokens / secs:.1f} tokens/s over the wire vs "
+            f"{gen['tokens_per_s']:.1f} in process (phase 4), all equal "
+            f"to phase 4's outputs, launches {counts_a} on {smi}")
+        # 11b: four of the mix streamed, from four threads
+        picks = [0, 1, 2, 3]  # request 3 is sampled
+
+        def stream(j):
+            p, n, s = gen_reqs[j]
+            st = clients[j].generate_stream(p, n, sampling=s)
+            chunks = list(st)
+            return st, chunks
+
+        kernels.reset_launch_counts()
+        streams = fan_out([(lambda j=j: stream(j)) for j in picks], 4)
+        counts_b = kernels.launch_counts()
+        gaps = []
+        for j, (st, chunks) in zip(picks, streams):
+            full = np.concatenate([gen_reqs[j][0], *chunks])
+            check(np.array_equal(full, gen_outs[j])
+                  and np.array_equal(st.sequence, gen_outs[j]),
+                  f"11b: streamed chunks of request {j} differ from the "
+                  f"unstreamed sequence")
+            gaps += st.inter_token_s
+        ttft = [st.ttft_s for st, _ in streams]
+        res["stream"] = {
+            "requests": picks, "chunks": [len(c) for _, c in streams],
+            "ttft_ms": [t * 1e3 for t in ttft],
+            "inter_chunk_ms": quantiles_ms(np, gaps), "launches": counts_b,
+        }
+        log(f"11b streams: TTFT {[round(t * 1e3, 3) for t in ttft]} ms, "
+            f"inter-chunk p50/p99 {res['stream']['inter_chunk_ms']} ms "
+            f"(host clock) on {smi}")
+        # 11e: a traced generate, the obs verbs, stop draining work
+        c = clients[0]
+        p, n, _ = gen_reqs[0]
+        traced = c.generate(p, n, trace=True)
+        spans = c.last_trace["spans"]
+        names = {sp["name"] for sp in spans}
+        check(np.array_equal(traced, gen_outs[0])
+              and timeline_complete(spans)
+              and {"serving.queue", "serving.prefill", "serving.decode",
+                   "server.generate"} <= names,
+              f"11e: traced timeline incomplete: {sorted(names)}")
+        samples = c.metrics()
+        prom = parse_prometheus(c.metrics(prometheus=True))
+        ts = c.timeseries(window=60)
+        health, stats = c.health(), c.stats()
+        check(any(x["name"] == "serving_scheduler_completed"
+                  and x["value"] >= 21 for x in samples)
+              and any(name == "serving_scheduler_completed_total"
+                      for name, _, _ in prom)
+              and ts["ok"] and health["status"] == "serving"
+              and stats["open_connections"] == len(clients),
+              "11e: the metrics/timeseries/health/stats verbs misanswered")
+        for cl in clients[2:]:
+            cl.close()  # idle connections would hold the drain's grace
+        long_p = np.arange(16, dtype=np.int32)
+        held = {}
+
+        def long_generate():
+            held["out"] = clients[1].generate(long_p, 256)
+
+        th = threading.Thread(target=long_generate)
+        th.start()
+        deadline = time.monotonic() + 60
+        while (eng.stats()["active_slots"] == 0
+               and time.monotonic() < deadline):
+            time.sleep(0.001)
+        t_stop = time.monotonic()
+        check(c.stop()["stopping"], "11e: stop was not acknowledged")
+        th.join(timeout=120)
+        srv.shutdown()
+        drain_s = time.monotonic() - t_stop
+        check("out" in held and len(held["out"]) == 16 + 256,
+              "11e: stop did not drain the request in flight")
+        res["obs"] = {
+            "spans": sorted(names), "metrics_samples": len(samples),
+            "prometheus_lines": len(prom),
+            "timeseries_series": len(ts["series"]),
+            "stop_drain_s": drain_s,
+        }
+        log(f"11e obs: timeline {sorted(names)}, {len(samples)} metric "
+            f"samples, {len(prom)} Prometheus lines, {len(ts['series'])} "
+            f"series; stop drained a 256-token request in {drain_s:.3f} s "
+            f"on {smi}")
+    finally:
+        for cl in clients:
+            cl.close()
+        srv.shutdown()
+    detach_hooks(lm)
+    return res, [counts_a, counts_b]
+
+
+def run_wire_predict(torch, np, lm, smi, pred):
+    """11c: phase 3's batch through a flash+LN-hooked engine, in process
+    and over the wire; bit-equal, one forward's launches, and the host
+    split of the wire call."""
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.ops.flash_attention import attach_flash_attention
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+    from distkeras_tpu_torch.serving import (
+        ServingClient,
+        ServingEngine,
+        ServingServer,
+    )
+
+    detach_hooks(lm)
+    check(attach_flash_attention(lm) == 8, "flash hook not on 8 blocks")
+    check(attach_fused_layernorm(lm) == 17, "LN hook not on 17 norms")
+    eng = ServingEngine(lm, num_slots=8)
+    srv = ServingServer(eng).start()
+    try:
+        x = np.random.default_rng(3).integers(0, 8192, (8, 512)).astype(np.int32)
+        eng.predict(x[:1], timeout=600)
+        t0 = time.monotonic()
+        y_in = eng.predict(x, timeout=600)
+        in_s = time.monotonic() - t0
+        with ServingClient(srv.host, srv.port, timeout=600,
+                           connect_timeout=2) as c:
+            c.predict(x[:1])
+            kernels.reset_launch_counts()
+            t0 = time.monotonic()
+            y = c.predict(x)
+            wire_s = time.monotonic() - t0
+            counts = kernels.launch_counts()
+    finally:
+        srv.shutdown()
+    detach_hooks(lm)
+    check(y.shape == (8, 512, 8192) and y.dtype == np.float32,
+          f"11c: wire predict malformed: {y.shape} {y.dtype}")
+    check(np.array_equal(y, y_in),
+          "11c: wire predict differs from the in-process predict")
+    check({k: n for k, n in counts.items() if n}
+          == {"layernorm_fwd": 17, "flash_fwd": 8},
+          f"11c: wire predict did not run one hooked forward: {counts}")
+    split = wire_breakdown(np, {"prediction": y_in}, reps=1)
+    res = {
+        "seconds": wire_s, "in_process_seconds": in_s,
+        "phase3_seconds": pred["seconds"], "reply_bytes": split["bytes"],
+        "host_split_s": {k: split[k] for k in ("encode", "loopback",
+                                               "decode")},
+        "launches": counts,
+    }
+    log(f"11c wire predict: 8x512 -> {y.shape} ({y.nbytes} bytes) in "
+        f"{wire_s:.3f} s vs {in_s:.3f} s in process ({pred['seconds']:.3f} "
+        f"s in phase 3), bit-equal, launches {counts}; host split of the "
+        f"{split['bytes']}-byte reply: encode {split['encode']:.3f} s, "
+        f"loopback {split['loopback']:.3f} s, decode {split['decode']:.3f} "
+        f"s on {smi}")
+    return res, counts
+
+
+def run_wire_bundle(torch, np, lm, smi, gen_reqs):
+    """11d: ``quantize_model`` -> ``save_serving_bundle`` ->
+    ``ServingEngine.from_bundle`` on the card; greedy generate over the
+    wire against an in-process ``CachedSequenceGenerator`` on the
+    quantized model."""
+    import tempfile
+
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+    from distkeras_tpu_torch.ops.quantization import (
+        count_quantized,
+        quantize_model,
+    )
+    from distkeras_tpu_torch.predictors import CachedSequenceGenerator
+    from distkeras_tpu_torch.serving import (
+        ServingClient,
+        ServingEngine,
+        ServingServer,
+    )
+    from distkeras_tpu_torch.utils.serialization import (
+        save_serving_bundle,
+        serialize_model,
+    )
+
+    detach_hooks(lm)
+    f32_bytes = len(serialize_model(lm))
+    greedy = [r for r in gen_reqs if r[2] is None][:4]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lm_int8.dkt")
+        t0 = time.monotonic()
+        save_serving_bundle(path, quantize_model(lm.copy()))
+        save_s = time.monotonic() - t0
+        bundle_bytes = os.path.getsize(path)
+        t0 = time.monotonic()
+        eng = ServingEngine.from_bundle(path, num_slots=8)
+        load_s = time.monotonic() - t0
+    model = eng.model
+    check(count_quantized(model) == 8 * 4 + 8 * 2 + 1,
+          f"11d: {count_quantized(model)} quantized weights")
+    check(attach_fused_layernorm(model) == 17, "LN hook not on 17 norms")
+    srv = ServingServer(eng).start()
+    clients = [ServingClient(srv.host, srv.port, timeout=600,
+                             connect_timeout=2) for _ in range(4)]
+    try:
+        eng._stepper.warmup()
+        kernels.reset_launch_counts()
+        outs = fan_out([
+            (lambda j=j: clients[j].generate(greedy[j][0], greedy[j][1]))
+            for j in range(len(greedy))
+        ], 4)
+        counts = kernels.launch_counts()
+    finally:
+        for cl in clients:
+            cl.close()
+        srv.shutdown()
+    check(counts["layernorm_fwd"] > 0 and counts["flash_fwd"] == 0,
+          f"11d: bundle generate did not run through the LN kernel: {counts}")
+    solo = CachedSequenceGenerator(model)
+    for (p, n, _), o in zip(greedy, outs):
+        check(np.array_equal(o, solo.generate(p[None], n)[0]),
+              "11d: a bundle-served decode differs from the quantized solo "
+              "decode")
+    res = {"bundle_bytes": bundle_bytes, "f32_model_bytes": f32_bytes,
+           "ratio": f32_bytes / bundle_bytes, "save_s": save_s,
+           "load_s": load_s, "requests": len(outs), "launches": counts}
+    log(f"11d int8 bundle: {bundle_bytes} bytes vs {f32_bytes} for "
+        f"serialize_model's f32 frame ({f32_bytes / bundle_bytes:.2f}x), "
+        f"saved in {save_s:.3f} s, booted in {load_s:.3f} s; "
+        f"{len(outs)} greedy wire decodes equal the quantized solo decode, "
+        f"launches {counts} on {smi}")
+    return res, counts
+
+
+def run_phase11(torch, np, lm, smi, pred, gen, gen_reqs, gen_outs):
+    """Phase 11, the serving TCP front on the card; returns the results
+    and the launch counts of each subphase's main path."""
+    out = {}
+    t0 = time.monotonic()
+    out["wire_generate"], counts = run_wire_generate(
+        torch, np, lm, smi, gen, gen_reqs, gen_outs)
+    out["wire_predict"], c_pred = run_wire_predict(torch, np, lm, smi, pred)
+    out["bundle"], c_bundle = run_wire_bundle(torch, np, lm, smi, gen_reqs)
+    out["seconds_total"] = time.monotonic() - t0
+    return out, [*counts, c_pred, c_bundle]
+
+
 def baseline_leaf_shapes():
     """The parameter shapes of configs 2-5's models (built on the CPU: only
     their leaf tables matter to phases 2b/2c)."""
@@ -3564,7 +3909,7 @@ def main(argv):
     torch.cuda.empty_cache()
 
     pred = run_predict(torch, np, lm)
-    gen = run_generate(torch, np, lm)
+    gen, gen_reqs, gen_outs = run_generate(torch, np, lm)
     log(f"generate: {gen['requests']} requests, "
         f"{gen['tokens_per_s']:.1f} tokens/s on {smi}")
     train = run_train(torch, np, zoo)
@@ -3597,11 +3942,14 @@ def main(argv):
         async_centers)
     del baseline_centers, async_centers
     log(f"phase 10 in {time.monotonic() - t10:.1f} s")
+    front, front_launches = run_phase11(torch, np, lm, smi, pred, gen,
+                                        gen_reqs, gen_outs)
+    log(f"phase 11 in {front['seconds_total']:.1f} s on {smi}")
     profile = profile_paths(torch, np, lm, zoo) if args.profile else None
 
     phases = [pred["launches"], gen["launches"], train["launches"],
               async_thr["launches"], baseline_launches, resume_launches,
-              member_launches, socket_launches,
+              member_launches, socket_launches, *front_launches,
               *(r["launches"] for r in async_sim.values())]
     launches = {k: sum(c.get(k, 0) for c in phases) for k in kernels.LAUNCHES}
     check(all(n > 0 for n in launches.values()),
@@ -3666,7 +4014,7 @@ def main(argv):
                        "async_simulated": async_sim,
                        "async_threads": async_thr, "baseline": baseline,
                        "resume": resume, "phase9": members,
-                       "phase10": socket_tier,
+                       "phase10": socket_tier, "phase11": front,
                        "profile": profile,
                        "flash_infinite_q": inf_rows},
                       f, indent=1)

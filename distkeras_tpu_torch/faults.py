@@ -1,7 +1,9 @@
 """Deterministic fault injection (PyTorch port: a copy of
 ``distkeras_tpu.faults``). The port wires the ``ps.*`` and ``net.*``
-seams; the serving seams in the catalogue are names until the port's
-serving modules that fire them exist.
+seams, ``scheduler.loop`` (the engine's scheduler thread) and the serving
+front's ``server.dispatch``, ``server.reply`` and ``net.delay``; the
+other serving seams in the catalogue are names until the port's modules
+that fire them exist.
 
 The recovery paths in ``serving/`` (slot blame + quarantine, the
 supervisor watchdog, client retry/reconnect) are unprovable without a

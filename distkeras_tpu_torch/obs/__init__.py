@@ -18,8 +18,12 @@ both packages' registries, digests and bundles agree sample for sample).
   windowed quantiles, trends, burn-rate verdicts); the PS serves its
   digest over the socket tier's ``t`` action.
 
-The serving tier's tracing, compile ledger and overlap ledger come with
-the port's serving front.
+- ``tracing``: :class:`TraceContext` propagated in the optional
+  ``trace`` field of the DKT1 header, :class:`Span` records in a
+  :class:`TraceCollector`, and :func:`request_spans`, the server-side
+  timeline of one request (the serving front's traces).
+
+The serving tier's compile ledger and overlap ledger are not ported yet.
 """
 
 from distkeras_tpu_torch.obs.metrics import (
@@ -52,8 +56,21 @@ from distkeras_tpu_torch.obs.timeseries import (
     MetricsHistory,
     worst_burn,
 )
+from distkeras_tpu_torch.obs.tracing import (
+    COLLECTOR,
+    Span,
+    TraceCollector,
+    TraceContext,
+    new_id,
+    request_spans,
+    span_record,
+    stamp_error_trace,
+    start_span,
+    timeline_complete,
+)
 
 __all__ = [
+    "COLLECTOR",
     "FAST_WINDOW",
     "POSTMORTEM_SCHEMA",
     "SLOW_WINDOW",
@@ -66,6 +83,9 @@ __all__ = [
     "MetricsRegistry",
     "SloEvaluator",
     "SloSpec",
+    "Span",
+    "TraceCollector",
+    "TraceContext",
     "build_postmortem",
     "default_serving_slos",
     "default_training_slos",
@@ -73,7 +93,13 @@ __all__ = [
     "evaluate_slos",
     "label_samples",
     "latest_postmortem",
+    "new_id",
     "parse_prometheus",
     "render_prometheus",
+    "request_spans",
+    "span_record",
+    "stamp_error_trace",
+    "start_span",
+    "timeline_complete",
     "worst_burn",
 ]

@@ -9,11 +9,22 @@ row 2i+1 in the high). Because the scale is per output column it commutes
 through the product, so ``qmatmul`` never materializes the dequantized
 matrix. The product itself is a plain ``torch.matmul``, as the JAX
 package leaves it to XLA: no hand-written kernel sits on it.
+
+A port model holds a quantized weight as a plain attribute of its layer
+where the f32 ``nn.Parameter`` was (``quantize_model`` swaps them in
+place); ``params_tree`` reads a model back as the JAX package's params
+tree (``{"0": {...}, "1": {"mhsa": {"wq": ...}}}``), quantized leaves
+included, which is what ``quantize_params`` and the serving bundles take.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+#: the dict keys whose 2-D float leaves ``quantize_params`` quantizes: the
+#: ``Dense`` kernels and the attention projections
+DEFAULT_QUANT_KEYS = ("kernel", "wq", "wk", "wv", "wo")
 
 
 class Int4Weight:
@@ -65,16 +76,94 @@ def is_quantized(w) -> bool:
     )
 
 
-def count_quantized(model) -> int:
-    """How many quantized weights the model's layers hold (a layer whose
-    weight attribute was replaced by a quantized form)."""
-    from distkeras_tpu_torch.models.sequential import walk_layers
+def count_quantized(params) -> int:
+    """Number of quantized matrices in a params tree, or held by a
+    model's layers."""
+    if isinstance(params, torch.nn.Module):
+        return sum(
+            is_quantized(v)
+            for m in params.modules()
+            for k, v in vars(m).items() if not k.startswith("_")
+        )
+    if is_quantized(params):
+        return 1
+    if isinstance(params, dict):
+        return sum(count_quantized(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_quantized(v) for v in params)
+    return 0
 
-    return sum(
-        is_quantized(v)
-        for layer in walk_layers(model)
-        for k, v in vars(layer).items() if not k.startswith("_")
-    )
+
+def _quantizable(v) -> bool:
+    if isinstance(v, torch.Tensor):
+        return v.ndim == 2 and v.is_floating_point()
+    if isinstance(v, np.ndarray):
+        return v.ndim == 2 and np.issubdtype(v.dtype, np.floating)
+    return False
+
+
+def _quantizer(bits):
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4; got {bits}")
+    return quantize_int8 if bits == 8 else quantize_int4
+
+
+def quantize_params(params, keys=DEFAULT_QUANT_KEYS, bits=8):
+    """Walk a params tree; replace eligible 2-D float leaves (dict key in
+    ``keys``; torch tensors or numpy arrays) with their ``bits``-wide
+    form (8 or 4), as tensors. Already-quantized entries pass through
+    unchanged — a tree quantized at one width is not re-quantized at
+    another. Returns a new tree; the input is not mutated."""
+    quant = _quantizer(bits)
+    if is_quantized(params):
+        return params
+    if isinstance(params, dict):
+        out = {}
+        for k, v in params.items():
+            if k in keys and _quantizable(v):
+                w = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+                    np.array(v))
+                out[k] = quant(w.detach())
+            else:
+                out[k] = quantize_params(v, keys, bits)
+        return out
+    if isinstance(params, (list, tuple)):
+        return type(params)(quantize_params(v, keys, bits) for v in params)
+    return params
+
+
+def _layer_tree(module):
+    tree = dict(module.named_parameters(recurse=False))
+    tree.update((k, v) for k, v in vars(module).items()
+                if not k.startswith("_") and is_quantized(v))
+    for name, child in module.named_children():
+        tree[name] = _layer_tree(child)
+    return tree
+
+
+def params_tree(model) -> dict:
+    """The model's weights as the JAX package's params tree: one dict per
+    layer keyed ``"0".."N"``, sublayers by their names, leaves the live
+    parameters (or quantized weights). Layers without weights are empty
+    dicts, as in JAX."""
+    return {str(i): _layer_tree(layer) for i, layer in enumerate(model.layers)}
+
+
+def quantize_model(model, keys=DEFAULT_QUANT_KEYS, bits=8):
+    """Swap a built model's eligible weights for their int8/int4 forms IN
+    PLACE and return the model. Serve-only: trainers refuse quantized
+    models; quantize a copy (``quantize_model(m.copy())``) if the
+    original must keep training."""
+    if getattr(model, "output_shape", None) is None:
+        raise ValueError("quantize_model needs a BUILT model (params set)")
+    quant = _quantizer(bits)
+    for module in list(model.modules()):
+        for name, p in list(module.named_parameters(recurse=False)):
+            if name in keys and _quantizable(p):
+                q = quant(p.detach())
+                delattr(module, name)
+                setattr(module, name, q)
+    return model
 
 
 def dequantize(w):

@@ -11,7 +11,13 @@ of ``distkeras_tpu.serving.engine``).
   the solo ``CachedSequenceGenerator`` decode, token for token. The caches
   and the token buffer are updated in place.
 - ``ServingEngine``: continuous-batching generate plus windowed batch
-  scoring (``predict``), driven by a scheduler thread.
+  scoring (``predict``), driven by a scheduler thread, with the JAX
+  engine's books: a metrics ``registry`` (the batcher's counters,
+  occupancy gauges, per-phase latency histograms), a flight ``recorder``,
+  a metrics ``history`` ring, optional ``slos``, a ``trace_collector``
+  and a JSONL ``metrics_path``; ``metrics_snapshot``/``timeseries``/
+  ``postmortem`` answer the server's verbs. ``from_bundle`` boots from a
+  quantized serving bundle.
 
 Every LayerNorm on these paths goes through ``LayerNorm.forward``, so with
 ``attach_fused_layernorm`` the CUDA LayerNorm kernel runs on every
@@ -21,9 +27,12 @@ cached generator, and the engine then serves ``predict`` only — JAX's
 behaviour, kept.
 
 Not ported yet (and absent from the signatures, so passing one fails
-loudly): paged pools, prefix cache, speculative decode, QoS, meshes,
-disaggregation roles, load shedding, the overlapped loop, the watchdog
-and supervisor, the observability rings, bf16 K/V caches (``kv_dtype``).
+loudly): paged pools, prefix cache, speculative decode, QoS (``tenant``
+and ``priority`` only label metrics), meshes, disaggregation roles and
+their ``prefill``/``resume`` faces, load shedding, the overlapped loop,
+the watchdog and supervisor (a scheduler crash leaves the engine
+degraded and dumps a post-mortem), the compile and overlap ledgers, bf16
+K/V caches (``kv_dtype``).
 """
 
 from __future__ import annotations
@@ -35,7 +44,18 @@ import time
 import numpy as np
 import torch
 
+from distkeras_tpu_torch import faults
 from distkeras_tpu_torch.data.dataset import Dataset
+from distkeras_tpu_torch.obs import (
+    FAST_WINDOW,
+    FlightRecorder,
+    MetricsHistory,
+    MetricsRegistry,
+    SloEvaluator,
+    TraceCollector,
+    dump_postmortem,
+    latest_postmortem,
+)
 from distkeras_tpu_torch.ops.quantization import qmatmul
 from distkeras_tpu_torch.predictors import (
     CachedSequenceGenerator,
@@ -50,6 +70,12 @@ from distkeras_tpu_torch.serving.scheduler import (
     WindowedBatcher,
 )
 from distkeras_tpu_torch.utils.device import check_model_device
+
+
+#: distinct tenant labels on the latency histograms before the rest fold
+#: into ``OTHER_TENANTS`` (the JAX package's bound)
+MAX_TENANT_LABELS = 64
+OTHER_TENANTS = "__other__"
 
 
 class DecodeStepper:
@@ -269,14 +295,41 @@ class ServingEngine:
     ``prefill_chunk``: per-iteration prefill token budget — "auto" picks
     ``max(16, seq_len // 8)``, an int sets it, None disables chunking.
     ``device=None`` means CUDA; the model must already live there.
+
+    Books, as in the JAX engine at its defaults: a flight recorder of
+    events (armed fault-seam firings, the crash), a span ring, and a
+    metrics history a snapshot a second, ten minutes deep, for the
+    ``timeseries`` verb (``history=False`` turns it off).
+    ``postmortem_dir`` is where a crash bundle is written (None keeps it
+    in memory for the ``postmortem`` verb); ``slos`` (a list of
+    ``obs.SloSpec``) grade this registry, their verdicts ride ``health``;
+    ``metrics_path`` adds a JSONL sink (``serving_submit``/
+    ``serving_complete`` events and drained trace spans).
     """
 
     def __init__(self, model, num_slots=8, queue_capacity=64,
                  temperature=0.0, seed=0, top_k=None, top_p=None,
                  predict_batch=64, predict_window=0.005,
-                 prefill_chunk="auto", device=None):
+                 prefill_chunk="auto", metrics_path=None,
+                 postmortem_dir=None, slos=None, history=True, device=None):
         self.model = model
         self.device = check_model_device(model, device)
+        # the engine-owned books (per engine, so in-process fleets keep
+        # per-replica registries and span rings)
+        self.registry = MetricsRegistry()
+        self.trace_collector = TraceCollector(on_drop=self._on_trace_drop)
+        self.registry.gauge(
+            "serving_trace_collector_dropped",
+            fn=lambda: self.trace_collector.dropped_total,
+        )
+        self.recorder = FlightRecorder()
+        self.recorder.register_gauges(self.registry, "serving")
+        self.history = (
+            MetricsHistory(self.metrics_snapshot) if history else None
+        )
+        self.postmortem_dir = postmortem_dir
+        self.last_postmortem = None
+        self.last_postmortem_path = None
         self._stepper = None
         self._decode_err = None
         try:
@@ -295,8 +348,14 @@ class ServingEngine:
             if self._stepper is None
             else ContinuousBatcher(
                 self._stepper, queue_capacity=queue_capacity,
-                prefill_chunk=prefill_chunk,
+                prefill_chunk=prefill_chunk, registry=self.registry,
             )
+        )
+        self._config = dict(
+            model=type(model).__name__,
+            num_slots=None if self._stepper is None else self._stepper.num_slots,
+            queue_capacity=queue_capacity, prefill_chunk=prefill_chunk,
+            device=str(self.device),
         )
         self._predictor = ModelPredictor(
             model, batch_size=int(predict_batch), device=self.device
@@ -305,16 +364,62 @@ class ServingEngine:
             self._run_predict_batch, max_batch=int(predict_batch),
             max_wait=float(predict_window),
         )
+        self.metrics = None
+        if metrics_path is not None:
+            from distkeras_tpu_torch.utils.profiling import MetricsLogger
+
+            self.metrics = MetricsLogger(metrics_path)
         self._thread = None
         self._stop_evt = threading.Event()
         self._started = False
         self._heartbeat = time.monotonic()
         self._last_crash = None
+        reg = self.registry
+        reg.gauge("serving_engine_degraded",
+                  fn=lambda: self._last_crash is not None)
+        reg.gauge(
+            "serving_engine_heartbeat_age_seconds",
+            fn=lambda: (
+                time.monotonic() - self._heartbeat
+                if self._started and self.batcher is not None else None
+            ),
+        )
+        # per-phase request latency histograms, observed in ``wait``
+        self._lat_hists = {
+            phase: reg.histogram(f"serving_request_{phase}_seconds")
+            for phase in ("queue_wait", "prefill", "decode", "ttft", "total")
+        }
+        self._tenant_lat_hists: dict[tuple, object] = {}
+        self._tenants_seen: set[str] = set()
+        self.slo = None
+        if slos:
+            self.slo = SloEvaluator(
+                slos, self.metrics_snapshot, registry=reg,
+                recorder=self.recorder, prefix="serving",
+            )
+
+    @classmethod
+    def from_bundle(cls, path: str, **kwargs) -> "ServingEngine":
+        """Boot from a quantized serving bundle on disk
+        (``utils.serialization.load_serving_bundle`` validates structure,
+        shapes and dtypes first); the model is loaded onto ``device``."""
+        from distkeras_tpu_torch.utils.serialization import (
+            load_serving_bundle,
+        )
+
+        model = load_serving_bundle(path, device=kwargs.get("device"))
+        return cls(model, **kwargs)
+
+    def _on_trace_drop(self):
+        self.recorder.record(
+            "trace.drops", capacity=self.trace_collector.capacity
+        )
 
     def start(self) -> "ServingEngine":
         if self._started:
             return self
         self._started = True
+        faults.add_observer(self.recorder.fault_observer)
         self._predict_batcher.start()
         if self.batcher is not None:
             self._thread = threading.Thread(
@@ -329,9 +434,13 @@ class ServingEngine:
         every pending request TYPED (``InternalError``) and leaves the
         engine degraded (no supervisor restart in this port yet)."""
         batcher = self.batcher
+        history = self.history
         try:
             while True:
                 self._heartbeat = time.monotonic()
+                if history is not None:
+                    history.maybe_snap()  # cadence-guarded
+                faults.fire("scheduler.loop", busy=not batcher.idle)
                 progressed = batcher.step()
                 if self._stop_evt.is_set() and batcher.idle:
                     return
@@ -341,9 +450,15 @@ class ServingEngine:
                     batcher.wait_for_work()
         except Exception as e:  # noqa: BLE001 — scheduler crash boundary
             self._last_crash = repr(e)
+            self.recorder.record("engine.degraded", reason=repr(e))
+            # dump before the requests fail: the in-flight table is the
+            # state at the crash
+            self._safe_dump("degraded", {"last_crash": self._last_crash})
             batcher.stop(error=InternalError(
                 f"scheduler crashed; request aborted: {e!r}"
             ))
+            if self.metrics is not None:
+                self.metrics.log(event="serving_engine_crash", error=repr(e))
 
     def stop(self, drain=True):
         """Shutdown. ``drain=True``: stop admissions, finish queued and
@@ -361,13 +476,20 @@ class ServingEngine:
         if batcher is not None and (not drain or not batcher.idle):
             batcher.stop()
         self._predict_batcher.close()
+        faults.remove_observer(self.recorder.fault_observer)
+        self.drain_traces()  # the tail of the span ring is not lost
 
     # -- generate -----------------------------------------------------------
 
     def submit(self, prompt, max_new_tokens, eos_id=None, deadline=None,
-               sampling=None) -> ServeRequest:
+               trace=None, sampling=None, tenant=None, priority=0,
+               stream=False) -> ServeRequest:
         """Queue one generate request; ``sampling`` is a
-        ``SamplingParams`` or its wire dict (None = the engine default)."""
+        ``SamplingParams`` or its wire dict (None = the engine default).
+        ``trace``: an ``obs.TraceContext`` (the scheduler then keeps the
+        request's event ledger). ``tenant``/``priority`` label metrics
+        only. ``stream``: the scheduler pushes each iteration's tokens
+        into the request's chunk FIFO (``req.next_chunk``)."""
         batcher = self.batcher
         if batcher is None:
             raise EngineStoppedError(
@@ -381,19 +503,76 @@ class ServingEngine:
             )
         req = ServeRequest(
             prompt, max_new_tokens, eos_id=eos_id, deadline=deadline,
-            sampling=_sp.SamplingParams.from_wire(sampling),
+            trace=trace, sampling=_sp.SamplingParams.from_wire(sampling),
+            tenant=tenant, priority=priority, stream=stream,
         )
-        return batcher.submit(req)
+        try:
+            return batcher.submit(req)
+        finally:
+            if self.metrics is not None:
+                load = batcher.load()
+                self.metrics.log(
+                    event="serving_submit", request_id=req.id,
+                    prompt_len=int(req.prompt.size),
+                    max_new_tokens=req.max_new_tokens,
+                    queue_depth=load["queue_depth"],
+                    active_slots=load["active_slots"],
+                )
 
     def generate(self, prompt, max_new_tokens, eos_id=None, deadline=None,
-                 timeout=None, sampling=None) -> np.ndarray:
+                 timeout=None, trace=None, sampling=None, tenant=None,
+                 priority=0) -> np.ndarray:
         """The full sequence (prompt + generated, eos-trimmed)."""
         req = self.submit(prompt, max_new_tokens, eos_id=eos_id,
-                          deadline=deadline, sampling=sampling)
+                          deadline=deadline, trace=trace, sampling=sampling,
+                          tenant=tenant, priority=priority)
         return self.wait(req, timeout)
 
     def wait(self, req: ServeRequest, timeout=None) -> np.ndarray:
-        return req.result(timeout)
+        """Block on a submitted request, then run its completion
+        bookkeeping: the latency histograms (tenant-labeled twins of
+        ``ttft``/``total`` for a named tenant), the ``serving_complete``
+        JSONL record and, for a traced request, the span drain."""
+        try:
+            return req.result(timeout)
+        finally:
+            if req.done:
+                self._complete(req)
+
+    def _complete(self, req):
+        lat = req.latency()
+        for phase, hist in self._lat_hists.items():
+            if lat[phase] is not None:
+                hist.observe(lat[phase])
+        if req.tenant != "default":
+            # the tenant is a client-chosen wire string: past
+            # MAX_TENANT_LABELS distinct names the rest share one label
+            tenant = req.tenant
+            if tenant not in self._tenants_seen:
+                if len(self._tenants_seen) < MAX_TENANT_LABELS:
+                    self._tenants_seen.add(tenant)
+                else:
+                    tenant = OTHER_TENANTS
+            for phase in ("ttft", "total"):
+                if lat[phase] is None:
+                    continue
+                key = (tenant, phase)
+                h = self._tenant_lat_hists.get(key)
+                if h is None:
+                    h = self._tenant_lat_hists[key] = self.registry.histogram(
+                        f"serving_request_{phase}_seconds",
+                        labels={"tenant": tenant},
+                    )
+                h.observe(lat[phase])
+        if self.metrics is not None:
+            self.metrics.log(
+                event="serving_complete", request_id=req.id,
+                tokens=len(req.tokens),
+                error=None if req.error is None else req.error.code,
+                **{k: v for k, v in lat.items() if v is not None},
+            )
+            if req.trace is not None:
+                self.drain_traces()
 
     # -- predict ------------------------------------------------------------
 
@@ -408,6 +587,91 @@ class ServingEngine:
         return self._predict_batcher.submit(x).result(timeout)
 
     # -- observability ------------------------------------------------------
+
+    def drain_traces(self) -> int:
+        """Flush the trace collector into the ``MetricsLogger`` (one
+        ``trace_span`` line per span); no-op without ``metrics_path``."""
+        if self.metrics is None:
+            return 0
+        return self.trace_collector.drain_to(self.metrics)
+
+    def metrics_snapshot(self) -> list:
+        """JSON-able samples of every registered metric — the payload of
+        the server's ``metrics`` verb."""
+        return self.registry.snapshot()
+
+    def timeseries(self, window=None, names=None, points=30) -> dict:
+        """The ``timeseries`` verb's payload: windowed digests of every
+        series plus the burn-rate verdict when SLOs are configured.
+        Raises ``ValueError`` with ``history=False``."""
+        if self.history is None:
+            raise ValueError(
+                "metrics history disabled (ServingEngine(history="
+                "False)); the timeseries verb has nothing to serve"
+            )
+        self.history.maybe_snap()  # a query is its own cadence
+        out = self.history.digest(
+            window=FAST_WINDOW if window is None else float(window),
+            names=names, points=int(points),
+        )
+        out["ok"] = True
+        out["burn"] = self.burn_verdict()
+        return out
+
+    def burn_verdict(self) -> dict | None:
+        """Multi-window burn-rate verdict over the SLO specs (None
+        without both ``slos`` and ``history``)."""
+        if self.history is None or self.slo is None:
+            return None
+        self.history.maybe_snap()
+        return self.history.burn(self.slo.specs)
+
+    def _safe_dump(self, reason, detail):
+        try:
+            self.dump_postmortem(reason, detail=detail)
+        except Exception as e:  # noqa: BLE001 — observability boundary
+            if self.metrics is not None:
+                self.metrics.log(event="postmortem_dump_failed",
+                                 reason=reason, error=repr(e))
+
+    def dump_postmortem(self, reason: str, detail=None):
+        """Dump this engine's post-mortem bundle (the ``obs`` schema):
+        recorder ring, metrics, the in-flight request table with trace
+        ids and their spans, the config, armed fault seams, the SLO
+        verdict. Kept for the ``postmortem`` verb; written to
+        ``postmortem_dir`` when set. Returns ``(bundle, path)``."""
+        batcher = self.batcher
+        in_flight = [] if batcher is None else batcher.inflight_snapshot()
+        trace_spans = []
+        for row in in_flight:
+            if row["trace_id"] is not None:
+                trace_spans.extend(
+                    self.trace_collector.spans_for(row["trace_id"])
+                )
+        bundle, path = dump_postmortem(
+            self.postmortem_dir, "serving_engine", reason,
+            recorder=self.recorder, metrics=self.metrics_snapshot(),
+            in_flight=in_flight, config=dict(self._config),
+            trace_spans=trace_spans,
+            slo=None if self.slo is None else self.slo.evaluate(),
+            detail=detail,
+        )
+        self.last_postmortem = bundle
+        self.last_postmortem_path = path
+        if self.metrics is not None:
+            self.metrics.log(event="postmortem_dumped", reason=reason,
+                             path=path)
+        return bundle, path
+
+    def postmortem(self):
+        """Latest bundle for the ``postmortem`` verb: the in-memory last
+        dump, else the newest file in ``postmortem_dir``;
+        ``(bundle_or_None, path_or_None)``."""
+        if self.last_postmortem is not None:
+            return self.last_postmortem, self.last_postmortem_path
+        if self.postmortem_dir is not None:
+            return latest_postmortem(self.postmortem_dir)
+        return None, None
 
     def health(self) -> dict:
         """Liveness summary: ``serving``, ``degraded`` (scheduler dead) or
@@ -434,6 +698,14 @@ class ServingEngine:
             out.update(batcher.load())
         if self._last_crash is not None:
             out["last_crash"] = self._last_crash
+        if self.slo is not None:
+            verdict = self.slo.maybe_evaluate()
+            out["slo"] = verdict["slo"]
+            out["slo_violations"] = verdict["violations"]
+            if self.history is not None:
+                b = self.burn_verdict()
+                out["burn"] = b["burn"]
+                out["burn_violations"] = b["violations"]
         return out
 
     def stats(self) -> dict:

@@ -13,10 +13,16 @@ slice runs).
   default.
 - ``WindowedBatcher``: size/timeout-windowed batching for batch scoring.
 
-Not ported yet: QoS and preemption, speculative windows, streaming,
-completion groups (n > 1), prefill export, blame assignment on a failed
-device step (here a failed step reaches the engine's crash boundary,
-which fails every pending request typed).
+Requests carry the JAX package's timestamps and (when traced) its
+per-request event ledger, which ``obs.tracing.request_spans`` turns into
+the server-side phase timeline; ``stream=True`` requests get each
+iteration's emitted tokens pushed into a chunk FIFO before any eviction.
+The counters are typed registry counters (``serving_scheduler_<key>``).
+
+Not ported yet: QoS and preemption, speculative windows, completion
+groups (n > 1), prefill export, blame assignment on a failed device step
+(here a failed step reaches the engine's crash boundary, which fails
+every pending request typed).
 
 The device face is an injected stepper (``engine.DecodeStepper``) with
 ``num_slots``, ``max_len``, ``begin_admit(slot, prompt, sampling) -> left``,
@@ -28,10 +34,13 @@ from __future__ import annotations
 
 import collections
 import copy
+import queue as _queue
 import threading
 import time
 
 import numpy as np
+
+from distkeras_tpu_torch.obs.metrics import MetricsRegistry
 
 
 class ServingError(RuntimeError):
@@ -45,6 +54,59 @@ class OverloadedError(ServingError):
     """Admission queue full — retry later (explicit backpressure)."""
 
     code = "overloaded"
+
+
+class PoolExhaustedError(OverloadedError):
+    """A KV page pool cannot cover an allocation — capacity pressure, so
+    ``overloaded`` on the wire, with its own ``retry_after_ms`` hint."""
+
+    def __init__(self, msg, retry_after_ms: float = 50.0):
+        super().__init__(msg)
+        self.retry_after_ms = float(retry_after_ms)
+        self.retry_after = self.retry_after_ms / 1e3
+
+
+class ShedError(OverloadedError):
+    """Refused at the door by an adaptive overload gate; plain
+    ``overloaded`` on the wire with an honest ``retry_after_ms``."""
+
+    def __init__(self, msg, retry_after_ms: float = 50.0):
+        super().__init__(msg)
+        self.retry_after_ms = float(retry_after_ms)
+        self.retry_after = self.retry_after_ms / 1e3
+
+
+class QuotaExhaustedError(OverloadedError):
+    """A tenant's admission quota cannot cover this request. Retriable
+    like ``overloaded``; ``retry_after_ms`` is the refill time."""
+
+    code = "quota_exhausted"
+
+    def __init__(self, msg, retry_after_ms: float = 50.0):
+        super().__init__(msg)
+        self.retry_after_ms = float(retry_after_ms)
+        self.retry_after = self.retry_after_ms / 1e3
+
+
+class WrongRoleError(ServingError):
+    """The verb is not served by this engine's disaggregation role — a
+    routing error, never retried."""
+
+    code = "wrong_role"
+
+
+class PeerError(ServingError):
+    """A worker-to-worker KV fabric operation failed (every peer path is
+    fail-soft: the requester recomputes)."""
+
+    code = "kv_peer"
+
+
+class StaleEpochError(PeerError):
+    """A peer frame or fetch named a KV epoch this engine no longer
+    serves."""
+
+    code = "stale_epoch"
 
 
 class DeadlineExceededError(ServingError):
@@ -73,13 +135,23 @@ class ServeRequest:
     deadline). ``result(timeout)`` blocks until the request finishes and
     returns the full sequence (prompt + generated tokens, cut after the
     first generated ``eos_id`` inclusive) or raises the recorded
-    ``ServingError``. ``sampling``: an optional ``SamplingParams``."""
+    ``ServingError``. ``sampling``: an optional ``SamplingParams``.
+
+    ``trace``: an optional ``obs.tracing.TraceContext``; when set, the
+    batcher also keeps the per-request event ledger (one entry per
+    prefill chunk) that ``obs.tracing.request_spans`` reads. The
+    timestamps are always stamped (they feed ``latency()``).
+    ``tenant``/``priority`` only label the request (no QoS policy here).
+    ``stream``: each scheduler iteration's emitted tokens are pushed into
+    a FIFO that ``next_chunk`` drains; ``first_sent`` is stamped by the
+    server thread when the first chunk frame has been sent."""
 
     _ids = iter(range(1, 1 << 62))
     _ids_lock = threading.Lock()
 
     def __init__(self, prompt, max_new_tokens, eos_id=None, deadline=None,
-                 sampling=None):
+                 trace=None, sampling=None, tenant=None, priority=0,
+                 stream=False):
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("prompt must hold at least one token")
@@ -99,14 +171,50 @@ class ServeRequest:
         self.max_new_tokens = max_new_tokens
         self.eos_id = None if eos_id is None else int(eos_id)
         self.deadline = None if deadline is None else float(deadline)
+        self.tenant = "default" if tenant is None else str(tenant)
+        self.priority = int(priority)
         self.sampling = sampling
+        self.stream = bool(stream)
+        self._chunks = _queue.SimpleQueue() if self.stream else None
+        self.first_sent = None
+        self.created = time.monotonic()
+        self.started = None  # admission instant (queue wait ends)
+        self.prefill_finished = None  # slot became decodable
+        self.first_token = None  # first generated token appended
+        self.finished = None
         self.tokens: list[int] = []
         self.error: ServingError | None = None
+        self.trace = trace
+        self.events: list[dict] = []  # trace ledger (traced requests only)
+        self.prefill_chunks = 0  # stepper.prefill_chunk calls, this request
+        self.iterations = 0  # scheduler iterations this slot advanced
         self._done = threading.Event()
 
     def _finish(self, error: ServingError | None = None):
         self.error = error
+        self.finished = time.monotonic()
         self._done.set()
+        if self._chunks is not None:
+            # the terminal sentinel goes in after the result is readable
+            self._chunks.put(None)
+
+    def _push_chunk(self, toks) -> None:
+        """One iteration's emitted tokens for the draining thread; the
+        batcher calls it before any eviction that iteration triggers, so
+        the sentinel never overtakes data."""
+        if self._chunks is not None:
+            self._chunks.put(list(toks))
+
+    def next_chunk(self, timeout=None):
+        """Blocking read of the stream FIFO: a list of new tokens, or None
+        once the request finished (then read ``error`` / ``result()``).
+        Raises ``TimeoutError`` when nothing arrived in ``timeout``."""
+        try:
+            return self._chunks.get(timeout=timeout)
+        except _queue.Empty:
+            raise TimeoutError(
+                f"request {self.id}: no stream progress in {timeout}s"
+            ) from None
 
     def _expired(self, now) -> bool:
         return self.deadline is not None and now >= self.deadline
@@ -125,6 +233,24 @@ class ServeRequest:
             seq = seq[: self.prompt.size + self.tokens.index(self.eos_id) + 1]
         return seq
 
+    def latency(self) -> dict:
+        """Per-phase seconds: queue wait, prefill, decode, ``ttft`` (to
+        the first chunk sent on a stream, else to the first token
+        appended) and ``total``; phases never reached stay None."""
+
+        def span(a, b):
+            return None if a is None or b is None else b - a
+
+        first = self.first_sent if self.first_sent is not None \
+            else self.first_token
+        return {
+            "queue_wait": span(self.created, self.started),
+            "prefill": span(self.started, self.prefill_finished),
+            "decode": span(self.prefill_finished, self.finished),
+            "ttft": span(self.created, first),
+            "total": span(self.created, self.finished),
+        }
+
 
 class ContinuousBatcher:
     """Slot-bank continuous batching around an injected device stepper.
@@ -132,9 +258,12 @@ class ContinuousBatcher:
     engine thread). Slots go ``queued -> prefilling -> decoding ->
     evicted``; admission is incremental (chunked prefill under the
     per-iteration ``prefill_chunk`` budget; None = whole prompt at once)
-    and slots mid-prefill sit out the decode step."""
+    and slots mid-prefill sit out the decode step. ``registry``: the
+    ``obs.MetricsRegistry`` the counters and occupancy gauges register in
+    (a fresh one when None)."""
 
-    def __init__(self, stepper, queue_capacity=64, prefill_chunk=None):
+    def __init__(self, stepper, queue_capacity=64, prefill_chunk=None,
+                 registry=None):
         self.stepper = stepper
         self.queue_capacity = int(queue_capacity)
         if self.queue_capacity < 1:
@@ -156,15 +285,26 @@ class ContinuousBatcher:
         self._work = threading.Event()  # signals the engine loop
         self._draining = False
         self._stopped = False
-        self.counters = dict.fromkeys(
+        self.registry = registry if registry is not None else MetricsRegistry()
+        self.counters = self.registry.group(
+            "serving_scheduler",
             (
                 "submitted", "rejected_overloaded", "completed",
                 "deadline_exceeded", "steps", "occupancy_sum",
                 "tokens_generated", "prefill_chunks", "prefill_tokens",
                 "prefill_failures", "internal_errors", "sampled_requests",
+                "streamed_chunks",
             ),
-            0,
         )
+        # occupancy gauges, read at scrape time (unlocked: a scrape
+        # tolerates a torn read)
+        reg = self.registry
+        reg.gauge("serving_scheduler_queue_depth", fn=lambda: len(self._queue))
+        reg.gauge("serving_scheduler_active_slots",
+                  fn=lambda: sum(s is not None for s in self._slots))
+        reg.gauge("serving_scheduler_prefilling_slots",
+                  fn=lambda: len(self._prefill_left))
+        reg.gauge("serving_scheduler_num_slots", fn=lambda: len(self._slots))
 
     # -- submission ---------------------------------------------------------
 
@@ -217,6 +357,7 @@ class ContinuousBatcher:
                 if req is None:
                     break
                 self._slots[i] = req
+                req.started = now
                 admitted.append((i, req))
         # device work outside the lock: submit() never blocks on a step
         began = []
@@ -227,11 +368,16 @@ class ContinuousBatcher:
                 )))
             except Exception as e:  # noqa: BLE001 — admission boundary
                 self._fail_admission(i, req, e)
+        now = time.monotonic()
         with self._lock:
             for i, req, left in began:
-                if self._slots[i] is req and left > 0:
+                if self._slots[i] is not req:
+                    continue  # stopped underneath us
+                if left > 0:
                     self._prefill_left[i] = left
                     self._prefill_fifo.append(i)
+                else:
+                    req.prefill_finished = now
         return self._spend_prefill_budget() or bool(admitted)
 
     def _mask_phase(self) -> np.ndarray:
@@ -264,8 +410,16 @@ class ContinuousBatcher:
                 if req is None or not active[i]:
                     continue
                 tok = int(toks[i])
+                req.iterations += 1
                 req.tokens.append(tok)
+                if req.first_token is None:
+                    req.first_token = now
                 self.counters["tokens_generated"] += 1
+                if req.stream:
+                    # pushed before the eviction below: the terminal
+                    # sentinel must never overtake the last tokens
+                    self.counters["streamed_chunks"] += 1
+                    req._push_chunk([tok])
                 if len(req.tokens) >= req.max_new_tokens or (
                     req.eos_id is not None and tok == req.eos_id
                 ):
@@ -306,16 +460,25 @@ class ContinuousBatcher:
                 req = self._slots[i]
                 left = self._prefill_left[i]
                 give = left if budget is None else min(left, budget - spent)
+            chunk_t0 = time.monotonic()
             try:
                 new_left = self.stepper.prefill_chunk(i, give)
             except Exception as e:  # noqa: BLE001 — admission boundary
                 self._fail_admission(i, req, e)
                 progressed = True
                 continue
+            now = time.monotonic()
             with self._lock:
                 if self._slots[i] is not req:
                     continue  # stopped/evicted underneath us
                 consumed = left - new_left
+                req.prefill_chunks += 1
+                if req.trace is not None:
+                    req.events.append({
+                        "name": "serving.prefill_chunk",
+                        "t0": chunk_t0, "t1": now,
+                        "tokens": int(consumed), "slot": i,
+                    })
                 if consumed <= 0 and new_left > 0:
                     raise RuntimeError(
                         f"stepper made no prefill progress on slot {i}"
@@ -327,6 +490,7 @@ class ContinuousBatcher:
                 self._prefill_left[i] = new_left
                 if new_left == 0:
                     self._drop_prefill(i)
+                    req.prefill_finished = now
 
     def _drop_prefill(self, i):
         """Leave the prefilling state. Caller holds the lock."""
@@ -395,6 +559,37 @@ class ContinuousBatcher:
     def idle(self) -> bool:
         with self._lock:
             return not self._queue and all(s is None for s in self._slots)
+
+    def inflight_snapshot(self) -> list[dict]:
+        """The in-flight request table for a post-mortem bundle: every
+        queued and slotted request with its trace id (when traced)."""
+
+        def row(req, state, slot=None):
+            return {
+                "request_id": req.id,
+                "state": state,
+                "slot": slot,
+                "tenant": req.tenant,
+                "priority": req.priority,
+                "preemptions": 0,
+                "prompt_len": int(req.prompt.size),
+                "max_new_tokens": req.max_new_tokens,
+                "tokens_emitted": len(req.tokens),
+                "trace_id": (
+                    None if req.trace is None else req.trace.trace_id
+                ),
+            }
+
+        with self._lock:
+            out = [row(r, "queued") for r in self._queue]
+            for i, req in enumerate(self._slots):
+                if req is None:
+                    continue
+                state = (
+                    "prefilling" if i in self._prefill_left else "decoding"
+                )
+                out.append(row(req, state, slot=i))
+            return out
 
     def load(self) -> dict:
         """Cheap occupancy snapshot for the health surface."""

@@ -1,8 +1,10 @@
-"""``examples/mnist_torch.py`` as a user runs it: a subprocess on the CPU
-(``--device cpu``) at a small ``--n``, through a checkpoint and a resume
+"""The port's examples as a user runs them. ``examples/mnist_torch.py``:
+a subprocess on the CPU (``--device cpu``) at a small ``--n``, through a checkpoint and a resume
 that continues where the first invocation stopped, with the metrics rows
 and the profiler trace of the resumed run; and BASELINE config 6 on the
-real digits. The process must not load JAX or the JAX package."""
+real digits. ``examples/serve_lm_torch.py``: export, bundle, serve and
+query on the CPU (``--cpu``). The process must not load JAX or the JAX
+package."""
 
 import glob
 import json
@@ -14,11 +16,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(REPO, "examples", "mnist_torch.py")
 
 
-def run(tmp_path, *args):
+def run(tmp_path, *args, script=SCRIPT):
     code = (
         "import runpy, sys\n"
-        f"sys.argv = [{SCRIPT!r}, *{list(args)!r}]\n"
-        f"runpy.run_path({SCRIPT!r}, run_name='__main__')\n"
+        f"sys.argv = [{script!r}, *{list(args)!r}]\n"
+        f"runpy.run_path({script!r}, run_name='__main__')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'distkeras_tpu')]\n"
         "assert not bad, bad\n"
@@ -80,3 +82,19 @@ def test_imagenet_resnet_torch_from_shards(tmp_path):
     assert out.returncode == 0, (out.stdout[-2000:], out.stderr[-2000:])
     assert "wrote 4 shards" in out.stdout
     assert "PS updates: 4" in out.stdout and "test accuracy:" in out.stdout
+
+
+SERVE = os.path.join(REPO, "examples", "serve_lm_torch.py")
+
+
+def test_serve_lm_torch_export_serve_query(tmp_path):
+    out = run(tmp_path, "--cpu", "--epochs", "3", "--temperature", "0.8",
+              script=SERVE)
+    rows = [json.loads(line.split(":", 1)[1]) for line in out.splitlines()
+            if line.startswith("served decode:")]
+    assert len(rows) == 4
+    vocab = 32
+    for row in rows:  # the successor LM counts upward
+        assert all((b - a) % vocab == 1 for a, b in zip(row, row[1:])), row
+    assert "streamed 10 chunks" in out and "(complete: True)" in out
+    assert "replayed identically" in out and "drained and stopped" in out

@@ -260,6 +260,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'distkeras_tpu' or m.startswith('distkeras_tpu.')]\n"
         "assert not bad, bad\n"
+        "front = ['distkeras_tpu_torch.serving.' + n for n in ('server',"
+        " 'client', 'resilience')] + ['distkeras_tpu_torch.obs.tracing']\n"
+        "assert all(m in sys.modules for m in front), front\n"
         "print('clean', len([m for m in sys.modules"
         " if m.startswith('distkeras_tpu_torch')]))\n"
     )
