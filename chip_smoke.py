@@ -200,6 +200,25 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``ServingEngine.from_bundle`` on the card; four greedy wire generates
    equal to an in-process ``CachedSequenceGenerator`` on the quantized
    model; the bundle bytes beside ``serialize_model``'s f32 bytes.
+12. The self-healing scheduler on phase 4's LN-hooked 8-slot engine and
+   16-request mix. 12a: the mix under ``overlap=False``, then
+   ``overlap=True``: every reply equal to phase 4's; per mode tokens/s,
+   ``serving_overlap_efficiency``, the bubble's p50/p99 from
+   ``serving_step_bubble_seconds`` and B7 launches per emitted token; B4
+   not launched. 12b: 15 of the mix and a poison request whose slot makes
+   ``stepper.step`` raise, in both modes: the poison fails typed, the 15
+   equal phase 4's; quarantines, blame probes and the wall of the failed
+   step and its probes; then a ``stepper.prefill`` seam fails one
+   admission alone. 12c: one engine behind a ``ServingServer`` with a 1 s
+   watchdog: a ``scheduler.loop`` crash mid-decode, a 5 s wedge, another
+   crash: each request fails typed, the engine restarts (trip-to-serving
+   time, the rebuilt stepper's warmup time), four greedy requests equal
+   phase 4's, the zombie exits; ``memory_allocated`` after the three
+   restarts within one 134 MB cache bank of the start; then a crash with
+   the budget spent: ``degraded`` in the wire ``health``, ``submit``
+   refused typed. 12d: the compile ledger after 12a (warmup and serving
+   mints, keys, seconds), then ``warm_prefill_buckets`` and
+   ``mark_warmed`` and the mix again: 0 storms.
 
 ``--profile`` adds where the time goes: a decode step, a predict forward,
 a training step, an async window and a config-5 DynSGD/``resnet18``
@@ -3517,6 +3536,377 @@ def run_phase11(torch, np, lm, smi, pred, gen, gen_reqs, gen_outs):
     return out, [*counts, c_pred, c_bundle]
 
 
+# ----------------------------------------------------------------- phase 12
+
+#: phase 12's cache bank: 8 blocks x (K, V) x 8 slots x 512 positions x 8
+#: heads x 64 x 4 bytes
+BANK_BYTES = 8 * 2 * 8 * 512 * 8 * 64 * 4
+
+
+def hooked_engine(lm, **kw):
+    """Phase 4's engine: the LN-hooked d512/L8 LM on 8 slots, warmed."""
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+    from distkeras_tpu_torch.serving import ServingEngine
+
+    detach_hooks(lm)
+    check(attach_fused_layernorm(lm) == 17, "LN hook not on 17 norms")
+    eng = ServingEngine(lm, num_slots=8, **kw).start()
+    eng._stepper.warmup()
+    return eng
+
+
+def serve_mix(eng, reqs):
+    """Submit ``reqs`` at once, wait for every reply; returns (replies or
+    the error each raised, seconds)."""
+    t0 = time.monotonic()
+    handles = [eng.submit(p, n, sampling=s) for p, n, s in reqs]
+    outs = []
+    for h in handles:
+        try:
+            outs.append(eng.wait(h, timeout=600))
+        except Exception as e:  # noqa: BLE001 — the caller checks each
+            outs.append(e)
+    return outs, time.monotonic() - t0
+
+
+def bubble_ms(np, eng):
+    hist = eng.batcher.overlap_ledger.bubble
+    return {q: (None if hist.quantile(v) is None else hist.quantile(v) * 1e3)
+            for q, v in (("p50", 0.5), ("p99", 0.99))}
+
+
+def run_loop_ab(torch, np, lm, smi, gen_reqs, gen_outs):
+    """12a: phase 4's mix on a fresh sequential or overlapped engine, in
+    turns (sequential, overlapped, overlapped, sequential), so both modes
+    see the same card state. A fresh engine per run: the overlap ledger
+    measures iteration wall collect to collect, so an idle gap between two
+    runs on one engine would count as bubble. 12d reads the compile ledger
+    of the last overlapped engine."""
+    from distkeras_tpu_torch import kernels
+
+    runs = {False: [], True: []}
+    counts_all = []
+    keep = None
+    try:
+        for overlap in (False, True, True, False):
+            eng = hooked_engine(lm, overlap=overlap)
+            try:
+                kernels.reset_launch_counts()
+                outs, secs = serve_mix(eng, gen_reqs)
+                counts = kernels.launch_counts()
+                led = eng.batcher.overlap_ledger
+                run = {"iterations": led.iterations,
+                       "overlap_efficiency": led.efficiency,
+                       "bubble_ms": bubble_ms(np, eng)}
+            finally:
+                if overlap and keep is None:
+                    keep = eng
+                else:
+                    eng.stop()
+            check(all(isinstance(o, np.ndarray) and np.array_equal(o, w)
+                      for o, w in zip(outs, gen_outs)),
+                  f"12a: a reply under overlap={overlap} differs from "
+                  f"phase 4's")
+            check(counts["layernorm_fwd"] > 0 and counts["flash_fwd"] == 0,
+                  f"12a: overlap={overlap} did not run through B7 alone: "
+                  f"{counts}")
+            tokens = sum(len(o) - len(p)
+                         for o, (p, _, _) in zip(outs, gen_reqs))
+            run.update(tokens=tokens, seconds=secs,
+                       tokens_per_s=tokens / secs,
+                       b7_per_token=counts["layernorm_fwd"] / tokens)
+            runs[overlap].append(run)
+            counts_all.append(counts)
+    except BaseException:
+        if keep is not None:
+            keep.stop()
+        raise
+    res = {}
+    for overlap, rs in runs.items():
+        res["overlap" if overlap else "sequential"] = {
+            "runs": rs,
+            "tokens_per_s": sum(x["tokens_per_s"] for x in rs) / len(rs),
+        }
+        log(f"12a overlap={overlap}: "
+            f"{[round(x['tokens_per_s'], 1) for x in rs]} tokens/s, "
+            f"overlap efficiency {[x['overlap_efficiency'] for x in rs]}, "
+            f"bubble p50/p99 {[x['bubble_ms'] for x in rs]} ms, "
+            f"{[round(x['b7_per_token'], 3) for x in rs]} B7 launches per "
+            f"token, every reply equal to phase 4's on {smi}")
+    # 12d: the ledger after 12a, then the warm set and a storm-free rerun
+    eng = keep
+    try:
+        before = eng.compile_ledger.snapshot()
+        mints = eng.compile_ledger.mints()
+        t0 = time.monotonic()
+        eng._stepper.warm_prefill_buckets()
+        warm_s = time.monotonic() - t0
+        eng.compile_ledger.mark_warmed()
+        kernels.reset_launch_counts()
+        outs, _ = serve_mix(eng, gen_reqs)
+        counts = kernels.launch_counts()
+        after = eng.compile_ledger.snapshot()
+    finally:
+        eng.stop()
+    check(all(isinstance(o, np.ndarray) and np.array_equal(o, w)
+              for o, w in zip(outs, gen_outs)),
+          "12d: a reply after mark_warmed differs from phase 4's")
+    check(after["storms"] == 0,
+          f"12d: {after['storms']} compile storms after mark_warmed: "
+          f"{after['recent']}")
+    check(counts["layernorm_fwd"] > 0 and counts["flash_fwd"] == 0,
+          f"12d: the rerun did not run through B7 alone: {counts}")
+    counts_all.append(counts)
+    res["compiles"] = {
+        "after_12a": {k: before[k] for k in ("total", "warmup", "serving",
+                                              "seconds")},
+        "keys": [(m["key"], m["trigger"], m["seconds"]) for m in mints],
+        "warm_prefill_buckets_s": warm_s,
+        "after_mark_warmed": {k: after[k] for k in ("total", "warmup",
+                                                     "serving", "storms")},
+    }
+    log(f"12d compile ledger: after 12a {res['compiles']['after_12a']}, "
+        f"mints {res['compiles']['keys']}; warm_prefill_buckets "
+        f"{warm_s:.3f} s; after mark_warmed and the mix again "
+        f"{res['compiles']['after_mark_warmed']} on {smi}")
+    return res, counts_all
+
+
+def run_poison(torch, np, lm, smi, gen_reqs, gen_outs):
+    """12b: 15 of the mix and a poison request whose slot makes every
+    step raise, in both loop modes; then a failed admission."""
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.faults import FaultPlan
+    from distkeras_tpu_torch.obs import TraceContext
+    from distkeras_tpu_torch.serving import InternalError
+
+    res, counts_all = {}, []
+    poison_prompt = np.arange(64, dtype=np.int32) % 8192
+    for overlap in (False, True):
+        eng = hooked_engine(lm, overlap=overlap)
+        try:
+            bad = None
+
+            def poisoned(ctx):
+                slots = eng.batcher._slots  # the scheduler thread's own
+                return any(r is bad and ctx["active"][i]
+                           for i, r in enumerate(slots))
+
+            plan = FaultPlan().arm("stepper.step", times=None, when=poisoned)
+            kernels.reset_launch_counts()
+            with plan:
+                t0 = time.monotonic()
+                handles = [eng.submit(p, n, sampling=s)
+                           for p, n, s in gen_reqs[:15]]
+                # submitted last: the newest admission, the prime suspect
+                bad = eng.submit(poison_prompt, 32, trace=TraceContext.new())
+                outs = [eng.wait(h, timeout=600) for h in handles]
+                try:
+                    eng.wait(bad, timeout=600)
+                    failed = None
+                except InternalError as e:
+                    failed = str(e)
+                secs = time.monotonic() - t0
+            counts = kernels.launch_counts()
+            stats = eng.stats()
+            health = eng.health()
+        finally:
+            eng.stop()
+        check(failed is not None and "blamed" in failed,
+              f"12b: the poison request did not fail blamed: {failed}")
+        check(all(np.array_equal(o, w) for o, w in zip(outs, gen_outs[:15])),
+              f"12b: a survivor differs from phase 4's (overlap={overlap})")
+        check(stats["quarantines"] == 1 and stats["internal_errors"] == 1
+              and health["status"] == "serving",
+              f"12b: poison books wrong: {stats['quarantines']} quarantines,"
+              f" {stats['internal_errors']} internal, {health['status']}")
+        check(counts["layernorm_fwd"] > 0 and counts["flash_fwd"] == 0,
+              f"12b: did not run through B7 alone: {counts}")
+        blame = [ev for ev in bad.events if ev["name"] == "scheduler.blame"]
+        r = {
+            "quarantines": stats["quarantines"],
+            "blame_probes": stats["blame_probes"],
+            "step_failures": stats["step_failures"],
+            "probe_wall_ms": sum((ev["t1"] - ev["t0"]) for ev in blame) * 1e3,
+            "seconds": secs, "fired": plan.fired("stepper.step"),
+            "launches": counts,
+        }
+        res["overlap" if overlap else "sequential"] = r
+        counts_all.append(counts)
+        log(f"12b poison overlap={overlap}: failed typed, 15 survivors equal "
+            f"phase 4's; quarantines {r['quarantines']}, blame probes "
+            f"{r['blame_probes']}, failed step + probes "
+            f"{r['probe_wall_ms']:.3f} ms, mix {secs:.3f} s on {smi}")
+    # a stepper.prefill seam on one admission
+    eng = hooked_engine(lm)
+    try:
+        kernels.reset_launch_counts()
+        with FaultPlan().arm("stepper.prefill", times=1) as plan:
+            first = eng.submit(poison_prompt, 8)
+            greedy = [(i, r) for i, r in enumerate(gen_reqs)
+                      if r[2] is None][:4]
+            handles = [eng.submit(p, n) for _, (p, n, _) in greedy]
+            outs = [eng.wait(h, timeout=600) for h in handles]
+        try:
+            eng.wait(first, timeout=600)
+            failed = None
+        except InternalError as e:
+            failed = str(e)
+        counts = kernels.launch_counts()
+        stats = eng.stats()
+    finally:
+        eng.stop()
+    check(failed is not None and "prefill failed" in failed
+          and plan.fired("stepper.prefill") == 1,
+          f"12b: the seamed admission did not fail alone: {failed}")
+    check(all(np.array_equal(o, gen_outs[i])
+              for o, (i, _) in zip(outs, greedy))
+          and stats["prefill_failures"] == 1 and stats["quarantines"] == 0,
+          "12b: the admissions beside the failed one went wrong")
+    counts_all.append(counts)
+    res["prefill_failure"] = {"prefill_failures": stats["prefill_failures"],
+                              "launches": counts}
+    log(f"12b stepper.prefill: one admission failed typed, 4 beside it "
+        f"equal phase 4's, launches {counts} on {smi}")
+    return res, counts_all
+
+
+def run_watchdog(torch, np, lm, smi, gen_reqs, gen_outs):
+    """12c on one engine behind a ``ServingServer``: a dead scheduler, a
+    wedged one, a third restart, then a crash with the budget spent; the
+    cache banks of the abandoned generations are freed."""
+    import gc
+    import threading
+
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.faults import FaultPlan
+    from distkeras_tpu_torch.serving import (
+        InternalError,
+        ServingClient,
+        ServingServer,
+    )
+
+    def wait_for(cond, what, timeout=60):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if cond():
+                return
+            time.sleep(0.002)
+        check(False, f"12c: timed out waiting for {what}")
+
+    greedy = [(i, r) for i, r in enumerate(gen_reqs) if r[2] is None][:4]
+    torch.cuda.synchronize()
+    eng = hooked_engine(lm, watchdog_interval=1.0)
+    srv = ServingServer(eng).start()
+    counts_all = []
+    try:
+        gc.collect()
+        mem0 = torch.cuda.memory_allocated()
+        trips = []
+        for kind in ("dead", "wedged", "dead"):
+            p, n, _ = gen_reqs[0]
+            if kind == "dead":
+                plan = FaultPlan().arm("scheduler.loop", times=1, after=20,
+                                       when=lambda ctx: ctx["busy"])
+            else:
+                plan = FaultPlan().arm("scheduler.loop", action="delay",
+                                       delay=5.0, times=1, after=20,
+                                       when=lambda ctx: ctx["busy"])
+            with plan:
+                req = eng.submit(p, n)
+                try:
+                    eng.wait(req, timeout=600)
+                    err = None
+                except InternalError as e:
+                    err = str(e)
+                wait_for(lambda: eng.health()["restarts"] == len(trips) + 1
+                         and eng.health()["status"] == "serving",
+                         "the restart")
+                t_serving = time.time()
+            check(err is not None and (
+                "crashed" if kind == "dead" else "wedged") in err,
+                f"12c: the {kind} scheduler's request did not fail typed: "
+                f"{err}")
+            check(0 < len(req.tokens) < n,
+                  f"12c: the {kind} trip was not mid-decode")
+            trip = [e for e in eng.recorder.snapshot()
+                    if e["kind"] == "engine.watchdog_trip"][-1]
+            trips.append({
+                "kind": kind, "tokens_before": len(req.tokens),
+                "trip_to_serving_s": t_serving - trip["ts"],
+                "restart_s": eng.last_restart["seconds"],
+                "warmup_s": eng.last_restart["warmup_seconds"],
+            })
+            log(f"12c {kind}: request failed typed after "
+                f"{len(req.tokens)} tokens; trip to serving "
+                f"{trips[-1]['trip_to_serving_s']:.3f} s, rebuilt stepper "
+                f"warmed in {trips[-1]['warmup_s']:.3f} s on {smi}")
+            if kind == "wedged":
+                wait_for(lambda: sum(t.name == "serving-engine"
+                                     for t in threading.enumerate()) == 1,
+                         "the zombie scheduler to exit", timeout=30)
+            else:
+                kernels.reset_launch_counts()
+                outs = [eng.generate(p, n, timeout=600)
+                        for _, (p, n, _) in greedy]
+                counts = kernels.launch_counts()
+                check(all(np.array_equal(o, gen_outs[i])
+                          for o, (i, _) in zip(outs, greedy)),
+                      "12c: a decode after the restart differs from phase 4's")
+                check(counts["layernorm_fwd"] > 0 and counts["flash_fwd"] == 0,
+                      f"12c: the restarted engine skipped B7: {counts}")
+                counts_all.append(counts)
+        gc.collect()
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        check(mem1 - mem0 <= BANK_BYTES,
+              f"12c: {mem1 - mem0} bytes more after 3 restarts than at the "
+              f"start (one bank is {BANK_BYTES})")
+        with FaultPlan().arm("scheduler.loop", times=None):
+            eng.submit(gen_reqs[0][0], 4)
+            wait_for(lambda: eng.health()["restart_budget_exhausted"],
+                     "the budget to run out")
+        with ServingClient(srv.host, srv.port, timeout=60,
+                           connect_timeout=2) as c:
+            wire = c.health()
+        check(wire["status"] == "degraded"
+              and wire["restart_budget_exhausted"]
+              and wire["restarts"] == 3 and wire["watchdog_trips"] == 4,
+              f"12c: the wire health after the budget: {wire}")
+        try:
+            eng.submit(gen_reqs[0][0], 4)
+            refused = None
+        except InternalError as e:
+            refused = str(e)
+        check(refused is not None and "budget exhausted" in refused,
+              f"12c: submit on a degraded engine was not refused: {refused}")
+    finally:
+        srv.shutdown()
+    res = {"trips": trips, "memory_growth_bytes": mem1 - mem0,
+           "bank_bytes": BANK_BYTES, "wire_status": wire["status"]}
+    log(f"12c: 3 restarts, memory {mem1 - mem0:+d} bytes against a "
+        f"{BANK_BYTES}-byte bank; then the budget ran out and the wire health "
+        f"says {wire['status']} on {smi}")
+    return res, counts_all
+
+
+def run_phase12(torch, np, lm, smi, gen_reqs, gen_outs):
+    """Phase 12, the self-healing scheduler on the card; returns the results
+    and the launch counts of each subphase's main path."""
+    out = {}
+    t0 = time.monotonic()
+    out["loop_ab"], c_a = run_loop_ab(torch, np, lm, smi, gen_reqs, gen_outs)
+    out["poison"], c_b = run_poison(torch, np, lm, smi, gen_reqs, gen_outs)
+    out["watchdog"], c_c = run_watchdog(torch, np, lm, smi, gen_reqs,
+                                        gen_outs)
+    detach_hooks(lm)
+    out["seconds_total"] = time.monotonic() - t0
+    counts = [*c_a, *c_b, *c_c]
+    out["launches"] = {k: sum(c.get(k, 0) for c in counts)
+                       for k in counts[0]}
+    return out, counts
+
+
 def baseline_leaf_shapes():
     """The parameter shapes of configs 2-5's models (built on the CPU: only
     their leaf tables matter to phases 2b/2c)."""
@@ -3945,11 +4335,16 @@ def main(argv):
     front, front_launches = run_phase11(torch, np, lm, smi, pred, gen,
                                         gen_reqs, gen_outs)
     log(f"phase 11 in {front['seconds_total']:.1f} s on {smi}")
+    healing, healing_launches = run_phase12(torch, np, lm, smi, gen_reqs,
+                                            gen_outs)
+    log(f"phase 12 in {healing['seconds_total']:.1f} s, launches "
+        f"{healing['launches']} on {smi}")
     profile = profile_paths(torch, np, lm, zoo) if args.profile else None
 
     phases = [pred["launches"], gen["launches"], train["launches"],
               async_thr["launches"], baseline_launches, resume_launches,
               member_launches, socket_launches, *front_launches,
+              *healing_launches,
               *(r["launches"] for r in async_sim.values())]
     launches = {k: sum(c.get(k, 0) for c in phases) for k in kernels.LAUNCHES}
     check(all(n > 0 for n in launches.values()),
@@ -4015,6 +4410,7 @@ def main(argv):
                        "async_threads": async_thr, "baseline": baseline,
                        "resume": resume, "phase9": members,
                        "phase10": socket_tier, "phase11": front,
+                       "phase12": healing,
                        "profile": profile,
                        "flash_infinite_q": inf_rows},
                       f, indent=1)

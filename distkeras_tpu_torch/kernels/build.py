@@ -18,6 +18,13 @@ so an edited source or header rebuilds every library built from it and an
 unchanged one is reused by later processes on the same machine. A missing
 ``nvcc``, a failed compile or a failed load raises ``RuntimeError``: there
 is no fallback.
+
+A build is the port's compile: the calling thread stalls for it. Observers
+(``add_build_observer``) hear of each one twice, on the building thread:
+``fn(names, None)`` before it starts and ``fn(names, seconds)`` after the
+compile plus the load succeeded — the serving engine extends its watchdog's
+grace on the first and records a ``build[<kernel>]`` mint on its compile
+ledger on the second.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -85,6 +93,7 @@ KERNELS = {
 
 _lock = threading.Lock()
 _fns: dict[str, object] = {}
+_observers: list = []
 #: nvcc's ``-Xptxas -v`` report per source file (registers, shared
 #: memory, spills) from the builds this process ran
 build_logs: dict[str, str] = {}
@@ -172,6 +181,27 @@ def _compile_all(names) -> None:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
 
 
+def add_build_observer(fn) -> None:
+    """Call ``fn(names, seconds)`` around every build: ``seconds`` is None
+    before it starts, then the wall seconds of the compile and the load."""
+    with _lock:
+        _observers.append(fn)
+
+
+def remove_build_observer(fn) -> None:
+    with _lock:
+        if fn in _observers:
+            _observers.remove(fn)
+
+
+def _notify(observers, names, seconds) -> None:
+    for fn in observers:
+        try:
+            fn(list(names), seconds)
+        except Exception:  # noqa: BLE001 — observability boundary
+            pass
+
+
 def build(names=None) -> dict:
     """Compile (where needed) and load the named kernels (default: all);
     returns ``{name: ctypes function}``."""
@@ -179,6 +209,9 @@ def build(names=None) -> dict:
     with _lock:
         missing = [n for n in names if n not in _fns]
         if missing:
+            observers = list(_observers)
+            _notify(observers, missing, None)
+            t0 = time.perf_counter()
             _compile_all(missing)
             for name in missing:
                 _, symbol, argtypes = KERNELS[name]
@@ -193,6 +226,7 @@ def build(names=None) -> dict:
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
                 _fns[name] = fn
+            _notify(observers, missing, time.perf_counter() - t0)
         return {n: _fns[n] for n in names}
 
 

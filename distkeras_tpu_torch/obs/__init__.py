@@ -1,6 +1,7 @@
-"""Observability for the port's parameter-server tier (PyTorch port of the
-parts of ``distkeras_tpu.obs`` the PS books use; pure Python copies, so
-both packages' registries, digests and bundles agree sample for sample).
+"""Observability for the port's parameter-server and serving tiers
+(PyTorch port of the parts of ``distkeras_tpu.obs`` their books use; pure
+Python copies, so both packages' registries, digests and bundles agree
+sample for sample).
 
 - ``metrics``: Prometheus-style :class:`Counter` / :class:`Gauge` /
   :class:`Histogram` in a :class:`MetricsRegistry`
@@ -23,9 +24,15 @@ both packages' registries, digests and bundles agree sample for sample).
   :class:`TraceCollector`, and :func:`request_spans`, the server-side
   timeline of one request (the serving front's traces).
 
-The serving tier's compile ledger and overlap ledger are not ported yet.
+- ``compile_ledger``: :class:`CompileLedger` — every runtime program
+  mint (a kernel library build, a stepper program's first call) with its
+  trigger, wall seconds and blast radius; post-warmup compile storms.
+- ``overlap``: :class:`OverlapLedger` — per-scheduler-iteration
+  dispatch/ready/collect stamps giving the decode bubble
+  (``serving_step_bubble_seconds``) and ``serving_overlap_efficiency``.
 """
 
+from distkeras_tpu_torch.obs.compile_ledger import CompileLedger
 from distkeras_tpu_torch.obs.metrics import (
     Counter,
     CounterGroup,
@@ -36,6 +43,7 @@ from distkeras_tpu_torch.obs.metrics import (
     parse_prometheus,
     render_prometheus,
 )
+from distkeras_tpu_torch.obs.overlap import OverlapLedger
 from distkeras_tpu_torch.obs.recorder import (
     POSTMORTEM_SCHEMA,
     FlightRecorder,
@@ -74,6 +82,7 @@ __all__ = [
     "FAST_WINDOW",
     "POSTMORTEM_SCHEMA",
     "SLOW_WINDOW",
+    "CompileLedger",
     "Counter",
     "CounterGroup",
     "FlightRecorder",
@@ -81,6 +90,7 @@ __all__ = [
     "Histogram",
     "MetricsHistory",
     "MetricsRegistry",
+    "OverlapLedger",
     "SloEvaluator",
     "SloSpec",
     "Span",

@@ -15,8 +15,21 @@ client.
   package's.
 - ``resilience``: the client's ``RetryBudget`` and hedge-delay
   ``LatencyTracker``.
+
+Robustness (see also ``distkeras_tpu_torch/faults.py``): the scheduler
+assigns BLAME for device-step failures (a masked retry, then bisection) so
+a poison request fails alone with ``InternalError`` and its slot is
+quarantined for ``quarantine_steps`` iterations while every other stream
+decodes on token-identical; a supervisor watchdog restarts a dead or
+wedged scheduler thread (in-flight work failed typed, stepper rebuilt and
+warmed) under ``max_restarts`` with ``networking.RetryPolicy``'s backoff
+(``restart_backoff``). ``overlap=True`` runs the overlapped loop; the
+engine's ``OverlapLedger`` and ``CompileLedger`` (``obs``, re-exported
+here) measure its bubble and its program mints.
 """
 
+from distkeras_tpu_torch.networking import RetryPolicy
+from distkeras_tpu_torch.obs import CompileLedger, OverlapLedger
 from distkeras_tpu_torch.serving.scheduler import (
     ContinuousBatcher,
     DeadlineExceededError,
@@ -43,17 +56,20 @@ from distkeras_tpu_torch.serving.server import ServingServer, serve
 from distkeras_tpu_torch.serving.client import ServingClient, TokenStream
 
 __all__ = [
+    "CompileLedger",
     "ContinuousBatcher",
     "DeadlineExceededError",
     "DecodeStepper",
     "EngineStoppedError",
     "InternalError",
     "LatencyTracker",
+    "OverlapLedger",
     "OverloadedError",
     "PeerError",
     "PoolExhaustedError",
     "QuotaExhaustedError",
     "RetryBudget",
+    "RetryPolicy",
     "SamplingParams",
     "ServeRequest",
     "ServingClient",

@@ -159,7 +159,8 @@ def gumbel(key, n):
     bits = random_bits(key, n)
     one = 0x3F800000  # float32 1.0's bits: the mantissa trick
     f = ((bits >> 9) | one).to(torch.int32).view(torch.float32) - 1.0
-    tiny = torch.tensor(_TINY, dtype=torch.float32, device=f.device)
+    # a fill, not a copy from host memory (which waits for the stream)
+    tiny = torch.full((), _TINY, dtype=torch.float32, device=f.device)
     u = torch.maximum(tiny, f * (1.0 - tiny) + tiny)
     return -torch.log(-torch.log(u))
 
@@ -180,7 +181,8 @@ def filter_logits(scaled, top_k, top_p):
     ``top_p[i] >= 1`` disable the respective filter; with both set, the
     nucleus runs over the top-k survivors."""
     v = scaled.shape[-1]
-    neg = torch.tensor(float("-inf"), dtype=scaled.dtype, device=scaled.device)
+    neg = torch.full((), float("-inf"), dtype=scaled.dtype,
+                     device=scaled.device)
     sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
     k = torch.clamp(torch.where(top_k <= 0, v, top_k), 1, v).long()
     kth = torch.gather(sorted_desc, -1, (k - 1)[:, None])
@@ -197,13 +199,18 @@ def filter_logits(scaled, top_k, top_p):
     return torch.where(out < thresh, neg, out)
 
 
-def sample_tokens(logit, temps, top_k, top_p, seeds, spos):
+def sample_tokens(logit, temps, top_k, top_p, seeds, spos, filtered=None):
     """(B, V) logits -> (B,) int64 tokens under per-row params: greedy rows
     (``temps[i] == 0``) take exact argmax; sampled rows draw
-    ``categorical(key(seed_i, spos_i), filtered(logit_i / temp_i))``."""
+    ``categorical(key(seed_i, spos_i), filtered(logit_i / temp_i))``.
+    ``filtered``: whether any row sets top-k or top-p, when the caller
+    knows it from host copies (None reads it off the tensors, which on
+    the card waits for the stream)."""
     greedy = torch.argmax(logit, dim=-1)
     scaled = logit / torch.clamp(temps, min=1e-6)[:, None]
-    if bool((top_k > 0).any()) or bool((top_p < 1.0).any()):
+    if filtered is None:
+        filtered = bool((top_k > 0).any()) or bool((top_p < 1.0).any())
+    if filtered:
         scaled = filter_logits(scaled, top_k, top_p)
     samp = categorical(row_keys(seeds, spos), scaled)
     return torch.where(temps > 0.0, samp, greedy)

@@ -4,30 +4,45 @@ slice runs).
 
 - ``ContinuousBatcher``: iteration-level batching for autoregressive
   decode over a fixed bank of ``num_slots`` sequence slots. Each
-  scheduler step admits queued requests into free slots, spends at most
-  ``prefill_chunk`` prompt tokens on slots mid-prefill (oldest admission
-  first), advances every decoding slot one token, and evicts finished
-  sequences. FIFO queue with bounded-queue backpressure, per-request
-  deadlines, drain / hard stop. This is the JAX package's sequential
-  loop (``overlap=False``), which is token-identical to its overlapped
-  default.
+  scheduler step recycles expired quarantines, admits queued requests
+  into free slots, spends at most ``prefill_chunk`` prompt tokens on
+  slots mid-prefill (oldest admission first), advances every decoding
+  slot one token, and evicts finished sequences. FIFO queue with
+  bounded-queue backpressure, per-request deadlines, drain / hard stop.
+  Two loop shapes with one contract: ``overlap=False`` dispatches each
+  step and waits for it; ``overlap=True`` runs the next iteration's host
+  work while the step is on the device and collects it at the last
+  moment (emitted token order per request is identical). Both stamp the
+  same ``obs.OverlapLedger`` (``serving_step_bubble_seconds``,
+  ``serving_overlap_efficiency``).
 - ``WindowedBatcher``: size/timeout-windowed batching for batch scoring.
+
+Failures are contained, not fatal: a device-step exception triggers
+blame assignment (a masked retry of the newest admission, then
+bisection — ``_assign_blame``), so only the culpable request fails
+(typed ``InternalError``) and its slot is quarantined for
+``quarantine_steps`` iterations, while every surviving stream advances
+exactly one token per iteration; a prefill crash fails just its own
+request.
 
 Requests carry the JAX package's timestamps and (when traced) its
 per-request event ledger, which ``obs.tracing.request_spans`` turns into
-the server-side phase timeline; ``stream=True`` requests get each
+the server-side phase timeline (prefill chunks, blame windows, mints of
+the stepper's compile ledger); ``stream=True`` requests get each
 iteration's emitted tokens pushed into a chunk FIFO before any eviction.
 The counters are typed registry counters (``serving_scheduler_<key>``).
 
 Not ported yet: QoS and preemption, speculative windows, completion
-groups (n > 1), prefill export, blame assignment on a failed device step
-(here a failed step reaches the engine's crash boundary, which fails
-every pending request typed).
+groups (n > 1), prefill export, load shedding.
 
 The device face is an injected stepper (``engine.DecodeStepper``) with
 ``num_slots``, ``max_len``, ``begin_admit(slot, prompt, sampling) -> left``,
 ``prefill_chunk(slot, budget) -> left``, ``release(slot)`` and
-``step(active) -> (num_slots,) tokens``.
+``step(active) -> (num_slots,) tokens``; it MAY expose
+``step_async(active)`` returning a handle with ``ready()`` and
+``collect() -> tokens`` (the overlapped loop then really overlaps; without
+it the device call runs synchronously at dispatch) and a compile
+``ledger``.
 """
 
 from __future__ import annotations
@@ -41,6 +56,31 @@ import time
 import numpy as np
 
 from distkeras_tpu_torch.obs.metrics import MetricsRegistry
+from distkeras_tpu_torch.obs.overlap import OverlapLedger
+
+
+class _Inflight:
+    """One dispatched-but-uncollected device step, scheduler-side: the
+    active mask it was issued against, the wall/mint stamps its collect
+    needs for attribution, and exactly one of — a stepper ``step_async``
+    handle, a held synchronous result (steppers without an async face),
+    or a stashed dispatch exception (a failure at dispatch surfaces at the
+    COLLECT of its own iteration, where the blame machinery runs)."""
+
+    __slots__ = ("active", "t0", "mints0", "handle", "result", "exc")
+
+    def __init__(self, active, t0, mints0):
+        self.active = active
+        self.t0 = t0
+        self.mints0 = mints0
+        self.handle = None
+        self.result = None
+        self.exc = None
+
+    def ready(self) -> bool:
+        if self.handle is not None:
+            return self.handle.ready()
+        return True  # held result / stashed exception: nothing to wait on
 
 
 class ServingError(RuntimeError):
@@ -258,12 +298,27 @@ class ContinuousBatcher:
     engine thread). Slots go ``queued -> prefilling -> decoding ->
     evicted``; admission is incremental (chunked prefill under the
     per-iteration ``prefill_chunk`` budget; None = whole prompt at once)
-    and slots mid-prefill sit out the decode step. ``registry``: the
-    ``obs.MetricsRegistry`` the counters and occupancy gauges register in
-    (a fresh one when None)."""
+    and slots mid-prefill sit out the decode step.
+
+    ``quarantine_steps``: scheduler iterations a slot sits out after a
+    device step is blamed on its request; it recycles into the free pool
+    once the probation expires. ``registry``: the ``obs.MetricsRegistry``
+    the counters and gauges register in (a fresh one when None).
+    ``recorder``: an ``obs.FlightRecorder`` that receives an event per
+    working iteration and the blame, quarantine and prefill-failure
+    events (None records nothing).
+    ``overlap``: True runs the overlapped loop — each ``step()`` first does
+    the host work (admission, chunked prefill, deadline sweeps) while the
+    PREVIOUS iteration's step is on the device, then collects that step
+    (emission/eviction — the only host sync), then dispatches the next
+    one. A step that fails surfaces at the collect of its own iteration,
+    with the same blame/quarantine semantics. False (the default here;
+    ``ServingEngine`` defaults to True) dispatches and waits, so one
+    ``step()`` call emits its own tokens."""
 
     def __init__(self, stepper, queue_capacity=64, prefill_chunk=None,
-                 registry=None):
+                 quarantine_steps=64, registry=None, recorder=None,
+                 overlap=False):
         self.stepper = stepper
         self.queue_capacity = int(queue_capacity)
         if self.queue_capacity < 1:
@@ -275,25 +330,47 @@ class ContinuousBatcher:
             raise ValueError(
                 f"prefill_chunk must be >= 1 or None; got {prefill_chunk}"
             )
+        self.quarantine_steps = int(quarantine_steps)
+        if self.quarantine_steps < 1:
+            raise ValueError("quarantine_steps must be >= 1")
         self._queue: collections.deque[ServeRequest] = collections.deque()
         self._slots: list[ServeRequest | None] = [None] * stepper.num_slots
         # slot -> prefill positions remaining; membership IS the
         # "prefilling" state, FIFO order = admission order
         self._prefill_left: dict[int, int] = {}
         self._prefill_fifo: collections.deque[int] = collections.deque()
+        # blame bookkeeping: per-slot admission sequence (the newest
+        # admission is the prime suspect of a step failure) and the
+        # quarantine ledger (slot -> scheduler iteration it recycles at)
+        self._admit_seq = 0
+        self._admit_order = [0] * stepper.num_slots
+        self._quarantined: dict[int, int] = {}
+        self._sched_iters = 0  # step() calls (not device steps)
+        # the dispatched-but-uncollected step (at most one); only the
+        # scheduler thread touches it outside stop()
+        self.overlap = bool(overlap)
+        self._inflight: _Inflight | None = None
         self._lock = threading.Lock()
         self._work = threading.Event()  # signals the engine loop
         self._draining = False
         self._stopped = False
+        self.recorder = recorder
         self.registry = registry if registry is not None else MetricsRegistry()
+        # the bubble instrument, stamped by BOTH loop modes
+        self.overlap_ledger = OverlapLedger(self.registry)
         self.counters = self.registry.group(
             "serving_scheduler",
             (
                 "submitted", "rejected_overloaded", "completed",
                 "deadline_exceeded", "steps", "occupancy_sum",
                 "tokens_generated", "prefill_chunks", "prefill_tokens",
-                "prefill_failures", "internal_errors", "sampled_requests",
-                "streamed_chunks",
+                # the self-healing paths
+                "step_failures",  # device step raised
+                "blame_probes",  # extra step calls assigning blame
+                "internal_errors",  # requests failed InternalError
+                "prefill_failures",  # begin_admit/prefill_chunk raised
+                "quarantines",  # slots sent to probation
+                "sampled_requests", "streamed_chunks",
             ),
         )
         # occupancy gauges, read at scrape time (unlocked: a scrape
@@ -304,6 +381,8 @@ class ContinuousBatcher:
                   fn=lambda: sum(s is not None for s in self._slots))
         reg.gauge("serving_scheduler_prefilling_slots",
                   fn=lambda: len(self._prefill_left))
+        reg.gauge("serving_scheduler_quarantined_slots",
+                  fn=lambda: len(self._quarantined))
         reg.gauge("serving_scheduler_num_slots", fn=lambda: len(self._slots))
 
     # -- submission ---------------------------------------------------------
@@ -333,39 +412,177 @@ class ContinuousBatcher:
         self._work.set()
         return req
 
+    # -- compile attribution (the ledger's trace face) ----------------------
+
+    def _led_total(self) -> int:
+        """The stepper's compile-ledger mint count (0 without a ledger),
+        read before a device call so a mint inside it can be attributed
+        to the traced request(s) it stalled."""
+        led = getattr(self.stepper, "ledger", None)
+        return 0 if led is None else led.total
+
+    def _note_mints(self, req, n0, t0, t1) -> None:
+        """Attribute ledger mints that landed during a device call to a
+        TRACED request's event ledger (``request_spans`` renders it as an
+        ``xla.compile`` span). Untraced requests cost one compare."""
+        if req is None or req.trace is None:
+            return
+        led = getattr(self.stepper, "ledger", None)
+        if led is None:
+            return
+        n = led.total - n0
+        if n <= 0:
+            return
+        recs = led.tail(n)
+        req.events.append({
+            "name": "xla.compile",
+            "t0": t0, "t1": t1,
+            "mints": n,
+            "keys": [r["key"] for r in recs],
+            "seconds": round(sum(r["seconds"] for r in recs), 4),
+            "trigger": recs[-1]["trigger"] if recs else None,
+        })
+
     # -- scheduler iteration ------------------------------------------------
 
     def step(self) -> bool:
-        """One scheduler iteration: admit, spend the prefill budget,
-        advance every decoding slot one token, evict finished sequences.
-        Returns True when any slot made progress."""
+        """One scheduler iteration: recycle expired quarantines, admit,
+        spend the prefill budget, advance every decoding slot one token
+        (with blame assignment on a step failure), evict finished
+        sequences. Returns True when any slot made progress. Sequential
+        mode runs host work -> dispatch+wait -> emit; overlapped mode runs
+        host work (the previous step still on the device) -> collect+emit
+        that step -> dispatch the next and return without waiting."""
+        if self.overlap:
+            return self._step_overlapped()
+        return self._step_sequential()
+
+    def _step_sequential(self) -> bool:
+        """Every phase waits for the previous one, so the device idles
+        through the host work and vice versa — the bubble the ledger
+        measures."""
         progressed = self._admit_phase()
         active = self._mask_phase()
         if not active.any():
             return progressed
-        toks = np.asarray(self.stepper.step(active)).reshape(-1)
-        self._finish_step(active, toks)
+        step_t0 = time.monotonic()
+        mints0 = self._led_total()
+        self.overlap_ledger.note_dispatch()
+        toks, blamed = self._step_with_blame(active)
+        self.overlap_ledger.note_collect()
+        return self._finish_step(active, step_t0, mints0, toks, blamed)
+
+    def _step_overlapped(self) -> bool:
+        """Iteration N+1's host work runs while step N is on the device;
+        the host syncs on N's tokens when it needs them (emission and
+        eviction), then dispatches N+1 and returns.
+
+        - Admission and prefill device calls are ordered behind the
+          in-flight step on the same stream and touch only slots its mask
+          excludes, so the collected tokens are unaffected.
+        - Slots freed by this call's collect admit on the NEXT call; each
+          request's own token stream is unchanged.
+        - A step that raises (at dispatch or at collect) surfaces at the
+          collect of its own iteration, where the blame probes run
+          synchronously against unadvanced state.
+        """
+        inflight = self._inflight
+        if inflight is not None and inflight.ready():
+            # the device finished while the host was away: stamp it so
+            # the device wall is measured, not inferred from the collect
+            self.overlap_ledger.note_ready()
+        progressed = self._admit_phase()
+        if inflight is not None:
+            self._inflight = None
+            if inflight.ready():
+                self.overlap_ledger.note_ready()
+            toks, blamed = self._collect_with_blame(inflight)
+            self.overlap_ledger.note_collect()
+            self._finish_step(inflight.active, inflight.t0, inflight.mints0,
+                              toks, blamed)
+            progressed = True
+        active = self._mask_phase()
+        if not active.any():
+            return progressed
+        t0 = time.monotonic()
+        mints0 = self._led_total()
+        self.overlap_ledger.note_dispatch()
+        inflight = self._dispatch(active, t0, mints0)
+        with self._lock:
+            if self._stopped:
+                # stop() ran between the mask and the dispatch: the
+                # step's requests already failed typed; drop it
+                self.overlap_ledger.discard()
+            else:
+                self._inflight = inflight
         return True
 
+    def _dispatch(self, active, t0, mints0) -> _Inflight:
+        """Issue the device step for ``active`` without waiting on it
+        (``step_async`` where the stepper has it; otherwise the call runs
+        here and its result — or exception — rides the handle to this
+        iteration's collect)."""
+        inf = _Inflight(active, t0, mints0)
+        st = self.stepper
+        try:
+            if hasattr(st, "step_async"):
+                inf.handle = st.step_async(active)
+            else:
+                inf.result = self._device_step(active)
+        except Exception as e:  # noqa: BLE001 — device crash boundary
+            inf.exc = e
+        return inf
+
+    def _collect_with_blame(self, inf: _Inflight):
+        """The overlapped loop's sync point: the in-flight step's tokens,
+        or its deferred failure followed by blame exactly as in
+        ``_step_with_blame`` (a failed call advanced nothing, so the
+        synchronous probes retry from the state the dispatch saw).
+        Returns ``(toks, blamed)``."""
+        try:
+            if inf.exc is not None:
+                raise inf.exc
+            if inf.handle is not None:
+                return np.asarray(inf.handle.collect()).reshape(-1), []
+            return inf.result, []
+        except Exception:  # noqa: BLE001 — device crash boundary
+            with self._lock:
+                self.counters["step_failures"] += 1
+        return self._assign_blame(inf.active)
+
     def _admit_phase(self) -> bool:
+        """Host work at the top of an iteration: quarantine recycle,
+        admission of queued requests into free (not quarantined) slots,
+        the chunked-prefill budget."""
         now = time.monotonic()
         admitted = []
         with self._lock:
-            free = [i for i, s in enumerate(self._slots) if s is None]
+            self._sched_iters += 1
+            for s, until in list(self._quarantined.items()):
+                if self._sched_iters >= until:
+                    del self._quarantined[s]  # probation served
+            free = [
+                i for i, slot in enumerate(self._slots)
+                if slot is None and i not in self._quarantined
+            ]
             for i in free:
                 req = self._pop_live(now)
                 if req is None:
                     break
                 self._slots[i] = req
                 req.started = now
+                self._admit_seq += 1
+                self._admit_order[i] = self._admit_seq
                 admitted.append((i, req))
         # device work outside the lock: submit() never blocks on a step
         began = []
         for i, req in admitted:
             try:
+                n0, ta = self._led_total(), time.monotonic()
                 began.append((i, req, self.stepper.begin_admit(
                     i, req.prompt, sampling=req.sampling
                 )))
+                self._note_mints(req, n0, ta, time.monotonic())
             except Exception as e:  # noqa: BLE001 — admission boundary
                 self._fail_admission(i, req, e)
         now = time.monotonic()
@@ -382,7 +599,8 @@ class ContinuousBatcher:
 
     def _mask_phase(self) -> np.ndarray:
         """Deadline-sweep slots mid-prefill (they emit nothing, so the
-        post-step check never sees them) and return the decode mask."""
+        post-step check never sees them) and return the decode mask. Runs
+        right before dispatch in both loop modes."""
         now = time.monotonic()
         with self._lock:
             for i in list(self._prefill_left):
@@ -399,15 +617,54 @@ class ContinuousBatcher:
                 bool,
             )
 
-    def _finish_step(self, active, toks) -> None:
-        """Emission and eviction for one device step: per-token budget,
-        EOS and deadline checks."""
+    def _finish_step(self, active, step_t0, mints0, toks, blamed) -> bool:
+        """Emission and eviction for one collected device step: mint
+        attribution, blame eviction + quarantine, then per-token budget,
+        EOS and deadline checks, stream pushes before any eviction."""
         now = time.monotonic()
+        if self._led_total() > mints0:
+            # a mint landed inside the decode phase: every traced active
+            # request was stalled by it
+            for i, r in enumerate(self._slots):
+                if r is not None and active[i]:
+                    self._note_mints(r, mints0, step_t0, now)
         with self._lock:
             self.counters["steps"] += 1
             self.counters["occupancy_sum"] += int(active.sum())
+            for i in blamed:
+                req = self._slots[i]
+                if req is None:
+                    continue  # stopped underneath the blame probes
+                if self.recorder is not None:
+                    self.recorder.record(
+                        "scheduler.blame", slot=i, request_id=req.id,
+                        iter=self._sched_iters,
+                        probes=self.counters["blame_probes"],
+                    )
+                if req.trace is not None:
+                    # the blame window (failed step + probes) on the
+                    # culprit's own ledger: a scheduler.blame span
+                    req.events.append({
+                        "name": "scheduler.blame",
+                        "t0": step_t0, "t1": now, "slot": i,
+                    })
+                self._quarantine_locked(i)
+                self._evict(i, req, InternalError(
+                    f"device step failed and was blamed on this request "
+                    f"(slot {i}); slot quarantined for "
+                    f"{self.quarantine_steps} iterations"
+                ))
+            if toks is None:
+                if self.recorder is not None:
+                    self.recorder.record(
+                        "scheduler.iteration", iter=self._sched_iters,
+                        active=int(active.sum()), emitted=0, blamed=blamed,
+                    )
+                return True  # every active slot was blamed this round
+            emitted = 0
+            blamed_set = set(blamed)
             for i, req in enumerate(self._slots):
-                if req is None or not active[i]:
+                if req is None or not active[i] or i in blamed_set:
                     continue
                 tok = int(toks[i])
                 req.iterations += 1
@@ -415,6 +672,7 @@ class ContinuousBatcher:
                 if req.first_token is None:
                     req.first_token = now
                 self.counters["tokens_generated"] += 1
+                emitted += 1
                 if req.stream:
                     # pushed before the eviction below: the terminal
                     # sentinel must never overtake the last tokens
@@ -428,10 +686,103 @@ class ContinuousBatcher:
                     self._evict(i, req, DeadlineExceededError(
                         f"deadline passed after {len(req.tokens)} tokens"
                     ))
+        if self.recorder is not None:
+            # one line per WORKING iteration (idle loops record nothing)
+            self.recorder.record(
+                "scheduler.iteration", iter=self._sched_iters,
+                active=int(active.sum()), emitted=emitted,
+                blamed=blamed if blamed else None,
+            )
+        return True
+
+    # -- blame assignment ----------------------------------------------------
+
+    def _device_step(self, active) -> np.ndarray:
+        """One synchronous device advance: the (B,) tokens."""
+        return np.asarray(self.stepper.step(active)).reshape(-1)
+
+    def _step_with_blame(self, active):
+        """Advance the active slots one token, surviving a poison request:
+        when the device step raises, ``_assign_blame`` finds the culprit.
+        Every non-blamed slot advances exactly one token (failed calls
+        advance nothing — the seams fire before device work, and the
+        stepper advances its host state only at collect), so surviving
+        streams stay token-identical to their solo decode. Returns
+        ``(toks, blamed)``; ``toks`` is None when nothing advanced."""
+        try:
+            return self._device_step(active), []
+        except Exception:  # noqa: BLE001 — device crash boundary
+            with self._lock:
+                self.counters["step_failures"] += 1
+        return self._assign_blame(active)
+
+    def _assign_blame(self, active):
+        """The probe cascade after a failed step (shared by both loop
+        shapes): retry with the newest admission masked out (established
+        streams were stepping fine before it arrived); if that fails too,
+        bisect the active set down to the culpable slots. A slot alone in
+        the batch is culpable by elimination. Every probe failing blames
+        every active slot — the supervisor's restart budget is the
+        backstop for a stepper that is dead, not poisoned."""
+        idxs = [int(i) for i in np.flatnonzero(active)]
+        if len(idxs) == 1:
+            return None, idxs
+        with self._lock:
+            suspect = max(idxs, key=lambda i: self._admit_order[i])
+        retry = active.copy()
+        retry[suspect] = False
+        try:
+            with self._lock:
+                self.counters["blame_probes"] += 1
+            return self._device_step(retry), [suspect]
+        except Exception:  # noqa: BLE001
+            pass
+        # the newest admission alone is not the story: bisect the whole
+        # active set (nothing has advanced yet — all probes so far failed)
+        got: dict[int, int] = {}
+        blamed: list[int] = []
+
+        def probe(group):
+            mask = np.zeros_like(active)
+            mask[group] = True
+            try:
+                with self._lock:
+                    self.counters["blame_probes"] += 1
+                t = self._device_step(mask)
+            except Exception:  # noqa: BLE001
+                if len(group) == 1:
+                    blamed.append(group[0])
+                    return
+                half = len(group) // 2
+                probe(group[:half])
+                probe(group[half:])
+                return
+            for i in group:
+                got[i] = int(t[i])
+
+        probe(idxs)
+        if not got:
+            return None, blamed
+        toks = np.zeros(len(active), np.int64)
+        for i, tok in got.items():
+            toks[i] = tok
+        return toks, blamed
+
+    def _quarantine_locked(self, i):
+        """Send slot ``i`` to probation. Caller holds the lock."""
+        self.counters["quarantines"] += 1
+        self._quarantined[i] = self._sched_iters + self.quarantine_steps
+        if self.recorder is not None:
+            self.recorder.record(
+                "scheduler.quarantine", slot=i,
+                until_iter=self._quarantined[i],
+            )
 
     def _fail_admission(self, i, req, exc):
         """A begin_admit/prefill_chunk crash fails only its own
-        (attributable) request, typed, and frees the slot."""
+        (attributable) request, typed, and frees the slot. A
+        ``ServingError`` passes through as itself (a fresh copy per
+        request: an injected seam re-raises one instance)."""
         err = (
             copy.copy(exc)
             if isinstance(exc, ServingError)
@@ -439,6 +790,11 @@ class ContinuousBatcher:
         )
         with self._lock:
             self.counters["prefill_failures"] += 1
+            if self.recorder is not None:
+                self.recorder.record(
+                    "scheduler.prefill_failure", slot=i,
+                    request_id=req.id, error=repr(exc)[:200],
+                )
             if self._slots[i] is req:
                 self._evict(i, req, err)
 
@@ -460,6 +816,7 @@ class ContinuousBatcher:
                 req = self._slots[i]
                 left = self._prefill_left[i]
                 give = left if budget is None else min(left, budget - spent)
+            mints0 = self._led_total()
             chunk_t0 = time.monotonic()
             try:
                 new_left = self.stepper.prefill_chunk(i, give)
@@ -468,6 +825,7 @@ class ContinuousBatcher:
                 progressed = True
                 continue
             now = time.monotonic()
+            self._note_mints(req, mints0, chunk_t0, now)
             with self._lock:
                 if self._slots[i] is not req:
                     continue  # stopped/evicted underneath us
@@ -536,12 +894,17 @@ class ContinuousBatcher:
 
     def stop(self, error: ServingError | None = None):
         """Hard stop: fail everything still queued or in flight with
-        ``error`` (default ``EngineStoppedError``), one instance each."""
+        ``error`` (default ``EngineStoppedError``; the engine supervisor
+        passes ``InternalError``), one instance each. A step still in the
+        air is dropped uncollected: its requests fail here, and the
+        stepper's host state never advances for it."""
         proto = error if error is not None else EngineStoppedError(
             "engine stopped"
         )
         with self._lock:
             self._draining = self._stopped = True
+            self._inflight = None
+            self.overlap_ledger.discard()
             while self._queue:
                 self._queue.popleft()._finish(type(proto)(*proto.args))
             self._prefill_left.clear()
@@ -558,7 +921,11 @@ class ContinuousBatcher:
     @property
     def idle(self) -> bool:
         with self._lock:
-            return not self._queue and all(s is None for s in self._slots)
+            return (
+                self._inflight is None
+                and not self._queue
+                and all(s is None for s in self._slots)
+            )
 
     def inflight_snapshot(self) -> list[dict]:
         """The in-flight request table for a post-mortem bundle: every
@@ -606,12 +973,17 @@ class ContinuousBatcher:
         out = self.load()
         with self._lock:
             out.update(self.counters)
+            out["quarantined_slots"] = len(self._quarantined)
             out["prefill_chunk"] = self.prefill_chunk
             out["draining"] = self._draining
         steps = out["steps"]
         out["mean_batch_occupancy"] = (
             out["occupancy_sum"] / steps if steps else 0.0
         )
+        out["overlap"] = {
+            "enabled": self.overlap,
+            **self.overlap_ledger.snapshot(),
+        }
         return out
 
     def wait_for_work(self, timeout=0.05):

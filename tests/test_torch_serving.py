@@ -261,7 +261,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " or m == 'distkeras_tpu' or m.startswith('distkeras_tpu.')]\n"
         "assert not bad, bad\n"
         "front = ['distkeras_tpu_torch.serving.' + n for n in ('server',"
-        " 'client', 'resilience')] + ['distkeras_tpu_torch.obs.tracing']\n"
+        " 'client', 'resilience')] + ['distkeras_tpu_torch.obs.' + n"
+        " for n in ('tracing', 'compile_ledger', 'overlap')]\n"
         "assert all(m in sys.modules for m in front), front\n"
         "print('clean', len([m for m in sys.modules"
         " if m.startswith('distkeras_tpu_torch')]))\n"

@@ -477,7 +477,8 @@ def test_timeseries_refused_without_history(lms):
 
 def test_scheduler_crash_fails_typed_and_serves_a_postmortem(lms, tmp_path):
     _, lm = lms
-    eng = ServingEngine(lm, num_slots=1, device="cpu",
+    # no restart budget: the crash is terminal, the engine degrades
+    eng = ServingEngine(lm, num_slots=1, device="cpu", max_restarts=0,
                         postmortem_dir=str(tmp_path))
     srv = ServingServer(eng).start()
     plan = faults.FaultPlan().arm("scheduler.loop",
