@@ -219,10 +219,36 @@ Phases, each fatal on failure (exit code 1, no result line):
    refused typed. 12d: the compile ledger after 12a (warmup and serving
    mints, keys, seconds), then ``warm_prefill_buckets`` and
    ``mark_warmed`` and the mix again: 0 storms.
+13. Paged KV pools and the prefix cache on phase 4's LN-hooked LM, each
+   engine fresh. 13a: phase 4's mix on ``paged=True``: every greedy token
+   the argmax of its teacher-forced plain logits within LOGIT_TOL, the
+   sampled requests replaying identically, no pool exhaustion, B7 launched
+   and B4 not, the pages left in use after the mix exactly the device
+   index's; tokens/s beside phase 4's and the token agreement with phase
+   4's replies and with solo decode. 13b: shared-header traffic (one
+   192-token system prompt, 16 distinct 16-64-token suffixes, 32 new
+   tokens, 4 sampled; one request first, the other 15 once its first
+   chunk arrives) on a dense engine without a store, a dense one with the
+   default store and a paged one, in turns: 13a's token bars, and paged at
+   least 15 device-index hits of 12 shared pages; per mode the prefill
+   positions computed, store and index books, the peak of shared pages,
+   TTFT p50/p99 and tokens/s. 13c: phase 4's mix on a 61-page pool: all 16
+   complete, no exhaustion (gating waits), at most 60 pages in use; a
+   request that never fits a 16-page pool refused ``ValueError`` at
+   ``submit``; behind a ``ServingServer``, an injected ``kv.alloc``
+   exhaustion comes back ``overloaded`` with ``retry_after_ms``, a
+   retrying client gets its reply, the requests beside it are unaffected.
+   13d: a scheduler crash on 13b's paged engine: a fresh paged stepper
+   (empty device index), the host store's entries kept, the old pool freed
+   (``memory_allocated`` grows by less than one 134.7 MB pool), a header
+   request after it a host-ladder hit. 13e: the warm-up's six
+   ``paged_step`` mints, then the warm set, ``mark_warmed`` and 13b's
+   paged traffic again: 0 storms.
 
-``--profile`` adds where the time goes: a decode step, a predict forward,
-a training step, an async window and a config-5 DynSGD/``resnet18``
-window (host wall, device time by category, idle share, top kernels).
+``--profile`` adds where the time goes: a decode step (dense and paged), a
+predict forward, a training step, an async window and a config-5
+DynSGD/``resnet18`` window (host wall, device time by category, idle
+share, top kernels).
 
 The last lines are the kernels JSON, the ``nvidia-smi`` name/power line,
 and ``{"ok": true, "device": {...}}``.
@@ -3266,7 +3292,9 @@ def run_wire_generate(torch, np, lm, smi, gen, gen_reqs, gen_outs):
 
     detach_hooks(lm)
     check(attach_fused_layernorm(lm) == 17, "LN hook not on 17 norms")
-    eng = ServingEngine(lm, num_slots=8)
+    # request 0 comes three times (11a, 11b, 11e): no prefix store, so the
+    # third is not a host-ladder hit and the replies stay phase 4's path
+    eng = ServingEngine(lm, num_slots=8, prefix_cache=False)
     srv = ServingServer(eng).start()
     clients = [ServingClient(srv.host, srv.port, timeout=600,
                              connect_timeout=2) for _ in range(8)]
@@ -3796,7 +3824,9 @@ def run_watchdog(torch, np, lm, smi, gen_reqs, gen_outs):
 
     greedy = [(i, r) for i, r in enumerate(gen_reqs) if r[2] is None][:4]
     torch.cuda.synchronize()
-    eng = hooked_engine(lm, watchdog_interval=1.0)
+    # request 0 and the greedy four come back after every restart, and a
+    # store would survive the restarts: none, so no reply is a ladder hit
+    eng = hooked_engine(lm, watchdog_interval=1.0, prefix_cache=False)
     srv = ServingServer(eng).start()
     counts_all = []
     try:
@@ -3902,6 +3932,493 @@ def run_phase12(torch, np, lm, smi, gen_reqs, gen_outs):
     detach_hooks(lm)
     out["seconds_total"] = time.monotonic() - t0
     counts = [*c_a, *c_b, *c_c]
+    out["launches"] = {k: sum(c.get(k, 0) for c in counts)
+                       for k in counts[0]}
+    return out, counts
+
+
+# ----------------------------------------------------------------- phase 13
+
+#: phase 13's pool at its default size: 8 slots x 32 pages of 16 positions
+#: and the null sentinel, 8 blocks x (K, V) x 16 positions x 8 heads x 64 x
+#: 4 bytes a page
+POOL_BYTES = 257 * 8 * 2 * 16 * 8 * 64 * 4
+
+
+def shared_header_mix(np):
+    """13b's traffic: one 192-token system prompt and 16 requests of the
+    header plus a distinct 16-64-token suffix, 32 new tokens each, every
+    fourth one sampled."""
+    rng = np.random.default_rng(13)
+    header = rng.integers(0, 8192, 192)
+    reqs = []
+    for i in range(16):
+        suffix = rng.integers(0, 8192, int(rng.integers(16, 65)))
+        sampling = ({"temperature": 0.8, "seed": 200 + i}
+                    if i % 4 == 3 else None)
+        reqs.append((np.concatenate([header, suffix]).astype(np.int32), 32,
+                     sampling))
+    return header, reqs
+
+
+def argmax_gap(torch, np, lm, outs, reqs):
+    """The largest gap between the best teacher-forced plain logit and the
+    chosen token's, over every greedy token of ``outs`` (the LN hook is
+    detached for the plain forward and attached again after)."""
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+
+    detach_hooks(lm)
+    worst = 0.0
+    for o, (p, _, s) in zip(outs, reqs):
+        if s is not None:
+            continue
+        lg = forward(torch, lm, o[None])[0].cpu().numpy()
+        pos = np.arange(len(p) - 1, len(o) - 1)
+        worst = max(worst, float((lg[pos].max(-1) - lg[pos, o[pos + 1]]).max()))
+    attach_fused_layernorm(lm)
+    return worst
+
+
+def token_agreement(np, outs, refs, reqs):
+    """Share of the generated tokens equal to ``refs``'s."""
+    same = total = 0
+    for o, r, (p, _, _) in zip(outs, refs, reqs):
+        same += int((o[len(p):] == r[len(p):]).sum())
+        total += len(o) - len(p)
+    return same / total
+
+
+def check_replies(torch, np, lm, eng, outs, reqs, tag):
+    """13's token bars: every request finished with its tokens, every
+    greedy token is the argmax of its teacher-forced plain logits within
+    LOGIT_TOL, and the sampled requests replay identically on ``eng``.
+    Returns the argmax gap."""
+    check(all(isinstance(o, np.ndarray) and len(o) == len(p) + n
+              for o, (p, n, _) in zip(outs, reqs)),
+          f"{tag}: a request did not finish with its max_new_tokens: "
+          f"{[o for o in outs if not isinstance(o, np.ndarray)][:2]}")
+    replay = [(o, eng.generate(p, n, sampling=s, timeout=600))
+              for o, (p, n, s) in zip(outs, reqs) if s is not None]
+    check(all(np.array_equal(a, b) for a, b in replay),
+          f"{tag}: a sampled request did not replay identically")
+    gap = argmax_gap(torch, np, lm, outs, reqs)
+    check(gap <= LOGIT_TOL,
+          f"{tag}: a greedy token is not the argmax of its plain logits "
+          f"(gap {gap})")
+    return gap
+
+
+def pool_watch(eng):
+    """A ``stepper.step`` seam that never fires and records the pool's
+    pages in use and shared pages at every step."""
+    from distkeras_tpu_torch.faults import FaultPlan
+
+    seen = {"in_use": 0, "shared": 0}
+
+    def note(ctx):
+        alloc = eng._stepper._kv_alloc
+        seen["in_use"] = max(seen["in_use"], alloc.pages_in_use)
+        seen["shared"] = max(seen["shared"], alloc.shared_pages)
+        return False
+
+    return FaultPlan().arm("stepper.step", times=None, when=note), seen
+
+
+def run_paged_mix(torch, np, lm, smi, gen, gen_reqs, gen_outs):
+    """13a: phase 4's mix on a paged engine."""
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.predictors import CachedSequenceGenerator
+
+    eng = hooked_engine(lm, paged=True)
+    try:
+        kernels.reset_launch_counts()
+        outs, secs = serve_mix(eng, gen_reqs)
+        counts = kernels.launch_counts()
+        gap = check_replies(torch, np, lm, eng, outs, gen_reqs, "13a")
+        stats = eng.stats()
+        st = eng._stepper
+        in_use, held = st._kv_alloc.pages_in_use, st.prefix_index.reclaimable()
+    finally:
+        eng.stop()
+    check(stats["paged"]["exhaustions"] == 0,
+          f"13a: {stats['paged']['exhaustions']} pool exhaustions")
+    check(counts["layernorm_fwd"] > 0 and counts["flash_fwd"] == 0,
+          f"13a: the paged mix did not run through B7 alone: {counts}")
+    check(in_use == held,
+          f"13a: {in_use} pages in use after the mix, the index holds {held}")
+    solo = CachedSequenceGenerator(lm)
+    greedy = [i for i, r in enumerate(gen_reqs) if r[2] is None]
+    solo_outs = [solo.generate(gen_reqs[i][0][None], gen_reqs[i][1])[0]
+                 for i in greedy]
+    tokens = sum(len(o) - len(p) for o, (p, _, _) in zip(outs, gen_reqs))
+    res = {
+        "tokens": tokens, "seconds": secs, "tokens_per_s": tokens / secs,
+        "phase4_tokens_per_s": gen["tokens_per_s"],
+        "ratio_to_phase4": tokens / secs / gen["tokens_per_s"],
+        "max_argmax_gap": gap, "launches": counts,
+        "agreement_phase4": token_agreement(np, outs, gen_outs, gen_reqs),
+        "agreement_solo": token_agreement(
+            np, [outs[i] for i in greedy], solo_outs,
+            [gen_reqs[i] for i in greedy]),
+        "pages_in_use_after": in_use, "index_pages": held,
+        "steps": stats["steps"], "paged": stats["paged"],
+    }
+    log(f"13a paged mix: {res['tokens_per_s']:.1f} tokens/s against "
+        f"{gen['tokens_per_s']:.1f} dense (phase 4) = "
+        f"{res['ratio_to_phase4']:.3f}x; token agreement "
+        f"{res['agreement_phase4']:.4f} with phase 4, "
+        f"{res['agreement_solo']:.4f} with solo decode; argmax gap {gap:.2e};"
+        f" exhaustions 0; {in_use} pages held by the index after the mix; "
+        f"step buckets {stats['paged']['compiled_step_buckets']}, launches "
+        f"{counts} on {smi}")
+    return res, counts
+
+
+def serve_header_mix(eng, reqs):
+    """13b's arrival: the first request alone, the other 15 once its
+    first chunk arrives. Returns (replies, seconds, requests)."""
+    t0 = time.monotonic()
+    p, n, s = reqs[0]
+    first = eng.submit(p, n, sampling=s, stream=True)
+    first.next_chunk(timeout=600)
+    handles = [first] + [eng.submit(p, n, sampling=s) for p, n, s in reqs[1:]]
+    outs = [eng.wait(h, timeout=600) for h in handles]
+    return outs, time.monotonic() - t0, handles
+
+
+def run_header_modes(torch, np, lm, smi):
+    """13b: the shared-header traffic on a dense engine without a store,
+    a dense engine with the default store, and a paged engine (device
+    index and store), in turns. The paged engine is returned alive for
+    13d and 13e."""
+    from distkeras_tpu_torch import kernels
+
+    header, reqs = shared_header_mix(np)
+    modes = (("dense_no_store", {"prefix_cache": False}),
+             ("dense_store", {}), ("paged", {"paged": True}))
+    res, counts_all, keep = {}, [], None
+    try:
+        for mode, kw in modes:
+            eng = hooked_engine(lm, **kw)
+            plan, seen = pool_watch(eng) if mode == "paged" else (None, None)
+            try:
+                kernels.reset_launch_counts()
+                if plan is not None:
+                    with plan:
+                        outs, secs, handles = serve_header_mix(eng, reqs)
+                else:
+                    outs, secs, handles = serve_header_mix(eng, reqs)
+                counts = kernels.launch_counts()
+                stats = eng.stats()
+                gap = check_replies(torch, np, lm, eng, outs, reqs,
+                                    f"13b {mode}")
+            finally:
+                if mode == "paged":
+                    keep = eng
+                else:
+                    eng.stop()
+            check(counts["layernorm_fwd"] > 0 and counts["flash_fwd"] == 0,
+                  f"13b {mode}: did not run through B7 alone: {counts}")
+            ttft = [h.latency()["ttft"] for h in handles]
+            tokens = sum(len(o) - len(p) for o, (p, _, _) in zip(outs, reqs))
+            store = stats["prefix_cache"]
+            r = {
+                "prefill_positions": stats["prefill_tokens"],
+                "prompt_positions": sum(len(p) - 1 for p, _, _ in reqs),
+                "store": ({k: store[k] for k in ("hits", "inserts",
+                                                 "hit_tokens")}
+                          if store["enabled"] else "off"),
+                "ttft_ms": quantiles_ms(np, ttft), "seconds": secs,
+                "tokens_per_s": tokens / secs, "max_argmax_gap": gap,
+                "launches": counts,
+            }
+            if mode == "paged":
+                dp = stats["paged"]["device_prefix"]
+                r["index"] = {"hits": dp["hits"], "hit_pages": dp["hit_pages"]}
+                r["peak_shared_pages"] = seen["shared"]
+                r["peak_pages_in_use"] = seen["in_use"]
+                r["exhaustions"] = stats["paged"]["exhaustions"]
+                check(dp["hits"] >= 15 and dp["hit_pages"] == 12 * dp["hits"],
+                      f"13b paged: device index {dp['hits']} hits, "
+                      f"{dp['hit_pages']} pages (want >= 15, 12 a hit)")
+            res[mode] = r
+            counts_all.append(counts)
+            log(f"13b {mode}: {r['prefill_positions']} prefill positions of "
+                f"{r['prompt_positions']}; store {r['store']}"
+                + (" (the host ladder reuses only its 128-token rung: keys "
+                   "are powers of two)" if mode != "dense_no_store" else "")
+                + (f"; index {r['index']}, peak shared pages "
+                   f"{r['peak_shared_pages']}" if mode == "paged" else "")
+                + f"; TTFT p50/p99 {r['ttft_ms']} ms; "
+                f"{r['tokens_per_s']:.1f} tokens/s on {smi}")
+    except BaseException:
+        if keep is not None:
+            keep.stop()
+        raise
+    res["prefill_ratio_no_store_to_paged"] = (
+        res["dense_no_store"]["prefill_positions"]
+        / res["paged"]["prefill_positions"])
+    log(f"13b: the paged engine computed "
+        f"{res['prefill_ratio_no_store_to_paged']:.2f}x fewer prefill "
+        f"positions than the dense engine without a store")
+    return res, counts_all, keep, reqs
+
+
+def run_pool_pressure(torch, np, lm, smi, gen_reqs):
+    """13c: phase 4's mix on a 61-page pool (three of the mix's largest
+    requests), a request that never fits a smaller pool, then an injected
+    exhaustion over the wire."""
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.faults import FaultPlan
+    from distkeras_tpu_torch.networking import RetryPolicy
+    from distkeras_tpu_torch.serving import (
+        PoolExhaustedError,
+        ServingClient,
+        ServingEngine,
+        ServingError,
+        ServingServer,
+    )
+
+    num_pages = 1 + 3 * 20  # pages_for(256, 64) = 20 at page_size 16
+    eng = hooked_engine(lm, paged=True, num_pages=num_pages)
+    plan, seen = pool_watch(eng)
+    try:
+        kernels.reset_launch_counts()
+        with plan:
+            outs, secs = serve_mix(eng, gen_reqs)
+        counts = kernels.launch_counts()
+        check(eng._stepper.pages_for(256, 64) == 20,
+              "13c: pages_for(256, 64) is not 20")
+        gap = check_replies(torch, np, lm, eng, outs, gen_reqs, "13c")
+        stats = eng.stats()
+        # the wire: a retry=False client meets the injected exhaustion, a
+        # retrying one gets its reply on the retry, the requests decoding
+        # beside them are untouched
+        srv = ServingServer(eng).start()
+        greedy = [i for i, r in enumerate(gen_reqs) if r[2] is None]
+        beside = [eng.submit(gen_reqs[i][0], gen_reqs[i][1])
+                  for i in greedy[:3]]
+        deadline = time.monotonic() + 600
+        while (not all(len(h.tokens) for h in beside)
+               and time.monotonic() < deadline):
+            time.sleep(0.002)
+        wp, wn, _ = gen_reqs[greedy[3]]
+        with ServingClient(srv.host, srv.port, timeout=600, retry=False,
+                           connect_timeout=2) as c:
+            with FaultPlan().arm("kv.alloc", times=1, exc=PoolExhaustedError(
+                    "injected", retry_after_ms=25.0)) as p1:
+                try:
+                    c.generate(wp, wn)
+                    wire_err = None
+                except ServingError as e:
+                    wire_err = e
+        with ServingClient(
+            srv.host, srv.port, timeout=600, connect_timeout=2,
+            retry=RetryPolicy(max_attempts=3, base_delay=0.01, seed=0),
+        ) as c:
+            with FaultPlan().arm("kv.alloc", times=1, exc=PoolExhaustedError(
+                    "injected", retry_after_ms=25.0)) as p2:
+                retried = c.generate(wp, wn)
+        beside_outs = [eng.wait(h, timeout=600) for h in beside]
+        srv.shutdown()
+        wire_stats = eng.stats()
+    finally:
+        eng.stop()
+    check(stats["completed"] == len(gen_reqs) + 4
+          and stats["internal_errors"] == 0,
+          f"13c: {stats['completed']} completed, {stats['internal_errors']} "
+          f"internal errors under pool pressure")
+    check(stats["paged"]["exhaustions"] == 0,
+          f"13c: {stats['paged']['exhaustions']} exhaustions: gating "
+          f"should have waited")
+    check(seen["in_use"] <= num_pages - 1,
+          f"13c: {seen['in_use']} pages in use on a {num_pages - 1}-page pool")
+    check(counts["layernorm_fwd"] > 0 and counts["flash_fwd"] == 0,
+          f"13c: the mix did not run through B7 alone: {counts}")
+    check(wire_err is not None and wire_err.code == "overloaded"
+          and getattr(wire_err, "retry_after", None) == 0.025
+          and p1.fired("kv.alloc") == 1,
+          f"13c: the injected exhaustion did not come back overloaded with "
+          f"retry_after_ms: {wire_err!r}")
+    # the resubmitted prompts may share their pages from the device index,
+    # so they are held to the argmax bar, and their agreement with the
+    # mix's replies is reported
+    again = [(retried, gen_reqs[greedy[3]])] + [
+        (o, gen_reqs[i]) for o, i in zip(beside_outs, greedy[:3])]
+    again_gap = argmax_gap(torch, np, lm, [o for o, _ in again],
+                           [r for _, r in again])
+    check(p2.fired("kv.alloc") == 1 and len(retried) == len(wp) + wn,
+          "13c: the retrying client did not get its reply")
+    check(all(len(o) == len(r[0]) + r[1] for o, r in again)
+          and again_gap <= LOGIT_TOL and wire_stats["internal_errors"] == 0,
+          f"13c: a request beside the injected exhaustion was affected "
+          f"(gap {again_gap})")
+    again_agree = token_agreement(
+        np, [o for o, _ in again],
+        [outs[greedy[3]]] + [outs[i] for i in greedy[:3]],
+        [r for _, r in again])
+    # a request that can never fit a 16-page pool is refused at submit
+    small = ServingEngine(lm, num_slots=8, paged=True, num_pages=17).start()
+    try:
+        try:
+            small.submit(np.arange(256, dtype=np.int32), 64)  # 20 pages
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+    finally:
+        small.stop()
+    check(refused is not None and "KV pages" in refused,
+          f"13c: a never-fitting request was not refused: {refused}")
+    tokens = sum(len(o) - len(p) for o, (p, _, _) in zip(outs, gen_reqs))
+    res = {
+        "num_pages": num_pages, "peak_pages_in_use": seen["in_use"],
+        "peak_shared_pages": seen["shared"], "seconds": secs,
+        "tokens_per_s": tokens / secs, "mean_batch_occupancy":
+        stats["mean_batch_occupancy"], "max_argmax_gap": gap,
+        "exhaustions": stats["paged"]["exhaustions"],
+        "wire_error": {"code": wire_err.code,
+                       "retry_after_ms": wire_err.retry_after * 1e3},
+        "refused": refused, "launches": counts,
+        "after_injection_agreement_with_mix": again_agree,
+    }
+    log(f"13c pool pressure: 16 requests on {num_pages - 1} pages, peak "
+        f"{seen['in_use']} in use, mean batch occupancy "
+        f"{res['mean_batch_occupancy']:.2f}, {res['tokens_per_s']:.1f} "
+        f"tokens/s, 0 exhaustions; injected exhaustion over the wire -> "
+        f"{res['wire_error']}, the retrying client got its reply (the four "
+        f"after it agree {again_agree:.4f} with the mix); refused at "
+        f"submit: {refused!r} on {smi}")
+    return res, counts
+
+
+def run_paged_restart(torch, np, lm, smi, eng, reqs):
+    """13d: a scheduler crash on 13b's paged engine: the supervisor
+    rebuilds a paged stepper (fresh pool, empty device index), the host
+    store keeps its entries, the old pool is freed, and a header request
+    after the restart hits the host ladder."""
+    import gc
+
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.faults import FaultPlan
+    from distkeras_tpu_torch.serving import InternalError
+
+    store = eng.prefix_store
+    old = eng._stepper
+    entries = store.stats()["entries"]
+    index_before = old.prefix_index.stats()["entries"]
+    del old
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    p, n, _ = reqs[0]
+    with FaultPlan().arm("scheduler.loop", times=1, after=20,
+                         when=lambda ctx: ctx["busy"]):
+        req = eng.submit(p, n)
+        try:
+            eng.wait(req, timeout=600)
+            err = None
+        except InternalError as e:
+            err = str(e)
+    deadline = time.monotonic() + 60
+    while (not (eng.health()["restarts"] == 1
+                and eng.health()["status"] == "serving")
+           and time.monotonic() < deadline):
+        time.sleep(0.002)
+    st = eng._stepper
+    check(err is not None and "crashed" in err,
+          f"13d: the crashed scheduler's request did not fail typed: {err}")
+    check(eng.health()["restarts"] == 1 and st.paged
+          and st.prefix_index.stats()["entries"] == 0
+          and st._kv_alloc.pages_in_use == 0,
+          "13d: the supervisor did not rebuild a fresh paged stepper")
+    check(eng.prefix_store is store and store.stats()["entries"] == entries,
+          f"13d: the host store lost entries: {store.stats()['entries']} "
+          f"of {entries}")
+    gc.collect()
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    check(mem1 - mem0 < POOL_BYTES,
+          f"13d: {mem1 - mem0} bytes more after the restart (one pool is "
+          f"{POOL_BYTES}): the old pool was not freed")
+    hits = store.stats()["hits"]
+    q, m, _ = reqs[1]
+    kernels.reset_launch_counts()
+    out = eng.generate(q, m, timeout=600)
+    counts = kernels.launch_counts()
+    gap = argmax_gap(torch, np, lm, [out], [reqs[1]])
+    check(store.stats()["hits"] == hits + 1,
+          "13d: the header request after the restart missed the host ladder")
+    check(gap <= LOGIT_TOL and len(out) == len(q) + m,
+          f"13d: the request after the restart is wrong (gap {gap})")
+    res = {"store_entries": entries, "index_entries_before": index_before,
+           "memory_growth_bytes": mem1 - mem0, "pool_bytes": POOL_BYTES,
+           "restart_s": eng.last_restart["seconds"],
+           "warmup_s": eng.last_restart["warmup_seconds"],
+           "max_argmax_gap": gap, "launches": counts}
+    log(f"13d restart: a paged stepper rebuilt in {res['restart_s']:.3f} s "
+        f"(warmup {res['warmup_s']:.3f} s), the store kept {entries} "
+        f"entries, the index went from {index_before} entries to 0, memory "
+        f"{mem1 - mem0:+d} bytes against a {POOL_BYTES}-byte pool, the header "
+        f"request after it hit the host ladder on {smi}")
+    return res, counts
+
+
+def run_paged_ledger(torch, np, lm, smi, eng, reqs):
+    """13e: the warm-up mints, then the warm set, ``mark_warmed`` and 13b's
+    paged traffic again: no storm."""
+    from distkeras_tpu_torch import kernels
+
+    led = eng.compile_ledger
+    # the engine's first stepper and 13d's rebuilt one each warmed these
+    warm = [m["key"] for m in led.mints() if m["trigger"] == "warmup"
+            and m["key"].startswith("paged_step[")]
+    first_gen = warm[:6]
+    check(warm == 2 * [f"paged_step[{b}]" for b in (1, 2, 4, 8, 16, 32)],
+          f"13e: the warm-ups minted {warm}")
+    st = eng._stepper
+    t0 = time.monotonic()
+    st.warm_prefill_buckets()
+    st.warm_restore_buckets()
+    warm_s = time.monotonic() - t0
+    led.mark_warmed()
+    kernels.reset_launch_counts()
+    outs, secs, _ = serve_header_mix(eng, reqs)
+    counts = kernels.launch_counts()
+    after = led.snapshot()
+    gap = argmax_gap(torch, np, lm, outs, reqs)
+    check(after["storms"] == 0,
+          f"13e: {after['storms']} compile storms after mark_warmed: "
+          f"{after['recent']}")
+    check(gap <= LOGIT_TOL, f"13e: a greedy token off its argmax ({gap})")
+    res = {"warmup_step_mints": first_gen, "warm_set_s": warm_s,
+           "after_mark_warmed": {k: after[k] for k in ("total", "warmup",
+                                                        "serving", "storms")},
+           "seconds": secs, "launches": counts}
+    log(f"13e compile ledger: warm-up minted {first_gen}; warm_prefill and "
+        f"warm_restore buckets in {warm_s:.3f} s; after mark_warmed and 13b's "
+        f"paged traffic again {res['after_mark_warmed']} on {smi}")
+    return res, counts
+
+
+def run_phase13(torch, np, lm, smi, gen, gen_reqs, gen_outs):
+    """Phase 13, paged KV pools and the prefix cache on the card; returns
+    the results and the launch counts of each subphase's main path."""
+    out = {}
+    t0 = time.monotonic()
+    out["paged_mix"], c_a = run_paged_mix(torch, np, lm, smi, gen, gen_reqs,
+                                          gen_outs)
+    out["shared_header"], c_b, eng, reqs = run_header_modes(torch, np, lm,
+                                                            smi)
+    try:
+        out["pool_pressure"], c_c = run_pool_pressure(torch, np, lm, smi,
+                                                      gen_reqs)
+        out["restart"], c_d = run_paged_restart(torch, np, lm, smi, eng, reqs)
+        out["ledger"], c_e = run_paged_ledger(torch, np, lm, smi, eng, reqs)
+    finally:
+        eng.stop()
+    detach_hooks(lm)
+    out["seconds_total"] = time.monotonic() - t0
+    counts = [c_a, *c_b, c_c, c_d, c_e]
     out["launches"] = {k: sum(c.get(k, 0) for c in counts)
                        for k in counts[0]}
     return out, counts
@@ -4185,14 +4702,30 @@ def profile_paths(torch, np, lm, zoo, steps=20):
         return (time.monotonic() - t0) / calls * 1e3
 
     attach_fused_layernorm(lm)
-    st = DecodeStepper(lm, num_slots=8)
     rng = np.random.default_rng(9)
-    for i in range(8):
-        st.admit(i, rng.integers(0, 8192, 64))
+    prompts = [rng.integers(0, 8192, 64) for _ in range(8)]
+    # the dense step and the same step on the paged pool (8 slots reserved
+    # to capacity, so the tables bucket to 32 pages: the dense step's
+    # 512-position extent), their walls taken in turns
+    st = DecodeStepper(lm, num_slots=8)
+    pst = DecodeStepper(lm, num_slots=8, paged=True)
+    for i, p in enumerate(prompts):
+        st.admit(i, p)
+        pst.admit(i, p)
     active = np.ones(8, bool)
     out = {}
-    decode = {"wall_ms": wall_ms(lambda: st.step(active), steps),
+    walls = {"dense": [], "paged": []}
+    for kind in ("dense", "paged", "paged", "dense"):
+        s = st if kind == "dense" else pst
+        walls[kind].append(wall_ms(lambda: s.step(active), steps))
+    decode = {"wall_ms": sum(walls["dense"]) / 2, "wall_ms_turns":
+              walls["dense"],
               **device_profile(torch, lambda: st.step(active), steps)}
+    paged = {"wall_ms": sum(walls["paged"]) / 2, "wall_ms_turns":
+             walls["paged"],
+             **device_profile(torch, lambda: pst.step(active), steps),
+             "table_bucket": pst._table_bucket()}
+    del st, pst
     attach_flash_attention(lm)
     x = torch.as_tensor(rng.integers(0, 8192, (8, 512)), device="cuda")
 
@@ -4206,7 +4739,8 @@ def profile_paths(torch, np, lm, zoo, steps=20):
     out["train_epoch_again"] = profile_train_epoch(torch, np, lm)
     async_window = profile_async_window(torch, np, zoo)
     resnet_window = profile_resnet_window(torch, np)
-    for name, r in (("decode_step", decode), ("predict_forward", predict),
+    for name, r in (("decode_step", decode), ("paged_decode_step", paged),
+                    ("predict_forward", predict),
                     ("train_step", train), ("async_window", async_window),
                     ("resnet18_dynsgd_window", resnet_window)):
         if r["device_ms"] is not None:
@@ -4339,12 +4873,16 @@ def main(argv):
                                             gen_outs)
     log(f"phase 12 in {healing['seconds_total']:.1f} s, launches "
         f"{healing['launches']} on {smi}")
+    paging, paging_launches = run_phase13(torch, np, lm, smi, gen, gen_reqs,
+                                          gen_outs)
+    log(f"phase 13 in {paging['seconds_total']:.1f} s, launches "
+        f"{paging['launches']} on {smi}")
     profile = profile_paths(torch, np, lm, zoo) if args.profile else None
 
     phases = [pred["launches"], gen["launches"], train["launches"],
               async_thr["launches"], baseline_launches, resume_launches,
               member_launches, socket_launches, *front_launches,
-              *healing_launches,
+              *healing_launches, *paging_launches,
               *(r["launches"] for r in async_sim.values())]
     launches = {k: sum(c.get(k, 0) for c in phases) for k in kernels.LAUNCHES}
     check(all(n > 0 for n in launches.values()),
@@ -4410,7 +4948,7 @@ def main(argv):
                        "async_threads": async_thr, "baseline": baseline,
                        "resume": resume, "phase9": members,
                        "phase10": socket_tier, "phase11": front,
-                       "phase12": healing,
+                       "phase12": healing, "phase13": paging,
                        "profile": profile,
                        "flash_infinite_q": inf_rows},
                       f, indent=1)

@@ -5,9 +5,17 @@ client.
 - ``scheduler``: host-side request scheduling (continuous batching,
   windowed batching for batch scoring, backpressure, deadlines, drain,
   streaming chunk FIFOs) and the typed serving errors.
-- ``engine``: the device face (``DecodeStepper``) and ``ServingEngine``,
-  with its metrics registry, recorder, history, SLOs and trace ring;
+- ``engine``: the device face (``DecodeStepper``: a dense bank or, with
+  ``paged=True``, block-paged K/V pools) and ``ServingEngine``, with its
+  metrics registry, recorder, history, SLOs and trace ring;
   ``ServingEngine.from_bundle`` boots from a quantized serving bundle.
+- ``paging``: ``PageAllocator``, the host half of the paged KV cache
+  (free list, refcounts, the null sentinel page, typed exhaustion).
+- ``prefix_cache``: the host ``PrefixStore`` (exact-prefix pow2 ladder,
+  two-touch admission, byte-bounded LRU, the fleet digest) and the paged
+  tier's ``DevicePrefixIndex`` (page-aligned prefixes shared by
+  reference, reclaimed under pool pressure). ``ServingEngine`` builds a
+  store by default (``prefix_cache=True``).
 - ``sampling``: per-request ``SamplingParams`` and the counter-based RNG.
 - ``server``/``client``: the length-prefixed TCP wire carrying DKT1
   frames — ``ServingServer``/``serve`` and ``ServingClient``/
@@ -47,6 +55,11 @@ from distkeras_tpu_torch.serving.scheduler import (
     WrongRoleError,
 )
 from distkeras_tpu_torch.serving.sampling import SamplingParams
+from distkeras_tpu_torch.serving.paging import PageAllocator
+from distkeras_tpu_torch.serving.prefix_cache import (
+    DevicePrefixIndex,
+    PrefixStore,
+)
 from distkeras_tpu_torch.serving.engine import DecodeStepper, ServingEngine
 from distkeras_tpu_torch.serving.resilience import (
     LatencyTracker,
@@ -60,13 +73,16 @@ __all__ = [
     "ContinuousBatcher",
     "DeadlineExceededError",
     "DecodeStepper",
+    "DevicePrefixIndex",
     "EngineStoppedError",
     "InternalError",
     "LatencyTracker",
     "OverlapLedger",
     "OverloadedError",
+    "PageAllocator",
     "PeerError",
     "PoolExhaustedError",
+    "PrefixStore",
     "QuotaExhaustedError",
     "RetryBudget",
     "RetryPolicy",

@@ -1,18 +1,26 @@
-"""The serving runtime's device face (PyTorch port of the dense-bank parts
-of ``distkeras_tpu.serving.engine``).
+"""The serving runtime's device face (PyTorch port of
+``distkeras_tpu.serving.engine``: the dense bank, the block-paged pool and
+the prefix cache).
 
 - ``DecodeStepper``: a bank of ``num_slots`` sequence slots over a causal
-  LM. Per slot: one row of the (B, T) token buffer and one row of each
-  block's (B, T, H, Dh) K/V caches, plus a host-side length. Admission
-  prefills positions ``0..len-2`` (whole prompt, or chunk by chunk under
-  the scheduler's budget); ``step(active)`` embeds each slot's last token
-  at its OWN position, attends one row against the caches and appends the
-  greedy or sampled token — inactive slots freeze. ``step_async`` enqueues
-  the same step and hands back a handle whose ``collect()`` is the one
-  host sync. Greedy slot output is the solo ``CachedSequenceGenerator``
-  decode, token for token. The caches and the token buffer are updated in
-  place. The ``stepper.step``/``stepper.prefill`` fault seams fire before
-  any work, and a failed call advances nothing.
+  LM. Per slot: one row of the (B, T) token buffer and either one row of
+  each block's (B, T, H, Dh) K/V caches (dense) or a page table into each
+  block's (num_pages, page_size, H, Dh) pool (``paged=True``), plus a
+  host-side length. Admission restores the longest prefix-cache hit (the
+  host ``PrefixStore`` ladder, or — paged — shared pages of the
+  ``DevicePrefixIndex``), then prefills the rest of positions
+  ``0..len-2`` (whole prompt, or chunk by chunk under the scheduler's
+  budget); ``step(active)`` embeds each slot's last token at its OWN
+  position, attends one row against its caches or gathered pages and
+  appends the greedy or sampled token — inactive slots freeze.
+  ``step_async`` enqueues the same step and hands back a handle whose
+  ``collect()`` is the one host sync. Greedy slot output is the solo
+  ``CachedSequenceGenerator`` decode, token for token, on every admission
+  path. The caches, pools and the token buffer are updated in place. The
+  ``stepper.step``/``stepper.prefill`` fault seams fire before any work,
+  and a failed call advances nothing; a paged admission the pool cannot
+  cover raises the typed ``PoolExhaustedError`` before any slot state
+  changes.
 - ``ServingEngine``: continuous-batching generate plus windowed batch
   scoring (``predict``), driven by a scheduler thread (the overlapped loop
   by default) and watched by a supervisor thread that restarts a dead or
@@ -32,10 +40,12 @@ cached generator, and the engine then serves ``predict`` only — JAX's
 behaviour, kept.
 
 Not ported yet (and absent from the signatures, so passing one fails
-loudly): paged pools, prefix cache, speculative decode, QoS (``tenant``
-and ``priority`` only label metrics), meshes, disaggregation roles and
-their ``prefill``/``resume`` faces and the KV epoch, load shedding, CUDA
-graphs around the decode step, bf16 K/V caches (``kv_dtype``).
+loudly): speculative decode, CoW slot forks (``fork_slot``, ``n > 1``
+completions), QoS and its KV swap (``tenant`` and ``priority`` only label
+metrics), meshes, disaggregation roles and their ``prefill``/``resume``
+faces, the KV epoch and fabric (``kv_transfer``, ``serve_prefix``, the
+``kv_fabric`` health block), load shedding, CUDA graphs around the decode
+step, bf16 K/V caches (``kv_dtype``).
 """
 
 from __future__ import annotations
@@ -71,6 +81,11 @@ from distkeras_tpu_torch.predictors import (
     ModelPredictor,
 )
 from distkeras_tpu_torch.serving import sampling as _sp
+from distkeras_tpu_torch.serving.paging import PageAllocator
+from distkeras_tpu_torch.serving.prefix_cache import (
+    DevicePrefixIndex,
+    PrefixStore,
+)
 from distkeras_tpu_torch.serving.scheduler import (
     ContinuousBatcher,
     EngineStoppedError,
@@ -165,17 +180,52 @@ class _InflightStep:
 
 
 class DecodeStepper:
-    """Dense slot-bank decode over a ``zoo.transformer_lm``-shaped model.
+    """Slot-bank decode over a ``zoo.transformer_lm``-shaped model, on a
+    dense bank (per slot one (T, H, Dh) row of each block's caches) or on
+    a block-paged pool.
+
+    ``prefix_cache``: an optional ``prefix_cache.PrefixStore``. When set,
+    ``begin_admit`` restores the longest cached prefix's K/V rows into the
+    slot before any prefill compute (a bucketed host->device copy, program
+    key ``restore`` dense or ``paged_restore[pbk,pbt]`` paged), and every
+    finished prefill publishes its missing pow2 ladder rungs (two-touch
+    admission: the device->host fetch runs only for rungs missed before,
+    and only up to the longest). A failing lookup or insert degrades to a
+    miss: ``prefix_fetch_failures`` counts it, the recorder tapes its
+    exception class, the request never sees it.
+
+    ``paged``: per block a ``(num_pages, page_size, H, Dh)`` K/V pool in
+    place of the dense caches, host page tables per slot
+    (``paging.PageAllocator`` owns the free list and refcounts, page 0 is
+    the null sentinel) and a ``DevicePrefixIndex`` of page-aligned prompt
+    prefixes. Admission reserves the pages the request can touch (prompt
+    plus ``max_new``; None reserves to capacity), sharing the full pages
+    of the longest device-index hit (refcount, zero bytes moved) unless
+    the host ladder reaches further; exhaustion raises the typed,
+    retriable ``PoolExhaustedError`` before any slot state changes. The
+    decode step (key ``paged_step[pbt]``, ``pbt`` the pow2 bucket of the
+    longest OCCUPIED table) gathers each slot's pages into its logical row
+    and attends over ``pbt * page_size`` positions; every prefill chunk,
+    a whole prefix from 0 included, runs ``paged_chunk[cb,pbt]`` at the
+    fixed extent ``pbt = _max_pages_bucket``. ``num_pages`` None sizes the
+    pool to the dense bank's bytes plus the sentinel. ``recorder``: an
+    ``obs.FlightRecorder`` for page grants, frees, exhaustion and prefix
+    errors.
 
     ``compile_ledger``: an ``obs.CompileLedger`` (the engine's, shared by
     every stepper generation) on which the first call of each program of
     this stepper is recorded as a mint: ``ctx_row``, ``admit[pb]``,
-    ``chunk[cb]`` and ``step[plain]``, the JAX package's keys and pow2
-    buckets. ``on_compile``: called right before such a first call (the
-    engine's watchdog extends its wedge grace through it)."""
+    ``chunk[cb]``, ``restore`` (one mint per pow2 bucket, told apart by
+    its signature) and ``step[plain]`` dense; ``ctx_row``,
+    ``paged_chunk[cb,pbt]``, ``paged_restore[pbk,pbt]`` and
+    ``paged_step[pbt]`` paged — the JAX package's keys and pow2 buckets.
+    ``on_compile``: called right before such a first call (the engine's
+    watchdog extends its wedge grace through it)."""
 
     def __init__(self, model, num_slots=8, temperature=0.0, seed=0,
-                 top_k=None, top_p=None, device=None, compile_ledger=None):
+                 top_k=None, top_p=None, device=None, compile_ledger=None,
+                 prefix_cache=None, paged=False, page_size=16,
+                 num_pages=None, recorder=None):
         # the generator's model-family validation, block parsing and
         # per-stage bodies, reused wholesale
         self._gen = CachedSequenceGenerator(
@@ -191,10 +241,45 @@ class DecodeStepper:
         b, t = self.num_slots, self.max_len
         self._nh, self._hd = self._gen.num_heads, self._gen.head_dim
         self._ctx = torch.zeros((b, t), dtype=torch.int64, device=self.device)
-        self._caches = self._gen.new_caches(b, t)
+        self.paged = bool(paged)
+        self.page_size = int(page_size)
+        self.recorder = recorder
+        if self.paged:
+            if self.page_size < 1:
+                raise ValueError(f"page_size must be >= 1; got {page_size}")
+            pages_per_slot = -(-t // self.page_size)
+            if num_pages is None:
+                # the dense bank's bytes, plus the null sentinel
+                num_pages = b * pages_per_slot + 1
+            self._kv_alloc = PageAllocator(
+                int(num_pages), self.page_size, recorder=recorder,
+            )
+            # the table bucket that covers a full-capacity slot: every
+            # step bucket is <= this, and every chunk runs at it
+            self._max_pages_bucket = max(
+                1, 1 << (pages_per_slot - 1).bit_length()
+            )
+            shape = (int(num_pages), self.page_size, self._nh, self._hd)
+            self._caches = None
+            self._pools = [
+                (torch.zeros(shape, device=self.device),
+                 torch.zeros(shape, device=self.device))
+                for _ in self._gen._blocks
+            ]
+            self._tables: list[list[int]] = [[] for _ in range(b)]
+            self.prefix_index = DevicePrefixIndex(self._kv_alloc)
+            t_ext = self._max_pages_bucket * self.page_size
+        else:
+            self._kv_alloc = None
+            self.prefix_index = None
+            self._pools = None
+            self._caches = self._gen.new_caches(b, t)
+            t_ext = t
         self._lens = np.ones((b,), np.int64)  # host mirror; >= 1 always
         self._rows = torch.arange(b, device=self.device)
-        self._t_idx = torch.arange(t, device=self.device)
+        # position index over the longest attention extent (the paged
+        # gather can run past max_len up to a whole bucket of pages)
+        self._t_idx = torch.arange(t_ext, device=self.device)
         # per-slot sampler state, passed to every step as data; the
         # emitted-position counter is what the counter RNG keys on
         self.default_sampling = _sp.SamplingParams(
@@ -207,13 +292,18 @@ class DecodeStepper:
         self._spos = np.zeros((b,), np.int64)
         for i in range(b):
             self.set_sampling(i, None)
+        self.prefix_cache = prefix_cache
+        # prefix-store failures degrade to misses (the cache is an
+        # optimisation, not a dependency); this counts them
+        self.prefix_fetch_failures = 0
         # in-progress admissions: slot -> pending prompt / next position
         self._pending: dict[int, np.ndarray] = {}
         self._prefill_pos: dict[int, int] = {}
         self.ledger = compile_ledger
         self.on_compile = None
         self._warming = False  # True inside warmup(): mints off-path
-        self._called: set[str] = set()  # program keys run on this bank
+        # (program key, signature) pairs run on this bank
+        self._called: set[tuple] = set()
 
     # -- host inputs and program mints --------------------------------------
 
@@ -227,11 +317,13 @@ class DecodeStepper:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _run(self, key, fn, *args):
-        """Run one stepper program. Its first call on this stepper is a
-        mint: the ``on_compile`` hook fires before it, and the call is
-        timed to the end of its device work and recorded on the ledger."""
-        if key in self._called:
+    def _run(self, key, fn, *args, signature=()):
+        """Run one stepper program. Its first call on this stepper (per
+        ``signature``, for a key that covers several shapes) is a mint:
+        the ``on_compile`` hook fires before it, and the call is timed to
+        the end of its device work and recorded on the ledger."""
+        ident = (key, signature)
+        if ident in self._called:
             return fn(*args)
         hook = self.on_compile
         if hook is not None:
@@ -240,12 +332,12 @@ class DecodeStepper:
         out = fn(*args)
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
-        self._called.add(key)
+        self._called.add(ident)
         led = self.ledger
         if led is not None:
             try:
                 led.record_mint(key, time.perf_counter() - t0,
-                                warming=self._warming)
+                                signature=signature, warming=self._warming)
             except Exception:  # noqa: BLE001 — observability boundary
                 pass
         return out
@@ -261,6 +353,37 @@ class DecodeStepper:
             _WARM_SCOPE.depth -= 1
             self._warming = False
 
+    def _buckets(self, prefix) -> list:
+        """The buckets of the ``prefix[...]`` programs run on this bank,
+        as ints or int tuples (for ``paged_stats``)."""
+        out = []
+        for key, _ in self._called:
+            if key.startswith(prefix + "["):
+                vals = tuple(int(v) for v in key[len(prefix) + 1:-1]
+                             .split(","))
+                out.append(vals[0] if len(vals) == 1 else vals)
+        return sorted(set(out))
+
+    # -- observability --------------------------------------------------------
+
+    def kv_bytes_total(self) -> int:
+        """Bytes of every K/V pool (paged) or cache bank (dense)."""
+        arrs = self._pools if self.paged else self._caches
+        return sum(2 * ck.numel() * ck.element_size() for ck, _ in arrs)
+
+    def paged_stats(self) -> dict:
+        """Pool, allocator and device-prefix-index observability for the
+        engine's ``stats()`` (``{"enabled": False}`` when dense)."""
+        if not self.paged:
+            return {"enabled": False}
+        out = {"enabled": True}
+        out.update(self._kv_alloc.stats())
+        out["kv_bytes_total"] = self.kv_bytes_total()
+        out["device_prefix"] = self.prefix_index.stats()
+        out["compiled_step_buckets"] = self._buckets("paged_step")
+        out["compiled_chunk_buckets"] = self._buckets("paged_chunk")
+        return out
+
     # -- per-slot sampler state ---------------------------------------------
 
     def set_sampling(self, slot, params):
@@ -274,20 +397,67 @@ class DecodeStepper:
         self._seeds[slot] = p.seed
         self._spos[slot] = 0
 
+    # -- page pool ------------------------------------------------------------
+
+    def pages_for(self, prompt_len: int, max_new: int) -> int:
+        """Pages a request needs end to end (prompt plus decode budget,
+        page-rounded): what admission reserves and the scheduler gates
+        on."""
+        need = min(int(prompt_len) + int(max_new), self.max_len)
+        return max(1, -(-need // self.page_size))
+
+    @property
+    def available_pages(self) -> int:
+        """What admission can obtain: the free list plus the pages the
+        device prefix index holds alone (reclaimed under pressure, so
+        cached prefixes never starve live traffic)."""
+        if not self.paged:
+            return 1 << 30
+        return self._kv_alloc.free_pages + self.prefix_index.reclaimable()
+
+    @property
+    def total_pages(self) -> int:
+        return self._kv_alloc.total_pages if self.paged else 1 << 30
+
+    def _alloc_pages(self, n: int, reason: str) -> list[int]:
+        """Allocate, shedding LRU device-prefix entries first when the
+        free list is short: exhaustion means LIVE demand exceeds the
+        pool, not that the cache filled it."""
+        deficit = n - self._kv_alloc.free_pages
+        if deficit > 0:
+            self.prefix_index.reclaim(deficit)
+        return self._kv_alloc.alloc(n, reason=reason)
+
+    def _record_prefix_error(self, op: str, exc: BaseException, slot):
+        """A degraded prefix lookup or insert: counted, and its exception
+        class taped (a store failing every call would otherwise look like
+        a cold one)."""
+        self.prefix_fetch_failures += 1
+        if self.recorder is not None:
+            self.recorder.record(
+                "prefix_cache.error", op=op, error=type(exc).__name__,
+                detail=repr(exc)[:200], slot=slot,
+            )
+
     # -- admission ----------------------------------------------------------
 
-    def admit(self, slot: int, prompt, sampling=None) -> None:
+    def admit(self, slot: int, prompt, sampling=None, max_new=None) -> None:
         """One-shot admission: ``begin_admit`` plus the whole prefill."""
-        left = self.begin_admit(slot, prompt, sampling=sampling)
+        left = self.begin_admit(slot, prompt, sampling=sampling,
+                                max_new=max_new)
         while left > 0:
             left = self.prefill_chunk(slot, left)
 
     @torch.no_grad()
-    def begin_admit(self, slot: int, prompt, sampling=None) -> int:
-        """Start admitting ``prompt`` into ``slot``: bind its sampling,
-        write its context row, and return the prefill positions still to
-        compute (0 = ready to decode). The ``stepper.prefill`` seam fires
-        first, before anything changes."""
+    def begin_admit(self, slot: int, prompt, sampling=None,
+                    max_new=None) -> int:
+        """Start admitting ``prompt`` into ``slot``: (paged) reserve its
+        page table, bind its sampling, write its context row, restore the
+        longest prefix-cache hit, and return the prefill positions still
+        to compute (0 = ready to decode). ``max_new`` bounds the paged
+        reservation (None reserves to capacity). The ``stepper.prefill``
+        seam fires first, and a ``PoolExhaustedError`` leaves the slot
+        (sampler state included) as it was."""
         faults.fire("stepper.prefill", slot=slot)
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         plen = prompt.size
@@ -295,18 +465,81 @@ class DecodeStepper:
             raise ValueError(
                 f"prompt length {plen} outside [1, {self.max_len}]"
             )
+        target = plen - 1  # prefill covers positions 0..plen-2
+        start, host_hit = 0, None
+        if self.paged:
+            start, host_hit = self._reserve_pages(slot, prompt, plen,
+                                                  max_new)
+        elif self.prefix_cache is not None and target >= 1:
+            host_hit = self._lookup_store(prompt[:target], slot)
         self.set_sampling(slot, sampling)
         row = np.zeros((self.max_len,), np.int64)
         row[:plen] = prompt
         self._run("ctx_row", self._write_row, slot, row)
+        if host_hit is not None:
+            start, kv = host_hit
+            self._restore_prefix(slot, kv)
         self._pending[slot] = prompt
-        self._prefill_pos[slot] = 0
+        self._prefill_pos[slot] = start
         self._lens[slot] = plen
-        target = plen - 1  # prefill covers positions 0..plen-2
-        if target <= 0:
+        if start >= target:
             self._finish_admit(slot)
             return 0
-        return target
+        return target - start
+
+    def _lookup_store(self, tokens, slot):
+        """The host ladder's longest hit, or None (a failing lookup is a
+        miss)."""
+        try:
+            return self.prefix_cache.lookup(tokens)
+        except Exception as e:  # noqa: BLE001 — cache is best-effort
+            self._record_prefix_error("lookup", e, slot)
+            return None
+
+    def _reserve_pages(self, slot, prompt, plen, max_new):
+        """Paged admission's first act: choose the prefix source (device
+        index or host ladder: the longer coverage wins), build the slot's
+        table (shared full pages + fresh private ones) and reserve all it
+        can write. Exhaustion raises with every reference taken here
+        released and no slot state touched. Returns ``(prefill_start,
+        host_hit_or_None)``; the caller restores a host hit once the
+        table exists."""
+        target = plen - 1
+        mnew = (self.max_len - plen) if max_new is None else int(max_new)
+        need = self.pages_for(plen, max(1, mnew))
+        if self._tables[slot]:
+            # re-admission without release() (direct drives); the
+            # scheduler always releases first
+            self._free_slot_pages(slot)
+        start, shared = 0, []
+        if target >= self.page_size:
+            hit = self.prefix_index.lookup(prompt[:target])
+            if hit is not None:
+                start, shared = hit  # already retained for this slot
+        host_hit = None
+        if self.prefix_cache is not None and target >= 1:
+            host_hit = self._lookup_store(prompt[:target], slot)
+        if host_hit is not None and host_hit[0] <= start:
+            host_hit = None  # the device index covers at least the rung
+        if host_hit is not None and shared:
+            # a restore WRITES positions [0, p): shared (immutable) pages
+            # cannot back them, so the table goes all-private
+            self._kv_alloc.free(shared, reason="admit_host_override")
+            start, shared = 0, []
+        try:
+            fresh = self._alloc_pages(need - len(shared), "admit")
+        except Exception:
+            if shared:
+                self._kv_alloc.free(shared, reason="admit_abort")
+            raise
+        self._tables[slot] = shared + fresh
+        return start, host_hit
+
+    def _free_slot_pages(self, slot):
+        pages = self._tables[slot]
+        self._tables[slot] = []
+        if pages:
+            self._kv_alloc.free(pages, reason="release")
 
     def _write_row(self, slot, row):
         self._ctx[slot] = self._to_dev(row)
@@ -314,13 +547,15 @@ class DecodeStepper:
     @torch.no_grad()
     def prefill_chunk(self, slot: int, budget: int) -> int:
         """Prefill up to ``budget`` more positions of ``slot``'s prompt;
-        returns positions remaining (0 = ready to decode). A chunk that
-        covers the whole prefix from 0 runs the full-prefill body (dense
-        causal attention over the prefix, key ``admit[pb]``); a mid-prompt
-        chunk runs the generator's ``_stage_chunk`` against the slot's
-        cache rows (key ``chunk[cb]``). As in the JAX package, a chunk
-        whose pow2 bucket would run past the cache shrinks to the largest
-        pow2 that fits. The ``stepper.prefill`` seam fires first."""
+        returns positions remaining (0 = ready to decode). Dense: a chunk
+        that covers the whole prefix from 0 runs the full-prefill body
+        (dense causal attention over the prefix, key ``admit[pb]``); a
+        mid-prompt chunk runs the generator's ``_stage_chunk`` against the
+        slot's cache rows (key ``chunk[cb]``). Paged: every chunk runs the
+        gather/scatter chunk (key ``paged_chunk[cb,pbt]``). As in the JAX
+        package, a chunk whose pow2 bucket would run past the cache (dense)
+        or the slot's reserved pages (paged) shrinks to the largest pow2
+        that fits. The ``stepper.prefill`` seam fires first."""
         faults.fire("stepper.prefill", slot=slot)
         prompt = self._pending.get(slot)
         if prompt is None:
@@ -329,17 +564,25 @@ class DecodeStepper:
         pos = self._prefill_pos[slot]
         n = min(int(budget), target - pos)
         if n > 0:
-            if pos == 0 and n == target:
+            if not self.paged and pos == 0 and n == target:
                 pb = _bucket_pow2(target, self.max_len - 1)
                 self._run(f"admit[{pb}]", self._prefill_full, slot, prompt)
             else:
                 cb = _bucket_pow2(n, self.max_len)
-                room = self.max_len - pos
+                room = (
+                    len(self._tables[slot]) * self.page_size - pos
+                    if self.paged else self.max_len - pos
+                )
                 if cb > room:
                     cb = 1 << (room.bit_length() - 1)  # largest pow2 <= room
                     n = min(n, cb)
-                self._run(f"chunk[{cb}]", self._prefill_mid, slot, prompt,
-                          pos, n)
+                if self.paged:
+                    pbt = self._max_pages_bucket
+                    self._run(f"paged_chunk[{cb},{pbt}]",
+                              self._prefill_paged, slot, prompt, pos, n)
+                else:
+                    self._run(f"chunk[{cb}]", self._prefill_mid, slot,
+                              prompt, pos, n)
             pos += n
             self._prefill_pos[slot] = pos
         if pos >= target:
@@ -365,49 +608,206 @@ class DecodeStepper:
         toks = self._to_dev(prompt[None, pos : pos + n])
         positions = torch.arange(pos, pos + n, device=self.device)
         x = self._gen.embed(toks, positions)
-        qmask = self._t_idx[None, :] <= positions[:, None]  # (n, T)
+        qmask = self._t_idx[None, : self.max_len] <= positions[:, None]
         for blk, (ck, cv) in zip(self._gen._blocks, self._slot_caches(slot)):
             x = self._gen._stage_chunk(blk, x, ck, cv, pos, qmask)
 
+    def _table_row(self, slot, pbt) -> np.ndarray:
+        """Slot ``slot``'s page table padded to ``pbt`` entries with the
+        sentinel page 0."""
+        row = np.zeros((pbt,), np.int64)
+        pages = self._tables[slot]
+        row[: len(pages)] = pages
+        return row
+
+    def _prefill_paged(self, slot, prompt, pos, n):
+        """Positions ``pos..pos+n-1`` of ``slot``'s prompt: gather the
+        slot's pages into its logical (1, pbt * ps) row, run the
+        generator's ``_stage_chunk`` against it (the dense chunk's math),
+        then scatter the chunk's K/V rows back to their pages."""
+        gen, ps = self._gen, self.page_size
+        nh, hd = self._nh, self._hd
+        pbt = self._max_pages_bucket
+        tg = pbt * ps
+        trow = self._table_row(slot, pbt)
+        positions = np.arange(pos, pos + n)
+        fpos = trow[np.minimum(positions // ps, pbt - 1)] * ps + positions % ps
+        ints = self._to_dev(np.concatenate([prompt[pos : pos + n], trow, fpos]))
+        toks, trow_d, fpos_d = ints[:n], ints[n : n + pbt], ints[n + pbt :]
+        pos_d = torch.arange(pos, pos + n, device=self.device)
+        x = gen.embed(toks[None], pos_d)
+        qmask = self._t_idx[None, :tg] <= pos_d[:, None]
+        for blk, (pk, pv) in zip(gen._blocks, self._pools):
+            rk = pk[trow_d].reshape(1, tg, nh, hd)
+            rv = pv[trow_d].reshape(1, tg, nh, hd)
+            x = gen._stage_chunk(blk, x, rk, rv, pos, qmask)
+            # index_put_ picks an arbitrary winner among duplicate indices
+            # on CUDA. ``fpos`` holds n distinct (page, offset) pairs of
+            # this slot's own private pages: the chunk covers no padding
+            # (n real positions), starts at or past any shared prefix, and
+            # the shrink rule in prefill_chunk keeps pos + n within the
+            # slot's table. Only a warm-up with an empty table maps several
+            # positions onto the sentinel page, whose contents nothing
+            # reads unmasked.
+            pk.view(-1, nh, hd)[fpos_d] = rk[0, pos : pos + n]
+            pv.view(-1, nh, hd)[fpos_d] = rv[0, pos : pos + n]
+
     def _finish_admit(self, slot):
-        self._pending.pop(slot, None)
+        """Admission complete: drop the pending state, register (paged)
+        the prompt's full pages strictly below the write frontier in the
+        device index (zero bytes moved: the slot only writes at or past
+        position ``target`` from here on), and publish the finished
+        prefix's missing pow2 ladder rungs to the host store — fetching
+        device->host only up to the longest missing rung, and nothing
+        when none is missing. A store failure never fails the request."""
+        prompt = self._pending.pop(slot, None)
         self._prefill_pos.pop(slot, None)
+        if prompt is None:
+            return  # released underneath us; nothing to publish
+        target = prompt.size - 1
+        if self.paged and target >= 1:
+            m = target // self.page_size
+            if m >= 1:
+                self.prefix_index.insert(prompt[:target],
+                                         self._tables[slot][:m])
+        store = self.prefix_cache
+        if store is None or target < 1:
+            return
+        try:
+            missing = store.missing_rungs(prompt[:target])
+            if missing:
+                store.insert_prefixes(
+                    prompt[:target], self._fetch_rows(slot, max(missing))
+                )
+        except Exception as e:  # noqa: BLE001 — cache is best-effort
+            self._record_prefix_error("insert", e, slot)
+
+    def _fetch_rows(self, slot, p):
+        """Per-block host ``(k, v)`` rows of ``slot``'s positions
+        ``0..p-1``, in one device->host copy."""
+        nh, hd = self._nh, self._hd
+        if self.paged:
+            npg = -(-p // self.page_size)
+            idx = self._to_dev(np.asarray(self._tables[slot][:npg], np.int64))
+            rows = torch.stack([
+                torch.stack([pk[idx].reshape(-1, nh, hd)[:p],
+                             pv[idx].reshape(-1, nh, hd)[:p]])
+                for pk, pv in self._pools
+            ])
+        else:
+            rows = torch.stack([
+                torch.stack([ck[slot, :p], cv[slot, :p]])
+                for ck, cv in self._caches
+            ])
+        host = rows.cpu().numpy()
+        return [(host[si, 0], host[si, 1]) for si in range(host.shape[0])]
+
+    @torch.no_grad()
+    def _restore_prefix(self, slot, kv):
+        """Copy a cache hit's host K/V rows into the slot, bucketed to a
+        power of two (bucket padding past the real prefix lands at
+        positions >= the frontier, overwritten before it is attended)."""
+        p = kv[0][0].shape[0]
+        pb = min(_bucket_pow2(p, self.max_len), self.max_len)
+        host = np.zeros((2, len(kv), pb, self._nh, self._hd), np.float32)
+        for si, (k, v) in enumerate(kv):
+            host[0, si, :p] = k
+            host[1, si, :p] = v
+        if self.paged:
+            pbt = self._max_pages_bucket  # the fixed extent, like chunks
+            self._run(f"paged_restore[{pb},{pbt}]", self._restore_paged,
+                      slot, host, pbt)
+        else:
+            self._run("restore", self._restore_dense, slot, host,
+                      signature=host.shape)
+
+    def _restore_dense(self, slot, host):
+        rows = self._to_dev(host)
+        pb = host.shape[2]
+        for si, (ck, cv) in enumerate(self._caches):
+            ck[slot, :pb] = rows[0, si]
+            cv[slot, :pb] = rows[1, si]
+
+    def _restore_paged(self, slot, host, pbt):
+        ps, nh, hd = self.page_size, self._nh, self._hd
+        pb = host.shape[2]
+        trow = self._table_row(slot, pbt)
+        pvec = np.arange(pb)
+        # a host hit holds an all-private table, so positions inside it
+        # are distinct (page, offset) pairs of this slot's pages; padding
+        # past the table maps to the sentinel page
+        fpos = self._to_dev(trow[np.minimum(pvec // ps, pbt - 1)] * ps
+                            + pvec % ps)
+        rows = self._to_dev(host)
+        for si, (pk, pv) in enumerate(self._pools):
+            pk.view(-1, nh, hd)[fpos] = rows[0, si]
+            pv.view(-1, nh, hd)[fpos] = rows[1, si]
 
     def release(self, slot: int) -> None:
         self._lens[slot] = 1  # keep pos = lens-1 in range while parked
         self._pending.pop(slot, None)
         self._prefill_pos.pop(slot, None)
         self.set_sampling(slot, None)
+        if self.paged:
+            # a quarantined or evicted slot gives its pages back now;
+            # shared prefix pages live on through the index's references
+            self._free_slot_pages(slot)
 
     def warmup(self) -> None:
-        """One all-inactive step off the serving path: builds the kernels
-        the step runs (their first use) and pays the step's first-call
-        costs without touching the slot bank — every write is masked and
-        no host bookkeeping advances. It does not go through ``step``, so
-        it never fires an armed ``stepper.step`` seam. Mints record
-        ``trigger="warmup"``; declaring the warm set complete
-        (``compile_ledger.mark_warmed()``) is the harness's call."""
+        """All-inactive steps off the serving path: build the kernels the
+        step runs (their first use) and pay the step's first-call costs
+        without touching the slot bank — every write is masked (paged:
+        sent to the sentinel page) and no host bookkeeping advances.
+        Paged, every pow2 ``paged_step`` bucket up to ``_max_pages_bucket``
+        runs once, so no step mints on the serving path whatever the
+        longest table. It does not go through ``step``, so it never fires
+        an armed ``stepper.step`` seam. Mints record ``trigger="warmup"``;
+        declaring the warm set complete (``compile_ledger.mark_warmed()``)
+        is the harness's call."""
         active = np.zeros(self.num_slots, bool)
-        self._warm(lambda: self._run(
-            "step[plain]", self._step_dev, active, self._lens.copy(),
-        ))
+
+        def warm():
+            if not self.paged:
+                self._run("step[plain]", self._step_dev, active,
+                          self._lens.copy())
+                return
+            pbt = 1
+            while True:
+                self._run(f"paged_step[{pbt}]", self._step_dev, active,
+                          self._lens.copy(), pbt)
+                if pbt >= self._max_pages_bucket:
+                    break
+                pbt <<= 1
+
+        self._warm(warm)
 
     def warm_prefill_buckets(self) -> None:
-        """Run every pow2 ``chunk[cb]`` and ``admit[pb]`` bucket (and
-        ``ctx_row``) once off the serving path, through slot 0's rows.
-        Only safe on an IDLE bank: slot 0's cache rows and context row are
-        overwritten by the next admission before anything attends them."""
+        """Run every pow2 chunk bucket (``chunk[cb]`` and ``admit[pb]``
+        dense, ``paged_chunk[cb,pbt]`` paged) and ``ctx_row`` once off the
+        serving path, through slot 0. Only safe on an IDLE bank: slot 0's
+        context row (and, dense, its cache rows) are overwritten by the
+        next admission before anything attends them; paged buckets run
+        only while slot 0 holds no table (the writes then land on the
+        sentinel page)."""
 
         def warm():
             zeros = np.zeros(self.max_len, np.int64)
             self._run("ctx_row", self._write_row, 0, zeros)
+            pbt = self._max_pages_bucket if self.paged else None
             cb = 1
             while True:
                 n = min(cb, self.max_len)
-                self._run(f"chunk[{n}]", self._prefill_mid, 0, zeros, 0, n)
+                if not self.paged:
+                    self._run(f"chunk[{n}]", self._prefill_mid, 0, zeros,
+                              0, n)
+                elif not self._tables[0]:
+                    self._run(f"paged_chunk[{n},{pbt}]",
+                              self._prefill_paged, 0, zeros, 0, n)
                 if cb >= self.max_len:
                     break
                 cb <<= 1
+            if self.paged:
+                return  # paged admission runs the chunk family alone
             pb, buckets = 1, set()
             while True:
                 buckets.add(min(pb, self.max_len - 1))
@@ -417,6 +817,41 @@ class DecodeStepper:
             for pb in sorted(b for b in buckets if b >= 1):
                 self._run(f"admit[{pb}]", self._prefill_full, 0,
                           zeros[: pb + 1])
+
+        self._warm(warm)
+
+    def warm_restore_buckets(self) -> None:
+        """Run every pow2 prefix-restore bucket (``restore`` dense,
+        ``paged_restore[pbk,pbt]`` paged) once off the serving path,
+        through slot 0: which bucket a hit needs depends on the traffic.
+        Buckets: every power of two up to ``max_len`` and the
+        ``max_len``-clamped value. Dense, only safe on an IDLE bank (slot
+        0's cache rows take zeros); paged, only while slot 0 holds no
+        table (the writes land on the sentinel page). Also mints
+        ``ctx_row`` when it has not run and slot 0 is free."""
+
+        def warm():
+            nh, hd = self._nh, self._hd
+            pb, buckets = 1, set()
+            while True:
+                buckets.add(min(pb, self.max_len))
+                if pb >= self.max_len:
+                    break
+                pb <<= 1
+            for p in sorted(buckets):
+                if self.paged and self._tables[0]:
+                    continue
+                kv = [(np.zeros((p, nh, hd), np.float32),
+                       np.zeros((p, nh, hd), np.float32))
+                      for _ in self._gen._blocks]
+                self._restore_prefix(0, kv)
+            occupied = (
+                bool(self._tables[0]) if self.paged
+                else (int(self._lens[0]) > 1 or 0 in self._pending)
+            )
+            if ("ctx_row", ()) not in self._called and not occupied:
+                self._run("ctx_row", self._write_row, 0,
+                          np.zeros(self.max_len, np.int64))
 
         self._warm(warm)
 
@@ -431,52 +866,106 @@ class DecodeStepper:
 
     def step_async(self, active) -> _InflightStep:
         """Enqueue one decode step without waiting for it. The host inputs
-        are snapshot (``self._lens.copy()`` and the sampler arrays) and
-        copied through pinned memory, the step is enqueued on the CURRENT
-        stream, and the token vector rides the returned handle; the
-        ``_lens``/``_spos`` advance waits for its ``collect()``.
+        are snapshot (``self._lens.copy()``, the sampler arrays and, paged,
+        the page tables) and copied through pinned memory, the step is
+        enqueued on the CURRENT stream, and the token vector rides the
+        returned handle; the ``_lens``/``_spos`` advance waits for its
+        ``collect()``.
 
         Every stepper call stays on the current stream, and that is what
-        keeps the overlapped loop correct: the step rewrites every slot's
-        cache rows and context entry at the slot's own position (inactive
-        slots with their old values), so an admission or prefill of
-        another slot enqueued while the step is in flight is right only
-        because the stream orders it behind the step.
+        keeps the overlapped loop correct: the step rewrites every active
+        slot's cache entry and context entry at the slot's own position,
+        so an admission or prefill of another slot enqueued while the step
+        is in flight is right only because the stream orders it behind the
+        step.
 
         The ``stepper.step`` seam fires first, before any device work or
         host bookkeeping, so a failed call leaves the bank as it was."""
         active = np.asarray(active, bool)
         faults.fire("stepper.step", active=active)
-        toks = self._run("step[plain]", self._step_dev, active,
-                         self._lens.copy())
+        if self.paged:
+            pbt = self._table_bucket()
+            toks = self._run(f"paged_step[{pbt}]", self._step_dev, active,
+                             self._lens.copy(), pbt)
+        else:
+            toks = self._run("step[plain]", self._step_dev, active,
+                             self._lens.copy())
         return _InflightStep(self, active, toks)
 
+    def _table_bucket(self) -> int:
+        """Pow2 bucket covering every OCCUPIED slot's table — the step's
+        program key. Occupied, not active, so a blame probe's mask runs
+        the same program."""
+        m = max(len(t) for t in self._tables)
+        return _bucket_pow2(max(1, m), self._max_pages_bucket)
+
+    def write_targets(self, active, lens) -> tuple[np.ndarray, np.ndarray]:
+        """Where a paged step writes each row's new K/V: ``(page,
+        offset)`` host arrays. An active row writes at its own position
+        ``lens - 1`` in the page of its table that covers it — a page it
+        holds alone (shared pages are full pages below every holder's
+        write frontier). An inactive row writes the sentinel page 0."""
+        ps = self.page_size
+        pos = np.clip(np.asarray(lens, np.int64) - 1, 0, self.max_len - 1)
+        page = np.zeros(self.num_slots, np.int64)
+        for i in np.flatnonzero(active):
+            table, j = self._tables[i], pos[i] // ps
+            page[i] = table[j] if j < len(table) else 0
+        return page, pos % ps
+
     @torch.no_grad()
-    def _step_dev(self, active, lens) -> torch.Tensor:
-        """The decode step over host snapshots ``active``/``lens``;
-        returns the (B,) token vector on the device."""
-        gen, dev = self._gen, self.device
+    def _step_dev(self, active, lens, pbt=None) -> torch.Tensor:
+        """The decode step over host snapshots ``active``/``lens`` (paged
+        when ``pbt``, the table bucket, is given); returns the (B,) token
+        vector on the device."""
+        gen = self._gen
         b, t = self.num_slots, self.max_len
         nh, hd = self._nh, self._hd
         rows = self._rows
         sampled = bool((self._temps > 0.0).any())
-        ints = self._to_dev(np.stack([
-            active.astype(np.int64), lens, self._topk, self._seeds,
-            self._spos,
-        ]))
+        head = [active.astype(np.int64), lens, self._topk, self._seeds,
+                self._spos]
+        if pbt is not None:
+            head += list(self.write_targets(active, lens))
+            tables = np.zeros((b, pbt), np.int64)
+            for i, pages in enumerate(self._tables):
+                # a warm-up's bucket may be shorter than a live table;
+                # its rows are all inactive and write the sentinel
+                tables[i, : min(len(pages), pbt)] = pages[:pbt]
+            ints = self._to_dev(np.concatenate([np.stack(head).ravel(),
+                                                tables.ravel()]))
+            tables = ints[len(head) * b :].view(b, pbt)
+            ints = ints[: len(head) * b].view(len(head), b)
+            t_ext = pbt * self.page_size
+        else:
+            ints = self._to_dev(np.stack(head))
+            t_ext = t
         act = ints[0].bool()
         pos = torch.clamp(ints[1] - 1, 0, t - 1)  # (B,) per-slot position
         x = gen.embed(self._ctx[rows, pos], pos)
         keep = act[:, None, None]
-        t_mask = (self._t_idx[None, :] <= pos[:, None])[:, None, :]  # (B,1,T)
-        for blk, (ck, cv) in zip(gen._blocks, self._caches):
+        t_mask = (self._t_idx[None, :t_ext] <= pos[:, None])[:, None, :]
+        for li, blk in enumerate(gen._blocks):
             mh = blk.mhsa
             h_ = blk.ln1(x)
             q = qmatmul(h_, mh.wq).reshape(b, nh, hd)
             k_new = qmatmul(h_, mh.wk).reshape(b, nh, hd)
             v_new = qmatmul(h_, mh.wv).reshape(b, nh, hd)
-            ck[rows, pos] = torch.where(keep, k_new, ck[rows, pos])
-            cv[rows, pos] = torch.where(keep, v_new, cv[rows, pos])
+            if pbt is None:
+                ck, cv = self._caches[li]
+                ck[rows, pos] = torch.where(keep, k_new, ck[rows, pos])
+                cv[rows, pos] = torch.where(keep, v_new, cv[rows, pos])
+            else:
+                pk, pv = self._pools[li]
+                # index_put_ picks an arbitrary winner among duplicate
+                # indices on CUDA: the active rows' (page, offset) targets
+                # are distinct pages each holds alone (``write_targets``),
+                # and every inactive row writes the sentinel page, whose
+                # contents nothing reads unmasked
+                pk[ints[5], ints[6]] = k_new
+                pv[ints[5], ints[6]] = v_new
+                ck = pk[tables].reshape(b, t_ext, nh, hd)
+                cv = pv[tables].reshape(b, t_ext, nh, hd)
             scores = torch.einsum("bhd,bthd->bht", q, ck) / math.sqrt(hd)
             scores = scores.masked_fill(~t_mask, float("-inf"))
             w = torch.softmax(scores, dim=-1)
@@ -514,6 +1003,18 @@ class ServingEngine:
     ``max(16, seq_len // 8)``, an int sets it, None disables chunking.
     ``device=None`` means CUDA; the model must already live there.
 
+    Cache knobs, with the JAX engine's defaults and meanings:
+    ``prefix_cache`` (True builds a ``PrefixStore`` of
+    ``prefix_cache_bytes`` on this engine's registry, an instance is used
+    as it is and may be shared across engines, falsy turns reuse off),
+    ``paged`` (block-paged K/V pools with page-gated admission and
+    device-resident prefix sharing; see ``DecodeStepper``), ``page_size``
+    and ``num_pages`` (None: the dense bank's bytes plus the sentinel).
+    With ``paged`` the scheduler admits only what the pool covers (the
+    head of the queue waits for evictions), a request that can never fit
+    is a ``ValueError`` at ``submit``, and exhaustion reaches the client
+    as the typed, retriable ``overloaded`` with ``retry_after_ms``.
+
     Self-healing knobs, with the JAX engine's defaults and meanings:
     ``quarantine_steps`` (iterations a blamed slot sits out),
     ``overlap`` (True: the overlapped loop; False: dispatch and wait),
@@ -534,6 +1035,10 @@ class ServingEngine:
     with the next generation — so that case ends in ``degraded`` once the
     budget is spent, and nothing here tries more.
 
+    A restart rebuilds the stepper from the same config (a paged engine
+    gets a fresh pool and an empty device prefix index); the host prefix
+    store is kept.
+
     Books, as in the JAX engine at its defaults: a flight recorder of
     events (armed fault-seam firings, blame, quarantine, watchdog trips,
     restarts, program mints), a span ring, a metrics history a snapshot a
@@ -550,11 +1055,13 @@ class ServingEngine:
     def __init__(self, model, num_slots=8, queue_capacity=64,
                  temperature=0.0, seed=0, top_k=None, top_p=None,
                  predict_batch=64, predict_window=0.005,
-                 prefill_chunk="auto", quarantine_steps=64,
+                 prefill_chunk="auto", prefix_cache=True,
+                 prefix_cache_bytes=64 << 20, quarantine_steps=64,
                  watchdog_interval=10.0, watchdog_grace=None,
                  max_restarts=3, restart_backoff=0.05, metrics_path=None,
                  postmortem_dir=None, slos=None, history=True,
-                 overlap=True, device=None):
+                 overlap=True, paged=False, page_size=16, num_pages=None,
+                 device=None):
         self.model = model
         self.device = check_model_device(model, device)
         # the engine-owned books (per engine, so in-process fleets keep
@@ -581,11 +1088,24 @@ class ServingEngine:
         self.last_postmortem_path = None
         self._stepper = None
         self._decode_err = None
+        store = None
+        if prefix_cache:
+            store = (
+                prefix_cache
+                if isinstance(prefix_cache, PrefixStore)
+                else PrefixStore(max_bytes=prefix_cache_bytes,
+                                 registry=self.registry)
+            )
+        self.prefix_store = store
         # everything a supervisor restart needs to rebuild the device face
+        # (a fresh bank or pool and device prefix index; the host prefix
+        # store is the same object, so it SURVIVES restarts)
         self._stepper_cfg = dict(
             num_slots=num_slots, temperature=temperature, seed=seed,
             top_k=top_k, top_p=top_p, device=self.device,
-            compile_ledger=self.compile_ledger,
+            compile_ledger=self.compile_ledger, prefix_cache=store,
+            paged=paged, page_size=page_size, num_pages=num_pages,
+            recorder=self.recorder,
         )
         try:
             self._stepper = DecodeStepper(model, **self._stepper_cfg)
@@ -650,6 +1170,32 @@ class ServingEngine:
         reg.gauge("serving_engine_watchdog_trips",
                   fn=lambda: self._watchdog_trips)
         reg.gauge("serving_engine_degraded", fn=lambda: self._failed)
+        reg.gauge(
+            "serving_engine_prefix_fetch_failures",
+            fn=lambda: (
+                0 if self._stepper is None
+                else self._stepper.prefix_fetch_failures
+            ),
+        )
+        if paged:
+            # page-pool gauges, read from the live stepper generation (a
+            # supervisor restart rebuilds the pool)
+            def pool_gauge(read):
+                def fn():
+                    st = self._stepper
+                    return None if st is None else read(st._kv_alloc)
+                return fn
+
+            for name, read in (
+                ("total", lambda a: a.total_pages),
+                ("in_use", lambda a: a.pages_in_use),
+                ("shared", lambda a: a.shared_pages),
+            ):
+                reg.gauge(f"serving_kv_pages_{name}", fn=pool_gauge(read))
+            reg.gauge("serving_kv_cow_copies",
+                      fn=pool_gauge(lambda a: a.cow_copies))
+            reg.gauge("serving_kv_page_util",
+                      fn=pool_gauge(lambda a: round(a.utilization(), 4)))
         reg.gauge(
             "serving_engine_heartbeat_age_seconds",
             fn=lambda: (
@@ -1147,6 +1693,11 @@ class ServingEngine:
         }
         if batcher is not None:
             out.update(batcher.load())
+            if self._stepper.paged:
+                # the paged tier's capacity signal: KV pages in use
+                out["kv_page_util"] = round(
+                    self._stepper._kv_alloc.utilization(), 4
+                )
             out["overlap"] = {
                 "enabled": batcher.overlap,
                 **batcher.overlap_ledger.snapshot(),
@@ -1175,9 +1726,18 @@ class ServingEngine:
         }
         if self.batcher is not None:
             out.update(self.batcher.stats())
+            out["prefix_fetch_failures"] = (
+                self._stepper.prefix_fetch_failures
+            )
+            out["paged"] = self._stepper.paged_stats()
         out["restarts"] = self._restarts
         out["watchdog_trips"] = self._watchdog_trips
         out["status"] = self.health()["status"]
         # every runtime mint with its trigger, seconds and the storm count
         out["compiles"] = self.compile_ledger.snapshot()
+        out["prefix_cache"] = (
+            self.prefix_store.stats()
+            if self.prefix_store is not None
+            else {"enabled": False}
+        )
         return out

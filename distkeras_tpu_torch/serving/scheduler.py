@@ -9,6 +9,9 @@ slice runs).
   slots mid-prefill (oldest admission first), advances every decoding
   slot one token, and evicts finished sequences. FIFO queue with
   bounded-queue backpressure, per-request deadlines, drain / hard stop.
+  Over a paged stepper, admission is gated on the KV page pool as well as
+  on free slots (the head of the queue waits for evictions), and a
+  request that can never fit the pool is refused at ``submit``.
   Two loop shapes with one contract: ``overlap=False`` dispatches each
   step and waits for it; ``overlap=True`` runs the next iteration's host
   work while the step is on the device and collects it at the last
@@ -42,7 +45,9 @@ The device face is an injected stepper (``engine.DecodeStepper``) with
 ``step_async(active)`` returning a handle with ``ready()`` and
 ``collect() -> tokens`` (the overlapped loop then really overlaps; without
 it the device call runs synchronously at dispatch) and a compile
-``ledger``.
+``ledger``. A paged stepper (``paged`` true) also has ``pages_for(
+prompt_len, max_new)``, ``available_pages``, ``total_pages`` and takes
+``begin_admit(..., max_new=)``.
 """
 
 from __future__ import annotations
@@ -397,6 +402,14 @@ class ContinuousBatcher:
                 f"({req.max_new_tokens}) exceeds the serving capacity "
                 f"({self.stepper.max_len})"
             )
+        if getattr(self.stepper, "paged", False):
+            need = self._pages_for_request(req)
+            if need > self.stepper.total_pages:
+                # can NEVER fit the pool: a caller error, not backpressure
+                raise ValueError(
+                    f"request needs {need} KV pages but the pool holds "
+                    f"{self.stepper.total_pages}"
+                )
         with self._lock:
             if self._draining or self._stopped:
                 raise EngineStoppedError("engine is draining; not accepting")
@@ -411,6 +424,10 @@ class ContinuousBatcher:
                 self.counters["sampled_requests"] += 1
         self._work.set()
         return req
+
+    def _pages_for_request(self, req) -> int:
+        """KV pages one request reserves end to end (its admission)."""
+        return self.stepper.pages_for(req.prompt.size, req.max_new_tokens)
 
     # -- compile attribution (the ledger's trace face) ----------------------
 
@@ -552,10 +569,13 @@ class ContinuousBatcher:
 
     def _admit_phase(self) -> bool:
         """Host work at the top of an iteration: quarantine recycle,
-        admission of queued requests into free (not quarantined) slots,
-        the chunked-prefill budget."""
+        admission of queued requests into free (not quarantined) slots —
+        page-gated over a paged stepper — and the chunked-prefill
+        budget."""
         now = time.monotonic()
         admitted = []
+        paged = getattr(self.stepper, "paged", False)
+        page_budget = self.stepper.available_pages if paged else None
         with self._lock:
             self._sched_iters += 1
             for s, until in list(self._quarantined.items()):
@@ -569,6 +589,16 @@ class ContinuousBatcher:
                 req = self._pop_live(now)
                 if req is None:
                     break
+                if paged:
+                    # admission reserves pages, so it is gated on the
+                    # pool; the head of the queue WAITS for evictions to
+                    # free pages (FIFO fairness), and begin_admit's typed
+                    # PoolExhaustedError is the backstop for races
+                    need = self._pages_for_request(req)
+                    if need > page_budget:
+                        self._queue.appendleft(req)
+                        break
+                    page_budget -= need
                 self._slots[i] = req
                 req.started = now
                 self._admit_seq += 1
@@ -578,9 +608,10 @@ class ContinuousBatcher:
         began = []
         for i, req in admitted:
             try:
+                kw = {"max_new": req.max_new_tokens} if paged else {}
                 n0, ta = self._led_total(), time.monotonic()
                 began.append((i, req, self.stepper.begin_admit(
-                    i, req.prompt, sampling=req.sampling
+                    i, req.prompt, sampling=req.sampling, **kw
                 )))
                 self._note_mints(req, n0, ta, time.monotonic())
             except Exception as e:  # noqa: BLE001 — admission boundary
@@ -782,7 +813,9 @@ class ContinuousBatcher:
         """A begin_admit/prefill_chunk crash fails only its own
         (attributable) request, typed, and frees the slot. A
         ``ServingError`` passes through as itself (a fresh copy per
-        request: an injected seam re-raises one instance)."""
+        request: an injected seam re-raises one instance) — notably
+        ``PoolExhaustedError``, so pool pressure reaches the client as the
+        retriable ``overloaded`` with its ``retry_after_ms``."""
         err = (
             copy.copy(exc)
             if isinstance(exc, ServingError)
