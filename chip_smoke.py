@@ -244,9 +244,36 @@ Phases, each fatal on failure (exit code 1, no result line):
    request after it a host-ladder hit. 13e: the warm-up's six
    ``paged_step`` mints, then the warm set, ``mark_warmed`` and 13b's
    paged traffic again: 0 storms.
+14. Speculative decode on phase 4's LN-hooked LM, ``draft_k=4`` (verify
+   windows of 5 candidates), each engine fresh; on every drive B7 launches
+   exactly what its stepper programs imply (17 per target verify or step,
+   16 per target prefill chunk, 2L+1 per step and 2L per prefill of an
+   L-block hooked draft) and B4 none. 14a: the n-gram drafter on phase 4's
+   mix: 13a's token bars; token agreement with phase 4's replies, the
+   drafted, accepted and rejected tokens, verify and fallback steps, mean
+   tokens per window, tokens/s beside phase 4's. 14b: templated traffic
+   (16 prompts, each a 32-token span from ``default_rng(14)`` repeated 4-6
+   times and a distinct 8-token tail, 64 new tokens, 4 sampled) on a plain
+   and an n-gram engine in turns: the same bars and books. 14c: a
+   self-draft (a second hooked copy of the target) on the mix's 12 greedy
+   requests: every window accepts all 4 proposals (as many windows as a
+   full acceptance takes, no fallback) and the replies equal phase 4's;
+   the small draft ``transformer_lm(8192, 512, 256, 4, 2, seed=1)``,
+   hooked, on the whole mix: 14a's bars. 14d: 14b's mix with n-gram on a
+   paged engine: the token bars, 0 exhaustions, ``pages_for`` reserving
+   the 5-position verify window, the pages in use after the mix exactly
+   the device index's, the warm-up minting the paged verify. 14e: a
+   ``stepper.verify`` seam on one request's windows fails it alone
+   (typed), 15 of 14b's mix equal 14b's n-gram replies; a scheduler crash
+   on a small-draft engine: a rebuilt speculative stepper, the drafter
+   re-bound, a request after it right; the warm-ups minted ``verify[5]``;
+   0 storms after the warm set and ``mark_warmed``. 14f:
+   ``SpeculativeGenerator`` with the self-draft and the small draft on 4
+   prompts equals ``CachedSequenceGenerator``'s greedy decode; rounds per
+   row.
 
 ``--profile`` adds where the time goes: a decode step (dense and paged), a
-predict forward, a training step, an async window and a config-5
+verify window with 8 busy slots, a predict forward, a training step, an async window and a config-5
 DynSGD/``resnet18`` window (host wall, device time by category, idle
 share, top kernels).
 
@@ -257,6 +284,7 @@ and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import gc
 import itertools
 import json
 import math
@@ -4424,6 +4452,467 @@ def run_phase13(torch, np, lm, smi, gen, gen_reqs, gen_outs):
     return out, counts
 
 
+# ----------------------------------------------------------------- phase 14
+
+#: B7 launches per call of each stepper program, for a model of L blocks
+#: with the LayerNorm hook: ln1 and ln2 per block, plus the final norm
+#: where the program computes logits
+LN_PER_CALL = {"_step_dev": lambda n: 2 * n + 1,
+               "_verify_dev": lambda n: 2 * n + 1,
+               "_prefill_full": lambda n: 2 * n,
+               "_prefill_mid": lambda n: 2 * n,
+               "_prefill_paged": lambda n: 2 * n}
+
+
+class ProgramCalls:
+    """Counts the calls of each ``DecodeStepper`` program body per model
+    while active, so a drive's exact B7 launch count follows from them:
+    ``ln_launches()``. Targets and draft banks are told apart by their
+    model."""
+
+    def __init__(self):
+        self.calls = {}
+        self._orig = {}
+
+    def __enter__(self):
+        import functools
+
+        from distkeras_tpu_torch.serving.engine import DecodeStepper
+
+        for name in LN_PER_CALL:
+            orig = getattr(DecodeStepper, name)
+            self._orig[name] = orig
+
+            def wrap(orig=orig, name=name):
+                @functools.wraps(orig)
+                def call(st, *a, **kw):
+                    key = (id(st.model), name)
+                    self.calls[key] = self.calls.get(key, 0) + 1
+                    return orig(st, *a, **kw)
+                return call
+
+            setattr(DecodeStepper, name, wrap())
+        return self
+
+    def __exit__(self, *exc):
+        from distkeras_tpu_torch.serving.engine import DecodeStepper
+
+        for name, orig in self._orig.items():
+            setattr(DecodeStepper, name, orig)
+
+    def of(self, model, name):
+        return self.calls.get((id(model), name), 0)
+
+    def ln_launches(self, models):
+        """The B7 launches the counted calls make on ``models`` (hooked)."""
+        return sum(self.of(m, name) * per(len(m.layers) - 3)
+                   for m in models for name, per in LN_PER_CALL.items())
+
+
+def templated_mix(np):
+    """14b's traffic: 16 prompts, each one 32-token span from
+    ``default_rng(14)`` repeated 4-6 times and a distinct 8-token tail, 64
+    new tokens each, every fourth one sampled."""
+    rng = np.random.default_rng(14)
+    reqs = []
+    for i in range(16):
+        span = rng.integers(0, 8192, 32)
+        tail = rng.integers(0, 8192, 8)
+        prompt = np.concatenate([np.tile(span, int(rng.integers(4, 7))),
+                                 tail]).astype(np.int32)
+        sampling = ({"temperature": 0.8, "seed": 300 + i}
+                    if i % 4 == 3 else None)
+        reqs.append((prompt, 64, sampling))
+    return reqs
+
+
+def spec_books(stats):
+    """The speculative books of ``stats()`` a phase 14 line prints."""
+    s = stats["speculative"]
+    if not s["enabled"]:
+        return s
+    return {k: s[k] for k in ("draft_source", "windows", "verify_steps",
+                              "fallback_steps", "drafted_tokens",
+                              "accepted_draft_tokens",
+                              "rejected_draft_tokens", "emitted_tokens",
+                              "mean_tokens_per_window")}
+
+
+def drive_spec(torch, np, lm, tag, reqs, models, base_rate=None, probe=None,
+               **kw):
+    """One fresh LN-hooked engine (``hooked_engine(lm, **kw)``) serving
+    ``reqs``: the token bars of ``check_replies``, B7 launches exactly what
+    the program calls on ``models`` imply, B4 none. ``probe(engine)`` reads
+    more off the engine before it stops. Returns (result, launches,
+    outputs, engine stats, the probe's value)."""
+    from distkeras_tpu_torch import kernels
+
+    eng = hooked_engine(lm, **kw)
+    try:
+        kernels.reset_launch_counts()
+        with ProgramCalls() as calls:
+            outs, secs = serve_mix(eng, reqs)
+            torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        extra = None if probe is None else probe(eng)
+        gap = check_replies(torch, np, lm, eng, outs, reqs, tag)
+        stats = eng.stats()
+    finally:
+        eng.stop()
+    want = calls.ln_launches(models)
+    check(counts["layernorm_fwd"] == want and counts["flash_fwd"] == 0,
+          f"{tag}: B7 launches {counts['layernorm_fwd']}, the program calls "
+          f"imply {want}; B4 {counts['flash_fwd']}")
+    tokens = sum(len(o) - len(p) for o, (p, _, _) in zip(outs, reqs))
+    res = {"tokens": tokens, "seconds": secs, "tokens_per_s": tokens / secs,
+           "ratio_to_base": (None if base_rate is None
+                             else tokens / secs / base_rate),
+           "max_argmax_gap": gap,
+           "launches": counts, "speculative": spec_books(stats),
+           "program_calls": {f"{'target' if mid == id(lm) else 'draft'}"
+                             f".{name}": n
+                             for (mid, name), n in calls.calls.items()},
+           "steps": stats["steps"]}
+    return res, counts, outs, stats, extra
+
+
+def run_spec_ngram_mix(torch, np, lm, smi, gen, gen_reqs, gen_outs):
+    """14a: the n-gram drafter on phase 4's mix, dense."""
+    res, counts, outs, _, _ = drive_spec(
+        torch, np, lm, "14a", gen_reqs, [lm], gen["tokens_per_s"],
+        speculative="ngram", draft_k=4)
+    res["agreement_phase4"] = token_agreement(np, outs, gen_outs, gen_reqs)
+    res["phase4_tokens_per_s"] = gen["tokens_per_s"]
+    log(f"14a n-gram, phase 4's mix: {res['tokens_per_s']:.1f} tokens/s "
+        f"against phase 4's {gen['tokens_per_s']:.1f} in this call = "
+        f"{res['ratio_to_base']:.3f}x; agreement with phase 4's replies "
+        f"{res['agreement_phase4']:.4f}; argmax gap "
+        f"{res['max_argmax_gap']:.2e}; books {res['speculative']}; B7 "
+        f"{counts['layernorm_fwd']} = the program calls' {res['program_calls']}"
+        f" on {smi}")
+    return res, counts
+
+
+def run_spec_templated(torch, np, lm, smi, reqs):
+    """14b: templated traffic on a plain and an n-gram engine, in turns
+    (plain, n-gram, n-gram, plain), each engine fresh."""
+    runs, counts_all, outs_by = {"plain": [], "ngram": []}, [], {}
+    for mode in ("plain", "ngram", "ngram", "plain"):
+        kw = {"speculative": "ngram", "draft_k": 4} if mode == "ngram" else {}
+        res, counts, outs, _, _ = drive_spec(torch, np, lm, f"14b {mode}",
+                                             reqs, [lm], **kw)
+        runs[mode].append(res)
+        counts_all.append(counts)
+        outs_by.setdefault(mode, outs)
+    plain = sum(r["tokens_per_s"] for r in runs["plain"]) / 2
+    spec = sum(r["tokens_per_s"] for r in runs["ngram"]) / 2
+    out = {"plain": runs["plain"], "ngram": runs["ngram"],
+           "plain_tokens_per_s": plain, "ngram_tokens_per_s": spec,
+           "ratio": spec / plain,
+           "agreement_ngram_plain": token_agreement(
+               np, outs_by["ngram"], outs_by["plain"], reqs)}
+    for mode in ("plain", "ngram"):
+        log(f"14b templated, {mode}: tokens/s "
+            f"{[round(r['tokens_per_s'], 1) for r in runs[mode]]}; books "
+            f"{runs[mode][0]['speculative'] if mode == 'ngram' else '-'}; "
+            f"argmax gap {max(r['max_argmax_gap'] for r in runs[mode]):.2e}")
+    log(f"14b: n-gram / plain tokens/s {out['ratio']:.3f}x (means of the "
+        f"turns {spec:.1f} / {plain:.1f}); token agreement n-gram vs plain "
+        f"{out['agreement_ngram_plain']:.4f} on {smi}")
+    return out, counts_all, outs_by["ngram"]
+
+
+def small_draft(zoo):
+    """14c's small draft: ``transformer_lm(8192, 512, 256, 4, 2, seed=1)``
+    with the LayerNorm hook."""
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+
+    d = zoo.transformer_lm(vocab_size=8192, seq_len=512, d_model=256,
+                           num_heads=4, depth=2, seed=1)
+    check(attach_fused_layernorm(d) == 5, "LN hook not on the draft's 5")
+    return d
+
+
+def self_draft(zoo):
+    """14c's self-draft: a second LN-hooked copy of the target (the same
+    seed, so the same weights)."""
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+
+    d = make_lm(zoo)
+    check(attach_fused_layernorm(d) == 17, "LN hook not on the copy's 17")
+    return d
+
+
+def run_spec_model_drafts(torch, np, lm, smi, zoo, gen, gen_reqs, gen_outs):
+    """14c: model drafters. The self-draft on phase 4's 12 greedy requests
+    (every full window accepts every proposal; the tokens equal phase 4's
+    plain engine's), the small draft on the whole mix (14a's bars); B7
+    exactly 17 per target verify or step, 16 per target prefill chunk, and
+    per draft step and prefill what the draft's depth gives."""
+    out, counts_all = {}, []
+    greedy = [i for i, r in enumerate(gen_reqs) if r[2] is None]
+    g_reqs = [gen_reqs[i] for i in greedy]
+    d = self_draft(zoo)
+    res, counts, outs, _, _ = drive_spec(
+        torch, np, lm, "14c self", g_reqs, [lm, d],
+        gen["tokens_per_s"], speculative="draft", draft_bundle=d, draft_k=4)
+    spec = res["speculative"]
+    full = sum(-(-n // 5) for _, n, _ in g_reqs)
+    check(spec["fallback_steps"] == 0 and spec["windows"] == full,
+          f"14c self: {spec['windows']} windows and {spec['fallback_steps']}"
+          f" fallbacks; all-accepted windows would be {full} and 0")
+    same = all(np.array_equal(o, gen_outs[i]) for o, i in zip(outs, greedy))
+    check(same, "14c self: a greedy reply differs from phase 4's plain one")
+    res["full_windows_expected"] = full
+    out["self_draft"] = res
+    counts_all.append(counts)
+    log(f"14c self-draft: every window accepted all 4 proposals ({full} "
+        f"windows, mean {spec['mean_tokens_per_window']} tokens a window, "
+        f"below 5 only where a budget ended one), replies equal phase 4's; "
+        f"{res['tokens_per_s']:.1f} tokens/s = {res['ratio_to_base']:.3f}x "
+        f"phase 4's; B7 {counts['layernorm_fwd']} = {res['program_calls']} "
+        f"on {smi}")
+    del d
+    d = small_draft(zoo)
+    res, counts, outs, _, _ = drive_spec(
+        torch, np, lm, "14c small", gen_reqs, [lm, d],
+        gen["tokens_per_s"], speculative="draft", draft_bundle=d, draft_k=4)
+    res["agreement_phase4"] = token_agreement(np, outs, gen_outs, gen_reqs)
+    out["small_draft"] = res
+    counts_all.append(counts)
+    log(f"14c small draft (d256/L2): books {res['speculative']}; "
+        f"{res['tokens_per_s']:.1f} tokens/s = {res['ratio_to_base']:.3f}x "
+        f"phase 4's; agreement with phase 4's replies "
+        f"{res['agreement_phase4']:.4f}; argmax gap "
+        f"{res['max_argmax_gap']:.2e}; B7 {counts['layernorm_fwd']} = "
+        f"{res['program_calls']} on {smi}")
+    return out, counts_all, d
+
+
+def run_spec_paged(torch, np, lm, smi, reqs, spec_outs):
+    """14d: 14b's mix with the n-gram drafter on a paged engine: 13a's token
+    bars, 0 exhaustions, ``pages_for`` reserving the verify window, the
+    pages in use after the mix exactly the device index's, and the paged
+    verify minted by the warm-up."""
+    def probe(eng):
+        st = eng._stepper
+        return ([(len(p), n, st.pages_for(len(p), n)) for p, n, _ in reqs],
+                [m["key"] for m in eng.compile_ledger.mints()
+                 if m["trigger"] == "warmup"],
+                st._kv_alloc.pages_in_use, st.prefix_index.reclaimable(),
+                st._max_pages_bucket)
+
+    res, counts, outs, stats, (reserve, mints, in_use, held, pbt) = (
+        drive_spec(torch, np, lm, "14d", reqs, [lm], probe=probe,
+                   speculative="ngram", draft_k=4, paged=True))
+    check(stats["paged"]["exhaustions"] == 0,
+          f"14d: {stats['paged']['exhaustions']} pool exhaustions")
+    # the padded axis: 512 + 4 (the k bucket) + 1 positions
+    check(all(n_pages == -(-min(plen + n + 5, 517) // 16)
+              for plen, n, n_pages in reserve),
+          f"14d: pages_for does not reserve the verify window: {reserve[:3]}")
+    check(in_use == held,
+          f"14d: {in_use} pages in use after the mix, the index holds {held}")
+    check(f"paged_verify[5,{pbt}]" in mints,
+          f"14d: the warm-up did not mint paged_verify[5,{pbt}]: {mints}")
+    res.update(agreement_dense=token_agreement(np, outs, spec_outs, reqs),
+               pages_in_use_after=in_use, index_pages=held,
+               pages_for=reserve[:4], warmup_mints=mints,
+               paged=stats["paged"])
+    log(f"14d paged n-gram, 14b's mix: {res['tokens_per_s']:.1f} tokens/s; "
+        f"books {res['speculative']}; 0 exhaustions; pages_for(plen, 64) "
+        f"reserves plen + 64 + 5 positions ({reserve[:2]}); {in_use} pages "
+        f"in use after the mix, all the index's; warm-up mints "
+        f"{mints}; agreement with the dense n-gram replies "
+        f"{res['agreement_dense']:.4f} on {smi}")
+    return res, counts
+
+
+def run_spec_faults(torch, np, lm, smi, d, reqs, spec_outs):
+    """14e: a ``stepper.verify`` seam on one request's windows (it alone
+    fails typed, 15 of 14b's mix equal 14b's n-gram replies); a scheduler
+    crash on a small-draft engine (the supervisor rebuilds a speculative
+    stepper, the drafter re-binds, a request after it is right); the
+    compile ledger (the warm-ups minted ``verify[5]``; 0 storms after the
+    warm set and ``mark_warmed``)."""
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.faults import FaultPlan
+    from distkeras_tpu_torch.serving import InternalError
+
+    out, counts_all = {}, []
+    poison_prompt = np.tile(np.arange(1, 33, dtype=np.int32), 4)
+    eng = hooked_engine(lm, speculative="ngram", draft_k=4)
+    try:
+        bad = None
+
+        def poisoned(ctx):
+            slots = eng.batcher._slots  # the scheduler thread's own
+            return any(r is bad and ctx["active"][i]
+                       for i, r in enumerate(slots))
+
+        plan = FaultPlan().arm("stepper.verify", times=None, when=poisoned)
+        kernels.reset_launch_counts()
+        with plan:
+            handles = [eng.submit(p, n, sampling=s) for p, n, s in reqs[:15]]
+            bad = eng.submit(poison_prompt, 32)
+            outs = [eng.wait(h, timeout=600) for h in handles]
+            try:
+                eng.wait(bad, timeout=600)
+                failed = None
+            except InternalError as e:
+                failed = str(e)
+        counts = kernels.launch_counts()
+        stats = eng.stats()
+    finally:
+        eng.stop()
+    check(failed is not None and "blamed" in failed,
+          f"14e: the poisoned request did not fail blamed: {failed}")
+    check(all(np.array_equal(o, w) for o, w in zip(outs, spec_outs[:15])),
+          "14e: a request beside the poisoned one differs from 14b's")
+    check(stats["quarantines"] == 1 and stats["internal_errors"] == 1,
+          f"14e: {stats['quarantines']} quarantines, "
+          f"{stats['internal_errors']} internal errors")
+    out["verify_seam"] = {"fired": plan.fired("stepper.verify"),
+                          "blame_probes": stats["blame_probes"],
+                          "step_failures": stats["step_failures"],
+                          "launches": counts}
+    counts_all.append(counts)
+    log(f"14e stepper.verify: the poisoned request failed typed, 15 beside "
+        f"it equal 14b's; seam fired {out['verify_seam']['fired']}, blame "
+        f"probes {stats['blame_probes']} on {smi}")
+    eng = hooked_engine(lm, speculative="draft", draft_bundle=d, draft_k=4)
+    try:
+        drafter = eng._stepper.drafter
+        bank = drafter._st
+        p, n, _ = reqs[0]
+        with FaultPlan().arm("scheduler.loop", times=1, after=10,
+                             when=lambda ctx: ctx["busy"]):
+            req = eng.submit(p, n)
+            try:
+                eng.wait(req, timeout=600)
+                err = None
+            except InternalError as e:
+                err = str(e)
+        deadline = time.monotonic() + 60
+        while (not (eng.health()["restarts"] == 1
+                    and eng.health()["status"] == "serving")
+               and time.monotonic() < deadline):
+            time.sleep(0.002)
+        st = eng._stepper
+        check(err is not None and "crashed" in err,
+              f"14e: the crashed scheduler's request did not fail typed: "
+              f"{err}")
+        check(eng.health()["restarts"] == 1 and st.speculative
+              and st.drafter is drafter and drafter._st is not bank
+              and drafter._st.num_slots == st.num_slots,
+              "14e: the supervisor did not rebuild a speculative stepper "
+              "with the drafter re-bound")
+        q, m, _ = reqs[1]
+        kernels.reset_launch_counts()
+        after = eng.generate(q, m, timeout=600)
+        counts = kernels.launch_counts()
+        gap = argmax_gap(torch, np, lm, [after], [reqs[1]])
+        check(gap <= LOGIT_TOL and len(after) == len(q) + m,
+              f"14e: the request after the restart is wrong (gap {gap})")
+        led = eng.compile_ledger
+        warm = [mm["key"] for mm in led.mints()
+                if mm["trigger"] == "warmup" and "verify" in mm["key"]]
+        check(warm == ["verify[5]", "verify[5]"],
+              f"14e: the warm-ups minted {warm}, not verify[5] twice")
+        st.warm_prefill_buckets()
+        st.warm_restore_buckets()
+        led.mark_warmed()
+        kernels.reset_launch_counts()
+        outs, secs = serve_mix(eng, reqs[:8])
+        counts2 = kernels.launch_counts()
+        snap = led.snapshot()
+        gap2 = argmax_gap(torch, np, lm, outs, reqs[:8])
+        spec = spec_books(eng.stats())
+    finally:
+        eng.stop()
+    check(snap["storms"] == 0,
+          f"14e: {snap['storms']} compile storms after mark_warmed: "
+          f"{snap['recent']}")
+    check(gap2 <= LOGIT_TOL, f"14e: a greedy token off its argmax ({gap2})")
+    out["restart"] = {"restart_s": eng.last_restart["seconds"],
+                      "warmup_s": eng.last_restart["warmup_seconds"],
+                      "max_argmax_gap": gap,
+                      "equal_to_14b": bool(np.array_equal(after,
+                                                          spec_outs[1])),
+                      "launches": counts}
+    out["ledger"] = {"warmup_verify_mints": warm,
+                     "after_mark_warmed": {k: snap[k] for k in (
+                         "total", "warmup", "serving", "storms")},
+                     "speculative": spec, "launches": counts2}
+    counts_all += [counts, counts2]
+    log(f"14e restart: a speculative stepper rebuilt in "
+        f"{out['restart']['restart_s']:.3f} s (warmup "
+        f"{out['restart']['warmup_s']:.3f} s, the verify and the draft bank "
+        f"included), the drafter re-bound, the request after it right "
+        f"(equal to 14b's: {out['restart']['equal_to_14b']}); warm-up mints "
+        f"{warm}; after mark_warmed and 8 requests "
+        f"{out['ledger']['after_mark_warmed']} on {smi}")
+    return out, counts_all
+
+
+def run_spec_generator(torch, np, lm, smi, d):
+    """14f: ``SpeculativeGenerator`` with the self-draft (the target
+    itself) and the small draft on 4 prompts: the output equals
+    ``CachedSequenceGenerator``'s greedy decode; rounds per row."""
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.predictors import (
+        CachedSequenceGenerator,
+        SpeculativeGenerator,
+    )
+
+    prompts = np.stack([r[0][:72] for r in templated_mix(np)[:4]])
+    want = CachedSequenceGenerator(lm).generate(prompts, 32)
+    out, counts_all = {}, []
+    for name, draft in (("self", lm), ("small", d)):
+        gen = SpeculativeGenerator(lm, draft, k=4)
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        got = gen.generate(prompts, 32)
+        secs = time.monotonic() - t0
+        counts = kernels.launch_counts()
+        check(np.array_equal(got, want),
+              f"14f {name}: the output differs from the greedy decode")
+        check(counts["layernorm_fwd"] > 0 and counts["flash_fwd"] == 0,
+              f"14f {name}: did not run through B7 alone: {counts}")
+        out[name] = {"rounds": gen.last_rounds.tolist(), "seconds": secs,
+                     "tokens_per_s": 4 * 32 / secs, "launches": counts}
+        counts_all.append(counts)
+        log(f"14f SpeculativeGenerator {name}-draft: equal to greedy decode, "
+            f"rounds per row {out[name]['rounds']} for 32 tokens, "
+            f"{out[name]['tokens_per_s']:.1f} tokens/s on {smi}")
+    return out, counts_all
+
+
+def run_phase14(torch, np, lm, smi, zoo, gen, gen_reqs, gen_outs):
+    """Phase 14, speculative decode on the card; returns the results and
+    the launch counts of each subphase's main path."""
+    out = {}
+    t0 = time.monotonic()
+    out["ngram_mix"], c_a = run_spec_ngram_mix(torch, np, lm, smi, gen,
+                                               gen_reqs, gen_outs)
+    reqs = templated_mix(np)
+    out["templated"], c_b, spec_outs = run_spec_templated(torch, np, lm, smi,
+                                                          reqs)
+    out["model_drafts"], c_c, d = run_spec_model_drafts(
+        torch, np, lm, smi, zoo, gen, gen_reqs, gen_outs)
+    out["paged"], c_d = run_spec_paged(torch, np, lm, smi, reqs, spec_outs)
+    out["faults"], c_e = run_spec_faults(torch, np, lm, smi, d, reqs,
+                                         spec_outs)
+    out["generator"], c_f = run_spec_generator(torch, np, lm, smi, d)
+    del d
+    detach_hooks(lm)
+    out["seconds_total"] = time.monotonic() - t0
+    counts = [c_a, *c_b, *c_c, c_d, *c_e, *c_f]
+    out["launches"] = {k: sum(c.get(k, 0) for c in counts)
+                       for k in counts[0]}
+    return out, counts
+
+
 def baseline_leaf_shapes():
     """The parameter shapes of configs 2-5's models (built on the CPU: only
     their leaf tables matter to phases 2b/2c)."""
@@ -4682,9 +5171,42 @@ def profile_resnet_window(torch, np, windows=3):
     return out
 
 
+class FixedProposals:
+    """A drafter that proposes ``k`` tokens (all 1) for every active slot,
+    so every ``spec_step`` runs the verify (the profile's window)."""
+
+    name = "fixed"
+    wants_sequences = False
+
+    def bind(self, stepper):
+        pass
+
+    def warmup(self):
+        pass
+
+    def admit(self, slot, prompt):
+        pass
+
+    def release(self, slot):
+        pass
+
+    def invalidate(self, mask):
+        pass
+
+    def sync(self, active, toks, counts, lens0):
+        pass
+
+    def propose(self, active, k, seqs):
+        import numpy as np
+
+        return (np.ones((len(active), k), np.int32),
+                np.where(active, k, 0).astype(np.int32))
+
+
 def profile_paths(torch, np, lm, zoo, steps=20):
     """Where the time goes (``--profile``): a decode step with 8 busy slots
-    on the LayerNorm-hooked model, one predict forward (8 x 512) with both
+    on the LayerNorm-hooked model (dense and paged), a verify window of 5
+    candidates on the same 8 slots, one predict forward (8 x 512) with both
     hooks, one training step and one async window — host wall per call
     (synchronized), device kernel time per call, the device's idle share,
     and the kernels that take the most device time."""
@@ -4704,28 +5226,35 @@ def profile_paths(torch, np, lm, zoo, steps=20):
     attach_fused_layernorm(lm)
     rng = np.random.default_rng(9)
     prompts = [rng.integers(0, 8192, 64) for _ in range(8)]
-    # the dense step and the same step on the paged pool (8 slots reserved
+    # the dense step, the same step on the paged pool (8 slots reserved
     # to capacity, so the tables bucket to 32 pages: the dense step's
-    # 512-position extent), their walls taken in turns
+    # 512-position extent) and a verify window of 5 candidates (every call
+    # verifies 4 fixed proposals per slot), their walls taken in turns
+    gc.collect()
     st = DecodeStepper(lm, num_slots=8)
     pst = DecodeStepper(lm, num_slots=8, paged=True)
+    vst = DecodeStepper(lm, num_slots=8, speculative=FixedProposals(),
+                        draft_k=4)
+    vst.warmup()
     for i, p in enumerate(prompts):
-        st.admit(i, p)
-        pst.admit(i, p)
+        for s in (st, pst, vst):
+            s.admit(i, p)
     active = np.ones(8, bool)
     out = {}
-    walls = {"dense": [], "paged": []}
-    for kind in ("dense", "paged", "paged", "dense"):
-        s = st if kind == "dense" else pst
-        walls[kind].append(wall_ms(lambda: s.step(active), steps))
-    decode = {"wall_ms": sum(walls["dense"]) / 2, "wall_ms_turns":
-              walls["dense"],
-              **device_profile(torch, lambda: st.step(active), steps)}
-    paged = {"wall_ms": sum(walls["paged"]) / 2, "wall_ms_turns":
-             walls["paged"],
-             **device_profile(torch, lambda: pst.step(active), steps),
-             "table_bucket": pst._table_bucket()}
-    del st, pst
+    calls = {"dense": lambda: st.step(active),
+             "paged": lambda: pst.step(active),
+             "verify": lambda: vst.spec_step(active)}
+    walls = {kind: [] for kind in calls}
+    for kind in ("dense", "paged", "verify", "verify", "paged", "dense"):
+        walls[kind].append(wall_ms(calls[kind], steps))
+    prof = {kind: {"wall_ms": sum(walls[kind]) / 2,
+                   "wall_ms_turns": walls[kind],
+                   **device_profile(torch, calls[kind], steps)}
+            for kind in calls}
+    decode, paged, verify = prof["dense"], prof["paged"], prof["verify"]
+    paged["table_bucket"] = pst._table_bucket()
+    verify["verify_steps"] = vst.spec_verify_steps
+    del st, pst, vst
     attach_flash_attention(lm)
     x = torch.as_tensor(rng.integers(0, 8192, (8, 512)), device="cuda")
 
@@ -4740,7 +5269,7 @@ def profile_paths(torch, np, lm, zoo, steps=20):
     async_window = profile_async_window(torch, np, zoo)
     resnet_window = profile_resnet_window(torch, np)
     for name, r in (("decode_step", decode), ("paged_decode_step", paged),
-                    ("predict_forward", predict),
+                    ("verify_window", verify), ("predict_forward", predict),
                     ("train_step", train), ("async_window", async_window),
                     ("resnet18_dynsgd_window", resnet_window)):
         if r["device_ms"] is not None:
@@ -4877,12 +5406,16 @@ def main(argv):
                                           gen_outs)
     log(f"phase 13 in {paging['seconds_total']:.1f} s, launches "
         f"{paging['launches']} on {smi}")
+    spec, spec_launches = run_phase14(torch, np, lm, smi, zoo, gen,
+                                      gen_reqs, gen_outs)
+    log(f"phase 14 in {spec['seconds_total']:.1f} s, launches "
+        f"{spec['launches']} on {smi}")
     profile = profile_paths(torch, np, lm, zoo) if args.profile else None
 
     phases = [pred["launches"], gen["launches"], train["launches"],
               async_thr["launches"], baseline_launches, resume_launches,
               member_launches, socket_launches, *front_launches,
-              *healing_launches, *paging_launches,
+              *healing_launches, *paging_launches, *spec_launches,
               *(r["launches"] for r in async_sim.values())]
     launches = {k: sum(c.get(k, 0) for c in phases) for k in kernels.LAUNCHES}
     check(all(n > 0 for n in launches.values()),
@@ -4949,6 +5482,7 @@ def main(argv):
                        "resume": resume, "phase9": members,
                        "phase10": socket_tier, "phase11": front,
                        "phase12": healing, "phase13": paging,
+                       "phase14": spec,
                        "profile": profile,
                        "flash_infinite_q": inf_rows},
                       f, indent=1)

@@ -1,7 +1,8 @@
 """Inference over Datasets and autoregressive decode (PyTorch port of
 ``distkeras_tpu.predictors``: ``ModelPredictor`` on one device,
 ``SequenceGenerator`` and ``CachedSequenceGenerator`` with greedy and
-sampled ragged decode; beam search and speculative decode wait).
+sampled ragged decode, and ``SpeculativeGenerator``'s draft-and-verify
+greedy decode; beam search waits).
 
 JAX compiles each decode into one program; here PyTorch runs eagerly, so
 the scan is a Python loop and the K/V caches are updated in place. The
@@ -388,3 +389,98 @@ class CachedSequenceGenerator(SequenceGenerator):
             logit = self._head(self._final_ln(x))
             nxt = self._next_token(logit, pos, lens, rows)
             tok = self._masked_write(ctx, lens, steps, pos, nxt)
+
+
+class SpeculativeGenerator:
+    """Draft-and-verify (speculative) greedy decoding: a small DRAFT model
+    proposes ``k`` tokens per round from its own K/V caches, the TARGET
+    model verifies all ``k + 1`` positions in one chunked forward, and the
+    longest agreeing prefix plus the target's correction are accepted. The
+    output is the target's greedy decode; the draft changes only how many
+    target forwards it takes (at least one token per round).
+
+    JAX runs each row as one compiled ``while_loop``; here each row is a
+    host loop over rounds (one host sync per round, for the accepted
+    count). Rows decode one after another. ``last_rounds`` holds the
+    rounds per row of the last ``generate``."""
+
+    def __init__(self, target, draft, k=4, device=None):
+        self._t = CachedSequenceGenerator(target, device=device)
+        self._d = CachedSequenceGenerator(draft, device=device)
+        self.k = int(k)
+        if self.k < 1:
+            raise ValueError(f"k must be >= 1; got {k}")
+        if self._t._emb.vocab_size != self._d._emb.vocab_size:
+            raise ValueError(
+                "target and draft must share a vocabulary; got "
+                f"{self._t._emb.vocab_size} vs {self._d._emb.vocab_size}"
+            )
+        if target.input_shape[0] != draft.input_shape[0]:
+            raise ValueError(
+                "target and draft must be built to the same sequence "
+                f"length; got {target.input_shape[0]} vs "
+                f"{draft.input_shape[0]}"
+            )
+        self.target, self.draft = target, draft
+        self.device = self._t.device
+        self.last_rounds = None
+
+    def generate(self, prompts, steps, eos_id=None):
+        """(B, P) prompts -> the TARGET's greedy continuation, decoded
+        speculatively; the other generators' return conventions ((B,
+        P + steps) array; a list of trimmed rows with ``eos_id``)."""
+        self.k = int(self.k)
+        if self.k < 1:  # re-validated: k is a mutable attribute
+            raise ValueError(f"k must be >= 1; got {self.k}")
+        prompts, steps, seq_len = self._t._validate_generate_args(
+            np.asarray(prompts), steps
+        )
+        p = prompts.shape[1]
+        outs, rounds = [], []
+        for row in prompts:
+            out, n = self._decode_row(row, p, steps, seq_len)
+            outs.append(out.astype(prompts.dtype))
+            rounds.append(n)
+        self.last_rounds = np.asarray(rounds)
+        out = np.stack(outs)
+        if eos_id is None:
+            return out
+        return [SequenceGenerator._trim_eos(r, p, int(eos_id)) for r in out]
+
+    @torch.no_grad()
+    def _decode_row(self, row, p, steps, seq_len):
+        """One row's rounds: a k+1-step draft chunk (the extra step writes
+        the draft's K/V at the last proposed position, so a fully accepted
+        round leaves no hole in its cache), then the target's k+1-token
+        extension and the accepted segment written at ``pos + 1``. The
+        buffers are padded by k+1 so overrun lands in masked scratch."""
+        k, tgen, dgen = self.k, self._t, self._d
+        t_pad = seq_len + k + 1
+        dev = self.device
+        ctx = torch.zeros((1, t_pad), dtype=torch.int64, device=dev)
+        ctx[0, :p] = torch.as_tensor(np.asarray(row, np.int64), device=dev)
+        t_caches = tgen._decode_prologue(ctx, p, cache_len=t_pad)
+        d_caches = dgen._decode_prologue(ctx, p, cache_len=t_pad)
+        t_idx = torch.arange(t_pad, device=dev)
+        cand = torch.arange(k + 1, device=dev)
+        pos, n_gen, rounds = p - 1, 0, 0
+        while n_gen < steps:
+            tok, props = ctx[:, pos], []
+            for j in range(k + 1):
+                x = dgen.embed(tok, pos + j)
+                x = dgen._stages_decode(d_caches, x, pos + j,
+                                        t_idx <= pos + j)
+                tok = torch.argmax(dgen._head(dgen._final_ln(x)), dim=-1)
+                props.append(tok)
+            d_toks = torch.cat(props[:k])  # (k,)
+            chunk = torch.cat([ctx[0, pos : pos + 1], d_toks])
+            x = tgen.embed(chunk[None], pos + cand)  # (1, k+1, d)
+            qmask = t_idx[None, :] <= (pos + cand)[:, None]
+            for blk, (ck, cv) in zip(tgen._blocks, t_caches):
+                x = tgen._stage_chunk(blk, x, ck, cv, pos, qmask)
+            t_arg = torch.argmax(tgen._head(tgen._final_ln(x))[0], dim=-1)
+            n_acc = int((d_toks == t_arg[:k]).long().cumprod(0).sum())
+            n_new = min(n_acc + 1, steps - n_gen)
+            ctx[0, pos + 1 : pos + 1 + n_new] = t_arg[:n_new]
+            pos, n_gen, rounds = pos + n_new, n_gen + n_new, rounds + 1
+        return ctx[0, : p + steps].cpu().numpy(), rounds

@@ -6,7 +6,9 @@ client.
   windowed batching for batch scoring, backpressure, deadlines, drain,
   streaming chunk FIFOs) and the typed serving errors.
 - ``engine``: the device face (``DecodeStepper``: a dense bank or, with
-  ``paged=True``, block-paged K/V pools) and ``ServingEngine``, with its
+  ``paged=True``, block-paged K/V pools; with ``speculative=``, the
+  draft -> verify -> rollback loop over ``NgramDrafter`` or
+  ``ModelDrafter``) and ``ServingEngine``, with its
   metrics registry, recorder, history, SLOs and trace ring;
   ``ServingEngine.from_bundle`` boots from a quantized serving bundle.
 - ``paging``: ``PageAllocator``, the host half of the paged KV cache
@@ -16,7 +18,8 @@ client.
   tier's ``DevicePrefixIndex`` (page-aligned prefixes shared by
   reference, reclaimed under pool pressure). ``ServingEngine`` builds a
   store by default (``prefix_cache=True``).
-- ``sampling``: per-request ``SamplingParams`` and the counter-based RNG.
+- ``sampling``: per-request ``SamplingParams``, the counter-based RNG and
+  the speculative window samplers.
 - ``server``/``client``: the length-prefixed TCP wire carrying DKT1
   frames — ``ServingServer``/``serve`` and ``ServingClient``/
   ``TokenStream`` (streaming generate), byte-compatible with the JAX
@@ -60,7 +63,12 @@ from distkeras_tpu_torch.serving.prefix_cache import (
     DevicePrefixIndex,
     PrefixStore,
 )
-from distkeras_tpu_torch.serving.engine import DecodeStepper, ServingEngine
+from distkeras_tpu_torch.serving.engine import (
+    DecodeStepper,
+    ModelDrafter,
+    NgramDrafter,
+    ServingEngine,
+)
 from distkeras_tpu_torch.serving.resilience import (
     LatencyTracker,
     RetryBudget,
@@ -77,6 +85,8 @@ __all__ = [
     "EngineStoppedError",
     "InternalError",
     "LatencyTracker",
+    "ModelDrafter",
+    "NgramDrafter",
     "OverlapLedger",
     "OverloadedError",
     "PageAllocator",

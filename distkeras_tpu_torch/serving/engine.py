@@ -1,6 +1,6 @@
 """The serving runtime's device face (PyTorch port of
-``distkeras_tpu.serving.engine``: the dense bank, the block-paged pool and
-the prefix cache).
+``distkeras_tpu.serving.engine``: the dense bank, the block-paged pool,
+the prefix cache and speculative decode).
 
 - ``DecodeStepper``: a bank of ``num_slots`` sequence slots over a causal
   LM. Per slot: one row of the (B, T) token buffer and either one row of
@@ -14,13 +14,18 @@ the prefix cache).
   position, attends one row against its caches or gathered pages and
   appends the greedy or sampled token — inactive slots freeze.
   ``step_async`` enqueues the same step and hands back a handle whose
-  ``collect()`` is the one host sync. Greedy slot output is the solo
+  ``collect()`` is the one host sync. With a draft source
+  (``speculative=``: ``NgramDrafter`` or ``ModelDrafter``) the scheduler
+  drives ``spec_step`` instead: up to ``draft_k`` proposals per slot, one
+  verify call over the ``draft_k + 1`` candidate positions, and 1 to
+  ``draft_k + 1`` accepted tokens per slot. Greedy slot output is the solo
   ``CachedSequenceGenerator`` decode, token for token, on every admission
-  path. The caches, pools and the token buffer are updated in place. The
-  ``stepper.step``/``stepper.prefill`` fault seams fire before any work,
-  and a failed call advances nothing; a paged admission the pool cannot
-  cover raises the typed ``PoolExhaustedError`` before any slot state
-  changes.
+  path and with or without a drafter; a sampled stream is the plain
+  sampled stream. The caches, pools and the token buffer are updated in
+  place. The ``stepper.step``/``stepper.prefill``/``stepper.verify``
+  fault seams fire before any work, and a failed call advances nothing;
+  a paged admission the pool cannot cover raises the typed
+  ``PoolExhaustedError`` before any slot state changes.
 - ``ServingEngine``: continuous-batching generate plus windowed batch
   scoring (``predict``), driven by a scheduler thread (the overlapped loop
   by default) and watched by a supervisor thread that restarts a dead or
@@ -39,13 +44,16 @@ carrying an attention hook (``attach_flash_attention``) is refused by the
 cached generator, and the engine then serves ``predict`` only — JAX's
 behaviour, kept.
 
+Every LayerNorm of the verify goes through the same hook, 2 per block +
+the final one per window (and per draft step of a hooked draft model).
+
 Not ported yet (and absent from the signatures, so passing one fails
-loudly): speculative decode, CoW slot forks (``fork_slot``, ``n > 1``
-completions), QoS and its KV swap (``tenant`` and ``priority`` only label
-metrics), meshes, disaggregation roles and their ``prefill``/``resume``
-faces, the KV epoch and fabric (``kv_transfer``, ``serve_prefix``, the
-``kv_fabric`` health block), load shedding, CUDA graphs around the decode
-step, bf16 K/V caches (``kv_dtype``).
+loudly): CoW slot forks (``fork_slot``, ``n > 1`` completions), QoS and
+its KV swap (``tenant`` and ``priority`` only label metrics), grammar
+masks and the masked verify, meshes, disaggregation roles and their
+``prefill``/``resume`` faces, the KV epoch and fabric (``kv_transfer``,
+``serve_prefix``, the ``kv_fabric`` health block), load shedding, CUDA
+graphs around the decode step, bf16 K/V caches (``kv_dtype``).
 """
 
 from __future__ import annotations
@@ -127,6 +135,209 @@ def in_warmup() -> bool:
     return _WARM_SCOPE.depth > 0
 
 
+class NgramDrafter:
+    """Model-free draft source: prompt lookup. Proposes the ``k`` tokens
+    that followed the most recent earlier occurrence of the sequence's
+    current suffix (longest match first, ``ngram_max`` down to
+    ``ngram_min`` tokens) — a pure host function of each slot's sequence
+    so far, with no model and no device state. A slot whose suffix recurs
+    nowhere proposes nothing, and an iteration where no slot proposes
+    falls back to the plain step.
+
+    Accidental matches in incompressible traffic drag every active slot
+    through a verify to accept one token, so the drafter throttles on
+    feedback (``sync``): a slot whose proposals were all rejected
+    ``cold_after`` windows in a row stops proposing for ``retry_every``
+    windows, then probes again."""
+
+    name = "ngram"
+    wants_sequences = True  # the batcher passes prompt+emitted per slot
+
+    def __init__(self, ngram_max=3, ngram_min=2, k=None, cold_after=3,
+                 retry_every=16):
+        self.ngram_max = int(ngram_max)
+        self.ngram_min = int(ngram_min)
+        if not 1 <= self.ngram_min <= self.ngram_max:
+            raise ValueError(
+                f"need 1 <= ngram_min <= ngram_max; got "
+                f"{ngram_min}, {ngram_max}"
+            )
+        self.cold_after = int(cold_after)
+        self.retry_every = int(retry_every)
+        self._streak = None  # per-slot consecutive all-rejected windows
+        self._pause = None  # per-slot windows left to sit out
+        self._proposed = None  # slots that proposed in the live round
+        del k  # accepted for symmetry; the stepper passes k per call
+
+    def bind(self, stepper):
+        b = stepper.num_slots
+        self._streak = np.zeros(b, np.int64)
+        self._pause = np.zeros(b, np.int64)
+        self._proposed = np.zeros(b, bool)
+
+    def warmup(self):
+        pass
+
+    def admit(self, slot, prompt):
+        self._streak[slot] = 0
+        self._pause[slot] = 0
+
+    def release(self, slot):
+        self._streak[slot] = 0
+        self._pause[slot] = 0
+
+    def invalidate(self, mask):
+        pass
+
+    def sync(self, active, toks, counts, lens0):
+        """Acceptance feedback: ``counts[i] - 1`` of slot i's proposals
+        were accepted this window. All-rejected windows build the throttle
+        streak; any acceptance resets it."""
+        del toks, lens0
+        judged = np.asarray(active, bool) & self._proposed
+        rejected = judged & (np.asarray(counts) <= 1)
+        self._streak[judged & ~rejected] = 0
+        self._streak[rejected] += 1
+        cold = self._streak >= self.cold_after
+        self._pause[cold] = self.retry_every
+        self._streak[cold] = 0
+
+    def propose(self, active, k, seqs):
+        """(B, k) int32 proposals and (B,) counts. Slots without an
+        earlier occurrence of their suffix (or without a sequence), and
+        slots sitting out a pause, get count 0. ``seqs[i]`` is a 1-D
+        sequence or a zero-copy ``(prompt, emitted)`` pair."""
+        b = active.shape[0]
+        dtoks = np.zeros((b, k), np.int32)
+        dcnt = np.zeros((b,), np.int32)
+        self._proposed[:] = False
+        if seqs is None:
+            return dtoks, dcnt
+        from numpy.lib.stride_tricks import sliding_window_view
+
+        for i in np.flatnonzero(active):
+            if self._pause[i] > 0:
+                self._pause[i] -= 1
+                continue
+            s = seqs[i]
+            if s is None:
+                continue
+            if isinstance(s, tuple):
+                prompt, toks = s
+                s = (
+                    np.concatenate([prompt, np.asarray(toks, prompt.dtype)])
+                    if len(toks) else np.asarray(prompt)
+                )
+            if s.size < self.ngram_min + 1:
+                continue
+            ln = s.size
+            for n in range(min(self.ngram_max, ln - 1),
+                           self.ngram_min - 1, -1):
+                pat = s[ln - n:]
+                # windows ending before the suffix itself; the LAST
+                # earlier occurrence wins (most recent context)
+                hits = np.flatnonzero(
+                    (sliding_window_view(s, n)[: ln - n] == pat).all(1)
+                )
+                if hits.size:
+                    j = int(hits[-1])
+                    cont = s[j + n : j + n + k]
+                    dtoks[i, : cont.size] = cont
+                    dcnt[i] = cont.size
+                    self._proposed[i] = True
+                    break
+        return dtoks, dcnt
+
+
+class ModelDrafter:
+    """Draft source backed by a small draft LM: the draft model runs its
+    own quiet slot bank (a nested plain ``DecodeStepper`` with the same
+    slots, scratch-padded so over-draft writes land past the real
+    positions, its fault seams silent and its programs off the compile
+    ledger), admitted and released in lockstep with the target's slots.
+    Each round proposes ``k`` greedy draft tokens through ``k + 1`` draft
+    steps — the extra step writes the draft's K/V at the last proposed
+    position, so a fully accepted window leaves no hole in the draft's
+    cache — and ``sync`` rolls the draft's context row and length back to
+    the accepted sequence after the verify. A draft-side failure never
+    fails a request: the slot stops proposing until its next admission.
+    The draft's prompt prefill runs whole, on the scheduler thread, the
+    iteration its slot turns decodable (a draft worth serving is many
+    times smaller than the target)."""
+
+    name = "draft_lm"
+    wants_sequences = False
+
+    def __init__(self, model):
+        self.model = model
+        self._st = None
+        self._valid = None
+
+    def bind(self, stepper):
+        """(Re)build the nested draft bank against ``stepper``'s geometry
+        — called from ``DecodeStepper.__init__``, the supervisor's
+        rebuilds included."""
+        tgt = stepper
+        if self.model.input_shape[0] != tgt.max_len:
+            raise ValueError(
+                "draft and target must be built to the same sequence "
+                f"length; got {self.model.input_shape[0]} vs {tgt.max_len}"
+            )
+        self._st = DecodeStepper(
+            self.model, num_slots=tgt.num_slots, temperature=0.0,
+            device=tgt.device,
+            scratch=_bucket_pow2(tgt.draft_k, tgt.max_len) + 2, _quiet=True,
+        )
+        if self._st._gen._emb.vocab_size != tgt._gen._emb.vocab_size:
+            raise ValueError(
+                "draft and target must share a vocabulary; got "
+                f"{self._st._gen._emb.vocab_size} vs "
+                f"{tgt._gen._emb.vocab_size}"
+            )
+        self._st.on_compile = lambda: (
+            tgt.on_compile() if tgt.on_compile is not None else None
+        )
+        self._valid = np.zeros(tgt.num_slots, bool)
+
+    def warmup(self):
+        self._st.warmup()
+
+    def admit(self, slot, prompt):
+        self._st.admit(slot, prompt)
+        self._valid[slot] = True
+
+    def release(self, slot):
+        self._valid[slot] = False
+        self._st.release(slot)
+
+    def invalidate(self, mask):
+        """A draft-side failure: these slots stop proposing (the engine
+        decodes them one token per iteration)."""
+        self._valid[np.asarray(mask, bool)] = False
+
+    def propose(self, active, k, seqs):
+        del seqs
+        act = np.asarray(active, bool) & self._valid
+        b = act.shape[0]
+        dtoks = np.zeros((b, k), np.int32)
+        if not act.any():
+            return dtoks, np.zeros((b,), np.int32)
+        toks = [self._st.step(act) for _ in range(k + 1)]
+        for j in range(k):  # the k+1-th step's proposal is discarded
+            dtoks[act, j] = np.asarray(toks[j])[act]
+        return dtoks, np.where(act, k, 0).astype(np.int32)
+
+    def sync(self, active, toks, counts, lens0):
+        """Roll the draft bank back to the verified truth: the accepted
+        tokens over the draft's proposals (only the target's correction
+        differs) and the draft lengths reset to the target's."""
+        act = np.asarray(active, bool) & self._valid
+        if not act.any():
+            return
+        self._st.write_segment(act, toks, counts, lens0)
+        self._st._lens[act] = lens0[act] + counts[act]
+
+
 class _InflightStep:
     """One enqueued-but-uncollected decode step: the stepper, the active
     mask it was issued with, and its (B,) token vector. On the card the
@@ -172,7 +383,7 @@ class _InflightStep:
         toks = self._host.numpy().copy()
         self._host = self._event = None
         st, active = self._stepper, self.active
-        st._lens[active] = np.minimum(st._lens[active] + 1, st.max_len)
+        st._lens[active] = np.minimum(st._lens[active] + 1, st._lens_cap)
         # the RNG counter mirrors the length discipline: replay through
         # blame probes is this line
         st._spos[active] += 1
@@ -220,12 +431,29 @@ class DecodeStepper:
     ``paged_chunk[cb,pbt]``, ``paged_restore[pbk,pbt]`` and
     ``paged_step[pbt]`` paged — the JAX package's keys and pow2 buckets.
     ``on_compile``: called right before such a first call (the engine's
-    watchdog extends its wedge grace through it)."""
+    watchdog extends its wedge grace through it).
+
+    ``speculative``: a draft source (``NgramDrafter``, ``ModelDrafter`` or
+    any object with their protocol). The scheduler then drives
+    ``spec_step``: up to ``draft_k`` proposals per active slot, one verify
+    call scoring all ``c = _kb + 1`` candidate positions against the live
+    caches (key ``verify[c]`` dense, ``paged_verify[c,pbt]`` paged at the
+    fixed extent), and the accepted window: greedy slots the longest
+    argmax-agreeing prefix plus the target's correction, sampled slots
+    (``spec_mode="rejection"``, the default) the drafts equal to the
+    plain step's position-keyed draws. ``spec_mode="strict"`` refuses any
+    sampling config. ``scratch``: masked positions padded onto the time
+    axis so verify and over-draft writes land past the real sequence
+    (default ``_kb + 1`` when speculative, else 0); paged, ``pages_for``
+    reserves the verify window too. ``_quiet``: silent fault seams and no
+    compile ledger — the nested draft bank of a ``ModelDrafter``."""
 
     def __init__(self, model, num_slots=8, temperature=0.0, seed=0,
                  top_k=None, top_p=None, device=None, compile_ledger=None,
                  prefix_cache=None, paged=False, page_size=16,
-                 num_pages=None, recorder=None):
+                 num_pages=None, recorder=None, speculative=None,
+                 draft_k=4, spec_mode="rejection", scratch=None,
+                 _quiet=False):
         # the generator's model-family validation, block parsing and
         # per-stage bodies, reused wholesale
         self._gen = CachedSequenceGenerator(
@@ -238,7 +466,24 @@ class DecodeStepper:
         if self.num_slots < 1:
             raise ValueError(f"num_slots must be >= 1; got {num_slots}")
         self.max_len = int(model.input_shape[0])
-        b, t = self.num_slots, self.max_len
+        self.drafter = speculative if speculative else None
+        self.draft_k = int(draft_k)
+        if self.draft_k < 1:
+            raise ValueError(f"draft_k must be >= 1; got {draft_k}")
+        self._kb = _bucket_pow2(self.draft_k, self.max_len)
+        self.spec_mode = spec_mode
+        if self.drafter is not None:
+            self.spec_mode = _sp.check_spec_sampling(
+                spec_mode, temperature, top_k, top_p
+            )
+        if scratch is None:
+            scratch = self._kb + 1 if self.drafter is not None else 0
+        self._tp = self.max_len + int(scratch)  # padded time axis
+        # a plain stepper keeps the max_len cap; a scratch-padded one may
+        # walk into the pad
+        self._lens_cap = self.max_len + max(0, int(scratch) - 1)
+        self._quiet = bool(_quiet)
+        b, t = self.num_slots, self._tp
         self._nh, self._hd = self._gen.num_heads, self._gen.head_dim
         self._ctx = torch.zeros((b, t), dtype=torch.int64, device=self.device)
         self.paged = bool(paged)
@@ -299,11 +544,40 @@ class DecodeStepper:
         # in-progress admissions: slot -> pending prompt / next position
         self._pending: dict[int, np.ndarray] = {}
         self._prefill_pos: dict[int, int] = {}
-        self.ledger = compile_ledger
+        # the nested draft bank records no mints: its programs belong to
+        # the drafter, not to the serving path
+        self.ledger = None if self._quiet else compile_ledger
         self.on_compile = None
         self._warming = False  # True inside warmup(): mints off-path
         # (program key, signature) pairs run on this bank
         self._called: set[tuple] = set()
+        # speculation's books: prompts kept for draft admission, slots with
+        # a draft admitted, the proposal cache that keeps a blame probe
+        # from re-advancing the draft bank, and the counters stats() reads
+        self._spec_prompts: dict[int, np.ndarray] = {}
+        self._spec_admitted: set[int] = set()
+        self._spec_pending = None  # (lens snapshot, dtoks, dcnt)
+        self.spec_verify_steps = 0
+        self.spec_fallback_steps = 0
+        self.spec_drafted_tokens = 0
+        if self.drafter is not None:
+            self.drafter.bind(self)
+
+    @property
+    def speculative(self) -> bool:
+        return self.drafter is not None
+
+    @property
+    def wants_sequences(self) -> bool:
+        """True when the draft source reads each slot's host sequence so
+        far (prompt + emitted); the batcher then builds them."""
+        return self.drafter is not None and self.drafter.wants_sequences
+
+    def _fire(self, site, **ctx):
+        """A fault seam, silent on a quiet (nested draft) stepper: seams
+        armed against live traffic must not trip on the draft's steps."""
+        if not self._quiet:
+            faults.fire(site, **ctx)
 
     # -- host inputs and program mints --------------------------------------
 
@@ -401,9 +675,12 @@ class DecodeStepper:
 
     def pages_for(self, prompt_len: int, max_new: int) -> int:
         """Pages a request needs end to end (prompt plus decode budget,
-        page-rounded): what admission reserves and the scheduler gates
-        on."""
-        need = min(int(prompt_len) + int(max_new), self.max_len)
+        plus the verify window when speculative, page-rounded): what
+        admission reserves and the scheduler gates on."""
+        need = int(prompt_len) + int(max_new)
+        if self.drafter is not None:
+            need += self._kb + 1  # verify writes walk into the scratch
+        need = min(need, self._tp)
         return max(1, -(-need // self.page_size))
 
     @property
@@ -458,7 +735,7 @@ class DecodeStepper:
         reservation (None reserves to capacity). The ``stepper.prefill``
         seam fires first, and a ``PoolExhaustedError`` leaves the slot
         (sampler state included) as it was."""
-        faults.fire("stepper.prefill", slot=slot)
+        self._fire("stepper.prefill", slot=slot)
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         plen = prompt.size
         if not 1 <= plen <= self.max_len:
@@ -481,6 +758,11 @@ class DecodeStepper:
             self._restore_prefix(slot, kv)
         self._pending[slot] = prompt
         self._prefill_pos[slot] = start
+        if self.drafter is not None:
+            # kept for draft admission once the slot turns decodable; the
+            # proposal cache is stale once the slot composition changes
+            self._spec_prompts[slot] = prompt
+            self._spec_pending = None
         self._lens[slot] = plen
         if start >= target:
             self._finish_admit(slot)
@@ -542,7 +824,7 @@ class DecodeStepper:
             self._kv_alloc.free(pages, reason="release")
 
     def _write_row(self, slot, row):
-        self._ctx[slot] = self._to_dev(row)
+        self._ctx[slot, : self.max_len] = self._to_dev(row)
 
     @torch.no_grad()
     def prefill_chunk(self, slot: int, budget: int) -> int:
@@ -556,7 +838,7 @@ class DecodeStepper:
         package, a chunk whose pow2 bucket would run past the cache (dense)
         or the slot's reserved pages (paged) shrinks to the largest pow2
         that fits. The ``stepper.prefill`` seam fires first."""
-        faults.fire("stepper.prefill", slot=slot)
+        self._fire("stepper.prefill", slot=slot)
         prompt = self._pending.get(slot)
         if prompt is None:
             return 0  # released underneath us
@@ -571,7 +853,7 @@ class DecodeStepper:
                 cb = _bucket_pow2(n, self.max_len)
                 room = (
                     len(self._tables[slot]) * self.page_size - pos
-                    if self.paged else self.max_len - pos
+                    if self.paged else self._tp - pos
                 )
                 if cb > room:
                     cb = 1 << (room.bit_length() - 1)  # largest pow2 <= room
@@ -608,7 +890,7 @@ class DecodeStepper:
         toks = self._to_dev(prompt[None, pos : pos + n])
         positions = torch.arange(pos, pos + n, device=self.device)
         x = self._gen.embed(toks, positions)
-        qmask = self._t_idx[None, : self.max_len] <= positions[:, None]
+        qmask = self._t_idx[None, : self._tp] <= positions[:, None]
         for blk, (ck, cv) in zip(self._gen._blocks, self._slot_caches(slot)):
             x = self._gen._stage_chunk(blk, x, ck, cv, pos, qmask)
 
@@ -752,6 +1034,11 @@ class DecodeStepper:
             # a quarantined or evicted slot gives its pages back now;
             # shared prefix pages live on through the index's references
             self._free_slot_pages(slot)
+        self._spec_prompts.pop(slot, None)
+        if slot in self._spec_admitted:
+            self._spec_admitted.discard(slot)
+            self._spec_pending = None
+            self.drafter.release(slot)
 
     def warmup(self) -> None:
         """All-inactive steps off the serving path: build the kernels the
@@ -761,23 +1048,32 @@ class DecodeStepper:
         Paged, every pow2 ``paged_step`` bucket up to ``_max_pages_bucket``
         runs once, so no step mints on the serving path whatever the
         longest table. It does not go through ``step``, so it never fires
-        an armed ``stepper.step`` seam. Mints record ``trigger="warmup"``;
-        declaring the warm set complete (``compile_ledger.mark_warmed()``)
-        is the harness's call."""
+        an armed ``stepper.step`` seam. Speculative, the verify runs once
+        too (every write masked) and the drafter warms its own programs, so
+        a supervisor restart never mints a verify on the serving path.
+        Mints record ``trigger="warmup"``; declaring the warm set complete
+        (``compile_ledger.mark_warmed()``) is the harness's call."""
         active = np.zeros(self.num_slots, bool)
 
         def warm():
             if not self.paged:
                 self._run("step[plain]", self._step_dev, active,
                           self._lens.copy())
-                return
-            pbt = 1
-            while True:
-                self._run(f"paged_step[{pbt}]", self._step_dev, active,
-                          self._lens.copy(), pbt)
-                if pbt >= self._max_pages_bucket:
-                    break
-                pbt <<= 1
+            else:
+                pbt = 1
+                while True:
+                    self._run(f"paged_step[{pbt}]", self._step_dev, active,
+                              self._lens.copy(), pbt)
+                    if pbt >= self._max_pages_bucket:
+                        break
+                    pbt <<= 1
+            if self.drafter is not None:
+                self._run_verify(
+                    active, self._lens.copy(),
+                    np.zeros((self.num_slots, self._kb), np.int64),
+                    np.zeros((self.num_slots,), np.int64),
+                )
+                self.drafter.warmup()
 
         self._warm(warm)
 
@@ -882,7 +1178,7 @@ class DecodeStepper:
         The ``stepper.step`` seam fires first, before any device work or
         host bookkeeping, so a failed call leaves the bank as it was."""
         active = np.asarray(active, bool)
-        faults.fire("stepper.step", active=active)
+        self._fire("stepper.step", active=active)
         if self.paged:
             pbt = self._table_bucket()
             toks = self._run(f"paged_step[{pbt}]", self._step_dev, active,
@@ -899,18 +1195,37 @@ class DecodeStepper:
         m = max(len(t) for t in self._tables)
         return _bucket_pow2(max(1, m), self._max_pages_bucket)
 
-    def write_targets(self, active, lens) -> tuple[np.ndarray, np.ndarray]:
-        """Where a paged step writes each row's new K/V: ``(page,
-        offset)`` host arrays. An active row writes at its own position
-        ``lens - 1`` in the page of its table that covers it — a page it
+    def _tables_array(self, pbt) -> np.ndarray:
+        """The (B, pbt) page tables a paged step or verify takes, padded
+        with the sentinel page 0. A warm-up's bucket may be shorter than a
+        live table; its rows are all inactive and write the sentinel."""
+        tables = np.zeros((self.num_slots, pbt), np.int64)
+        for i, pages in enumerate(self._tables):
+            tables[i, : min(len(pages), pbt)] = pages[:pbt]
+        return tables
+
+    def write_targets(self, active, lens, c=None
+                      ) -> tuple[np.ndarray, np.ndarray]:
+        """Where a paged program writes each row's new K/V: ``(page,
+        offset)`` host arrays, (B,) for the step, (B, c) for a verify
+        window of ``c`` candidates. An active row writes at its own
+        positions — ``lens - 1`` for the step, ``lens - 1 .. lens - 2 + c``
+        for a verify — in the pages of its table that cover them: the page
+        of ``lens - 1`` and the scratch pages reserved past it, pages it
         holds alone (shared pages are full pages below every holder's
         write frontier). An inactive row writes the sentinel page 0."""
         ps = self.page_size
-        pos = np.clip(np.asarray(lens, np.int64) - 1, 0, self.max_len - 1)
-        page = np.zeros(self.num_slots, np.int64)
+        lens = np.asarray(lens, np.int64)
+        if c is None:
+            pos = np.clip(lens - 1, 0, self._tp - 1)
+        else:
+            pos = (np.clip(lens - 1, 0, self.max_len - 1)[:, None]
+                   + np.arange(c)[None, :])
+        page = np.zeros(pos.shape, np.int64)
         for i in np.flatnonzero(active):
-            table, j = self._tables[i], pos[i] // ps
-            page[i] = table[j] if j < len(table) else 0
+            # past the table's end: the sentinel
+            ext = np.asarray(self._tables[i] + [0], np.int64)
+            page[i] = ext[np.minimum(pos[i] // ps, len(ext) - 1)]
         return page, pos % ps
 
     @torch.no_grad()
@@ -919,7 +1234,7 @@ class DecodeStepper:
         when ``pbt``, the table bucket, is given); returns the (B,) token
         vector on the device."""
         gen = self._gen
-        b, t = self.num_slots, self.max_len
+        b, t = self.num_slots, self._tp
         nh, hd = self._nh, self._hd
         rows = self._rows
         sampled = bool((self._temps > 0.0).any())
@@ -927,11 +1242,7 @@ class DecodeStepper:
                 self._spos]
         if pbt is not None:
             head += list(self.write_targets(active, lens))
-            tables = np.zeros((b, pbt), np.int64)
-            for i, pages in enumerate(self._tables):
-                # a warm-up's bucket may be shorter than a live table;
-                # its rows are all inactive and write the sentinel
-                tables[i, : min(len(pages), pbt)] = pages[:pbt]
+            tables = self._tables_array(pbt)
             ints = self._to_dev(np.concatenate([np.stack(head).ravel(),
                                                 tables.ravel()]))
             tables = ints[len(head) * b :].view(b, pbt)
@@ -990,6 +1301,205 @@ class DecodeStepper:
         self._ctx[rows, wpos] = torch.where(write, nxt, self._ctx[rows, wpos])
         return nxt
 
+    # -- speculative decode (draft -> verify -> rollback) -------------------
+
+    def spec_step(self, active, seqs=None):
+        """One speculative advance: draft up to ``draft_k`` tokens per
+        active slot, verify all ``_kb + 1`` candidate positions against
+        the live caches in one call, accept the window. Returns ``(toks,
+        counts, used_verify)``: row i's first ``counts[i]`` entries of
+        ``toks`` (B, _kb + 1) are the tokens slot i emits (1 to
+        ``_kb + 1``). Rejected K/V sits at positions at or past the new
+        frontier and is rewritten before anything attends it.
+
+        An iteration where no active slot proposed runs the plain step
+        (counted in ``spec_fallback_steps``). A drafter failure
+        (admission or proposal) never fails a request: the slots are
+        invalidated and decode goes on at the plain pace. Proposals are
+        cached against a ``_lens`` snapshot, so a blame probe that
+        retries a crashed verify on a subset re-verifies the same drafts.
+        The ``stepper.verify`` seam fires after the proposals and before
+        any device work."""
+        active = np.asarray(active, bool)
+        k = self._kb
+        drafter = self.drafter
+        # draft admission for slots that just turned decodable
+        for i in np.flatnonzero(active):
+            i = int(i)
+            if i not in self._spec_admitted:
+                self._spec_admitted.add(i)
+                try:
+                    drafter.admit(i, self._spec_prompts.get(i))
+                except Exception:  # noqa: BLE001 — the draft is best-effort
+                    drafter.invalidate(np.arange(self.num_slots) == i)
+        pend = self._spec_pending
+        if pend is not None and np.array_equal(pend[0][active],
+                                               self._lens[active]):
+            _, dtoks, dcnt = pend  # a blame probe's retry: the same drafts
+        else:
+            try:
+                dtoks, dcnt = drafter.propose(active, self.draft_k, seqs)
+            except Exception:  # noqa: BLE001 — the draft is best-effort
+                drafter.invalidate(active)
+                dtoks = np.zeros((self.num_slots, self.draft_k), np.int32)
+                dcnt = np.zeros((self.num_slots,), np.int32)
+            if dtoks.shape[1] < k:
+                # pad to the pow2 bucket; dcnt masks the padding out
+                dtoks = np.concatenate(
+                    [dtoks, np.zeros((self.num_slots, k - dtoks.shape[1]),
+                                     dtoks.dtype)], axis=1)
+            self._spec_pending = (self._lens.copy(), dtoks, dcnt)
+        if int(dcnt[active].sum()) == 0:
+            self.spec_fallback_steps += 1
+            toks = self.step(active)
+            return (np.asarray(toks).reshape(-1, 1),
+                    np.where(active, 1, 0).astype(np.int64), False)
+        self._fire("stepper.verify", active=active)
+        c = k + 1
+        lens0 = self._lens.copy()
+        res = self._run_verify(active, lens0, dtoks, dcnt).cpu().numpy()
+        t_out, n_new = res[:, :c], res[:, c]
+        counts = np.where(active, n_new, 0).astype(np.int64)
+        self._lens[active] = np.minimum(
+            self._lens[active] + counts[active], self._lens_cap
+        )
+        self._spos[active] += counts[active]
+        self.spec_verify_steps += 1
+        self.spec_drafted_tokens += int(dcnt[active].sum())
+        drafter.sync(active, t_out, counts, lens0)
+        return t_out, counts, True
+
+    def _run_verify(self, active, lens, dtoks, dcnt) -> torch.Tensor:
+        """The verify program under its key: ``verify[c]`` dense,
+        ``paged_verify[c,pbt]`` paged at the fixed extent (a window
+        amortizes over c candidates, like a prefill chunk)."""
+        c = self._kb + 1
+        if self.paged:
+            pbt = self._max_pages_bucket
+            return self._run(f"paged_verify[{c},{pbt}]", self._verify_dev,
+                             active, lens, dtoks, dcnt, pbt)
+        return self._run(f"verify[{c}]", self._verify_dev, active, lens,
+                         dtoks, dcnt)
+
+    @torch.no_grad()
+    def _verify_dev(self, active, lens, dtoks, dcnt, pbt=None
+                    ) -> torch.Tensor:
+        """The verify window over host snapshots (paged when ``pbt`` is
+        given): candidate j of row i is the token at ``lens[i] - 1 + j`` —
+        the slot's last real token, then the proposals. Each block scatters
+        the C candidates' K/V per row (inactive rows frozen: dense rows
+        rewrite their own values, paged rows write the sentinel page) and
+        attends them under a (B, H, C, T) causal mask; the window sampler
+        picks the accepted tokens, which are written into the context rows
+        at ``cpos + 1``. Returns the (B, C + 1) device tensor of the
+        window's tokens and, in the last column, the counts."""
+        gen = self._gen
+        b, c = self.num_slots, self._kb + 1
+        nh, hd = self._nh, self._hd
+        rows = self._rows
+        sampled = bool((self._temps > 0.0).any())
+        pos = np.clip(np.asarray(lens, np.int64) - 1, 0, self.max_len - 1)
+        head = [active.astype(np.int64), pos, self._topk, self._seeds,
+                self._spos, np.asarray(dcnt, np.int64)]
+        parts = [np.stack(head).ravel(), np.asarray(dtoks, np.int64).ravel()]
+        if pbt is not None:
+            page, off = self.write_targets(active, lens, c)
+            parts += [page.ravel(), off.ravel(),
+                      self._tables_array(pbt).ravel()]
+            t_ext = pbt * self.page_size
+        else:
+            t_ext = self._tp
+        ints = self._to_dev(np.concatenate(parts))
+        n_head = len(head) * b
+        hv = ints[:n_head].view(len(head), b)
+        dt = ints[n_head : n_head + b * (c - 1)].view(b, c - 1)
+        if pbt is not None:
+            o = n_head + b * (c - 1)
+            page_d = ints[o : o + b * c].view(b, c)
+            off_d = ints[o + b * c : o + 2 * b * c].view(b, c)
+            tables_d = ints[o + 2 * b * c :].view(b, pbt)
+        act, pos_d = hv[0].bool(), hv[1]
+        cpos = pos_d[:, None] + torch.arange(c, device=self.device)[None, :]
+        rows2 = rows[:, None]
+        chunk = torch.cat([self._ctx[rows, pos_d][:, None], dt], dim=1)
+        x = gen.embed(chunk, cpos)  # (B, C, d)
+        keep = act[:, None, None, None]
+        t_mask = (self._t_idx[None, None, :t_ext]
+                  <= cpos[:, :, None])[:, None]  # (B, 1, C, T)
+        for li, blk in enumerate(gen._blocks):
+            mh = blk.mhsa
+            h_ = blk.ln1(x)
+            q = qmatmul(h_, mh.wq).reshape(b, c, nh, hd)
+            k_new = qmatmul(h_, mh.wk).reshape(b, c, nh, hd)
+            v_new = qmatmul(h_, mh.wv).reshape(b, c, nh, hd)
+            if pbt is None:
+                # each row's C positions are distinct, and an inactive row
+                # rewrites its own values
+                ck, cv = self._caches[li]
+                ck[rows2, cpos] = torch.where(keep, k_new, ck[rows2, cpos])
+                cv[rows2, cpos] = torch.where(keep, v_new, cv[rows2, cpos])
+            else:
+                pk, pv = self._pools[li]
+                # index_put_ picks an arbitrary winner among duplicate
+                # indices on CUDA: an active row's C targets are distinct
+                # (page, offset) pairs of pages it holds alone
+                # (``write_targets``); inactive rows write the sentinel
+                # page, whose contents nothing reads unmasked
+                pk[page_d, off_d] = k_new
+                pv[page_d, off_d] = v_new
+                ck = pk[tables_d].reshape(b, t_ext, nh, hd)
+                cv = pv[tables_d].reshape(b, t_ext, nh, hd)
+            scores = torch.einsum("bchd,bthd->bhct", q, ck) / math.sqrt(hd)
+            scores = scores.masked_fill(~t_mask, float("-inf"))
+            w = torch.softmax(scores, dim=-1)
+            o = torch.einsum("bhct,bthd->bchd", w, cv)
+            o = qmatmul(o.reshape(b, c, nh * hd), mh.wo)
+            if mh.use_bias:
+                o = o + mh.bo
+            x = x + o
+            x = x + blk.fc2(blk.fc1(blk.ln2(x)))
+        logit = gen._head(gen._final_ln(x))  # (B, C, V)
+        dcnt_d = hv[5]
+        if sampled:
+            floats = self._to_dev(np.stack([self._temps, self._topp]))
+            out, n_new = _sp.spec_window_tokens(
+                logit, dt, dcnt_d, floats[0], hv[2], floats[1], hv[3], hv[4],
+                filtered=bool((self._topk > 0).any()
+                              or (self._topp < 1.0).any()),
+            )
+        else:
+            out, n_new = _sp.greedy_window_tokens(logit, dt, dcnt_d)
+        # the accepted tokens at cpos + 1 <= max_len - 1 + c < _tp: the
+        # scratch absorbs the overrun
+        wpos = cpos + 1
+        wkeep = act[:, None] & (
+            torch.arange(c, device=self.device)[None, :] < n_new[:, None]
+        )
+        self._ctx[rows2, wpos] = torch.where(wkeep, out,
+                                             self._ctx[rows2, wpos])
+        return torch.cat([out, n_new[:, None]], dim=1)
+
+    def write_segment(self, active, toks, counts, lens0) -> None:
+        """Write each active row's first ``counts[i]`` tokens of ``toks``
+        at positions ``lens0[i] .. lens0[i] + counts[i] - 1`` of its
+        context row (key ``accept_segment``) — how a draft bank is rolled
+        back to the verified truth after a window. Positions past the
+        padded axis are dropped."""
+        toks = np.asarray(toks, np.int64)
+        cw = toks.shape[1]
+        keep = (np.asarray(active, bool)[:, None]
+                & (np.arange(cw)[None, :] < np.asarray(counts)[:, None]))
+        wpos = np.asarray(lens0, np.int64)[:, None] + np.arange(cw)[None, :]
+        keep &= wpos < self._tp
+        r, j = np.nonzero(keep)
+        self._run("accept_segment", self._segment_dev,
+                  np.concatenate([r, wpos[r, j], toks[r, j]]), r.size)
+
+    def _segment_dev(self, ints, n):
+        ints = self._to_dev(ints)
+        # one write per (row, position): distinct indices
+        self._ctx[ints[:n], ints[n : 2 * n]] = ints[2 * n :]
+
 
 class ServingEngine:
     """The in-process serving runtime: continuous-batching decode plus
@@ -1014,6 +1524,18 @@ class ServingEngine:
     head of the queue waits for evictions), a request that can never fit
     is a ``ValueError`` at ``submit``, and exhaustion reaches the client
     as the typed, retriable ``overloaded`` with ``retry_after_ms``.
+
+    Speculative knobs, with the JAX engine's defaults and meanings:
+    ``speculative`` (``"ngram"``: the prompt-lookup ``NgramDrafter``,
+    suffixes up to ``ngram_max`` tokens; ``"draft"``: a ``ModelDrafter``
+    over ``draft_bundle``, a serving-bundle path or a model on this
+    engine's device; ``True``: ``"draft"`` when a bundle is given, else
+    ``"ngram"``; or a drafter instance), ``draft_k`` (proposals per
+    window: each iteration emits 1 to ``draft_k + 1`` tokens per slot)
+    and ``spec_mode`` (``"rejection"`` serves sampled requests through the
+    same windows, every token the plain sampled stream's; ``"strict"``
+    refuses any sampling, engine-wide or per request). A restart rebuilds
+    the stepper with the same drafter, which re-binds to it.
 
     Self-healing knobs, with the JAX engine's defaults and meanings:
     ``quarantine_steps`` (iterations a blamed slot sits out),
@@ -1061,9 +1583,19 @@ class ServingEngine:
                  max_restarts=3, restart_backoff=0.05, metrics_path=None,
                  postmortem_dir=None, slos=None, history=True,
                  overlap=True, paged=False, page_size=16, num_pages=None,
-                 device=None):
+                 speculative=None, draft_bundle=None, draft_k=4,
+                 ngram_max=3, spec_mode="rejection", device=None):
         self.model = model
         self.device = check_model_device(model, device)
+        drafter = self._resolve_drafter(speculative, draft_bundle, ngram_max,
+                                        self.device)
+        self.spec_mode = spec_mode
+        if drafter is not None:
+            # a config error, not a model limitation: raised here rather
+            # than demoting the engine to predict-only below
+            self.spec_mode = _sp.check_spec_sampling(
+                spec_mode, temperature, top_k, top_p
+            )
         # the engine-owned books (per engine, so in-process fleets keep
         # per-replica registries and span rings)
         self.registry = MetricsRegistry()
@@ -1099,13 +1631,15 @@ class ServingEngine:
         self.prefix_store = store
         # everything a supervisor restart needs to rebuild the device face
         # (a fresh bank or pool and device prefix index; the host prefix
-        # store is the same object, so it SURVIVES restarts)
+        # store is the same object, so it SURVIVES restarts, and the
+        # drafter re-binds to each rebuilt stepper)
         self._stepper_cfg = dict(
             num_slots=num_slots, temperature=temperature, seed=seed,
             top_k=top_k, top_p=top_p, device=self.device,
             compile_ledger=self.compile_ledger, prefix_cache=store,
             paged=paged, page_size=page_size, num_pages=num_pages,
-            recorder=self.recorder,
+            recorder=self.recorder, speculative=drafter, draft_k=draft_k,
+            spec_mode=self.spec_mode,
         )
         try:
             self._stepper = DecodeStepper(model, **self._stepper_cfg)
@@ -1216,6 +1750,41 @@ class ServingEngine:
                 slos, self.metrics_snapshot, registry=reg,
                 recorder=self.recorder, prefix="serving",
             )
+
+    @staticmethod
+    def _resolve_drafter(speculative, draft_bundle, ngram_max, device):
+        """The draft source the speculative knobs name (None: off)."""
+        if not speculative:
+            if draft_bundle is not None:
+                raise ValueError(
+                    "draft_bundle is only meaningful with speculative "
+                    "decoding enabled; pass speculative='draft'"
+                )
+            return None
+        if hasattr(speculative, "propose") and hasattr(speculative, "bind"):
+            return speculative  # any object with the drafter protocol
+        if speculative is True:
+            speculative = "draft" if draft_bundle is not None else "ngram"
+        if speculative == "ngram":
+            return NgramDrafter(ngram_max=ngram_max)
+        if speculative == "draft":
+            if draft_bundle is None:
+                raise ValueError(
+                    "speculative='draft' needs draft_bundle= (a serving-"
+                    "bundle path or a model instance)"
+                )
+            if isinstance(draft_bundle, str):
+                from distkeras_tpu_torch.utils.serialization import (
+                    load_serving_bundle,
+                )
+
+                draft_bundle = load_serving_bundle(draft_bundle,
+                                                   device=device)
+            return ModelDrafter(draft_bundle)
+        raise ValueError(
+            f"speculative must be falsy, True, 'ngram', 'draft', or a "
+            f"drafter instance; got {speculative!r}"
+        )
 
     @classmethod
     def from_bundle(cls, path: str, **kwargs) -> "ServingEngine":
@@ -1467,10 +2036,16 @@ class ServingEngine:
             raise EngineStoppedError("engine not started")
         if self._failed:
             raise InternalError(f"engine is degraded: {self._failed_reason}")
+        sampling = _sp.SamplingParams.from_wire(sampling)
+        if sampling is not None and self._stepper.speculative:
+            # strict mode refuses sampled requests through the same check
+            # the constructors use; rejection mode serves them
+            _sp.check_spec_sampling(self.spec_mode, sampling.temperature,
+                                    sampling.top_k, sampling.top_p)
         req = ServeRequest(
             prompt, max_new_tokens, eos_id=eos_id, deadline=deadline,
-            trace=trace, sampling=_sp.SamplingParams.from_wire(sampling),
-            tenant=tenant, priority=priority, stream=stream,
+            trace=trace, sampling=sampling, tenant=tenant,
+            priority=priority, stream=stream,
         )
         try:
             return batcher.submit(req)
@@ -1622,6 +2197,9 @@ class ServingEngine:
             num_slots=(
                 None if self._stepper is None else self._stepper.num_slots
             ),
+            speculative=(
+                self._stepper is not None and self._stepper.speculative
+            ),
             device=str(self.device),
             watchdog_interval=self.watchdog_interval,
             watchdog_grace=self.watchdog_grace,
@@ -1693,6 +2271,14 @@ class ServingEngine:
         }
         if batcher is not None:
             out.update(batcher.load())
+            if self._stepper.speculative:
+                # mean tokens emitted per verify window (1.0: drafts never
+                # agree; draft_k + 1: the ceiling); None before the first
+                w = batcher.counters["spec_windows"]
+                out["speculative_tokens_per_window"] = (
+                    round(batcher.counters["spec_tokens"] / w, 2)
+                    if w else None
+                )
             if self._stepper.paged:
                 # the paged tier's capacity signal: KV pages in use
                 out["kv_page_util"] = round(

@@ -1,5 +1,6 @@
 """Per-request sampling: params, the counter RNG, filtering, token draws
-(PyTorch port of ``distkeras_tpu.serving.sampling``; grammar masks wait).
+and the speculative window samplers (PyTorch port of
+``distkeras_tpu.serving.sampling``; grammar masks wait).
 
 Every sampled token draws from a key derived as
 ``fold_in(fold_in(PRNGKey(0), request_seed), emitted_position)`` — a pure
@@ -19,6 +20,16 @@ from __future__ import annotations
 
 import torch
 
+#: the greedy-agreement refusal, raised only by the explicit strict mode
+#: (the engine and the stepper both validate through
+#: ``check_spec_sampling``)
+SPEC_GREEDY_MSG = (
+    "speculative serving verifies GREEDY agreement; it is only defined "
+    "for temperature=0 without top_k/top_p (spec_mode='strict' — use "
+    "the default spec_mode='rejection' to serve sampled requests "
+    "speculatively)"
+)
+
 _GOLDEN = 0x9E3779B1  # 32-bit golden-ratio increment (completion seeds)
 _SEED_MOD = 1 << 31
 _M32 = 0xFFFFFFFF
@@ -31,6 +42,22 @@ def seed_for_completion(seed: int, completion: int) -> int:
     if completion == 0:
         return int(seed) % _SEED_MOD
     return (int(seed) + _GOLDEN * int(completion)) % _SEED_MOD
+
+
+def check_spec_sampling(spec_mode: str, temperature=0.0, top_k=None,
+                        top_p=None) -> str:
+    """Validate a speculative engine's sampling posture; returns the mode.
+    ``"rejection"`` (the default) accepts any sampling config;
+    ``"strict"`` raises ``SPEC_GREEDY_MSG`` for anything non-greedy."""
+    if spec_mode not in ("rejection", "strict"):
+        raise ValueError(
+            f"spec_mode must be 'rejection' or 'strict'; got {spec_mode!r}"
+        )
+    if spec_mode == "strict" and (
+        temperature != 0.0 or top_k is not None or top_p is not None
+    ):
+        raise ValueError(SPEC_GREEDY_MSG)
+    return spec_mode
 
 
 class SamplingParams:
@@ -214,3 +241,61 @@ def sample_tokens(logit, temps, top_k, top_p, seeds, spos, filtered=None):
         scaled = filter_logits(scaled, top_k, top_p)
     samp = categorical(row_keys(seeds, spos), scaled)
     return torch.where(temps > 0.0, samp, greedy)
+
+
+# --------------------------------------------------------------------------
+# Speculative verify windows.
+# --------------------------------------------------------------------------
+
+
+def _accepted(acc):
+    """(B, C-1) acceptance flags -> (B,) tokens emitted: the accepted
+    prefix (up to the first rejection) plus the target's correction."""
+    return acc.long().cumprod(dim=1).sum(dim=1) + 1
+
+
+def greedy_window_tokens(logit, dtoks, dcnt):
+    """(B, C, V) logits -> ``(argmax tokens (B, C), n_new (B,))``: accept
+    the longest argmax-agreeing drafted prefix (of the ``dcnt[i]`` real
+    proposals in ``dtoks`` (B, C-1)) plus the target's correction."""
+    c = logit.shape[1]
+    greedy = torch.argmax(logit, dim=-1)
+    ranks = torch.arange(c - 1, device=logit.device)[None, :]
+    agree = (dtoks.long() == greedy[:, : c - 1]) & (ranks < dcnt[:, None])
+    return greedy, _accepted(agree)
+
+
+def spec_window_tokens(logit, dtoks, dcnt, temps, top_k, top_p, seeds, spos,
+                       filtered=None):
+    """Mixed greedy / sampled acceptance over one verify window. ``logit``
+    (B, C, V) holds the target's logits at the C candidate positions
+    (position j distributes the token at emitted index ``spos + j``),
+    ``dtoks`` (B, C-1) the proposals, ``dcnt`` how many are real. Returns
+    ``(out (B, C), n_new (B,))``: row i emits the first ``n_new[i]`` of
+    ``out[i]``.
+
+    Greedy rows accept by argmax agreement and emit the argmax. Sampled
+    rows accept a drafted token iff it equals the position-keyed draw
+    ``categorical(key(seed, spos + j), filtered p)`` the plain step would
+    make there, and emit that draw at every position — so a speculative
+    sampled stream is token for token the plain sampled stream (rejection
+    sampling for a point-mass proposal). ``filtered`` as in
+    ``sample_tokens``."""
+    b, c, v = logit.shape
+    greedy = torch.argmax(logit, dim=-1)  # (B, C)
+    scaled = (logit / torch.clamp(temps, min=1e-6)[:, None, None]).reshape(
+        b * c, v)
+    if filtered is None:
+        filtered = bool((top_k > 0).any()) or bool((top_p < 1.0).any())
+    if filtered:
+        scaled = filter_logits(scaled, top_k.repeat_interleave(c),
+                               top_p.repeat_interleave(c))
+    ranks = torch.arange(c, device=logit.device)
+    spos_c = (spos.long()[:, None] + ranks[None, :]).reshape(-1)
+    fresh = categorical(row_keys(seeds.repeat_interleave(c), spos_c),
+                        scaled).reshape(b, c)
+    d = dtoks.long()
+    sampled = (temps > 0.0)[:, None]
+    acc = (ranks[None, : c - 1] < dcnt[:, None]) & torch.where(
+        sampled, d == fresh[:, : c - 1], d == greedy[:, : c - 1])
+    return torch.where(sampled, fresh, greedy), _accepted(acc)

@@ -7,7 +7,8 @@ slice runs).
   scheduler step recycles expired quarantines, admits queued requests
   into free slots, spends at most ``prefill_chunk`` prompt tokens on
   slots mid-prefill (oldest admission first), advances every decoding
-  slot one token, and evicts finished sequences. FIFO queue with
+  slot one token (1 to ``draft_k + 1`` over a speculative stepper: the
+  variable advance) and evicts finished sequences. FIFO queue with
   bounded-queue backpressure, per-request deadlines, drain / hard stop.
   Over a paged stepper, admission is gated on the KV page pool as well as
   on free slots (the head of the queue waits for evictions), and a
@@ -35,8 +36,8 @@ the stepper's compile ledger); ``stream=True`` requests get each
 iteration's emitted tokens pushed into a chunk FIFO before any eviction.
 The counters are typed registry counters (``serving_scheduler_<key>``).
 
-Not ported yet: QoS and preemption, speculative windows, completion
-groups (n > 1), prefill export, load shedding.
+Not ported yet: QoS and preemption, completion groups (n > 1), prefill
+export, load shedding.
 
 The device face is an injected stepper (``engine.DecodeStepper``) with
 ``num_slots``, ``max_len``, ``begin_admit(slot, prompt, sampling) -> left``,
@@ -47,7 +48,14 @@ The device face is an injected stepper (``engine.DecodeStepper``) with
 it the device call runs synchronously at dispatch) and a compile
 ``ledger``. A paged stepper (``paged`` true) also has ``pages_for(
 prompt_len, max_new)``, ``available_pages``, ``total_pages`` and takes
-``begin_admit(..., max_new=)``.
+``begin_admit(..., max_new=)``. A speculative stepper (``speculative``
+true) also has ``wants_sequences`` (the batcher then passes each active
+slot's ``(prompt, emitted)`` host sequence) and ``spec_step(active, seqs)
+-> (toks, counts, used_verify)``, ``toks`` (num_slots, w) with row i's
+first ``counts[i]`` entries the tokens slot i emits: the budget, EOS and
+deadline checks then run per emitted token, in emission order. It is
+always dispatched synchronously (the draft-verify path materializes host
+state mid-call).
 """
 
 from __future__ import annotations
@@ -64,18 +72,24 @@ from distkeras_tpu_torch.obs.metrics import MetricsRegistry
 from distkeras_tpu_torch.obs.overlap import OverlapLedger
 
 
+_NO_STOP = object()  # a window emitted without reaching a stop
+
+
 class _Inflight:
     """One dispatched-but-uncollected device step, scheduler-side: the
-    active mask it was issued against, the wall/mint stamps its collect
-    needs for attribution, and exactly one of — a stepper ``step_async``
-    handle, a held synchronous result (steppers without an async face),
-    or a stashed dispatch exception (a failure at dispatch surfaces at the
-    COLLECT of its own iteration, where the blame machinery runs)."""
+    active mask and host sequences it was issued against, the wall/mint
+    stamps its collect needs for attribution, and exactly one of — a
+    stepper ``step_async`` handle, a held synchronous result tuple
+    (speculative steppers and those without an async face), or a stashed
+    dispatch exception (a failure at dispatch surfaces at the COLLECT of
+    its own iteration, where the blame machinery runs)."""
 
-    __slots__ = ("active", "t0", "mints0", "handle", "result", "exc")
+    __slots__ = ("active", "seqs", "t0", "mints0", "handle", "result",
+                 "exc")
 
-    def __init__(self, active, t0, mints0):
+    def __init__(self, active, seqs, t0, mints0):
         self.active = active
+        self.seqs = seqs
         self.t0 = t0
         self.mints0 = mints0
         self.handle = None
@@ -376,8 +390,15 @@ class ContinuousBatcher:
                 "prefill_failures",  # begin_admit/prefill_chunk raised
                 "quarantines",  # slots sent to probation
                 "sampled_requests", "streamed_chunks",
+                # speculative decode (0 on plain steppers)
+                "spec_windows",  # slot-windows processed through a verify
+                "spec_tokens",  # tokens emitted from verify windows
+                "spec_draft_accepted",  # emitted tokens the draft sourced
             ),
         )
+        # per-slot acceptance ledger (lifetime): windows and tokens
+        self._spec_windows = np.zeros(stepper.num_slots, np.int64)
+        self._spec_emitted = np.zeros(stepper.num_slots, np.int64)
         # occupancy gauges, read at scrape time (unlocked: a scrape
         # tolerates a torn read)
         reg = self.registry
@@ -479,15 +500,16 @@ class ContinuousBatcher:
         through the host work and vice versa — the bubble the ledger
         measures."""
         progressed = self._admit_phase()
-        active = self._mask_phase()
+        active, seqs = self._mask_phase()
         if not active.any():
             return progressed
         step_t0 = time.monotonic()
         mints0 = self._led_total()
         self.overlap_ledger.note_dispatch()
-        toks, blamed = self._step_with_blame(active)
+        toks, counts, blamed, used = self._step_with_blame(active, seqs)
         self.overlap_ledger.note_collect()
-        return self._finish_step(active, step_t0, mints0, toks, blamed)
+        return self._finish_step(active, step_t0, mints0, toks, counts,
+                                 blamed, used)
 
     def _step_overlapped(self) -> bool:
         """Iteration N+1's host work runs while step N is on the device;
@@ -513,18 +535,18 @@ class ContinuousBatcher:
             self._inflight = None
             if inflight.ready():
                 self.overlap_ledger.note_ready()
-            toks, blamed = self._collect_with_blame(inflight)
+            toks, counts, blamed, used = self._collect_with_blame(inflight)
             self.overlap_ledger.note_collect()
             self._finish_step(inflight.active, inflight.t0, inflight.mints0,
-                              toks, blamed)
+                              toks, counts, blamed, used)
             progressed = True
-        active = self._mask_phase()
+        active, seqs = self._mask_phase()
         if not active.any():
             return progressed
         t0 = time.monotonic()
         mints0 = self._led_total()
         self.overlap_ledger.note_dispatch()
-        inflight = self._dispatch(active, t0, mints0)
+        inflight = self._dispatch(active, seqs, t0, mints0)
         with self._lock:
             if self._stopped:
                 # stop() ran between the mask and the dispatch: the
@@ -534,18 +556,19 @@ class ContinuousBatcher:
                 self._inflight = inflight
         return True
 
-    def _dispatch(self, active, t0, mints0) -> _Inflight:
+    def _dispatch(self, active, seqs, t0, mints0) -> _Inflight:
         """Issue the device step for ``active`` without waiting on it
-        (``step_async`` where the stepper has it; otherwise the call runs
-        here and its result — or exception — rides the handle to this
-        iteration's collect)."""
-        inf = _Inflight(active, t0, mints0)
+        (``step_async`` where the stepper has it and is not speculative;
+        otherwise the call runs here and its result — or exception — rides
+        the handle to this iteration's collect)."""
+        inf = _Inflight(active, seqs, t0, mints0)
         st = self.stepper
         try:
-            if hasattr(st, "step_async"):
+            if (not getattr(st, "speculative", False)
+                    and hasattr(st, "step_async")):
                 inf.handle = st.step_async(active)
             else:
-                inf.result = self._device_step(active)
+                inf.result = self._device_step(active, seqs)
         except Exception as e:  # noqa: BLE001 — device crash boundary
             inf.exc = e
         return inf
@@ -555,17 +578,20 @@ class ContinuousBatcher:
         or its deferred failure followed by blame exactly as in
         ``_step_with_blame`` (a failed call advanced nothing, so the
         synchronous probes retry from the state the dispatch saw).
-        Returns ``(toks, blamed)``."""
+        Returns ``(toks, counts, blamed, used_verify)``."""
         try:
             if inf.exc is not None:
                 raise inf.exc
             if inf.handle is not None:
-                return np.asarray(inf.handle.collect()).reshape(-1), []
-            return inf.result, []
+                toks, counts = self._one_token(inf.active,
+                                               inf.handle.collect())
+                return toks, counts, [], np.zeros(len(inf.active), bool)
+            toks, counts, used = inf.result
+            return toks, counts, [], used
         except Exception:  # noqa: BLE001 — device crash boundary
             with self._lock:
                 self.counters["step_failures"] += 1
-        return self._assign_blame(inf.active)
+        return self._assign_blame(inf.active, inf.seqs)
 
     def _admit_phase(self) -> bool:
         """Host work at the top of an iteration: quarantine recycle,
@@ -628,10 +654,12 @@ class ContinuousBatcher:
                     req.prefill_finished = now
         return self._spend_prefill_budget() or bool(admitted)
 
-    def _mask_phase(self) -> np.ndarray:
+    def _mask_phase(self):
         """Deadline-sweep slots mid-prefill (they emit nothing, so the
-        post-step check never sees them) and return the decode mask. Runs
-        right before dispatch in both loop modes."""
+        post-step check never sees them) and return the decode mask and,
+        for a ``wants_sequences`` stepper, each active slot's zero-copy
+        ``(prompt, emitted)`` host sequence (else None). Runs right before
+        dispatch in both loop modes."""
         now = time.monotonic()
         with self._lock:
             for i in list(self._prefill_left):
@@ -640,18 +668,34 @@ class ContinuousBatcher:
                     self._evict(i, req, DeadlineExceededError(
                         "deadline passed during prefill"
                     ))
-            return np.array(
+            active = np.array(
                 [
                     s is not None and i not in self._prefill_left
                     for i, s in enumerate(self._slots)
                 ],
                 bool,
             )
+            seqs = None
+            if active.any() and getattr(self.stepper, "wants_sequences",
+                                        False):
+                # only this thread appends to the token lists, and only
+                # after the device call, so the drafter may read them as
+                # they are
+                seqs = [
+                    (req.prompt, req.tokens)
+                    if req is not None and active[i] else None
+                    for i, req in enumerate(self._slots)
+                ]
+        return active, seqs
 
-    def _finish_step(self, active, step_t0, mints0, toks, blamed) -> bool:
+    def _finish_step(self, active, step_t0, mints0, toks, counts, blamed,
+                     used_verify) -> bool:
         """Emission and eviction for one collected device step: mint
-        attribution, blame eviction + quarantine, then per-token budget,
-        EOS and deadline checks, stream pushes before any eviction."""
+        attribution, blame eviction + quarantine, then per EMITTED token
+        (a slot emits ``counts[i]`` of row ``toks[i]``) the budget, EOS and
+        deadline checks in emission order — a window's tail past the first
+        stop is never emitted — the stream push before any eviction, and
+        the speculative acceptance counters."""
         now = time.monotonic()
         if self._led_total() > mints0:
             # a mint landed inside the decode phase: every traced active
@@ -692,62 +736,102 @@ class ContinuousBatcher:
                         active=int(active.sum()), emitted=0, blamed=blamed,
                     )
                 return True  # every active slot was blamed this round
-            emitted = 0
+            emitted_total = 0
             blamed_set = set(blamed)
             for i, req in enumerate(self._slots):
                 if req is None or not active[i] or i in blamed_set:
                     continue
-                tok = int(toks[i])
                 req.iterations += 1
-                req.tokens.append(tok)
-                if req.first_token is None:
-                    req.first_token = now
-                self.counters["tokens_generated"] += 1
-                emitted += 1
-                if req.stream:
+                new_toks = []
+                stop = _NO_STOP  # the eviction waits for the chunk push
+                for tok in np.atleast_1d(toks[i])[: int(counts[i])]:
+                    tok = int(tok)
+                    req.tokens.append(tok)
+                    new_toks.append(tok)
+                    if req.first_token is None:
+                        req.first_token = now
+                    self.counters["tokens_generated"] += 1
+                    if len(req.tokens) >= req.max_new_tokens or (
+                        req.eos_id is not None and tok == req.eos_id
+                    ):
+                        stop = None
+                        break
+                    if req._expired(now):
+                        stop = DeadlineExceededError(
+                            f"deadline passed after {len(req.tokens)} tokens"
+                        )
+                        break
+                if req.stream and new_toks:
                     # pushed before the eviction below: the terminal
                     # sentinel must never overtake the last tokens
                     self.counters["streamed_chunks"] += 1
-                    req._push_chunk([tok])
-                if len(req.tokens) >= req.max_new_tokens or (
-                    req.eos_id is not None and tok == req.eos_id
-                ):
-                    self._evict(i, req, None)
-                elif req._expired(now):
-                    self._evict(i, req, DeadlineExceededError(
-                        f"deadline passed after {len(req.tokens)} tokens"
-                    ))
+                    req._push_chunk(new_toks)
+                if stop is not _NO_STOP:
+                    self._evict(i, req, stop)
+                emitted = len(new_toks)
+                emitted_total += emitted
+                if used_verify[i]:
+                    self.counters["spec_windows"] += 1
+                    self.counters["spec_tokens"] += emitted
+                    # the window's last token is the target's correction;
+                    # the ones before it came from the draft
+                    self.counters["spec_draft_accepted"] += max(
+                        0, min(emitted, int(counts[i]) - 1)
+                    )
+                    self._spec_windows[i] += 1
+                    self._spec_emitted[i] += emitted
         if self.recorder is not None:
             # one line per WORKING iteration (idle loops record nothing)
             self.recorder.record(
                 "scheduler.iteration", iter=self._sched_iters,
-                active=int(active.sum()), emitted=emitted,
+                active=int(active.sum()), emitted=emitted_total,
+                spec=bool(np.any(used_verify)),
                 blamed=blamed if blamed else None,
             )
         return True
 
     # -- blame assignment ----------------------------------------------------
 
-    def _device_step(self, active) -> np.ndarray:
-        """One synchronous device advance: the (B,) tokens."""
-        return np.asarray(self.stepper.step(active)).reshape(-1)
+    @staticmethod
+    def _one_token(active, toks):
+        """A plain step's (B,) tokens in the variable-advance shape:
+        ``(toks (B, 1), counts (B,))``."""
+        return (np.asarray(toks).reshape(-1, 1),
+                np.where(active, 1, 0).astype(np.int64))
 
-    def _step_with_blame(self, active):
-        """Advance the active slots one token, surviving a poison request:
-        when the device step raises, ``_assign_blame`` finds the culprit.
-        Every non-blamed slot advances exactly one token (failed calls
-        advance nothing — the seams fire before device work, and the
-        stepper advances its host state only at collect), so surviving
-        streams stay token-identical to their solo decode. Returns
-        ``(toks, blamed)``; ``toks`` is None when nothing advanced."""
+    def _device_step(self, active, seqs):
+        """One synchronous device advance in the variable-advance shape
+        ``(toks (B, w), counts (B,), used_verify (B,))``: a plain step is
+        w = 1; a speculative stepper runs ``spec_step`` (1 to ``k + 1``
+        tokens per slot). ``used_verify`` is per slot, so a fallback step
+        never counts as a verify window."""
+        st = self.stepper
+        if getattr(st, "speculative", False):
+            toks, counts, used = st.spec_step(active, seqs)
+            return (np.asarray(toks), np.asarray(counts),
+                    np.asarray(active, bool) & bool(used))
+        toks, counts = self._one_token(active, st.step(active))
+        return toks, counts, np.zeros(len(active), bool)
+
+    def _step_with_blame(self, active, seqs=None):
+        """Advance the active slots one window, surviving a poison
+        request: when the device step (plain or verify) raises,
+        ``_assign_blame`` finds the culprit. Every non-blamed slot
+        advances exactly one window (failed calls advance nothing — the
+        seams fire before device work, the stepper advances its host
+        state only on success, and a retried verify re-verifies the same
+        cached proposals), so surviving streams stay token-identical to
+        their solo decode. Returns ``(toks, counts, blamed,
+        used_verify)``; ``toks`` is None when nothing advanced."""
         try:
-            return self._device_step(active), []
+            toks, counts, used = self._device_step(active, seqs)
+            return toks, counts, [], used
         except Exception:  # noqa: BLE001 — device crash boundary
             with self._lock:
                 self.counters["step_failures"] += 1
-        return self._assign_blame(active)
+        return self._assign_blame(active, seqs)
 
-    def _assign_blame(self, active):
+    def _assign_blame(self, active, seqs):
         """The probe cascade after a failed step (shared by both loop
         shapes): retry with the newest admission masked out (established
         streams were stepping fine before it arrived); if that fails too,
@@ -755,9 +839,10 @@ class ContinuousBatcher:
         the batch is culpable by elimination. Every probe failing blames
         every active slot — the supervisor's restart budget is the
         backstop for a stepper that is dead, not poisoned."""
+        none = np.zeros(len(active), bool)
         idxs = [int(i) for i in np.flatnonzero(active)]
         if len(idxs) == 1:
-            return None, idxs
+            return None, None, idxs, none
         with self._lock:
             suspect = max(idxs, key=lambda i: self._admit_order[i])
         retry = active.copy()
@@ -765,12 +850,13 @@ class ContinuousBatcher:
         try:
             with self._lock:
                 self.counters["blame_probes"] += 1
-            return self._device_step(retry), [suspect]
+            toks, counts, used = self._device_step(retry, seqs)
+            return toks, counts, [suspect], used
         except Exception:  # noqa: BLE001
             pass
         # the newest admission alone is not the story: bisect the whole
         # active set (nothing has advanced yet — all probes so far failed)
-        got: dict[int, int] = {}
+        got: dict[int, tuple] = {}
         blamed: list[int] = []
 
         def probe(group):
@@ -779,7 +865,7 @@ class ContinuousBatcher:
             try:
                 with self._lock:
                     self.counters["blame_probes"] += 1
-                t = self._device_step(mask)
+                t, cnt, u = self._device_step(mask, seqs)
             except Exception:  # noqa: BLE001
                 if len(group) == 1:
                     blamed.append(group[0])
@@ -789,15 +875,20 @@ class ContinuousBatcher:
                 probe(group[half:])
                 return
             for i in group:
-                got[i] = int(t[i])
+                got[i] = (np.atleast_1d(t[i]), int(cnt[i]), bool(u[i]))
 
         probe(idxs)
         if not got:
-            return None, blamed
-        toks = np.zeros(len(active), np.int64)
-        for i, tok in got.items():
-            toks[i] = tok
-        return toks, blamed
+            return None, None, blamed, none
+        w = max(row.shape[0] for row, _, _ in got.values())
+        toks = np.zeros((len(active), w), np.int64)
+        counts = np.zeros(len(active), np.int64)
+        used = none.copy()
+        for i, (row, cnt, u) in got.items():
+            toks[i, : row.shape[0]] = row
+            counts[i] = cnt
+            used[i] = u
+        return toks, counts, blamed, used
 
     def _quarantine_locked(self, i):
         """Send slot ``i`` to probation. Caller holds the lock."""
@@ -1017,6 +1108,33 @@ class ContinuousBatcher:
             "enabled": self.overlap,
             **self.overlap_ledger.snapshot(),
         }
+        st = self.stepper
+        if getattr(st, "speculative", False):
+            drafted = int(getattr(st, "spec_drafted_tokens", 0))
+            accepted = out["spec_draft_accepted"]
+            windows = out["spec_windows"]
+            out["speculative"] = {
+                "enabled": True,
+                "draft_source": st.drafter.name,
+                "draft_k": st.draft_k,
+                "verify_steps": int(st.spec_verify_steps),
+                "fallback_steps": int(st.spec_fallback_steps),
+                "windows": windows,
+                "drafted_tokens": drafted,
+                "accepted_draft_tokens": accepted,
+                "rejected_draft_tokens": max(0, drafted - accepted),
+                "emitted_tokens": out["spec_tokens"],
+                "mean_tokens_per_window": (
+                    round(out["spec_tokens"] / windows, 3)
+                    if windows else 0.0
+                ),
+                "per_slot_acceptance": [
+                    round(float(e) / w, 3) if w else None
+                    for e, w in zip(self._spec_emitted, self._spec_windows)
+                ],
+            }
+        else:
+            out["speculative"] = {"enabled": False}
         return out
 
     def wait_for_work(self, timeout=0.05):
