@@ -271,11 +271,45 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``SpeculativeGenerator`` with the self-draft and the small draft on 4
    prompts equals ``CachedSequenceGenerator``'s greedy decode; rounds per
    row.
+15. QoS, KV swap, copy-on-write forks and beam search on phase 4's
+   LN-hooked LM, each engine fresh, every drive launching B7 exactly what
+   its program calls imply and B4 never. 15a: 8 priority-0 requests
+   (prompts 128-256 tokens from ``default_rng(15)``, 192 new, 2 sampled)
+   fill a paged bank; once all 8 decode, 4 priority-2 requests (prompts
+   32-64, 32 new) arrive; with ``QosPolicy(preempt=True)`` and without a
+   policy, in turns (policy, plain, plain, policy): every priority-2
+   request finishes before any priority-0 one, at least 4 preemptions,
+   all resumed, none aborted, 0 storms after the warm set and
+   ``mark_warmed``; every reply equal across the four turns and 13a's
+   token bars; swap-out and swap-in host wall and bytes a swap, the
+   priority-2 TTFT p50 with and without the policy, tokens/s beside 13a's.
+   15b: tenants ``gold`` (weight 3) and ``bronze`` (weight 1) each submit
+   16 requests (prompts 32-64, 64 new) at once: gold's share of the tokens
+   emitted while both had a request waiting for admission at least 0.6
+   (and without a policy, for comparison). 15c: 4 requests of n = 4
+   (temperature 0.8, seeds 150-153, prompts 64-200, 48 new) on a paged
+   engine: completion j equal to an independent admission under
+   ``seed_for_completion(seed, j)``, 12 forked slots, CoW copies equal to
+   the forks with a partial frontier page, each group's peak pages below n
+   x ``pages_for``; the shared and fresh pages a fork, a ``page_cow``'s
+   device time. 15d: a paged n-gram engine (``draft_k=4``) with the policy:
+   an n = 2 group and six of 15a's requests fill the bank, a priority-2
+   request preempts a speculative slot: replies equal 15a's and 15c's.
+   15e: a ``kv.swap`` seam on ``out`` aborts one preemption (replies
+   unchanged), one on ``in`` fails the preempted request alone, typed
+   ``internal``; ``stop()`` with a request swapped out fails it typed and
+   the books pair; behind a ``ServingServer`` an n = 3 generate equals
+   15c's completions, and tenant and priority reach the in-flight
+   snapshot. 15f: ``BeamSearchGenerator`` on 4 prompts of 64 tokens, 32
+   steps: width 1 equals greedy cached decode, width 4 the unhooked plain
+   path's sequences with scores within 1e-4 relative, B7 17 a step plus 16
+   for the prefill; tokens/s at widths 1 and 4.
 
 ``--profile`` adds where the time goes: a decode step (dense and paged), a
-verify window with 8 busy slots, a predict forward, a training step, an async window and a config-5
-DynSGD/``resnet18`` window (host wall, device time by category, idle
-share, top kernels).
+verify window with 8 busy slots, a swap-out, a swap-in and a fork of a
+300-token slot, a predict forward, a training step, an async window and a
+config-5 DynSGD/``resnet18`` window (host wall, device time by category,
+idle share, top kernels).
 
 The last lines are the kernels JSON, the ``nvidia-smi`` name/power line,
 and ``{"ok": true, "device": {...}}``.
@@ -4913,6 +4947,613 @@ def run_phase14(torch, np, lm, smi, zoo, gen, gen_reqs, gen_outs):
     return out, counts
 
 
+# ----------------------------------------------------------------- phase 15
+
+
+def qos_mix(np):
+    """15a's traffic: 8 priority-0 requests (prompts 128-256 tokens from
+    ``default_rng(15)``, 192 new tokens, the fourth and eighth sampled) and
+    4 priority-2 ones (prompts 32-64 tokens, 32 new)."""
+    rng = np.random.default_rng(15)
+    lo = []
+    for i in range(8):
+        p = rng.integers(0, 8192, int(rng.integers(128, 257))).astype(np.int32)
+        lo.append((p, 192, {"temperature": 0.8, "seed": 400 + i}
+                   if i % 4 == 3 else None))
+    hi = [(rng.integers(0, 8192, int(rng.integers(32, 65))).astype(np.int32),
+           32, None) for _ in range(4)]
+    return lo, hi
+
+
+def state_bytes(state):
+    """Host bytes of one ``swap_out`` state (K/V rows and context row)."""
+    return int(state["ctx"].nbytes + sum(k.nbytes + v.nbytes
+                                         for k, v in state["kv"]))
+
+
+def swap_meter(eng):
+    """Wrap the engine's stepper ``swap_out``/``swap_in``: the host wall of
+    each call and the bytes each state holds."""
+    st = eng._stepper
+    book = {"out_s": [], "in_s": [], "bytes": [], "tokens": []}
+    out0, in0 = st.swap_out, st.swap_in
+
+    def swap_out(slot):
+        t0 = time.perf_counter()
+        state = out0(slot)
+        book["out_s"].append(time.perf_counter() - t0)
+        book["bytes"].append(state_bytes(state))
+        book["tokens"].append(int(state["len"]))
+        return state
+
+    def swap_in(slot, state, max_new=None):
+        t0 = time.perf_counter()
+        in0(slot, state, max_new=max_new)
+        book["in_s"].append(time.perf_counter() - t0)
+
+    st.swap_out, st.swap_in = swap_out, swap_in
+    return book
+
+
+def qos_engine(lm, **kw):
+    """A fresh LN-hooked 8-slot paged engine with every program a swap-in
+    or a fork runs warmed, and the warm set declared."""
+    eng = hooked_engine(lm, paged=True, prefix_cache=False, **kw)
+    eng._stepper.warm_prefill_buckets()
+    eng._stepper.warm_restore_buckets()
+    eng.compile_ledger.mark_warmed()
+    return eng
+
+
+def wait_for(cond, what, timeout=120.0):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.0005)
+
+
+def serve_qos(eng, lo, hi, groups=()):
+    """Submit ``groups`` and ``lo`` at once (priority 0, tenant "batch"),
+    then ``hi`` (priority 2, tenant "live") once every lo request is
+    decoding and every group forked; returns (lo, hi and group handles,
+    seconds)."""
+    t0 = time.monotonic()
+    gh = [eng.submit(p, n, sampling=s) for p, n, s in groups]
+    lh = [eng.submit(p, n, sampling=s, tenant="batch", priority=0)
+          for p, n, s in lo]
+    wait_for(lambda: all(h.tokens or h.done for h in lh)
+             and all(all(c for c in h.completions) or h.done for h in gh),
+             "every priority-0 request to decode")
+    hh = [eng.submit(p, n, sampling=s, tenant="live", priority=2)
+          for p, n, s in hi]
+    return lh, hh, gh, t0
+
+
+def results(eng, handles):
+    """Each handle's reply, or the error it raised."""
+    outs = []
+    for h in handles:
+        try:
+            outs.append(eng.wait(h, timeout=600))
+        except Exception as e:  # noqa: BLE001 — the caller checks each
+            outs.append(e)
+    return outs
+
+
+def same_replies(np, outs, refs):
+    """True when every reply equals its reference (a prefix of it, when
+    the reply is shorter: deterministic decode makes a shorter budget's
+    reply an exact prefix of the longer one's)."""
+    return all(isinstance(o, np.ndarray) and np.array_equal(o, r[: len(o)])
+               for o, r in zip(outs, refs))
+
+
+def qos_books(stats):
+    return {k: stats[k] for k in ("preemptions", "resumes", "preempt_aborted",
+                                  "swap_in_failures", "swapped_failed",
+                                  "swapped_tokens", "forked_slots")}
+
+
+def paired(books):
+    return books["preemptions"] == (books["resumes"]
+                                    + books["swap_in_failures"]
+                                    + books["swapped_failed"])
+
+
+def run_preemption(torch, np, lm, smi, paging):
+    """15a: 8 priority-0 requests fill the bank, 4 priority-2 ones arrive
+    once all 8 decode; with ``QosPolicy(preempt=True)`` and without a
+    policy, in turns (policy, plain, plain, policy), each engine fresh."""
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.serving import QosPolicy
+
+    lo, hi = qos_mix(np)
+    reqs = lo + hi
+    runs = {"qos": [], "plain": []}
+    counts_all, refs = [], None
+    for mode in ("qos", "plain", "plain", "qos"):
+        eng = qos_engine(lm, qos=QosPolicy(preempt=True)
+                         if mode == "qos" else None)
+        meter = swap_meter(eng)
+        try:
+            kernels.reset_launch_counts()
+            with ProgramCalls() as calls:
+                lh, hh, _, t0 = serve_qos(eng, lo, hi)
+                outs = results(eng, lh + hh)
+                secs = time.monotonic() - t0
+                torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            if refs is None:
+                gap = check_replies(torch, np, lm, eng, outs, reqs,
+                                    f"15a {mode}")
+            stats = eng.stats()
+        finally:
+            eng.stop()
+        want = calls.ln_launches([lm])
+        check(counts["layernorm_fwd"] == want and counts["flash_fwd"] == 0,
+              f"15a {mode}: B7 {counts['layernorm_fwd']}, the program calls "
+              f"imply {want}; B4 {counts['flash_fwd']}")
+        if refs is None:
+            refs = outs
+        check(same_replies(np, outs, refs) and all(
+            len(o) == len(r) for o, r in zip(outs, refs)),
+              f"15a {mode}: a reply differs from the first run's")
+        books = qos_books(stats)
+        lo_done = min(h.finished for h in lh)
+        hi_done = max(h.finished for h in hh)
+        if mode == "qos":
+            check(hi_done < lo_done,
+                  "15a: a priority-0 request finished before a priority-2 one")
+            check(books["preemptions"] >= 4
+                  and books["preemptions"] == books["resumes"]
+                  and books["preempt_aborted"] == 0,
+                  f"15a: preemption books {books}")
+            check(stats["compiles"]["storms"] == 0,
+                  f"15a: {stats['compiles']['storms']} storms after the warm "
+                  f"set")
+        counts_all.append(counts)
+        tokens = sum(len(o) - len(p) for o, (p, _, _) in zip(outs, reqs))
+        ttft = sorted(h.latency()["ttft"] for h in hh)
+        runs[mode].append({
+            "seconds": secs, "tokens": tokens, "tokens_per_s": tokens / secs,
+            "hi_ttft_p50_s": (ttft[1] + ttft[2]) / 2,
+            "hi_last_finish_minus_first_lo_finish_s": hi_done - lo_done,
+            "books": books, "launches": counts,
+            "swap_out_ms": [s * 1e3 for s in meter["out_s"]],
+            "swap_in_ms": [s * 1e3 for s in meter["in_s"]],
+            "swap_bytes": meter["bytes"], "swap_tokens": meter["tokens"],
+            "steps": stats["steps"], "storms": stats["compiles"]["storms"],
+            "exhaustions": stats["paged"]["exhaustions"],
+        })
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    q, p = runs["qos"], runs["plain"]
+    res = {
+        "turns": runs, "max_argmax_gap": gap,
+        "qos_tokens_per_s": mean([r["tokens_per_s"] for r in q]),
+        "plain_tokens_per_s": mean([r["tokens_per_s"] for r in p]),
+        "paged_mix_tokens_per_s_13a": paging["paged_mix"]["tokens_per_s"],
+        "hi_ttft_p50_qos_s": [r["hi_ttft_p50_s"] for r in q],
+        "hi_ttft_p50_plain_s": [r["hi_ttft_p50_s"] for r in p],
+        "swap_out_ms_mean": mean(q[0]["swap_out_ms"]),
+        "swap_in_ms_mean": mean(q[0]["swap_in_ms"]),
+        "swap_bytes_mean": mean(q[0]["swap_bytes"]),
+    }
+    log(f"15a preemption: {q[0]['books']['preemptions']} / "
+        f"{q[1]['books']['preemptions']} preemptions = resumes, 0 aborts, 0 "
+        f"storms; priority-2 TTFT p50 {res['hi_ttft_p50_qos_s']} s with the "
+        f"policy, {res['hi_ttft_p50_plain_s']} s without (in turns); swap-out"
+        f" {res['swap_out_ms_mean']:.2f} ms, swap-in "
+        f"{res['swap_in_ms_mean']:.2f} ms host wall, "
+        f"{res['swap_bytes_mean'] / 1e6:.2f} MB a swap "
+        f"({q[0]['swap_tokens']} tokens); tokens/s {res['qos_tokens_per_s']:.1f}"
+        f" with the policy, {res['plain_tokens_per_s']:.1f} without, 13a's "
+        f"paged mix {res['paged_mix_tokens_per_s_13a']:.1f}; replies equal "
+        f"in all four turns, argmax gap {gap:.2e}; B7 "
+        f"{[c['layernorm_fwd'] for c in counts_all]} on {smi}")
+    return res, counts_all, refs
+
+
+def wfq_mix(np):
+    """15b's traffic: 16 requests each of tenants ``gold`` and ``bronze``,
+    interleaved, prompts 32-64 tokens from ``default_rng(151)``, 64 new."""
+    rng = np.random.default_rng(151)
+    return [(rng.integers(0, 8192, int(rng.integers(32, 65))).astype(np.int32),
+             64, None, t) for _ in range(16) for t in ("gold", "bronze")]
+
+
+def run_wfq(torch, np, lm, smi):
+    """15b: gold (weight 3) and bronze (weight 1) each submit 16 requests
+    at once, with the policy and without one; gold's share of the tokens
+    emitted while both tenants were backlogged (each had a request waiting
+    for admission)."""
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.faults import FaultPlan
+    from distkeras_tpu_torch.serving import QosPolicy
+
+    reqs = wfq_mix(np)
+    out, counts_all = {}, []
+    for mode in ("qos", "plain"):
+        qos = (QosPolicy(weights={"gold": 3.0, "bronze": 1.0}, preempt=False)
+               if mode == "qos" else None)
+        eng = hooked_engine(lm, qos=qos)
+        handles, snaps = [], []
+
+        def note(ctx):
+            # the scheduler thread, at each step dispatch: per tenant the
+            # tokens emitted so far and whether a request still waits in
+            # the queue (not yet admitted): the tenant is backlogged
+            row = {}
+            for h in handles:
+                t = row.setdefault(h.tenant, [0, False])
+                t[0] += len(h.tokens)
+                t[1] = t[1] or h.started is None
+            snaps.append(row)
+            return False
+
+        try:
+            kernels.reset_launch_counts()
+            with ProgramCalls() as calls, FaultPlan().arm(
+                    "stepper.step", times=None, when=note):
+                t0 = time.monotonic()
+                handles.extend(eng.submit(p, n, sampling=s, tenant=t)
+                               for p, n, s, t in reqs)
+                outs = results(eng, handles)
+                secs = time.monotonic() - t0
+                torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            gap = argmax_gap(torch, np, lm, outs, [r[:3] for r in reqs])
+        finally:
+            eng.stop()
+        want = calls.ln_launches([lm])
+        check(counts["layernorm_fwd"] == want and counts["flash_fwd"] == 0,
+              f"15b {mode}: B7 {counts['layernorm_fwd']}, the program calls "
+              f"imply {want}")
+        check(all(isinstance(o, np.ndarray) and len(o) == len(p) + n
+                  for o, (p, n, _, _) in zip(outs, reqs))
+              and gap <= LOGIT_TOL, f"15b {mode}: token bars (gap {gap})")
+        both = {"gold": 0, "bronze": 0}
+        for a, b in zip(snaps, snaps[1:]):
+            if all(a.get(t, [0, False])[1] for t in both):
+                for t in both:
+                    both[t] += b[t][0] - a[t][0]
+        share = both["gold"] / max(1, sum(both.values()))
+        out[mode] = {"gold_share_backlogged": share, "tokens_backlogged": both,
+                     "tokens_per_s": sum(n for _, n, _, _ in reqs) / secs,
+                     "seconds": secs, "max_argmax_gap": gap,
+                     "launches": counts}
+        counts_all.append(counts)
+    check(out["qos"]["gold_share_backlogged"] >= 0.6,
+          f"15b: gold's share {out['qos']['gold_share_backlogged']:.3f} < 0.6")
+    log(f"15b WFQ: gold's share of the tokens emitted while both tenants "
+        f"were backlogged {out['qos']['gold_share_backlogged']:.3f} with "
+        f"weights 3:1 ({out['qos']['tokens_backlogged']}), "
+        f"{out['plain']['gold_share_backlogged']:.3f} without a policy; "
+        f"tokens/s {out['qos']['tokens_per_s']:.1f} / "
+        f"{out['plain']['tokens_per_s']:.1f} on {smi}")
+    return out, counts_all
+
+
+def group_mix(np):
+    """15c's traffic: 4 requests of n = 4 completions, temperature 0.8,
+    seeds 150-153, prompts 64-200 tokens from ``default_rng(152)``, 48
+    new."""
+    rng = np.random.default_rng(152)
+    return [(rng.integers(0, 8192, int(rng.integers(64, 201))).astype(np.int32),
+             48, {"temperature": 0.8, "seed": 150 + i, "n": 4})
+            for i in range(4)]
+
+
+def run_groups(torch, np, lm, smi):
+    """15c: n = 4 completions through copy-on-write forks on a paged
+    engine, against independent admissions under the derived seeds."""
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.faults import FaultPlan
+    from distkeras_tpu_torch.serving.sampling import seed_for_completion
+
+    groups = group_mix(np)
+    eng = qos_engine(lm)
+    st = eng._stepper
+    handles, peak = [], {}
+
+    def note(ctx):
+        for h in handles:
+            pages = {p for i, r in enumerate(eng.batcher._slots) if r is h
+                     for p in st._tables[i]}
+            peak[h.id] = max(peak.get(h.id, 0), len(pages))
+        return False
+
+    try:
+        kernels.reset_launch_counts()
+        with ProgramCalls() as calls, FaultPlan().arm(
+                "stepper.step", times=None, when=note):
+            t0 = time.monotonic()
+            handles.extend(eng.submit(p, n, sampling=s) for p, n, s in groups)
+            outs = results(eng, handles)
+            secs = time.monotonic() - t0
+            torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        stats = eng.stats()
+        singles = [(p, n, {"temperature": 0.8,
+                           "seed": seed_for_completion(s["seed"], j)})
+                   for p, n, s in groups for j in range(4)]
+        single_outs, _ = serve_mix(eng, singles)
+        # one page_cow between two free pages (a copy of a page onto
+        # itself is skipped), the engine idle
+        a, b = st._kv_alloc.alloc(2, reason="probe")
+        cow_ms = device_time_ms(lambda: st._page_copy(a, b))
+        st._kv_alloc.free([a, b], reason="probe")
+    finally:
+        eng.stop()
+    want = calls.ln_launches([lm])
+    check(counts["layernorm_fwd"] == want and counts["flash_fwd"] == 0,
+          f"15c: B7 {counts['layernorm_fwd']}, the program calls imply "
+          f"{want}; B4 {counts['flash_fwd']}")
+    check(all(isinstance(o, list) and len(o) == 4 for o in outs),
+          f"15c: a group did not return 4 sequences: {outs[:1]}")
+    flat = [c for o in outs for c in o]
+    check(all(np.array_equal(a, b) for a, b in zip(flat, single_outs)),
+          "15c: a completion differs from its independent admission")
+    partial = sum(3 for p, _, _ in groups if (len(p) - 1) % 16)
+    check(stats["forked_slots"] == 12,
+          f"15c: serving_forked_slots {stats['forked_slots']} != 12")
+    check(stats["paged"]["cow_copies"] == partial,
+          f"15c: {stats['paged']['cow_copies']} CoW copies, {partial} forks "
+          f"had a partial frontier page")
+    per = {h.id: 4 * st.pages_for(len(p), n)
+           for h, (p, n, _) in zip(handles, groups)}
+    check(all(peak[k] < per[k] for k in per),
+          f"15c: a group's peak pages {peak} not below n x pages_for {per}")
+    res = {
+        "seconds": secs, "tokens": sum(len(c) - len(p) for o, (p, _, _)
+                                       in zip(outs, groups) for c in o),
+        "forked_slots": stats["forked_slots"],
+        "cow_copies": stats["paged"]["cow_copies"],
+        "forks_with_partial_frontier": partial,
+        "per_fork_shared_pages": [(len(p) - 1) // 16 for p, _, _ in groups],
+        "per_fork_fresh_pages": [st.fork_pages_for(len(p), n)
+                                 for p, n, _ in groups],
+        "group_peak_pages": [peak[h.id] for h in handles],
+        "n_times_pages_for": [per[h.id] for h in handles],
+        "page_cow_device_ms": cow_ms, "launches": counts,
+    }
+    res["tokens_per_s"] = res["tokens"] / secs
+    log(f"15c groups: 16 completions equal their independent admissions; "
+        f"forked slots 12, CoW copies {res['cow_copies']} (= forks with a "
+        f"partial frontier page); per fork shared pages "
+        f"{res['per_fork_shared_pages']}, fresh "
+        f"{res['per_fork_fresh_pages']}; group peak pages "
+        f"{res['group_peak_pages']} against n x pages_for "
+        f"{res['n_times_pages_for']}; page_cow {cow_ms * 1e3:.2f} us device; "
+        f"{res['tokens_per_s']:.1f} tokens/s on {smi}")
+    return res, counts, outs
+
+
+def run_spec_fork_swap(torch, np, lm, smi, lo_refs, group_outs):
+    """15d: on a paged n-gram engine (``draft_k=4``) with the policy, an
+    n = 2 group and six of 15a's priority-0 requests (64 new) fill the
+    bank, one of 15a's priority-2 requests preempts a speculative slot:
+    every reply equals 15a's and 15c's non-speculative engines'."""
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.serving import QosPolicy
+
+    lo, hi = qos_mix(np)
+    lo6 = [(p, 64, s) for p, _, s in lo[:6]]
+    g0 = group_mix(np)[0]
+    group = (g0[0], g0[1], {**g0[2], "n": 2})
+    eng = qos_engine(lm, qos=QosPolicy(preempt=True), speculative="ngram",
+                     draft_k=4)
+    try:
+        kernels.reset_launch_counts()
+        with ProgramCalls() as calls:
+            lh, hh, gh, _ = serve_qos(eng, lo6, hi[:1], [group])
+            outs = results(eng, lh + hh + gh)
+            torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        stats = eng.stats()
+    finally:
+        eng.stop()
+    want = calls.ln_launches([lm])
+    check(counts["layernorm_fwd"] == want and counts["flash_fwd"] == 0,
+          f"15d: B7 {counts['layernorm_fwd']}, the program calls imply "
+          f"{want}")
+    books = qos_books(stats)
+    check(same_replies(np, outs[:7], lo_refs[:6] + lo_refs[8:9]),
+          "15d: a reply differs from 15a's")
+    check(isinstance(outs[7], list) and same_replies(
+        np, outs[7], group_outs[0][:2]), "15d: the group differs from 15c's")
+    check(books["preemptions"] >= 1 and paired(books)
+          and books["forked_slots"] == 1, f"15d: books {books}")
+    res = {"books": books, "speculative": spec_books(stats),
+           "launches": counts}
+    log(f"15d fork and swap under speculation: replies equal 15a's and "
+        f"15c's; books {books}; speculative {res['speculative']} on {smi}")
+    return res, counts
+
+
+def run_qos_faults(torch, np, lm, smi, lo_refs, group_outs):
+    """15e: ``kv.swap`` seams on each direction, a stop with a request
+    swapped out, and the n-completion reply and QoS header over TCP."""
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.faults import FaultPlan
+    from distkeras_tpu_torch.serving import (
+        EngineStoppedError,
+        InternalError,
+        QosPolicy,
+        ServingClient,
+        ServingServer,
+    )
+
+    lo, hi = qos_mix(np)
+    lo8 = [(p, 64, s) for p, _, s in lo]
+    refs = lo_refs[:8] + lo_refs[8:9]
+    res, counts_all = {}, []
+    for direction in ("out", "in"):
+        eng = qos_engine(lm, qos=QosPolicy(preempt=True))
+        plan = FaultPlan(seed=0).arm(
+            "kv.swap", times=1,
+            when=lambda ctx, d=direction: ctx.get("direction") == d)
+        try:
+            kernels.reset_launch_counts()
+            with ProgramCalls() as calls, plan:
+                lh, hh, _, _ = serve_qos(eng, lo8, hi[:1])
+                outs = results(eng, lh + hh)
+                torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            stats = eng.stats()
+        finally:
+            eng.stop()
+        want = calls.ln_launches([lm])
+        check(counts["layernorm_fwd"] == want and counts["flash_fwd"] == 0,
+              f"15e {direction}: B7 {counts['layernorm_fwd']}, the program "
+              f"calls imply {want}")
+        books = qos_books(stats)
+        if direction == "out":
+            check(same_replies(np, outs, refs) and books["preempt_aborted"]
+                  == 1 and books["preemptions"] >= 1 and paired(books),
+                  f"15e out: an aborted swap-out changed a reply, or books "
+                  f"{books}")
+        else:
+            failed = [i for i, o in enumerate(outs)
+                      if not isinstance(o, np.ndarray)]
+            check(len(failed) == 1 and isinstance(outs[failed[0]],
+                                                  InternalError)
+                  and same_replies(np, [o for i, o in enumerate(outs)
+                                        if i not in failed],
+                                   [r for i, r in enumerate(refs)
+                                    if i not in failed])
+                  and books["swap_in_failures"] == 1 and paired(books),
+                  f"15e in: {[type(o).__name__ for o in outs]}, books {books}")
+        res[direction] = {"books": books, "fired": plan.fired("kv.swap")}
+        counts_all.append(counts)
+    # stop with a request swapped out
+    eng = qos_engine(lm, qos=QosPolicy(preempt=True))
+    try:
+        lh, hh, _, _ = serve_qos(eng, lo8, hi[:1])
+        wait_for(lambda: any(h._swap is not None for h in lh),
+                 "a swapped-out request")
+        swapped = next(h for h in lh if h._swap is not None)
+    finally:
+        eng.stop(drain=False)
+    books = qos_books(eng.batcher.stats())
+    try:
+        swapped.result(0)
+        typed = False
+    except EngineStoppedError:
+        typed = True
+    check(typed and swapped._swap is None and paired(books)
+          and books["swapped_failed"] >= 1,
+          f"15e stop: typed {typed}, books {books}")
+    res["stop"] = {"books": books}
+    # the wire: n = 3 and the QoS header
+    eng = qos_engine(lm)
+    seen = []
+    submit0 = eng.batcher.submit
+
+    def spy(req):
+        out = submit0(req)
+        seen.extend((r["tenant"], r["priority"])
+                    for r in eng.batcher.inflight_snapshot())
+        return out
+
+    eng.batcher.submit = spy
+    srv = ServingServer(eng).start()
+    p, n, s = group_mix(np)[0]
+    try:
+        kernels.reset_launch_counts()
+        with ServingClient(srv.host, srv.port, connect_timeout=5) as c:
+            wire = c.generate(p, n, sampling={**s, "n": 3}, tenant="gold",
+                              priority=1)
+        counts = kernels.launch_counts()
+    finally:
+        srv.shutdown()
+        eng.stop()
+    check(isinstance(wire, list) and len(wire) == 3
+          and all(np.array_equal(a, b) for a, b in zip(wire, group_outs[0])),
+          "15e wire: the n = 3 reply differs from 15c's in-process group")
+    check(("gold", 1) in seen, f"15e wire: the snapshot showed {seen}")
+    counts_all.append(counts)
+    res["wire"] = {"n": len(wire), "snapshot": sorted(set(seen))}
+    log(f"15e faults: an aborted swap-out ({res['out']['books']}) left every"
+        f" reply equal; a failed swap-in failed its request alone, typed "
+        f"internal ({res['in']['books']}); stop() with a request swapped out "
+        f"failed it typed ({res['stop']['books']}); n = 3 over TCP equal "
+        f"15c's, tenant/priority in the snapshot {res['wire']['snapshot']} "
+        f"on {smi}")
+    return res, counts_all
+
+
+def run_beam(torch, np, lm, smi):
+    """15f: ``BeamSearchGenerator`` on the LN-hooked LM, 4 prompts of 64
+    tokens from ``default_rng(153)``, 32 steps."""
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+    from distkeras_tpu_torch.predictors import (
+        BeamSearchGenerator,
+        CachedSequenceGenerator,
+    )
+
+    prompts = np.random.default_rng(153).integers(0, 8192, (4, 64))
+    steps, blocks = 32, len(lm.layers) - 3
+    detach_hooks(lm)
+    check(attach_fused_layernorm(lm) == 17, "LN hook not on 17 norms")
+    greedy = CachedSequenceGenerator(lm).generate(prompts, steps)
+    res, counts_all, outs = {}, [], {}
+    for width in (1, 4):
+        gen = BeamSearchGenerator(lm, beam_width=width)
+        gen.generate(prompts, 2)  # first-call costs off the clock
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        outs[width] = gen.generate(prompts, steps)
+        secs = time.monotonic() - t0
+        counts = kernels.launch_counts()
+        want = steps * (2 * blocks + 1) + 2 * blocks
+        check(counts["layernorm_fwd"] == want and counts["flash_fwd"] == 0,
+              f"15f width {width}: B7 {counts['layernorm_fwd']}, want {want}")
+        res[width] = {"seconds": secs, "tokens_per_s": 4 * steps / secs,
+                      "scores": gen.last_scores.tolist(), "launches": counts}
+        counts_all.append(counts)
+    check(np.array_equal(outs[1], greedy),
+          "15f: beam_width=1 differs from greedy cached decode")
+    detach_hooks(lm)
+    plain = BeamSearchGenerator(lm, beam_width=4)
+    plain_out = plain.generate(prompts, steps)
+    attach_fused_layernorm(lm)
+    rel = float(np.max(np.abs(np.asarray(res[4]["scores"])
+                              - plain.last_scores)
+                       / np.abs(plain.last_scores)))
+    check(np.array_equal(outs[4], plain_out) and rel <= 1e-4,
+          f"15f: width 4 differs from the plain path (scores rel {rel})")
+    res["scores_max_rel_err"] = rel
+    log(f"15f beam search: width 1 = greedy decode, width 4 = the plain "
+        f"path's sequences (scores within {rel:.1e} relative); B7 "
+        f"{want} a generate (17 a step + 16 for the prefill); tokens/s "
+        f"{res[1]['tokens_per_s']:.1f} at width 1, "
+        f"{res[4]['tokens_per_s']:.1f} at width 4 on {smi}")
+    return res, counts_all
+
+
+def run_phase15(torch, np, lm, smi, paging):
+    """Phase 15, QoS, KV swap, CoW forks and beam search on the card;
+    returns the results and the launch counts of each subphase's main
+    path."""
+    out = {}
+    t0 = time.monotonic()
+    out["preemption"], c_a, refs = run_preemption(torch, np, lm, smi, paging)
+    out["wfq"], c_b = run_wfq(torch, np, lm, smi)
+    out["groups"], c_c, group_outs = run_groups(torch, np, lm, smi)
+    out["spec_fork_swap"], c_d = run_spec_fork_swap(torch, np, lm, smi, refs,
+                                                    group_outs)
+    out["faults"], c_e = run_qos_faults(torch, np, lm, smi, refs, group_outs)
+    out["beam"], c_f = run_beam(torch, np, lm, smi)
+    detach_hooks(lm)
+    out["seconds_total"] = time.monotonic() - t0
+    counts = [*c_a, *c_b, c_c, c_d, *c_e, *c_f]
+    out["launches"] = {k: sum(c.get(k, 0) for c in counts)
+                       for k in counts[0]}
+    return out, counts
+
+
 def baseline_leaf_shapes():
     """The parameter shapes of configs 2-5's models (built on the CPU: only
     their leaf tables matter to phases 2b/2c)."""
@@ -5203,6 +5844,50 @@ class FixedProposals:
                 np.where(active, k, 0).astype(np.int32))
 
 
+def profile_swap_fork(torch, np, lm, calls=5):
+    """A 300-token slot of the LN-hooked LM on a paged 8-slot stepper
+    (warmed): ``swap_out``, ``swap_in`` of that state into a free slot, and
+    a ``fork_slot`` (18 shared pages, one CoW copy of the partial frontier
+    page): host wall per call (synchronized), device time, bytes moved,
+    idle share."""
+    from distkeras_tpu_torch.serving.engine import DecodeStepper
+
+    st = DecodeStepper(lm, num_slots=8, paged=True)
+    st.warmup()
+    st.warm_restore_buckets()
+    st.admit(0, np.random.default_rng(16).integers(0, 8192, 300), max_new=64)
+    state = st.swap_out(0)
+    nbytes = state_bytes(state)
+
+    def swap_in():
+        st.release(1)
+        st.swap_in(1, state, max_new=64)
+
+    def fork():
+        st.release(2)
+        st.fork_slot(0, 2, max_new=64)
+
+    def wall_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / calls * 1e3
+
+    out = {}
+    for name, fn, moved in (("swap_out_300", lambda: st.swap_out(0), nbytes),
+                            ("swap_in_300", swap_in, nbytes),
+                            ("fork_300", fork, None)):
+        out[name] = {"wall_ms": wall_ms(fn), "bytes": moved,
+                     **device_profile(torch, fn, calls)}
+    out["fork_300"]["cow_copies"] = st._kv_alloc.cow_copies
+    out["fork_300"]["shared_pages"] = (300 - 1) // st.page_size
+    del st
+    return out
+
+
 def profile_paths(torch, np, lm, zoo, steps=20):
     """Where the time goes (``--profile``): a decode step with 8 busy slots
     on the LayerNorm-hooked model (dense and paged), a verify window of 5
@@ -5255,6 +5940,8 @@ def profile_paths(torch, np, lm, zoo, steps=20):
     paged["table_bucket"] = pst._table_bucket()
     verify["verify_steps"] = vst.spec_verify_steps
     del st, pst, vst
+    gc.collect()
+    swap_fork = profile_swap_fork(torch, np, lm)
     attach_flash_attention(lm)
     x = torch.as_tensor(rng.integers(0, 8192, (8, 512)), device="cuda")
 
@@ -5269,7 +5956,8 @@ def profile_paths(torch, np, lm, zoo, steps=20):
     async_window = profile_async_window(torch, np, zoo)
     resnet_window = profile_resnet_window(torch, np)
     for name, r in (("decode_step", decode), ("paged_decode_step", paged),
-                    ("verify_window", verify), ("predict_forward", predict),
+                    ("verify_window", verify), *swap_fork.items(),
+                    ("predict_forward", predict),
                     ("train_step", train), ("async_window", async_window),
                     ("resnet18_dynsgd_window", resnet_window)):
         if r["device_ms"] is not None:
@@ -5410,12 +6098,16 @@ def main(argv):
                                       gen_reqs, gen_outs)
     log(f"phase 14 in {spec['seconds_total']:.1f} s, launches "
         f"{spec['launches']} on {smi}")
+    qos, qos_launches = run_phase15(torch, np, lm, smi, paging)
+    log(f"phase 15 in {qos['seconds_total']:.1f} s, launches "
+        f"{qos['launches']} on {smi}")
     profile = profile_paths(torch, np, lm, zoo) if args.profile else None
 
     phases = [pred["launches"], gen["launches"], train["launches"],
               async_thr["launches"], baseline_launches, resume_launches,
               member_launches, socket_launches, *front_launches,
               *healing_launches, *paging_launches, *spec_launches,
+              *qos_launches,
               *(r["launches"] for r in async_sim.values())]
     launches = {k: sum(c.get(k, 0) for c in phases) for k in kernels.LAUNCHES}
     check(all(n > 0 for n in launches.values()),
@@ -5482,7 +6174,7 @@ def main(argv):
                        "resume": resume, "phase9": members,
                        "phase10": socket_tier, "phase11": front,
                        "phase12": healing, "phase13": paging,
-                       "phase14": spec,
+                       "phase14": spec, "phase15": qos,
                        "profile": profile,
                        "flash_infinite_q": inf_rows},
                       f, indent=1)

@@ -96,6 +96,7 @@ from distkeras_tpu_torch.parameter_servers import (
     SocketParameterServer,
 )
 from distkeras_tpu_torch.predictors import (
+    BeamSearchGenerator,
     CachedSequenceGenerator,
     ModelPredictor,
     SequenceGenerator,
@@ -133,6 +134,7 @@ __all__ = [
     "AveragingTrainer",
     "BatchNorm",
     "AvgPool2D",
+    "BeamSearchGenerator",
     "CachedSequenceGenerator",
     "Checkpointer",
     "Conv2D",

@@ -1,8 +1,8 @@
 """Inference over Datasets and autoregressive decode (PyTorch port of
 ``distkeras_tpu.predictors``: ``ModelPredictor`` on one device,
 ``SequenceGenerator`` and ``CachedSequenceGenerator`` with greedy and
-sampled ragged decode, and ``SpeculativeGenerator``'s draft-and-verify
-greedy decode; beam search waits).
+sampled ragged decode, ``BeamSearchGenerator``, and
+``SpeculativeGenerator``'s draft-and-verify greedy decode).
 
 JAX compiles each decode into one program; here PyTorch runs eagerly, so
 the scan is a Python loop and the K/V caches are updated in place. The
@@ -389,6 +389,147 @@ class CachedSequenceGenerator(SequenceGenerator):
             logit = self._head(self._final_ln(x))
             nxt = self._next_token(logit, pos, lens, rows)
             tok = self._masked_write(ctx, lens, steps, pos, nxt)
+
+
+class BeamSearchGenerator(CachedSequenceGenerator):
+    """Beam-search decoding for the causal-LM family: keep the
+    ``beam_width`` highest-log-probability hypotheses per prompt instead of
+    one greedy path.
+
+    Beams ride the batch axis of the per-block K/V caches ((B*W, T, H,
+    Dh); the per-token body is cached greedy decode's), and each step
+    expands every live beam over the vocabulary, keeps the best
+    ``beam_width`` of the B x (W*V) scored continuations, and reorders the
+    contexts and caches by a parent-beam gather (``index_select``). The
+    selection orders by (-score, flat index), which is
+    ``jax.lax.top_k``'s order, so exact ties pick the beams JAX picks.
+
+    ``eos_id`` finishes a hypothesis: a finished beam's only extension is
+    another ``eos_id`` at zero log-probability, so its score freezes while
+    open beams keep accumulating. The search ranks by raw cumulative
+    log-probability; ``length_penalty`` (GNMT ``((5 + L) / 6) ** alpha``)
+    applies at the final selection only. ``beam_width=1`` is greedy cached
+    decode. ``last_scores`` holds the raw summed log-probability of each
+    returned sequence. The port has no ``kv_dtype``: the caches are f32."""
+
+    def __init__(self, model, beam_width=4, length_penalty=0.0, device=None):
+        super().__init__(model, temperature=0.0, seed=0, device=device)
+        self.beam_width = int(beam_width)
+        self.length_penalty = float(length_penalty)
+        self._validate_beam()
+        self.last_scores = None
+
+    def _validate_beam(self):
+        """Checked again at every ``generate``: the knobs are mutable."""
+        if self.beam_width < 1:
+            raise ValueError(
+                f"beam_width must be >= 1; got {self.beam_width}"
+            )
+        vocab = self._emb.vocab_size
+        if self.beam_width > vocab:
+            raise ValueError(
+                f"beam_width ({self.beam_width}) exceeds the vocabulary "
+                f"({vocab}) — there are not that many distinct "
+                "single-token continuations"
+            )
+        if self.length_penalty < 0:
+            raise ValueError(
+                f"length_penalty must be >= 0; got {self.length_penalty}"
+            )
+
+    def generate(self, prompts, steps, eos_id=None):
+        """(B, P) prompts -> the best-scoring continuation per row: a (B, P
+        + steps) array, or eos-trimmed rows with ``eos_id`` (the other
+        generators' conventions). Ragged batches are refused."""
+        self._validate_beam()
+        if isinstance(prompts, (list, tuple)) and len(
+            {len(np.atleast_1d(p)) for p in prompts}
+        ) > 1:
+            raise ValueError(
+                "beam search decodes rectangular batches only; pad or "
+                "bucket ragged prompts upstream"
+            )
+        prompts, steps, seq_len = self._validate_generate_args(
+            np.asarray(prompts), steps
+        )
+        b, p = prompts.shape
+        ctx = np.zeros((b, seq_len), np.int64)
+        ctx[:, :p] = prompts
+        eos = -1 if eos_id is None else int(eos_id)
+        out, scores = self._beam_decode(
+            torch.as_tensor(ctx, device=self.device), p, steps, eos
+        )
+        self.last_scores = scores
+        out = out[:, : p + steps].astype(prompts.dtype)
+        if eos_id is None:
+            return out
+        return [self._trim_eos(row, p, int(eos_id)) for row in out]
+
+    @torch.no_grad()
+    def _beam_decode(self, ctx, prompt_len, steps, eos):
+        """The search over ``ctx`` (B, T); returns the winning rows and
+        their raw scores as numpy."""
+        seq_len = self.model.input_shape[0]
+        w, alpha = self.beam_width, self.length_penalty
+        dev = ctx.device
+        bsz = ctx.shape[0]
+        caches = self._decode_prologue(ctx, prompt_len)
+        # beams tile onto the batch axis; beam 0 alone starts live (-inf
+        # elsewhere), so the first expansion picks the W best DISTINCT
+        # first tokens instead of W copies of one
+        caches = [(ck.repeat_interleave(w, 0), cv.repeat_interleave(w, 0))
+                  for ck, cv in caches]
+        ctxw = ctx.repeat_interleave(w, 0).reshape(bsz, w, seq_len)
+        cum = torch.full((bsz, w), float("-inf"), device=dev)
+        cum[:, 0] = 0.0
+        fin = torch.zeros((bsz, w), dtype=torch.bool, device=dev)
+        glen = torch.zeros((bsz, w), dtype=torch.int64, device=dev)
+        tok = ctxw[:, :, prompt_len - 1]
+        t_idx = torch.arange(seq_len, device=dev)
+        base = (torch.arange(bsz, device=dev) * w)[:, None]
+        only_eos = None
+        for i in range(steps):
+            pos = prompt_len - 1 + i
+            x = self.embed(tok.reshape(-1), pos)  # (B*W, d)
+            x = self._stages_decode(caches, x, pos, t_idx <= pos)
+            logit = self._head(self._final_ln(x))  # (B*W, V)
+            vocab = logit.shape[-1]
+            logp = torch.log_softmax(logit, dim=-1).reshape(bsz, w, vocab)
+            if eos >= 0:
+                if only_eos is None:
+                    only_eos = torch.full((vocab,), float("-inf"),
+                                          device=dev)
+                    only_eos[eos] = 0.0
+                # a finished beam extends only with eos, for free
+                logp = torch.where(fin[:, :, None], only_eos, logp)
+            total = (cum[:, :, None] + logp).reshape(bsz, w * vocab)
+            # top W by (-score, flat index): a stable descending sort keeps
+            # equal scores in index order, as jax.lax.top_k does
+            cum, flat = torch.sort(total, dim=1, descending=True,
+                                   stable=True)
+            cum, flat = cum[:, :w], flat[:, :w]
+            parent = torch.div(flat, vocab, rounding_mode="floor")
+            token = flat % vocab
+            ctxw = torch.gather(
+                ctxw, 1, parent[:, :, None].expand(-1, -1, seq_len)
+            )
+            fin = torch.gather(fin, 1, parent)
+            glen = torch.gather(glen, 1, parent) + (~fin).long()
+            if eos >= 0:
+                fin = fin | (token == eos)
+            gather = (base + parent).reshape(-1)  # (B*W,)
+            caches = [(ck.index_select(0, gather), cv.index_select(0, gather))
+                      for ck, cv in caches]
+            if pos + 1 < seq_len:
+                ctxw[:, :, pos + 1] = token
+            tok = token
+        if alpha > 0.0:
+            final = cum / ((5.0 + glen.float()) / 6.0) ** alpha
+        else:
+            final = cum
+        best = torch.argmax(final, dim=1)  # (B,)
+        rows = torch.arange(bsz, device=dev)
+        return ctxw[rows, best].cpu().numpy(), cum[rows, best].cpu().numpy()
 
 
 class SpeculativeGenerator:

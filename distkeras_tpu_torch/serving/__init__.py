@@ -18,8 +18,12 @@ client.
   tier's ``DevicePrefixIndex`` (page-aligned prefixes shared by
   reference, reclaimed under pool pressure). ``ServingEngine`` builds a
   store by default (``prefix_cache=True``).
-- ``sampling``: per-request ``SamplingParams``, the counter-based RNG and
-  the speculative window samplers.
+- ``sampling``: per-request ``SamplingParams`` (``n > 1``: completion
+  groups over copy-on-write forks), the counter-based RNG and the
+  speculative window samplers.
+- ``qos``: ``QosPolicy`` (priority classes, per-tenant weighted fair
+  queuing, preemption by KV swap) and the ``TokenBucket`` admission
+  quota.
 - ``server``/``client``: the length-prefixed TCP wire carrying DKT1
   frames — ``ServingServer``/``serve`` and ``ServingClient``/
   ``TokenStream`` (streaming generate), byte-compatible with the JAX
@@ -59,6 +63,7 @@ from distkeras_tpu_torch.serving.scheduler import (
 )
 from distkeras_tpu_torch.serving.sampling import SamplingParams
 from distkeras_tpu_torch.serving.paging import PageAllocator
+from distkeras_tpu_torch.serving.qos import QosPolicy, TokenBucket
 from distkeras_tpu_torch.serving.prefix_cache import (
     DevicePrefixIndex,
     PrefixStore,
@@ -93,6 +98,7 @@ __all__ = [
     "PeerError",
     "PoolExhaustedError",
     "PrefixStore",
+    "QosPolicy",
     "QuotaExhaustedError",
     "RetryBudget",
     "RetryPolicy",
@@ -104,6 +110,7 @@ __all__ = [
     "ServingServer",
     "ShedError",
     "StaleEpochError",
+    "TokenBucket",
     "TokenStream",
     "WindowedBatcher",
     "WrongRoleError",

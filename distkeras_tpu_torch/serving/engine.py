@@ -14,7 +14,10 @@ the prefix cache and speculative decode).
   position, attends one row against its caches or gathered pages and
   appends the greedy or sampled token — inactive slots freeze.
   ``step_async`` enqueues the same step and hands back a handle whose
-  ``collect()`` is the one host sync. With a draft source
+  ``collect()`` is the one host sync. ``fork_slot`` (paged) makes a slot a
+  copy-on-write continuation of another (shared history pages, one page
+  copy) for n > 1 completions; ``swap_out``/``swap_in`` move a slot's
+  state to the host and back for a QoS preemption. With a draft source
   (``speculative=``: ``NgramDrafter`` or ``ModelDrafter``) the scheduler
   drives ``spec_step`` instead: up to ``draft_k`` proposals per slot, one
   verify call over the ``draft_k + 1`` candidate positions, and 1 to
@@ -48,12 +51,11 @@ Every LayerNorm of the verify goes through the same hook, 2 per block +
 the final one per window (and per draft step of a hooked draft model).
 
 Not ported yet (and absent from the signatures, so passing one fails
-loudly): CoW slot forks (``fork_slot``, ``n > 1`` completions), QoS and
-its KV swap (``tenant`` and ``priority`` only label metrics), grammar
-masks and the masked verify, meshes, disaggregation roles and their
-``prefill``/``resume`` faces, the KV epoch and fabric (``kv_transfer``,
-``serve_prefix``, the ``kv_fabric`` health block), load shedding, CUDA
-graphs around the decode step, bf16 K/V caches (``kv_dtype``).
+loudly): grammar masks and the masked verify, meshes, disaggregation roles
+and their ``prefill``/``resume`` faces, the KV epoch and fabric
+(``kv_transfer``, ``serve_prefix``, the ``kv_fabric`` health block), load
+shedding, CUDA graphs around the decode step, bf16 K/V caches
+(``kv_dtype``).
 """
 
 from __future__ import annotations
@@ -94,6 +96,13 @@ from distkeras_tpu_torch.serving.prefix_cache import (
     DevicePrefixIndex,
     PrefixStore,
 )
+# the tenant-label bound, defined once in ``qos`` (the engine's latency
+# histograms and the scheduler's counters fold by it)
+from distkeras_tpu_torch.serving.qos import (  # noqa: F401 — re-exported
+    MAX_TENANT_LABELS,
+    OTHER_TENANTS,
+    fold_tenant,
+)
 from distkeras_tpu_torch.serving.scheduler import (
     ContinuousBatcher,
     EngineStoppedError,
@@ -102,12 +111,6 @@ from distkeras_tpu_torch.serving.scheduler import (
     WindowedBatcher,
 )
 from distkeras_tpu_torch.utils.device import check_model_device
-
-
-#: distinct tenant labels on the latency histograms before the rest fold
-#: into ``OTHER_TENANTS`` (the JAX package's bound)
-MAX_TENANT_LABELS = 64
-OTHER_TENANTS = "__other__"
 
 
 def _bucket_pow2(n: int, cap: int) -> int:
@@ -535,6 +538,7 @@ class DecodeStepper:
         self._topp = np.ones((b,), np.float32)  # 1.0 = disabled
         self._seeds = np.zeros((b,), np.int64)
         self._spos = np.zeros((b,), np.int64)
+        self._slot_params: list = [None] * b  # what each slot samples under
         for i in range(b):
             self.set_sampling(i, None)
         self.prefix_cache = prefix_cache
@@ -665,11 +669,17 @@ class DecodeStepper:
         reset its emitted-position counter (admission is the replay
         boundary)."""
         p = params if params is not None else self.default_sampling
+        self._bind_params(slot, p)
+        self._seeds[slot] = p.seed
+        self._spos[slot] = 0
+
+    def _bind_params(self, slot, p):
+        """The per-slot sampler arrays of ``p`` (seed and counter
+        aside)."""
+        self._slot_params[slot] = p
         self._temps[slot] = p.temperature
         self._topk[slot] = 0 if p.top_k is None else p.top_k
         self._topp[slot] = 1.0 if p.top_p is None else p.top_p
-        self._seeds[slot] = p.seed
-        self._spos[slot] = 0
 
     # -- page pool ------------------------------------------------------------
 
@@ -682,6 +692,21 @@ class DecodeStepper:
             need += self._kb + 1  # verify writes walk into the scratch
         need = min(need, self._tp)
         return max(1, -(-need // self.page_size))
+
+    @property
+    def can_fork(self) -> bool:
+        """Whether n-parallel completions can be scheduled here
+        (``fork_slot`` needs the paged copy-on-write machinery)."""
+        return self.paged
+
+    def fork_pages_for(self, prompt_len: int, max_new: int) -> int:
+        """FRESH pages one fork of a just-prefilled slot allocates (the
+        full history pages below its write frontier are shared): what the
+        scheduler adds per extra completion when it gates a group's
+        admission on the pool."""
+        need = self.pages_for(prompt_len, max_new)
+        frontier = (max(1, int(prompt_len)) - 1) // self.page_size
+        return max(0, need - frontier)
 
     @property
     def available_pages(self) -> int:
@@ -826,6 +851,159 @@ class DecodeStepper:
     def _write_row(self, slot, row):
         self._ctx[slot, : self.max_len] = self._to_dev(row)
 
+    # -- copy-on-write forks and the preemption swap -------------------------
+
+    @torch.no_grad()
+    def fork_slot(self, src: int, dst: int, max_new=None,
+                  completion=1) -> None:
+        """Copy-on-write fork: ``dst`` becomes a divergent continuation of
+        the DECODING slot ``src`` (``dst`` must be free). Full pages
+        strictly below the write frontier (position ``len - 1``, where the
+        next step's K/V lands) are shared into ``dst``'s table (refcount,
+        zero bytes); a partial frontier page is copied on the device (key
+        ``page_cow``) and counted by ``note_cow``; the rest of ``dst``'s
+        budget (``max_new``; None reserves to capacity) is fresh private
+        pages. The context row (key ``ctx_row_copy``) and host length are
+        copied, so both slots decode from the same sequence state, and a
+        greedy fork is its source's solo decode. ``dst`` copies ``src``'s
+        sampling params and emitted-position counter but samples under
+        ``seed_for_completion(seed, completion)``. On a speculative
+        stepper ``dst`` is marked draft-admitted and invalidated (the draft
+        bank holds no K/V for what ``src`` decoded). A fork the pool cannot
+        cover raises ``PoolExhaustedError`` before anything changes."""
+        if not self.paged:
+            raise ValueError("fork_slot requires paged=True")
+        if src in self._pending or not self._tables[src]:
+            raise ValueError(f"slot {src} is not a decodable admitted slot")
+        if self._tables[dst]:
+            raise ValueError(f"slot {dst} already holds pages")
+        ln = int(self._lens[src])
+        ps = self.page_size
+        mnew = (self.max_len - ln) if max_new is None else int(max_new)
+        need = self.pages_for(ln, max(1, mnew))
+        frontier = (ln - 1) // ps  # the page the next K/V write lands in
+        shared = list(self._tables[src][:frontier])
+        self._kv_alloc.share(shared)
+        try:
+            fresh = self._alloc_pages(max(0, need - frontier), "fork")
+        except Exception:
+            if shared:
+                self._kv_alloc.free(shared, reason="fork_abort")
+            raise
+        table = shared + fresh
+        if (ln - 1) % ps != 0 and frontier < len(self._tables[src]):
+            # the frontier page holds positions frontier * ps .. len - 2 of
+            # the shared history: copy it so src and dst can diverge
+            src_pg = self._tables[src][frontier]
+            self._run("page_cow", self._page_copy, src_pg, table[frontier])
+            self._kv_alloc.note_cow(src_pg, table[frontier])
+        self._tables[dst] = table
+        self._run("ctx_row_copy", self._row_copy, src, dst)
+        self._lens[dst] = ln
+        self._bind_params(dst, self._slot_params[src]
+                          or self.default_sampling)
+        self._seeds[dst] = _sp.seed_for_completion(
+            self._slot_params[dst].seed, completion)
+        self._spos[dst] = self._spos[src]
+        if self.drafter is not None:
+            sp = self._spec_prompts.get(src)
+            if sp is not None:
+                self._spec_prompts[dst] = sp
+            self._spec_admitted.add(dst)
+            self.drafter.invalidate(np.arange(self.num_slots) == dst)
+            self._spec_pending = None
+
+    def _page_copy(self, src_pg, dst_pg):
+        for pk, pv in self._pools:
+            pk[dst_pg] = pk[src_pg]
+            pv[dst_pg] = pv[src_pg]
+
+    def _row_copy(self, src, dst):
+        self._ctx[dst] = self._ctx[src]
+
+    def swap_out(self, slot: int) -> dict:
+        """A DECODABLE slot's live state on the host — the first half of a
+        preemption. The K/V of its written positions ``0 .. len-2`` per
+        block in the ``PrefixStore`` row format (``(p, H, Dh)`` f32 numpy,
+        one device->host copy), the context row, the host length and the
+        sampler state the position-keyed RNG continues from: JAX's dict
+        (``grammar`` stays None: grammar masks are not ported). Read-only:
+        the ``kv.swap`` seam fires first, and the caller releases the slot
+        only after a successful swap-out."""
+        self._fire("kv.swap", slot=slot, direction="out")
+        if slot in self._pending:
+            raise ValueError(
+                f"slot {slot} is mid-prefill; only decodable slots can be "
+                "swapped out"
+            )
+        ln = int(self._lens[slot])
+        if ln > self.max_len:
+            raise ValueError(
+                f"slot {slot} context ({ln}) has walked past the prompt row "
+                f"({self.max_len}); not swappable"
+            )
+        p = ln - 1  # written cache positions
+        if p < 1:
+            empty = np.zeros((0, self._nh, self._hd), np.float32)
+            kv = [(empty, empty.copy()) for _ in self._gen._blocks]
+        else:
+            kv = self._fetch_rows(slot, p)
+        return {
+            "len": ln,
+            "ctx": self._ctx[slot, :ln].cpu().numpy().astype(np.int32),
+            "kv": kv,
+            "spos": int(self._spos[slot]),
+            "seed": int(self._seeds[slot]),
+            "params": self._slot_params[slot],
+            "grammar": None,
+            "spec_prompt": self._spec_prompts.get(slot),
+        }
+
+    @torch.no_grad()
+    def swap_in(self, slot: int, state: dict, max_new=None) -> None:
+        """Restore a swapped-out request into a FREE slot: resume is
+        re-reserve + restore. Paged, the whole page budget (``len`` plus
+        ``max_new`` positions, the total the original admission reserved,
+        all private) is reserved first, and exhaustion raises the typed
+        ``PoolExhaustedError`` before any slot state changes. Then the
+        context row is written and the host K/V rows go back through the
+        prefix restore's bucketed programs (``restore`` /
+        ``paged_restore[pbk,pbt]``); the host length and the sampler
+        counter resume where ``swap_out`` left them, so the next step
+        computes what an uninterrupted decode would. On a speculative
+        stepper the slot is marked draft-admitted and invalidated. The
+        ``kv.swap`` seam fires first."""
+        self._fire("kv.swap", slot=slot, direction="in")
+        if state.get("grammar") is not None:
+            raise ValueError("grammar masks are not ported; cannot resume "
+                             "a constrained request")
+        ln = int(state["len"])
+        remaining = (self.max_len - ln) if max_new is None else int(max_new)
+        if self.paged:
+            if self._tables[slot]:
+                self._free_slot_pages(slot)
+            need = self.pages_for(ln, max(1, remaining))
+            self._tables[slot] = self._alloc_pages(need, "swap_in")
+        row = np.zeros((self.max_len,), np.int64)
+        row[:ln] = state["ctx"]
+        self._run("ctx_row", self._write_row, slot, row)
+        if state["kv"][0][0].shape[0] >= 1:
+            self._restore_prefix(slot, state["kv"])
+        self._lens[slot] = ln
+        p = state["params"] if state["params"] is not None \
+            else self.default_sampling
+        self._bind_params(slot, p)
+        self._seeds[slot] = int(state["seed"])
+        self._spos[slot] = int(state["spos"])
+        self._pending.pop(slot, None)
+        self._prefill_pos.pop(slot, None)
+        if self.drafter is not None:
+            if state.get("spec_prompt") is not None:
+                self._spec_prompts[slot] = state["spec_prompt"]
+            self._spec_admitted.add(slot)
+            self.drafter.invalidate(np.arange(self.num_slots) == slot)
+            self._spec_pending = None
+
     @torch.no_grad()
     def prefill_chunk(self, slot: int, budget: int) -> int:
         """Prefill up to ``budget`` more positions of ``slot``'s prompt;
@@ -964,6 +1142,7 @@ class DecodeStepper:
         except Exception as e:  # noqa: BLE001 — cache is best-effort
             self._record_prefix_error("insert", e, slot)
 
+    @torch.no_grad()
     def _fetch_rows(self, slot, p):
         """Per-block host ``(k, v)`` rows of ``slot``'s positions
         ``0..p-1``, in one device->host copy."""
@@ -1040,6 +1219,7 @@ class DecodeStepper:
             self._spec_pending = None
             self.drafter.release(slot)
 
+    @torch.no_grad()
     def warmup(self) -> None:
         """All-inactive steps off the serving path: build the kernels the
         step runs (their first use) and pay the step's first-call costs
@@ -1077,10 +1257,13 @@ class DecodeStepper:
 
         self._warm(warm)
 
+    @torch.no_grad()
     def warm_prefill_buckets(self) -> None:
         """Run every pow2 chunk bucket (``chunk[cb]`` and ``admit[pb]``
         dense, ``paged_chunk[cb,pbt]`` paged) and ``ctx_row`` once off the
-        serving path, through slot 0. Only safe on an IDLE bank: slot 0's
+        serving path, through slot 0, without autograd (a chunk written into
+        the caches under grad mode would leave them with a graph, and a later
+        device->host fetch of their rows would fail). Only safe on an IDLE bank: slot 0's
         context row (and, dense, its cache rows) are overwritten by the
         next admission before anything attends them; paged buckets run
         only while slot 0 holds no table (the writes then land on the
@@ -1116,6 +1299,7 @@ class DecodeStepper:
 
         self._warm(warm)
 
+    @torch.no_grad()
     def warm_restore_buckets(self) -> None:
         """Run every pow2 prefix-restore bucket (``restore`` dense,
         ``paged_restore[pbk,pbt]`` paged) once off the serving path,
@@ -1124,7 +1308,10 @@ class DecodeStepper:
         ``max_len``-clamped value. Dense, only safe on an IDLE bank (slot
         0's cache rows take zeros); paged, only while slot 0 holds no
         table (the writes land on the sentinel page). Also mints
-        ``ctx_row`` when it has not run and slot 0 is free."""
+        ``ctx_row`` when it has not run and slot 0 is free, and, paged, the
+        fork's ``page_cow`` and ``ctx_row_copy`` (each copying the sentinel
+        page or slot 0's row onto itself), so neither a swap-in nor a fork
+        mints on the serving path."""
 
         def warm():
             nh, hd = self._nh, self._hd
@@ -1148,6 +1335,11 @@ class DecodeStepper:
             if ("ctx_row", ()) not in self._called and not occupied:
                 self._run("ctx_row", self._write_row, 0,
                           np.zeros(self.max_len, np.int64))
+            if self.paged:
+                # the fork's copies, onto themselves: the sentinel page and
+                # slot 0's context row are unchanged
+                self._run("page_cow", self._page_copy, 0, 0)
+                self._run("ctx_row_copy", self._row_copy, 0, 0)
 
         self._warm(warm)
 
@@ -1537,6 +1729,15 @@ class ServingEngine:
     refuses any sampling, engine-wide or per request). A restart rebuilds
     the stepper with the same drafter, which re-binds to it.
 
+    QoS knob, with the JAX engine's meaning: ``qos``, an optional
+    ``qos.QosPolicy``. None keeps the single FIFO. A policy makes the queue
+    priority classes with per-tenant weighted fair queuing, and
+    (``preempt=True``) lets a higher-priority request displace the
+    lowest-priority decoding slot by swapping its KV out to the host and
+    freeing its pages; resume is restore + re-reserve, token-identical
+    across the boundary. Requests carry ``tenant``/``priority`` through
+    ``submit``. A restart's rebuilt scheduler keeps the policy.
+
     Self-healing knobs, with the JAX engine's defaults and meanings:
     ``quarantine_steps`` (iterations a blamed slot sits out),
     ``overlap`` (True: the overlapped loop; False: dispatch and wait),
@@ -1583,7 +1784,7 @@ class ServingEngine:
                  max_restarts=3, restart_backoff=0.05, metrics_path=None,
                  postmortem_dir=None, slos=None, history=True,
                  overlap=True, paged=False, page_size=16, num_pages=None,
-                 speculative=None, draft_bundle=None, draft_k=4,
+                 qos=None, speculative=None, draft_bundle=None, draft_k=4,
                  ngram_max=3, spec_mode="rejection", device=None):
         self.model = model
         self.device = check_model_device(model, device)
@@ -1653,8 +1854,9 @@ class ServingEngine:
         self._batcher_cfg = dict(
             queue_capacity=queue_capacity, prefill_chunk=prefill_chunk,
             quarantine_steps=quarantine_steps, registry=self.registry,
-            recorder=self.recorder, overlap=overlap,
+            recorder=self.recorder, qos=qos, overlap=overlap,
         )
+        self.qos = qos
         self.batcher = (
             None
             if self._stepper is None
@@ -2022,11 +2224,16 @@ class ServingEngine:
                trace=None, sampling=None, tenant=None, priority=0,
                stream=False) -> ServeRequest:
         """Queue one generate request; ``sampling`` is a
-        ``SamplingParams`` or its wire dict (None = the engine default).
+        ``SamplingParams`` or its wire dict (None = the engine default);
+        ``n > 1`` schedules n completions through copy-on-write forks
+        (paged engines; a dense one refuses with ``ValueError``).
         ``trace``: an ``obs.TraceContext`` (the scheduler then keeps the
-        request's event ledger). ``tenant``/``priority`` label metrics
-        only. ``stream``: the scheduler pushes each iteration's tokens
-        into the request's chunk FIFO (``req.next_chunk``)."""
+        request's event ledger). ``tenant``/``priority``: the QoS identity
+        (default tenant "default", priority 0); without a ``qos`` policy
+        they only label metrics, with one they pick the WFQ share and the
+        priority class (higher = more urgent, may preempt). ``stream``:
+        the scheduler pushes each iteration's tokens into the request's
+        chunk FIFO (``req.next_chunk``)."""
         batcher = self.batcher
         if batcher is None:
             raise EngineStoppedError(
@@ -2063,7 +2270,8 @@ class ServingEngine:
     def generate(self, prompt, max_new_tokens, eos_id=None, deadline=None,
                  timeout=None, trace=None, sampling=None, tenant=None,
                  priority=0) -> np.ndarray:
-        """The full sequence (prompt + generated, eos-trimmed)."""
+        """The full sequence (prompt + generated, eos-trimmed); with
+        ``sampling.n > 1``, the list of n such sequences."""
         req = self.submit(prompt, max_new_tokens, eos_id=eos_id,
                           deadline=deadline, trace=trace, sampling=sampling,
                           tenant=tenant, priority=priority)
@@ -2088,12 +2296,7 @@ class ServingEngine:
         if req.tenant != "default":
             # the tenant is a client-chosen wire string: past
             # MAX_TENANT_LABELS distinct names the rest share one label
-            tenant = req.tenant
-            if tenant not in self._tenants_seen:
-                if len(self._tenants_seen) < MAX_TENANT_LABELS:
-                    self._tenants_seen.add(tenant)
-                else:
-                    tenant = OTHER_TENANTS
+            tenant = fold_tenant(self._tenants_seen, req.tenant)
             for phase in ("ttft", "total"):
                 if lat[phase] is None:
                     continue

@@ -64,7 +64,8 @@ class SamplingParams:
     """Per-request sampling parameters. ``temperature=0`` (the default) is
     greedy argmax; ``top_k`` / ``top_p`` filter sampling and require
     ``temperature > 0``; ``seed`` keys the counter RNG; ``n`` asks for n
-    parallel completions (the slot forking it needs is not ported yet)."""
+    parallel completions: one prefill, then copy-on-write forks (a paged
+    engine), completion j sampling under ``seed_for_completion(seed, j)``."""
 
     __slots__ = ("temperature", "top_k", "top_p", "seed", "n")
 

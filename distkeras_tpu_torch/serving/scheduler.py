@@ -12,7 +12,13 @@ slice runs).
   bounded-queue backpressure, per-request deadlines, drain / hard stop.
   Over a paged stepper, admission is gated on the KV page pool as well as
   on free slots (the head of the queue waits for evictions), and a
-  request that can never fit the pool is refused at ``submit``.
+  request that can never fit the pool is refused at ``submit``. With a
+  ``qos.QosPolicy`` the queue is priority classes with per-tenant
+  weighted fair queuing, and (``preempt=True``) a blocked higher-priority
+  request may displace the lowest-priority decoding slot by KV swap
+  (``stepper.swap_out`` / ``swap_in``). A request with ``sampling.n > 1``
+  is a completion group: one prefill, then ``n - 1`` copy-on-write forks
+  (``stepper.fork_slot``) before its first token.
   Two loop shapes with one contract: ``overlap=False`` dispatches each
   step and waits for it; ``overlap=True`` runs the next iteration's host
   work while the step is on the device and collects it at the last
@@ -36,8 +42,8 @@ the stepper's compile ledger); ``stream=True`` requests get each
 iteration's emitted tokens pushed into a chunk FIFO before any eviction.
 The counters are typed registry counters (``serving_scheduler_<key>``).
 
-Not ported yet: QoS and preemption, completion groups (n > 1), prefill
-export, load shedding.
+Not ported yet: prefill export (the disaggregation roles), load
+shedding.
 
 The device face is an injected stepper (``engine.DecodeStepper``) with
 ``num_slots``, ``max_len``, ``begin_admit(slot, prompt, sampling) -> left``,
@@ -55,7 +61,10 @@ slot's ``(prompt, emitted)`` host sequence) and ``spec_step(active, seqs)
 first ``counts[i]`` entries the tokens slot i emits: the budget, EOS and
 deadline checks then run per emitted token, in emission order. It is
 always dispatched synchronously (the draft-verify path materializes host
-state mid-call).
+state mid-call). A QoS preemption needs ``swap_out(slot) -> state`` and
+``swap_in(slot, state, max_new=)``; a completion group needs ``can_fork``,
+``fork_slot(src, dst, max_new=, completion=)`` and (paged)
+``fork_pages_for(prompt_len, max_new)``.
 """
 
 from __future__ import annotations
@@ -70,6 +79,7 @@ import numpy as np
 
 from distkeras_tpu_torch.obs.metrics import MetricsRegistry
 from distkeras_tpu_torch.obs.overlap import OverlapLedger
+from distkeras_tpu_torch.serving.qos import _QosQueues, fold_tenant
 
 
 _NO_STOP = object()  # a window emitted without reaching a stop
@@ -200,10 +210,16 @@ class ServeRequest:
     batcher also keeps the per-request event ledger (one entry per
     prefill chunk) that ``obs.tracing.request_spans`` reads. The
     timestamps are always stamped (they feed ``latency()``).
-    ``tenant``/``priority`` only label the request (no QoS policy here).
-    ``stream``: each scheduler iteration's emitted tokens are pushed into
-    a FIFO that ``next_chunk`` drains; ``first_sent`` is stamped by the
-    server thread when the first chunk frame has been sent."""
+    ``tenant``/``priority``: the QoS identity (the WFQ share and the
+    priority class under a policy; metric labels either way);
+    ``preemptions`` counts swap-outs, and ``_swap`` holds the host swap
+    state while the request is swapped out (dropped with the request).
+    ``sampling.n > 1`` makes a completion group: ``completions`` holds
+    each stream's tokens (``tokens`` is ``completions[0]``), ``result()``
+    returns the list of n sequences, and any typed failure fails the whole
+    group. ``stream``: each scheduler iteration's emitted tokens are pushed
+    into a FIFO that ``next_chunk`` drains; ``first_sent`` is stamped by
+    the server thread when the first chunk frame has been sent."""
 
     _ids = iter(range(1, 1 << 62))
     _ids_lock = threading.Lock()
@@ -219,11 +235,6 @@ class ServeRequest:
             raise ValueError(
                 f"max_new_tokens must be >= 1; got {max_new_tokens}"
             )
-        if sampling is not None and sampling.n != 1:
-            raise ValueError(
-                f"n={sampling.n} parallel completions need CoW slot "
-                "forking, which is not ported yet"
-            )
         with self._ids_lock:
             self.id = next(self._ids)
         self.prompt = prompt
@@ -232,7 +243,10 @@ class ServeRequest:
         self.deadline = None if deadline is None else float(deadline)
         self.tenant = "default" if tenant is None else str(tenant)
         self.priority = int(priority)
+        self.preemptions = 0  # times this request was swapped out
+        self._swap = None  # the stepper's host swap state while out
         self.sampling = sampling
+        self.n = 1 if sampling is None else int(sampling.n)
         self.stream = bool(stream)
         self._chunks = _queue.SimpleQueue() if self.stream else None
         self.first_sent = None
@@ -241,7 +255,8 @@ class ServeRequest:
         self.prefill_finished = None  # slot became decodable
         self.first_token = None  # first generated token appended
         self.finished = None
-        self.tokens: list[int] = []
+        self.completions: list[list[int]] = [[] for _ in range(self.n)]
+        self.tokens: list[int] = self.completions[0]
         self.error: ServingError | None = None
         self.trace = trace
         self.events: list[dict] = []  # trace ledger (traced requests only)
@@ -252,6 +267,7 @@ class ServeRequest:
     def _finish(self, error: ServingError | None = None):
         self.error = error
         self.finished = time.monotonic()
+        self._swap = None  # host K/V rows go with the request
         self._done.set()
         if self._chunks is not None:
             # the terminal sentinel goes in after the result is readable
@@ -287,9 +303,14 @@ class ServeRequest:
             raise TimeoutError(f"request {self.id} still running")
         if self.error is not None:
             raise self.error
-        seq = np.concatenate([self.prompt, np.asarray(self.tokens, np.int32)])
-        if self.eos_id is not None and self.eos_id in self.tokens:
-            seq = seq[: self.prompt.size + self.tokens.index(self.eos_id) + 1]
+        if self.n == 1:
+            return self._seq(self.tokens)
+        return [self._seq(c) for c in self.completions]
+
+    def _seq(self, toks) -> np.ndarray:
+        seq = np.concatenate([self.prompt, np.asarray(toks, np.int32)])
+        if self.eos_id is not None and self.eos_id in toks:
+            seq = seq[: self.prompt.size + toks.index(self.eos_id) + 1]
         return seq
 
     def latency(self) -> dict:
@@ -333,15 +354,30 @@ class ContinuousBatcher:
     one. A step that fails surfaces at the collect of its own iteration,
     with the same blame/quarantine semantics. False (the default here;
     ``ServingEngine`` defaults to True) dispatches and waits, so one
-    ``step()`` call emits its own tokens."""
+    ``step()`` call emits its own tokens.
+
+    ``qos``: an optional ``qos.QosPolicy``. None keeps the single FIFO. A
+    policy makes the queue priority classes with per-tenant weighted fair
+    queuing over emitted tokens, and (``preempt=True``, over a stepper with
+    ``swap_out``) lets a queued request that admission cannot place
+    displace the lowest-priority decoding slot: the victim's KV goes to
+    the host, its slot and pages free, and it re-queues at the front of
+    its class; resume is ``swap_in``, token-identical across the boundary.
+    The sequential loop preempts in its admission phase; the overlapped
+    loop picks the victim after collect (nothing in flight). At most
+    ``max_preemptions`` displacements per request. Pairing at quiescence:
+    ``preemptions == resumes + swap_in_failures + swapped_failed``."""
 
     def __init__(self, stepper, queue_capacity=64, prefill_chunk=None,
                  quarantine_steps=64, registry=None, recorder=None,
-                 overlap=False):
+                 qos=None, overlap=False):
         self.stepper = stepper
         self.queue_capacity = int(queue_capacity)
         if self.queue_capacity < 1:
             raise ValueError("queue_capacity must be >= 1")
+        self.qos = qos
+        self._preemptible = (qos is not None and qos.preempt
+                             and hasattr(stepper, "swap_out"))
         self.prefill_chunk = (
             None if prefill_chunk is None else int(prefill_chunk)
         )
@@ -352,8 +388,17 @@ class ContinuousBatcher:
         self.quarantine_steps = int(quarantine_steps)
         if self.quarantine_steps < 1:
             raise ValueError("quarantine_steps must be >= 1")
-        self._queue: collections.deque[ServeRequest] = collections.deque()
+        # a plain FIFO, or priority classes with per-tenant WFQ behind the
+        # same deque face: only WHICH request heads the queue is policy
+        self._queue = (
+            collections.deque() if qos is None else _QosQueues(qos)
+        )
         self._slots: list[ServeRequest | None] = [None] * stepper.num_slots
+        # completion groups: the completion index each slot serves (0 for
+        # single requests and group primaries) and the reserved slots still
+        # waiting for their fork (slot -> completion)
+        self._slot_comp = [0] * stepper.num_slots
+        self._awaiting_fork: dict[int, int] = {}
         # slot -> prefill positions remaining; membership IS the
         # "prefilling" state, FIFO order = admission order
         self._prefill_left: dict[int, int] = {}
@@ -389,13 +434,30 @@ class ContinuousBatcher:
                 "internal_errors",  # requests failed InternalError
                 "prefill_failures",  # begin_admit/prefill_chunk raised
                 "quarantines",  # slots sent to probation
-                "sampled_requests", "streamed_chunks",
+                "streamed_chunks",
                 # speculative decode (0 on plain steppers)
                 "spec_windows",  # slot-windows processed through a verify
                 "spec_tokens",  # tokens emitted from verify windows
                 "spec_draft_accepted",  # emitted tokens the draft sourced
+                # QoS preemption (0 without a policy)
+                "preemptions",  # successful swap-outs (victims)
+                "resumes",  # swapped requests restored and decoding
+                "preempt_aborted",  # swap-out failed; victim untouched
+                "swap_in_failures",  # restore failed; request failed typed
+                "swapped_failed",  # failed (stop, deadline) while out
+                "swapped_tokens",  # context tokens copied to the host
             ),
         )
+        # requests asking for more than plain greedy, and slots made by
+        # completion-group forks (the JAX package's engine-registry names)
+        self.sampled_requests = self.registry.counter(
+            "serving_sampled_requests", fresh=True)
+        self.forked_slots = self.registry.counter(
+            "serving_forked_slots", fresh=True)
+        # per-tenant serving_preemptions / serving_swapped_tokens, created
+        # lazily; tenant labels fold past MAX_TENANT_LABELS names
+        self._tenant_counters: dict[tuple, object] = {}
+        self._tenant_label_seen: set[str] = set()
         # per-slot acceptance ledger (lifetime): windows and tokens
         self._spec_windows = np.zeros(stepper.num_slots, np.int64)
         self._spec_emitted = np.zeros(stepper.num_slots, np.int64)
@@ -411,18 +473,45 @@ class ContinuousBatcher:
                   fn=lambda: len(self._quarantined))
         reg.gauge("serving_scheduler_num_slots", fn=lambda: len(self._slots))
 
+    def _tenant_counter(self, name: str, tenant: str):
+        tenant = fold_tenant(self._tenant_label_seen, tenant)
+        key = (name, tenant)
+        c = self._tenant_counters.get(key)
+        if c is None:
+            c = self._tenant_counters[key] = self.registry.counter(
+                name, labels={"tenant": tenant})
+        return c
+
     # -- submission ---------------------------------------------------------
 
     def submit(self, req: ServeRequest) -> ServeRequest:
         """Enqueue or fail fast: ``EngineStoppedError`` while draining or
         stopped, ``OverloadedError`` on a full queue, ``ValueError`` when
-        the request can never fit a slot."""
+        the request can never fit a slot (or, for ``n > 1``, the stepper
+        cannot fork, the bank holds fewer than n slots, or it streams)."""
         if req.prompt.size + req.max_new_tokens > self.stepper.max_len:
             raise ValueError(
                 f"prompt ({req.prompt.size}) + max_new_tokens "
                 f"({req.max_new_tokens}) exceeds the serving capacity "
                 f"({self.stepper.max_len})"
             )
+        if req.n > 1:
+            if not getattr(self.stepper, "can_fork", False):
+                raise ValueError(
+                    f"n={req.n} parallel completions need CoW slot "
+                    "forking — serve with paged=True"
+                )
+            if req.n > len(self._slots):
+                raise ValueError(
+                    f"n={req.n} completions exceed the "
+                    f"{len(self._slots)}-slot bank"
+                )
+            if req.stream:
+                # a completion group has no single token order to stream
+                raise ValueError(
+                    f"n={req.n} completion groups cannot be streamed "
+                    "or prefill-exported"
+                )
         if getattr(self.stepper, "paged", False):
             need = self._pages_for_request(req)
             if need > self.stepper.total_pages:
@@ -442,13 +531,20 @@ class ContinuousBatcher:
             self._queue.append(req)
             self.counters["submitted"] += 1
             if req.sampling is not None and not req.sampling.is_default:
-                self.counters["sampled_requests"] += 1
+                self.sampled_requests.inc()
         self._work.set()
         return req
 
     def _pages_for_request(self, req) -> int:
-        """KV pages one request reserves end to end (its admission)."""
-        return self.stepper.pages_for(req.prompt.size, req.max_new_tokens)
+        """KV pages one request reserves end to end: its admission plus
+        the fresh pages of its n - 1 forks (history pages are shared)."""
+        need = self.stepper.pages_for(req.prompt.size, req.max_new_tokens)
+        if req.n > 1:
+            fork_for = getattr(self.stepper, "fork_pages_for", None)
+            per_fork = (fork_for(req.prompt.size, req.max_new_tokens)
+                        if fork_for is not None else need)
+            need += (req.n - 1) * per_fork
+        return need
 
     # -- compile attribution (the ledger's trace face) ----------------------
 
@@ -499,7 +595,7 @@ class ContinuousBatcher:
         """Every phase waits for the previous one, so the device idles
         through the host work and vice versa — the bubble the ledger
         measures."""
-        progressed = self._admit_phase()
+        progressed, _ = self._admit_phase(preempt_now=True)
         active, seqs = self._mask_phase()
         if not active.any():
             return progressed
@@ -524,13 +620,17 @@ class ContinuousBatcher:
         - A step that raises (at dispatch or at collect) surfaces at the
           collect of its own iteration, where the blame probes run
           synchronously against unadvanced state.
+        - QoS preemption picks its victim after collect
+          (``_preempt_phase``): a swap-out under the in-flight step would
+          wait for it and fetch post-step K/V against pre-step host token
+          lists.
         """
         inflight = self._inflight
         if inflight is not None and inflight.ready():
             # the device finished while the host was away: stamp it so
             # the device wall is measured, not inferred from the collect
             self.overlap_ledger.note_ready()
-        progressed = self._admit_phase()
+        progressed, blocked = self._admit_phase(preempt_now=False)
         if inflight is not None:
             self._inflight = None
             if inflight.ready():
@@ -539,6 +639,8 @@ class ContinuousBatcher:
             self.overlap_ledger.note_collect()
             self._finish_step(inflight.active, inflight.t0, inflight.mints0,
                               toks, counts, blamed, used)
+            progressed = True
+        if blocked is not None and self._preempt_phase(blocked):
             progressed = True
         active, seqs = self._mask_phase()
         if not active.any():
@@ -593,15 +695,42 @@ class ContinuousBatcher:
                 self.counters["step_failures"] += 1
         return self._assign_blame(inf.active, inf.seqs)
 
-    def _admit_phase(self) -> bool:
+    def _preempt_phase(self, blocked) -> bool:
+        """The overlapped loop's deferred preemption, after collect with
+        nothing in flight, checked against the post-collect state: an
+        eviction that just freed what the blocked request needs makes the
+        displacement unnecessary (admission places it next call)."""
+        if not self._preemptible:
+            return False
+        with self._lock:
+            free = sum(
+                s is None and i not in self._quarantined
+                for i, s in enumerate(self._slots)
+            )
+            fits = free >= blocked.n and (
+                not getattr(self.stepper, "paged", False)
+                or self._pages_for_request(blocked)
+                <= self.stepper.available_pages
+            )
+            preempt = None if fits else self._pick_victim_locked(blocked)
+        if preempt is None:
+            return False
+        return self._preempt(*preempt)
+
+    def _admit_phase(self, preempt_now: bool):
         """Host work at the top of an iteration: quarantine recycle,
         admission of queued requests into free (not quarantined) slots —
-        page-gated over a paged stepper — and the chunked-prefill
-        budget."""
+        page-gated over a paged stepper, n slots together for a completion
+        group — swap-in resumes, the chunked-prefill budget and the group
+        forks. Returns ``(progressed, blocked)``: ``blocked`` is the head
+        of the queue admission could not place (the preemption candidate).
+        ``preempt_now``: the sequential loop preempts here; the overlapped
+        loop defers to ``_preempt_phase`` after collect."""
         now = time.monotonic()
         admitted = []
         paged = getattr(self.stepper, "paged", False)
         page_budget = self.stepper.available_pages if paged else None
+        blocked = preempt = None
         with self._lock:
             self._sched_iters += 1
             for s, until in list(self._quarantined.items()):
@@ -611,9 +740,18 @@ class ContinuousBatcher:
                 i for i, slot in enumerate(self._slots)
                 if slot is None and i not in self._quarantined
             ]
-            for i in free:
+            taken = 0
+            while True:
                 req = self._pop_live(now)
                 if req is None:
+                    break
+                if req.n > len(free) - taken:
+                    # a completion group takes its n slots together (the
+                    # forks run before the primary emits, which keeps
+                    # completion j an independent derived-seed admission);
+                    # the head of the queue waits for evictions
+                    self._queue.appendleft(req)
+                    blocked = req
                     break
                 if paged:
                     # admission reserves pages, so it is gated on the
@@ -623,16 +761,37 @@ class ContinuousBatcher:
                     need = self._pages_for_request(req)
                     if need > page_budget:
                         self._queue.appendleft(req)
+                        blocked = req
                         break
                     page_budget -= need
-                self._slots[i] = req
-                req.started = now
+                group = free[taken : taken + req.n]
+                taken += req.n
+                if req.started is None:  # a resume keeps its stamps
+                    req.started = now
                 self._admit_seq += 1
-                self._admit_order[i] = self._admit_seq
-                admitted.append((i, req))
+                for j, i in enumerate(group):
+                    self._slots[i] = req
+                    self._slot_comp[i] = j
+                    self._admit_order[i] = self._admit_seq
+                    if j > 0:
+                        self._awaiting_fork[i] = j
+                admitted.append((group[0], req))
+            if blocked is not None and self._preemptible and preempt_now:
+                # a higher-priority request blocked on capacity may
+                # displace the lowest-priority decoding slot: picked under
+                # the lock, swapped out outside it (a device fetch)
+                preempt = self._pick_victim_locked(blocked)
+        preempted = False
+        if preempt is not None:
+            preempted = self._preempt(*preempt)
         # device work outside the lock: submit() never blocks on a step
         began = []
         for i, req in admitted:
+            if req._swap is not None:
+                # a preempted request resuming: re-reserve + restore; the
+                # slot is decodable at once (its prefill ran before)
+                self._resume(i, req)
+                continue
             try:
                 kw = {"max_new": req.max_new_tokens} if paged else {}
                 n0, ta = self._led_total(), time.monotonic()
@@ -652,25 +811,39 @@ class ContinuousBatcher:
                     self._prefill_fifo.append(i)
                 else:
                     req.prefill_finished = now
-        return self._spend_prefill_budget() or bool(admitted)
+        progressed = self._spend_prefill_budget() or preempted
+        progressed = self._fork_completions() or progressed
+        return progressed or bool(admitted), blocked
 
     def _mask_phase(self):
-        """Deadline-sweep slots mid-prefill (they emit nothing, so the
-        post-step check never sees them) and return the decode mask and,
-        for a ``wants_sequences`` stepper, each active slot's zero-copy
-        ``(prompt, emitted)`` host sequence (else None). Runs right before
-        dispatch in both loop modes."""
+        """Deadline-sweep the slots that emit nothing (mid-prefill, or
+        waiting for their fork: the post-step check never sees them) and
+        return the decode mask and, for a ``wants_sequences`` stepper, each
+        active slot's zero-copy ``(prompt, emitted)`` host sequence (else
+        None). A group's primary and the slots waiting for its forks sit
+        the step out: the primary must not emit a token its forks would
+        inherit. Runs right before dispatch in both loop modes."""
         now = time.monotonic()
         with self._lock:
-            for i in list(self._prefill_left):
-                req = self._slots[i]
-                if req is not None and req._expired(now):
+            for i, req in enumerate(self._slots):
+                if req is None or (i not in self._prefill_left
+                                   and i not in self._awaiting_fork):
+                    continue
+                if req._expired(now):
                     self._evict(i, req, DeadlineExceededError(
                         "deadline passed during prefill"
                     ))
+            held = set(self._awaiting_fork)
+            for s in self._awaiting_fork:
+                req = self._slots[s]
+                if req is None:
+                    continue
+                held.update(i for i, r in enumerate(self._slots)
+                            if r is req and self._slot_comp[i] == 0)
             active = np.array(
                 [
                     s is not None and i not in self._prefill_left
+                    and i not in held
                     for i, s in enumerate(self._slots)
                 ],
                 bool,
@@ -682,7 +855,7 @@ class ContinuousBatcher:
                 # after the device call, so the drafter may read them as
                 # they are
                 seqs = [
-                    (req.prompt, req.tokens)
+                    (req.prompt, req.completions[self._slot_comp[i]])
                     if req is not None and active[i] else None
                     for i, req in enumerate(self._slots)
                 ]
@@ -695,13 +868,16 @@ class ContinuousBatcher:
         (a slot emits ``counts[i]`` of row ``toks[i]``) the budget, EOS and
         deadline checks in emission order — a window's tail past the first
         stop is never emitted — the stream push before any eviction, and
-        the speculative acceptance counters."""
+        the WFQ charge and the speculative acceptance counters."""
         now = time.monotonic()
         if self._led_total() > mints0:
             # a mint landed inside the decode phase: every traced active
-            # request was stalled by it
+            # request was stalled by it (once per request: a group holds
+            # several slots)
+            noted = set()
             for i, r in enumerate(self._slots):
-                if r is not None and active[i]:
+                if r is not None and active[i] and id(r) not in noted:
+                    noted.add(id(r))
                     self._note_mints(r, mints0, step_t0, now)
         with self._lock:
             self.counters["steps"] += 1
@@ -742,16 +918,17 @@ class ContinuousBatcher:
                 if req is None or not active[i] or i in blamed_set:
                     continue
                 req.iterations += 1
+                comp = req.completions[self._slot_comp[i]]
                 new_toks = []
                 stop = _NO_STOP  # the eviction waits for the chunk push
                 for tok in np.atleast_1d(toks[i])[: int(counts[i])]:
                     tok = int(tok)
-                    req.tokens.append(tok)
+                    comp.append(tok)
                     new_toks.append(tok)
                     if req.first_token is None:
                         req.first_token = now
                     self.counters["tokens_generated"] += 1
-                    if len(req.tokens) >= req.max_new_tokens or (
+                    if len(comp) >= req.max_new_tokens or (
                         req.eos_id is not None and tok == req.eos_id
                     ):
                         stop = None
@@ -770,6 +947,9 @@ class ContinuousBatcher:
                     self._evict(i, req, stop)
                 emitted = len(new_toks)
                 emitted_total += emitted
+                if self.qos is not None and emitted:
+                    # WFQ: decode tokens generated, over the tenant's weight
+                    self._queue.charge(req.tenant, emitted)
                 if used_verify[i]:
                     self.counters["spec_windows"] += 1
                     self.counters["spec_tokens"] += emitted
@@ -789,6 +969,174 @@ class ContinuousBatcher:
                 blamed=blamed if blamed else None,
             )
         return True
+
+    # -- preemption by KV swap (QoS) ----------------------------------------
+
+    def _record_swap_error(self, op, slot, req, exc):
+        """A swallowed swap failure leaves its exception class on the tape
+        (a swap path failing every call must not look like a quiet one).
+        Caller holds the lock."""
+        if self.recorder is not None:
+            self.recorder.record(
+                "qos.swap_error", op=op, slot=slot, request_id=req.id,
+                tenant=req.tenant, error=type(exc).__name__,
+                detail=repr(exc)[:200],
+            )
+
+    def _pick_victim_locked(self, blocked):
+        """The slot a blocked request may displace: DECODING (not
+        mid-prefill, not part of a completion group), of strictly lower
+        priority, with preemption budget left (``max_preemptions``: a
+        request displaced that many times is immune), and short enough that
+        its context round-trips the prompt row. Lowest priority first, then
+        fewest emitted tokens (cheapest swap), then slot. Caller holds the
+        lock. Returns ``(slot, request)`` or None."""
+        best = None
+        max_len = self.stepper.max_len
+        for i, req in enumerate(self._slots):
+            if req is None or i in self._prefill_left:
+                continue
+            if req.n > 1 or i in self._awaiting_fork:
+                continue  # completion groups are never preempted
+            if req.priority >= blocked.priority:
+                continue
+            if req.preemptions >= self.qos.max_preemptions:
+                continue  # immune: nothing livelocks
+            if req.prompt.size + len(req.tokens) >= max_len:
+                continue  # the context cannot round-trip the prompt row
+            key = (req.priority, len(req.tokens), i)
+            if best is None or key < best[0]:
+                best = (key, i, req)
+        return None if best is None else (best[1], best[2])
+
+    def _preempt(self, slot, vreq) -> bool:
+        """Swap the victim out (the device fetch outside the lock), free
+        its slot and pages, and re-queue it at the FRONT of its class with
+        the swap state riding the request. A failed swap-out aborts the
+        preemption (the ``kv.swap`` seam fires before any state changes,
+        so the victim decodes on untouched)."""
+        try:
+            state = self.stepper.swap_out(slot)
+        except Exception as e:  # noqa: BLE001 — preemption is optional
+            with self._lock:
+                self.counters["preempt_aborted"] += 1
+                self._record_swap_error("swap_out", slot, vreq, e)
+            return False
+        with self._lock:
+            if self._slots[slot] is not vreq:
+                return False  # stopped or evicted underneath the fetch
+            vreq._swap = state
+            vreq.preemptions += 1
+            self.counters["preemptions"] += 1
+            self.counters["swapped_tokens"] += int(state["len"])
+            self._tenant_counter("serving_preemptions", vreq.tenant).inc()
+            self._tenant_counter("serving_swapped_tokens",
+                                 vreq.tenant).inc(int(state["len"]))
+            self._slots[slot] = None
+            self.stepper.release(slot)  # pages freed; the state rides req
+            self._queue.appendleft(vreq)
+            if self.recorder is not None:
+                self.recorder.record(
+                    "qos.preempt", slot=slot, request_id=vreq.id,
+                    tenant=vreq.tenant, priority=vreq.priority,
+                    tokens=int(state["len"]), preemptions=vreq.preemptions,
+                )
+        self._work.set()
+        return True
+
+    def _resume(self, i, req):
+        """Swap a preempted request back in (``stepper.swap_in``:
+        re-reserve + restore); the slot is decodable at once. A failed
+        swap-in fails only this request, typed: a ``ServingError`` (notably
+        ``PoolExhaustedError``) as itself, anything else ``internal``."""
+        mints0, t0 = self._led_total(), time.monotonic()
+        try:
+            self.stepper.swap_in(
+                i, req._swap, max_new=req.max_new_tokens - len(req.tokens)
+            )
+            self._note_mints(req, mints0, t0, time.monotonic())
+        except Exception as e:  # noqa: BLE001 — admission boundary
+            err = (copy.copy(e) if isinstance(e, ServingError)
+                   else InternalError(f"swap-in failed for this request: "
+                                      f"{e!r}"))
+            with self._lock:
+                self.counters["swap_in_failures"] += 1
+                self._record_swap_error("swap_in", i, req, e)
+                if self._slots[i] is req:
+                    self._evict(i, req, err)
+            return
+        with self._lock:
+            if self._slots[i] is not req:
+                return  # stopped underneath us
+            req._swap = None
+            if req.prefill_finished is None:
+                req.prefill_finished = time.monotonic()
+            self.counters["resumes"] += 1
+            if self.recorder is not None:
+                self.recorder.record(
+                    "qos.resume", slot=i, request_id=req.id,
+                    tenant=req.tenant, priority=req.priority,
+                    tokens=len(req.tokens),
+                )
+
+    # -- completion groups --------------------------------------------------
+
+    def _fork_completions(self) -> bool:
+        """Fork a completion group's reserved slots from its primary the
+        moment the primary's prefill finishes — before it emits a token —
+        so completion j is the independent admission under
+        ``seed_for_completion(seed, j)``. Device work outside the lock.
+
+        Pool exhaustion at fork time is pressure, not a fault (admission's
+        page gate is advisory over a multi-iteration prefill): the group
+        waits, the primary held, and the fork retries next iteration (the
+        deadline sweep bounds the wait). Any other fork failure fails the
+        whole group typed."""
+        if not self._awaiting_fork:
+            return False
+        with self._lock:
+            ready = []
+            for s, j in list(self._awaiting_fork.items()):
+                req = self._slots[s]
+                if req is None:
+                    self._awaiting_fork.pop(s)
+                    continue
+                primary = next(
+                    (i for i, r in enumerate(self._slots)
+                     if r is req and self._slot_comp[i] == 0),
+                    None,
+                )
+                if primary is None:
+                    # the primary died (its failure completed the group):
+                    # clean the orphaned reservation
+                    self._awaiting_fork.pop(s)
+                    self._slots[s] = None
+                    self.stepper.release(s)
+                    continue
+                if primary not in self._prefill_left:
+                    ready.append((primary, s, j, req))
+        progressed = False
+        for primary, s, j, req in ready:
+            with self._lock:
+                if (self._slots[s] is not req
+                        or self._slots[primary] is not req):
+                    continue  # a sibling's failure evicted the group
+            mints0, t0 = self._led_total(), time.monotonic()
+            try:
+                self.stepper.fork_slot(primary, s, max_new=req.max_new_tokens,
+                                       completion=j)
+                self._note_mints(req, mints0, t0, time.monotonic())
+            except OverloadedError:
+                continue  # pool pressure: the group waits for evictions
+            except Exception as e:  # noqa: BLE001 — admission boundary
+                self._fail_admission(s, req, e)
+                continue
+            progressed = True
+            with self._lock:
+                if self._slots[s] is req:
+                    self._awaiting_fork.pop(s, None)
+                    self.forked_slots.inc()
+        return progressed
 
     # -- blame assignment ----------------------------------------------------
 
@@ -989,19 +1337,37 @@ class ContinuousBatcher:
             req = self._queue.popleft()
             if req._expired(now):
                 self.counters["deadline_exceeded"] += 1
+                if req._swap is not None:
+                    # a swapped request dying in the queue pairs its swap-out
+                    self.counters["swapped_failed"] += 1
                 req._finish(DeadlineExceededError("deadline expired in queue"))
                 continue
             return req
         return None
 
     def _evict(self, slot_idx, req, error):
-        """Free a slot and complete its request. Caller holds the lock."""
+        """Free a slot and complete its request — or, for a completion
+        group, one completion of it: a clean finish releases only its slot
+        and the request finishes with its LAST completion; an error
+        releases every sibling slot and fails the whole request (all
+        complete, or all typed). Caller holds the lock."""
         self._slots[slot_idx] = None
         self._drop_prefill(slot_idx)
+        self._awaiting_fork.pop(slot_idx, None)
         self.stepper.release(slot_idx)
         if error is None:
+            if any(r is req for r in self._slots):
+                return  # sibling completions still decoding or forking
             self.counters["completed"] += 1
-        elif isinstance(error, InternalError):
+            req._finish(None)
+            return
+        for i, r in enumerate(self._slots):
+            if r is req:  # the group's siblings die with the request
+                self._slots[i] = None
+                self._drop_prefill(i)
+                self._awaiting_fork.pop(i, None)
+                self.stepper.release(i)
+        if isinstance(error, InternalError):
             self.counters["internal_errors"] += 1
         elif isinstance(error, DeadlineExceededError):
             self.counters["deadline_exceeded"] += 1
@@ -1030,14 +1396,23 @@ class ContinuousBatcher:
             self._inflight = None
             self.overlap_ledger.discard()
             while self._queue:
-                self._queue.popleft()._finish(type(proto)(*proto.args))
+                req = self._queue.popleft()
+                if req._swap is not None:
+                    # a stop racing a swapped-out request: its host state
+                    # goes with the typed failure (pairing stays balanced)
+                    self.counters["swapped_failed"] += 1
+                req._finish(type(proto)(*proto.args))
             self._prefill_left.clear()
             self._prefill_fifo.clear()
+            self._awaiting_fork.clear()
+            failed = set()  # a completion group holds several slots
             for i, req in enumerate(self._slots):
                 if req is not None:
                     self._slots[i] = None
                     self.stepper.release(i)
-                    req._finish(type(proto)(*proto.args))
+                    if id(req) not in failed:
+                        failed.add(id(req))
+                        req._finish(type(proto)(*proto.args))
         self._work.set()
 
     # -- introspection ------------------------------------------------------
@@ -1062,17 +1437,18 @@ class ContinuousBatcher:
                 "slot": slot,
                 "tenant": req.tenant,
                 "priority": req.priority,
-                "preemptions": 0,
+                "preemptions": req.preemptions,
                 "prompt_len": int(req.prompt.size),
                 "max_new_tokens": req.max_new_tokens,
-                "tokens_emitted": len(req.tokens),
+                "tokens_emitted": sum(len(c) for c in req.completions),
                 "trace_id": (
                     None if req.trace is None else req.trace.trace_id
                 ),
             }
 
         with self._lock:
-            out = [row(r, "queued") for r in self._queue]
+            out = [row(r, "swapped" if r._swap is not None else "queued")
+                   for r in self._queue]
             for i, req in enumerate(self._slots):
                 if req is None:
                     continue
@@ -1097,6 +1473,8 @@ class ContinuousBatcher:
         out = self.load()
         with self._lock:
             out.update(self.counters)
+            out["sampled_requests"] = self.sampled_requests.value
+            out["forked_slots"] = self.forked_slots.value
             out["quarantined_slots"] = len(self._quarantined)
             out["prefill_chunk"] = self.prefill_chunk
             out["draining"] = self._draining
@@ -1104,6 +1482,15 @@ class ContinuousBatcher:
         out["mean_batch_occupancy"] = (
             out["occupancy_sum"] / steps if steps else 0.0
         )
+        if self.qos is not None:
+            out["qos"] = {
+                "enabled": True,
+                "preempt": self.qos.preempt,
+                "max_preemptions": self.qos.max_preemptions,
+                "tenant_service": self._queue.service_snapshot(),
+            }
+        else:
+            out["qos"] = {"enabled": False}
         out["overlap"] = {
             "enabled": self.overlap,
             **self.overlap_ledger.snapshot(),

@@ -404,7 +404,7 @@ class ServingServer:
                 trace=ctx,
                 sampling=sampling,
                 # QoS identity rides two optional header fields (absent
-                # = default tenant, priority 0); they label metrics
+                # = default tenant, priority 0)
                 tenant=header.get("tenant"),
                 priority=int(header.get("priority") or 0),
             )
@@ -424,6 +424,19 @@ class ServingServer:
                 except AttributeError:
                     pass  # exotic exception refusing attributes
             raise
+        if isinstance(seq, list):
+            # n parallel completions: the payload is the list of sequences
+            # (the tree codec carries ragged lengths)
+            reply = {
+                "ok": True,
+                "n": len(seq),
+                "tokens": int(sum(s.size - prompt.size for s in seq)),
+            }
+            if ctx is not None:
+                reply["trace"] = assemble_trace("ok")
+            return pack_frame(
+                reply, serialize_params([np.asarray(s) for s in seq])
+            )
         reply = {"ok": True, "tokens": int(seq.size - prompt.size)}
         if ctx is not None:
             reply["trace"] = assemble_trace("ok")
