@@ -304,8 +304,41 @@ Phases, each fatal on failure (exit code 1, no result line):
    steps: width 1 equals greedy cached decode, width 4 the unhooked plain
    path's sequences with scores within 1e-4 relative, B7 17 a step plus 16
    for the prefill; tokens/s at widths 1 and 4.
+16. bf16 K/V caches, grammar masks and load shedding on phase 4's
+   LN-hooked LM, 8 slots, each engine fresh, every drive launching B7
+   exactly what its program calls imply and B4 never. 16a: phase 4's mix
+   on dense (whole-prompt admission) and paged engines with f32 and
+   ``kv_dtype=torch.bfloat16`` caches in turns (f32, bf16, bf16, f32):
+   bf16 greedy tokens agree with f32's on at least 0.9 of the positions,
+   each is the argmax of the bf16 cached path's own teacher-forced logits
+   within 1e-4, sampled replays equal, ``kv_bytes_total`` exactly half;
+   on dense and paged steppers a 200-token prompt's prefix-store entry
+   (uint16 rows, half the f32 bytes) restores bit for bit and a swap-out /
+   swap-in round-trips bit for bit, the restored and resumed slots
+   decoding the tokens of the slots they copy; tokens/s beside f32's.
+   16b: a 16-request mix, 8 constrained (``allow``, ``sequence`` with and
+   without ``loop``, ``choice``, ``fsm``; greedy and sampled; eos 8191) on
+   dense, paged (with a constrained sampled ``n = 3`` request) and n-gram
+   speculative engines warmed with ``warm_constrained_buckets`` before
+   ``mark_warmed``: every constrained token inside its grammar (a host walk
+   written apart from ``TokenMaskCompiler``), the unconstrained replies
+   equal to their replies served alone, sampled constrained replays equal,
+   the three engines' replies equal, 0 storms, masked programs minted in
+   the warm-up only; a constrained slot swapped out and back in equals its
+   twin, a dead-end grammar forces eos and records
+   ``sampling.mask_exhausted``, and a constrained request over a
+   ``ServingServer`` equals the in-process reply. 16c: ``shed={"target_ms":
+   50, "interval_ms": 500}`` under a burst of 48 priority-0 requests (64
+   new) and a trickle of priority-0 arrivals: the gate latches (rung >= 1),
+   sheds are typed ``overloaded`` with ``retry_after_ms`` in [25, 5000], 8
+   priority-1 requests equal a gate-less engine's replies, no other request
+   fails, the rung returns to 0 after the burst (``health()["shed"]`` and
+   ``serving_shed_rung`` agree), a declared rung-2 brownout clamps a reply
+   to an exact prefix, and a shed over the wire carries the gate's own
+   ``retry_after_ms``.
 
-``--profile`` adds where the time goes: a decode step (dense and paged), a
+``--profile`` adds where the time goes: a decode step (dense, paged, on
+bf16 caches and grammar-masked), a
 verify window with 8 busy slots, a swap-out, a swap-in and a fork of a
 300-token slot, a predict forward, a training step, an async window and a
 config-5 DynSGD/``resnet18`` window (host wall, device time by category,
@@ -5554,6 +5587,629 @@ def run_phase15(torch, np, lm, smi, paging):
     return out, counts
 
 
+# ----------------------------------------------------------------- phase 16
+
+
+KV16_TOKEN_AGREEMENT = 0.9  # bf16 vs f32 greedy tokens (JAX's own bar)
+GRAMMAR_EOS = 8191
+# the shed gate's CoDel knobs: the defaults JAX's tests drive
+SHED_TARGET_MS, SHED_INTERVAL_MS = 50.0, 500.0
+
+
+def cached_forced_logits(torch, np, gen, seq, plen, chunked):
+    """Teacher-forced logits at positions ``plen - 1 .. len(seq) - 2``
+    through ``gen``'s cached bodies, K/V in its ``kv_dtype``, the way the
+    engine computed them: the prompt prefix by ``_prefill`` (its own f32
+    K/V, the dense whole-prompt admission) or, ``chunked``, by
+    ``_stage_chunk`` like every other position (cache K/V read back)."""
+    dev = gen.device
+    t = len(seq) - 1
+    toks = torch.as_tensor(np.asarray(seq[:t], np.int64), device=dev)[None]
+    caches = gen.new_caches(1, t)
+    start = 0 if chunked else plen - 1
+    with torch.no_grad():
+        if start >= 1:
+            gen._prefill(caches, gen.embed(toks[:, :start],
+                                           torch.arange(start, device=dev)))
+        pos = torch.arange(start, t, device=dev)
+        x = gen.embed(toks[:, start:], pos)
+        qmask = torch.arange(t, device=dev)[None, :] <= pos[:, None]
+        for blk, (ck, cv) in zip(gen._blocks, caches):
+            x = gen._stage_chunk(blk, x, ck, cv, start, qmask)
+        lg = gen._head(gen._final_ln(x))[0]
+    return lg[plen - 1 - start:].float().cpu().numpy()
+
+
+def kv_argmax_gap(torch, np, lm, outs, reqs, kv_dtype, chunked):
+    """The largest gap between the best teacher-forced logit of the
+    ``kv_dtype`` cached path (plain LayerNorm) and the chosen token's, over
+    every greedy token of ``outs``."""
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+    from distkeras_tpu_torch.predictors import CachedSequenceGenerator
+
+    detach_hooks(lm)
+    gen = CachedSequenceGenerator(lm, kv_dtype=kv_dtype)
+    worst = 0.0
+    for o, (p, _, s) in zip(outs, reqs):
+        if s is not None:
+            continue
+        lg = cached_forced_logits(torch, np, gen, o, len(p), chunked)
+        nxt = o[len(p):]
+        worst = max(worst, float((lg.max(-1)
+                                  - lg[np.arange(len(nxt)), nxt]).max()))
+    attach_fused_layernorm(lm)
+    return worst
+
+
+def run_kv_dtype_mix(torch, np, lm, smi, gen_reqs):
+    """16a: phase 4's 16-request mix on fresh dense and paged engines with
+    f32 and bf16 caches, in turns (f32, bf16, bf16, f32) per layout. Dense
+    engines admit each prompt whole (``prefill_chunk=None``), so the
+    teacher-forced reference runs their prefill; paged ones chunk."""
+    from distkeras_tpu_torch import kernels
+
+    out, counts_all = {}, []
+    for layout in ("dense", "paged"):
+        kw = ({"prefill_chunk": None} if layout == "dense"
+              else {"paged": True})
+        runs = {"float32": [], "bfloat16": []}
+        outs = {}
+        for dtn in ("float32", "bfloat16", "bfloat16", "float32"):
+            dt = getattr(torch, dtn)
+            eng = hooked_engine(lm, kv_dtype=dt, prefix_cache=False, **kw)
+            try:
+                kernels.reset_launch_counts()
+                with ProgramCalls() as calls:
+                    o, secs = serve_mix(eng, gen_reqs)
+                    torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+                kv_bytes = eng._stepper.kv_bytes_total()
+                replay = [(a, eng.generate(p, n, sampling=s, timeout=600))
+                          for a, (p, n, s) in zip(o, gen_reqs)
+                          if s is not None]
+            finally:
+                eng.stop()
+            want = calls.ln_launches([lm])
+            check(counts["layernorm_fwd"] == want
+                  and counts["flash_fwd"] == 0,
+                  f"16a {layout} {dtn}: B7 {counts['layernorm_fwd']}, the "
+                  f"program calls imply {want}")
+            check(all(isinstance(a, np.ndarray) and len(a) == len(p) + n
+                      for a, (p, n, _) in zip(o, gen_reqs)),
+                  f"16a {layout} {dtn}: a request did not finish")
+            check(all(np.array_equal(a, b) for a, b in replay),
+                  f"16a {layout} {dtn}: a sampled request did not replay")
+            if dtn in outs:
+                check(all(np.array_equal(a, b)
+                          for a, b in zip(o, outs[dtn])),
+                      f"16a {layout} {dtn}: replies differ between turns")
+            outs[dtn] = o
+            tokens = sum(len(a) - len(p) for a, (p, _, _) in zip(o, gen_reqs))
+            runs[dtn].append({"seconds": secs, "tokens_per_s": tokens / secs,
+                              "kv_bytes_total": kv_bytes,
+                              "launches": counts})
+            counts_all.append(counts)
+        check(runs["bfloat16"][0]["kv_bytes_total"] * 2
+              == runs["float32"][0]["kv_bytes_total"],
+              f"16a {layout}: kv_bytes_total {runs['bfloat16'][0]} is not "
+              f"half of {runs['float32'][0]}")
+        greedy = [i for i, r in enumerate(gen_reqs) if r[2] is None]
+        agree = token_agreement(
+            np, [outs["bfloat16"][i] for i in greedy],
+            [outs["float32"][i] for i in greedy],
+            [gen_reqs[i] for i in greedy])
+        check(agree >= KV16_TOKEN_AGREEMENT,
+              f"16a {layout}: bf16/f32 greedy agreement {agree:.4f}")
+        gap = kv_argmax_gap(torch, np, lm, outs["bfloat16"], gen_reqs,
+                            torch.bfloat16, chunked=layout == "paged")
+        check(gap <= LOGIT_TOL,
+              f"16a {layout}: a bf16 greedy token is not the argmax of the "
+              f"bf16 path's teacher-forced logits (gap {gap})")
+        mean = lambda rs: sum(r["tokens_per_s"] for r in rs) / len(rs)  # noqa: E731
+        out[layout] = {
+            "turns": runs, "f32_tokens_per_s": mean(runs["float32"]),
+            "bf16_tokens_per_s": mean(runs["bfloat16"]),
+            "bf16_over_f32": mean(runs["bfloat16"]) / mean(runs["float32"]),
+            "greedy_agreement": agree, "max_argmax_gap": gap,
+            "kv_bytes_total": {k: v[0]["kv_bytes_total"]
+                               for k, v in runs.items()},
+        }
+        log(f"16a {layout}: bf16 {out[layout]['bf16_tokens_per_s']:.1f} "
+            f"tokens/s against f32 {out[layout]['f32_tokens_per_s']:.1f} "
+            f"(in turns; {out[layout]['bf16_over_f32']:.3f}x); greedy "
+            f"agreement {agree:.4f}; bf16 argmax gap {gap:.2e}; "
+            f"kv_bytes_total {out[layout]['kv_bytes_total']} on {smi}")
+    return out, counts_all
+
+
+def admit_chunked(st, slot, prompt, budget=128, **kw):
+    """``begin_admit`` plus ``prefill_chunk(budget)`` until decodable."""
+    left = st.begin_admit(slot, prompt, **kw)
+    while left > 0:
+        left = st.prefill_chunk(slot, budget)
+
+
+def run_kv_rows(torch, np, lm, smi):
+    """16a's host rows: on dense and paged 8-slot steppers with bf16 and
+    f32 caches, a 200-token prompt admitted in 128-position chunks; its
+    prefix-store entry (two-touch insert, then a 128-token hit restored
+    into another slot, the paged device index cleared so the host rows are
+    the source) and a swap-out / swap-in of a decoding slot round-trip bit
+    for bit, the bf16 rows hold half the f32 bytes, and the restored and
+    resumed slots decode the tokens of the slot they copy."""
+    from distkeras_tpu_torch.serving import PrefixStore
+    from distkeras_tpu_torch.serving.engine import DecodeStepper
+
+    prompt = np.random.default_rng(161).integers(0, 8192, 200)
+    out = {}
+    for layout in ("dense", "paged"):
+        books = {}
+        for dtn in ("bfloat16", "float32"):
+            store = PrefixStore(max_bytes=256 << 20)
+            st = DecodeStepper(lm, num_slots=8, paged=layout == "paged",
+                               kv_dtype=getattr(torch, dtn),
+                               prefix_cache=store)
+            admit_chunked(st, 0, prompt, max_new=24)  # first touch: no insert
+            st.release(0)
+            if st.paged:
+                st.prefix_index.clear()  # the same programs again
+            admit_chunked(st, 0, prompt, max_new=24)  # inserts the ladder
+            hit = store.lookup(prompt[:-1])
+            check(hit is not None and hit[0] == 128,
+                  f"16a rows {layout} {dtn}: no 128-token hit ({hit})")
+            if st.paged:
+                st.prefix_index.clear()  # the host rows, not shared pages
+            admit_chunked(st, 1, prompt, max_new=24)  # restores the hit
+            back = st._fetch_rows(1, 128)
+            exact = all(np.array_equal(k, bk) and np.array_equal(v, bv)
+                        for (k, v), (bk, bv) in zip(hit[1], back))
+            act = np.zeros(8, bool)
+            act[[0, 1]] = True
+            both = [st.step(act) for _ in range(16)]
+            restored_same = all(t[0] == t[1] for t in both)
+            state = st.swap_out(1)
+            st.release(1)
+            st.swap_in(2, state, max_new=8)
+            again = st.swap_out(2)
+            swap_exact = all(
+                np.array_equal(k, k2) and np.array_equal(v, v2)
+                for (k, v), (k2, v2) in zip(state["kv"], again["kv"]))
+            act = np.zeros(8, bool)
+            act[[0, 2]] = True
+            after = [st.step(act) for _ in range(8)]
+            resumed_same = all(t[0] == t[2] for t in after)
+            books[dtn] = {
+                "entry_bytes": store.stats()["bytes"],
+                "row_dtype": str(hit[1][0][0].dtype),
+                "swap_bytes": state_bytes(state),
+                "restore_bit_exact": exact, "restored_equals": restored_same,
+                "swap_bit_exact": swap_exact, "resumed_equals": resumed_same,
+            }
+            del st
+        b, f = books["bfloat16"], books["float32"]
+        check(b["row_dtype"] == "uint16" and f["row_dtype"] == "float32",
+              f"16a rows {layout}: row dtypes {b['row_dtype']}, "
+              f"{f['row_dtype']}")
+        check(b["entry_bytes"] * 2 == f["entry_bytes"],
+              f"16a rows {layout}: store bytes {b['entry_bytes']} vs "
+              f"{f['entry_bytes']}")
+        check(all(v for k, v in b.items() if isinstance(v, bool))
+              and all(v for k, v in f.items() if isinstance(v, bool)),
+              f"16a rows {layout}: {books}")
+        out[layout] = books
+        log(f"16a rows {layout}: prefix entry {b['entry_bytes']} bytes bf16 "
+            f"/ {f['entry_bytes']} f32, swap state {b['swap_bytes']} / "
+            f"{f['swap_bytes']} bytes; restore and swap bit-exact, replies "
+            f"equal on {smi}")
+    return out
+
+
+GRAMMARS = (
+    {"kind": "allow", "tokens": list(range(100, 150)) + [7000, 7001]},
+    {"kind": "sequence", "steps": [[10, 11], [12], [13, 14, 15], [16]]},
+    {"kind": "sequence", "steps": [[20, 21, 22], [23]], "loop": True},
+    {"kind": "choice", "sequences": [[300, 301, 302], [300, 303],
+                                     [304, 305, 306, 307], [308]]},
+    {"kind": "fsm", "start": "s",
+     "states": {"s": {"400": "a", "401": "s"}, "a": {"402": "b"},
+                "b": {"403": "s", "404": "b"}},
+     "accept": ["b"]},
+)
+
+
+def grammar_walk_ok(spec, toks, eos=GRAMMAR_EOS):
+    """A host walk of ``spec`` over the emitted ``toks``, written apart from
+    ``TokenMaskCompiler``: True when every token is one the spec allows
+    where it stands, and an eos only where the spec may finish (and last)."""
+    kind = spec["kind"]
+    toks = [int(t) for t in toks]
+    state = spec.get("start")
+    for j, t in enumerate(toks):
+        if kind == "allow":
+            ok = t in spec["tokens"] or t == eos
+        elif kind == "sequence":
+            steps, done = spec["steps"], j >= len(spec["steps"])
+            if done and not spec.get("loop"):
+                ok = t == eos
+            else:
+                ok = t in steps[j % len(steps)] or (t == eos and done)
+        elif kind == "choice":
+            live = [q for q in spec["sequences"] if q[:j] == toks[:j]]
+            ok = (any(len(q) > j and q[j] == t for q in live)
+                  or (t == eos and any(len(q) == j for q in live)))
+        else:
+            edges = spec["states"].get(state, {})
+            if str(t) in edges:
+                ok, state = True, edges[str(t)]
+            else:
+                ok = t == eos and state in spec["accept"]
+        if not ok:
+            return False
+        if t == eos:
+            return j == len(toks) - 1
+    return True
+
+
+def grammar_mix(np):
+    """16b's traffic: 16 requests, prompts 16-128 tokens from
+    ``default_rng(162)``, 32 new; the even ones constrained (each grammar
+    kind, every other one sampled, eos 8191), the odd ones not (every
+    fourth sampled)."""
+    rng = np.random.default_rng(162)
+    reqs = []
+    for i in range(16):
+        p = rng.integers(0, 8192, int(rng.integers(16, 129))).astype(np.int32)
+        if i % 2 == 0:
+            s = {"grammar": GRAMMARS[(i // 2) % len(GRAMMARS)]}
+            if i % 4 == 2:
+                s.update(temperature=0.9, seed=500 + i)
+        else:
+            s = {"temperature": 0.8, "seed": 600 + i} if i % 4 == 3 else None
+        reqs.append((p, 32, s))
+    return reqs
+
+
+def serve_eos(eng, reqs):
+    """Submit ``reqs`` at once, constrained ones with ``GRAMMAR_EOS``; the
+    replies (or the error each raised)."""
+    hs = [eng.submit(p, n, sampling=s,
+                     eos_id=GRAMMAR_EOS if s and "grammar" in s else None)
+          for p, n, s in reqs]
+    return results(eng, hs)
+
+
+def grammar_engine(lm, **kw):
+    """A fresh LN-hooked engine with every program family warmed, the
+    masked ones included, and the warm set declared."""
+    eng = hooked_engine(lm, prefix_cache=False, **kw)
+    st = eng._stepper
+    st.warm_prefill_buckets()
+    st.warm_restore_buckets()
+    st.warm_constrained_buckets()
+    eng.compile_ledger.mark_warmed()
+    return eng
+
+
+def run_grammar_mix(torch, np, lm, smi):
+    """16b: the 16-request mix (8 constrained) on fresh dense, paged and
+    n-gram speculative engines, the paged one with a constrained sampled
+    ``n = 3`` request too; then the unconstrained 8 alone on the same
+    engine."""
+    from distkeras_tpu_torch import kernels
+
+    reqs = grammar_mix(np)
+    free = [i for i, (_, _, s) in enumerate(reqs)
+            if s is None or "grammar" not in s]
+    group = (reqs[0][0], 24, {"grammar": GRAMMARS[0], "temperature": 1.0,
+                              "seed": 77, "n": 3})
+    out, counts_all, ref = {}, [], None
+    for mode in ("dense", "paged", "ngram"):
+        kw = {"dense": {}, "paged": {"paged": True},
+              "ngram": {"speculative": "ngram", "draft_k": 4}}[mode]
+        eng = grammar_engine(lm, **kw)
+        mix = reqs + ([group] if mode == "paged" else [])
+        try:
+            kernels.reset_launch_counts()
+            with ProgramCalls() as calls:
+                t0 = time.monotonic()
+                outs = serve_eos(eng, mix)
+                secs = time.monotonic() - t0
+                torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            alone = serve_eos(eng, [reqs[i] for i in free])
+            replay = [(o, eng.generate(p, n, sampling=s, timeout=600,
+                                       eos_id=GRAMMAR_EOS))
+                      for o, (p, n, s) in zip(outs, mix)
+                      if s and "grammar" in s and "temperature" in s]
+            led = eng.compile_ledger
+            snap = led.snapshot()
+            masked = [r for r in led.tail(led.total) if "masked" in r["key"]]
+            st = eng.stats()
+            masks = next(m["value"] for m in eng.metrics_snapshot()
+                          if m["name"] == "serving_constrained_masks")
+        finally:
+            eng.stop()
+        want = calls.ln_launches([lm])
+        check(counts["layernorm_fwd"] == want and counts["flash_fwd"] == 0,
+              f"16b {mode}: B7 {counts['layernorm_fwd']}, the program calls "
+              f"imply {want}")
+        check(all(isinstance(o, (np.ndarray, list)) for o in outs),
+              f"16b {mode}: a request failed: "
+              f"{[o for o in outs if isinstance(o, Exception)][:2]}")
+        bad = [i for i, (o, (p, _, s)) in enumerate(zip(outs, mix))
+               if s and "grammar" in s and not all(
+                   grammar_walk_ok(s["grammar"], c[len(p):])
+                   for c in (o if isinstance(o, list) else [o]))]
+        check(not bad, f"16b {mode}: requests {bad} left their grammar")
+        check(all(np.array_equal(outs[i], a) for i, a in zip(free, alone)),
+              f"16b {mode}: an unconstrained reply changed with "
+              f"constrained neighbours")
+        check(all(_same_reply(np, a, b) for a, b in replay),
+              f"16b {mode}: a sampled constrained request did not replay")
+        check(snap["storms"] == 0 and masked
+              and all(r["trigger"] == "warmup" for r in masked),
+              f"16b {mode}: storms {snap['storms']}, masked mints "
+              f"{[(r['key'], r['trigger']) for r in masked]}")
+        if ref is None:
+            ref = outs
+        else:
+            check(all(_same_reply(np, a, b) for a, b in zip(outs, ref)),
+                  f"16b {mode}: replies differ from the dense engine's")
+        tokens = sum(sum(len(c) - len(p) for c in (o if isinstance(o, list)
+                                                   else [o]))
+                     for o, (p, _, _) in zip(outs, mix))
+        out[mode] = {
+            "seconds": secs, "tokens": tokens, "tokens_per_s": tokens / secs,
+            "constrained_masks": masks,
+            "launches": counts, "masked_mints": [r["key"] for r in masked],
+            "storms": snap["storms"],
+            "speculative": spec_books(st) if mode == "ngram" else None,
+        }
+        counts_all.append(counts)
+        log(f"16b {mode}: {tokens} tokens in {secs:.2f} s "
+            f"({tokens / secs:.1f} tokens/s); every constrained token in its "
+            f"grammar (host walk), unconstrained replies equal alone, "
+            f"sampled replays equal, 0 storms, masked mints "
+            f"{out[mode]['masked_mints']} in warm-up on {smi}")
+    return out, counts_all, reqs, ref
+
+
+def _same_reply(np, a, b):
+    if isinstance(a, list) or isinstance(b, list):
+        return (isinstance(a, list) and isinstance(b, list)
+                and len(a) == len(b)
+                and all(np.array_equal(x, y) for x, y in zip(a, b)))
+    return np.array_equal(a, b)
+
+
+def run_grammar_edges(torch, np, lm, smi, reqs, ref):
+    """16b's edges: a constrained slot swapped out and back in equals its
+    uninterrupted decode; a dead-end grammar forces EOS and records
+    ``sampling.mask_exhausted``; one constrained request over a
+    ``ServingServer`` equals the in-process reply."""
+    from distkeras_tpu_torch.obs import FlightRecorder
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+    from distkeras_tpu_torch.serving import (
+        ServingClient,
+        ServingServer,
+    )
+    from distkeras_tpu_torch.serving.engine import DecodeStepper
+    from distkeras_tpu_torch.serving.sampling import SamplingParams
+
+    detach_hooks(lm)
+    attach_fused_layernorm(lm)
+    p, _, s = reqs[8]  # the fsm grammar, greedy
+    rec = FlightRecorder()
+    st = DecodeStepper(lm, num_slots=8, paged=True, recorder=rec)
+    sp = SamplingParams(**s)
+    for slot in (0, 1):
+        st.admit(slot, p, sampling=sp, max_new=32, eos_id=GRAMMAR_EOS)
+    act = np.zeros(8, bool)
+    act[[0, 1]] = True
+    toks = [st.step(act) for _ in range(2)]
+    state = st.swap_out(1)
+    st.release(1)
+    st.swap_in(3, state, max_new=30)
+    act[[1, 3]] = [False, True]
+    toks += [st.step(act) for _ in range(3)]
+    swapped_ok = all(t[0] == (t[1] if i < 2 else t[3])
+                     for i, t in enumerate(toks))
+    check(state["grammar"] is not None and swapped_ok,
+          "16b: a constrained slot swapped out and back in diverged")
+    dead = SamplingParams(grammar={"kind": "choice",
+                                   "sequences": [[9000, 9001]]})
+    st.admit(5, p, sampling=dead, max_new=4, eos_id=GRAMMAR_EOS)
+    act = np.zeros(8, bool)
+    act[5] = True
+    forced = int(st.step(act)[5])
+    events = [e for e in rec.snapshot()
+              if e["kind"] == "sampling.mask_exhausted"]
+    check(forced == GRAMMAR_EOS and events and st.mask_exhaustions >= 1,
+          f"16b: dead-end grammar gave {forced}, events {events}")
+    del st
+    eng = grammar_engine(lm)
+    srv = ServingServer(eng).start()
+    try:
+        with ServingClient(srv.host, srv.port, connect_timeout=5) as c:
+            wire = c.generate(reqs[4][0], 32, sampling=reqs[4][2],
+                              eos_id=GRAMMAR_EOS)
+    finally:
+        srv.shutdown()
+        eng.stop()
+    check(np.array_equal(wire, ref[4]),
+          "16b: the constrained reply over the wire differs")
+    res = {"swap_equal": swapped_ok, "forced_eos": forced,
+           "mask_exhausted_events": len(events), "wire_equal": True}
+    log(f"16b edges: a constrained slot swapped out after 2 tokens and back "
+        f"in equals its twin; the dead-end grammar forced eos "
+        f"{GRAMMAR_EOS} with {len(events)} sampling.mask_exhausted event(s);"
+        f" the sequence grammar over TCP equals in process on {smi}")
+    return res
+
+
+def shed_mix(np):
+    """16c's traffic from ``default_rng(163)``: a burst of 48 priority-0
+    requests (prompts 16-48 tokens, 64 new), a trickle of priority-0 ones
+    (16 tokens, 16 new) and 8 priority-1 ones (prompts 16-48, 32 new)."""
+    rng = np.random.default_rng(163)
+
+    def req(lo, hi, n):
+        return (rng.integers(0, 8192, int(rng.integers(lo, hi))).astype(
+            np.int32), n, None)
+
+    burst = [req(16, 49, 64) for _ in range(48)]
+    trickle = [req(16, 17, 16) for _ in range(64)]
+    hi = [req(16, 49, 32) for _ in range(8)]
+    return burst, trickle, hi
+
+
+def run_shed(torch, np, lm, smi):
+    """16c: ``ServingEngine(shed=...)`` under a burst the bank cannot drain
+    within the CoDel interval: the gate latches, priority-0 arrivals are
+    shed typed ``overloaded`` with the gate's hint, priority 1 rides
+    through with the gate-less engine's replies; a declared rung-2
+    brownout clamps to a prefix; the rung returns to 0; one shed over the
+    wire."""
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.serving import (
+        ServingClient,
+        ServingServer,
+        ShedError,
+    )
+
+    burst, trickle, hi = shed_mix(np)
+    plain = hooked_engine(lm, prefix_cache=False)
+    try:
+        refs = results(plain, [plain.submit(p, n) for p, n, _ in hi])
+    finally:
+        plain.stop()
+    eng = hooked_engine(lm, prefix_cache=False, queue_capacity=128,
+                        shed={"target_ms": SHED_TARGET_MS,
+                              "interval_ms": SHED_INTERVAL_MS,
+                              "burn_interval": 0.0})
+    gate = eng.shed_gate
+    sheds, rungs, kept, kept_reqs = [], [], [], []
+    try:
+        kernels.reset_launch_counts()
+        with ProgramCalls() as calls:
+            t0 = time.monotonic()
+            bh = [eng.submit(p, n, priority=0) for p, n, _ in burst]
+            hh = []
+            for p, n, _ in trickle:
+                time.sleep(0.025)
+                rungs.append((time.monotonic() - t0, gate.rung()))
+                try:
+                    kept.append(eng.submit(p, n, priority=0))
+                    kept_reqs.append((p, n, None))
+                except ShedError as e:
+                    sheds.append(e.retry_after_ms)
+                if not hh and gate.rung() >= 1:
+                    hh = [eng.submit(p2, n2, priority=1) for p2, n2, _ in hi]
+                if len(sheds) >= 8 or all(h.started for h in bh):
+                    break
+            if not hh:
+                hh = [eng.submit(p2, n2, priority=1) for p2, n2, _ in hi]
+            outs = results(eng, bh + kept + hh)
+            secs = time.monotonic() - t0
+            torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        peak = max(r for _, r in rungs)
+        # the rung returns to 0 once two intervals pass with no admission
+        time.sleep(2.1 * SHED_INTERVAL_MS / 1e3)
+        rung_after = gate.rung()
+        fresh = eng.generate(hi[0][0], 4, priority=0, timeout=600)
+        gauge = next(m["value"] for m in eng.metrics_snapshot()
+                     if m["name"] == "serving_shed_rung")
+        health_rung = eng.health()["shed"]["rung"]
+        # a declared rung-2 brownout: priority 1 is clamped to a prefix
+        gate.burn_fn = lambda: "spiking"
+        clamped = eng.generate(hi[0][0], 32, priority=1, timeout=600)
+        brown = (eng.health()["shed"]["rung"], gauge_of(eng))
+        # a shed over the wire, with the gate's own hint
+        gate.burn_fn = lambda: "burning"
+        srv = ServingServer(eng, retry_after_ms=1.0).start()
+        try:
+            with ServingClient(srv.host, srv.port, retry=False,
+                               connect_timeout=5) as c:
+                try:
+                    c.generate(hi[1][0], 4, priority=0)
+                    wire = None
+                except Exception as e:  # noqa: BLE001 — checked below
+                    wire = (getattr(e, "code", None),
+                            getattr(e, "retry_after", 0.0) * 1e3,
+                            gate.retry_after_ms())
+        finally:
+            srv.shutdown()
+        gate.burn_fn = eng.burn_verdict
+        stats = eng.stats()
+        state = gate.state()
+    finally:
+        eng.stop()
+    want = calls.ln_launches([lm])
+    check(counts["layernorm_fwd"] == want and counts["flash_fwd"] == 0,
+          f"16c: B7 {counts['layernorm_fwd']}, the program calls imply {want}")
+    check(peak >= 1 and sheds, f"16c: the gate never shed (peak rung {peak})")
+    check(all(25.0 <= h <= 5000.0 for h in sheds),
+          f"16c: retry hints out of [25, 5000] ms: {sheds}")
+    check(all(isinstance(o, np.ndarray) and len(o) == len(p) + n
+              for o, (p, n, _) in zip(outs, burst + kept_reqs + hi)),
+          "16c: a request other than the shed ones failed")
+    check(all(np.array_equal(o, r) for o, r in zip(outs[-len(hi):], refs)),
+          "16c: a priority-1 reply differs from the gate-less engine's")
+    check(rung_after == 0 and gauge == health_rung == 0,
+          f"16c: rung after the burst {rung_after}, gauge {gauge}, health "
+          f"{health_rung}")
+    check(len(clamped) == len(hi[0][0]) + 8
+          and np.array_equal(clamped, refs[0][: len(clamped)])
+          and brown == (2, 2),
+          f"16c: the rung-2 clamp {len(clamped)} tokens, rungs {brown}")
+    check(wire is not None and wire[0] == "overloaded"
+          and abs(wire[1] - wire[2]) < 1e-6 and 25.0 <= wire[1] <= 5000.0,
+          f"16c: the wire shed {wire}")
+    check(stats["shed_overloaded"] == len(sheds) + 1
+          and stats["shed_clamped"] == 1,
+          f"16c: books {stats['shed_overloaded']} / {stats['shed_clamped']}")
+    ttft = sorted(h.latency()["ttft"] for h in hh)
+    res = {
+        "sheds": len(sheds), "retry_after_ms": sheds, "peak_rung": peak,
+        "rung_timeline": rungs, "admitted_trickle": len(kept),
+        "seconds": secs, "hi_ttft_p50_s": ttft[len(ttft) // 2],
+        "rung_after": rung_after, "gate_state": state, "wire": wire,
+        "launches": counts,
+    }
+    log(f"16c shedding: peak rung {peak}, {len(sheds)} priority-0 arrivals "
+        f"shed typed overloaded (retry_after_ms {min(sheds):.1f}-"
+        f"{max(sheds):.1f}), {len(kept)} admitted; 8 priority-1 replies equal"
+        f" the gate-less engine's (TTFT p50 {res['hi_ttft_p50_s']:.3f} s); "
+        f"rung 0 after the burst; a rung-2 clamp gave an 8-token prefix; the"
+        f" wire shed {wire}; {secs:.2f} s on {smi}")
+    return res, counts
+
+
+def gauge_of(eng):
+    return next(m["value"] for m in eng.metrics_snapshot()
+                if m["name"] == "serving_shed_rung")
+
+
+def run_phase16(torch, np, lm, smi, gen_reqs):
+    """Phase 16, bf16 K/V caches, grammar masks and load shedding on the
+    card; returns the results and the launch counts of each subphase's
+    main path."""
+    out = {}
+    t0 = time.monotonic()
+    out["kv_dtype"], c_a = run_kv_dtype_mix(torch, np, lm, smi, gen_reqs)
+    out["kv_rows"] = run_kv_rows(torch, np, lm, smi)
+    out["grammar"], c_b, reqs, ref = run_grammar_mix(torch, np, lm, smi)
+    out["grammar_edges"] = run_grammar_edges(torch, np, lm, smi, reqs, ref)
+    out["shed"], c_c = run_shed(torch, np, lm, smi)
+    detach_hooks(lm)
+    out["seconds_total"] = time.monotonic() - t0
+    counts = [*c_a, *c_b, c_c]
+    out["launches"] = {k: sum(c.get(k, 0) for c in counts)
+                       for k in counts[0]}
+    return out, counts
+
+
 def baseline_leaf_shapes():
     """The parameter shapes of configs 2-5's models (built on the CPU: only
     their leaf tables matter to phases 2b/2c)."""
@@ -5890,7 +6546,8 @@ def profile_swap_fork(torch, np, lm, calls=5):
 
 def profile_paths(torch, np, lm, zoo, steps=20):
     """Where the time goes (``--profile``): a decode step with 8 busy slots
-    on the LayerNorm-hooked model (dense and paged), a verify window of 5
+    on the LayerNorm-hooked model (dense, paged, on bf16 caches, and
+    grammar-masked), a verify window of 5
     candidates on the same 8 slots, one predict forward (8 x 512) with both
     hooks, one training step and one async window — host wall per call
     (synchronized), device kernel time per call, the device's idle share,
@@ -5898,6 +6555,7 @@ def profile_paths(torch, np, lm, zoo, steps=20):
     from distkeras_tpu_torch.ops.flash_attention import attach_flash_attention
     from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
     from distkeras_tpu_torch.serving.engine import DecodeStepper
+    from distkeras_tpu_torch.serving.sampling import SamplingParams
 
     def wall_ms(fn, calls):
         fn()
@@ -5921,25 +6579,50 @@ def profile_paths(torch, np, lm, zoo, steps=20):
     vst = DecodeStepper(lm, num_slots=8, speculative=FixedProposals(),
                         draft_k=4)
     vst.warmup()
+    # the same step on bf16 caches, and the grammar-masked step (every
+    # slot constrained to half the vocabulary)
+    bst = DecodeStepper(lm, num_slots=8, kv_dtype=torch.bfloat16)
+    mst = DecodeStepper(lm, num_slots=8)
+    mst.warm_constrained_buckets()
+    half = SamplingParams(grammar={"kind": "allow",
+                                   "tokens": list(range(0, 8192, 2))})
     for i, p in enumerate(prompts):
-        for s in (st, pst, vst):
+        for s in (st, pst, vst, bst):
             s.admit(i, p)
+        mst.admit(i, p, sampling=half)
     active = np.ones(8, bool)
     out = {}
     calls = {"dense": lambda: st.step(active),
              "paged": lambda: pst.step(active),
-             "verify": lambda: vst.spec_step(active)}
+             "verify": lambda: vst.spec_step(active),
+             "bf16": lambda: bst.step(active),
+             "masked": lambda: mst.step(active)}
+    # three rounds, each starting one kind later: the host's pace drifts
+    # between calls, so a wall is the median of its turns
     walls = {kind: [] for kind in calls}
-    for kind in ("dense", "paged", "verify", "verify", "paged", "dense"):
-        walls[kind].append(wall_ms(calls[kind], steps))
-    prof = {kind: {"wall_ms": sum(walls[kind]) / 2,
+    kinds = list(calls)
+    for r in range(3):
+        for kind in kinds[r:] + kinds[:r]:
+            walls[kind].append(wall_ms(calls[kind], steps))
+    prof = {kind: {"wall_ms": float(np.median(walls[kind])),
                    "wall_ms_turns": walls[kind],
                    **device_profile(torch, calls[kind], steps)}
             for kind in calls}
+    # the masked step's own host work: the mask rows and their copy
+    tmask = mst._build_tmask(active)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        mst._build_tmask(active)
+    prof["masked"]["build_tmask_ms"] = (time.perf_counter() - t0) / steps * 1e3
+    prof["masked"]["mask_to_device_ms"] = wall_ms(
+        lambda: mst._to_dev(tmask), steps)
     decode, paged, verify = prof["dense"], prof["paged"], prof["verify"]
     paged["table_bucket"] = pst._table_bucket()
     verify["verify_steps"] = vst.spec_verify_steps
-    del st, pst, vst
+    prof["bf16"]["kv_bytes_total"] = bst.kv_bytes_total()
+    decode["kv_bytes_total"] = st.kv_bytes_total()
+    prof["masked"]["constrained_masks"] = mst.constrained_masks
+    del st, pst, vst, bst, mst
     gc.collect()
     swap_fork = profile_swap_fork(torch, np, lm)
     attach_flash_attention(lm)
@@ -5956,7 +6639,10 @@ def profile_paths(torch, np, lm, zoo, steps=20):
     async_window = profile_async_window(torch, np, zoo)
     resnet_window = profile_resnet_window(torch, np)
     for name, r in (("decode_step", decode), ("paged_decode_step", paged),
-                    ("verify_window", verify), *swap_fork.items(),
+                    ("verify_window", verify),
+                    ("decode_step_bf16", prof["bf16"]),
+                    ("masked_decode_step", prof["masked"]),
+                    *swap_fork.items(),
                     ("predict_forward", predict),
                     ("train_step", train), ("async_window", async_window),
                     ("resnet18_dynsgd_window", resnet_window)):
@@ -6101,13 +6787,16 @@ def main(argv):
     qos, qos_launches = run_phase15(torch, np, lm, smi, paging)
     log(f"phase 15 in {qos['seconds_total']:.1f} s, launches "
         f"{qos['launches']} on {smi}")
+    knobs, knobs_launches = run_phase16(torch, np, lm, smi, gen_reqs)
+    log(f"phase 16 in {knobs['seconds_total']:.1f} s, launches "
+        f"{knobs['launches']} on {smi}")
     profile = profile_paths(torch, np, lm, zoo) if args.profile else None
 
     phases = [pred["launches"], gen["launches"], train["launches"],
               async_thr["launches"], baseline_launches, resume_launches,
               member_launches, socket_launches, *front_launches,
               *healing_launches, *paging_launches, *spec_launches,
-              *qos_launches,
+              *qos_launches, *knobs_launches,
               *(r["launches"] for r in async_sim.values())]
     launches = {k: sum(c.get(k, 0) for c in phases) for k in kernels.LAUNCHES}
     check(all(n > 0 for n in launches.values()),
@@ -6159,9 +6848,10 @@ def main(argv):
               sgd_rows["sgd_momentum_fused"],
               sgd_rows["sgd_momentum_fused"][0]["shape"]),
     ]}
-    check(not any(m == "jax" or m.startswith(("jax.", "distkeras_tpu."))
-                  or m == "distkeras_tpu" for m in sys.modules),
-          "JAX or the JAX package was imported")
+    check(not any(m in ("jax", "distkeras_tpu", "ml_dtypes")
+                  or m.startswith(("jax.", "distkeras_tpu.", "ml_dtypes."))
+                  for m in sys.modules),
+          "JAX, the JAX package or ml_dtypes was imported")
     device = {"platform": "gpu", "kind": name,
               "count": torch.cuda.device_count()}
     if args.out:
@@ -6175,6 +6865,7 @@ def main(argv):
                        "phase10": socket_tier, "phase11": front,
                        "phase12": healing, "phase13": paging,
                        "phase14": spec, "phase15": qos,
+                       "phase16": knobs,
                        "profile": profile,
                        "flash_infinite_q": inf_rows},
                       f, indent=1)

@@ -24,6 +24,25 @@ from distkeras_tpu_torch.ops.quantization import qmatmul, qshape
 from distkeras_tpu_torch.utils.device import check_model_device
 
 
+_KV_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def resolve_kv_dtype(kv_dtype) -> torch.dtype:
+    """A K/V cache dtype: None is f32; a floating ``torch.dtype`` (or its
+    name, e.g. ``"bfloat16"``) is kept; anything else raises
+    ``ValueError``."""
+    if kv_dtype is None:
+        return torch.float32
+    dt = getattr(torch, kv_dtype, None) if isinstance(kv_dtype, str) \
+        else kv_dtype
+    if dt not in _KV_DTYPES:
+        raise ValueError(
+            f"kv_dtype must be one of float32, bfloat16, float16 (or None "
+            f"for float32); got {kv_dtype!r}"
+        )
+    return dt
+
+
 class ModelPredictor:
     """Batched forward over a Dataset column on one device. The ragged
     final batch runs at its own size (eager PyTorch needs no static
@@ -231,12 +250,19 @@ class CachedSequenceGenerator(SequenceGenerator):
     anything else — MoE stages (not ported), attention hooks, non-causal
     blocks — raises rather than decoding incorrectly. The LayerNorm
     ``norm_fn`` hook is honoured (every LN here goes through the layer).
-    The caches are f32 (the JAX ``kv_dtype`` knob is not ported yet)."""
+
+    ``kv_dtype``: the caches' dtype; None keeps f32. ``torch.bfloat16``
+    (or ``torch.float16``) halves the per-token cache-read bytes. K/V are
+    rounded into the cache dtype on every write and read back as the
+    query's dtype, so attention still accumulates in f32 (JAX's mixed
+    einsum promotes the same way). An integer dtype raises ``ValueError``:
+    a cache cannot hold unscaled K/V as integers."""
 
     def __init__(self, model, temperature=0.0, seed=0, top_k=None,
-                 top_p=None, device=None):
+                 top_p=None, kv_dtype=None, device=None):
         super().__init__(model, temperature=temperature, seed=seed,
                          top_k=top_k, top_p=top_p, device=device)
+        self.kv_dtype = resolve_kv_dtype(kv_dtype)
         from distkeras_tpu_torch.models.layers import (
             Dense,
             Embedding,
@@ -296,12 +322,13 @@ class CachedSequenceGenerator(SequenceGenerator):
         q = qmatmul(h_, mh.wq).reshape(b, c, nh, hd)
         k_new = qmatmul(h_, mh.wk).reshape(b, c, nh, hd)
         v_new = qmatmul(h_, mh.wv).reshape(b, c, nh, hd)
-        cache_k[:, pos : pos + c] = k_new
-        cache_v[:, pos : pos + c] = v_new
-        scores = torch.einsum("bchd,bthd->bhct", q, cache_k) / math.sqrt(hd)
+        cache_k[:, pos : pos + c] = k_new.to(cache_k.dtype)
+        cache_v[:, pos : pos + c] = v_new.to(cache_v.dtype)
+        scores = torch.einsum("bchd,bthd->bhct", q,
+                              cache_k.to(q.dtype)) / math.sqrt(hd)
         scores = scores.masked_fill(~qmask[None, None], float("-inf"))
         w = torch.softmax(scores, dim=-1)
-        o = torch.einsum("bhct,bthd->bchd", w, cache_v)
+        o = torch.einsum("bhct,bthd->bchd", w, cache_v.to(w.dtype))
         o = qmatmul(o.reshape(b, c, nh * hd), mh.wo)
         if mh.use_bias:
             o = o + mh.bo
@@ -324,8 +351,9 @@ class CachedSequenceGenerator(SequenceGenerator):
             q = qmatmul(h_, mh.wq).reshape(bsz, pp, nh, hd)
             k = qmatmul(h_, mh.wk).reshape(bsz, pp, nh, hd)
             v = qmatmul(h_, mh.wv).reshape(bsz, pp, nh, hd)
-            ck[:, :pp] = k
-            cv[:, :pp] = v
+            ck[:, :pp] = k.to(ck.dtype)
+            cv[:, :pp] = v.to(cv.dtype)
+            # the prefix attends its own f32 K/V, as in JAX
             o = dense_attention(q, k, v, causal=True)
             o = qmatmul(o.reshape(bsz, pp, nh * hd), mh.wo)
             if mh.use_bias:
@@ -350,8 +378,8 @@ class CachedSequenceGenerator(SequenceGenerator):
         shape = (bsz, cache_len, self.num_heads, self.head_dim)
         return [
             (
-                torch.zeros(shape, device=self.device),
-                torch.zeros(shape, device=self.device),
+                torch.zeros(shape, dtype=self.kv_dtype, device=self.device),
+                torch.zeros(shape, dtype=self.kv_dtype, device=self.device),
             )
             for _ in self._blocks
         ]
@@ -410,10 +438,12 @@ class BeamSearchGenerator(CachedSequenceGenerator):
     log-probability; ``length_penalty`` (GNMT ``((5 + L) / 6) ** alpha``)
     applies at the final selection only. ``beam_width=1`` is greedy cached
     decode. ``last_scores`` holds the raw summed log-probability of each
-    returned sequence. The port has no ``kv_dtype``: the caches are f32."""
+    returned sequence. ``kv_dtype`` as in ``CachedSequenceGenerator``."""
 
-    def __init__(self, model, beam_width=4, length_penalty=0.0, device=None):
-        super().__init__(model, temperature=0.0, seed=0, device=device)
+    def __init__(self, model, beam_width=4, length_penalty=0.0,
+                 kv_dtype=None, device=None):
+        super().__init__(model, temperature=0.0, seed=0, kv_dtype=kv_dtype,
+                         device=device)
         self.beam_width = int(beam_width)
         self.length_penalty = float(length_penalty)
         self._validate_beam()
@@ -543,11 +573,14 @@ class SpeculativeGenerator:
     JAX runs each row as one compiled ``while_loop``; here each row is a
     host loop over rounds (one host sync per round, for the accepted
     count). Rows decode one after another. ``last_rounds`` holds the
-    rounds per row of the last ``generate``."""
+    rounds per row of the last ``generate``. ``kv_dtype`` applies to both
+    models' caches, as in ``CachedSequenceGenerator``."""
 
-    def __init__(self, target, draft, k=4, device=None):
-        self._t = CachedSequenceGenerator(target, device=device)
-        self._d = CachedSequenceGenerator(draft, device=device)
+    def __init__(self, target, draft, k=4, kv_dtype=None, device=None):
+        self._t = CachedSequenceGenerator(target, kv_dtype=kv_dtype,
+                                          device=device)
+        self._d = CachedSequenceGenerator(draft, kv_dtype=kv_dtype,
+                                          device=device)
         self.k = int(k)
         if self.k < 1:
             raise ValueError(f"k must be >= 1; got {k}")

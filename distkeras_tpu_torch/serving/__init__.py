@@ -19,8 +19,9 @@ client.
   reference, reclaimed under pool pressure). ``ServingEngine`` builds a
   store by default (``prefix_cache=True``).
 - ``sampling``: per-request ``SamplingParams`` (``n > 1``: completion
-  groups over copy-on-write forks), the counter-based RNG and the
-  speculative window samplers.
+  groups over copy-on-write forks; ``grammar``: constrained decoding),
+  the counter-based RNG, the speculative window samplers and the grammar
+  ``TokenMaskCompiler``.
 - ``qos``: ``QosPolicy`` (priority classes, per-tenant weighted fair
   queuing, preemption by KV swap) and the ``TokenBucket`` admission
   quota.
@@ -29,7 +30,8 @@ client.
   ``TokenStream`` (streaming generate), byte-compatible with the JAX
   package's.
 - ``resilience``: the client's ``RetryBudget`` and hedge-delay
-  ``LatencyTracker``.
+  ``LatencyTracker``, the router's ``CircuitBreaker`` and the engine
+  door's ``AdmissionController`` (``ServingEngine(shed=)``).
 
 Robustness (see also ``distkeras_tpu_torch/faults.py``): the scheduler
 assigns BLAME for device-step failures (a masked retry, then bisection) so
@@ -61,7 +63,10 @@ from distkeras_tpu_torch.serving.scheduler import (
     WindowedBatcher,
     WrongRoleError,
 )
-from distkeras_tpu_torch.serving.sampling import SamplingParams
+from distkeras_tpu_torch.serving.sampling import (
+    SamplingParams,
+    TokenMaskCompiler,
+)
 from distkeras_tpu_torch.serving.paging import PageAllocator
 from distkeras_tpu_torch.serving.qos import QosPolicy, TokenBucket
 from distkeras_tpu_torch.serving.prefix_cache import (
@@ -75,6 +80,8 @@ from distkeras_tpu_torch.serving.engine import (
     ServingEngine,
 )
 from distkeras_tpu_torch.serving.resilience import (
+    AdmissionController,
+    CircuitBreaker,
     LatencyTracker,
     RetryBudget,
 )
@@ -82,6 +89,8 @@ from distkeras_tpu_torch.serving.server import ServingServer, serve
 from distkeras_tpu_torch.serving.client import ServingClient, TokenStream
 
 __all__ = [
+    "AdmissionController",
+    "CircuitBreaker",
     "CompileLedger",
     "ContinuousBatcher",
     "DeadlineExceededError",
@@ -111,6 +120,7 @@ __all__ = [
     "ShedError",
     "StaleEpochError",
     "TokenBucket",
+    "TokenMaskCompiler",
     "TokenStream",
     "WindowedBatcher",
     "WrongRoleError",

@@ -50,12 +50,26 @@ behaviour, kept.
 Every LayerNorm of the verify goes through the same hook, 2 per block +
 the final one per window (and per draft step of a hooked draft model).
 
+``kv_dtype`` (bf16 or f16 caches and pools) rounds K/V into the cache
+dtype on every write and reads them back as f32, so attention accumulates
+in f32 as in the JAX package; host K/V rows (prefix-store entries, swap
+state) keep the cache dtype, a bf16 row as its uint16 bit pattern (numpy
+has no bfloat16), 2 bytes an element, the same bits as JAX's.
+
+A request's ``sampling.grammar`` makes its slot constrained: the stepper
+compiles a ``sampling.TokenMaskCompiler`` state at admission, builds the
+(B, V) additive ``0 / -inf`` mask of the next position from it before
+each step, and runs the masked variant of the program (``step[masked]``,
+``paged_step[pbt,masked]``, ``verify[c,masked]``,
+``paged_verify[c,pbt,masked]``), which adds it to the logits before
+temperature, top-k and top-p; an all-``-inf`` row forces EOS instead.
+Constrained slots never draft, and their state advances at collect,
+before the next dispatch.
+
 Not ported yet (and absent from the signatures, so passing one fails
-loudly): grammar masks and the masked verify, meshes, disaggregation roles
-and their ``prefill``/``resume`` faces, the KV epoch and fabric
-(``kv_transfer``, ``serve_prefix``, the ``kv_fabric`` health block), load
-shedding, CUDA graphs around the decode step, bf16 K/V caches
-(``kv_dtype``).
+loudly): meshes, disaggregation roles and their ``prefill``/``resume``
+faces, the KV epoch and fabric (``kv_transfer``, ``serve_prefix``, the
+``kv_fabric`` health block), CUDA graphs around the decode step.
 """
 
 from __future__ import annotations
@@ -89,7 +103,9 @@ from distkeras_tpu_torch.ops.quantization import qmatmul
 from distkeras_tpu_torch.predictors import (
     CachedSequenceGenerator,
     ModelPredictor,
+    resolve_kv_dtype,
 )
+from distkeras_tpu_torch.serving.resilience import as_shed_gate
 from distkeras_tpu_torch.serving import sampling as _sp
 from distkeras_tpu_torch.serving.paging import PageAllocator
 from distkeras_tpu_torch.serving.prefix_cache import (
@@ -120,6 +136,26 @@ def _bucket_pow2(n: int, cap: int) -> int:
     if n <= 0:
         return 0
     return min(1 << (n - 1).bit_length(), cap)
+
+
+def host_rows(t: torch.Tensor) -> np.ndarray:
+    """K/V rows as host numpy in their own dtype: f32 and f16 as
+    themselves, bf16 as its uint16 bit pattern (numpy has no bfloat16)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def rows_tensor(a: np.ndarray, dtype=None) -> torch.Tensor:
+    """Host K/V rows (``host_rows``' format) as a CPU tensor, bit for bit,
+    cast to ``dtype`` when given."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint16:
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t if dtype is None or t.dtype == dtype else t.to(dtype)
 
 
 class _WarmScope(threading.local):
@@ -288,7 +324,7 @@ class ModelDrafter:
             )
         self._st = DecodeStepper(
             self.model, num_slots=tgt.num_slots, temperature=0.0,
-            device=tgt.device,
+            device=tgt.device, kv_dtype=tgt.kv_dtype,
             scratch=_bucket_pow2(tgt.draft_k, tgt.max_len) + 2, _quiet=True,
         )
         if self._st._gen._emb.vocab_size != tgt._gen._emb.vocab_size:
@@ -390,6 +426,9 @@ class _InflightStep:
         # the RNG counter mirrors the length discipline: replay through
         # blame probes is this line
         st._spos[active] += 1
+        if st._grammar:
+            # before the next dispatch builds its mask from this state
+            st._advance_grammar(toks.reshape(-1, 1), np.where(active, 1, 0))
         return toks
 
 
@@ -449,20 +488,37 @@ class DecodeStepper:
     axis so verify and over-draft writes land past the real sequence
     (default ``_kb + 1`` when speculative, else 0); paged, ``pages_for``
     reserves the verify window too. ``_quiet``: silent fault seams and no
-    compile ledger — the nested draft bank of a ``ModelDrafter``."""
+    compile ledger — the nested draft bank of a ``ModelDrafter``.
+
+    ``kv_dtype``: the dtype of the dense caches or the paged pools (None:
+    f32; a draft bank inherits its target's). Host rows of a prefix hit
+    or a swap keep it (``host_rows``).
+
+    Grammar: a slot admitted with ``sampling.grammar`` (``begin_admit``'s
+    ``eos_id`` feeds the forced-EOS fallback) is constrained. A step or
+    verify with a constrained ACTIVE slot runs the masked variant of its
+    program (keys ``step[masked]``, ``paged_step[pbt,masked]``,
+    ``verify[c,masked]``, ``paged_verify[c,pbt,masked]``); ``warmup()``
+    runs only the unmasked ones, ``warm_constrained_buckets()`` the masked
+    ones. ``constrained_masks`` counts mask rows applied,
+    ``mask_exhaustions`` the rows that allowed nothing (forced EOS, a
+    ``sampling.mask_exhausted`` recorder event)."""
 
     def __init__(self, model, num_slots=8, temperature=0.0, seed=0,
-                 top_k=None, top_p=None, device=None, compile_ledger=None,
-                 prefix_cache=None, paged=False, page_size=16,
-                 num_pages=None, recorder=None, speculative=None,
-                 draft_k=4, spec_mode="rejection", scratch=None,
-                 _quiet=False):
+                 top_k=None, top_p=None, kv_dtype=None, device=None,
+                 compile_ledger=None, prefix_cache=None, paged=False,
+                 page_size=16, num_pages=None, recorder=None,
+                 speculative=None, draft_k=4, spec_mode="rejection",
+                 scratch=None, _quiet=False):
         # the generator's model-family validation, block parsing and
         # per-stage bodies, reused wholesale
         self._gen = CachedSequenceGenerator(
             model, temperature=temperature, seed=seed, top_k=top_k,
-            top_p=top_p, device=device,
+            top_p=top_p, kv_dtype=kv_dtype, device=device,
         )
+        self.kv_dtype = self._gen.kv_dtype
+        # host K/V rows' numpy dtype (bf16 rides as its uint16 bits)
+        self._host_dt = host_rows(torch.zeros(0, dtype=self.kv_dtype)).dtype
         self.device = self._gen.device
         self.model = model
         self.num_slots = int(num_slots)
@@ -510,8 +566,8 @@ class DecodeStepper:
             shape = (int(num_pages), self.page_size, self._nh, self._hd)
             self._caches = None
             self._pools = [
-                (torch.zeros(shape, device=self.device),
-                 torch.zeros(shape, device=self.device))
+                (torch.zeros(shape, dtype=self.kv_dtype, device=self.device),
+                 torch.zeros(shape, dtype=self.kv_dtype, device=self.device))
                 for _ in self._gen._blocks
             ]
             self._tables: list[list[int]] = [[] for _ in range(b)]
@@ -539,6 +595,10 @@ class DecodeStepper:
         self._seeds = np.zeros((b,), np.int64)
         self._spos = np.zeros((b,), np.int64)
         self._slot_params: list = [None] * b  # what each slot samples under
+        self._grammar: dict = {}  # slot -> incremental grammar mask state
+        self._mask_compiler = _sp.TokenMaskCompiler(self._gen._emb.vocab_size)
+        self.constrained_masks = 0  # mask rows applied
+        self.mask_exhaustions = 0  # rows that allowed nothing: forced EOS
         for i in range(b):
             self.set_sampling(i, None)
         self.prefix_cache = prefix_cache
@@ -633,12 +693,13 @@ class DecodeStepper:
 
     def _buckets(self, prefix) -> list:
         """The buckets of the ``prefix[...]`` programs run on this bank,
-        as ints or int tuples (for ``paged_stats``)."""
+        as ints or int tuples (for ``paged_stats``; a masked variant
+        shares its unmasked twin's bucket)."""
         out = []
         for key, _ in self._called:
             if key.startswith(prefix + "["):
                 vals = tuple(int(v) for v in key[len(prefix) + 1:-1]
-                             .split(","))
+                             .split(",") if v != "masked")
                 out.append(vals[0] if len(vals) == 1 else vals)
         return sorted(set(out))
 
@@ -664,14 +725,58 @@ class DecodeStepper:
 
     # -- per-slot sampler state ---------------------------------------------
 
-    def set_sampling(self, slot, params):
-        """Bind ``params`` (None = the engine default) to ``slot`` and
-        reset its emitted-position counter (admission is the replay
-        boundary)."""
+    def set_sampling(self, slot, params, eos_id=None):
+        """Bind ``params`` (None = the engine default) to ``slot``, reset
+        its emitted-position counter (admission is the replay boundary)
+        and compile a fresh grammar mask state when the params carry one
+        (``eos_id`` feeds its forced-EOS fallback)."""
         p = params if params is not None else self.default_sampling
         self._bind_params(slot, p)
         self._seeds[slot] = p.seed
         self._spos[slot] = 0
+        self._grammar.pop(slot, None)
+        if p.grammar is not None:
+            self._grammar[slot] = self._mask_compiler.compile(
+                p.grammar, eos_id=eos_id)
+
+    def _build_tmask(self, active):
+        """The (B, V) additive grammar mask of this step: None when no
+        ACTIVE slot is constrained (the unmasked program runs). A row that
+        allows nothing falls back to the request's eos (or, without one,
+        to no constraint), counted and recorded — never a hang."""
+        if not self._grammar:
+            return None
+        rows = [i for i in self._grammar if active[i]]
+        if not rows:
+            return None
+        v = self._gen._emb.vocab_size
+        tm = np.zeros((self.num_slots, v), np.float32)
+        for i in rows:
+            st = self._grammar[i]
+            allow = np.asarray(st.mask(), bool)
+            if not allow.any():
+                self.mask_exhaustions += 1
+                if self.recorder is not None:
+                    self.recorder.record(
+                        "sampling.mask_exhausted", slot=i,
+                        pos=int(self._spos[i]),
+                    )
+                eos = st.eos_id
+                allow = np.zeros(v, bool)
+                if eos is not None and 0 <= int(eos) < v:
+                    allow[int(eos)] = True  # forced-EOS fallback
+                else:
+                    allow[:] = True  # no eos known: unconstrained
+            tm[i] = np.where(allow, 0.0, -np.inf)
+            self.constrained_masks += 1
+        return tm
+
+    def _advance_grammar(self, toks, counts):
+        """Consume the emitted tokens into each constrained slot's mask
+        state (``toks`` (B, w) with ``counts[i]`` real entries)."""
+        for i, st in self._grammar.items():
+            for j in range(int(counts[i])):
+                st.advance(int(toks[i, j]))
 
     def _bind_params(self, slot, p):
         """The per-slot sampler arrays of ``p`` (seed and counter
@@ -743,21 +848,23 @@ class DecodeStepper:
 
     # -- admission ----------------------------------------------------------
 
-    def admit(self, slot: int, prompt, sampling=None, max_new=None) -> None:
+    def admit(self, slot: int, prompt, sampling=None, max_new=None,
+              eos_id=None) -> None:
         """One-shot admission: ``begin_admit`` plus the whole prefill."""
         left = self.begin_admit(slot, prompt, sampling=sampling,
-                                max_new=max_new)
+                                max_new=max_new, eos_id=eos_id)
         while left > 0:
             left = self.prefill_chunk(slot, left)
 
     @torch.no_grad()
     def begin_admit(self, slot: int, prompt, sampling=None,
-                    max_new=None) -> int:
+                    max_new=None, eos_id=None) -> int:
         """Start admitting ``prompt`` into ``slot``: (paged) reserve its
         page table, bind its sampling, write its context row, restore the
         longest prefix-cache hit, and return the prefill positions still
         to compute (0 = ready to decode). ``max_new`` bounds the paged
-        reservation (None reserves to capacity). The ``stepper.prefill``
+        reservation (None reserves to capacity); ``eos_id`` feeds a
+        grammar's forced-EOS fallback. The ``stepper.prefill``
         seam fires first, and a ``PoolExhaustedError`` leaves the slot
         (sampler state included) as it was."""
         self._fire("stepper.prefill", slot=slot)
@@ -774,7 +881,7 @@ class DecodeStepper:
                                                   max_new)
         elif self.prefix_cache is not None and target >= 1:
             host_hit = self._lookup_store(prompt[:target], slot)
-        self.set_sampling(slot, sampling)
+        self.set_sampling(slot, sampling, eos_id=eos_id)
         row = np.zeros((self.max_len,), np.int64)
         row[:plen] = prompt
         self._run("ctx_row", self._write_row, slot, row)
@@ -867,7 +974,8 @@ class DecodeStepper:
         copied, so both slots decode from the same sequence state, and a
         greedy fork is its source's solo decode. ``dst`` copies ``src``'s
         sampling params and emitted-position counter but samples under
-        ``seed_for_completion(seed, completion)``. On a speculative
+        ``seed_for_completion(seed, completion)``; a grammar state is
+        cloned, so each completion walks it alone. On a speculative
         stepper ``dst`` is marked draft-admitted and invalidated (the draft
         bank holds no K/V for what ``src`` decoded). A fork the pool cannot
         cover raises ``PoolExhaustedError`` before anything changes."""
@@ -905,6 +1013,10 @@ class DecodeStepper:
         self._seeds[dst] = _sp.seed_for_completion(
             self._slot_params[dst].seed, completion)
         self._spos[dst] = self._spos[src]
+        if src in self._grammar:
+            self._grammar[dst] = self._grammar[src].clone()
+        else:
+            self._grammar.pop(dst, None)
         if self.drafter is not None:
             sp = self._spec_prompts.get(src)
             if sp is not None:
@@ -924,12 +1036,12 @@ class DecodeStepper:
     def swap_out(self, slot: int) -> dict:
         """A DECODABLE slot's live state on the host — the first half of a
         preemption. The K/V of its written positions ``0 .. len-2`` per
-        block in the ``PrefixStore`` row format (``(p, H, Dh)`` f32 numpy,
-        one device->host copy), the context row, the host length and the
-        sampler state the position-keyed RNG continues from: JAX's dict
-        (``grammar`` stays None: grammar masks are not ported). Read-only:
-        the ``kv.swap`` seam fires first, and the caller releases the slot
-        only after a successful swap-out."""
+        block in the ``PrefixStore`` row format (``(p, H, Dh)`` numpy in
+        the cache dtype, ``host_rows``: bit-exact, one device->host copy),
+        the context row, the host length and the sampler and grammar state
+        the position-keyed RNG and the mask continue from: JAX's dict.
+        Read-only: the ``kv.swap`` seam fires first, and the caller
+        releases the slot only after a successful swap-out."""
         self._fire("kv.swap", slot=slot, direction="out")
         if slot in self._pending:
             raise ValueError(
@@ -944,7 +1056,7 @@ class DecodeStepper:
             )
         p = ln - 1  # written cache positions
         if p < 1:
-            empty = np.zeros((0, self._nh, self._hd), np.float32)
+            empty = np.zeros((0, self._nh, self._hd), self._host_dt)
             kv = [(empty, empty.copy()) for _ in self._gen._blocks]
         else:
             kv = self._fetch_rows(slot, p)
@@ -955,7 +1067,7 @@ class DecodeStepper:
             "spos": int(self._spos[slot]),
             "seed": int(self._seeds[slot]),
             "params": self._slot_params[slot],
-            "grammar": None,
+            "grammar": self._grammar.get(slot),
             "spec_prompt": self._spec_prompts.get(slot),
         }
 
@@ -974,9 +1086,6 @@ class DecodeStepper:
         stepper the slot is marked draft-admitted and invalidated. The
         ``kv.swap`` seam fires first."""
         self._fire("kv.swap", slot=slot, direction="in")
-        if state.get("grammar") is not None:
-            raise ValueError("grammar masks are not ported; cannot resume "
-                             "a constrained request")
         ln = int(state["len"])
         remaining = (self.max_len - ln) if max_new is None else int(max_new)
         if self.paged:
@@ -995,6 +1104,10 @@ class DecodeStepper:
         self._bind_params(slot, p)
         self._seeds[slot] = int(state["seed"])
         self._spos[slot] = int(state["spos"])
+        if state.get("grammar") is not None:
+            self._grammar[slot] = state["grammar"]
+        else:
+            self._grammar.pop(slot, None)
         self._pending.pop(slot, None)
         self._prefill_pos.pop(slot, None)
         if self.drafter is not None:
@@ -1160,7 +1273,7 @@ class DecodeStepper:
                 torch.stack([ck[slot, :p], cv[slot, :p]])
                 for ck, cv in self._caches
             ])
-        host = rows.cpu().numpy()
+        host = host_rows(rows)
         return [(host[si, 0], host[si, 1]) for si in range(host.shape[0])]
 
     @torch.no_grad()
@@ -1170,8 +1283,14 @@ class DecodeStepper:
         positions >= the frontier, overwritten before it is attended)."""
         p = kv[0][0].shape[0]
         pb = min(_bucket_pow2(p, self.max_len), self.max_len)
-        host = np.zeros((2, len(kv), pb, self._nh, self._hd), np.float32)
+        dt = self._host_dt
+        host = np.zeros((2, len(kv), pb, self._nh, self._hd), dt)
         for si, (k, v) in enumerate(kv):
+            if k.dtype != dt:
+                # rows of another cache dtype (a store shared across
+                # engines): rounded into this one
+                k = host_rows(rows_tensor(k, self.kv_dtype))
+                v = host_rows(rows_tensor(v, self.kv_dtype))
             host[0, si, :p] = k
             host[1, si, :p] = v
         if self.paged:
@@ -1182,8 +1301,15 @@ class DecodeStepper:
             self._run("restore", self._restore_dense, slot, host,
                       signature=host.shape)
 
+    def _kv_to_dev(self, host) -> torch.Tensor:
+        """Host K/V rows on the device in the cache dtype, bit for bit
+        (bf16 crosses as its int16 bits)."""
+        if host.dtype == np.uint16:
+            return self._to_dev(host.view(np.int16)).view(torch.bfloat16)
+        return self._to_dev(host)
+
     def _restore_dense(self, slot, host):
-        rows = self._to_dev(host)
+        rows = self._kv_to_dev(host)
         pb = host.shape[2]
         for si, (ck, cv) in enumerate(self._caches):
             ck[slot, :pb] = rows[0, si]
@@ -1199,7 +1325,7 @@ class DecodeStepper:
         # past the table maps to the sentinel page
         fpos = self._to_dev(trow[np.minimum(pvec // ps, pbt - 1)] * ps
                             + pvec % ps)
-        rows = self._to_dev(host)
+        rows = self._kv_to_dev(host)
         for si, (pk, pv) in enumerate(self._pools):
             pk.view(-1, nh, hd)[fpos] = rows[0, si]
             pv.view(-1, nh, hd)[fpos] = rows[1, si]
@@ -1231,7 +1357,9 @@ class DecodeStepper:
         an armed ``stepper.step`` seam. Speculative, the verify runs once
         too (every write masked) and the drafter warms its own programs, so
         a supervisor restart never mints a verify on the serving path.
-        Mints record ``trigger="warmup"``; declaring the warm set complete
+        Only the unmasked programs run here: grammar traffic is the rare
+        case, and ``warm_constrained_buckets`` warms its variants. Mints
+        record ``trigger="warmup"``; declaring the warm set complete
         (``compile_ledger.mark_warmed()``) is the harness's call."""
         active = np.zeros(self.num_slots, bool)
 
@@ -1324,8 +1452,8 @@ class DecodeStepper:
             for p in sorted(buckets):
                 if self.paged and self._tables[0]:
                     continue
-                kv = [(np.zeros((p, nh, hd), np.float32),
-                       np.zeros((p, nh, hd), np.float32))
+                kv = [(np.zeros((p, nh, hd), self._host_dt),
+                       np.zeros((p, nh, hd), self._host_dt))
                       for _ in self._gen._blocks]
                 self._restore_prefix(0, kv)
             occupied = (
@@ -1340,6 +1468,41 @@ class DecodeStepper:
                 # slot 0's context row are unchanged
                 self._run("page_cow", self._page_copy, 0, 0)
                 self._run("ctx_row_copy", self._row_copy, 0, 0)
+
+        self._warm(warm)
+
+    @torch.no_grad()
+    def warm_constrained_buckets(self) -> None:
+        """Run the grammar-masked programs once off the serving path, every
+        write masked (an all-inactive bank): ``step[masked]`` dense, every
+        pow2 ``paged_step[pbt,masked]`` up to ``_max_pages_bucket`` paged
+        (the step's bucket tracks the longest OCCUPIED table, so which one a
+        constrained mix needs depends on the traffic), and, speculative,
+        the verify at its one extent masked and unmasked. ``warmup()`` runs
+        none of these, so harnesses serving grammar traffic call this
+        before ``mark_warmed()``."""
+        active = np.zeros(self.num_slots, bool)
+        tmask = np.zeros((self.num_slots, self._gen._emb.vocab_size),
+                         np.float32)
+
+        def warm():
+            if not self.paged:
+                self._run("step[masked]", self._step_dev, active,
+                          self._lens.copy(), None, tmask)
+            else:
+                pbt = 1
+                while True:
+                    self._run(f"paged_step[{pbt},masked]", self._step_dev,
+                              active, self._lens.copy(), pbt, tmask)
+                    if pbt >= self._max_pages_bucket:
+                        break
+                    pbt <<= 1
+            if self.drafter is not None:
+                cand = np.zeros((self.num_slots, self._kb), np.int64)
+                cnt = np.zeros((self.num_slots,), np.int64)
+                for tm in (None, tmask):
+                    self._run_verify(active, self._lens.copy(), cand, cnt,
+                                     tm)
 
         self._warm(warm)
 
@@ -1367,17 +1530,24 @@ class DecodeStepper:
         is in flight is right only because the stream orders it behind the
         step.
 
+        A constrained active slot makes it the masked program, with the
+        mask of each constrained slot's next position (the grammar states
+        advanced at the previous collect).
+
         The ``stepper.step`` seam fires first, before any device work or
         host bookkeeping, so a failed call leaves the bank as it was."""
         active = np.asarray(active, bool)
         self._fire("stepper.step", active=active)
+        tmask = self._build_tmask(active)
+        tag = "" if tmask is None else ",masked"
         if self.paged:
             pbt = self._table_bucket()
-            toks = self._run(f"paged_step[{pbt}]", self._step_dev, active,
-                             self._lens.copy(), pbt)
+            toks = self._run(f"paged_step[{pbt}{tag}]", self._step_dev,
+                             active, self._lens.copy(), pbt, tmask)
         else:
-            toks = self._run("step[plain]", self._step_dev, active,
-                             self._lens.copy())
+            toks = self._run("step[plain]" if tmask is None
+                             else "step[masked]", self._step_dev, active,
+                             self._lens.copy(), None, tmask)
         return _InflightStep(self, active, toks)
 
     def _table_bucket(self) -> int:
@@ -1421,10 +1591,12 @@ class DecodeStepper:
         return page, pos % ps
 
     @torch.no_grad()
-    def _step_dev(self, active, lens, pbt=None) -> torch.Tensor:
+    def _step_dev(self, active, lens, pbt=None, tmask=None) -> torch.Tensor:
         """The decode step over host snapshots ``active``/``lens`` (paged
-        when ``pbt``, the table bucket, is given); returns the (B,) token
-        vector on the device."""
+        when ``pbt``, the table bucket, is given; masked when ``tmask``,
+        the (B, V) additive grammar mask, is); returns the (B,) token
+        vector on the device. K/V are written in the cache dtype and read
+        as f32."""
         gen = self._gen
         b, t = self.num_slots, self._tp
         nh, hd = self._nh, self._hd
@@ -1456,8 +1628,10 @@ class DecodeStepper:
             v_new = qmatmul(h_, mh.wv).reshape(b, nh, hd)
             if pbt is None:
                 ck, cv = self._caches[li]
-                ck[rows, pos] = torch.where(keep, k_new, ck[rows, pos])
-                cv[rows, pos] = torch.where(keep, v_new, cv[rows, pos])
+                ck[rows, pos] = torch.where(keep, k_new.to(ck.dtype),
+                                            ck[rows, pos])
+                cv[rows, pos] = torch.where(keep, v_new.to(cv.dtype),
+                                            cv[rows, pos])
             else:
                 pk, pv = self._pools[li]
                 # index_put_ picks an arbitrary winner among duplicate
@@ -1465,20 +1639,23 @@ class DecodeStepper:
                 # are distinct pages each holds alone (``write_targets``),
                 # and every inactive row writes the sentinel page, whose
                 # contents nothing reads unmasked
-                pk[ints[5], ints[6]] = k_new
-                pv[ints[5], ints[6]] = v_new
+                pk[ints[5], ints[6]] = k_new.to(pk.dtype)
+                pv[ints[5], ints[6]] = v_new.to(pv.dtype)
                 ck = pk[tables].reshape(b, t_ext, nh, hd)
                 cv = pv[tables].reshape(b, t_ext, nh, hd)
-            scores = torch.einsum("bhd,bthd->bht", q, ck) / math.sqrt(hd)
+            scores = torch.einsum("bhd,bthd->bht", q,
+                                  ck.to(q.dtype)) / math.sqrt(hd)
             scores = scores.masked_fill(~t_mask, float("-inf"))
             w = torch.softmax(scores, dim=-1)
-            o = torch.einsum("bht,bthd->bhd", w, cv)
+            o = torch.einsum("bht,bthd->bhd", w, cv.to(w.dtype))
             o = qmatmul(o.reshape(b, nh * hd), mh.wo)
             if mh.use_bias:
                 o = o + mh.bo
             x = x + o
             x = x + blk.fc2(blk.fc1(blk.ln2(x)))
         logit = gen._head(gen._final_ln(x))  # (B, V)
+        if tmask is not None:
+            logit = logit + self._to_dev(tmask)  # grammar: 0 / -inf rows
         if sampled:
             floats = self._to_dev(np.stack([self._temps, self._topp]))
             nxt = _sp.sample_tokens(
@@ -1540,6 +1717,15 @@ class DecodeStepper:
                 dtoks = np.concatenate(
                     [dtoks, np.zeros((self.num_slots, k - dtoks.shape[1]),
                                      dtoks.dtype)], axis=1)
+            if self._grammar:
+                # constrained slots never draft: a future position's mask
+                # is unknown before the tokens leading to it exist. They
+                # emit candidate 0 alone (or the plain step on fallback);
+                # zeroed before the proposal cache, so a blame probe's
+                # retry sees the same drafts
+                for i in self._grammar:
+                    dtoks[i] = 0
+                    dcnt[i] = 0
             self._spec_pending = (self._lens.copy(), dtoks, dcnt)
         if int(dcnt[active].sum()) == 0:
             self.spec_fallback_steps += 1
@@ -1549,32 +1735,39 @@ class DecodeStepper:
         self._fire("stepper.verify", active=active)
         c = k + 1
         lens0 = self._lens.copy()
-        res = self._run_verify(active, lens0, dtoks, dcnt).cpu().numpy()
+        res = self._run_verify(active, lens0, dtoks, dcnt,
+                               self._build_tmask(active)).cpu().numpy()
         t_out, n_new = res[:, :c], res[:, c]
         counts = np.where(active, n_new, 0).astype(np.int64)
         self._lens[active] = np.minimum(
             self._lens[active] + counts[active], self._lens_cap
         )
         self._spos[active] += counts[active]
+        if self._grammar:
+            self._advance_grammar(t_out, counts)
         self.spec_verify_steps += 1
         self.spec_drafted_tokens += int(dcnt[active].sum())
         drafter.sync(active, t_out, counts, lens0)
         return t_out, counts, True
 
-    def _run_verify(self, active, lens, dtoks, dcnt) -> torch.Tensor:
+    def _run_verify(self, active, lens, dtoks, dcnt, tmask=None
+                    ) -> torch.Tensor:
         """The verify program under its key: ``verify[c]`` dense,
         ``paged_verify[c,pbt]`` paged at the fixed extent (a window
-        amortizes over c candidates, like a prefill chunk)."""
+        amortizes over c candidates, like a prefill chunk); ``,masked``
+        appended when a grammar mask ``tmask`` rides along."""
         c = self._kb + 1
+        tag = "" if tmask is None else ",masked"
         if self.paged:
             pbt = self._max_pages_bucket
-            return self._run(f"paged_verify[{c},{pbt}]", self._verify_dev,
-                             active, lens, dtoks, dcnt, pbt)
-        return self._run(f"verify[{c}]", self._verify_dev, active, lens,
-                         dtoks, dcnt)
+            return self._run(f"paged_verify[{c},{pbt}{tag}]",
+                             self._verify_dev, active, lens, dtoks, dcnt,
+                             pbt, tmask)
+        return self._run(f"verify[{c}{tag}]", self._verify_dev, active,
+                         lens, dtoks, dcnt, None, tmask)
 
     @torch.no_grad()
-    def _verify_dev(self, active, lens, dtoks, dcnt, pbt=None
+    def _verify_dev(self, active, lens, dtoks, dcnt, pbt=None, tmask=None
                     ) -> torch.Tensor:
         """The verify window over host snapshots (paged when ``pbt`` is
         given): candidate j of row i is the token at ``lens[i] - 1 + j`` —
@@ -1583,8 +1776,10 @@ class DecodeStepper:
         rewrite their own values, paged rows write the sentinel page) and
         attends them under a (B, H, C, T) causal mask; the window sampler
         picks the accepted tokens, which are written into the context rows
-        at ``cpos + 1``. Returns the (B, C + 1) device tensor of the
-        window's tokens and, in the last column, the counts."""
+        at ``cpos + 1``. A grammar mask ``tmask`` applies to candidate 0
+        alone (constrained slots never draft). Returns the (B, C + 1)
+        device tensor of the window's tokens and, in the last column, the
+        counts."""
         gen = self._gen
         b, c = self.num_slots, self._kb + 1
         nh, hd = self._nh, self._hd
@@ -1628,8 +1823,10 @@ class DecodeStepper:
                 # each row's C positions are distinct, and an inactive row
                 # rewrites its own values
                 ck, cv = self._caches[li]
-                ck[rows2, cpos] = torch.where(keep, k_new, ck[rows2, cpos])
-                cv[rows2, cpos] = torch.where(keep, v_new, cv[rows2, cpos])
+                ck[rows2, cpos] = torch.where(keep, k_new.to(ck.dtype),
+                                              ck[rows2, cpos])
+                cv[rows2, cpos] = torch.where(keep, v_new.to(cv.dtype),
+                                              cv[rows2, cpos])
             else:
                 pk, pv = self._pools[li]
                 # index_put_ picks an arbitrary winner among duplicate
@@ -1637,20 +1834,25 @@ class DecodeStepper:
                 # (page, offset) pairs of pages it holds alone
                 # (``write_targets``); inactive rows write the sentinel
                 # page, whose contents nothing reads unmasked
-                pk[page_d, off_d] = k_new
-                pv[page_d, off_d] = v_new
+                pk[page_d, off_d] = k_new.to(pk.dtype)
+                pv[page_d, off_d] = v_new.to(pv.dtype)
                 ck = pk[tables_d].reshape(b, t_ext, nh, hd)
                 cv = pv[tables_d].reshape(b, t_ext, nh, hd)
-            scores = torch.einsum("bchd,bthd->bhct", q, ck) / math.sqrt(hd)
+            scores = torch.einsum("bchd,bthd->bhct", q,
+                                  ck.to(q.dtype)) / math.sqrt(hd)
             scores = scores.masked_fill(~t_mask, float("-inf"))
             w = torch.softmax(scores, dim=-1)
-            o = torch.einsum("bhct,bthd->bchd", w, cv)
+            o = torch.einsum("bhct,bthd->bchd", w, cv.to(w.dtype))
             o = qmatmul(o.reshape(b, c, nh * hd), mh.wo)
             if mh.use_bias:
                 o = o + mh.bo
             x = x + o
             x = x + blk.fc2(blk.fc1(blk.ln2(x)))
         logit = gen._head(gen._final_ln(x))  # (B, C, V)
+        if tmask is not None:
+            # candidate 0 is a constrained slot's one emission
+            logit = torch.cat([logit[:, :1] + self._to_dev(tmask)[:, None],
+                               logit[:, 1:]], dim=1)
         dcnt_d = hv[5]
         if sampled:
             floats = self._to_dev(np.stack([self._temps, self._topp]))
@@ -1762,32 +1964,51 @@ class ServingEngine:
     gets a fresh pool and an empty device prefix index); the host prefix
     store is kept.
 
-    Books, as in the JAX engine at its defaults: a flight recorder of
-    events (armed fault-seam firings, blame, quarantine, watchdog trips,
-    restarts, program mints), a span ring, a metrics history a snapshot a
-    second, ten minutes deep, for the ``timeseries`` verb (``history=
-    False`` turns it off), and a ``compile_ledger`` shared by every
-    stepper generation. ``postmortem_dir`` is where a trip's bundle is
-    written (None keeps it in memory for the ``postmortem`` verb);
-    ``slos`` (a list of ``obs.SloSpec``) grade this registry, their
-    verdicts ride ``health``; ``metrics_path`` adds a JSONL sink
-    (``serving_submit``/``serving_complete`` events and drained trace
-    spans).
+    ``kv_dtype``: the dtype of the K/V caches or pools (None: f32;
+    ``torch.bfloat16`` halves them and the host rows of prefix entries and
+    swaps; see ``DecodeStepper``). ``shed``: adaptive load shedding at the
+    admission door, as in the JAX engine. False (the default) leaves the
+    door as it is; True builds a ``resilience.AdmissionController`` with
+    defaults, a dict passes its constructor kwargs, an instance is used as
+    it is. Its brownout ladder reads this engine's ``burn_verdict``, its
+    CoDel side the admitted requests' queue sojourns, and its refusals
+    are typed ``overloaded`` with the gate's ``retry_after_ms``. Its state
+    rides ``health()["shed"]`` and the ``serving_shed_rung`` gauge; the
+    gate survives supervisor restarts.
+
+    Books, as in the JAX engine: a flight recorder of events (armed
+    fault-seam firings, blame, quarantine, watchdog trips, restarts,
+    program mints, grammar exhaustions; ``flight_recorder=False`` turns it
+    off, ``recorder_capacity`` bounds it), a span ring of ``trace_ring``
+    spans, a metrics history a snapshot every ``history_interval``
+    seconds, ``history_capacity`` deep, for the ``timeseries`` verb
+    (``history=False`` turns it off), and a ``compile_ledger`` shared by
+    every stepper generation. ``postmortem_dir`` is where a trip's bundle
+    is written (None keeps it in memory for the ``postmortem`` verb);
+    ``slos`` (a list of ``obs.SloSpec``) grade this registry at most every
+    ``slo_interval`` seconds, their verdicts ride ``health``;
+    ``metrics_path`` adds a JSONL sink (``serving_submit``/
+    ``serving_complete`` events and drained trace spans).
     """
 
     def __init__(self, model, num_slots=8, queue_capacity=64,
                  temperature=0.0, seed=0, top_k=None, top_p=None,
-                 predict_batch=64, predict_window=0.005,
+                 kv_dtype=None, predict_batch=64, predict_window=0.005,
                  prefill_chunk="auto", prefix_cache=True,
                  prefix_cache_bytes=64 << 20, quarantine_steps=64,
                  watchdog_interval=10.0, watchdog_grace=None,
                  max_restarts=3, restart_backoff=0.05, metrics_path=None,
-                 postmortem_dir=None, slos=None, history=True,
-                 overlap=True, paged=False, page_size=16, num_pages=None,
-                 qos=None, speculative=None, draft_bundle=None, draft_k=4,
-                 ngram_max=3, spec_mode="rejection", device=None):
+                 speculative=None, draft_bundle=None, draft_k=4,
+                 ngram_max=3, spec_mode="rejection", flight_recorder=True,
+                 recorder_capacity=2048, postmortem_dir=None, slos=None,
+                 slo_interval=5.0, paged=False, page_size=16,
+                 num_pages=None, qos=None, history=True,
+                 history_interval=1.0, history_capacity=600,
+                 trace_ring=8192, overlap=True, shed=False, device=None):
         self.model = model
         self.device = check_model_device(model, device)
+        # a config error, raised here rather than demoting the engine
+        kv_dtype = resolve_kv_dtype(kv_dtype)
         drafter = self._resolve_drafter(speculative, draft_bundle, ngram_max,
                                         self.device)
         self.spec_mode = spec_mode
@@ -1800,13 +2021,16 @@ class ServingEngine:
         # the engine-owned books (per engine, so in-process fleets keep
         # per-replica registries and span rings)
         self.registry = MetricsRegistry()
-        self.trace_collector = TraceCollector(on_drop=self._on_trace_drop)
+        self.trace_collector = TraceCollector(capacity=trace_ring,
+                                              on_drop=self._on_trace_drop)
         self.registry.gauge(
             "serving_trace_collector_dropped",
             fn=lambda: self.trace_collector.dropped_total,
         )
-        self.recorder = FlightRecorder()
-        self.recorder.register_gauges(self.registry, "serving")
+        self.recorder = (FlightRecorder(capacity=recorder_capacity)
+                         if flight_recorder else None)
+        if self.recorder is not None:
+            self.recorder.register_gauges(self.registry, "serving")
         # the compile ledger outlives stepper generations: a rebuilt
         # stepper's first calls are attributed as rewarms
         self.compile_ledger = CompileLedger(
@@ -1814,7 +2038,9 @@ class ServingEngine:
             prefix="serving", inflight_fn=self._inflight_estimate,
         )
         self.history = (
-            MetricsHistory(self.metrics_snapshot) if history else None
+            MetricsHistory(self.metrics_snapshot, interval=history_interval,
+                           capacity=history_capacity)
+            if history else None
         )
         self.postmortem_dir = postmortem_dir
         self.last_postmortem = None
@@ -1836,7 +2062,7 @@ class ServingEngine:
         # drafter re-binds to each rebuilt stepper)
         self._stepper_cfg = dict(
             num_slots=num_slots, temperature=temperature, seed=seed,
-            top_k=top_k, top_p=top_p, device=self.device,
+            top_k=top_k, top_p=top_p, kv_dtype=kv_dtype, device=self.device,
             compile_ledger=self.compile_ledger, prefix_cache=store,
             paged=paged, page_size=page_size, num_pages=num_pages,
             recorder=self.recorder, speculative=drafter, draft_k=draft_k,
@@ -1851,10 +2077,18 @@ class ServingEngine:
             self._decode_err = e
         if self._stepper is not None and prefill_chunk == "auto":
             prefill_chunk = max(16, self._stepper.max_len // 8)
+        # the gate rides the batcher config, so a restart's rebuilt batcher
+        # keeps it: its sojourn history and rung are evidence about the
+        # host, not about one batcher
+        self.shed_gate = as_shed_gate(shed, burn_fn=self.burn_verdict)
+        if self.shed_gate is not None:
+            self.registry.gauge("serving_shed_rung",
+                                fn=lambda: self.shed_gate.state()["rung"])
         self._batcher_cfg = dict(
             queue_capacity=queue_capacity, prefill_chunk=prefill_chunk,
             quarantine_steps=quarantine_steps, registry=self.registry,
             recorder=self.recorder, qos=qos, overlap=overlap,
+            shed_gate=self.shed_gate,
         )
         self.qos = qos
         self.batcher = (
@@ -1913,6 +2147,13 @@ class ServingEngine:
                 else self._stepper.prefix_fetch_failures
             ),
         )
+        # grammar masks applied and forced-EOS fallbacks, read from the
+        # live stepper generation
+        for name, attr in (("serving_constrained_masks", "constrained_masks"),
+                           ("serving_mask_exhaustions", "mask_exhaustions")):
+            reg.gauge(name, fn=lambda attr=attr: (
+                0 if self._stepper is None
+                else getattr(self._stepper, attr)))
         if paged:
             # page-pool gauges, read from the live stepper generation (a
             # supervisor restart rebuilds the pool)
@@ -1949,8 +2190,8 @@ class ServingEngine:
         self.slo = None
         if slos:
             self.slo = SloEvaluator(
-                slos, self.metrics_snapshot, registry=reg,
-                recorder=self.recorder, prefix="serving",
+                slos, self.metrics_snapshot, interval=slo_interval,
+                registry=reg, recorder=self.recorder, prefix="serving",
             )
 
     @staticmethod
@@ -2001,9 +2242,10 @@ class ServingEngine:
         return cls(model, **kwargs)
 
     def _on_trace_drop(self):
-        self.recorder.record(
-            "trace.drops", capacity=self.trace_collector.capacity
-        )
+        if self.recorder is not None:
+            self.recorder.record(
+                "trace.drops", capacity=self.trace_collector.capacity
+            )
 
     def _inflight_estimate(self):
         """Requests queued or slotted, for the compile ledger's per-mint
@@ -2019,7 +2261,8 @@ class ServingEngine:
         if self._started:
             return self
         self._started = True
-        faults.add_observer(self.recorder.fault_observer)
+        if self.recorder is not None:
+            faults.add_observer(self.recorder.fault_observer)
         add_build_observer(self._on_build)
         self._predict_batcher.start()
         if self.batcher is not None:
@@ -2085,7 +2328,7 @@ class ServingEngine:
                     batcher.wait_for_work()
         except Exception as e:  # noqa: BLE001 — scheduler crash boundary
             self._last_crash = repr(e)
-            self.recorder.record("engine.crash", error=repr(e)[:200])
+            self._record("engine.crash", error=repr(e)[:200])
             if self.metrics is not None:
                 self.metrics.log(event="serving_engine_crash", error=repr(e))
             self._crash_evt.set()  # wake the supervisor immediately
@@ -2121,7 +2364,7 @@ class ServingEngine:
             if not dead and not wedged:
                 continue
             self._watchdog_trips += 1
-            self.recorder.record(
+            self._record(
                 "engine.watchdog_trip", dead=dead, wedged=wedged,
                 restarts=self._restarts,
                 heartbeat_age=round(now - self._heartbeat, 3),
@@ -2138,10 +2381,14 @@ class ServingEngine:
             })
             self._restart(dead)
 
+    def _record(self, event, **fields):
+        if self.recorder is not None:
+            self.recorder.record(event, **fields)
+
     def _degrade(self, reason):
         self._failed = True
         self._failed_reason = reason
-        self.recorder.record("engine.degraded", reason=reason)
+        self._record("engine.degraded", reason=reason)
         self._safe_dump("degraded", {"reason": reason})
 
     def _restart(self, dead):
@@ -2187,7 +2434,7 @@ class ServingEngine:
         batcher = ContinuousBatcher(stepper, **self._batcher_cfg)
         self.batcher = batcher
         self._launch_scheduler(batcher)
-        self.recorder.record("engine.restarted", restarts=self._restarts)
+        self._record("engine.restarted", restarts=self._restarts)
         if self.metrics is not None:
             self.metrics.log(event="serving_engine_restarted",
                              restarts=self._restarts)
@@ -2215,7 +2462,8 @@ class ServingEngine:
             batcher.stop()
         self._predict_batcher.close()
         remove_build_observer(self._on_build)
-        faults.remove_observer(self.recorder.fault_observer)
+        if self.recorder is not None:
+            faults.remove_observer(self.recorder.fault_observer)
         self.drain_traces()  # the tail of the span ring is not lost
 
     # -- generate -----------------------------------------------------------
@@ -2395,6 +2643,9 @@ class ServingEngine:
         cfg = dict(self._batcher_cfg)
         cfg.pop("registry", None)
         cfg.pop("recorder", None)
+        gate = cfg.pop("shed_gate", None)
+        if gate is not None:
+            cfg["shed"] = gate.state()
         cfg.update(
             model=type(self.model).__name__,
             num_slots=(
@@ -2491,6 +2742,10 @@ class ServingEngine:
                 "enabled": batcher.overlap,
                 **batcher.overlap_ledger.snapshot(),
             }
+        if self.shed_gate is not None:
+            # the brownout rung, whether the CoDel side sheds, and the
+            # sojourn EWMA behind the retry hints
+            out["shed"] = self.shed_gate.state()
         out["heartbeat_age"] = (
             None if batcher is None or not self._started
             else time.monotonic() - self._heartbeat

@@ -1,6 +1,6 @@
-"""Per-request sampling: params, the counter RNG, filtering, token draws
-and the speculative window samplers (PyTorch port of
-``distkeras_tpu.serving.sampling``; grammar masks wait).
+"""Per-request sampling: params, the counter RNG, filtering, token draws,
+the speculative window samplers and the grammar mask compiler (PyTorch
+port of ``distkeras_tpu.serving.sampling``).
 
 Every sampled token draws from a key derived as
 ``fold_in(fold_in(PRNGKey(0), request_seed), emitted_position)`` — a pure
@@ -14,10 +14,17 @@ an argmax — so a seed samples the same tokens here as in the JAX package
 (the float ops around the bits, ``log`` and the softmax inside
 ``filter_logits``, can differ in the last ulp, which moves a token only
 at an exact near-tie).
+
+``TokenMaskCompiler`` turns a grammar spec (``allow``, ``sequence``,
+``choice``, ``fsm``) into per-slot incremental host state whose ``mask()``
+is the allowed-token set of the next position; the stepper applies it as
+an additive ``0 / -inf`` row before temperature, top-k and top-p. It is
+pure host numpy, a copy of the JAX package's.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 #: the greedy-agreement refusal, raised only by the explicit strict mode
@@ -65,16 +72,20 @@ class SamplingParams:
     greedy argmax; ``top_k`` / ``top_p`` filter sampling and require
     ``temperature > 0``; ``seed`` keys the counter RNG; ``n`` asks for n
     parallel completions: one prefill, then copy-on-write forks (a paged
-    engine), completion j sampling under ``seed_for_completion(seed, j)``."""
+    engine), completion j sampling under ``seed_for_completion(seed, j)``.
+    ``grammar``: a ``TokenMaskCompiler`` spec dict; it constrains greedy
+    and sampled selection alike."""
 
-    __slots__ = ("temperature", "top_k", "top_p", "seed", "n")
+    __slots__ = ("temperature", "top_k", "top_p", "seed", "n", "grammar")
 
-    def __init__(self, temperature=0.0, top_k=None, top_p=None, seed=0, n=1):
+    def __init__(self, temperature=0.0, top_k=None, top_p=None, seed=0, n=1,
+                 grammar=None):
         self.temperature = float(temperature)
         self.top_k = None if top_k is None else int(top_k)
         self.top_p = None if top_p is None else float(top_p)
         self.seed = int(seed) % _SEED_MOD
         self.n = int(n)
+        self.grammar = grammar
         self.validate()
 
     def validate(self):
@@ -96,10 +107,21 @@ class SamplingParams:
             )
         if self.n < 1:
             raise ValueError(f"n must be >= 1; got {self.n}")
+        if self.grammar is not None:
+            TokenMaskCompiler.check(self.grammar)
+
+    @property
+    def is_greedy(self) -> bool:
+        """True when selection is argmax (a grammar may still constrain
+        the candidates)."""
+        return self.temperature == 0.0
 
     @property
     def is_default(self) -> bool:
-        return self.temperature == 0.0 and self.n == 1
+        """True when these params reproduce the no-params path exactly:
+        greedy, unconstrained, one completion."""
+        return (self.temperature == 0.0 and self.grammar is None
+                and self.n == 1)
 
     def to_wire(self) -> dict:
         out = {}
@@ -113,6 +135,8 @@ class SamplingParams:
             out["seed"] = self.seed
         if self.n != 1:
             out["n"] = self.n
+        if self.grammar is not None:
+            out["grammar"] = self.grammar
         return out
 
     @classmethod
@@ -122,7 +146,8 @@ class SamplingParams:
             return None
         if isinstance(d, SamplingParams):
             return d
-        extra = set(d) - {"temperature", "top_k", "top_p", "seed", "n"}
+        extra = set(d) - {"temperature", "top_k", "top_p", "seed", "n",
+                          "grammar"}
         if extra:
             raise ValueError(f"unknown sampling fields {sorted(extra)}")
         return cls(**d)
@@ -300,3 +325,266 @@ def spec_window_tokens(logit, dtoks, dcnt, temps, top_k, top_p, seeds, spos,
     acc = (ranks[None, : c - 1] < dcnt[:, None]) & torch.where(
         sampled, d == fresh[:, : c - 1], d == greedy[:, : c - 1])
     return torch.where(sampled, fresh, greedy), _accepted(acc)
+
+
+# --------------------------------------------------------------------------
+# Grammar-constrained decoding: pure-host mask compiler.
+# --------------------------------------------------------------------------
+
+
+class _GrammarState:
+    """Per-slot incremental mask state: ``mask()`` yields the (V,) bool
+    allowed-token mask for the NEXT position, ``advance(tok)`` consumes
+    the emitted token, ``clone()`` branches state for a CoW fork (each
+    completion walks the grammar independently)."""
+
+    def __init__(self, vocab_size, eos_id):
+        self.vocab_size = int(vocab_size)
+        self.eos_id = eos_id
+
+    def _base(self, allow_eos=False):
+        m = np.zeros(self.vocab_size, bool)
+        if allow_eos and self.eos_id is not None and (
+            0 <= self.eos_id < self.vocab_size
+        ):
+            m[self.eos_id] = True
+        return m
+
+    def mask(self) -> np.ndarray:
+        raise NotImplementedError
+
+    def advance(self, tok: int) -> None:
+        raise NotImplementedError
+
+    def clone(self) -> "_GrammarState":
+        raise NotImplementedError
+
+
+class _AllowState(_GrammarState):
+    """Fixed whitelist every position (eos always allowed, so the
+    request can finish)."""
+
+    def __init__(self, vocab_size, eos_id, tokens):
+        super().__init__(vocab_size, eos_id)
+        self._mask = self._base(allow_eos=True)
+        for t in tokens:
+            if 0 <= int(t) < vocab_size:
+                self._mask[int(t)] = True
+
+    def mask(self):
+        return self._mask
+
+    def advance(self, tok):
+        pass
+
+    def clone(self):
+        c = _AllowState.__new__(_AllowState)
+        c.vocab_size, c.eos_id, c._mask = self.vocab_size, self.eos_id, self._mask
+        return c
+
+
+class _SequenceState(_GrammarState):
+    """Position-indexed allowed sets; past the last step: eos-only
+    (``loop=False``, the default) or wrap to step 0 (``loop=True``)."""
+
+    def __init__(self, vocab_size, eos_id, steps, loop=False):
+        super().__init__(vocab_size, eos_id)
+        self.steps = [
+            [int(t) for t in step if 0 <= int(t) < vocab_size]
+            for step in steps
+        ]
+        self.loop = bool(loop)
+        self.pos = 0
+
+    def mask(self):
+        if self.pos >= len(self.steps):
+            if self.loop:
+                idx = self.pos % len(self.steps)
+            else:
+                return self._base(allow_eos=True)  # forced finish
+        else:
+            idx = self.pos
+        m = self._base(allow_eos=self.pos >= len(self.steps))
+        for t in self.steps[idx]:
+            m[t] = True
+        return m
+
+    def advance(self, tok):
+        self.pos += 1
+
+    def clone(self):
+        c = _SequenceState(self.vocab_size, self.eos_id, [], self.loop)
+        c.steps, c.pos = self.steps, self.pos
+        return c
+
+
+class _ChoiceState(_GrammarState):
+    """Trie over a finite set of allowed token sequences (the
+    JSON-schema "enum of literal values" shape, token-level): at each
+    position, the allowed tokens are the next tokens of every sequence
+    still consistent with what was emitted; a fully-matched sequence
+    allows eos. An off-grammar token (possible only through forced-EOS
+    fallback interplay) dead-ends the state — the next mask is empty
+    and the fallback fires."""
+
+    def __init__(self, vocab_size, eos_id, sequences):
+        super().__init__(vocab_size, eos_id)
+        self.sequences = [
+            [int(t) for t in s] for s in sequences if len(s)
+        ]
+        self.live = list(range(len(self.sequences)))
+        self.pos = 0
+
+    def mask(self):
+        done = False
+        m = self._base()
+        for i in self.live:
+            seq = self.sequences[i]
+            if self.pos < len(seq):
+                if 0 <= seq[self.pos] < self.vocab_size:
+                    m[seq[self.pos]] = True
+            else:
+                done = True
+        if done and self.eos_id is not None and (
+            0 <= self.eos_id < self.vocab_size
+        ):
+            m[self.eos_id] = True
+        return m
+
+    def advance(self, tok):
+        tok = int(tok)
+        self.live = [
+            i for i in self.live
+            if self.pos < len(self.sequences[i])
+            and self.sequences[i][self.pos] == tok
+        ]
+        self.pos += 1
+
+    def clone(self):
+        c = _ChoiceState(self.vocab_size, self.eos_id, [])
+        c.sequences, c.live, c.pos = self.sequences, list(self.live), self.pos
+        return c
+
+
+class _FsmState(_GrammarState):
+    """Explicit token-level DFA: ``states[s]`` maps token id -> next
+    state; accept states additionally allow eos. Tokens without an
+    edge are masked off; an emitted token without an edge (forced-EOS
+    interplay) dead-ends the state."""
+
+    def __init__(self, vocab_size, eos_id, start, states, accept):
+        super().__init__(vocab_size, eos_id)
+        self.states = {
+            str(s): {int(t): str(n) for t, n in edges.items()}
+            for s, edges in states.items()
+        }
+        self.accept = {str(s) for s in (accept or [])}
+        self.state = str(start)
+
+    def mask(self):
+        edges = self.states.get(self.state, {})
+        m = self._base(allow_eos=self.state in self.accept)
+        for t in edges:
+            if 0 <= t < self.vocab_size:
+                m[t] = True
+        return m
+
+    def advance(self, tok):
+        self.state = self.states.get(self.state, {}).get(int(tok), "\0dead")
+
+    def clone(self):
+        c = _FsmState.__new__(_FsmState)
+        c.vocab_size, c.eos_id = self.vocab_size, self.eos_id
+        c.states, c.accept, c.state = self.states, self.accept, self.state
+        return c
+
+
+class TokenMaskCompiler:
+    """Compile grammar specs into per-slot incremental mask state.
+
+    Specs are JSON-able dicts (they ride the wire inside
+    ``SamplingParams.grammar``):
+
+    - ``{"kind": "allow", "tokens": [...]}`` — fixed whitelist.
+    - ``{"kind": "sequence", "steps": [[...], ...], "loop": false}`` —
+      position i must come from ``steps[i]``; past the end, eos only
+      (or wrap when ``loop``).
+    - ``{"kind": "choice", "sequences": [[...], ...]}`` — one of a
+      finite set of token sequences (trie-compiled; the JSON-schema
+      enum shape at token level).
+    - ``{"kind": "fsm", "start": s, "states": {s: {tok: s'}},
+      "accept": [...]}`` — explicit token-level DFA.
+
+    ``check`` validates STRUCTURE without a vocabulary (submit-time,
+    so a bad spec is a client ``ValueError``); ``compile`` binds a
+    vocab size + the request's eos id and returns the mutable state.
+    """
+
+    KINDS = ("allow", "sequence", "choice", "fsm")
+
+    def __init__(self, vocab_size: int):
+        self.vocab_size = int(vocab_size)
+
+    @staticmethod
+    def check(spec) -> None:
+        """Structural validation (raises ``ValueError``); shared by
+        ``SamplingParams.validate`` so malformed grammars die at the
+        submit boundary, typed, before any slot state exists."""
+        if not isinstance(spec, dict):
+            raise ValueError(f"grammar spec must be a dict; got {type(spec).__name__}")
+        kind = spec.get("kind")
+        if kind not in TokenMaskCompiler.KINDS:
+            raise ValueError(
+                f"grammar kind must be one of {TokenMaskCompiler.KINDS}; "
+                f"got {kind!r}"
+            )
+        if kind == "allow":
+            toks = spec.get("tokens")
+            if not isinstance(toks, (list, tuple)) or not toks:
+                raise ValueError("allow grammar needs a non-empty 'tokens' list")
+        elif kind == "sequence":
+            steps = spec.get("steps")
+            if not isinstance(steps, (list, tuple)) or not steps or any(
+                not isinstance(s, (list, tuple)) or not s for s in steps
+            ):
+                raise ValueError(
+                    "sequence grammar needs non-empty 'steps' of non-empty "
+                    "token lists"
+                )
+        elif kind == "choice":
+            seqs = spec.get("sequences")
+            if not isinstance(seqs, (list, tuple)) or not seqs or any(
+                not isinstance(s, (list, tuple)) or not s for s in seqs
+            ):
+                raise ValueError(
+                    "choice grammar needs non-empty 'sequences' of non-empty "
+                    "token lists"
+                )
+        else:  # fsm
+            states = spec.get("states")
+            if not isinstance(states, dict) or not states:
+                raise ValueError("fsm grammar needs a non-empty 'states' dict")
+            if str(spec.get("start")) not in {str(s) for s in states}:
+                raise ValueError(
+                    f"fsm start state {spec.get('start')!r} not in states"
+                )
+            for s, edges in states.items():
+                if not isinstance(edges, dict):
+                    raise ValueError(f"fsm state {s!r} edges must be a dict")
+
+    def compile(self, spec, eos_id=None) -> _GrammarState:
+        self.check(spec)
+        kind = spec["kind"]
+        if kind == "allow":
+            return _AllowState(self.vocab_size, eos_id, spec["tokens"])
+        if kind == "sequence":
+            return _SequenceState(
+                self.vocab_size, eos_id, spec["steps"],
+                loop=bool(spec.get("loop")),
+            )
+        if kind == "choice":
+            return _ChoiceState(self.vocab_size, eos_id, spec["sequences"])
+        return _FsmState(
+            self.vocab_size, eos_id, spec["start"], spec["states"],
+            spec.get("accept"),
+        )

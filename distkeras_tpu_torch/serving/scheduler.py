@@ -18,7 +18,11 @@ slice runs).
   request may displace the lowest-priority decoding slot by KV swap
   (``stepper.swap_out`` / ``swap_in``). A request with ``sampling.n > 1``
   is a completion group: one prefill, then ``n - 1`` copy-on-write forks
-  (``stepper.fork_slot``) before its first token.
+  (``stepper.fork_slot``) before its first token. With a ``shed_gate``
+  (a ``resilience.AdmissionController``) ``submit`` asks the gate first:
+  a shed is the typed ``ShedError`` (``overloaded`` with the gate's
+  ``retry_after_ms``), a rung-2 clamp trims ``max_new_tokens``, and each
+  admission reports its queue sojourn back to the gate.
   Two loop shapes with one contract: ``overlap=False`` dispatches each
   step and waits for it; ``overlap=True`` runs the next iteration's host
   work while the step is on the device and collects it at the last
@@ -42,11 +46,11 @@ the stepper's compile ledger); ``stream=True`` requests get each
 iteration's emitted tokens pushed into a chunk FIFO before any eviction.
 The counters are typed registry counters (``serving_scheduler_<key>``).
 
-Not ported yet: prefill export (the disaggregation roles), load
-shedding.
+Not ported yet: prefill export (the disaggregation roles).
 
 The device face is an injected stepper (``engine.DecodeStepper``) with
-``num_slots``, ``max_len``, ``begin_admit(slot, prompt, sampling) -> left``,
+``num_slots``, ``max_len``, ``begin_admit(slot, prompt, sampling, eos_id)
+-> left``,
 ``prefill_chunk(slot, budget) -> left``, ``release(slot)`` and
 ``step(active) -> (num_slots,) tokens``; it MAY expose
 ``step_async(active)`` returning a handle with ``ready()`` and
@@ -366,12 +370,21 @@ class ContinuousBatcher:
     The sequential loop preempts in its admission phase; the overlapped
     loop picks the victim after collect (nothing in flight). At most
     ``max_preemptions`` displacements per request. Pairing at quiescence:
-    ``preemptions == resumes + swap_in_failures + swapped_failed``."""
+    ``preemptions == resumes + swap_in_failures + swapped_failed``.
+
+    ``shed_gate``: an optional ``resilience.AdmissionController`` consulted
+    on every ``submit`` before the queue-capacity check (outside the
+    batcher lock): ``shed``/``refuse`` raise ``ShedError`` with the gate's
+    ``retry_after_ms`` (counted ``shed_overloaded``), a rung-2 clamp lowers
+    ``max_new_tokens`` (``shed_clamped``), and a rung change lands one
+    ``scheduler.shed_rung`` recorder event. Each first admission reports
+    its queue sojourn (``note_delay``), the gate's CoDel signal."""
 
     def __init__(self, stepper, queue_capacity=64, prefill_chunk=None,
                  quarantine_steps=64, registry=None, recorder=None,
-                 qos=None, overlap=False):
+                 qos=None, overlap=False, shed_gate=None):
         self.stepper = stepper
+        self.shed_gate = shed_gate
         self.queue_capacity = int(queue_capacity)
         if self.queue_capacity < 1:
             raise ValueError("queue_capacity must be >= 1")
@@ -446,6 +459,10 @@ class ContinuousBatcher:
                 "swap_in_failures",  # restore failed; request failed typed
                 "swapped_failed",  # failed (stop, deadline) while out
                 "swapped_tokens",  # context tokens copied to the host
+                # adaptive load shedding (0 without a gate): every shed is
+                # a typed overloaded reply
+                "shed_overloaded",  # refused at the door by the gate
+                "shed_clamped",  # admitted with max_new_tokens clamped
             ),
         )
         # requests asking for more than plain greedy, and slots made by
@@ -486,7 +503,8 @@ class ContinuousBatcher:
 
     def submit(self, req: ServeRequest) -> ServeRequest:
         """Enqueue or fail fast: ``EngineStoppedError`` while draining or
-        stopped, ``OverloadedError`` on a full queue, ``ValueError`` when
+        stopped, ``ShedError`` when the shed gate refuses it,
+        ``OverloadedError`` on a full queue, ``ValueError`` when
         the request can never fit a slot (or, for ``n > 1``, the stepper
         cannot fork, the bank holds fewer than n slots, or it streams)."""
         if req.prompt.size + req.max_new_tokens > self.stepper.max_len:
@@ -520,6 +538,25 @@ class ContinuousBatcher:
                     f"request needs {need} KV pages but the pool holds "
                     f"{self.stepper.total_pages}"
                 )
+        if self.shed_gate is not None:
+            # the overload door, outside the batcher lock (the gate has its
+            # own leaf lock, and its burn_fn walks the metrics registry)
+            action, hint_ms, clamp = self.shed_gate.admit(req.priority,
+                                                          req.max_new_tokens)
+            t = self.shed_gate.poll_transition()
+            if t is not None and self.recorder is not None:
+                self.recorder.record("scheduler.shed_rung", old=t[0],
+                                     new=t[1], **self.shed_gate.state())
+            if action != "admit":
+                self.counters["shed_overloaded"] += 1
+                raise ShedError(
+                    "admission shed by overload gate "
+                    f"(rung {self.shed_gate.state()['rung']})",
+                    retry_after_ms=hint_ms,
+                )
+            if clamp is not None and clamp < req.max_new_tokens:
+                req.max_new_tokens = clamp
+                self.counters["shed_clamped"] += 1
         with self._lock:
             if self._draining or self._stopped:
                 raise EngineStoppedError("engine is draining; not accepting")
@@ -768,6 +805,9 @@ class ContinuousBatcher:
                 taken += req.n
                 if req.started is None:  # a resume keeps its stamps
                     req.started = now
+                    if self.shed_gate is not None:
+                        # the queue sojourn: the CoDel signal of the gate
+                        self.shed_gate.note_delay(now - req.created)
                 self._admit_seq += 1
                 for j, i in enumerate(group):
                     self._slots[i] = req
@@ -794,9 +834,11 @@ class ContinuousBatcher:
                 continue
             try:
                 kw = {"max_new": req.max_new_tokens} if paged else {}
+                if req.sampling is not None:
+                    kw.update(sampling=req.sampling, eos_id=req.eos_id)
                 n0, ta = self._led_total(), time.monotonic()
                 began.append((i, req, self.stepper.begin_admit(
-                    i, req.prompt, sampling=req.sampling, **kw
+                    i, req.prompt, **kw
                 )))
                 self._note_mints(req, n0, ta, time.monotonic())
             except Exception as e:  # noqa: BLE001 — admission boundary

@@ -135,8 +135,10 @@ def test_beam_validation(lms):
     with pytest.raises(ValueError, match="rectangular"):
         BeamSearchGenerator(lm, device="cpu").generate(
             [np.arange(2), np.arange(5)], 4)
-    with pytest.raises(TypeError):
-        BeamSearchGenerator(lm, kv_dtype="bfloat16", device="cpu")
+    with pytest.raises(ValueError, match="kv_dtype"):
+        BeamSearchGenerator(lm, kv_dtype=torch.int8, device="cpu")
+    assert BeamSearchGenerator(lm, kv_dtype="bfloat16",
+                               device="cpu").kv_dtype == torch.bfloat16
 
 
 def test_beam_config_revalidated_at_every_generate(lms):

@@ -113,6 +113,12 @@ def test_sampling_params_validate_and_wire():
     with pytest.raises(ValueError, match="temperature"):
         sp.SamplingParams(top_k=3)
     with pytest.raises(ValueError, match="unknown"):
+        sp.SamplingParams.from_wire({"grammer": {"kind": "allow"}})
+    # a grammar rides the wire and is validated at the boundary
+    g = {"kind": "allow", "tokens": [2, 4]}
+    assert sp.SamplingParams.from_wire({"grammar": g}).to_wire() == {
+        "grammar": g}
+    with pytest.raises(ValueError, match="tokens"):
         sp.SamplingParams.from_wire({"grammar": {"kind": "allow"}})
 
 

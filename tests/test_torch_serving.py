@@ -258,10 +258,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for m in pkgutil.walk_packages(p.__path__, 'distkeras_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'distkeras_tpu' or m.startswith('distkeras_tpu.')]\n"
+        " or m == 'distkeras_tpu' or m.startswith('distkeras_tpu.')"
+        " or m == 'ml_dtypes' or m.startswith('ml_dtypes.')]\n"
         "assert not bad, bad\n"
         "front = ['distkeras_tpu_torch.serving.' + n for n in ('server',"
-        " 'client', 'resilience')] + ['distkeras_tpu_torch.obs.' + n"
+        " 'client', 'resilience', 'sampling')]"
+        " + ['distkeras_tpu_torch.obs.' + n"
         " for n in ('tracing', 'compile_ledger', 'overlap')]\n"
         "assert all(m in sys.modules for m in front), front\n"
         "print('clean', len([m for m in sys.modules"
