@@ -336,6 +336,30 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``serving_shed_rung`` agree), a declared rung-2 brownout clamps a reply
    to an exact prefix, and a shed over the wire carries the gate's own
    ``retry_after_ms``.
+17. Disaggregated prefill/decode and the KV fabric on phase 4's LN-hooked
+   LM, 8 slots, each engine fresh behind its own ``ServingServer`` on
+   loopback, every drive launching B7 exactly what its program calls
+   imply (16 a prefill chunk, 17 a decode step) and B4 never. 17a: phase
+   4's mix through a ``role="prefill"`` and a ``role="decode"`` engine,
+   relayed (``prefill``, then ``kv.transfer`` from the caller) and pushed
+   (``prefill`` with ``push_to``), from 8 client threads, dense (whole-
+   prompt admission) and paged, f32 and bf16 caches: every reply equal to
+   a unified engine's of the same layout and ``kv_dtype`` over the wire,
+   the prefill engine never stepping and the decode engine never
+   prefilling, each frame its rows' bytes plus a header; frame bytes,
+   encode, wire, decode, export and resume ms a request, TTFT on the
+   prefill and the decode side, tokens/s of the pair beside the unified
+   engine's. 17b: engine A serves 13b's shared-header traffic (no fetch);
+   fresh engines B serve it with ``kv_peers`` naming A: one fetch of the
+   128-token rung, fewer prefill positions, A's replies; after A's
+   scheduler restarts (a new KV epoch) a fetch at the old epoch is refused
+   typed ``stale_epoch`` on the wire, and a stale hint, a dead endpoint
+   and an open breaker (no retry budget spent, A never dialed) each
+   degrade with A's replies. 17c: a frame with one byte flipped is a typed
+   ``kv_transfer`` (nothing admitted) in process and over the wire,
+   ``wrong_role`` holds both ways over the wire, the ``kv.transfer`` seam
+   fails a send and a receive typed, and a hand-off after them equals the
+   unified engine's reply.
 
 ``--profile`` adds where the time goes: a decode step (dense, paged, on
 bf16 caches and grammar-masked), a
@@ -4169,14 +4193,16 @@ def run_paged_mix(torch, np, lm, smi, gen, gen_reqs, gen_outs):
     return res, counts
 
 
-def serve_header_mix(eng, reqs):
+def serve_header_mix(eng, reqs, **kw):
     """13b's arrival: the first request alone, the other 15 once its
-    first chunk arrives. Returns (replies, seconds, requests)."""
+    first chunk arrives (``kw`` rides every ``submit``). Returns
+    (replies, seconds, requests)."""
     t0 = time.monotonic()
     p, n, s = reqs[0]
-    first = eng.submit(p, n, sampling=s, stream=True)
+    first = eng.submit(p, n, sampling=s, stream=True, **kw)
     first.next_chunk(timeout=600)
-    handles = [first] + [eng.submit(p, n, sampling=s) for p, n, s in reqs[1:]]
+    handles = [first] + [eng.submit(p, n, sampling=s, **kw)
+                         for p, n, s in reqs[1:]]
     outs = [eng.wait(h, timeout=600) for h in handles]
     return outs, time.monotonic() - t0, handles
 
@@ -6069,7 +6095,13 @@ def run_shed(torch, np, lm, smi):
     shed typed ``overloaded`` with the gate's hint, priority 1 rides
     through with the gate-less engine's replies; a declared rung-2
     brownout clamps to a prefix; the rung returns to 0; one shed over the
-    wire."""
+    wire.
+
+    The trickle's prompts arrive in turn, 25 ms apart, until 8 are shed or
+    the whole burst is admitted: the gate latches at the first admission
+    that comes a full CoDel interval after the first late one, so how many
+    arrivals that takes depends on the card's step time, not on the length
+    of the trickle list."""
     from distkeras_tpu_torch import kernels
     from distkeras_tpu_torch.serving import (
         ServingClient,
@@ -6083,7 +6115,7 @@ def run_shed(torch, np, lm, smi):
         refs = results(plain, [plain.submit(p, n) for p, n, _ in hi])
     finally:
         plain.stop()
-    eng = hooked_engine(lm, prefix_cache=False, queue_capacity=128,
+    eng = hooked_engine(lm, prefix_cache=False, queue_capacity=512,
                         shed={"target_ms": SHED_TARGET_MS,
                               "interval_ms": SHED_INTERVAL_MS,
                               "burn_interval": 0.0})
@@ -6095,7 +6127,8 @@ def run_shed(torch, np, lm, smi):
             t0 = time.monotonic()
             bh = [eng.submit(p, n, priority=0) for p, n, _ in burst]
             hh = []
-            for p, n, _ in trickle:
+            for i in itertools.count():
+                p, n, _ = trickle[i % len(trickle)]
                 time.sleep(0.025)
                 rungs.append((time.monotonic() - t0, gate.rung()))
                 try:
@@ -6105,7 +6138,8 @@ def run_shed(torch, np, lm, smi):
                     sheds.append(e.retry_after_ms)
                 if not hh and gate.rung() >= 1:
                     hh = [eng.submit(p2, n2, priority=1) for p2, n2, _ in hi]
-                if len(sheds) >= 8 or all(h.started for h in bh):
+                if (len(sheds) >= 8 or all(h.started for h in bh)
+                        or time.monotonic() - t0 > 120.0):
                     break
             if not hh:
                 hh = [eng.submit(p2, n2, priority=1) for p2, n2, _ in hi]
@@ -6205,6 +6239,557 @@ def run_phase16(torch, np, lm, smi, gen_reqs):
     detach_hooks(lm)
     out["seconds_total"] = time.monotonic() - t0
     counts = [*c_a, *c_b, c_c]
+    out["launches"] = {k: sum(c.get(k, 0) for c in counts)
+                       for k in counts[0]}
+    return out, counts
+
+
+# ------------------------------------------------------------------ phase 17
+
+
+class TransferTap:
+    """While active, the host wall of each ``kv_transfer.encode_state`` and
+    ``decode_state`` call, of each ``DecodeStepper.swap_out`` (the export)
+    and ``swap_in`` (the resume), of the server's ``prefill`` and
+    ``kv.transfer`` handlers (keyed by the caller's ``request_id``), and
+    each finished request's ``latency()`` by engine."""
+
+    def __init__(self):
+        self.seconds = {"encode": [], "decode": [], "swap_out": [],
+                        "swap_in": []}
+        self.server = {}  # (verb, request_id) -> seconds
+        self.latency = {}  # id(engine) -> [(prefill_only, latency)]
+        self._orig = []
+
+    def _wrap(self, owner, name, make):
+        orig = getattr(owner, name)
+        self._orig.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    def __enter__(self):
+        from distkeras_tpu_torch.serving import kv_transfer
+        from distkeras_tpu_torch.serving.engine import (
+            DecodeStepper,
+            ServingEngine,
+        )
+        from distkeras_tpu_torch.serving.server import ServingServer
+
+        def timed(key):
+            def make(orig):
+                def call(*a, **kw):
+                    t0 = time.perf_counter()
+                    try:
+                        return orig(*a, **kw)
+                    finally:
+                        self.seconds[key].append(time.perf_counter() - t0)
+                return call
+            return make
+
+        def handler(verb):
+            def make(orig):
+                def call(srv, header, payload, *a):
+                    t0 = time.perf_counter()
+                    try:
+                        return orig(srv, header, payload, *a)
+                    finally:
+                        self.server[(verb, header.get("request_id"))] = (
+                            time.perf_counter() - t0)
+                return call
+            return make
+
+        def complete(orig):
+            def call(eng, req):
+                self.latency.setdefault(id(eng), []).append(
+                    (req.prefill_only, req.latency()))
+                return orig(eng, req)
+            return call
+
+        for name in ("encode_state", "decode_state"):
+            self._wrap(kv_transfer, name, timed(name.split("_")[0]))
+        for name in ("swap_out", "swap_in"):
+            self._wrap(DecodeStepper, name, timed(name))
+        self._wrap(ServingServer, "_prefill", handler("prefill"))
+        self._wrap(ServingServer, "_transfer", handler("kv.transfer"))
+        self._wrap(ServingEngine, "_complete", complete)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._orig):
+            setattr(owner, name, orig)
+
+    def lat(self, eng, key, prefill_only=False):
+        return [lat[key] for po, lat in self.latency.get(id(eng), [])
+                if po == prefill_only and lat[key] is not None]
+
+
+def frame_payload_bytes(st, prompt_len):
+    """A prefill frame's payload on stepper ``st``: the context row and each
+    block's K and V rows of the ``prompt_len - 1`` written positions (at
+    d512/L8 in f32, 32,768 bytes a position)."""
+    row = st._nh * st._hd * st.kv_dtype.itemsize
+    return 4 * prompt_len + 2 * len(st._gen._blocks) * (prompt_len - 1) * row
+
+
+def wire_clients(srv, n=8):
+    from distkeras_tpu_torch.serving import ServingClient
+
+    return [ServingClient(srv.host, srv.port, timeout=600, connect_timeout=2)
+            for _ in range(n)]
+
+
+def wire_mix(np, srv, reqs):
+    """The mix as ``generate`` from 8 client threads (one client each)."""
+    clients = wire_clients(srv)
+    try:
+        t0 = time.monotonic()
+        outs = fan_out([
+            (lambda j=j: clients[j % 8].generate(reqs[j][0], reqs[j][1],
+                                                 sampling=reqs[j][2]))
+            for j in range(len(reqs))], 8)
+        return outs, time.monotonic() - t0
+    finally:
+        for c in clients:
+            c.close()
+
+
+def handoff_mix(np, pre_srv, dec_srv, reqs, pushed):
+    """17a's drive: the mix from 8 client threads through a prefill server
+    and a decode server, relayed (``prefill``, then ``kv.transfer`` from
+    the caller) or pushed (``prefill`` with ``push_to``). Returns (replies,
+    seconds, one row a request: frame bytes and client round trips)."""
+    from distkeras_tpu_torch.utils.serialization import (
+        deserialize_params,
+        serialize_params,
+    )
+
+    cps, cds = wire_clients(pre_srv), wire_clients(dec_srv)
+
+    def job(j):
+        p, n, s = reqs[j]
+        hdr = {"verb": "prefill", "max_new_tokens": n, "request_id": j}
+        if s is not None:
+            hdr["sampling"] = s
+        if pushed:
+            hdr["push_to"] = [dec_srv.host, dec_srv.port]
+        t0 = time.perf_counter()
+        reply, body = cps[j % 8]._roundtrip(hdr, serialize_params(p))
+        row = {"bytes": reply["transfer"]["bytes"],
+               "prefill_rt_s": time.perf_counter() - t0}
+        if pushed:
+            check(reply.get("pushed") is True,
+                  f"17a: request {j} was not pushed: "
+                  f"{reply.get('push_error')} {reply.get('push_detail')}")
+            return np.asarray(deserialize_params(body)), row
+        t1 = time.perf_counter()
+        reply, body = cds[j % 8]._roundtrip(
+            {"verb": "kv.transfer", "max_new_tokens": n, "request_id": j},
+            bytes(body))
+        row["transfer_rt_s"] = time.perf_counter() - t1
+        return np.asarray(deserialize_params(body)), row
+
+    try:
+        t0 = time.monotonic()
+        res = fan_out([(lambda j=j: job(j)) for j in range(len(reqs))], 8)
+        secs = time.monotonic() - t0
+    finally:
+        for c in cps + cds:
+            c.close()
+    return [r[0] for r in res], secs, [r[1] for r in res]
+
+
+def counted(torch, lm, tag, fn):
+    """Run ``fn`` with the launch counts reset and the stepper programs
+    counted; B7 must have launched exactly what the programs imply (16 a
+    prefill chunk, 17 a decode step of the hooked d512/L8) and B4 never.
+    Returns (fn's result, counts)."""
+    from distkeras_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    with ProgramCalls() as calls:
+        out = fn()
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = calls.ln_launches([lm])
+    check(counts["layernorm_fwd"] == want and counts["flash_fwd"] == 0,
+          f"{tag}: B7 {counts['layernorm_fwd']} (B4 {counts['flash_fwd']}), "
+          f"the program calls imply {want} B7")
+    return out, counts
+
+
+def same_outs(np, a, b):
+    return len(a) == len(b) and all(
+        isinstance(x, np.ndarray) and np.array_equal(x, y)
+        for x, y in zip(a, b))
+
+
+def run_handoff(torch, np, lm, smi, gen_reqs):
+    """17a: phase 4's mix through a ``role="prefill"`` and a
+    ``role="decode"`` engine, relayed and pushed, against a unified engine
+    of the same layout and ``kv_dtype`` on the same admission path (dense
+    admits each prompt whole, paged chunks), each behind its own
+    ``ServingServer``; dense and paged, f32 and bf16 caches. The dense f32
+    servers are returned alive for 17c."""
+    from distkeras_tpu_torch.serving import ServingServer
+
+    res, counts_all, keep = {}, [], None
+    try:
+        for layout in ("dense", "paged"):
+            for dtn in ("float32", "bfloat16"):
+                tag = f"17a {layout} {dtn}"
+                kw = dict({"prefill_chunk": None} if layout == "dense"
+                          else {"paged": True},
+                          kv_dtype=getattr(torch, dtn), prefix_cache=False)
+                srvs = [ServingServer(hooked_engine(lm, role=role,
+                                                    **kw)).start()
+                        for role in ("unified", "prefill", "decode")]
+                uni, pre, dec = (s.engine for s in srvs)
+                try:
+                    r, counts = handoff_config(torch, np, lm, tag, srvs,
+                                               gen_reqs)
+                finally:
+                    if layout == "dense" and dtn == "float32":
+                        keep = srvs
+                    else:
+                        for s in srvs:
+                            s.shutdown()
+                check(pre.stats()["steps"] == 0
+                      and dec.stats()["prefill_chunks"] == 0,
+                      f"{tag}: the prefill engine took a decode step or the "
+                      f"decode engine prefilled: {pre.stats()['steps']} "
+                      f"steps, {dec.stats()['prefill_chunks']} chunks")
+                res[f"{layout}_{dtn}"] = r
+                counts_all += counts
+                log(f"{tag}: replies equal the unified engine's, relayed "
+                    f"and pushed; frame {r['frame_bytes']['max']} bytes at "
+                    f"prompt {r['frame_bytes']['max_prompt']} (mix total "
+                    f"{r['frame_bytes']['total']}); encode p50 "
+                    f"{r['encode_ms']['p50']:.2f} ms, wire p50 "
+                    f"{r['wire_ms']['p50']:.2f} ms, decode p50 "
+                    f"{r['decode_ms']['p50']:.2f} ms, export swap-out p50 "
+                    f"{r['swap_out_ms']['p50']:.2f} ms, resume swap-in p50 "
+                    f"{r['swap_in_ms']['p50']:.2f} ms a request; TTFT p50 "
+                    f"prefill side {r['ttft_ms']['prefill_side']['p50']:.1f}"
+                    f" + decode side "
+                    f"{r['ttft_ms']['decode_side']['p50']:.1f} ms "
+                    f"(unified {r['ttft_ms']['unified']['p50']:.1f} ms); "
+                    f"tokens/s unified {r['tokens_per_s']['unified']:.1f}, "
+                    f"relayed {r['tokens_per_s']['relayed']:.1f}, pushed "
+                    f"{r['tokens_per_s']['pushed']:.1f} on {smi}")
+    except BaseException:
+        for s in keep or ():
+            s.shutdown()
+        raise
+    return res, counts_all, keep
+
+
+def handoff_config(torch, np, lm, tag, srvs, reqs):
+    """One 17a configuration: the unified engine, then the pair relayed,
+    then pushed; every reply equal to the unified engine's."""
+    uni, pre, dec = (s.engine for s in srvs)
+    runs, counts_all, rows, taps = {}, [], {}, {}
+    for mode in ("unified", "relayed", "pushed"):
+        with TransferTap() as tap:
+            if mode == "unified":
+                (outs, secs), counts = counted(
+                    torch, lm, f"{tag} {mode}",
+                    lambda: wire_mix(np, srvs[0], reqs))
+            else:
+                (outs, secs, rows[mode]), counts = counted(
+                    torch, lm, f"{tag} {mode}",
+                    lambda: handoff_mix(np, srvs[1], srvs[2], reqs,
+                                        mode == "pushed"))
+        taps[mode] = tap
+        counts_all.append(counts)
+        check(all(isinstance(o, np.ndarray) and len(o) == len(p) + n
+                  for o, (p, n, _) in zip(outs, reqs)),
+              f"{tag} {mode}: a request did not finish")
+        if mode != "unified":
+            check(same_outs(np, outs, runs["unified"]["outs"]),
+                  f"{tag} {mode}: a reply differs from the unified engine's")
+        tokens = sum(len(o) - len(p) for o, (p, _, _) in zip(outs, reqs))
+        runs[mode] = {"outs": outs, "seconds": secs,
+                      "tokens_per_s": tokens / secs, "launches": counts}
+    # frames: one a request and mode, the payload exactly the rows'
+    frames = [r["bytes"] for m in ("relayed", "pushed") for r in rows[m]]
+    for r, (p, _, _) in zip(rows["relayed"], reqs):
+        extra = r["bytes"] - frame_payload_bytes(dec._stepper, len(p))
+        check(0 < extra < 1024,
+              f"{tag}: a {len(p)}-token frame of {r['bytes']} bytes is not "
+              f"its payload plus a header")
+    big = max(range(len(reqs)), key=lambda j: len(reqs[j][0]))
+    rel, push = taps["relayed"], taps["pushed"]
+    wire = [r["prefill_rt_s"] - rel.server[("prefill", j)]
+            + r["transfer_rt_s"] - rel.server[("kv.transfer", j)]
+            for j, r in enumerate(rows["relayed"])]
+    both = lambda key: rel.seconds[key] + push.seconds[key]  # noqa: E731
+    check(len(both("encode")) == len(both("decode")) == 2 * len(reqs),
+          f"{tag}: {len(both('encode'))} frames encoded, "
+          f"{len(both('decode'))} decoded for {2 * len(reqs)} hand-offs")
+    return {
+        "frame_bytes": {"total": sum(frames) // 2, "max": rows["relayed"][
+            big]["bytes"], "max_prompt": len(reqs[big][0]),
+            "per_request": [r["bytes"] for r in rows["relayed"]]},
+        "encode_ms": quantiles_ms(np, both("encode")),
+        "decode_ms": quantiles_ms(np, both("decode")),
+        "swap_out_ms": quantiles_ms(np, both("swap_out")),
+        "swap_in_ms": quantiles_ms(np, both("swap_in")),
+        "wire_ms": quantiles_ms(np, wire),
+        "ttft_ms": {
+            "prefill_side": quantiles_ms(
+                np, rel.lat(pre, "total", True) + push.lat(pre, "total",
+                                                           True)),
+            "decode_side": quantiles_ms(
+                np, rel.lat(dec, "ttft") + push.lat(dec, "ttft")),
+            "unified": quantiles_ms(np, taps["unified"].lat(uni, "ttft")),
+        },
+        "tokens_per_s": {m: runs[m]["tokens_per_s"] for m in runs},
+        "seconds": {m: runs[m]["seconds"] for m in runs},
+        "launches": {m: runs[m]["launches"] for m in runs},
+    }, counts_all
+
+
+def run_fabric(torch, np, lm, smi):
+    """17b: engine A serves 13b's shared-header mix (its host store then
+    holds the header's pow2 rungs) behind a ``ServingServer``; fresh
+    engines B serve the mix with ``kv_peers`` pointing at A: fetched, then
+    after A's scheduler restarted with the old epoch (typed
+    ``stale_epoch``), a dead endpoint and an open breaker. Every B's
+    replies equal A's, which fetched nothing."""
+    import threading
+
+    from distkeras_tpu_torch.faults import FaultPlan
+    from distkeras_tpu_torch.serving import ServingClient, ServingServer
+    from distkeras_tpu_torch.utils.serialization import serialize_params
+
+    header, reqs = shared_header_mix(np)
+    a = hooked_engine(lm)
+    sa = ServingServer(a).start()
+    ep = (sa.host, sa.port)
+    out, counts_all = {}, []
+    try:
+        (ref, secs, _), counts = counted(
+            torch, lm, "17b never-fetched",
+            lambda: serve_header_mix(a, reqs))
+        counts_all.append(counts)
+        cover = a.prefix_store.coverage(header)
+        check(cover == 128, f"17b: A covers {cover} header positions, not "
+                            f"its 128-token rung")
+        out["never_fetched"] = {
+            "prefill_positions": a.stats()["prefill_tokens"],
+            "prompt_positions": sum(len(p) - 1 for p, _, _ in reqs),
+            "seconds": secs}
+        served = lambda: {k: a.peer_fabric.counters[k] for k in (  # noqa: E731
+            "fetch_served", "fetch_miss", "stale_refusals", "bytes_out")}
+
+        def drive(tag, hint, prep=None):
+            b = hooked_engine(lm)
+            try:
+                if prep is not None:
+                    prep(b)
+                a0 = served()
+                (outs, secs, _), counts = counted(
+                    torch, lm, f"17b {tag}",
+                    lambda: serve_header_mix(b, reqs, kv_peers=[hint]))
+                counts_all.append(counts)
+                check(same_outs(np, outs, ref),
+                      f"17b {tag}: a reply differs from the never-fetched "
+                      f"engine's")
+                fab = b.peer_fabric.snapshot()
+                tape = [e for e in b.recorder.snapshot()
+                        if e["kind"] == "kv.peer.degraded"]
+                a1 = served()
+                return {"prefill_positions": b.stats()["prefill_tokens"],
+                        "seconds": secs, "fabric": {k: fab[k] for k in (
+                            "fetches", "fetch_ok", "fetch_degraded",
+                            "fetch_retries", "breaker_skips", "bytes_in")},
+                        "budget": fab["budget"],
+                        "degraded_errors": sorted({e["error"]
+                                                   for e in tape}),
+                        "peer_served": {k: a1[k] - a0[k] for k in a1}}
+            finally:
+                b.stop()
+
+        hint = {"endpoint": ep, "epoch": int(a.kv_epoch), "len": cover}
+        r = out["fetched"] = drive("fetched", hint)
+        f = r["fabric"]
+        check(f["fetch_ok"] == f["fetches"] == 1 and f["fetch_degraded"] == 0
+              and f["bytes_in"] == r["peer_served"]["bytes_out"] > 0,
+              f"17b fetched: fabric {f}, peer {r['peer_served']}")
+        check(r["prefill_positions"]
+              <= out["never_fetched"]["prefill_positions"] - cover,
+              f"17b fetched: {r['prefill_positions']} prefill positions, "
+              f"the never-fetched engine "
+              f"{out['never_fetched']['prefill_positions']}")
+        # restart A's scheduler (the seam fires on A's loop thread only)
+        old = int(a.kv_epoch)
+        with FaultPlan(seed=0).arm(
+                "scheduler.loop", times=1,
+                when=lambda ctx: threading.current_thread() is a._thread):
+            wait_for(lambda: a.health()["restarts"] >= 1
+                     and a.health()["status"] == "serving", "A's restart")
+        check(int(a.kv_epoch) != old, "17b: the restart kept the KV epoch")
+        with ServingClient(*ep, timeout=60, connect_timeout=2) as c:
+            reply, _ = c._roundtrip({"verb": "kv.fetch", "epoch": old},
+                                    serialize_params(header[:cover]),
+                                    raise_on_error=False)
+        check(reply.get("error") == "stale_epoch",
+              f"17b: a fetch at the old epoch replied {reply}")
+        out["restart_seconds"] = a.last_restart
+        budget0 = {}
+
+        def open_breaker(b):
+            br = b.peer_fabric.breaker(ep)
+            br.open_secs = 3600.0  # no half-open probe inside the drive
+            for _ in range(5):
+                br.record_failure()
+            check(br.state == "open", f"17b: the breaker is {br.state}")
+            budget0.update(b.peer_fabric.budget.snapshot())
+
+        for tag, h, err, prep in (
+                ("stale_epoch", dict(hint, epoch=old), "StaleEpochError",
+                 None),
+                ("dead_endpoint", dict(hint, endpoint=dead_endpoint()),
+                 "PeerError", None),
+                ("open_breaker", dict(hint, epoch=int(a.kv_epoch)),
+                 "PeerError", open_breaker)):
+            r = out[tag] = drive(tag, h, prep)
+            f = r["fabric"]
+            check(f["fetch_ok"] == 0 and f["fetches"] >= 1
+                  and f["fetch_degraded"] == f["fetches"]
+                  and r["degraded_errors"] == [err],
+                  f"17b {tag}: fabric {f}, tape {r['degraded_errors']}")
+        r = out["stale_epoch"]
+        check(r["peer_served"]["stale_refusals"]
+              == r["fabric"]["fetches"],
+              f"17b stale_epoch: {r['peer_served']} for "
+              f"{r['fabric']['fetches']} fetches")
+        r = out["open_breaker"]
+        check(r["fabric"]["breaker_skips"] == r["fabric"]["fetches"]
+              and r["fabric"]["fetch_retries"] == 0
+              and r["budget"] == budget0
+              and not any(r["peer_served"].values()),
+              f"17b open_breaker: {r['fabric']}, budget {r['budget']}, "
+              f"peer {r['peer_served']}")
+    finally:
+        sa.shutdown()
+    log(f"17b: never-fetched {out['never_fetched']['prefill_positions']} "
+        f"prefill positions of {out['never_fetched']['prompt_positions']}; "
+        f"fetched from the peer {out['fetched']['prefill_positions']} "
+        f"({out['fetched']['fabric']['bytes_in']} bytes in, "
+        f"{out['fetched']['seconds']:.2f} s against "
+        f"{out['never_fetched']['seconds']:.2f} s); stale epoch, dead "
+        f"endpoint and open breaker degrade with the same replies; A's "
+        f"restart {out['restart_seconds']} on {smi}")
+    return out, counts_all
+
+
+def dead_endpoint():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return ("127.0.0.1", port)
+
+
+def run_failures(torch, np, lm, smi, srvs, reqs):
+    """17c on 17a's dense f32 servers: a frame with one byte flipped is a
+    typed ``kv_transfer`` and admits nothing, in process and over the
+    wire; ``wrong_role`` holds both ways over the wire; the
+    ``kv.transfer`` seam fails a send and a receive typed; a clean
+    hand-off after them equals the unified engine's reply."""
+    from distkeras_tpu_torch.faults import FaultPlan, InjectedFault
+    from distkeras_tpu_torch.serving import KvTransferError, ServingError
+    from distkeras_tpu_torch.utils.serialization import serialize_params
+
+    uni, pre, dec = (s.engine for s in srvs)
+    p, n, sp = reqs[3]  # sampled: the frame carries its params
+    res = {}
+
+    def drive():
+        blob, _ = pre.prefill(p, n, sampling=sp)
+        flipped = bytearray(blob)
+        flipped[len(blob) // 2] ^= 0x10
+        before = dec.stats()["submitted"]
+        try:
+            dec.resume(bytes(flipped), n)
+            check(False, "17c: a flipped frame resumed")
+        except KvTransferError:
+            pass
+        cp, cd = wire_clients(srvs[1], 1)[0], wire_clients(srvs[2], 1)[0]
+        try:
+            reply, _ = cd._roundtrip(
+                {"verb": "kv.transfer", "max_new_tokens": n},
+                bytes(flipped), raise_on_error=False)
+            res["flipped_wire"] = reply.get("error")
+            check(dec.stats()["submitted"] == before
+                  and reply.get("error") == "kv_transfer",
+                  f"17c: a flipped frame over the wire replied {reply}; "
+                  f"submitted {before} -> {dec.stats()['submitted']}")
+            for c, verb, code in ((cp, "generate", "wrong_role"),
+                                  (cd, "prefill", "wrong_role")):
+                reply, _ = c._roundtrip(
+                    {"verb": verb, "max_new_tokens": n},
+                    serialize_params(p), raise_on_error=False)
+                res[f"{verb}_on_wrong_role"] = reply.get("error")
+                check(reply.get("error") == code,
+                      f"17c: {verb} on the wrong role replied {reply}")
+        finally:
+            cp.close()
+            cd.close()
+        for direction in ("send", "recv"):
+            plan = FaultPlan(seed=0).arm(
+                "kv.transfer", times=1,
+                when=lambda ctx, d=direction: ctx.get("direction") == d)
+            try:
+                with plan:
+                    if direction == "send":
+                        pre.prefill(p, n, sampling=sp)
+                    else:
+                        dec.resume(blob, n)
+                check(False, f"17c: the {direction} seam did not fail")
+            except ServingError as e:
+                res[f"seam_{direction}"] = e.code
+            check(plan.fired("kv.transfer") == 1,
+                  f"17c: the {direction} seam fired "
+                  f"{plan.fired('kv.transfer')} times")
+        tape = [e["error"] for e in dec.recorder.snapshot()
+                if e["kind"] == "kv.transfer.error"]
+        check(tape[-1] == InjectedFault.__name__,
+              f"17c: the decode tape names {tape[-1:]}")
+        check(res["seam_send"] == "internal",
+              f"17c: the send seam failed {res['seam_send']}")
+        out = dec.wait(dec.resume(pre.prefill(p, n, sampling=sp)[0], n))
+        return out, uni.generate(p, n, sampling=sp, timeout=600)
+
+    (out, want), counts = counted(torch, lm, "17c", drive)
+    check(np.array_equal(out, want),
+          "17c: the hand-off after the failures differs from the unified "
+          "engine's reply")
+    res["errors"] = {"prefill": pre.transfer_snapshot()["errors"],
+                     "decode": dec.transfer_snapshot()["errors"]}
+    log(f"17c: flipped frame, wrong role both ways and the kv.transfer seam "
+        f"both ways all typed: {res} on {smi}")
+    return res, [counts]
+
+
+def run_phase17(torch, np, lm, smi, gen_reqs):
+    """Phase 17, disaggregated prefill/decode and the KV fabric on the
+    card; returns the results and the launch counts of each drive."""
+    out = {}
+    t0 = time.monotonic()
+    out["handoff"], c_a, srvs = run_handoff(torch, np, lm, smi, gen_reqs)
+    try:
+        out["fabric"], c_b = run_fabric(torch, np, lm, smi)
+        out["failures"], c_c = run_failures(torch, np, lm, smi, srvs,
+                                            gen_reqs)
+    finally:
+        for s in srvs:
+            s.shutdown()
+    detach_hooks(lm)
+    out["seconds_total"] = time.monotonic() - t0
+    counts = [*c_a, *c_b, *c_c]
     out["launches"] = {k: sum(c.get(k, 0) for c in counts)
                        for k in counts[0]}
     return out, counts
@@ -6790,13 +7375,16 @@ def main(argv):
     knobs, knobs_launches = run_phase16(torch, np, lm, smi, gen_reqs)
     log(f"phase 16 in {knobs['seconds_total']:.1f} s, launches "
         f"{knobs['launches']} on {smi}")
+    disagg, disagg_launches = run_phase17(torch, np, lm, smi, gen_reqs)
+    log(f"phase 17 in {disagg['seconds_total']:.1f} s, launches "
+        f"{disagg['launches']} on {smi}")
     profile = profile_paths(torch, np, lm, zoo) if args.profile else None
 
     phases = [pred["launches"], gen["launches"], train["launches"],
               async_thr["launches"], baseline_launches, resume_launches,
               member_launches, socket_launches, *front_launches,
               *healing_launches, *paging_launches, *spec_launches,
-              *qos_launches, *knobs_launches,
+              *qos_launches, *knobs_launches, *disagg_launches,
               *(r["launches"] for r in async_sim.values())]
     launches = {k: sum(c.get(k, 0) for c in phases) for k in kernels.LAUNCHES}
     check(all(n > 0 for n in launches.values()),
@@ -6865,7 +7453,7 @@ def main(argv):
                        "phase10": socket_tier, "phase11": front,
                        "phase12": healing, "phase13": paging,
                        "phase14": spec, "phase15": qos,
-                       "phase16": knobs,
+                       "phase16": knobs, "phase17": disagg,
                        "profile": profile,
                        "flash_infinite_q": inf_rows},
                       f, indent=1)

@@ -29,6 +29,10 @@ client.
   frames — ``ServingServer``/``serve`` and ``ServingClient``/
   ``TokenStream`` (streaming generate), byte-compatible with the JAX
   package's.
+- ``kv_transfer``: the versioned byte codec of a slot's host state (the
+  DKTX frame a prefill worker hands to a decode worker, byte-identical to
+  the JAX package's) and ``PeerFabric``, the pooled worker-to-worker
+  client spine of ``kv.fetch`` pulls and direct pushes.
 - ``resilience``: the client's ``RetryBudget`` and hedge-delay
   ``LatencyTracker``, the router's ``CircuitBreaker`` and the engine
   door's ``AdmissionController`` (``ServingEngine(shed=)``).
@@ -79,6 +83,12 @@ from distkeras_tpu_torch.serving.engine import (
     NgramDrafter,
     ServingEngine,
 )
+from distkeras_tpu_torch.serving.kv_transfer import (
+    KvTransferError,
+    PeerFabric,
+    decode_state,
+    encode_state,
+)
 from distkeras_tpu_torch.serving.resilience import (
     AdmissionController,
     CircuitBreaker,
@@ -98,6 +108,7 @@ __all__ = [
     "DevicePrefixIndex",
     "EngineStoppedError",
     "InternalError",
+    "KvTransferError",
     "LatencyTracker",
     "ModelDrafter",
     "NgramDrafter",
@@ -105,6 +116,7 @@ __all__ = [
     "OverloadedError",
     "PageAllocator",
     "PeerError",
+    "PeerFabric",
     "PoolExhaustedError",
     "PrefixStore",
     "QosPolicy",
@@ -124,5 +136,7 @@ __all__ = [
     "TokenStream",
     "WindowedBatcher",
     "WrongRoleError",
+    "decode_state",
+    "encode_state",
     "serve",
 ]

@@ -66,15 +66,24 @@ temperature, top-k and top-p; an all-``-inf`` row forces EOS instead.
 Constrained slots never draft, and their state advances at collect,
 before the next dispatch.
 
+Disaggregation: ``ServingEngine(role="prefill")`` admits and prefills a
+prompt and hands back the slot as a ``kv_transfer`` frame (``prefill``);
+``role="decode"`` (or a unified engine) admits such a frame through
+``swap_in`` and decodes it (``resume``), token-identical to an
+uninterrupted decode on one engine. Each engine carries a random 32-bit
+``kv_epoch`` (new on every supervisor restart) and a ``PeerFabric``:
+``submit(kv_peers=)`` pulls a sibling's cached prefix rows before
+admission, ``serve_prefix`` answers such a pull from the host prefix
+store, refusing a stale epoch typed.
+
 Not ported yet (and absent from the signatures, so passing one fails
-loudly): meshes, disaggregation roles and their ``prefill``/``resume``
-faces, the KV epoch and fabric (``kv_transfer``, ``serve_prefix``, the
-``kv_fabric`` health block), CUDA graphs around the decode step.
+loudly): meshes and CUDA graphs around the decode step.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import threading
 import time
 
@@ -105,6 +114,7 @@ from distkeras_tpu_torch.predictors import (
     ModelPredictor,
     resolve_kv_dtype,
 )
+from distkeras_tpu_torch.serving import kv_transfer
 from distkeras_tpu_torch.serving.resilience import as_shed_gate
 from distkeras_tpu_torch.serving import sampling as _sp
 from distkeras_tpu_torch.serving.paging import PageAllocator
@@ -123,8 +133,12 @@ from distkeras_tpu_torch.serving.scheduler import (
     ContinuousBatcher,
     EngineStoppedError,
     InternalError,
+    PeerError,
     ServeRequest,
+    ServingError,
+    StaleEpochError,
     WindowedBatcher,
+    WrongRoleError,
 )
 from distkeras_tpu_torch.utils.device import check_model_device
 
@@ -1989,6 +2003,15 @@ class ServingEngine:
     ``slo_interval`` seconds, their verdicts ride ``health``;
     ``metrics_path`` adds a JSONL sink (``serving_submit``/
     ``serving_complete`` events and drained trace spans).
+
+    Disaggregation, with the JAX engine's meanings: ``role`` is
+    ``"unified"`` (prefill and decode), ``"prefill"`` (``prefill`` only:
+    plain ``generate`` is refused typed ``wrong_role``) or ``"decode"``
+    (``resume`` and plain ``generate``; ``prefill`` is refused). The
+    transfer ledger (``transfer_snapshot``: frames and bytes each way,
+    errors, the in-flight count) rides ``health``/``stats`` and the
+    ``serving_transfer_*`` metrics. ``kv_epoch`` and ``peer_fabric`` are
+    the KV fabric's identity and transport (no socket opens until used).
     """
 
     def __init__(self, model, num_slots=8, queue_capacity=64,
@@ -2004,7 +2027,12 @@ class ServingEngine:
                  slo_interval=5.0, paged=False, page_size=16,
                  num_pages=None, qos=None, history=True,
                  history_interval=1.0, history_capacity=600,
-                 trace_ring=8192, overlap=True, shed=False, device=None):
+                 trace_ring=8192, overlap=True, shed=False, role="unified",
+                 device=None):
+        if role not in ("unified", "prefill", "decode"):
+            raise ValueError(f"role must be 'unified', 'prefill', or "
+                             f"'decode'; got {role!r}")
+        self.role = str(role)
         self.model = model
         self.device = check_model_device(model, device)
         # a config error, raised here rather than demoting the engine
@@ -2056,6 +2084,11 @@ class ServingEngine:
                                  registry=self.registry)
             )
         self.prefix_store = store
+        if store is not None:
+            # fabric staleness: seconds since the store's content (and so
+            # its advertised digest) last moved
+            self.registry.gauge("serving_kv_fabric_digest_age_seconds",
+                                fn=store.digest_age)
         # everything a supervisor restart needs to rebuild the device face
         # (a fresh bank or pool and device prefix index; the host prefix
         # store is the same object, so it SURVIVES restarts, and the
@@ -2154,6 +2187,33 @@ class ServingEngine:
             reg.gauge(name, fn=lambda attr=attr: (
                 0 if self._stepper is None
                 else getattr(self._stepper, attr)))
+        # the disaggregation books: the role as a stable id (0 unified, 1
+        # prefill, 2 decode), the transfer ledger and the transfers in
+        # flight (prefills admitted but not yet encoded)
+        reg.gauge("serving_engine_role_id",
+                  fn=lambda: {"unified": 0, "prefill": 1,
+                              "decode": 2}[self.role])
+        self._transfer_pending = 0
+        # prefills run on the server's connection threads at once
+        self._transfer_lock = threading.Lock()
+        reg.gauge("serving_transfer_pending",
+                  fn=lambda: self._transfer_pending)
+        self.transfer_sends = reg.counter("serving_transfer_sends",
+                                          fresh=True)
+        self.transfer_recvs = reg.counter("serving_transfer_recvs",
+                                          fresh=True)
+        self.transfer_errors = reg.counter("serving_transfer_errors",
+                                           fresh=True)
+        self.transfer_bytes_out = reg.counter("serving_transfer_bytes_out",
+                                              fresh=True)
+        self.transfer_bytes_in = reg.counter("serving_transfer_bytes_in",
+                                             fresh=True)
+        # the KV fabric's identity and transport: a RANDOM 32-bit epoch,
+        # minted anew by every supervisor restart (a restarted engine never
+        # collides with its predecessor's promises), and the pooled peer
+        # clients (no socket until a fetch or a push)
+        self.kv_epoch = int.from_bytes(os.urandom(4), "big")
+        self.peer_fabric = kv_transfer.PeerFabric(registry=self.registry)
         if paged:
             # page-pool gauges, read from the live stepper generation (a
             # supervisor restart rebuilds the pool)
@@ -2431,6 +2491,9 @@ class ServingEngine:
                              "warmup_seconds": warm_s}
         self._restarts += 1
         self._stepper = stepper
+        # a new scheduler generation is a new KV epoch: a sibling routing
+        # on the old digest is refused typed ``stale_epoch``
+        self.kv_epoch = int.from_bytes(os.urandom(4), "big")
         batcher = ContinuousBatcher(stepper, **self._batcher_cfg)
         self.batcher = batcher
         self._launch_scheduler(batcher)
@@ -2461,6 +2524,7 @@ class ServingEngine:
             # whose scheduler thread was already dead)
             batcher.stop()
         self._predict_batcher.close()
+        self.peer_fabric.close()  # pooled peer sockets do not leak
         remove_build_observer(self._on_build)
         if self.recorder is not None:
             faults.remove_observer(self.recorder.fault_observer)
@@ -2470,7 +2534,8 @@ class ServingEngine:
 
     def submit(self, prompt, max_new_tokens, eos_id=None, deadline=None,
                trace=None, sampling=None, tenant=None, priority=0,
-               stream=False) -> ServeRequest:
+               stream=False, kv_peers=None,
+               _prefill_only=False) -> ServeRequest:
         """Queue one generate request; ``sampling`` is a
         ``SamplingParams`` or its wire dict (None = the engine default);
         ``n > 1`` schedules n completions through copy-on-write forks
@@ -2481,7 +2546,19 @@ class ServingEngine:
         they only label metrics, with one they pick the WFQ share and the
         priority class (higher = more urgent, may preempt). ``stream``:
         the scheduler pushes each iteration's tokens into the request's
-        chunk FIFO (``req.next_chunk``)."""
+        chunk FIFO (``req.next_chunk``).
+
+        ``kv_peers``: a router's page-affinity hints, ``[{"endpoint":
+        [host, port], "epoch": E, "len": n}, ...]``. Before admission any
+        peer promising more coverage than the local prefix store holds is
+        dialed (``kv.fetch``) and its validated rows inserted locally, so
+        admission's prefix restore hits. Fail-soft: every failure leaves
+        the store as it was and admission recomputes, token-identical."""
+        if self.role == "prefill" and not _prefill_only:
+            raise WrongRoleError(
+                "this engine serves role 'prefill': plain generate is not "
+                "served here; send prompts through the prefill verb"
+            )
         batcher = self.batcher
         if batcher is None:
             raise EngineStoppedError(
@@ -2497,13 +2574,31 @@ class ServingEngine:
             # the constructors use; rejection mode serves them
             _sp.check_spec_sampling(self.spec_mode, sampling.temperature,
                                     sampling.top_k, sampling.top_p)
+        if kv_peers:
+            # before the request enters the batcher: the scheduler thread's
+            # admission reads the store after this thread's insert
+            self._peer_prefetch(prompt, kv_peers)
         req = ServeRequest(
             prompt, max_new_tokens, eos_id=eos_id, deadline=deadline,
             trace=trace, sampling=sampling, tenant=tenant,
-            priority=priority, stream=stream,
+            priority=priority, stream=stream, prefill_only=_prefill_only,
         )
+        return self._admit(req)
+
+    def _admit(self, req: ServeRequest) -> ServeRequest:
+        """The admission ``submit`` and ``resume`` share: the batcher's
+        submit (a batcher a restart stopped under us reads as ``internal``,
+        not as a drain) and the ``serving_submit`` JSONL record."""
+        batcher = self.batcher
         try:
-            return batcher.submit(req)
+            try:
+                return batcher.submit(req)
+            except EngineStoppedError:
+                if self._stop_evt.is_set():
+                    raise
+                raise InternalError(
+                    "scheduler restarting after a failure; retry shortly"
+                ) from None
         finally:
             if self.metrics is not None:
                 load = batcher.load()
@@ -2565,6 +2660,260 @@ class ServingEngine:
             )
             if req.trace is not None:
                 self.drain_traces()
+
+    # -- disaggregated prefill/decode ---------------------------------------
+
+    def prefill(self, prompt, max_new_tokens, eos_id=None, deadline=None,
+                sampling=None, tenant=None, priority=0, timeout=None):
+        """The prefill worker's half: admit and prefill ``prompt``, then
+        serialize the finished slot (its ``swap_out`` state) into one
+        ``kv_transfer`` frame and free the slot; ``resume`` on another
+        engine decodes it. Returns ``(blob, meta)``, ``meta`` the JSON-able
+        summary the wire reply carries.
+
+        The ``kv.transfer`` seam fires (direction "send") before the wait;
+        any failure fails only this request, typed (a ``ServingError`` as
+        itself, anything else ``internal``), counts in
+        ``serving_transfer_errors`` and lands on the tape as
+        ``kv.transfer.error`` naming the exception class."""
+        if self.role == "decode":
+            raise WrongRoleError(
+                "this engine serves role 'decode': it resumes transferred "
+                "slots, it does not prefill for export"
+            )
+        sampling = _sp.SamplingParams.from_wire(sampling)
+        req = self.submit(prompt, max_new_tokens, eos_id=eos_id,
+                          deadline=deadline, sampling=sampling,
+                          tenant=tenant, priority=priority,
+                          _prefill_only=True)
+        with self._transfer_lock:
+            self._transfer_pending += 1
+        try:
+            faults.fire("kv.transfer", direction="send", request_id=req.id)
+            self.wait(req, timeout)  # raises the typed failure, if any
+            blob = kv_transfer.encode_state(
+                req.export, prompt_len=int(req.prompt.size),
+                sampling=sampling, eos_id=req.eos_id,
+            )
+        except Exception as e:  # noqa: BLE001 — transfer boundary
+            self.transfer_errors.inc()
+            self._record("kv.transfer.error", op="send", request_id=req.id,
+                         error=type(e).__name__, detail=repr(e)[:200])
+            if isinstance(e, ServingError):
+                raise
+            raise InternalError(f"kv transfer send failed: {e!r}") from e
+        finally:
+            with self._transfer_lock:
+                self._transfer_pending -= 1
+            req.export = None  # the host K/V rows go with the frame
+        self.transfer_sends.inc()
+        self.transfer_bytes_out.inc(len(blob))
+        meta = {"len": int(req.prompt.size),
+                "prompt_len": int(req.prompt.size), "bytes": len(blob),
+                "version": kv_transfer.VERSION}
+        self._record("kv.transfer.send", request_id=req.id, bytes=len(blob),
+                     tokens=int(req.prompt.size))
+        return blob, meta
+
+    def _check_frame(self, state) -> None:
+        """A transfer state must fit this engine's model: one K/V stage a
+        block, each ``(rows, heads, head_dim)`` with at most ``len - 1``
+        rows, and a context inside the prompt row. A frame that does not
+        fit is a typed ``KvTransferError``; nothing is admitted."""
+        st = self._stepper
+        ln = int(state["len"])
+        want = (st._nh, st._hd)
+        kv = state["kv"]
+        bad = (len(kv) != len(st._gen._blocks) or ln > st.max_len
+               or any(k.ndim != 3 or tuple(k.shape[1:]) != want
+                      or k.shape[0] > ln - 1 or k.shape != v.shape
+                      for k, v in kv))
+        if bad:
+            raise kv_transfer.KvTransferError(
+                f"transfer frame does not fit this model: len {ln}, "
+                f"stages {[tuple(k.shape) for k, _ in kv]}; the engine "
+                f"holds {len(st._gen._blocks)} blocks of {want} rows and "
+                f"{st.max_len} positions"
+            )
+
+    def resume(self, state, max_new_tokens, eos_id=None, deadline=None,
+               trace=None, tenant=None, priority=0,
+               stream=False) -> ServeRequest:
+        """The decode worker's half: admit a transferred slot — a
+        ``kv_transfer`` frame (bytes) or a decoded state dict — and decode
+        it to completion. Returns the ``ServeRequest`` (``wait`` for the
+        sequence; ``stream=True`` for the chunk FIFO). The resumed stream
+        is token-identical to an uninterrupted decode of the same prompt
+        and params on one engine. Admission goes through the batcher's
+        swap-in (``req._swap``), so a paged engine reserves its pages
+        there.
+
+        The ``kv.transfer`` seam fires (direction "recv") before the frame
+        is decoded; a corrupt, truncated or ill-fitting frame raises the
+        typed ``KvTransferError`` (nothing admitted), and every failure
+        lands on the tape naming its class."""
+        if self.role == "prefill":
+            raise WrongRoleError(
+                "this engine serves role 'prefill': transferred slots "
+                "resume on a decode worker"
+            )
+        if self.batcher is None:
+            raise EngineStoppedError(
+                f"model does not support generate: {self._decode_err}"
+            )
+        try:
+            faults.fire("kv.transfer", direction="recv")
+            nbytes = None
+            if isinstance(state, (bytes, bytearray, memoryview)):
+                nbytes = len(state)
+                state = kv_transfer.decode_state(bytes(state))
+            self._check_frame(state)
+            sampling = state.get("sampling")
+            plen = int(state["prompt_len"])
+            ln = int(state["len"])
+            ctx = np.asarray(state["ctx"], np.int32)
+            emitted = [int(t) for t in ctx[plen:ln]]
+            grammar = None
+            if sampling is not None and sampling.grammar is not None:
+                # grammar state is a pure function of (spec, eos, consumed
+                # tokens): recompiled and replayed, never carried
+                grammar = self._stepper._mask_compiler.compile(
+                    sampling.grammar, eos_id=state.get("eos_id"))
+                for t in emitted:
+                    grammar.advance(t)
+            req = ServeRequest(
+                ctx[:plen], max_new_tokens,
+                eos_id=state.get("eos_id") if eos_id is None else eos_id,
+                deadline=deadline, trace=trace, sampling=sampling,
+                tenant=tenant, priority=priority, stream=stream,
+            )
+            req.tokens.extend(emitted)
+            # the stepper-format swap dict the batcher's resume hands to
+            # swap_in: what a QoS preemption parks on the request
+            req._swap = {
+                "len": ln, "ctx": ctx[:ln], "kv": state["kv"],
+                "spos": int(state["spos"]), "seed": int(state["seed"]),
+                "params": sampling, "grammar": grammar,
+                "spec_prompt": state.get("spec_prompt"),
+            }
+            self._admit(req)
+        except Exception as e:  # noqa: BLE001 — transfer boundary
+            self.transfer_errors.inc()
+            self._record("kv.transfer.error", op="recv",
+                         error=type(e).__name__, detail=repr(e)[:200])
+            if isinstance(e, ServingError):
+                raise
+            raise InternalError(f"kv transfer receive failed: {e!r}") from e
+        self.transfer_recvs.inc()
+        if nbytes is not None:
+            self.transfer_bytes_in.inc(nbytes)
+        self._record("kv.transfer.recv", request_id=req.id, bytes=nbytes,
+                     tokens=ln)
+        return req
+
+    # -- fleet KV fabric ----------------------------------------------------
+
+    def _peer_prefetch(self, prompt, kv_peers) -> None:
+        """Best-effort peer prefix fetch ahead of one admission: for every
+        hint promising more coverage than the local store holds, pull the
+        sibling's rows over the fabric and insert them (pow2 ladder, no
+        two-touch gate: they were proven hot on the sibling). A fetch only
+        adds to the cache, so success and every failure alike decode
+        token-identically. Never raises: each failure is counted in
+        ``fetch_degraded`` and recorded."""
+        store = self.prefix_store
+        fab = self.peer_fabric
+        if store is None:
+            return
+        tokens = np.asarray(prompt, np.int32).reshape(-1)
+        have = store.coverage(tokens)
+        for peer in kv_peers:
+            try:
+                ep = peer.get("endpoint")
+                want = int(peer.get("len") or 0)
+                epoch = peer.get("epoch")
+            except (AttributeError, TypeError, ValueError):
+                continue  # a malformed hint is never worth a request
+            if ep is None or want <= have:
+                continue  # the local store already covers this promise
+            try:
+                state = fab.fetch(ep, tokens[:want], epoch=epoch)
+            except Exception as e:  # noqa: BLE001 — fail-soft boundary
+                fab.counters["fetch_degraded"] += 1
+                self._record("kv.peer.degraded", op="fetch",
+                             endpoint=list(ep), error=type(e).__name__,
+                             detail=str(e)[:200])
+                continue
+            if state is None:
+                # a clean typed miss: the digest aged out on the sibling
+                fab.counters["fetch_degraded"] += 1
+                self._record("kv.peer.degraded", op="fetch",
+                             endpoint=list(ep), error="miss",
+                             detail="peer no longer holds pages")
+                continue
+            p = int(state["len"])
+            if p > have:
+                store.insert_prefixes(tokens[:p], state["kv"])
+                have = max(have, store.coverage(tokens))
+                self._record("kv.peer.fetch", endpoint=list(ep), tokens=p)
+            if have >= want:
+                return  # the longest promise is covered
+
+    def serve_prefix(self, tokens, epoch=None):
+        """The serving half of ``kv.fetch``: the longest locally cached
+        prefix of ``tokens`` as a DKTX frame, read from the HOST prefix
+        store only (one locked read; the device pools belong to the
+        scheduler thread). The epoch gate runs first: an epoch this engine
+        no longer serves is refused typed ``stale_epoch``. Returns
+        ``(blob, reply_header)``; a miss is ``(None, {"ok": True, "hit":
+        False})``."""
+        fab = self.peer_fabric
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        faults.fire("kv.peer", direction="serve", tokens=int(tokens.size))
+        if epoch is not None and int(epoch) != int(self.kv_epoch):
+            fab.counters["stale_refusals"] += 1
+            self._record("kv.peer.stale", asked=int(epoch),
+                         current=int(self.kv_epoch))
+            raise StaleEpochError(
+                f"kv epoch {int(epoch)} is not current (this engine serves "
+                f"epoch {self.kv_epoch}): the digest you routed on predates "
+                f"a restart or rollover"
+            )
+        store = self.prefix_store
+        if store is None:
+            raise PeerError("this replica serves no prefix cache")
+        hit = store.peek(tokens)
+        if hit is None:
+            fab.counters["fetch_miss"] += 1
+            return None, {"ok": True, "hit": False}
+        p, kv = hit
+        blob = kv_transfer.encode_prefix(tokens[:p], kv, epoch=self.kv_epoch)
+        fab.counters["fetch_served"] += 1
+        fab.counters["bytes_out"] += len(blob)
+        self._record("kv.peer.serve", tokens=int(p), bytes=len(blob))
+        return blob, {"ok": True, "hit": True, "len": int(p),
+                      "epoch": int(self.kv_epoch)}
+
+    def fabric_snapshot(self) -> dict:
+        """The fabric ledger: peer counters, breakers, the retry budget,
+        this engine's KV epoch and the prefix digest siblings route on."""
+        out = self.peer_fabric.snapshot()
+        out["epoch"] = int(self.kv_epoch)
+        if self.prefix_store is not None:
+            out["digest"] = self.prefix_store.digest()
+        return out
+
+    def transfer_snapshot(self) -> dict:
+        """The transfer ledger: frames sent/received/errored, bytes both
+        ways and the transfers in flight."""
+        return {
+            "pending": self._transfer_pending,
+            "sends": self.transfer_sends.value,
+            "recvs": self.transfer_recvs.value,
+            "errors": self.transfer_errors.value,
+            "bytes_out": self.transfer_bytes_out.value,
+            "bytes_in": self.transfer_bytes_in.value,
+        }
 
     # -- predict ------------------------------------------------------------
 
@@ -2715,6 +3064,9 @@ class ServingEngine:
             "status": status,
             "device": str(self.device),
             "generate_enabled": batcher is not None,
+            # the role rides health: a router learns each replica's role
+            # from the poll that gates rotation
+            "role": self.role,
             "restarts": self._restarts,
             "max_restarts": self.max_restarts,
             "restart_budget_exhausted": self._failed,
@@ -2722,6 +3074,18 @@ class ServingEngine:
             "quarantined_slots": (
                 0 if batcher is None else len(batcher._quarantined)
             ),
+            "transfer": self.transfer_snapshot(),
+            # the fabric's routing surface: the KV epoch, the prefix digest
+            # (gen-memoized) and the peer ledger's summary
+            "kv_fabric": {
+                "epoch": int(self.kv_epoch),
+                "digest": (None if self.prefix_store is None
+                           else self.prefix_store.digest()),
+                "peer": {k: self.peer_fabric.counters[k] for k in (
+                    "fetches", "fetch_ok", "fetch_degraded", "fetch_served",
+                    "fetch_miss", "pushes", "push_ok", "push_degraded",
+                    "stale_refusals", "bytes_in", "bytes_out")},
+            },
         }
         if batcher is not None:
             out.update(batcher.load())
@@ -2777,6 +3141,9 @@ class ServingEngine:
         out["restarts"] = self._restarts
         out["watchdog_trips"] = self._watchdog_trips
         out["status"] = self.health()["status"]
+        out["role"] = self.role
+        out["transfer"] = self.transfer_snapshot()
+        out["kv_fabric"] = self.fabric_snapshot()
         # every runtime mint with its trigger, seconds and the storm count
         out["compiles"] = self.compile_ledger.snapshot()
         out["prefix_cache"] = (

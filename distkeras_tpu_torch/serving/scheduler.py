@@ -46,7 +46,10 @@ the stepper's compile ledger); ``stream=True`` requests get each
 iteration's emitted tokens pushed into a chunk FIFO before any eviction.
 The counters are typed registry counters (``serving_scheduler_<key>``).
 
-Not ported yet: prefill export (the disaggregation roles).
+A ``prefill_only`` request (the prefill role of a disaggregated pair) is
+admitted and prefilled like any other, then, before the decode mask is
+computed, its slot is exported through ``stepper.swap_out`` into
+``req.export`` and freed: it never takes a decode step.
 
 The device face is an injected stepper (``engine.DecodeStepper``) with
 ``num_slots``, ``max_len``, ``begin_admit(slot, prompt, sampling, eos_id)
@@ -223,14 +226,17 @@ class ServeRequest:
     returns the list of n sequences, and any typed failure fails the whole
     group. ``stream``: each scheduler iteration's emitted tokens are pushed
     into a FIFO that ``next_chunk`` drains; ``first_sent`` is stamped by
-    the server thread when the first chunk frame has been sent."""
+    the server thread when the first chunk frame has been sent.
+    ``prefill_only``: the request completes when its prefill does, with the
+    slot's ``swap_out`` state in ``export`` and no tokens (the prefill
+    worker's half of a disaggregated hand-off)."""
 
     _ids = iter(range(1, 1 << 62))
     _ids_lock = threading.Lock()
 
     def __init__(self, prompt, max_new_tokens, eos_id=None, deadline=None,
                  trace=None, sampling=None, tenant=None, priority=0,
-                 stream=False):
+                 stream=False, prefill_only=False):
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("prompt must hold at least one token")
@@ -252,6 +258,8 @@ class ServeRequest:
         self.sampling = sampling
         self.n = 1 if sampling is None else int(sampling.n)
         self.stream = bool(stream)
+        self.prefill_only = bool(prefill_only)
+        self.export = None  # the exported swap state of a prefill_only slot
         self._chunks = _queue.SimpleQueue() if self.stream else None
         self.first_sent = None
         self.created = time.monotonic()
@@ -463,6 +471,9 @@ class ContinuousBatcher:
                 # a typed overloaded reply
                 "shed_overloaded",  # refused at the door by the gate
                 "shed_clamped",  # admitted with max_new_tokens clamped
+                # disaggregated prefill export (0 on a unified engine)
+                "exports",  # prefill-only slots swapped out and completed
+                "export_failures",  # swap-out at export raised; typed
             ),
         )
         # requests asking for more than plain greedy, and slots made by
@@ -506,7 +517,9 @@ class ContinuousBatcher:
         stopped, ``ShedError`` when the shed gate refuses it,
         ``OverloadedError`` on a full queue, ``ValueError`` when
         the request can never fit a slot (or, for ``n > 1``, the stepper
-        cannot fork, the bank holds fewer than n slots, or it streams)."""
+        cannot fork, the bank holds fewer than n slots, or it streams or
+        is prefill-only; or a prefill-only request streams or meets a
+        stepper without ``swap_out``)."""
         if req.prompt.size + req.max_new_tokens > self.stepper.max_len:
             raise ValueError(
                 f"prompt ({req.prompt.size}) + max_new_tokens "
@@ -524,12 +537,19 @@ class ContinuousBatcher:
                     f"n={req.n} completions exceed the "
                     f"{len(self._slots)}-slot bank"
                 )
-            if req.stream:
-                # a completion group has no single token order to stream
+            if req.stream or req.prefill_only:
+                # a completion group has no single token order to stream,
+                # and a prefill-only export is one slot's state
                 raise ValueError(
                     f"n={req.n} completion groups cannot be streamed "
                     "or prefill-exported"
                 )
+        if req.prefill_only and req.stream:
+            raise ValueError("prefill_only requests produce no tokens to "
+                             "stream")
+        if req.prefill_only and not hasattr(self.stepper, "swap_out"):
+            raise ValueError("prefill export needs a stepper with swap_out "
+                             "support")
         if getattr(self.stepper, "paged", False):
             need = self._pages_for_request(req)
             if need > self.stepper.total_pages:
@@ -677,6 +697,9 @@ class ContinuousBatcher:
             self._finish_step(inflight.active, inflight.t0, inflight.mints0,
                               toks, counts, blamed, used)
             progressed = True
+        # before the mask: a prefill-only slot never takes a decode step
+        if self._export_prefilled():
+            progressed = True
         if blocked is not None and self._preempt_phase(blocked):
             progressed = True
         active, seqs = self._mask_phase()
@@ -761,8 +784,10 @@ class ContinuousBatcher:
         group — swap-in resumes, the chunked-prefill budget and the group
         forks. Returns ``(progressed, blocked)``: ``blocked`` is the head
         of the queue admission could not place (the preemption candidate).
-        ``preempt_now``: the sequential loop preempts here; the overlapped
-        loop defers to ``_preempt_phase`` after collect."""
+        ``preempt_now``: the sequential loop preempts and exports the
+        finished prefill-only slots here; the overlapped loop defers both
+        until after collect (``_export_prefilled``, ``_preempt_phase``):
+        a swap-out under the in-flight step would wait for it."""
         now = time.monotonic()
         admitted = []
         paged = getattr(self.stepper, "paged", False)
@@ -854,6 +879,8 @@ class ContinuousBatcher:
                 else:
                     req.prefill_finished = now
         progressed = self._spend_prefill_budget() or preempted
+        if preempt_now:
+            progressed = self._export_prefilled() or progressed
         progressed = self._fork_completions() or progressed
         return progressed or bool(admitted), blocked
 
@@ -1011,6 +1038,44 @@ class ContinuousBatcher:
                 blamed=blamed if blamed else None,
             )
         return True
+
+    # -- disaggregated prefill export ---------------------------------------
+
+    def _export_prefilled(self) -> bool:
+        """Complete every ``prefill_only`` request whose prefill has
+        finished: fetch the slot's state through ``stepper.swap_out`` (the
+        host format a QoS preemption rides, and the one the transfer frame
+        serializes), park it on ``req.export`` and free the slot. Runs
+        before the decode mask in both loop shapes. A failed swap-out fails
+        only its request, typed (a ``ServingError`` as itself, anything
+        else ``internal``), with the exception class on the tape."""
+        with self._lock:
+            ready = [(i, req) for i, req in enumerate(self._slots)
+                     if req is not None and req.prefill_only
+                     and i not in self._prefill_left]
+        progressed = False
+        for i, req in ready:
+            try:
+                state = self.stepper.swap_out(i)  # the device fetch
+            except Exception as e:  # noqa: BLE001 — export boundary
+                err = (copy.copy(e) if isinstance(e, ServingError)
+                       else InternalError(f"prefill export failed for this "
+                                          f"request: {e!r}"))
+                with self._lock:
+                    self.counters["export_failures"] += 1
+                    self._record_swap_error("export", i, req, e)
+                    if self._slots[i] is req:
+                        self._evict(i, req, err)
+                progressed = True
+                continue
+            with self._lock:
+                if self._slots[i] is not req:
+                    continue  # stopped underneath the fetch
+                req.export = state
+                self.counters["exports"] += 1
+                self._evict(i, req, None)
+            progressed = True
+        return progressed
 
     # -- preemption by KV swap (QoS) ----------------------------------------
 

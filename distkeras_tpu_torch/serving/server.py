@@ -23,6 +23,21 @@ Verbs (header ``{"verb": ...}``):
   has been sent.
 - ``predict``: payload = (N, ...) rows; reply payload = the outputs
   (windowed-batched server-side).
+- ``prefill`` (disaggregation): payload = the prompt, header as
+  ``generate``'s; the engine prefills it and the reply payload is the
+  slot's ``kv_transfer`` frame (header ``transfer``: its length and
+  bytes). With ``push_to: [host, port]`` the frame is pushed to that
+  decode worker over the engine's peer fabric and its final reply comes
+  back with ``pushed: true``; any push failure hands the frame back
+  (``pushed: false``, ``push_error``), so the prefill is never wasted.
+- ``kv.transfer``: payload = a ``kv_transfer`` frame, header
+  ``max_new_tokens`` and the optional ``generate`` fields; the engine
+  resumes the slot and the reply is ``generate``'s. With ``stream: true``
+  it streams like ``generate``.
+- ``kv.fetch``: payload = 1-D tokens, optional header ``epoch``; the
+  reply payload is the longest cached prefix as a frame (``hit: true``,
+  ``len``, ``epoch``) or nothing (``hit: false``); a stale epoch is
+  refused typed ``stale_epoch``.
 - ``health`` (engine liveness plus ``max_frame_bytes`` and the bound
   ``endpoint``), ``stats`` (scheduler counters plus
   ``open_connections``), ``metrics`` (registry samples; ``format:
@@ -32,10 +47,9 @@ Verbs (header ``{"verb": ...}``):
 
 A frame longer than ``max_frame_bytes`` is refused before it is
 buffered: the server flushes a ``fatal`` ``frame_too_large`` reply and
-closes. Typed error replies are stamped with the request's trace id.
-The disaggregation verbs (``prefill``, ``kv.transfer``, ``kv.fetch``)
-are not ported: they reply ``bad_request`` as unknown verbs, and the
-connection stays open.
+closes. Typed error replies are stamped with the request's trace id. The
+``net.delay`` fault seam fires on the data verbs (``generate``,
+``predict``, ``prefill``, ``kv.transfer``, ``kv.fetch``) only.
 """
 
 from __future__ import annotations
@@ -235,7 +249,9 @@ class ServingServer:
             header = {}
             try:
                 header, payload = unpack_frame(frame)
-                if header.get("stream") and header.get("verb") == "generate":
+                if header.get("stream") and header.get("verb") in (
+                    "generate", "kv.transfer"
+                ):
                     # the streaming path sends its own frames (chunks
                     # + terminal); everything else stays one-reply
                     if not self._serve_stream(conn, header, payload):
@@ -276,13 +292,20 @@ class ServingServer:
     def _dispatch(self, header: dict, payload: bytes) -> bytes:
         verb = header.get("verb")
         faults.fire("server.dispatch", verb=verb)
-        if verb in ("generate", "predict"):
+        if verb in ("generate", "predict", "prefill", "kv.transfer",
+                    "kv.fetch"):
             # the gray-failure seam: a delay armed here (filtered by
             # port) slows this replica's DATA path while its health
             # polls stay green
             faults.fire("net.delay", verb=verb, port=int(self.port))
         if verb == "generate":
             return self._generate(header, payload)
+        if verb == "prefill":
+            return self._prefill(header, payload)
+        if verb == "kv.transfer":
+            return self._transfer(header, payload)
+        if verb == "kv.fetch":
+            return self._kv_fetch(header, payload)
         if verb == "predict":
             return self._predict(payload)
         if verb == "metrics":
@@ -407,6 +430,7 @@ class ServingServer:
                 # = default tenant, priority 0)
                 tenant=header.get("tenant"),
                 priority=int(header.get("priority") or 0),
+                kv_peers=header.get("kv_peers"),
             )
             seq = self.engine.wait(req)
         except ServingError as e:
@@ -448,9 +472,102 @@ class ServingServer:
             return None
         return time.monotonic() + float(header["deadline_ms"]) / 1e3
 
+    def _prefill(self, header: dict, payload: bytes) -> bytes:
+        """Disaggregated prefill: the finished slot's ``kv_transfer`` frame
+        as the reply payload, or, with ``push_to``, pushed to that decode
+        worker (``_push``). Typed failures ride the normal error path:
+        ``wrong_role`` on a decode engine, ``overloaded`` under pressure,
+        ``kv_transfer`` if encoding failed."""
+        t0 = time.monotonic()
+        prompt = np.asarray(deserialize_params(payload))
+        blob, meta = self.engine.prefill(
+            prompt, int(header["max_new_tokens"]),
+            eos_id=header.get("eos_id"),
+            deadline=self._deadline_of(header),
+            sampling=header.get("sampling"),
+            tenant=header.get("tenant"),
+            priority=int(header.get("priority") or 0),
+        )
+        push_to = header.get("push_to")
+        if push_to:
+            return self._push(header, blob, meta, push_to, t0)
+        return pack_frame({"ok": True, "transfer": meta}, blob)
+
+    def _push(self, header: dict, blob: bytes, meta: dict, push_to,
+              t0: float) -> bytes:
+        """The direct-push leg of a prefill: a ``kv.transfer`` to
+        ``push_to`` over the peer fabric, its final reply relayed with
+        ``pushed: true``. Fail-soft: a wire death, an open breaker or a
+        typed decode refusal hands the frame back (``pushed: false``, the
+        frame as payload) for the caller's relay."""
+
+        def degrade(code, detail):
+            return pack_frame(
+                {"ok": True, "pushed": False, "transfer": meta,
+                 "push_error": code, "push_detail": str(detail)[:200]},
+                blob,
+            )
+
+        theader = {"verb": "kv.transfer",
+                   "max_new_tokens": int(header["max_new_tokens"])}
+        for k in ("eos_id", "tenant", "priority", "request_id"):
+            if header.get(k) is not None:
+                theader[k] = header[k]
+        if header.get("deadline_ms") is not None:
+            # the decode hop gets what the prefill left of the budget; a
+            # spent budget degrades rather than decode past it
+            left = float(header["deadline_ms"]) - (
+                (time.monotonic() - t0) * 1e3)
+            if left <= 0:
+                return degrade("deadline_exceeded",
+                               "deadline spent during prefill")
+            theader["deadline_ms"] = left
+        try:
+            reply, body = self.engine.peer_fabric.push(tuple(push_to),
+                                                       theader, blob)
+        except Exception as e:  # noqa: BLE001 — fail-soft boundary
+            return degrade(getattr(e, "code", "kv_peer"), e)
+        if not reply.get("ok"):
+            # a typed decode refusal: the caller's relay owns the retries
+            return degrade(reply.get("error", "kv_peer"),
+                           reply.get("detail", ""))
+        out = dict(reply)
+        out["pushed"] = True
+        out["transfer"] = meta
+        return pack_frame(out, body or b"")
+
+    def _kv_fetch(self, header: dict, payload: bytes) -> bytes:
+        """The fabric's serving half (``ServingEngine.serve_prefix``): a
+        hit's frame as the payload; a miss is ``ok`` with ``hit: false``;
+        a stale epoch or a store-less engine fail typed."""
+        tokens = np.asarray(deserialize_params(payload))
+        blob, reply = self.engine.serve_prefix(tokens,
+                                               epoch=header.get("epoch"))
+        if blob is None:
+            return pack_frame(reply)
+        return pack_frame(reply, blob)
+
+    def _transfer(self, header: dict, payload: bytes) -> bytes:
+        """Disaggregated decode, one reply: resume the transferred slot and
+        decode it to completion; the reply is ``generate``'s."""
+        req = self.engine.resume(
+            payload, int(header["max_new_tokens"]),
+            eos_id=header.get("eos_id"),
+            deadline=self._deadline_of(header),
+            tenant=header.get("tenant"),
+            priority=int(header.get("priority") or 0),
+        )
+        seq = self.engine.wait(req)
+        return pack_frame(
+            {"ok": True,
+             "tokens": int(np.asarray(seq).size - req.prompt.size)},
+            serialize_params(np.asarray(seq)),
+        )
+
     def _serve_stream(self, conn: socket.socket, header: dict,
                       payload: bytes) -> bool:
-        """Streaming ``generate``: submit with a chunk FIFO, then drain
+        """Streaming ``generate`` / ``kv.transfer``: submit (or resume)
+        with a chunk FIFO, then drain
         it to the connection — one ``stream: "chunk"`` frame per
         scheduler iteration that advanced the slot, then the terminal ``stream: "end"`` frame
         with the full sequence payload (identity stays assertable
@@ -496,17 +613,30 @@ class ServingServer:
                 return False
 
         try:
-            prompt = np.asarray(deserialize_params(payload))
-            req = self.engine.submit(
-                prompt, int(header["max_new_tokens"]),
-                eos_id=header.get("eos_id"),
-                deadline=self._deadline_of(header),
-                trace=ctx,
-                sampling=SamplingParams.from_wire(header.get("sampling")),
-                tenant=header.get("tenant"),
-                priority=int(header.get("priority") or 0),
-                stream=True,
-            )
+            if verb == "generate":
+                prompt = np.asarray(deserialize_params(payload))
+                req = self.engine.submit(
+                    prompt, int(header["max_new_tokens"]),
+                    eos_id=header.get("eos_id"),
+                    deadline=self._deadline_of(header),
+                    trace=ctx,
+                    sampling=SamplingParams.from_wire(
+                        header.get("sampling")),
+                    tenant=header.get("tenant"),
+                    priority=int(header.get("priority") or 0),
+                    stream=True,
+                    kv_peers=header.get("kv_peers"),
+                )
+            else:
+                req = self.engine.resume(
+                    payload, int(header["max_new_tokens"]),
+                    eos_id=header.get("eos_id"),
+                    deadline=self._deadline_of(header),
+                    trace=ctx,
+                    tenant=header.get("tenant"),
+                    priority=int(header.get("priority") or 0),
+                    stream=True,
+                )
         except ServingError as e:
             return send_error(e)
         except Exception as e:  # noqa: BLE001 — wire boundary

@@ -352,17 +352,29 @@ def test_oversized_declared_frame_is_refused_before_buffering(lms):
 @pytest.mark.parametrize("verb", ["prefill", "kv.transfer", "kv.fetch"])
 def test_disaggregation_verbs_are_bad_request_on_an_open_connection(
         served, verb):
-    """Not ported: typed ``bad_request`` (unknown verb), and the same
-    connection keeps serving."""
+    """The disaggregation verbs are served (no longer unknown verbs that
+    reply ``bad_request``): ``prefill`` hands back a transfer frame,
+    ``kv.transfer`` (streamed) refuses a payload that is not a frame typed
+    ``kv_transfer``, ``kv.fetch`` answers; the same connection keeps
+    serving."""
     header = {"verb": verb, "max_new_tokens": 2}
     if verb == "kv.transfer":
         header["stream"] = True
+    payload = serialize_params(np.arange(4, dtype=np.int32))
     with _client(served, retry=False) as c:
         sock = c._sock
-        with pytest.raises(ServingError) as ei:
-            c._call(header, serialize_params(np.arange(4, dtype=np.int32)))
-        assert ei.value.code == "bad_request"
-        assert "unknown verb" in str(ei.value)
+        if verb == "kv.transfer":
+            with pytest.raises(ServingError) as ei:
+                c._call(header, payload)
+            assert ei.value.code == "kv_transfer"
+        else:
+            reply, body = c._call(header, payload)
+            assert reply["ok"] is True
+            if verb == "prefill":
+                assert reply["transfer"]["bytes"] == len(body)
+                assert bytes(body[:4]) == b"DKTX"
+            else:
+                assert reply["hit"] in (True, False)
         assert c.health()["status"] == "serving"
         assert c._sock is sock
 
