@@ -360,6 +360,44 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``wrong_role`` holds both ways over the wire, the ``kv.transfer`` seam
    fails a send and a receive typed, and a hand-off after them equals the
    unified engine's reply.
+18. The serving fleet and its autoscaler on phase 4's LN-hooked LM, 8
+   slots a replica, every replica behind its own ``ServingServer`` and all
+   behind one ``FleetRouter`` on loopback (0.1 s health sweep, 2 s dial),
+   every drive launching B7 exactly what the program calls of every
+   replica imply and B4 never. 18a: a 2-replica ``FleetController``
+   (replicas sharing the LM's weights) serves phase 4's mix from 8 client
+   threads, every reply equal to phase 4's, on both replicas; tokens/s
+   beside phase 11's single engine over the wire; 13b's shared-header
+   traffic (two requests in turn, then 14 from 8 threads) all served by
+   one replica, the prefill positions its store saved. 18c: under 4
+   client threads looping over the mix, ``rollover`` to an f32 copy of
+   the weights read from a ``serialize_model`` file: 0 failed requests,
+   every reply equal to phase 4's, device memory after minus before the
+   new replicas' weights (less than one 134 MB bank: the old banks left
+   the card), the mix after equal. 18b: the mix again (four of it
+   streamed); after the third reply the replica that served request 0 is
+   killed (``shutdown(drain=False)``): every request equal to phase 4's
+   or typed (streams that had emitted chunks typed), the ejection in the
+   router's books, no client hung; with both replicas dead a request
+   fails typed ``unavailable`` within the 2 s dial budget. 18d: an ``Autoscaler``
+   (``min_replicas=1``, ``max_replicas=3``, ticked by hand) over one
+   replica with 16 queue places: a 16-request burst's tick scales up, the
+   new replica warmed and ``mark_warmed`` before it joins and with 0
+   storms after serving a second burst; two idle ticks scale down under a
+   request stream that loses nothing; a killed replica is reaped and
+   replaced in one tick; a ``BundlePublisher`` on a
+   ``DeltaParameterServer`` holding the LM's center publishes an int8
+   bundle after 2 commits and a ``ContinuousDeployer`` rolls the fleet to
+   it on a hold tick: 4 replies equal a solo engine's on that bundle.
+   18e: one ``role="prefill"`` and two ``role="decode"`` replicas (dense,
+   whole-prompt admission): the mix pushed and four of it stream-relayed
+   equal a unified engine's, the push and relay ledgers pair (16 pushed,
+   4 relayed); a decode replica is killed hard (listener closed, engine
+   stopped, open connections reset) while a streamed request's transfer
+   is held in it: the router resends the frame to the sibling (a
+   ``transfer_retries``), the tokens identical, and a pushed generate
+   after the kill too.
+   After phase 18 the card holds less than one bank more than before it.
 
 ``--profile`` adds where the time goes: a decode step (dense, paged, on
 bf16 caches and grammar-masked), a
@@ -4565,6 +4603,7 @@ class ProgramCalls:
 
     def __init__(self):
         self.calls = {}
+        self.blocks = {}  # id(model) -> its block count (no reference kept)
         self._orig = {}
 
     def __enter__(self):
@@ -4581,6 +4620,7 @@ class ProgramCalls:
                 def call(st, *a, **kw):
                     key = (id(st.model), name)
                     self.calls[key] = self.calls.get(key, 0) + 1
+                    self.blocks[id(st.model)] = len(st.model.layers) - 3
                     return orig(st, *a, **kw)
                 return call
 
@@ -4600,6 +4640,12 @@ class ProgramCalls:
         """The B7 launches the counted calls make on ``models`` (hooked)."""
         return sum(self.of(m, name) * per(len(m.layers) - 3)
                    for m in models for name, per in LN_PER_CALL.items())
+
+    def ln_launches_all(self):
+        """The B7 launches the counted calls make on every model that ran
+        (each hooked): a fleet's replicas may each hold their own copy."""
+        return sum(n * LN_PER_CALL[name](self.blocks[mid])
+                   for (mid, name), n in self.calls.items())
 
 
 def templated_mix(np):
@@ -6795,6 +6841,802 @@ def run_phase17(torch, np, lm, smi, gen_reqs):
     return out, counts
 
 
+# ------------------------------------------------------------------ phase 18
+
+#: the fleet router's knobs on the card: a 0.1 s health sweep, a 2 s dial
+ROUTER_KW = {"health_interval": 0.1, "connect_timeout": 2.0}
+
+
+def counted_all(torch, tag, fn):
+    """``counted`` over every model that ran (replicas loaded from a file or
+    a bundle hold their own copy): B7 must have launched exactly what the
+    stepper programs imply, summed over every engine, and B4 never."""
+    from distkeras_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    with ProgramCalls() as calls:
+        out = fn()
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = calls.ln_launches_all()
+    check(counts["layernorm_fwd"] == want and counts["flash_fwd"] == 0,
+          f"{tag}: B7 {counts['layernorm_fwd']} (B4 {counts['flash_fwd']}), "
+          f"the program calls imply {want} B7")
+    return out, counts
+
+
+def card_replicas(lm, **kw):
+    """A ``FleetController`` factory for the card: phase 4's engine (8
+    slots, its step buckets warmed) behind its own ``ServingServer``.
+    ``bundle`` is the hooked LM itself (the replicas share its weights),
+    the path of an f32 model file (``.f32``, ``serialize_model``) or of an
+    int8 serving bundle; a loaded model gets the LN hook before the
+    replica joins the router."""
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+    from distkeras_tpu_torch.serving import local_replica_factory
+    from distkeras_tpu_torch.utils.serialization import deserialize_model
+
+    boot = local_replica_factory(num_slots=8, **kw)
+
+    def factory(bundle):
+        if isinstance(bundle, str) and bundle.endswith(".f32"):
+            with open(bundle, "rb") as f:
+                bundle = deserialize_model(f.read())
+        rep = boot(bundle)
+        if rep.engine.model is not lm:
+            check(attach_fused_layernorm(rep.engine.model) == 17,
+                  "18: LN hook not on a replica's 17 norms")
+        rep.engine._stepper.warmup()
+        return rep
+
+    return factory
+
+
+def fleet_mix(np, ep, reqs, threads=8, streams=(), on_done=None):
+    """``reqs`` through the router at ``ep`` from ``threads`` client
+    threads (one client each, no client retries: what the router does is
+    what the caller sees); the indices in ``streams`` go as
+    ``generate_stream``. Returns one row a request — ``out`` (the reply)
+    or ``err`` (the exception), ``served_by``, the chunks a stream had
+    emitted — and the seconds. ``on_done(j)`` runs after each request."""
+    import threading
+
+    from distkeras_tpu_torch.serving import ServingClient
+
+    rows = [None] * len(reqs)
+
+    def work(t):
+        with ServingClient(ep[0], ep[1], timeout=120, connect_timeout=2,
+                           retry=False) as c:
+            for j in range(t, len(reqs), threads):
+                p, n, s = reqs[j]
+                row = {"chunks": 0}
+                try:
+                    if j in streams:
+                        st = c.generate_stream(p, n, sampling=s)
+                        for _ in st:
+                            row["chunks"] += 1
+                        row["out"], row["served_by"] = st.sequence, \
+                            st.served_by
+                    else:
+                        row["out"] = c.generate(p, n, sampling=s)
+                        row["served_by"] = c.last_served_by
+                except Exception as e:  # noqa: BLE001 — the caller checks
+                    row["err"] = e
+                rows[j] = row
+                if on_done is not None:
+                    on_done(j)
+
+    t0 = time.monotonic()
+    ths = [threading.Thread(target=work, args=(t,)) for t in range(threads)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(timeout=300)
+    check(not any(th.is_alive() for th in ths), "18: a client hung")
+    return rows, time.monotonic() - t0
+
+
+def replies(np, rows, refs, tag):
+    """Every row a reply equal to its reference."""
+    bad = [j for j, (r, ref) in enumerate(zip(rows, refs))
+           if "err" in r or not np.array_equal(r["out"], ref)]
+    check(not bad, f"{tag}: requests {bad} failed or differ from the "
+                   f"reference: {[rows[j].get('err') for j in bad][:3]}")
+
+
+def mix_tokens(rows, reqs):
+    return sum(len(r["out"]) - len(p) for r, (p, _, _) in zip(rows, reqs)
+               if "out" in r)
+
+
+def fleet_books(ctl):
+    """The router's counters a phase 18 line reads."""
+    st = ctl.router.stats()
+    return {k: st[k] for k in (
+        "forwards", "affinity_routed", "spilled", "digest_routed",
+        "least_loaded_routed", "failovers", "ejections", "rejoins",
+        "fleet_overloaded", "unavailable")}
+
+
+def device_bytes(torch):
+    """Bytes of live tensors on the card, after a collection and with the
+    cuBLAS workspaces of finished threads dropped."""
+    gc.collect()
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    return torch.cuda.memory_allocated()
+
+
+def model_bytes(model):
+    return sum(t.numel() * t.element_size()
+               for t in itertools.chain(model.parameters(), model.buffers()))
+
+
+def run_fleet_affinity(torch, np, lm, smi, front, gen_reqs, gen_outs):
+    """18a: a 2-replica ``FleetController`` (replicas sharing the hooked
+    LM, each with the default host prefix store) serves phase 4's mix from
+    8 client threads, each reply equal to phase 4's; then 13b's
+    shared-header traffic: the first two requests one after the other
+    (the store's two touches put the header's rungs in the replica's
+    digest), the other 14 from 8 threads — every one served by one
+    replica. Returns the results, the counts and the live controller."""
+    from distkeras_tpu_torch.serving import FleetController
+
+    ctl = FleetController(lm, replicas=2, factory=card_replicas(lm),
+                          router_kw=ROUTER_KW).start()
+    res, counts_all = {}, []
+    try:
+        def steps():
+            return [(r.engine.batcher.counters["steps"],
+                     r.engine.batcher.counters["occupancy_sum"])
+                    for r in ctl.replicas]
+
+        s0 = steps()
+        (rows, secs), counts = counted(
+            torch, lm, "18a mix", lambda: fleet_mix(np, ctl.endpoint,
+                                                    gen_reqs))
+        counts_all.append(counts)
+        replies(np, rows, gen_outs, "18a mix")
+        tokens = mix_tokens(rows, gen_reqs)
+        per = {}
+        for r in rows:
+            key = "%s:%s" % tuple(r["served_by"])
+            per[key] = per.get(key, 0) + 1
+        check(len(per) == 2, f"18a: the mix landed on {per}, not on both")
+        # each replica's decode steps and mean busy slots a step in the mix
+        busy = [{"steps": n1 - n0,
+                 "mean_occupancy": (o1 - o0) / max(1, n1 - n0)}
+                for (n0, o0), (n1, o1) in zip(s0, steps())]
+        wire = front["wire_generate"]["generate"]["tokens_per_s"]
+        res["mix"] = {"tokens": tokens, "seconds": secs,
+                      "tokens_per_s": tokens / secs,
+                      "single_engine_wire_tokens_per_s": wire,
+                      "requests_per_replica": per, "replica_steps": busy,
+                      "launches": counts, "router": fleet_books(ctl)}
+        log(f"18a mix: 16 requests from 8 client threads through the "
+            f"router, all equal to phase 4's; {tokens / secs:.1f} tokens/s "
+            f"on 2 replicas vs {wire:.1f} on one engine over the wire "
+            f"(phase 11); per replica {per}, steps and mean busy slots "
+            f"{busy}; launches {counts} on {smi}")
+
+        header, hreqs = shared_header_mix(np)
+        prefill0 = sum(r.engine.stats()["prefill_tokens"]
+                       for r in ctl.replicas)
+
+        def digest_ready():
+            return any((row.get("kv_fabric") or {}).get("digest_n")
+                       for row in ctl.router.replicas())
+
+        def drive():
+            first, s1 = fleet_mix(np, ctl.endpoint, hreqs[:2], threads=1)
+            wait_for(digest_ready, "the header's rungs in a digest",
+                     timeout=10)
+            rest, s2 = fleet_mix(np, ctl.endpoint, hreqs[2:])
+            return first + rest, s1 + s2
+
+        (hrows, hsecs), counts = counted(torch, lm, "18a header", drive)
+        counts_all.append(counts)
+        bad = [j for j, r in enumerate(hrows) if "err" in r
+               or len(r["out"]) != len(hreqs[j][0]) + hreqs[j][1]]
+        check(not bad, f"18a header: requests {bad} failed or came short")
+        homes = {tuple(r["served_by"]) for r in hrows}
+        check(len(homes) == 1, f"18a header: served by {homes}, not one "
+                               f"replica")
+        outs = [r["out"] for r in hrows]
+        gap = argmax_gap(torch, np, lm, outs, hreqs)
+        check(gap <= LOGIT_TOL, f"18a header: a greedy token is not the "
+                                f"argmax of its plain logits (gap {gap})")
+        sampled = [j for j, (_, _, s) in enumerate(hreqs) if s is not None]
+        again, _ = fleet_mix(np, ctl.endpoint, [hreqs[j] for j in sampled],
+                             threads=4)
+        replies(np, again, [outs[j] for j in sampled], "18a header replay")
+        prefill = sum(r.engine.stats()["prefill_tokens"]
+                      for r in ctl.replicas) - prefill0
+        prompt = sum(len(p) - 1 for p, _, _ in hreqs)
+        books = fleet_books(ctl)
+        res["header"] = {
+            "served_by": ["%s:%s" % h for h in homes],
+            "prompt_positions": prompt, "prefill_positions": prefill,
+            "prefill_positions_saved": prompt - prefill,
+            "seconds": hsecs, "tokens_per_s": mix_tokens(hrows, hreqs) / hsecs,
+            "max_argmax_gap": gap, "launches": counts, "router": books}
+        log(f"18a header: 16 shared-header requests all served by "
+            f"{res['header']['served_by'][0]} (affinity "
+            f"{books['affinity_routed']}, digest {books['digest_routed']} "
+            f"over the whole 18a); {prefill} of {prompt} prompt positions "
+            f"prefilled ({prompt - prefill} saved by the replica's store); "
+            f"argmax gap {gap:.2e}; launches {counts} on {smi}")
+    except BaseException:
+        ctl.stop()
+        raise
+    return res, counts_all, ctl
+
+
+def run_fleet_rollover(torch, np, lm, smi, ctl, gen_reqs, gen_outs, tmp):
+    """18c: while 4 client threads loop over phase 4's mix through the
+    router, ``rollover`` walks both replicas over to an f32 copy of the
+    weights read from a file (``serialize_model``): no request fails,
+    every reply equals phase 4's, the replaced replicas' K/V banks leave
+    the card (device memory after minus before is the new replicas' own
+    weights), and the mix after the walk equals phase 4's."""
+    import threading
+
+    from distkeras_tpu_torch.utils.serialization import serialize_model
+
+    path = os.path.join(tmp, "lm.f32")
+    with open(path, "wb") as f:
+        f.write(serialize_model(lm))
+    mem0 = device_bytes(torch)
+    stop = threading.Event()
+    live = {"ok": 0, "bad": []}
+    lock = threading.Lock()
+
+    def traffic(t):
+        from distkeras_tpu_torch.serving import ServingClient
+
+        with ServingClient(*ctl.endpoint, timeout=120, connect_timeout=2,
+                           retry=False) as c:
+            j = t
+            while not stop.is_set():
+                p, n, s = gen_reqs[j % len(gen_reqs)]
+                try:
+                    ok = np.array_equal(c.generate(p, n, sampling=s),
+                                        gen_outs[j % len(gen_reqs)])
+                    err = None if ok else "differs"
+                except Exception as e:  # noqa: BLE001 — counted
+                    err = repr(e)
+                with lock:
+                    if err is None:
+                        live["ok"] += 1
+                    else:
+                        live["bad"].append((j % len(gen_reqs), err))
+                j += 4
+
+    def drive():
+        ths = [threading.Thread(target=traffic, args=(t,)) for t in range(4)]
+        for th in ths:
+            th.start()
+        try:
+            time.sleep(0.5)
+            ledger = ctl.rollover(path)
+            time.sleep(0.5)
+        finally:
+            stop.set()
+            for th in ths:
+                th.join(timeout=120)
+        check(not any(th.is_alive() for th in ths), "18c: a client hung")
+        return ledger
+
+    ledger, counts = counted_all(torch, "18c rollover", drive)
+    check(not live["bad"] and live["ok"] > 0,
+          f"18c: {len(live['bad'])} requests failed or differ during the "
+          f"rollover ({live['bad'][:3]}), {live['ok']} ok")
+    check(len(ledger["replaced"]) == 2, f"18c: ledger {ledger}")
+    mem1 = device_bytes(torch)
+    new_bytes = sum(model_bytes(r.engine.model) for r in ctl.replicas)
+    left = mem1 - mem0 - new_bytes
+    check(left < BANK_BYTES,
+          f"18c: {left} bytes left on the card by the replaced replicas "
+          f"(one bank is {BANK_BYTES})")
+    (rows, secs), counts_b = counted_all(
+        torch, "18c after", lambda: fleet_mix(np, ctl.endpoint, gen_reqs))
+    replies(np, rows, gen_outs, "18c after the rollover")
+    res = {"seconds": ledger["seconds"], "live_requests_ok": live["ok"],
+           "live_failed": 0, "memory_before": mem0, "memory_after": mem1,
+           "new_replica_weight_bytes": new_bytes,
+           "bytes_left_by_replaced": left,
+           "mix_after_tokens_per_s": mix_tokens(rows, gen_reqs) / secs,
+           "launches": counts}
+    log(f"18c rollover to the f32 file in {ledger['seconds']} s under live "
+        f"traffic: {live['ok']} requests equal to phase 4's, 0 failed; "
+        f"device memory {mem1 - mem0:+d} bytes = the new replicas' own "
+        f"weights {new_bytes} {left:+d} (the old replicas' banks released); "
+        f"the mix after equal to phase 4's; launches {counts} on {smi}")
+    return res, [counts, counts_b]
+
+
+def run_fleet_failover(torch, np, lm, smi, ctl, gen_reqs, gen_outs):
+    """18b: phase 4's mix (its first four streamed) from 8 threads; after
+    the third reply the replica that served request 0 last is killed
+    (``shutdown(drain=False)``). Every request completes equal to phase
+    4's or fails typed (a stream that had emitted chunks fails typed), the
+    ejection shows in the router's books; then with the other replica
+    killed too (and ejected) a request fails typed ``unavailable`` at
+    once. No client hangs."""
+    import threading
+
+    from distkeras_tpu_torch.serving import ServingClient, ServingError
+
+    with ServingClient(*ctl.endpoint, timeout=120, connect_timeout=2,
+                       retry=False) as c:
+        p, n, s = gen_reqs[0]
+        c.generate(p, n, sampling=s)
+        home_ep = tuple(c.last_served_by)
+    home = next(r for r in ctl.replicas if tuple(r.endpoint) == home_ep)
+    other = next(r for r in ctl.replicas if r is not home)
+    done, killers = [0], []
+    lock = threading.Lock()
+
+    def on_done(j):
+        with lock:
+            done[0] += 1
+            if done[0] == 3:
+                th = threading.Thread(target=home.stop,
+                                      kwargs={"drain": False})
+                th.start()
+                killers.append(th)
+
+    (rows, secs), counts = counted_all(
+        torch, "18b failover",
+        lambda: fleet_mix(np, ctl.endpoint, gen_reqs, streams=(0, 1, 2, 3),
+                          on_done=on_done))
+    ok = typed = streamed_typed = 0
+    codes = {}
+    for j, r in enumerate(rows):
+        if "err" in r:
+            e = r["err"]
+            check(isinstance(e, ServingError) and bool(e.code),
+                  f"18b: request {j} failed untyped: {e!r}")
+            typed += 1
+            codes[e.code] = codes.get(e.code, 0) + 1
+            streamed_typed += int(j < 4 and r["chunks"] > 0)
+        else:
+            check(np.array_equal(r["out"], gen_outs[j]),
+                  f"18b: request {j} completed with a different reply")
+            ok += 1
+    wait_for(lambda: any(tuple(row["endpoint"]) == home_ep
+                         and row["state"] == "ejected"
+                         for row in ctl.router.replicas()),
+             "the killed replica's ejection", timeout=10)
+    books = fleet_books(ctl)
+    check(books["ejections"] >= 1, f"18b: no ejection in the books {books}")
+    th = threading.Thread(target=other.stop, kwargs={"drain": False})
+    th.start()
+    killers.append(th)
+    wait_for(lambda: all(row["state"] == "ejected"
+                         for row in ctl.router.replicas()),
+             "the second replica's ejection", timeout=10)
+    t0 = time.monotonic()
+    try:
+        with ServingClient(*ctl.endpoint, timeout=60, connect_timeout=2,
+                           retry=False) as c:
+            c.generate(gen_reqs[1][0], 4)
+        err = None
+    except ServingError as e:
+        err = e
+    dead_s = time.monotonic() - t0
+    check(err is not None and err.code == "unavailable" and dead_s <= 2.0,
+          f"18b: with both replicas dead the client got {err!r} after "
+          f"{dead_s:.2f} s (want typed unavailable within the 2 s dial "
+          f"budget)")
+    for th in killers:
+        th.join(timeout=30)
+    res = {"completed_equal": ok, "failed_typed": typed,
+           "error_codes": codes,
+           "streams_failed_after_chunks": streamed_typed,
+           "seconds": secs, "router": fleet_books(ctl),
+           "all_dead_unavailable_s": dead_s, "launches": counts}
+    log(f"18b failover: home {home_ep[0]}:{home_ep[1]} killed after 3 "
+        f"replies; {ok} requests equal to phase 4's, {typed} failed typed "
+        f"{codes} ({streamed_typed} streams after emitting chunks), none "
+        f"untyped, "
+        f"no client hung; books {res['router']}; both dead: typed "
+        f"unavailable in {dead_s * 1e3:.1f} ms; launches {counts} on {smi}")
+    return res, [counts]
+
+
+def run_fleet_autoscale(torch, np, lm, smi, gen_reqs, gen_outs, tmp):
+    """18d: an ``Autoscaler`` (``min_replicas=1``, ``max_replicas=3``,
+    ticked by hand, ``up_threshold=0.5``) over a 1-replica fleet with 16
+    queue places a replica: a burst of 16 requests fills two thirds of it
+    and a tick scales up (the replica
+    warmed and ``mark_warmed`` before it joins, 0 storms on its ledger
+    after a second burst reached it); two idle ticks scale down under a
+    request stream that loses nothing; a killed replica is reaped and
+    replaced in one tick; then a ``BundlePublisher`` on a
+    ``DeltaParameterServer`` holding the LM's center publishes an int8
+    bundle after 2 commits and a ``ContinuousDeployer`` rolls the fleet to
+    it on a hold tick: replies equal a solo engine's on that bundle."""
+    import threading
+
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+    from distkeras_tpu_torch.ops.quantization import quantize_model
+    from distkeras_tpu_torch.parameter_servers import DeltaParameterServer
+    from distkeras_tpu_torch.serving import (
+        AutoscalePolicy,
+        Autoscaler,
+        BundlePublisher,
+        ContinuousDeployer,
+        FleetController,
+        ServingEngine,
+    )
+    from distkeras_tpu_torch.utils.serialization import save_serving_bundle
+
+    ctl = FleetController(lm, replicas=1,
+                          factory=card_replicas(lm, queue_capacity=16),
+                          router_kw=ROUTER_KW).start()
+    # ticks come by hand seconds apart, all inside the one 60 s window of
+    # the replicas' queue-depth slope, which then still holds the bursts:
+    # the idle row's "no rising queue" test is left to the CPU tests
+    # the burst fills 16 of a replica's 24 places (8 slots and 16 queue
+    # places: the queue must hold the whole burst before the scheduler
+    # admits it, or the replica refuses some typed ``overloaded``)
+    sc = Autoscaler(ctl, AutoscalePolicy(
+        min_replicas=1, max_replicas=3, up_threshold=0.5,
+        down_threshold=0.25, up_ticks=1, down_ticks=2, up_cooldown=0.0,
+        down_cooldown=0.0, trend_slope=1e3))
+    res, counts_all = {}, []
+    try:
+        def in_flight():
+            return sum(r["in_flight"] for r in ctl.router.replicas())
+
+        def burst_then_scale():
+            box = {}
+            th = threading.Thread(target=lambda: box.update(
+                rows=fleet_mix(np, ctl.endpoint, gen_reqs, threads=16)[0]))
+            th.start()
+            wait_for(lambda: in_flight() >= 14, "the burst in flight",
+                     timeout=30)
+            d = sc.tick()
+            while d.action == "hold" and th.is_alive():
+                d = sc.tick()  # the books moved between the wait and tick
+            th.join(timeout=300)
+            rows2, _ = fleet_mix(np, ctl.endpoint, gen_reqs, threads=16)
+            return d, box["rows"], rows2
+
+        (d, rows1, rows2), counts = counted_all(torch, "18d scale-up",
+                                                burst_then_scale)
+        counts_all.append(counts)
+        check(d.action == "scale_up" and len(ctl.replicas) == 2,
+              f"18d: the burst's tick was {d.action} ({d.reason}), "
+              f"{len(ctl.replicas)} replicas")
+        replies(np, rows1, gen_outs, "18d burst")
+        replies(np, rows2, gen_outs, "18d second burst")
+        new = ctl.replicas[-1]
+        led = new.engine.compile_ledger
+        served_new = sum(tuple(r["served_by"]) == tuple(new.endpoint)
+                         for r in rows2)
+        check(led.warmed and led.storms == 0 and served_new > 0,
+              f"18d: the new replica (warmed {led.warmed}) has "
+              f"{led.storms} storms after serving {served_new} requests")
+        res["scale_up"] = {"reason": d.reason, "utilization": d.utilization,
+                           "new_replica_requests": served_new,
+                           "storms": led.storms,
+                           "warmup_mints": led.warmup_mints,
+                           "launches": counts}
+        log(f"18d scale-up: tick at utilization {d.utilization} "
+            f"({d.reason}); the new replica warmed ({led.warmup_mints} "
+            f"warm-up mints) before joining, then served {served_new} of "
+            f"the second burst with 0 storms; both bursts equal phase 4's "
+            f"on {smi}")
+
+        def idle_down():
+            stop, box = threading.Event(), {"rows": []}
+
+            def trickle():  # one request at a time: the fleet stays idle
+                j = 0
+                while not stop.is_set():
+                    rows, _ = fleet_mix(np, ctl.endpoint, [gen_reqs[j % 16]],
+                                        threads=1)
+                    box["rows"].append((j % 16, rows[0]))
+                    j += 1
+
+            th = threading.Thread(target=trickle)
+            th.start()
+            try:
+                wait_for(lambda: len(box["rows"]) >= 2, "the trickle",
+                         timeout=120)
+                ds = [sc.tick() for _ in range(2)]
+                n = len(box["rows"])
+                wait_for(lambda: len(box["rows"]) >= n + 2,
+                         "the trickle after the scale-down", timeout=120)
+            finally:
+                stop.set()
+                th.join(timeout=120)
+            return ds, box["rows"]
+
+        (ds, trickled), counts = counted_all(torch, "18d scale-down",
+                                             idle_down)
+        counts_all.append(counts)
+        check(ds[-1].action == "scale_down" and len(ctl.replicas) == 1,
+              f"18d: idle ticks {[(x.action, x.reason) for x in ds]}, "
+              f"{len(ctl.replicas)} replicas")
+        replies(np, [r for _, r in trickled],
+                [gen_outs[j] for j, _ in trickled], "18d scale-down")
+        res["scale_down"] = {"requests_during": len(trickled), "failed": 0,
+                             "launches": counts}
+        log(f"18d scale-down: two idle ticks drained and stopped a replica; "
+            f"{len(trickled)} requests during it, all equal to phase 4's; "
+            f"launches {counts} on {smi}")
+
+        victim = ctl.replicas[0]
+        killer = threading.Thread(target=victim.stop,
+                                  kwargs={"drain": False})
+        killer.start()
+        wait_for(lambda: not victim.alive(), "the victim's death", timeout=10)
+        reaps0 = sc._counters["reaps"]
+        d, counts = counted_all(torch, "18d reap", sc.tick)
+        counts_all.append(counts)
+        killer.join(timeout=30)
+        check(d.reason == "below_min" and sc._counters["reaps"] == reaps0 + 1
+              and len(ctl.replicas) == 1 and victim not in ctl.replicas,
+              f"18d: the kill's tick was {d.action} ({d.reason}), "
+              f"{len(ctl.replicas)} replicas")
+        res["reap"] = {"reason": d.reason, "replicas": len(ctl.replicas)}
+        log(f"18d reap: a killed replica was reaped and replaced in one "
+            f"tick; launches {counts} on {smi}")
+
+        center = {n: t for n, t in lm.named_parameters()}
+        ps = DeltaParameterServer(center)
+        del center
+
+        def build(center, meta, path):
+            m = lm.copy()
+            own = dict(m.named_parameters())
+            with torch.no_grad():
+                for name, a in center.items():
+                    own[name].copy_(torch.from_numpy(np.asarray(a)))
+            save_serving_bundle(path, quantize_model(m))
+
+        pub = BundlePublisher(ps, build, os.path.join(tmp, "bundles"),
+                              every=2)
+        sc.deployer = ContinuousDeployer(ctl, pub, timeout=120)
+        rng = np.random.default_rng(18)
+        for _ in range(2):
+            ps.commit({n: (1e-3 * rng.standard_normal(p.shape)).astype(
+                np.float32) for n, p in lm.named_parameters()})
+        latest = pub.latest()
+        check(latest is not None and latest["version"] == 2
+              and pub.publish_errors == 0,
+              f"18d: publisher after 2 commits: {latest}, "
+              f"{pub.publish_errors} errors")
+        greedy = [r for r in gen_reqs if r[2] is None][:4]
+
+        def deploy():
+            d = sc.tick()
+            rows, _ = fleet_mix(np, ctl.endpoint, greedy, threads=4)
+            return d, rows
+
+        (d, rows), counts = counted_all(torch, "18d deploy", deploy)
+        counts_all.append(counts)
+        pub.close()
+        check(d.action == "hold" and sc.last_deploy is not None
+              and sc.last_deploy["version"] == 2,
+              f"18d: the deploy tick was {d.action} ({d.reason}), last "
+              f"deploy {sc.last_deploy}")
+        solo = ServingEngine.from_bundle(latest["path"], num_slots=8)
+        check(attach_fused_layernorm(solo.model) == 17,
+              "18d: LN hook not on the solo engine's 17 norms")
+        solo.start()
+        try:
+            refs = [solo.generate(p, n, timeout=600) for p, n, _ in greedy]
+        finally:
+            solo.stop()
+        replies(np, rows, refs, "18d after the deploy")
+        res["deploy"] = {"version": 2, "bundle_bytes":
+                         os.path.getsize(latest["path"]),
+                         "rollover_seconds":
+                         sc.last_deploy["ledger"]["seconds"],
+                         "launches": counts}
+        res["autoscaler"] = {k: sc._counters[k] for k in (
+            "ticks", "scale_ups", "scale_downs", "holds", "reaps",
+            "deploys", "errors")}
+        check(res["autoscaler"]["errors"] == 0,
+              f"18d: autoscaler errors {res['autoscaler']}")
+        log(f"18d deploy: 2 commits published bundle v2 "
+            f"({res['deploy']['bundle_bytes']} bytes, int8); a hold tick "
+            f"rolled the fleet in {res['deploy']['rollover_seconds']} s; "
+            f"4 replies equal a solo engine's on the bundle; autoscaler "
+            f"{res['autoscaler']} on {smi}")
+    finally:
+        ctl.stop()
+    return res, counts_all
+
+
+def run_fleet_disagg(torch, np, lm, smi, gen_reqs):
+    """18e: a ``role="prefill"`` and two ``role="decode"`` replicas (dense,
+    whole-prompt admission, no store) behind a ``FleetRouter``: phase 4's
+    mix pushed (``generate``) from 8 threads and its first four streamed
+    (relayed) equal a unified engine's of the same layout, the push and
+    relay ledgers pair with the counts of the drive; then a decode
+    replica is killed hard (listener closed, engine stopped, connections
+    reset) while request 0's streamed transfer is in it: the router
+    resends the frame to the sibling, whose tokens are identical, and a
+    pushed generate after the kill is too."""
+    import socket
+    import threading
+
+    from distkeras_tpu_torch.faults import FaultPlan
+    from distkeras_tpu_torch.serving import FleetRouter, ServingServer
+
+    kw = {"prefill_chunk": None, "prefix_cache": False}
+    uni = hooked_engine(lm, **kw)
+    try:
+        refs, _ = serve_mix(uni, gen_reqs)
+    finally:
+        uni.stop()
+    srvs = [ServingServer(hooked_engine(lm, role=role, **kw)).start()
+            for role in ("prefill", "decode", "decode")]
+    router = FleetRouter(endpoints=[(s.host, s.port) for s in srvs],
+                         **ROUTER_KW).start()
+    res, counts_all, killer, killed = {}, [], None, None
+    try:
+        for s in srvs:
+            check(router.wait_in_rotation((s.host, s.port)),
+                  "18e: a replica never joined")
+
+        def drive():
+            pushed, s1 = fleet_mix(np, (router.host, router.port), gen_reqs)
+            streamed, s2 = fleet_mix(np, (router.host, router.port),
+                                     gen_reqs[:4], threads=4,
+                                     streams=(0, 1, 2, 3))
+            return pushed, streamed, s1
+
+        (pushed, streamed, secs), counts = counted(torch, lm, "18e mix",
+                                                   drive)
+        counts_all.append(counts)
+        replies(np, pushed, refs, "18e pushed")
+        replies(np, streamed, refs[:4], "18e streamed")
+        st = router.stats()
+        ledger = {k: st[k] for k in (
+            "disagg_routed", "peer_sends", "peer_ok", "peer_typed",
+            "peer_degraded", "transfer_sends", "transfer_ok",
+            "transfer_typed", "transfer_retries")}
+        check(ledger["disagg_routed"] == 20 and ledger["peer_sends"] == 16
+              and ledger["peer_ok"] == 16 and ledger["transfer_sends"] == 4
+              and ledger["transfer_ok"] == 4,
+              f"18e: ledgers {ledger} (want 20 routed, 16 pushed ok, 4 "
+              f"relayed ok)")
+        pre = srvs[0].engine.stats()
+        check(pre["steps"] == 0, f"18e: the prefill replica took "
+                                 f"{pre['steps']} decode steps")
+        res["mix"] = {"tokens_per_s": mix_tokens(pushed, gen_reqs) / secs,
+                      "ledger": ledger, "launches": counts}
+        log(f"18e mix: 16 pushed and 4 stream-relayed replies equal a "
+            f"unified engine's; ledgers {ledger}; pushed "
+            f"{res['mix']['tokens_per_s']:.1f} tokens/s on {smi}")
+
+        # a hard kill mid-transfer: request 0's streamed hop 2 is held in
+        # the ``net.delay`` seam of the decode replica it lands on; that
+        # replica's listener closes, its engine stops and its open
+        # connections reset (what a killed process leaves), so the
+        # router's forward dies under it and the same frame goes to the
+        # sibling
+        dec_ports, hit = {s.port for s in srvs[1:]}, []
+
+        def held(ctx):
+            if ctx["verb"] != "kv.transfer" or ctx["port"] not in dec_ports:
+                return False
+            hit[:] = hit or [ctx["port"]]
+            return True
+
+        plan = FaultPlan().arm("net.delay", action="delay", delay=1.0,
+                               times=1, when=held)
+        ep = (router.host, router.port)
+
+        def again():
+            nonlocal killer, killed
+            box = {}
+            with plan:
+                th = threading.Thread(target=lambda: box.update(
+                    rows=fleet_mix(np, ep, [gen_reqs[0]], threads=1,
+                                   streams=(0,))[0]))
+                th.start()
+                wait_for(lambda: plan.fired("net.delay") == 1,
+                         "the transfer held in the seam", timeout=60)
+                killed = next(s for s in srvs if s.port == hit[0])
+                killer = threading.Thread(target=killed.shutdown,
+                                          kwargs={"drain": False})
+                killer.start()
+                wait_for(lambda: not killed._accept_thread.is_alive(),
+                         "the decode replica's listener to close",
+                         timeout=10)
+                for conn in list(killed._conns):
+                    try:
+                        conn.shutdown(socket.SHUT_RDWR)
+                    except OSError:
+                        pass
+                th.join(timeout=120)
+            rows2, _ = fleet_mix(np, ep, [gen_reqs[0]], threads=1)
+            return box["rows"] + rows2
+
+        rows, counts = counted(torch, lm, "18e failover", again)
+        counts_all.append(counts)
+        replies(np, rows, [refs[0], refs[0]], "18e failover")
+        sibling = next(s for s in srvs[1:] if s is not killed)
+        check(all(tuple(r["served_by"]) == (sibling.host, sibling.port)
+                  for r in rows),
+              f"18e: after the kill served by "
+              f"{[r['served_by'] for r in rows]}, not the sibling")
+        st = router.stats()
+        after = {k: st[k] for k in ledger}
+        check(after["transfer_retries"] >= 1
+              and after["transfer_sends"] == after["transfer_ok"]
+              + after["transfer_typed"] and after["transfer_typed"] == 0
+              and after["peer_sends"] == after["peer_ok"]
+              + after["peer_typed"] + after["peer_degraded"],
+              f"18e: after the kill the ledgers are {after} (want a retried "
+              f"transfer, none typed, both ledgers paired)")
+        res["failover"] = {"ledger": after, "launches": counts}
+        log(f"18e failover: decode :{killed.port} killed with request 0's "
+            f"transfer in it; the stream went to the sibling with "
+            f"identical tokens, a pushed generate after it too; ledgers "
+            f"{after}; launches {counts} on {smi}")
+    finally:
+        router.shutdown()
+        for s in srvs:
+            if s is not killed:
+                s.shutdown()
+        if killer is not None:
+            killer.join(timeout=30)
+    return res, counts_all
+
+
+def run_phase18(torch, np, lm, smi, front, gen_reqs, gen_outs):
+    """Phase 18, the serving fleet and its autoscaler on the card; returns
+    the results and the launch counts of each drive."""
+    import tempfile
+
+    out = {}
+    t0 = time.monotonic()
+    detach_hooks(lm)
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+
+    check(attach_fused_layernorm(lm) == 17, "LN hook not on 17 norms")
+    mem0 = device_bytes(torch)
+    counts = []
+    with tempfile.TemporaryDirectory() as tmp:
+        out["affinity"], c_a, ctl = run_fleet_affinity(
+            torch, np, lm, smi, front, gen_reqs, gen_outs)
+        try:
+            out["rollover"], c_c = run_fleet_rollover(
+                torch, np, lm, smi, ctl, gen_reqs, gen_outs, tmp)
+            out["failover"], c_b = run_fleet_failover(
+                torch, np, lm, smi, ctl, gen_reqs, gen_outs)
+        finally:
+            ctl.stop()
+        del ctl
+        out["autoscale"], c_d = run_fleet_autoscale(
+            torch, np, lm, smi, gen_reqs, gen_outs, tmp)
+    out["disagg"], c_e = run_fleet_disagg(torch, np, lm, smi, gen_reqs)
+    detach_hooks(lm)
+    mem1 = device_bytes(torch)
+    out["bytes_left"] = mem1 - mem0
+    check(mem1 - mem0 < BANK_BYTES,
+          f"18: {mem1 - mem0} bytes left on the card after every fleet "
+          f"stopped (one bank is {BANK_BYTES})")
+    out["seconds_total"] = time.monotonic() - t0
+    counts = [*c_a, *c_c, *c_b, *c_d, *c_e]
+    out["launches"] = {k: sum(c.get(k, 0) for c in counts)
+                       for k in counts[0]}
+    log(f"18: {out['bytes_left']:+d} bytes on the card after every fleet "
+        f"stopped; phase 18 in {out['seconds_total']:.1f} s on {smi}")
+    return out, counts
+
+
 def baseline_leaf_shapes():
     """The parameter shapes of configs 2-5's models (built on the CPU: only
     their leaf tables matter to phases 2b/2c)."""
@@ -7378,6 +8220,10 @@ def main(argv):
     disagg, disagg_launches = run_phase17(torch, np, lm, smi, gen_reqs)
     log(f"phase 17 in {disagg['seconds_total']:.1f} s, launches "
         f"{disagg['launches']} on {smi}")
+    fleet, fleet_launches = run_phase18(torch, np, lm, smi, front, gen_reqs,
+                                        gen_outs)
+    log(f"phase 18 in {fleet['seconds_total']:.1f} s, launches "
+        f"{fleet['launches']} on {smi}")
     profile = profile_paths(torch, np, lm, zoo) if args.profile else None
 
     phases = [pred["launches"], gen["launches"], train["launches"],
@@ -7385,6 +8231,7 @@ def main(argv):
               member_launches, socket_launches, *front_launches,
               *healing_launches, *paging_launches, *spec_launches,
               *qos_launches, *knobs_launches, *disagg_launches,
+              *fleet_launches,
               *(r["launches"] for r in async_sim.values())]
     launches = {k: sum(c.get(k, 0) for c in phases) for k in kernels.LAUNCHES}
     check(all(n > 0 for n in launches.values()),
@@ -7454,6 +8301,7 @@ def main(argv):
                        "phase12": healing, "phase13": paging,
                        "phase14": spec, "phase15": qos,
                        "phase16": knobs, "phase17": disagg,
+                       "phase18": fleet,
                        "profile": profile,
                        "flash_infinite_q": inf_rows},
                       f, indent=1)

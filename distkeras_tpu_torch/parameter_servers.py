@@ -519,7 +519,7 @@ class ParameterServer:
         True if it was present."""
         with self._lock:
             for i, (_, f) in enumerate(self._snapshot_listeners):
-                if f is fn:
+                if f == fn:  # a bound method is a new object per access
                     del self._snapshot_listeners[i]
                     return True
         return False

@@ -33,6 +33,17 @@ client.
   DKTX frame a prefill worker hands to a decode worker, byte-identical to
   the JAX package's) and ``PeerFabric``, the pooled worker-to-worker
   client spine of ``kv.fetch`` pulls and direct pushes.
+- ``fleet``: ``FleetRouter``, a DKT1 router over N replica servers
+  (health-gated rotation, prefix-affine placement with spill, bounded
+  idempotent failover, drain, tenant quotas, breakers, hedging and
+  role-aware prefill -> decode dispatch), and ``FleetController``, which
+  owns the replicas and the router (``scale_up``/``scale_down``,
+  ``reap_dead`` and the rolling bundle upgrade ``rollover``).
+- ``autoscale``: the pure ``AutoscalePolicy`` over the router's replica
+  books (``signals_from_router``), the ``Autoscaler`` tick loop that
+  actuates it on a ``FleetController``, and the training -> serving loop
+  (``BundlePublisher`` on a ``ParameterServer``'s snapshots,
+  ``ContinuousDeployer`` rolling each new bundle).
 - ``resilience``: the client's ``RetryBudget`` and hedge-delay
   ``LatencyTracker``, the router's ``CircuitBreaker`` and the engine
   door's ``AdmissionController`` (``ServingEngine(shed=)``).
@@ -97,16 +108,38 @@ from distkeras_tpu_torch.serving.resilience import (
 )
 from distkeras_tpu_torch.serving.server import ServingServer, serve
 from distkeras_tpu_torch.serving.client import ServingClient, TokenStream
+from distkeras_tpu_torch.serving.fleet import (
+    FleetController,
+    FleetRouter,
+    affinity_key,
+    local_replica_factory,
+)
+from distkeras_tpu_torch.serving.autoscale import (
+    AutoscaleDecision,
+    AutoscalePolicy,
+    Autoscaler,
+    BundlePublisher,
+    ContinuousDeployer,
+    ReplicaSignals,
+    signals_from_router,
+)
 
 __all__ = [
     "AdmissionController",
+    "AutoscaleDecision",
+    "AutoscalePolicy",
+    "Autoscaler",
+    "BundlePublisher",
     "CircuitBreaker",
     "CompileLedger",
     "ContinuousBatcher",
+    "ContinuousDeployer",
     "DeadlineExceededError",
     "DecodeStepper",
     "DevicePrefixIndex",
     "EngineStoppedError",
+    "FleetController",
+    "FleetRouter",
     "InternalError",
     "KvTransferError",
     "LatencyTracker",
@@ -121,6 +154,7 @@ __all__ = [
     "PrefixStore",
     "QosPolicy",
     "QuotaExhaustedError",
+    "ReplicaSignals",
     "RetryBudget",
     "RetryPolicy",
     "SamplingParams",
@@ -136,7 +170,10 @@ __all__ = [
     "TokenStream",
     "WindowedBatcher",
     "WrongRoleError",
+    "affinity_key",
     "decode_state",
     "encode_state",
+    "local_replica_factory",
     "serve",
+    "signals_from_router",
 ]

@@ -174,9 +174,15 @@ def rows_tensor(a: np.ndarray, dtype=None) -> torch.Tensor:
 
 class _WarmScope(threading.local):
     """Per-thread "inside a stepper warmup" depth: a kernel build that a
-    warmup triggers is recorded with ``trigger="warmup"``."""
+    warmup triggers is recorded with ``trigger="warmup"``. ``ledger``: the
+    compile ledger of the engine this thread works for (its scheduler
+    loop, its predict window, a stepper warm-up): a kernel build is a
+    process-wide event that every engine hears, and it is a mint on the
+    ledger of the engine whose thread ran it only — one replica's build
+    is never another replica's storm."""
 
     depth = 0
+    ledger = None
 
 
 _WARM_SCOPE = _WarmScope()
@@ -699,9 +705,11 @@ class DecodeStepper:
         kernel build) recorded as ``trigger="warmup"``."""
         self._warming = True
         _WARM_SCOPE.depth += 1
+        owner, _WARM_SCOPE.ledger = _WARM_SCOPE.ledger, self.ledger
         try:
             fn()
         finally:
+            _WARM_SCOPE.ledger = owner
             _WARM_SCOPE.depth -= 1
             self._warming = False
 
@@ -723,6 +731,12 @@ class DecodeStepper:
         """Bytes of every K/V pool (paged) or cache bank (dense)."""
         arrs = self._pools if self.paged else self._caches
         return sum(2 * ck.numel() * ck.element_size() for ck, _ in arrs)
+
+    def kv_shard_bytes(self) -> int:
+        """K/V bytes RESIDENT PER SHARD — the number a capacity planner
+        compares against one device's memory. The port decodes on one
+        device, so this is ``kv_bytes_total()``."""
+        return self.kv_bytes_total()
 
     def paged_stats(self) -> dict:
         """Pool, allocator and device-prefix-index observability for the
@@ -2337,10 +2351,12 @@ class ServingEngine:
     def _on_build(self, names, seconds):
         """Kernel build observer: a first-use ``nvcc`` build stalls the
         thread that needs the kernel, so the wedge detector's grace is
-        pushed out before it starts, and the finished build is a
-        ``build[<kernels>]`` mint on the compile ledger."""
+        pushed out before it starts (every engine's: a sibling may wait on
+        the build lock), and a build that this engine's own thread ran is
+        a ``build[<kernels>]`` mint on its compile ledger."""
         self._extend_grace()
-        if seconds is not None:
+        if seconds is not None and (
+                _WARM_SCOPE.ledger is self.compile_ledger):
             self.compile_ledger.record_mint(
                 f"build[{','.join(names)}]", seconds, warming=in_warmup()
             )
@@ -2373,6 +2389,7 @@ class ServingEngine:
         ``batcher`` is bound at thread start: a superseded
         (restart-replaced) loop notices and exits instead of driving the
         new generation's state."""
+        _WARM_SCOPE.ledger = self.compile_ledger
         try:
             while True:
                 if self.batcher is not batcher:
@@ -2918,6 +2935,7 @@ class ServingEngine:
     # -- predict ------------------------------------------------------------
 
     def _run_predict_batch(self, x):
+        _WARM_SCOPE.ledger = self.compile_ledger
         return self._predictor.predict(Dataset({"features": x}))["prediction"]
 
     def predict(self, x, timeout=None) -> np.ndarray:
@@ -3101,6 +3119,21 @@ class ServingEngine:
                 # the paged tier's capacity signal: KV pages in use
                 out["kv_page_util"] = round(
                     self._stepper._kv_alloc.utilization(), 4
+                )
+            # K/V bytes per device, for the router's books and the
+            # autoscaler (``mesh`` rides ``batcher.load()``)
+            out["kv_shard_bytes"] = self._stepper.kv_shard_bytes()
+            if self.history is not None:
+                # the autoscaler's windowed signals over the engine's own
+                # ring, snapped here so a router poll never reads a stale
+                # one: admissions that hit an exhausted page pool in the
+                # last minute, and the queue's depth growth (req/s)
+                self.history.maybe_snap()
+                out["pool_exhausted_rate"] = self.history.rate(
+                    "serving_scheduler_pool_exhausted", window=60.0
+                )
+                out["queue_depth_trend"] = self.history.trend(
+                    "serving_scheduler_queue_depth", window=60.0
                 )
             out["overlap"] = {
                 "enabled": batcher.overlap,

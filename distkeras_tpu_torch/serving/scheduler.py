@@ -454,6 +454,8 @@ class ContinuousBatcher:
                 "blame_probes",  # extra step calls assigning blame
                 "internal_errors",  # requests failed InternalError
                 "prefill_failures",  # begin_admit/prefill_chunk raised
+                "pool_exhausted",  # admissions failed typed overloaded
+                # (paged KV: page reservation could not be met)
                 "quarantines",  # slots sent to probation
                 "streamed_chunks",
                 # speculative decode (0 on plain steppers)
@@ -1476,6 +1478,8 @@ class ContinuousBatcher:
                 self.stepper.release(i)
         if isinstance(error, InternalError):
             self.counters["internal_errors"] += 1
+        elif isinstance(error, OverloadedError):
+            self.counters["pool_exhausted"] += 1
         elif isinstance(error, DeadlineExceededError):
             self.counters["deadline_exceeded"] += 1
         req._finish(error)
@@ -1574,6 +1578,9 @@ class ContinuousBatcher:
                 "active_slots": sum(s is not None for s in self._slots),
                 "prefilling_slots": len(self._prefill_left),
                 "num_slots": len(self._slots),
+                # decode geometry ("tp:N" in the JAX package): the port
+                # has no serving meshes yet, so every replica reports None
+                "mesh": None,
             }
 
     def stats(self) -> dict:

@@ -12,10 +12,14 @@ work.
 
 Usage:
     python examples/serve_lm_torch.py [--cpu] [--seq 64] [--slots 4]
-        [--temperature T [--top-p P]]
+        [--temperature T [--top-p P]] [--fleet N]
 
 The engine runs on CUDA unless ``--cpu`` is given. ``--temperature``
 adds a seeded sampled generate, replayed and checked token-identical.
+``--fleet N`` boots N replicas from the one bundle behind the
+prefix-affinity ``FleetRouter`` instead, sends shared-header traffic
+(one replica serves it all), rolls every replica over to the bundle
+again and shows the upgraded fleet still serving.
 """
 
 from __future__ import annotations
@@ -39,10 +43,12 @@ from distkeras_tpu_torch.ops.fused_layernorm import (  # noqa: E402
 )
 from distkeras_tpu_torch.ops.quantization import quantize_model  # noqa: E402
 from distkeras_tpu_torch.serving import (  # noqa: E402
+    FleetController,
     SamplingParams,
     ServingClient,
     ServingEngine,
     ServingServer,
+    local_replica_factory,
 )
 from distkeras_tpu_torch.utils.serialization import (  # noqa: E402
     save_serving_bundle,
@@ -62,9 +68,16 @@ def main(argv=None):
                     help="nucleus filter for the sampled generate")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: CUDA)")
+    ap.add_argument("--fleet", type=int, metavar="N", default=None,
+                    help="serve N replicas of the bundle behind a fleet "
+                    "router, then roll them over to it again")
     args = ap.parse_args(argv)
     if args.top_p is not None and args.temperature is None:
         ap.error("--top-p filters sampling; pass --temperature too")
+    if args.fleet is not None and args.fleet < 2:
+        ap.error("--fleet N needs N >= 2")
+    if args.fleet and args.temperature is not None:
+        ap.error("--temperature and --fleet are separate demos; pick one")
     device = "cpu" if args.cpu else None
 
     # -- train the successor LM ----------------------------------------------
@@ -87,6 +100,9 @@ def main(argv=None):
         save_serving_bundle(bundle, quantize_model(trained.copy()))
         print(f"serving bundle: {os.path.getsize(bundle)} bytes "
               f"(f32 model: {len(serialize_model(trained))} bytes)")
+        if args.fleet:
+            serve_fleet(args, bundle, device)
+            return
         engine = ServingEngine.from_bundle(
             bundle, num_slots=args.slots, queue_capacity=32, device=device,
         )
@@ -153,6 +169,82 @@ def main(argv=None):
             c.stop()  # graceful: drains in-flight work, then closes
         server.shutdown()
         print("drained and stopped")
+
+
+def hooked_replicas(**engine_kw):
+    """A ``FleetController`` factory: each replica boots from the bundle
+    like the default factory's, with the LayerNorm kernel hooked into its
+    model before it takes traffic (hooks are process-local and do not
+    ride the bundle)."""
+    boot = local_replica_factory(**engine_kw)
+
+    def factory(bundle):
+        replica = boot(bundle)
+        attach_fused_layernorm(replica.engine.model)
+        return replica
+
+    return factory
+
+
+def serve_fleet(args, bundle, device):
+    """--fleet N: N replicas booted from ONE bundle behind the
+    prefix-affinity router, concurrent shared-header clients (placement
+    read off the ``served_by`` reply stamp), then a rolling bundle
+    upgrade and the upgraded fleet still serving."""
+    ctl = FleetController(
+        bundle, replicas=args.fleet,
+        factory=hooked_replicas(num_slots=args.slots, queue_capacity=32,
+                                device=device),
+    ).start()
+    try:
+        host, port = ctl.endpoint
+        print(f"fleet: {args.fleet} replicas behind router {host}:{port} "
+              f"({', '.join('%s:%s' % r.endpoint for r in ctl.replicas)})")
+        # every prompt extends one 16-token header: prefix affinity lands
+        # them all on the replica whose store holds the header's K/V
+        header = (np.arange(16, dtype=np.int32) * 3 + 1) % args.vocab
+        prompts = [np.concatenate([header, np.asarray(sfx, np.int32)
+                                   % args.vocab])
+                   for sfx in ([17], [17, 18], [17, 18, 19],
+                               [17, 18, 19, 20])]
+        steps = min(10, args.seq // 2)
+        results = [None] * len(prompts)
+        served = [None] * len(prompts)
+
+        def client(i):
+            with ServingClient(host, port) as c:
+                results[i] = c.generate(prompts[i], steps)
+                served[i] = c.last_served_by
+
+        t0 = time.time()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        dt = time.time() - t0
+        for row in results:
+            print("served decode:", row.tolist())  # must count upward
+        homes = set(served)
+        print(f"{len(prompts)} shared-header requests x {steps} tokens in "
+              f"{dt:.2f}s, served by {len(homes)} replica(s): "
+              f"{sorted('%s:%s' % h for h in homes)}")
+        # the same bundle stands in for the next training checkpoint: the
+        # walk (boot the replacement, health-gate it in, drain and stop
+        # the old replica) is the same either way
+        ledger = ctl.rollover(bundle)
+        print(f"rollover complete: {len(ledger['replaced'])} replicas "
+              f"upgraded in {ledger['seconds']}s, zero requests dropped")
+        with ServingClient(host, port) as c:
+            out = c.generate(prompts[0], steps)
+            print("served decode (upgraded fleet):", out.tolist())
+            h = c.health()
+            print(f"fleet health: {h['status']}, {h['active_replicas']} "
+                  f"replicas in rotation")
+    finally:
+        ctl.stop()
+    print("drained and stopped")
 
 
 if __name__ == "__main__":

@@ -98,3 +98,23 @@ def test_serve_lm_torch_export_serve_query(tmp_path):
         assert all((b - a) % vocab == 1 for a, b in zip(row, row[1:])), row
     assert "streamed 10 chunks" in out and "(complete: True)" in out
     assert "replayed identically" in out and "drained and stopped" in out
+
+
+def test_serve_lm_torch_fleet(tmp_path):
+    """--fleet 2 (JAX: ``tests/test_examples.py:140``): two replicas from
+    one bundle behind the router, the shared-header requests all served
+    by one replica, a rolling upgrade, and the upgraded fleet still
+    counting upward."""
+    out = run(tmp_path, "--cpu", "--epochs", "3", "--fleet", "2",
+              script=SERVE)
+    assert "fleet: 2 replicas behind router" in out
+    rows = [json.loads(line.split(":", 1)[1]) for line in out.splitlines()
+            if line.startswith("served decode")]
+    assert len(rows) == 5, out
+    for row in rows:
+        assert all((b - a) % 32 == 1 for a, b in zip(row[-5:], row[-4:])), row
+    assert "served by 1 replica(s)" in out, out
+    assert "rollover complete: 2 replicas upgraded" in out
+    assert "zero requests dropped" in out
+    assert "fleet health: serving, 2 replicas in rotation" in out
+    assert "drained and stopped" in out

@@ -30,6 +30,7 @@ from distkeras_tpu_torch import obs as pobs
 from distkeras_tpu_torch.kernels import build
 from distkeras_tpu_torch.models import zoo
 from distkeras_tpu_torch.serving import ServingEngine
+from distkeras_tpu_torch.serving import engine as engine_mod
 from distkeras_tpu_torch.serving.engine import _InflightStep
 from distkeras_tpu_torch.serving.scheduler import (
     ContinuousBatcher,
@@ -613,7 +614,18 @@ def test_engine_records_build_mints_and_extends_grace(lms):
         eng._grace_until = 0.0
         eng._on_build(["layernorm_fwd"], None)
         assert eng._grace_until > 0.0  # graced before the build runs
+        # a build on a thread that does not work for this engine (a
+        # sibling replica's) graces it but is not its mint
+        n0 = len(eng.compile_ledger.mints())
         eng._on_build(["layernorm_fwd"], 5.5)
+        assert len(eng.compile_ledger.mints()) == n0
+        # a build on the engine's own thread is (the scheduler loop and
+        # the predict window claim their threads the same way)
+        engine_mod._WARM_SCOPE.ledger = eng.compile_ledger
+        try:
+            eng._on_build(["layernorm_fwd"], 5.5)
+        finally:
+            engine_mod._WARM_SCOPE.ledger = None
         rec = eng.compile_ledger.mints()[-1]
         assert (rec["key"], rec["seconds"], rec["trigger"]) == (
             "build[layernorm_fwd]", 5.5, "serving")

@@ -262,7 +262,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " or m == 'ml_dtypes' or m.startswith('ml_dtypes.')]\n"
         "assert not bad, bad\n"
         "front = ['distkeras_tpu_torch.serving.' + n for n in ('server',"
-        " 'client', 'resilience', 'sampling')]"
+        " 'client', 'resilience', 'sampling', 'fleet', 'autoscale')]"
         " + ['distkeras_tpu_torch.obs.' + n"
         " for n in ('tracing', 'compile_ledger', 'overlap')]\n"
         "assert all(m in sys.modules for m in front), front\n"
