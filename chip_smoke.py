@@ -398,8 +398,33 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``transfer_retries``), the tokens identical, and a pushed generate
    after the kill too.
    After phase 18 the card holds less than one bank more than before it.
+19. The mixture-of-experts family and blockwise attention.
+   ``moe_transformer_lm(8192, 512, 512, 8, 8, num_experts=8)`` (phase 4's
+   LM with an 8-expert switch MoE after every block: 168,117,248
+   parameters in 134 leaves) from seed 0. 19a: an LN-hooked engine serves
+   phase 4's mix, dense then paged; every greedy reply equals the same
+   model's solo ``CachedSequenceGenerator`` decode (no-drop routing on
+   both), the sampled ones replay, B7 exactly what the program calls
+   imply (17 a step, 16 a prefill chunk) and B4 never; tokens/s beside
+   phase 4's dense LM. A predict-only engine with both hooks answers 8 x
+   512 through exactly 17 B7 and 8 B4 launches (the capacity-dropped
+   forward); its logits equal the plain path's to 1e-4 at every position
+   routed alike on both paths (at least 99% of them). 19b: an n-gram
+   engine (``draft_k=4``) on phase 4's mix and a plain engine on 14b's
+   templated 16-request mix through 32-position prefill chunks, with 19a's
+   bars. 19c: ``SingleTrainer`` with the flash and LN hooks and
+   ``pallas_adam``, ``aux_loss_weight=0.01``, 4 steps of 8 x 512
+   successor tokens from ``default_rng(19)``, then the plain path with
+   ``adam``: per-step losses within 1e-3 relative, exactly 4 x (17, 17,
+   8, 8, 8, 1) launches, none on the plain path, every saved
+   ``aux_loss`` detached. 19d: ``blockwise_attention`` (512-key blocks)
+   against ``dense_attention`` at (1, 8192, 8, 64) f32, causal and not:
+   within 3e-5 and a lower ``max_memory_allocated`` peak, both times and
+   peaks printed; ``attach_blockwise_attention(block_size=128)`` on phase
+   4's LM's 8 x 512 forward within 1e-4 of the unhooked one.
 
-``--profile`` adds where the time goes: a decode step (dense, paged, on
+``--profile`` adds where the time goes: the MoE LM's decode step beside
+the dense LM's (19a), a decode step (dense, paged, on
 bf16 caches and grammar-masked), a
 verify window with 8 busy slots, a swap-out, a swap-in and a fork of a
 300-token slot, a predict forward, a training step, an async window and a
@@ -4595,6 +4620,12 @@ LN_PER_CALL = {"_step_dev": lambda n: 2 * n + 1,
                "_prefill_paged": lambda n: 2 * n}
 
 
+def block_count(model):
+    """The transformer blocks of an LM (an MoE stage adds no LayerNorm)."""
+    return sum(type(layer).__name__ == "TransformerBlock"
+               for layer in model.layers)
+
+
 class ProgramCalls:
     """Counts the calls of each ``DecodeStepper`` program body per model
     while active, so a drive's exact B7 launch count follows from them:
@@ -4620,7 +4651,7 @@ class ProgramCalls:
                 def call(st, *a, **kw):
                     key = (id(st.model), name)
                     self.calls[key] = self.calls.get(key, 0) + 1
-                    self.blocks[id(st.model)] = len(st.model.layers) - 3
+                    self.blocks[id(st.model)] = block_count(st.model)
                     return orig(st, *a, **kw)
                 return call
 
@@ -4638,7 +4669,7 @@ class ProgramCalls:
 
     def ln_launches(self, models):
         """The B7 launches the counted calls make on ``models`` (hooked)."""
-        return sum(self.of(m, name) * per(len(m.layers) - 3)
+        return sum(self.of(m, name) * per(block_count(m))
                    for m in models for name, per in LN_PER_CALL.items())
 
     def ln_launches_all(self):
@@ -5686,8 +5717,8 @@ def cached_forced_logits(torch, np, gen, seq, plen, chunked):
         pos = torch.arange(start, t, device=dev)
         x = gen.embed(toks[:, start:], pos)
         qmask = torch.arange(t, device=dev)[None, :] <= pos[:, None]
-        for blk, (ck, cv) in zip(gen._blocks, caches):
-            x = gen._stage_chunk(blk, x, ck, cv, start, qmask)
+        for (blk, moe), (ck, cv) in zip(gen._stages, caches):
+            x = gen._stage_chunk(blk, moe, x, ck, cv, start, qmask)
         lg = gen._head(gen._final_ln(x))[0]
     return lg[plen - 1 - start:].float().cpu().numpy()
 
@@ -7637,6 +7668,423 @@ def run_phase18(torch, np, lm, smi, front, gen_reqs, gen_outs):
     return out, counts
 
 
+# ------------------------------------------------------------------ phase 19
+
+#: the full-width MoE LM: phase 4's LM with an 8-expert switch MoE after
+#: every block (168,117,248 f32 parameters in 134 leaves, from the JAX
+#: builder)
+MOE_LM = dict(vocab_size=8192, seq_len=512, d_model=512, num_heads=8,
+              depth=8, num_experts=8)
+MOE_PARAMS = 168_117_248
+MOE_LEAVES = 134
+MOE_TRAIN_STEPS = 4
+MOE_TRAIN_WINDOW = 2
+BLOCKWISE_SHAPE = (1, 8192, 8, 64)
+BLOCKWISE_TOL = 3e-5  # f32, another summation order over 8192 keys
+
+
+def make_moe(zoo):
+    return zoo.moe_transformer_lm(**MOE_LM, seed=0)
+
+
+def moe_routes(torch, model):
+    """Forward hooks recording, per MoE layer, every token's routed expert
+    and whether the capacity kept it; returns (the record, the handles)."""
+    from distkeras_tpu_torch.parallel.expert_parallel import MoE, _route
+
+    rec = []
+
+    def hook(layer, args, out):
+        x = args[0]
+        tokens = x.reshape(-1, x.shape[-1])
+        s, e = tokens.shape[0], layer.num_experts
+        cap = max(1, int(layer.capacity_factor * s / e))
+        idx, pos, _, _ = _route(tokens.float() @ layer.router, cap)
+        kept = pos < cap
+        rec.append(torch.where(kept, idx, -1).reshape(x.shape[:-1]))
+
+    handles = [l.register_forward_hook(hook) for l in model.layers
+               if isinstance(l, MoE)]
+    return rec, handles
+
+
+def routed_forward(torch, model, seqs):
+    """The model's forward on ``seqs`` and, per (row, position), the
+    routing of every MoE layer at it ((B, T, L): expert, or -1 dropped)."""
+    rec, handles = moe_routes(torch, model)
+    try:
+        y = forward(torch, model, seqs)
+    finally:
+        for h in handles:
+            h.remove()
+    return y, torch.stack(rec, dim=-1)
+
+
+def same_route_prefix(torch, ra, rb):
+    """(B, T) True where two forwards routed every token at and before
+    that position of the row alike (expert and kept, in every layer): a
+    causal row's logits there depend on nothing that routed differently."""
+    same = (ra == rb).all(dim=-1)
+    return torch.cumprod(same.int(), dim=1).bool()
+
+
+def moe_replies(np, outs, reqs, refs, tag):
+    """The 19a/19b bars: every request finished with its tokens, every
+    greedy reply equals the solo cached decode's."""
+    check(all(isinstance(o, np.ndarray) and len(o) == len(p) + n
+              for o, (p, n, _) in zip(outs, reqs)),
+          f"{tag}: a request did not finish with its max_new_tokens: "
+          f"{[o for o in outs if not isinstance(o, np.ndarray)][:2]}")
+    bad = [i for i, (o, (_, _, s)) in enumerate(zip(outs, reqs))
+           if s is None and not np.array_equal(o, refs[i])]
+    check(not bad, f"{tag}: greedy replies {bad} differ from solo decode")
+
+
+def solo_refs(moe, reqs):
+    from distkeras_tpu_torch.predictors import CachedSequenceGenerator
+
+    solo = CachedSequenceGenerator(moe)
+    return {i: solo.generate(p[None], n)[0]
+            for i, (p, n, s) in enumerate(reqs) if s is None}
+
+
+def serve_moe(torch, np, moe, tag, reqs, refs, **kw):
+    """A fresh LN-hooked engine on the MoE LM serving ``reqs``: B7 exactly
+    what the program calls imply, B4 none, the greedy replies equal to
+    ``refs``, the sampled ones replayed identically."""
+    eng = hooked_engine(moe, **kw)
+    try:
+        (outs, secs), counts = counted(torch, moe, tag,
+                                       lambda: serve_mix(eng, reqs))
+        moe_replies(np, outs, reqs, refs, tag)
+        replay = [(o, eng.generate(p, n, sampling=s, timeout=600))
+                  for o, (p, n, s) in zip(outs, reqs) if s is not None]
+        check(all(np.array_equal(a, b) for a, b in replay),
+              f"{tag}: a sampled request did not replay identically")
+        stats = eng.stats()
+    finally:
+        eng.stop()
+    tokens = sum(len(o) - len(p) for o, (p, _, _) in zip(outs, reqs))
+    return {"tokens": tokens, "seconds": secs, "tokens_per_s": tokens / secs,
+            "steps": stats["steps"], "prefill_chunks": stats["prefill_chunks"],
+            "speculative": spec_books(stats),
+            "launches": counts}, counts
+
+
+def run_moe_serving(torch, np, moe, smi, gen, gen_reqs):
+    """19a: phase 4's mix on the MoE LM, dense then paged; the predict
+    forward with both hooks."""
+    from distkeras_tpu_torch.ops.flash_attention import attach_flash_attention
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+    from distkeras_tpu_torch.serving import ServingEngine
+
+    detach_hooks(moe)
+    check(attach_fused_layernorm(moe) == 17, "19a: LN hook not on 17 norms")
+    t0 = time.monotonic()
+    refs = solo_refs(moe, gen_reqs)
+    solo_s = time.monotonic() - t0
+    out, counts = {"solo_seconds": solo_s}, []
+    for paged in (False, True):
+        tag = "19a " + ("paged" if paged else "dense")
+        res, c = serve_moe(torch, np, moe, tag, gen_reqs, refs, paged=paged)
+        res["ratio_to_phase4"] = res["tokens_per_s"] / gen["tokens_per_s"]
+        out["paged" if paged else "dense"] = res
+        counts.append(c)
+        log(f"{tag}: {res['tokens_per_s']:.1f} tokens/s against phase 4's "
+            f"dense LM {gen['tokens_per_s']:.1f} = "
+            f"{res['ratio_to_phase4']:.3f}x; greedy replies = solo decode; "
+            f"{res['steps']} steps, {res['prefill_chunks']} prefill chunks; "
+            f"B7 {c['layernorm_fwd']} = the program calls' on {smi}")
+    # predict: the capacity-dropped forward under both hooks
+    check(attach_flash_attention(moe) == 8, "19a: flash hook not on 8 blocks")
+    x = np.random.default_rng(19).integers(0, 8192, (8, 512)).astype(np.int32)
+    eng = ServingEngine(moe, num_slots=8, predict_batch=8).start()
+    try:
+        check(not eng.health()["generate_enabled"],
+              "19a: a flash-hooked MoE model must be predict-only")
+        eng.predict(x[:1], timeout=600)
+        from distkeras_tpu_torch import kernels
+
+        kernels.reset_launch_counts()
+        t1 = time.monotonic()
+        y = eng.predict(x, timeout=600)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t1
+        pc = kernels.launch_counts()
+    finally:
+        eng.stop()
+    check({k: n for k, n in pc.items() if n}
+          == {"layernorm_fwd": 17, "flash_fwd": 8},
+          f"19a predict did not run through the kernels: {pc}")
+    counts.append(pc)
+    check(y.shape == (8, 512, 8192) and np.isfinite(y).all(),
+          f"19a predict output malformed: {y.shape}")
+    # the same forward on both paths, with its routing: a near-tie router
+    # logit may route a token otherwise on the two paths, and a causal
+    # row's logits are compared up to its first such token
+    yk, rk = routed_forward(torch, moe, x)
+    detach_hooks(moe)
+    yp, rp = routed_forward(torch, moe, x)
+    same = same_route_prefix(torch, rk, rp)
+    kerr = float(np.abs(y - yk.cpu().numpy()).max())
+    diff = (yk - yp).abs().amax(dim=-1)
+    share = float(same.float().mean())
+    err = float(diff[same].max()) if share > 0 else float("inf")
+    out["predict"] = {"seconds": secs, "launches": pc,
+                      "max_abs_err_vs_plain": err,
+                      "engine_vs_forward_max_abs_err": kerr,
+                      "same_route_share": share}
+    log(f"19a predict 8x512 (MoE, flash + LN): {secs:.3f} s, launches {pc}; "
+        f"max |kernel - plain| logits {err:.3e} over {share:.4f} of the "
+        f"positions (routed alike on both paths); engine vs forward "
+        f"{kerr:.3e} on {smi}")
+    check(kerr <= LOGIT_TOL, f"19a: the engine's predict is not the "
+          f"model's forward: {kerr}")
+    check(err <= LOGIT_TOL and share >= 0.99,
+          f"19a predict logits disagree with the plain path: {err} over "
+          f"{share} of the positions")
+    return out, counts, refs
+
+
+def run_moe_spec_chunked(torch, np, moe, smi, gen_reqs, refs):
+    """19b: an n-gram speculative engine on phase 4's mix, and the
+    templated 16-request mix through 32-position prefill chunks."""
+    out, counts = {}, []
+    res, c = serve_moe(torch, np, moe, "19b n-gram", gen_reqs, refs,
+                       speculative="ngram", draft_k=4)
+    out["ngram"] = res
+    counts.append(c)
+    log(f"19b n-gram on phase 4's mix: {res['tokens_per_s']:.1f} tokens/s; "
+        f"greedy replies = solo decode; books {res['speculative']}; B7 "
+        f"{c['layernorm_fwd']} = the program calls' on {smi}")
+    reqs = templated_mix(np)
+    trefs = solo_refs(moe, reqs)
+    res, c = serve_moe(torch, np, moe, "19b chunked", reqs, trefs,
+                       prefill_chunk=32)
+    out["chunked"] = res
+    counts.append(c)
+    log(f"19b chunked (16 requests, 136-200-token prompts in 32-position "
+        f"chunks): {res['tokens_per_s']:.1f} tokens/s, "
+        f"{res['prefill_chunks']} chunks; greedy replies = solo decode; "
+        f"B7 {c['layernorm_fwd']} = the program calls' on {smi}")
+    return out, counts
+
+
+def moe_train_once(torch, np, zoo, hooked):
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.data.dataset import Dataset
+    from distkeras_tpu_torch.ops.flash_attention import attach_flash_attention
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+    from distkeras_tpu_torch.trainers import SingleTrainer
+
+    rng = np.random.default_rng(19)
+    starts = rng.integers(0, 8192, 8 * MOE_TRAIN_STEPS)
+    x = ((starts[:, None] + np.arange(512)[None, :]) % 8192).astype(np.int32)
+    moe = make_moe(zoo)
+    if hooked:
+        check(attach_flash_attention(moe) == 8, "19c: flash hook not on 8")
+        check(attach_fused_layernorm(moe) == 17, "19c: LN hook not on 17")
+    trainer = SingleTrainer(
+        moe, "pallas_adam" if hooked else "adam", "next_token_crossentropy",
+        metrics=["next_token_accuracy"], batch_size=8,
+        window=MOE_TRAIN_WINDOW, learning_rate=1e-3, seed=0,
+        device_resident=True, aux_loss_weight=0.01)
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    res = trainer.train(Dataset({"features": x, "label": x}))
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    aux = [float(l.aux_loss) for l in res.layers
+           if type(l).__name__ == "MoE"]
+    check(not any(l.aux_loss.requires_grad for l in res.layers
+                  if type(l).__name__ == "MoE"),
+          "19c: a saved aux_loss carries autograd history")
+    return trainer, secs, kernels.launch_counts(), aux
+
+
+def run_moe_train(torch, np, zoo, smi):
+    """19c: ``SingleTrainer`` on the MoE LM with the flash and LN hooks and
+    pallas_adam, then the plain path; losses per step within
+    TRAIN_LOSS_RTOL, the kernels launched exactly per step."""
+    trainer, secs, counts, aux = moe_train_once(torch, np, zoo, True)
+    plain, plain_secs, plain_counts, _ = moe_train_once(torch, np, zoo,
+                                                        False)
+    torch.cuda.empty_cache()
+    losses = [r["loss"] for r in trainer.get_history()]
+    plain_losses = [r["loss"] for r in plain.get_history()]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+    expected = {k: MOE_TRAIN_STEPS * n for k, n in LM_STEP_LAUNCHES.items()}
+    def step_ms(t):
+        # the second window: the first pays the cuBLAS/allocator warm-up
+        return t.history.get_timings()[1][1] / MOE_TRAIN_WINDOW * 1e3
+
+    res = {"steps": len(losses), "seconds": secs,
+           "plain_seconds": plain_secs, "step_ms": step_ms(trainer),
+           "plain_step_ms": step_ms(plain),
+           "losses": losses, "plain_losses": plain_losses,
+           "max_rel_loss_diff_vs_plain": rel, "aux_losses": aux,
+           "launches": counts, "plain_launches": plain_counts}
+    log(f"19c train (MoE, 4 steps of 8 x 512): step {res['step_ms']:.1f} ms "
+        f"(plain path {res['plain_step_ms']:.1f}; second window); losses "
+        f"{losses}; max rel diff vs plain "
+        f"{rel:.2e}; aux losses {[round(a, 4) for a in aux]}; launches "
+        f"{ {k: n for k, n in counts.items() if n} } on {smi}")
+    check(len(losses) == len(plain_losses) == MOE_TRAIN_STEPS,
+          f"19c: expected {MOE_TRAIN_STEPS} steps, got {len(losses)}")
+    check(all(np.isfinite(losses + plain_losses)),
+          f"19c: a loss is not finite: {losses} {plain_losses}")
+    check(rel <= TRAIN_LOSS_RTOL,
+          f"19c: kernel-path losses differ from the plain path by {rel:.3e}")
+    check({k: n for k, n in counts.items() if n} == expected,
+          f"19c: launches {counts} != {expected}")
+    check(set(plain_counts.values()) == {0},
+          f"19c: the plain path launched a kernel: {plain_counts}")
+    return res, counts
+
+
+def peak_run(torch, fn):
+    """(fn's result, ms by CUDA events, peak bytes above the live ones)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), torch.cuda.max_memory_allocated() - base
+
+
+def run_blockwise(torch, np, lm, smi):
+    """19d: ``blockwise_attention`` against ``dense_attention`` at (1,
+    8192, 8, 64), causal and not, with both times and peaks; then
+    ``attach_blockwise_attention`` on the full-width LM's forward."""
+    from distkeras_tpu_torch.parallel import (
+        attach_blockwise_attention,
+        blockwise_attention,
+        dense_attention,
+    )
+
+    dev = next(lm.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(19)
+    q, k, v = (torch.randn(BLOCKWISE_SHAPE, generator=gen, device=dev)
+               for _ in range(3))
+    out = {}
+    for causal in (False, True):
+        for _ in range(2):  # the second call of each is the one kept
+            ref, dense_ms, dense_peak = peak_run(
+                torch, lambda: dense_attention(q, k, v, causal=causal))
+            blk, blk_ms, blk_peak = peak_run(
+                torch, lambda: blockwise_attention(q, k, v, causal=causal))
+        err = float((blk - ref).abs().max())
+        del ref, blk
+        tag = "causal" if causal else "full"
+        out[tag] = {"max_abs_err": err, "dense_ms": dense_ms,
+                    "blockwise_ms": blk_ms, "dense_peak_bytes": dense_peak,
+                    "blockwise_peak_bytes": blk_peak}
+        log(f"19d blockwise {tag} at {BLOCKWISE_SHAPE}, block 512: max "
+            f"|blockwise - dense| {err:.3e}; {blk_ms:.2f} ms against dense "
+            f"{dense_ms:.2f}; peak {blk_peak / 2**20:.0f} MiB against "
+            f"{dense_peak / 2**20:.0f} on {smi}")
+        check(err <= BLOCKWISE_TOL, f"19d {tag}: blockwise differs from "
+              f"dense by {err}")
+        check(blk_peak < dense_peak, f"19d {tag}: blockwise peaked at "
+              f"{blk_peak} bytes, dense at {dense_peak}")
+    del q, k, v
+    detach_hooks(lm)
+    x = np.random.default_rng(20).integers(0, 8192, (8, 512))
+    ref = forward(torch, lm, x)
+    check(attach_blockwise_attention(lm, block_size=128) == 8,
+          "19d: blockwise hook not on 8 blocks")
+    try:
+        got = forward(torch, lm, x)
+    finally:
+        detach_hooks(lm)
+    err = float((got - ref).abs().max())
+    out["lm_forward_max_abs_err"] = err
+    log(f"19d attach_blockwise_attention(block 128) on the d512/L8 LM's "
+        f"8 x 512 forward: max |hooked - unhooked| logits {err:.3e}")
+    check(err <= LOGIT_TOL, f"19d: the blockwise-hooked forward differs "
+          f"from the unhooked one by {err}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_moe_step(torch, np, moe, lm, steps=20):
+    """``--profile``: the MoE LM's decode step beside the dense LM's (8
+    busy slots, LN-hooked, dense banks), walls in turns, device times."""
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+    from distkeras_tpu_torch.serving.engine import DecodeStepper
+
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, 8192, 64) for _ in range(8)]
+    steppers = {}
+    for name, m in (("moe", moe), ("dense", lm)):
+        detach_hooks(m)
+        attach_fused_layernorm(m)
+        steppers[name] = DecodeStepper(m, num_slots=8)
+        for i, p in enumerate(prompts):
+            steppers[name].admit(i, p)
+    active = np.ones(8, bool)
+    calls = {n: (lambda st=st: st.step(active)) for n, st in steppers.items()}
+    walls = {n: [] for n in calls}
+    for r in range(3):
+        for n in (list(calls)[r % 2:] + list(calls)[: r % 2]):
+            fn = calls[n]
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+            walls[n].append((time.monotonic() - t0) / steps * 1e3)
+    out = {}
+    for n, fn in calls.items():
+        prof = device_profile(torch, fn, steps)
+        prof["wall_ms"] = float(np.median(walls[n]))
+        if prof["device_ms"] is not None:
+            prof["device_idle_share"] = 1 - prof["device_ms"] / prof["wall_ms"]
+        out[n] = prof
+        log(f"19a profile {n} decode step: " + str(
+            {k: v for k, v in prof.items() if k != "top_kernels"}))
+        for kk in prof["top_kernels"]:
+            log(f"  {kk}")
+    del steppers
+    gc.collect()
+    return out
+
+
+def run_phase19(torch, np, lm, zoo, smi, gen, gen_reqs, profile=False):
+    """Phase 19, the MoE transformer family and blockwise attention on the
+    card; returns the results and the launch counts of each drive."""
+    t0 = time.monotonic()
+    moe = make_moe(zoo)
+    n_params, n_leaves = moe.num_params(), len(list(moe.parameters()))
+    log(f"moe_transformer_lm d512/L8/E8: {n_params} parameters in "
+        f"{n_leaves} leaves")
+    check((n_params, n_leaves) == (MOE_PARAMS, MOE_LEAVES),
+          f"19: the MoE LM has {n_params} parameters in {n_leaves} leaves")
+    out = {"parameters": n_params}
+    out["serving"], c_a, refs = run_moe_serving(torch, np, moe, smi, gen,
+                                                gen_reqs)
+    out["speculative_chunked"], c_b = run_moe_spec_chunked(
+        torch, np, moe, smi, gen_reqs, refs)
+    if profile:
+        out["profile"] = profile_moe_step(torch, np, moe, lm)
+    detach_hooks(moe)
+    del moe
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train"], c_c = run_moe_train(torch, np, zoo, smi)
+    out["blockwise"] = run_blockwise(torch, np, lm, smi)
+    out["seconds_total"] = time.monotonic() - t0
+    counts = [*c_a, *c_b, c_c]
+    out["launches"] = {k: sum(c.get(k, 0) for c in counts)
+                       for k in counts[0]}
+    return out, counts
+
+
 def baseline_leaf_shapes():
     """The parameter shapes of configs 2-5's models (built on the CPU: only
     their leaf tables matter to phases 2b/2c)."""
@@ -8224,6 +8672,10 @@ def main(argv):
                                         gen_outs)
     log(f"phase 18 in {fleet['seconds_total']:.1f} s, launches "
         f"{fleet['launches']} on {smi}")
+    moe, moe_launches = run_phase19(torch, np, lm, zoo, smi, gen, gen_reqs,
+                                    profile=args.profile)
+    log(f"phase 19 in {moe['seconds_total']:.1f} s, launches "
+        f"{moe['launches']} on {smi}")
     profile = profile_paths(torch, np, lm, zoo) if args.profile else None
 
     phases = [pred["launches"], gen["launches"], train["launches"],
@@ -8231,7 +8683,7 @@ def main(argv):
               member_launches, socket_launches, *front_launches,
               *healing_launches, *paging_launches, *spec_launches,
               *qos_launches, *knobs_launches, *disagg_launches,
-              *fleet_launches,
+              *fleet_launches, *moe_launches,
               *(r["launches"] for r in async_sim.values())]
     launches = {k: sum(c.get(k, 0) for c in phases) for k in kernels.LAUNCHES}
     check(all(n > 0 for n in launches.values()),
@@ -8301,7 +8753,7 @@ def main(argv):
                        "phase12": healing, "phase13": paging,
                        "phase14": spec, "phase15": qos,
                        "phase16": knobs, "phase17": disagg,
-                       "phase18": fleet,
+                       "phase18": fleet, "phase19": moe,
                        "profile": profile,
                        "flash_infinite_q": inf_rows},
                       f, indent=1)

@@ -34,7 +34,11 @@ compression for the async tier (``utils.compression``); the socket
 parameter-server tier: ``SocketParameterServer`` with warm-standby
 replication and ``RemoteParameterServerClient`` (``parameter_servers``,
 over ``networking``), the fault-injection seams (``faults``) and the PS's
-metrics, time-series and flight-recorder books (``obs``).
+metrics, time-series and flight-recorder books (``obs``); the switch
+mixture-of-experts layer and its LM and classifier builders
+(``parallel.expert_parallel``, ``models.zoo``), served and trained on
+every path, and single-device blockwise attention
+(``parallel.ring_attention``).
 Kernels (``kernels/csrc``): LayerNorm forward and backward,
 FlashAttention forward and backward (dQ, dK/dV), the fused multi-tensor
 Adam, and the fused multi-tensor SGD without and with momentum.

@@ -156,6 +156,12 @@ class Layer(nn.Module):
         walkers (hook attachment) reach every layer."""
         return []
 
+    def take_aux_loss(self):
+        """The differentiable regularizer the last forward produced, handed
+        over once (then cleared), or None: the channel through which a
+        layer (``MoE``'s load-balance loss) reaches the training loss."""
+        return None
+
 
 # --------------------------------------------------------------------- layers
 

@@ -10,7 +10,8 @@ transformer classifier and language model.
 
 All NHWC, f32 parameters; trainers may compute in bf16. Every function
 takes ``device=None``, which builds on CUDA. The mixture-of-experts
-models are not ported yet.
+builders put a switch ``MoE`` layer (``parallel.expert_parallel``) after
+every transformer block.
 """
 
 from __future__ import annotations
@@ -192,6 +193,60 @@ def transformer_lm(
     return model.build((seq_len,), seed=seed, device=device)
 
 
+def moe_transformer_lm(
+    vocab_size=256,
+    seq_len=128,
+    d_model=128,
+    num_heads=4,
+    depth=2,
+    num_experts=8,
+    seed=0,
+    remat=False,
+    device=None,
+):
+    """Causal language model with a switch-MoE feed-forward after each
+    block: Embedding -> (causal TransformerBlock, MoE) xN -> LayerNorm ->
+    logits. Routing mixes nothing across tokens and a token's capacity
+    place is positional, so a row stays causal; whether a token is
+    dropped can depend on the other rows of the batch (capacity is a
+    budget over all tokens), as in any capacity-dropped switch MoE."""
+    from distkeras_tpu_torch.parallel.expert_parallel import MoE
+
+    layers = [Embedding(vocab_size, d_model)]
+    for _ in range(depth):
+        layers += [
+            TransformerBlock(num_heads, causal=True, remat=remat),
+            MoE(num_experts),
+        ]
+    layers += [LayerNorm(), Dense(vocab_size)]
+    return Sequential(layers).build((seq_len,), seed=seed, device=device)
+
+
+def moe_transformer_classifier(
+    vocab_size=64,
+    seq_len=64,
+    d_model=64,
+    num_heads=4,
+    depth=2,
+    num_experts=8,
+    num_classes=2,
+    seed=0,
+    device=None,
+):
+    """Sequence classifier with a switch-MoE feed-forward after each
+    (non-causal) transformer block -> LayerNorm -> mean-pool -> softmax
+    head. The load-balance loss reaches the training loss through
+    ``WorkerCore``'s ``aux_loss_weight``."""
+    from distkeras_tpu_torch.parallel.expert_parallel import MoE
+
+    layers = [Embedding(vocab_size, d_model)]
+    for _ in range(depth):
+        layers += [TransformerBlock(num_heads), MoE(num_experts)]
+    layers += [LayerNorm(), GlobalAvgPool1D(),
+               Dense(num_classes, activation="softmax")]
+    return Sequential(layers).build((seq_len,), seed=seed, device=device)
+
+
 def _basic_block(filters, stride=1, downsample=False, bn_momentum=0.99):
     bn = lambda: BatchNorm(momentum=bn_momentum)  # noqa: E731
     shortcut = (
@@ -258,4 +313,5 @@ ZOO = {
     "cifar10_cnn": cifar10_cnn,
     "resnet18": resnet18,
     "transformer_classifier": transformer_classifier,
+    "moe_transformer_classifier": moe_transformer_classifier,
 }

@@ -1,12 +1,17 @@
 """Single-device attention and the attention-hook helpers (PyTorch port of
-the parts of ``distkeras_tpu.parallel.ring_attention`` that serving uses).
+the single-device parts of ``distkeras_tpu.parallel.ring_attention``).
 
 ``dense_attention`` is ``MultiHeadSelfAttention``'s default, the prefill's
-attention, and the plain version the flash kernel is held against. The
-ring and blockwise variants are not ported yet.
+attention, and the plain version the flash kernel is held against.
+``blockwise_attention`` is the memory-efficient single-device form: a loop
+over K/V blocks with an online softmax, so the full (Tq, Tk) score matrix
+never materializes (peak score memory (Tq, block_size)). The ring over a
+mesh axis needs more than one card and is not ported.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -23,6 +28,76 @@ def dense_attention(q, k, v, causal=False):
         s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def _block_attention(q, k, v, acc, m, l, k_off, scale, causal):
+    """One online-softmax accumulation step of the (B, Tq, H, D) queries
+    against one K/V block at key offset ``k_off``; acc (B, Tq, H, D) f32,
+    m, l (B, H, Tq) the running max and normalizer. Returns the updated
+    (acc, m, l)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        tq, tk = q.shape[1], k.shape[1]
+        q_pos = torch.arange(tq, device=q.device)[:, None]
+        k_pos = k_off + torch.arange(tk, device=q.device)[None, :]
+        s = s.masked_fill(k_pos > q_pos, float("-inf"))
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    # a row with no visible key yet keeps m == -inf: exp(-inf - -inf) is
+    # nan, so the shift is guarded to 0 (and the correction with it)
+    shift = torch.where(torch.isneginf(m_new), torch.zeros_like(m_new),
+                        m_new)
+    p = torch.exp(s - shift[..., None])
+    correction = torch.exp(torch.where(torch.isneginf(m), shift, m) - shift)
+    l_new = l * correction + p.sum(dim=-1)
+    pv = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    acc_new = acc * correction.transpose(1, 2)[..., None] + pv
+    return acc_new, m_new, l_new
+
+
+def _finalize(acc, l, out_dtype):
+    """Normalize the accumulator; a row with no visible key (l == 0)
+    divides by 1."""
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (acc / l.transpose(1, 2)[..., None]).to(out_dtype)
+
+
+def blockwise_attention(q, k, v, causal=False, block_size=512):
+    """Memory-efficient self-attention on one device: a loop over K/V
+    blocks of ``block_size`` keys with the online softmax of
+    ``_block_attention``, numerically ``dense_attention``. q, k, v: (B,
+    T, H, D); T divisible by ``block_size``, or at most it (one block is
+    the dense case). Cross-attention (k/v of another length) raises."""
+    b, t, h, d = q.shape
+    if k.shape[1] != t or v.shape[1] != t:
+        raise ValueError(
+            "blockwise_attention is self-attention only: expected "
+            f"k/v seq length {t} (q's), got k={k.shape[1]}, v={v.shape[1]}"
+        )
+    if t <= block_size:
+        return dense_attention(q, k, v, causal=causal)
+    if t % block_size:
+        raise ValueError(
+            f"seq length {t} not divisible by block_size {block_size}"
+        )
+    scale = 1.0 / (d**0.5)
+    acc = torch.zeros((b, t, h, d), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, t), float("-inf"), device=q.device)
+    l = torch.zeros((b, h, t), device=q.device)
+    for off in range(0, t, block_size):
+        acc, m, l = _block_attention(
+            q, k[:, off : off + block_size], v[:, off : off + block_size],
+            acc, m, l, off, scale, causal,
+        )
+    return _finalize(acc, l, q.dtype)
+
+
+def attach_blockwise_attention(model, block_size=512) -> int:
+    """Point every MultiHeadSelfAttention at :func:`blockwise_attention`
+    (single-device long-context mode); returns how many were attached. A
+    process-local hook, not serialized."""
+    return attach_attention_fn(
+        model, functools.partial(blockwise_attention, block_size=block_size)
+    )
 
 
 def attach_attention_fn(model, fn) -> int:

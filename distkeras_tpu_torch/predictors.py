@@ -20,7 +20,9 @@ import numpy as np
 import torch
 
 from distkeras_tpu_torch.data.dataset import Dataset
+from distkeras_tpu_torch.models.sequential import walk_layers
 from distkeras_tpu_torch.ops.quantization import qmatmul, qshape
+from distkeras_tpu_torch.parallel.expert_parallel import MoE, moe_nodrop
 from distkeras_tpu_torch.utils.device import check_model_device
 
 
@@ -46,7 +48,10 @@ def resolve_kv_dtype(kv_dtype) -> torch.dtype:
 class ModelPredictor:
     """Batched forward over a Dataset column on one device. The ragged
     final batch runs at its own size (eager PyTorch needs no static
-    shape, so it is not padded)."""
+    shape), except for a model with a switch ``MoE`` layer: its capacity
+    is a budget over every token of the batch, so a row's output depends
+    on the batch's size, and the ragged batch is padded with zero rows to
+    ``batch_size`` as the JAX predictor pads it."""
 
     def __init__(self, model, features_col="features",
                  output_col="prediction", batch_size=1024, device=None):
@@ -55,15 +60,20 @@ class ModelPredictor:
         self.output_col = output_col
         self.batch_size = int(batch_size)
         self.device = check_model_device(model, device)
+        self._pad = any(isinstance(l, MoE) for l in walk_layers(model))
 
     @torch.no_grad()
     def predict(self, ds: Dataset) -> Dataset:
         x = ds[self.features_col]
         outs = []
         for i in range(0, len(x), self.batch_size):
-            chunk = torch.as_tensor(x[i : i + self.batch_size],
-                                    device=self.device)
-            outs.append(self.model(chunk).cpu().numpy())
+            chunk = np.asarray(x[i : i + self.batch_size])
+            n = len(chunk)
+            if self._pad and n < self.batch_size:
+                chunk = np.concatenate([chunk, np.zeros(
+                    (self.batch_size - n, *chunk.shape[1:]), chunk.dtype)])
+            y = self.model(torch.as_tensor(chunk, device=self.device))
+            outs.append(y[:n].cpu().numpy())
         return ds.with_column(self.output_col, np.concatenate(outs, axis=0))
 
 
@@ -246,10 +256,20 @@ class CachedSequenceGenerator(SequenceGenerator):
     THE identity reference of the serving tier: every ``DecodeStepper``
     admission path is pinned token-identical to its solo greedy decode.
 
-    Supports Embedding -> causal TransformerBlock xN -> LayerNorm -> Dense;
-    anything else — MoE stages (not ported), attention hooks, non-causal
-    blocks — raises rather than decoding incorrectly. The LayerNorm
-    ``norm_fn`` hook is honoured (every LN here goes through the layer).
+    Supports Embedding -> causal TransformerBlock xN -> LayerNorm -> Dense,
+    each block optionally followed by a switch ``MoE`` layer
+    (``zoo.moe_transformer_lm``); anything else — attention hooks,
+    non-causal blocks — raises rather than decoding incorrectly. The
+    LayerNorm ``norm_fn`` hook is honoured (every LN here goes through the
+    layer).
+
+    An MoE stage routes WITHOUT capacity drops (``_moe_nodrop``): every
+    real token gets its top-1 expert's gated output, so the output does
+    not depend on padding or batch composition. The cost is all E
+    experts computed on every token (E x the FFN's FLOPs), per decoded
+    token and over the prompt at prefill. The uncached forward's capacity
+    drops are deliberately not reproduced, so an MoE model's greedy
+    decode is not pinned to ``SequenceGenerator``'s.
 
     ``kv_dtype``: the caches' dtype; None keeps f32. ``torch.bfloat16``
     (or ``torch.float16``) halves the per-token cache-read bytes. K/V are
@@ -273,8 +293,9 @@ class CachedSequenceGenerator(SequenceGenerator):
         layers = list(model.layers)
         shape_err = ValueError(
             "CachedSequenceGenerator supports Embedding -> causal "
-            "TransformerBlock xN -> LayerNorm -> Dense models "
-            "(zoo.transformer_lm); got "
+            "TransformerBlock xN (each optionally followed by a MoE "
+            "layer) -> LayerNorm -> Dense models (zoo.transformer_lm / "
+            "zoo.moe_transformer_lm); got "
             f"{[type(l).__name__ for l in layers]}"
         )
         if not (
@@ -282,10 +303,21 @@ class CachedSequenceGenerator(SequenceGenerator):
             and isinstance(layers[0], Embedding)
             and isinstance(layers[-2], LayerNorm)
             and isinstance(layers[-1], Dense)
-            and all(isinstance(l, TransformerBlock) for l in layers[1:-2])
         ):
             raise shape_err
-        blocks = layers[1:-2]
+        # the middle as (block, optional MoE) stages
+        stages, mid = [], layers[1:-2]
+        i = 0
+        while i < len(mid):
+            if not isinstance(mid[i], TransformerBlock):
+                raise shape_err
+            moe = mid[i + 1] if (i + 1 < len(mid)
+                                 and isinstance(mid[i + 1], MoE)) else None
+            stages.append((mid[i], moe))
+            i += 1 if moe is None else 2
+        if not stages:
+            raise shape_err
+        blocks = [blk for blk, _ in stages]
         if not all(b.causal for b in blocks):
             raise shape_err
         head_shapes = {
@@ -304,17 +336,29 @@ class CachedSequenceGenerator(SequenceGenerator):
                     "attention_fn hook (flash/ring) before decoding"
                 )
         self._emb = layers[0]
+        self._stages = stages
         self._blocks = blocks
         self._final_ln = layers[-2]
         self._head = layers[-1]
         self.num_heads = blocks[0].mhsa.num_heads
         self.head_dim = qshape(blocks[0].mhsa.wq)[1] // self.num_heads
 
-    def _stage_chunk(self, blk, x, cache_k, cache_v, pos, qmask):
-        """A C-token chunk through one block against its cache — THE
-        per-stage transformer body (single-token decode is C=1). x: (B, C,
-        d); caches (B, T, H, Dh), written IN PLACE at rows pos..pos+C-1;
-        qmask: (C, T) bool, True where chunk row c may attend position t."""
+    _moe_nodrop = staticmethod(moe_nodrop)
+
+    def _ffn(self, blk, moe, x):
+        """The feed-forward tail of one stage: the block's MLP residual,
+        then the no-drop MoE residual when the stage has one."""
+        x = x + blk.fc2(blk.fc1(blk.ln2(x)))
+        if moe is not None:
+            x = x + self._moe_nodrop(moe.expert_params(), x)
+        return x
+
+    def _stage_chunk(self, blk, moe, x, cache_k, cache_v, pos, qmask):
+        """A C-token chunk through one (block, optional MoE) stage against
+        its cache — THE per-stage transformer body (single-token decode is
+        C=1). x: (B, C, d); caches (B, T, H, Dh), written IN PLACE at rows
+        pos..pos+C-1; qmask: (C, T) bool, True where chunk row c may attend
+        position t."""
         mh = blk.mhsa
         b, c, _ = x.shape
         nh, hd = self.num_heads, self.head_dim
@@ -332,20 +376,21 @@ class CachedSequenceGenerator(SequenceGenerator):
         o = qmatmul(o.reshape(b, c, nh * hd), mh.wo)
         if mh.use_bias:
             o = o + mh.bo
-        x = x + o
-        return x + blk.fc2(blk.fc1(blk.ln2(x)))
+        return self._ffn(blk, moe, x + o)
 
     def _prefill(self, caches, x):
         """Run the pre-embedded prompt prefix ``x`` (B, PP, d) through every
-        block, filling each cache's first PP rows in place (dense causal
-        attention over the prefix); returns the hidden states."""
+        stage, filling each cache's first PP rows in place (dense causal
+        attention over the prefix); returns the hidden states. MoE stages
+        route as the decode steps do, so prefill and per-token outputs
+        agree."""
         from distkeras_tpu_torch.parallel.ring_attention import (
             dense_attention,
         )
 
         bsz, pp, _ = x.shape
         nh, hd = self.num_heads, self.head_dim
-        for blk, (ck, cv) in zip(self._blocks, caches):
+        for (blk, moe), (ck, cv) in zip(self._stages, caches):
             mh = blk.mhsa
             h_ = blk.ln1(x)
             q = qmatmul(h_, mh.wq).reshape(bsz, pp, nh, hd)
@@ -358,8 +403,7 @@ class CachedSequenceGenerator(SequenceGenerator):
             o = qmatmul(o.reshape(bsz, pp, nh * hd), mh.wo)
             if mh.use_bias:
                 o = o + mh.bo
-            x = x + o
-            x = x + blk.fc2(blk.fc1(blk.ln2(x)))
+            x = self._ffn(blk, moe, x + o)
         return x
 
     def embed(self, tok, pos):
@@ -397,11 +441,11 @@ class CachedSequenceGenerator(SequenceGenerator):
         return caches
 
     def _stages_decode(self, caches, x, pos, t_mask):
-        """One token through every block against the caches (C = 1)."""
+        """One token through every stage against the caches (C = 1)."""
         x = x[:, None]
         qmask = t_mask[None, :]
-        for blk, (ck, cv) in zip(self._blocks, caches):
-            x = self._stage_chunk(blk, x, ck, cv, pos, qmask)
+        for (blk, moe), (ck, cv) in zip(self._stages, caches):
+            x = self._stage_chunk(blk, moe, x, ck, cv, pos, qmask)
         return x[:, 0]
 
     def _decode(self, ctx, lens, start, n_scan, steps):
@@ -650,8 +694,8 @@ class SpeculativeGenerator:
             chunk = torch.cat([ctx[0, pos : pos + 1], d_toks])
             x = tgen.embed(chunk[None], pos + cand)  # (1, k+1, d)
             qmask = t_idx[None, :] <= (pos + cand)[:, None]
-            for blk, (ck, cv) in zip(tgen._blocks, t_caches):
-                x = tgen._stage_chunk(blk, x, ck, cv, pos, qmask)
+            for (blk, moe), (ck, cv) in zip(tgen._stages, t_caches):
+                x = tgen._stage_chunk(blk, moe, x, ck, cv, pos, qmask)
             t_arg = torch.argmax(tgen._head(tgen._final_ln(x))[0], dim=-1)
             n_acc = int((d_toks == t_arg[:k]).long().cumprod(0).sum())
             n_new = min(n_acc + 1, steps - n_gen)

@@ -1210,8 +1210,9 @@ class DecodeStepper:
         positions = torch.arange(pos, pos + n, device=self.device)
         x = self._gen.embed(toks, positions)
         qmask = self._t_idx[None, : self._tp] <= positions[:, None]
-        for blk, (ck, cv) in zip(self._gen._blocks, self._slot_caches(slot)):
-            x = self._gen._stage_chunk(blk, x, ck, cv, pos, qmask)
+        for (blk, moe), (ck, cv) in zip(self._gen._stages,
+                                        self._slot_caches(slot)):
+            x = self._gen._stage_chunk(blk, moe, x, ck, cv, pos, qmask)
 
     def _table_row(self, slot, pbt) -> np.ndarray:
         """Slot ``slot``'s page table padded to ``pbt`` entries with the
@@ -1238,10 +1239,10 @@ class DecodeStepper:
         pos_d = torch.arange(pos, pos + n, device=self.device)
         x = gen.embed(toks[None], pos_d)
         qmask = self._t_idx[None, :tg] <= pos_d[:, None]
-        for blk, (pk, pv) in zip(gen._blocks, self._pools):
+        for (blk, moe), (pk, pv) in zip(gen._stages, self._pools):
             rk = pk[trow_d].reshape(1, tg, nh, hd)
             rv = pv[trow_d].reshape(1, tg, nh, hd)
-            x = gen._stage_chunk(blk, x, rk, rv, pos, qmask)
+            x = gen._stage_chunk(blk, moe, x, rk, rv, pos, qmask)
             # index_put_ picks an arbitrary winner among duplicate indices
             # on CUDA. ``fpos`` holds n distinct (page, offset) pairs of
             # this slot's own private pages: the chunk covers no padding
@@ -1648,7 +1649,7 @@ class DecodeStepper:
         x = gen.embed(self._ctx[rows, pos], pos)
         keep = act[:, None, None]
         t_mask = (self._t_idx[None, :t_ext] <= pos[:, None])[:, None, :]
-        for li, blk in enumerate(gen._blocks):
+        for li, (blk, moe) in enumerate(gen._stages):
             mh = blk.mhsa
             h_ = blk.ln1(x)
             q = qmatmul(h_, mh.wq).reshape(b, nh, hd)
@@ -1679,8 +1680,7 @@ class DecodeStepper:
             o = qmatmul(o.reshape(b, nh * hd), mh.wo)
             if mh.use_bias:
                 o = o + mh.bo
-            x = x + o
-            x = x + blk.fc2(blk.fc1(blk.ln2(x)))
+            x = gen._ffn(blk, moe, x + o)
         logit = gen._head(gen._final_ln(x))  # (B, V)
         if tmask is not None:
             logit = logit + self._to_dev(tmask)  # grammar: 0 / -inf rows
@@ -1841,7 +1841,7 @@ class DecodeStepper:
         keep = act[:, None, None, None]
         t_mask = (self._t_idx[None, None, :t_ext]
                   <= cpos[:, :, None])[:, None]  # (B, 1, C, T)
-        for li, blk in enumerate(gen._blocks):
+        for li, (blk, moe) in enumerate(gen._stages):
             mh = blk.mhsa
             h_ = blk.ln1(x)
             q = qmatmul(h_, mh.wq).reshape(b, c, nh, hd)
@@ -1874,8 +1874,7 @@ class DecodeStepper:
             o = qmatmul(o.reshape(b, c, nh * hd), mh.wo)
             if mh.use_bias:
                 o = o + mh.bo
-            x = x + o
-            x = x + blk.fc2(blk.fc1(blk.ln2(x)))
+            x = gen._ffn(blk, moe, x + o)
         logit = gen._head(gen._final_ln(x))  # (B, C, V)
         if tmask is not None:
             # candidate 0 is a constrained slot's one emission

@@ -292,12 +292,12 @@ def _resolve_dtype(dtype):
 
 
 def _collect_aux_losses(model):
-    """Sum of the ``aux_loss`` tensors the model's layers set in their
-    forward (the channel through which a layer surfaces a differentiable
-    regularizer to the training loss), or None when no layer has one."""
+    """Sum of the differentiable regularizers the model's layers produced
+    in the last forward (``Layer.take_aux_loss``: the JAX package's
+    "aux_loss" state leaves), or None when no layer produced one."""
     total = None
     for layer in walk_layers(model):
-        aux = getattr(layer, "aux_loss", None)
+        aux = layer.take_aux_loss()
         if aux is not None:
             aux = aux.float().sum()
             total = aux if total is None else total + aux

@@ -367,11 +367,16 @@ def test_gray_failure_breaker_opens_recovers_and_closes(lms):
         ).start()
         slow_ep = (servers[0].host, slow_port)
 
-        def breaker_state():
+        def slow_replica():
             for r in router.replicas():
                 if tuple(r["endpoint"]) == slow_ep:
-                    return r["breaker"]["state"], r["state"]
-            return None, None
+                    return r
+            return None
+
+        def breaker_state():
+            r = slow_replica()
+            return (None, None) if r is None else (r["breaker"]["state"],
+                                                   r["state"])
 
         prompt = np.arange(6, dtype=np.int32) % 11
 
@@ -395,12 +400,14 @@ def test_gray_failure_breaker_opens_recovers_and_closes(lms):
                     opened = True
                     break
             assert opened, "breaker never opened on the slow replica"
-            lats = []
+            # steered off: while the breaker is open no request reaches
+            # the slow replica but the breaker's own half-open probes
+            fwd0 = slow_replica()["forwards"]
+            probes0 = router.counters["breaker_probes"]
             for i in range(6):
-                t0 = time.monotonic()
                 cli.generate((prompt + 50 + i) % 11, 3)
-                lats.append(time.monotonic() - t0)
-            assert max(lats) < 0.3, lats
+            assert (slow_replica()["forwards"] - fwd0
+                    == router.counters["breaker_probes"] - probes0)
             plan.deactivate()
             deadline = time.monotonic() + 20.0
             closed = False
