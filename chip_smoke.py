@@ -422,6 +422,24 @@ Phases, each fatal on failure (exit code 1, no result line):
    within 3e-5 and a lower ``max_memory_allocated`` peak, both times and
    peaks printed; ``attach_blockwise_attention(block_size=128)`` on phase
    4's LM's 8 x 512 forward within 1e-4 of the unhooked one.
+20. Synchronous data parallelism on phase 5's trainer configuration
+   (``pallas_adam``, both hooks, device-resident, seed 0), 4 steps of a
+   global batch of 8 x 512 from the corpus, in two windows. 20a: one
+   NCCL rank (a ``TCPStore`` on a free localhost port),
+   ``SynchronousDistributedTrainer`` replicated and with
+   ``shard_opt_state=True``: losses and parameters bit for bit
+   ``SingleTrainer``'s, exactly 4 x (17, 17, 8, 8, 8, 1) launches each;
+   the step and the collective's share of it printed. 20b: two rank
+   processes on the one card over gloo (NCCL refuses two ranks on one
+   device; gloo stages CUDA tensors through the host), started with the
+   ``DKT_*`` env (``--sync-rank-out DIR`` is the rank mode), 4 rows a
+   rank, replicated and ZeRO-1: the ranks bit-equal, losses within 1e-5
+   relative and parameters within 1e-4 of 20a, the same launches on each
+   rank; the host-staged all-reduce and all-gather times printed. 20c:
+   config 4's ``cifar10_cnn(bn_momentum=0.9)`` with ``pallas_sgd`` in
+   f32, the two ranks at 16 rows against one at 32: moving statistics
+   within rtol 1e-4 / atol 1e-5 and weights within 1e-4 (the CPU test's
+   bars), B1 once a step on each rank.
 
 ``--profile`` adds where the time goes: the MoE LM's decode step beside
 the dense LM's (19a), a decode step (dense, paged, on
@@ -8085,6 +8103,373 @@ def run_phase19(torch, np, lm, zoo, smi, gen, gen_reqs, profile=False):
     return out, counts
 
 
+# ------------------------------------------------------------------ phase 20
+
+
+SYNC_STEPS = 4
+SYNC_WINDOW = 2  # step times come from the second window (the first warms)
+SYNC_LOSS_RTOL = 1e-5  # 20b's losses vs 20a's, relative
+SYNC_PARAM_TOL = 1e-4  # 20b's parameters vs 20a's, max absolute
+BN_STATS_RTOL, BN_STATS_ATOL = 1e-4, 1e-5  # 20c moving statistics
+BN_WEIGHT_TOL = 1e-4  # 20c weights, absolute
+BN_LR, BN_GLOBAL_BATCH = 0.05, 32  # config 4's sgd rate; 20c's batch
+SYNC_RANKS = 2
+SYNC_RANK_TIMEOUT = 240  # seconds a 20b/20c rank may take, spawn included
+
+
+def sync_corpus():
+    """Phase 5's corpus cut to 20a's 4 steps of 8 x 512."""
+    from distkeras_tpu_torch.data import loaders
+
+    ds = loaders.text_corpus(seq_len=512, vocab_size=8192)
+    return ds.take(8 * SYNC_STEPS)
+
+
+def sync_lm_run(torch, zoo, cls, ds, batch_size=8, **kw):
+    """Phase 5's trainer configuration (``pallas_adam``, both hooks,
+    device-resident, seed 0) on a fresh d512/L8 LM, two windows of 2 steps;
+    the launch counts are set to 0 just before ``train`` and read just
+    after. Returns (trainer, result, counts, seconds)."""
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.ops.flash_attention import attach_flash_attention
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+
+    lm = make_lm(zoo)
+    check(attach_flash_attention(lm) == 8, "20: flash hook not on 8 blocks")
+    check(attach_fused_layernorm(lm) == 17, "20: LN hook not on 17 norms")
+    trainer = cls(lm, "pallas_adam", "next_token_crossentropy",
+                  metrics=["next_token_accuracy"], batch_size=batch_size,
+                  window=SYNC_WINDOW, learning_rate=1e-3, seed=0,
+                  device_resident=True, **kw)
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    result = trainer.train(ds, shuffle=True)
+    torch.cuda.synchronize()
+    return trainer, result, kernels.launch_counts(), time.monotonic() - t0
+
+
+def bn_data():
+    """Config 4's data recipe (phase 7) at 4 steps of 20c's global batch."""
+    from distkeras_tpu_torch.data import loaders
+    from distkeras_tpu_torch.data.transformers import (
+        MinMaxTransformer,
+        OneHotTransformer,
+    )
+
+    ds = loaders.synthetic_cifar10(n=BN_GLOBAL_BATCH * SYNC_STEPS, seed=2,
+                                   protos_per_class=3, label_noise=0.1)
+    ds = MinMaxTransformer(0, 1, o_min=0, o_max=255).transform(ds)
+    return OneHotTransformer(10, output_col="label_onehot").transform(ds)
+
+
+def bn_run(torch, cls, batch_size, **kw):
+    """Config 4's ``cifar10_cnn(bn_momentum=0.9)`` with ``pallas_sgd``
+    (B1) over 20c's data, f32, with cuDNN's deterministic algorithms: by
+    default cuDNN picks other convolution algorithms at 16 rows than at
+    32, whose f32 rounding four SGD steps at 0.05 carry to 3.4e-4 in a
+    moving mean (2.8e-6 with these algorithms, and 1.8e-7 between two
+    runs at 32 rows either way, on an H100 80GB HBM3 at 700 W). Returns
+    (result, counts)."""
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.models import zoo
+
+    model = zoo.cifar10_cnn(bn_momentum=0.9, seed=0)
+    trainer = cls(model, "pallas_sgd", "categorical_crossentropy",
+                  learning_rate=BN_LR, batch_size=batch_size,
+                  label_col="label_onehot", window=SYNC_STEPS, seed=0, **kw)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        kernels.reset_launch_counts()
+        result = trainer.train(bn_data(), shuffle=True)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return result, kernels.launch_counts()
+
+
+def state_host(model):
+    return {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+
+
+def step_ms(trainer):
+    """A step's wall in the second window (the first pays the warm-up)."""
+    return trainer.history.get_timings()[1][1] / SYNC_WINDOW * 1e3
+
+
+def collective_ms(torch, np, mesh, model, zero=False, reps=3):
+    """Mean time of one step's collectives on this group, between CUDA
+    events on the current stream: the gradient bucket's all-reduce (pack,
+    all-reduce, divide), or with ``zero`` the ZeRO-1 all-gather and
+    write-back."""
+    from distkeras_tpu_torch.parallel.mesh import ZeroShards, all_reduce_mean
+
+    params = list(model.parameters())
+    if zero:
+        shards = ZeroShards(params, mesh)
+        call = shards.gather
+    else:
+        grads = [torch.ones_like(p) for p in params]
+        mets = [torch.zeros((), device=mesh.device)] * 2
+
+        def call():
+            all_reduce_mean([*grads, *mets], mesh)
+    call()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        call()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.mean(times))
+
+
+def sync_rank_main(out_dir):
+    """A 20b/20c rank: joins the gloo group from the ``DKT_*`` env (two
+    processes on the one card), trains phase 5's LM replicated and with
+    ZeRO-1 at 4 rows a rank, then config 4's CNN at 16 a rank, and writes
+    its parameters, losses, launch counts and collective times."""
+    import numpy as np
+    import torch
+
+    from distkeras_tpu_torch import SynchronousDistributedTrainer as Sync
+    from distkeras_tpu_torch.models import zoo
+    from distkeras_tpu_torch.parallel import multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(multihost.initialize(timeout=SYNC_RANK_TIMEOUT),
+          "20b: the rank did not join a group")
+    rank = multihost.process_id()
+    ds = sync_corpus()
+    arrays, info = {}, {"launches": {}, "seconds": {}, "step_ms": {}}
+    for tag, zero in (("replicated", False), ("zero", True)):
+        t, res, counts, secs = sync_lm_run(torch, zoo, Sync, ds, batch_size=4,
+                                           shard_opt_state=zero)
+        arrays.update({f"{tag}/{k}": v for k, v in state_host(res).items()})
+        arrays[f"{tag}/loss"] = np.array([h["loss"] for h in t.get_history()])
+        info["launches"][tag], info["seconds"][tag] = counts, secs
+        info["step_ms"][tag] = step_ms(t)
+        if zero:
+            info["gather_ms"] = collective_ms(torch, np, t.mesh, res, True)
+        else:
+            info["all_reduce_ms"] = collective_ms(torch, np, t.mesh, res)
+        del t, res
+        torch.cuda.empty_cache()
+    res, counts = bn_run(torch, Sync, BN_GLOBAL_BATCH // SYNC_RANKS)
+    arrays.update({f"bn/{k}": v for k, v in state_host(res).items()})
+    info["launches"]["bn"] = counts
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+    multihost.shutdown()
+    return 0
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_sync_one_rank(torch, np, zoo, smi, ds):
+    """20a: one NCCL rank over a TCPStore on a free localhost port, against
+    phase 5's ``SingleTrainer`` at the same batch, data and seed — bit
+    for bit, replicated and with ZeRO-1 (whose one slice is the whole
+    leaf: the fused Adam runs on the slice buffers and the all-gather
+    writes them back)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from distkeras_tpu_torch import SingleTrainer
+    from distkeras_tpu_torch import SynchronousDistributedTrainer as Sync
+
+    ref, ref_res, _, _ = sync_lm_run(torch, zoo, SingleTrainer, ds)
+    ref_losses = [h["loss"] for h in ref.get_history()]
+    ref_params = [p.detach().clone() for p in ref_res.parameters()]
+    ref_step_ms = step_ms(ref)
+    del ref, ref_res
+    store = dist.TCPStore("127.0.0.1", free_port(), 1, True,
+                          timeout=datetime.timedelta(seconds=60))
+    dist.init_process_group("nccl", store=store, world_size=1, rank=0)
+    out, counts = {"reference_losses": ref_losses,
+                   "reference_step_ms": ref_step_ms}, []
+    try:
+        for tag, zero in (("replicated", False), ("zero", True)):
+            t, res, c, secs = sync_lm_run(torch, zoo, Sync, ds,
+                                          shard_opt_state=zero)
+            check(t.mesh.group is not None and t.num_workers == 1,
+                  "20a: the trainer did not take the NCCL group")
+            losses = [h["loss"] for h in t.get_history()]
+            same = all(torch.equal(a, b)
+                       for a, b in zip(res.parameters(), ref_params))
+            ms = step_ms(t)
+            coll = collective_ms(torch, np, t.mesh, res, zero)
+            out[tag] = {"losses": losses, "seconds": secs,
+                        "step_ms": ms, "collective_ms": coll,
+                        "collective_share": coll / ms,
+                        "bit_equal_losses": losses == ref_losses,
+                        "bit_equal_params": same, "launches": c}
+            out[f"{tag}_params"] = {n: p.detach().clone()
+                                    for n, p in res.named_parameters()}
+            counts.append(c)
+            del t, res
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    expected = {k: SYNC_STEPS * n for k, n in LM_STEP_LAUNCHES.items()}
+    for tag in ("replicated", "zero"):
+        r = out[tag]
+        log(f"20a {tag} (1 NCCL rank, 4 steps of 8 x 512): step "
+            f"{r['step_ms']:.1f} ms (SingleTrainer {ref_step_ms:.1f}; second "
+            f"window), {'all-gather' if tag == 'zero' else 'all-reduce'}"
+            f" {r['collective_ms']:.2f} ms = {100 * r['collective_share']:.1f}"
+            f"% of the step; losses {r['losses']}; bit-equal to "
+            f"SingleTrainer: losses {r['bit_equal_losses']}, parameters "
+            f"{r['bit_equal_params']}; launches "
+            f"{ {k: n for k, n in r['launches'].items() if n} } on {smi}")
+        check(r["bit_equal_losses"] and r["bit_equal_params"],
+              f"20a {tag}: not bit-equal to SingleTrainer: {r['losses']} vs "
+              f"{ref_losses}")
+        check({k: n for k, n in r["launches"].items() if n} == expected,
+              f"20a {tag}: launches {r['launches']} != {expected}")
+    return out, counts
+
+
+def run_sync_two_ranks(torch, np, smi, one_rank):
+    """20b and 20c: two rank processes on the one card over gloo (NCCL
+    refuses two ranks on one device), launched with the ``DKT_*`` env;
+    20c's reference, one rank at the global batch, runs here first."""
+    import tempfile
+
+    from distkeras_tpu_torch import SingleTrainer
+
+    bn_ref, bn_ref_counts = bn_run(torch, SingleTrainer, BN_GLOBAL_BATCH)
+    bn_ref = state_host(bn_ref)
+    out_dir = tempfile.mkdtemp(prefix="sync_ranks_", dir=HERE)
+    env = dict(os.environ, DKT_COORDINATOR_ADDRESS=f"127.0.0.1:{free_port()}",
+               DKT_NUM_PROCESSES=str(SYNC_RANKS), DKT_BACKEND="gloo")
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+         "--sync-rank-out", out_dir],
+        env=dict(env, DKT_PROCESS_ID=str(r)), cwd=HERE,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(SYNC_RANKS)]
+    deadline = t0 + SYNC_RANK_TIMEOUT
+    try:
+        logs = [p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0]
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.monotonic() - t0
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0,
+              f"20b rank {r} exited {p.returncode}:\n{text[-3000:]}")
+    ranks = [dict(np.load(os.path.join(out_dir, f"rank{r}.npz")))
+             for r in range(SYNC_RANKS)]
+    infos = []
+    for r in range(SYNC_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            infos.append(json.load(f))
+    import shutil
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    check(ranks[0].keys() == ranks[1].keys(), "20b: the ranks' keys differ")
+    unequal = [k for k in ranks[0]
+               if not np.array_equal(ranks[0][k], ranks[1][k])]
+    check(not unequal, f"20b: the ranks differ in {unequal[:5]}")
+    rank0 = ranks[0]
+    res = {"wall_s": wall, "rank_infos": infos}
+    for tag in ("replicated", "zero"):
+        losses = rank0[f"{tag}/loss"]
+        ref = np.array(one_rank[tag]["losses"])
+        rel = float(np.max(np.abs(losses - ref) / np.abs(ref)))
+        dist_ = max(float(np.max(np.abs(rank0[f"{tag}/{n}"]
+                                        - p.cpu().numpy())))
+                    for n, p in one_rank[f"{tag}_params"].items())
+        res[tag] = {"losses": losses.tolist(), "max_rel_loss_vs_20a": rel,
+                    "max_param_distance_vs_20a": dist_}
+        check(rel <= SYNC_LOSS_RTOL,
+              f"20b {tag}: losses differ from 20a by {rel:.3e}")
+        check(dist_ <= SYNC_PARAM_TOL,
+              f"20b {tag}: parameters differ from 20a by {dist_:.3e}")
+    expected = {k: SYNC_STEPS * n for k, n in LM_STEP_LAUNCHES.items()}
+    for info in infos:
+        for tag in ("replicated", "zero"):
+            got = {k: n for k, n in info["launches"][tag].items() if n}
+            check(got == expected,
+                  f"20b {tag}: a rank's launches {got} != {expected}")
+        check(info["launches"]["bn"].get("sgd_fused", 0) == SYNC_STEPS,
+              f"20c: a rank's launches {info['launches']['bn']}")
+    stats_ok, weights_ok, worst = True, True, {}
+    for k, ref in bn_ref.items():
+        got = rank0[f"bn/{k}"]
+        d = float(np.max(np.abs(got - ref)))
+        worst[k] = d
+        if k.endswith((".mean", ".var")):
+            stats_ok &= bool(np.allclose(got, ref, rtol=BN_STATS_RTOL,
+                                         atol=BN_STATS_ATOL))
+        else:
+            weights_ok &= d <= BN_WEIGHT_TOL
+    res["bn"] = {"max_abs_diff": max(worst.values()),
+                 "stats_ok": stats_ok, "weights_ok": weights_ok,
+                 "reference_launches": bn_ref_counts}
+    ar = [i["all_reduce_ms"] for i in infos]
+    ga = [i["gather_ms"] for i in infos]
+    step = [i["step_ms"]["replicated"] for i in infos]
+    zstep = [i["step_ms"]["zero"] for i in infos]
+    res.update(all_reduce_ms=ar, gather_ms=ga, step_ms=step,
+               zero_step_ms=zstep)
+    log(f"20b (2 gloo ranks on one card, 4 steps of 2 x 4 x 512): the ranks "
+        f"bit-equal; vs 20a: losses within "
+        f"{res['replicated']['max_rel_loss_vs_20a']:.2e} / "
+        f"{res['zero']['max_rel_loss_vs_20a']:.2e} (replicated / ZeRO-1), "
+        f"parameters within "
+        f"{res['replicated']['max_param_distance_vs_20a']:.2e} / "
+        f"{res['zero']['max_param_distance_vs_20a']:.2e}; step "
+        f"{step} / {zstep} ms, gradient all-reduce (host-staged) "
+        f"{ar} ms, ZeRO all-gather {ga} ms; ranks' wall {wall:.1f} s on "
+        f"{smi}")
+    log(f"20c (cifar10_cnn, 2 ranks x 16 vs 1 x 32, pallas_sgd): max "
+        f"|diff| {res['bn']['max_abs_diff']:.2e}, stats within "
+        f"rtol {BN_STATS_RTOL} / atol {BN_STATS_ATOL}: {stats_ok}, weights "
+        f"within {BN_WEIGHT_TOL}: {weights_ok} on {smi}")
+    check(stats_ok, f"20c: moving statistics differ: {worst}")
+    check(weights_ok, f"20c: weights differ: {worst}")
+    counts = [i["launches"][tag] for i in infos
+              for tag in ("replicated", "zero", "bn")]
+    return res, counts
+
+
+def run_phase20(torch, np, zoo, smi):
+    """Phase 20, synchronous data parallelism: 20a at one NCCL rank, 20b and
+    20c across two processes on the card. Returns the results and the
+    launch counts of each drive."""
+    t0 = time.monotonic()
+    ds = sync_corpus()
+    one, c_a = run_sync_one_rank(torch, np, zoo, smi, ds)
+    two, c_b = run_sync_two_ranks(torch, np, smi, one)
+    for tag in ("replicated", "zero"):
+        one.pop(f"{tag}_params")
+    out = {"one_rank": one, "two_ranks": two,
+           "seconds_total": time.monotonic() - t0}
+    counts = [*c_a, *c_b]
+    out["launches"] = {k: sum(c.get(k, 0) for c in counts)
+                       for k in counts[0]}
+    return out, counts
+
+
 def baseline_leaf_shapes():
     """The parameter shapes of configs 2-5's models (built on the CPU: only
     their leaf tables matter to phases 2b/2c)."""
@@ -8536,6 +8921,8 @@ def main(argv):
     ap.add_argument("--out", default=None, help="also write results here")
     ap.add_argument("--profile", action="store_true",
                     help="also profile a decode step and a predict forward")
+    ap.add_argument("--sync-rank-out", default=None,
+                    help=argparse.SUPPRESS)  # phase 20b's rank processes
     args = ap.parse_args(argv)
     import torch
 
@@ -8554,6 +8941,8 @@ def main(argv):
         print(f"chip_smoke: imported the port from {pkg_dir}, not from "
               f"this checkout", file=sys.stderr)
         return 1
+    if args.sync_rank_out:
+        return sync_rank_main(args.sync_rank_out)
     import numpy as np
     import torch.nn.functional as F
 
@@ -8676,6 +9065,9 @@ def main(argv):
                                     profile=args.profile)
     log(f"phase 19 in {moe['seconds_total']:.1f} s, launches "
         f"{moe['launches']} on {smi}")
+    sync, sync_launches = run_phase20(torch, np, zoo, smi)
+    log(f"phase 20 in {sync['seconds_total']:.1f} s, launches "
+        f"{sync['launches']} on {smi}")
     profile = profile_paths(torch, np, lm, zoo) if args.profile else None
 
     phases = [pred["launches"], gen["launches"], train["launches"],
@@ -8683,7 +9075,7 @@ def main(argv):
               member_launches, socket_launches, *front_launches,
               *healing_launches, *paging_launches, *spec_launches,
               *qos_launches, *knobs_launches, *disagg_launches,
-              *fleet_launches, *moe_launches,
+              *fleet_launches, *moe_launches, *sync_launches,
               *(r["launches"] for r in async_sim.values())]
     launches = {k: sum(c.get(k, 0) for c in phases) for k in kernels.LAUNCHES}
     check(all(n > 0 for n in launches.values()),
@@ -8754,6 +9146,7 @@ def main(argv):
                        "phase14": spec, "phase15": qos,
                        "phase16": knobs, "phase17": disagg,
                        "phase18": fleet, "phase19": moe,
+                       "phase20": sync,
                        "profile": profile,
                        "flash_infinite_q": inf_rows},
                       f, indent=1)

@@ -38,7 +38,11 @@ metrics, time-series and flight-recorder books (``obs``); the switch
 mixture-of-experts layer and its LM and classifier builders
 (``parallel.expert_parallel``, ``models.zoo``), served and trained on
 every path, and single-device blockwise attention
-(``parallel.ring_attention``).
+(``parallel.ring_attention``); and synchronous data parallelism —
+``SynchronousDistributedTrainer`` with global-batch ``BatchNorm`` and
+ZeRO-1, one process per rank over ``torch.distributed``
+(``parallel.multihost``, ``parallel.mesh``), launched by
+``job_deployment.Job``.
 Kernels (``kernels/csrc``): LayerNorm forward and backward,
 FlashAttention forward and backward (dQ, dK/dV), the fused multi-tensor
 Adam, and the fused multi-tensor SGD without and with momentum.
@@ -117,6 +121,7 @@ from distkeras_tpu_torch.trainers import (
     DynSGD,
     EnsembleTrainer,
     SingleTrainer,
+    SynchronousDistributedTrainer,
     Trainer,
 )
 from distkeras_tpu_torch.utils.checkpoint import Checkpointer
@@ -183,6 +188,7 @@ __all__ = [
     "SocketParameterServer",
     "StandardScaleTransformer",
     "StreamingDataset",
+    "SynchronousDistributedTrainer",
     "Trainer",
     "TrainingHistory",
     "TransformerBlock",

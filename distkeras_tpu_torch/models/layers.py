@@ -371,14 +371,23 @@ class Flatten(Layer):
         return x.reshape(x.shape[0], -1)
 
 
-def _dropout(x, rate, seed):
+def _dropout(x, rate, seed, group=None):
     """Inverted dropout of ``x`` with its mask drawn from ``seed`` on x's
     device — the one copy, shared by ``Dropout`` and the residual dropout
-    of ``TransformerBlock``."""
+    of ``TransformerBlock``. Under a data group of N ranks (``group``, a
+    ``parallel.mesh.DataMesh``) ``x`` is the rank's rows of the global
+    batch: the mask of the global batch is drawn and the rank's rows kept,
+    so N ranks drop what one device would at the global batch."""
     keep = 1.0 - rate
     gen = torch.Generator(device=x.device).manual_seed(int(seed))
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
+    if group is None:
+        mask = torch.rand(x.shape, generator=gen, device=x.device)
+    else:
+        b = x.shape[0]
+        mask = torch.rand((group.num_workers * b, *x.shape[1:]),
+                          generator=gen, device=x.device)
+        mask = mask[group.rank * b:(group.rank + 1) * b]
+    return torch.where(mask < keep, x / keep, torch.zeros_like(x)).to(x.dtype)
 
 
 @register_layer
@@ -388,6 +397,9 @@ class Dropout(Layer):
     x's device, so a recomputation (``remat``) draws the same mask."""
 
     uses_train_rng = True
+    #: the data group of a synchronous run (``parallel.mesh.
+    #: attach_data_group``), None otherwise
+    data_group = None
 
     def __init__(self, rate):
         super().__init__()
@@ -398,7 +410,7 @@ class Dropout(Layer):
             return x
         if rng is None:
             raise ValueError("Dropout in training mode requires an rng seed")
-        return _dropout(x, self.rate, rng)
+        return _dropout(x, self.rate, rng, self.data_group)
 
     def get_config(self):
         return {"layer": "Dropout", "rate": self.rate}
@@ -583,6 +595,8 @@ class TransformerBlock(Layer):
     dropout to the attention and MLP branch outputs in training mode
     (identity in eval), its masks drawn from seeds split off ``rng``."""
 
+    data_group = None  # see Dropout.data_group
+
     def __init__(self, num_heads, mlp_ratio=4, causal=False, remat=False,
                  dropout=0.0):
         super().__init__()
@@ -628,10 +642,11 @@ class TransformerBlock(Layer):
                     "an rng seed"
                 )
             r1, r2 = split_seed(rng, 2)
+        g = self.data_group
         a = self.mhsa(self.ln1(x))
-        x = x + (_dropout(a, self.dropout, r1) if drop else a)
+        x = x + (_dropout(a, self.dropout, r1, g) if drop else a)
         h = self.fc2(self.fc1(self.ln2(x)))
-        return x + (_dropout(h, self.dropout, r2) if drop else h)
+        return x + (_dropout(h, self.dropout, r2, g) if drop else h)
 
     def get_config(self):
         return {
@@ -644,6 +659,33 @@ class TransformerBlock(Layer):
         }
 
 
+class _GlobalMoments(torch.autograd.Function):
+    """Mean and biased variance over every axis but the last, over the
+    rows of every rank of ``group`` (equal row counts): the forward
+    all-reduces the sums, the backward all-reduces the gradients of the
+    two moments, since every rank's loss depends on them:
+    dx = (g_mean + 2 g_var (x - mean)) / count, the g's summed over the
+    ranks."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        axes = tuple(range(x.ndim - 1))
+        count = x.numel() // x.shape[-1] * group.num_workers
+        mean = group.all_reduce_(x.sum(dim=axes)) / count
+        centered = x - mean
+        var = group.all_reduce_(centered.square().sum(dim=axes)) / count
+        ctx.save_for_backward(centered)
+        ctx.group, ctx.count = group, count
+        return mean, var
+
+    @staticmethod
+    def backward(ctx, g_mean, g_var):
+        (centered,) = ctx.saved_tensors
+        g = ctx.group.all_reduce_(torch.stack([g_mean, g_var]))
+        dx = (g[0] + 2.0 * g[1] * centered) / ctx.count
+        return dx, None
+
+
 @register_layer
 class BatchNorm(Layer):
     """Batch normalization over every axis but the last (the channels).
@@ -654,7 +696,15 @@ class BatchNorm(Layer):
     updates the buffers in place, without gradient: ``new = momentum * old
     + (1 - momentum) * batch`` — once per forward, never in a ``remat``
     replay. In eval mode it normalizes with the buffers. The normalization
-    runs in the input's dtype."""
+    runs in the input's dtype.
+
+    Under a data group (``data_group``, set for a synchronous run by
+    ``parallel.mesh.attach_data_group``) the statistics are the global
+    batch's, as GSPMD computes them in the JAX package: every rank's
+    moving statistics then agree and equal one device's at the global
+    batch."""
+
+    data_group = None
 
     def __init__(self, momentum=0.99, epsilon=1e-5, scale=True, center=True):
         super().__init__()
@@ -677,8 +727,11 @@ class BatchNorm(Layer):
         if self.training:
             axes = tuple(range(x.ndim - 1))
             x32 = x.float()
-            mean = x32.mean(dim=axes)
-            var = (x32 - mean).square().mean(dim=axes)
+            if self.data_group is not None:
+                mean, var = _GlobalMoments.apply(x32, self.data_group)
+            else:
+                mean = x32.mean(dim=axes)
+                var = (x32 - mean).square().mean(dim=axes)
             if not recomputing():
                 m = self.momentum
                 with torch.no_grad():

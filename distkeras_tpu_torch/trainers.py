@@ -1,9 +1,9 @@
-"""Trainer orchestration (PyTorch port of the parts of
-``distkeras_tpu.trainers`` that run on one card: ``Trainer``,
-``SingleTrainer``, the member trainers ``EnsembleTrainer`` and
-``AveragingTrainer``, and the asynchronous parameter-server trainers —
-``DistributedTrainer`` and ``DOWNPOUR``, ``AEASGD``, ``EAMSGD``, ``ADAG``,
-``DynSGD``).
+"""Trainer orchestration (PyTorch port of ``distkeras_tpu.trainers``:
+``Trainer``, ``SingleTrainer``, the synchronous data-parallel
+``SynchronousDistributedTrainer``, the member trainers
+``EnsembleTrainer`` and ``AveragingTrainer``, and the asynchronous
+parameter-server trainers — ``DistributedTrainer`` and ``DOWNPOUR``,
+``AEASGD``, ``EAMSGD``, ``ADAG``, ``DynSGD``).
 
 Same constructor vocabulary (``worker_optimizer``, ``loss``, ``metrics``,
 ``learning_rate``, ``batch_size``, ``num_epoch``, ``seed``, ...) and the
@@ -13,8 +13,10 @@ the caller's keeps its weights. ``checkpoint_dir=`` with
 trace) and ``metrics_path=`` (JSONL rows) work as in the JAX package, and
 so do the async trainers' commit and pull compression, their socket tier
 (``serve_socket``, ``remote_ps``) and warm-standby failover
-(``standby``). The synchronous data-parallel and other multi-card
-strategies come with a machine of more than one card.
+(``standby``). The synchronous trainer runs one process per rank over
+``torch.distributed`` (``parallel.multihost``, ``parallel.mesh``), with
+ZeRO-1 optimizer sharding; the sequence- and pipeline-parallel trainers
+and the tensor/expert meshes are still to port (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from distkeras_tpu_torch.ops.optimizers import (
     effective_learning_rate,
     export_state,
     get_optimizer,
+    load_state,
 )
 from distkeras_tpu_torch.ops.quantization import count_quantized
 from distkeras_tpu_torch.parameter_servers import (
@@ -42,11 +45,22 @@ from distkeras_tpu_torch.parameter_servers import (
     RemoteParameterServerClient,
     SocketParameterServer,
 )
+from distkeras_tpu_torch.parallel.mesh import (
+    ZeroShards,
+    attach_data_group,
+    detach_data_group,
+    host_gather,
+    make_mesh,
+    rank_rows,
+    replicate,
+    shard_opt_state_zero,
+)
 from distkeras_tpu_torch.utils.checkpoint import Checkpointer
 from distkeras_tpu_torch.utils.compression import (
     parse_compress_spec,
     validate_pull_compress,
 )
+from distkeras_tpu_torch.utils.convert import params_from_jax, state_from_jax
 from distkeras_tpu_torch.utils.device import (
     check_model_device,
     local_devices,
@@ -71,8 +85,10 @@ from distkeras_tpu_torch.workers import (
     SingleTrainerWorker,
     WorkerCore,
     _metrics_to_records,
+    epoch_index_windows,
     iter_windows,
     reset_opt_state,
+    resident_arrays,
     stack_window,
     to_device,
 )
@@ -422,6 +438,219 @@ class SingleTrainer(Trainer):
             self.history.record_window(0, s, dt)
         self.history.record_training_end()
         return self._finish(model)
+
+
+class SynchronousDistributedTrainer(Trainer):
+    """Per-step all-reduce data parallelism over a data group (JAX:
+    ``SynchronousDistributedTrainer``, the path its north star names).
+
+    One process per rank, each running this trainer on the same program
+    (``parallel.multihost.initialize`` joins them; ``job_deployment.Job``
+    launches them). ``batch_size`` is per rank and ``batch_size *
+    num_workers`` the global batch: rank r trains on rows ``[r*B,
+    (r+1)*B)`` of each global batch, the rows GSPMD gives device r in the
+    JAX package. Every step averages the gradients (after accumulation)
+    and the metrics over the ranks in one flat-bucket all-reduce, then
+    applies the optimizer, so the parameters stay replicated — bit-equal
+    on every rank. All ranks draw the same step seed; ``BatchNorm`` takes
+    its statistics over the global batch and dropout draws the global
+    batch's mask (``parallel.mesh.attach_data_group``), so N ranks train
+    as one device at the global batch would, up to summation order. With
+    one rank the trainer is ``SingleTrainer``, bit for bit.
+
+    ``num_workers=None`` means the job's world size; ``mesh``: a
+    ``parallel.mesh.DataMesh`` (``make_mesh``) instead. ``device=None``
+    means CUDA. ``shard_opt_state=True`` is ZeRO-1: each rank keeps the
+    optimizer moments of its slice of each leaf (``zero_leaf_sharding``,
+    JAX's rule), updates that slice (the fused kernels run on the slices)
+    and all-gathers the parameters back; the trajectory is the replicated
+    trainer's. ``window``, ``prefetch``, ``device_resident`` (the whole
+    dataset on every rank's device, each rank gathering its columns of the
+    (W, global batch) index matrix; bit-identical to the streamed path)
+    and the checkpoint options are ``SingleTrainer``'s: rank 0 writes the
+    checkpoints, ZeRO moments gathered whole, the other ranks wait for it,
+    and every rank restores.
+
+    ``model_parallel`` and ``expert_parallel`` wait for the port's
+    tensor-parallel and expert meshes (ROADMAP A13)."""
+
+    def __init__(
+        self,
+        *args,
+        num_workers=None,
+        window=8,
+        mesh=None,
+        model_parallel=None,
+        expert_parallel=None,
+        shard_opt_state=False,
+        prefetch=0,
+        device_resident=False,
+        checkpoint_dir=None,
+        checkpoint_every=1,
+        max_to_keep=3,
+        device=None,
+        **kwargs,
+    ):
+        super().__init__(*args, **kwargs)
+        for name, value in (("model_parallel", model_parallel),
+                            ("expert_parallel", expert_parallel)):
+            if value:
+                raise NotImplementedError(
+                    f"{name}= needs the port's tensor-parallel and expert "
+                    "meshes over torch.distributed (ROADMAP A13); the port "
+                    "runs pure data parallelism"
+                )
+        if mesh is None:
+            mesh = make_mesh(num_workers, device)
+        elif num_workers is not None and int(num_workers) != mesh.num_workers:
+            raise ValueError(
+                f"num_workers={num_workers} but the mesh has "
+                f"{mesh.num_workers} ranks"
+            )
+        self.mesh = mesh
+        self.num_workers = mesh.num_workers
+        self.device = mesh.device
+        check_model_device(self.model, mesh.device)
+        self.shard_opt_state = bool(shard_opt_state)
+        if self.shard_opt_state and getattr(self.optimizer, "trust_ratio",
+                                            False):
+            raise ValueError(
+                "shard_opt_state (ZeRO-1) updates each rank's slice alone; "
+                "lamb's trust ratio needs the norms of whole leaves"
+            )
+        self.window = int(window)
+        self.prefetch = int(prefetch)
+        self.device_resident = bool(device_resident)
+        self._init_checkpointing(checkpoint_dir, checkpoint_every, max_to_keep)
+
+    def _train(self, dataset, shuffle=False, resume=False):
+        self.history.record_training_start()
+        mesh = self.mesh
+        model = self.model.copy().to(mesh.device)
+        core = self._make_core(model)
+        core.mesh = mesh
+        attach_data_group(model, mesh)
+        try:
+            carry = self._start(core, model, resume)
+            if self.device_resident:
+                self._train_resident(dataset, shuffle, core, model, *carry)
+            else:
+                self._train_streamed(dataset, shuffle, core, model, *carry)
+        finally:
+            detach_data_group(model)
+            mesh.release()
+        self.history.record_training_end()
+        return self._finish(model)
+
+    def _start(self, core, model, resume):
+        """(opt_state, rng, start epoch): rank 0's weights broadcast, or
+        the latest checkpoint read by every rank; the optimizer state on
+        the rank's ZeRO slices when sharded."""
+        mesh = self.mesh
+        restored = self._restore_latest() if resume else None
+        rng, start_epoch, saved = RngSeq(self.seed), 0, None
+        if restored is not None:
+            _, trees, meta = restored
+            params_from_jax(model, trees["params"])
+            state_from_jax(model, trees.get("state", {}))
+            saved = self._reconcile_opt_state(trees["opt_state"], core)
+            if trees.get("rng") is not None:
+                rng.set_state(trees["rng"])
+            start_epoch = int(meta["epoch"])
+        else:
+            replicate(model, mesh)
+        params = list(model.parameters())
+        if self.shard_opt_state:
+            core.zero = ZeroShards(params, mesh)
+            params = core.zero.local
+        opt_state = core.init_opt_state(params)
+        if saved is not None:
+            if self.shard_opt_state:
+                saved = shard_opt_state_zero(saved, mesh)
+            load_state(core.optimizer, opt_state, saved)
+        return opt_state, rng, start_epoch
+
+    def _train_streamed(self, dataset, shuffle, core, model, opt_state, rng,
+                        start_epoch):
+        mesh = self.mesh
+        cols = [self.features_col, self.label_col]
+        global_batch = self.batch_size * mesh.num_workers
+
+        def prepare(batches):
+            # host staging (prefetch thread): only this rank's rows
+            return tuple(
+                to_device(np.stack([rank_rows(b[c], mesh) for b in batches]),
+                          mesh.device)
+                for c in cols)
+
+        for epoch in range(start_epoch, self.num_epoch):
+            ds = dataset.shuffle(self.seed + epoch) if shuffle else dataset
+            with Prefetcher(iter_windows(ds, global_batch, cols, self.window),
+                            prepare, depth=self.prefetch) as staged:
+                for xs, ys in staged:
+                    t0 = time.perf_counter()
+                    opt_state, mets = core.window(model, opt_state, rng, xs,
+                                                  ys)
+                    self._record(mets, xs.shape[0] * global_batch, t0)
+            self._epoch_end(core, epoch, model, opt_state, rng)
+
+    def _train_resident(self, dataset, shuffle, core, model, opt_state, rng,
+                        start_epoch):
+        """The dataset on every rank's device once; per window each rank
+        ships only its columns of the (W, global batch) index matrix.
+        Batch contents match the streamed path's, so the trajectories are
+        bit-identical."""
+        mesh = self.mesh
+        global_batch = self.batch_size * mesh.num_workers
+        n = len(dataset)
+        data_x, data_y = resident_arrays(dataset, self.features_col,
+                                         self.label_col)
+        if n // global_batch > 0:
+            data_x, data_y = (torch.from_numpy(np.ascontiguousarray(a))
+                              .to(mesh.device) for a in (data_x, data_y))
+        for epoch in range(start_epoch, self.num_epoch):
+            for idx in epoch_index_windows(
+                n, global_batch, self.window, self.seed if shuffle else None,
+                epoch,
+            ):
+                t0 = time.perf_counter()
+                ix = torch.from_numpy(
+                    rank_rows(idx, mesh, axis=1).astype(np.int64)
+                ).to(mesh.device)
+                opt_state, mets = core.indexed_window(
+                    model, opt_state, rng, data_x, data_y, ix)
+                self._record(mets, idx.size, t0)
+            self._epoch_end(core, epoch, model, opt_state, rng)
+
+    def _record(self, mets, samples, t0):
+        self.history.extend(0, _metrics_to_records(mets))
+        self.history.record_window(0, samples, time.perf_counter() - t0)
+
+    def _save_epoch_checkpoint(self, done, model, opt_state, rng):
+        """The snapshot of ``SingleTrainer`` with the ZeRO moments
+        gathered to full leaves (a collective every rank joins); rank 0
+        writes it while the others wait at a barrier."""
+        if self.checkpointer is None or not self._should_checkpoint(done):
+            return
+        mesh = self.mesh
+        saved = export_state(self.optimizer, opt_state)
+        if self.shard_opt_state:
+            meta = [torch.empty_like(p, device="meta")
+                    for p in model.parameters()]
+            like = export_state(self.optimizer, self.optimizer.init(meta))
+            saved = host_gather(saved, mesh, like=like)
+        if mesh.rank == 0:
+            self.checkpointer.save(
+                done,
+                {
+                    "params": dict(model.named_parameters()),
+                    "state": dict(model.named_buffers()),
+                    "opt_state": saved,
+                    "rng": rng.get_state(),
+                },
+                {"epoch": done},
+            )
+        mesh.barrier()
 
 
 def _build_member(model, seed):

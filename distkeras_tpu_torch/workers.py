@@ -56,6 +56,7 @@ from distkeras_tpu_torch.ops.optimizers import (
     export_state,
     load_state,
 )
+from distkeras_tpu_torch.parallel.mesh import all_reduce_mean
 from distkeras_tpu_torch.utils.compression import (
     compress_with_feedback,
     is_compressed,
@@ -105,6 +106,11 @@ class WorkerCore:
         # accum_steps sequential microbatches, averaging the gradients
         self.accum_steps = int(accum_steps)
         self.aux_loss_weight = float(aux_loss_weight)
+        # synchronous data parallelism (SynchronousDistributedTrainer):
+        # the data group whose mean gradient every step applies, and the
+        # ZeRO-1 shards the optimizer runs on (parallel/mesh.py)
+        self.mesh = None
+        self.zero = None
 
     def init_opt_state(self, params):
         return self.optimizer.init(params)
@@ -149,14 +155,33 @@ class WorkerCore:
         return lsum / k, torch.cat(preds), [g / k for g in gacc]
 
     def _apply_opt(self, params, grads, opt_state):
+        # under ZeRO-1 the update runs on this rank's slices, then the
+        # slices are all-gathered back into the parameters
+        zero = self.zero
+        if zero is not None:
+            params, grads = zero.local, zero.grads(grads)
         # fused-apply optimizers (ops/pallas_kernels.py) update the params
         # in one kernel launch; otherwise the two-step update + apply
         if hasattr(self.optimizer, "fused_apply"):
             _, opt_state = self.optimizer.fused_apply(params, grads, opt_state)
-            return opt_state
-        updates, opt_state = self.optimizer.update(grads, opt_state, params)
-        apply_updates(params, updates)
+        else:
+            updates, opt_state = self.optimizer.update(grads, opt_state,
+                                                       params)
+            apply_updates(params, updates)
+        if zero is not None:
+            zero.gather()
         return opt_state
+
+    def _group_mean(self, grads, mets):
+        """Under a data group: the gradients and the metrics averaged over
+        the ranks in one all-reduce, after accumulation (one bucket a
+        step). The metrics are copied out of the bucket, which the next
+        step reuses."""
+        if self.mesh is None or self.mesh.group is None:
+            return grads, mets
+        n = len(grads)
+        mean = all_reduce_mean([*grads, *mets.values()], self.mesh)
+        return mean[:n], {k: v.clone() for k, v in zip(mets, mean[n:])}
 
     def _train_step(self, model, params, opt_state, rng, x, y, acc=None):
         loss, y_pred, grads = self._batch_grads(model, params, rng.next(), x, y)
@@ -164,6 +189,7 @@ class WorkerCore:
             mets = {"loss": loss}
             for name, fn in zip(self.metric_names, self.metric_fns):
                 mets[name] = fn(y_pred, y)
+            grads, mets = self._group_mean(grads, mets)
             opt_state = self._apply_opt(params, grads, opt_state)
             if acc is not None:  # the raw gradients, summed (ADAG)
                 torch._foreach_add_(acc, list(grads))
