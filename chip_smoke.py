@@ -440,6 +440,20 @@ Phases, each fatal on failure (exit code 1, no result line):
    f32, the two ranks at 16 rows against one at 32: moving statistics
    within rtol 1e-4 / atol 1e-5 and weights within 1e-4 (the CPU test's
    bars), B1 once a step on each rank.
+21. Tensor and sequence parallelism: two gloo rank processes on the card
+   (``--tpsp-rank-out DIR`` is the rank mode), against the port's one-rank
+   ``SingleTrainer`` on the same batches. The gloo exchange path the
+   backend chooses (``parallel.mesh.HOST_STAGED``) is printed. 21a:
+   ``SynchronousDistributedTrainer(model_parallel=2)`` on phase 5's
+   configuration, each rank holding its shards (bytes printed): losses
+   within 1e-3 relative, gathered parameters within 1e-4 (20b's bar),
+   exactly 4 x (17, 17, 8, 8, 8, 1) launches on each rank. 21b and 21c:
+   ``SequenceParallelTrainer`` ring and Ulysses (blockwise inner) at seq
+   2, T = 512, the same bars against ``SingleTrainer`` on dense attention
+   (the exchanges replace the flash hook), 4 x (17, 17, 1) launches on
+   each rank; the exchanges' bytes and times a step printed. 21d: tensor parallelism on config 4's CNN, model 2,
+   ``pallas_sgd``, against one rank within 20c's bars. ``--phase21-only``
+   builds the kernels and runs phase 21 alone.
 
 ``--profile`` adds where the time goes: the MoE LM's decode step beside
 the dense LM's (19a), a decode step (dense, paged, on
@@ -8125,17 +8139,19 @@ def sync_corpus():
     return ds.take(8 * SYNC_STEPS)
 
 
-def sync_lm_run(torch, zoo, cls, ds, batch_size=8, **kw):
+def sync_lm_run(torch, zoo, cls, ds, batch_size=8, flash=True, **kw):
     """Phase 5's trainer configuration (``pallas_adam``, both hooks,
-    device-resident, seed 0) on a fresh d512/L8 LM, two windows of 2 steps;
-    the launch counts are set to 0 just before ``train`` and read just
-    after. Returns (trainer, result, counts, seconds)."""
+    device-resident, seed 0) on a fresh d512/L8 LM, two windows of 2 steps
+    (``flash=False``: dense attention instead of the flash hook); the
+    launch counts are set to 0 just before ``train`` and read just after.
+    Returns (trainer, result, counts, seconds)."""
     from distkeras_tpu_torch import kernels
     from distkeras_tpu_torch.ops.flash_attention import attach_flash_attention
     from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
 
     lm = make_lm(zoo)
-    check(attach_flash_attention(lm) == 8, "20: flash hook not on 8 blocks")
+    check(not flash or attach_flash_attention(lm) == 8,
+          "20: flash hook not on 8 blocks")
     check(attach_fused_layernorm(lm) == 17, "20: LN hook not on 17 norms")
     trainer = cls(lm, "pallas_adam", "next_token_crossentropy",
                   metrics=["next_token_accuracy"], batch_size=batch_size,
@@ -8162,14 +8178,15 @@ def bn_data():
     return OneHotTransformer(10, output_col="label_onehot").transform(ds)
 
 
-def bn_run(torch, cls, batch_size, **kw):
+def bn_run(torch, cls, batch_size, cudnn=True, **kw):
     """Config 4's ``cifar10_cnn(bn_momentum=0.9)`` with ``pallas_sgd``
     (B1) over 20c's data, f32, with cuDNN's deterministic algorithms: by
     default cuDNN picks other convolution algorithms at 16 rows than at
     32, whose f32 rounding four SGD steps at 0.05 carry to 3.4e-4 in a
     moving mean (2.8e-6 with these algorithms, and 1.8e-7 between two
-    runs at 32 rows either way, on an H100 80GB HBM3 at 700 W). Returns
-    (result, counts)."""
+    runs at 32 rows either way, on an H100 80GB HBM3 at 700 W).
+    ``cudnn=False`` runs ATen's own convolutions instead of cuDNN's.
+    Returns (result, counts)."""
     from distkeras_tpu_torch import kernels
     from distkeras_tpu_torch.models import zoo
 
@@ -8178,13 +8195,16 @@ def bn_run(torch, cls, batch_size, **kw):
                   learning_rate=BN_LR, batch_size=batch_size,
                   label_col="label_onehot", window=SYNC_STEPS, seed=0, **kw)
     deterministic = torch.backends.cudnn.deterministic
+    enabled = torch.backends.cudnn.enabled
     torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.enabled = cudnn
     try:
         kernels.reset_launch_counts()
         result = trainer.train(bn_data(), shuffle=True)
         torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.deterministic = deterministic
+        torch.backends.cudnn.enabled = enabled
     return result, kernels.launch_counts()
 
 
@@ -8343,27 +8363,25 @@ def run_sync_one_rank(torch, np, zoo, smi, ds):
     return out, counts
 
 
-def run_sync_two_ranks(torch, np, smi, one_rank):
-    """20b and 20c: two rank processes on the one card over gloo (NCCL
-    refuses two ranks on one device), launched with the ``DKT_*`` env;
-    20c's reference, one rank at the global batch, runs here first."""
+def run_rank_pair(np, flag, tag, timeout):
+    """Two rank processes of this script on the one card, joined in a
+    gloo group through the ``DKT_*`` env (NCCL refuses two ranks on one
+    device), each started with ``flag DIR`` and writing ``rank{r}.npz`` and
+    ``rank{r}.json`` there. Returns (arrays, infos, wall seconds); fails
+    if a rank does not exit 0 within ``timeout``."""
+    import shutil
     import tempfile
 
-    from distkeras_tpu_torch import SingleTrainer
-
-    bn_ref, bn_ref_counts = bn_run(torch, SingleTrainer, BN_GLOBAL_BATCH)
-    bn_ref = state_host(bn_ref)
-    out_dir = tempfile.mkdtemp(prefix="sync_ranks_", dir=HERE)
+    out_dir = tempfile.mkdtemp(prefix="ranks_", dir=HERE)
     env = dict(os.environ, DKT_COORDINATOR_ADDRESS=f"127.0.0.1:{free_port()}",
                DKT_NUM_PROCESSES=str(SYNC_RANKS), DKT_BACKEND="gloo")
     t0 = time.monotonic()
     procs = [subprocess.Popen(
-        [sys.executable, os.path.join(HERE, "chip_smoke.py"),
-         "--sync-rank-out", out_dir],
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"), flag, out_dir],
         env=dict(env, DKT_PROCESS_ID=str(r)), cwd=HERE,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(SYNC_RANKS)]
-    deadline = t0 + SYNC_RANK_TIMEOUT
+    deadline = t0 + timeout
     try:
         logs = [p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0]
                 for p in procs]
@@ -8373,18 +8391,31 @@ def run_sync_two_ranks(torch, np, smi, one_rank):
                 p.kill()
                 p.wait()
     wall = time.monotonic() - t0
-    for r, (p, text) in enumerate(zip(procs, logs)):
-        check(p.returncode == 0,
-              f"20b rank {r} exited {p.returncode}:\n{text[-3000:]}")
-    ranks = [dict(np.load(os.path.join(out_dir, f"rank{r}.npz")))
-             for r in range(SYNC_RANKS)]
-    infos = []
-    for r in range(SYNC_RANKS):
-        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
-            infos.append(json.load(f))
-    import shutil
+    try:
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0,
+                  f"{tag} rank {r} exited {p.returncode}:\n{text[-3000:]}")
+        ranks = [dict(np.load(os.path.join(out_dir, f"rank{r}.npz")))
+                 for r in range(SYNC_RANKS)]
+        infos = []
+        for r in range(SYNC_RANKS):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                infos.append(json.load(f))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return ranks, infos, wall
 
-    shutil.rmtree(out_dir, ignore_errors=True)
+
+def run_sync_two_ranks(torch, np, smi, one_rank):
+    """20b and 20c: two rank processes on the one card over gloo (NCCL
+    refuses two ranks on one device), launched with the ``DKT_*`` env;
+    20c's reference, one rank at the global batch, runs here first."""
+    from distkeras_tpu_torch import SingleTrainer
+
+    bn_ref, bn_ref_counts = bn_run(torch, SingleTrainer, BN_GLOBAL_BATCH)
+    bn_ref = state_host(bn_ref)
+    ranks, infos, wall = run_rank_pair(np, "--sync-rank-out", "20b",
+                                       SYNC_RANK_TIMEOUT)
     check(ranks[0].keys() == ranks[1].keys(), "20b: the ranks' keys differ")
     unequal = [k for k in ranks[0]
                if not np.array_equal(ranks[0][k], ranks[1][k])]
@@ -8465,6 +8496,294 @@ def run_phase20(torch, np, zoo, smi):
     out = {"one_rank": one, "two_ranks": two,
            "seconds_total": time.monotonic() - t0}
     counts = [*c_a, *c_b]
+    out["launches"] = {k: sum(c.get(k, 0) for c in counts)
+                       for k in counts[0]}
+    return out, counts
+
+
+# ------------------------------------------------------------------ phase 21
+
+
+TPSP_LOSS_RTOL = 1e-3  # 21a-21c losses vs the one-rank SingleTrainer
+TPSP_RANK_TIMEOUT = 360  # seconds a phase-21 rank may take, spawn included
+SP_STEP_LAUNCHES = {"layernorm_fwd": 17, "layernorm_bwd": 17,
+                    "adam_fused": 1}  # the ring / Ulysses replace flash
+
+
+def sp_lm_run(torch, zoo, ds, mode, inner="dense"):
+    """``SequenceParallelTrainer`` on phase 5's LM (both hooks attached by
+    the caller: the ring or Ulysses replaces the flash hook), ``pallas_adam``,
+    the global 8 x 512 batch, two windows of 2 steps; the launch counts are
+    set to 0 just before ``train`` and read just after."""
+    from distkeras_tpu_torch import SequenceParallelTrainer, kernels
+    from distkeras_tpu_torch.ops.flash_attention import attach_flash_attention
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+
+    lm = make_lm(zoo)
+    check(attach_flash_attention(lm) == 8, "21: flash hook not on 8 blocks")
+    check(attach_fused_layernorm(lm) == 17, "21: LN hook not on 17 norms")
+    trainer = SequenceParallelTrainer(
+        lm, "pallas_adam", "next_token_crossentropy",
+        metrics=["next_token_accuracy"], batch_size=8, window=SYNC_WINDOW,
+        learning_rate=1e-3, seed=0, sp_mode=mode, sp_inner=inner)
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    result = trainer.train(ds, shuffle=True)
+    torch.cuda.synchronize()
+    check(all(l.attention_fn is None for l in lm.modules()
+              if hasattr(l, "attention_fn")),
+          "21: the caller's model kept an attention hook")
+    return trainer, result, kernels.launch_counts(), time.monotonic() - t0
+
+
+def exchange_ms(torch, np, group, kind, shape, reps=5):
+    """Mean host time of one exchange of an f32 tensor of ``shape`` on
+    this group, the card synced around it: a ring hop
+    (``DataMesh.send_recv_``) or an all-to-all of n rows
+    (``DataMesh.all_to_all_``), on the path the group's backend takes."""
+    x = torch.randn(shape, device=group.device)
+    out = torch.empty_like(x)
+    if kind == "ring":
+        def call():
+            group.send_recv_(out, x, 1)
+    else:
+        def call():
+            group.all_to_all_(out, x)
+    call()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        group.barrier()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.mean(times))
+
+
+def exchange_plan(mode, n=SYNC_RANKS, b=8, t=512, h=8, d=64, layers=8):
+    """(kind, shape, calls) of the exchanges one training step of phase
+    5's LM makes at ``n`` sequence ranks: the ring hops a (2, B, T/n, H,
+    D) K/V block n-1 times a layer forward and again backward; Ulysses
+    all-to-alls the stacked (3, B, T/n, H, D) q/k/v and the (B, T, H/n, D)
+    output (as n rows) once each a layer forward and again backward."""
+    if mode == "ring":
+        return [("ring", (2, b, t // n, h, d), 2 * layers * (n - 1))]
+    return [("a2a", (n, 3, b, t // n, h // n, d), 2 * layers),
+            ("a2a", (n, b, t // n, h // n, d), 2 * layers)]
+
+
+def tpsp_rank_main(out_dir):
+    """A phase-21 rank: joins the gloo group from the ``DKT_*`` env (two
+    processes on the one card) and runs 21a (tensor parallelism on phase
+    5's LM), 21b and 21c (sequence parallelism, ring and Ulysses) and 21d
+    (tensor parallelism on config 4's CNN), then times the exchanges
+    alone; writes its results, launch counts and times."""
+    import numpy as np
+    import torch
+
+    from distkeras_tpu_torch import SynchronousDistributedTrainer as Sync
+    from distkeras_tpu_torch.models import zoo
+    from distkeras_tpu_torch.parallel import multihost
+    from distkeras_tpu_torch.parallel import tensor_parallel as tp
+    from distkeras_tpu_torch.parallel.mesh import make_grid
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(multihost.initialize(timeout=TPSP_RANK_TIMEOUT),
+          "21: the rank did not join a group")
+    rank = multihost.process_id()
+    ds = sync_corpus()
+    arrays = {}
+    info = {"launches": {}, "seconds": {}, "step_ms": {}}
+
+    def keep(tag, trainer, res, counts, secs):
+        arrays.update({f"{tag}/{k}": v for k, v in state_host(res).items()})
+        arrays[f"{tag}/loss"] = np.array(
+            [h["loss"] for h in trainer.get_history()])
+        info["launches"][tag], info["seconds"][tag] = counts, secs
+        info["step_ms"][tag] = step_ms(trainer)
+
+    t, res, counts, secs = sync_lm_run(torch, zoo, Sync, ds,
+                                       model_parallel=SYNC_RANKS)
+    check(t.mesh.shape == {"data": 1, "model": SYNC_RANKS},
+          f"21a: mesh {t.mesh.shape}")
+    keep("tp", t, res, counts, secs)
+    lm = make_lm(zoo)
+    whole = sum(p.numel() * p.element_size() for p in lm.parameters())
+    split = tp.attach_model_group(lm, t.mesh)
+    info["param_bytes"] = {
+        "whole": whole, "leaves_split": split,
+        "leaves": len(list(lm.parameters())),
+        "held": sum(p.numel() * p.element_size() for p in lm.parameters())}
+    del t, res, lm
+    torch.cuda.empty_cache()
+    for tag, mode, inner in (("ring", "ring", "dense"),
+                             ("ulysses", "ulysses", "blockwise")):
+        t, res, counts, secs = sp_lm_run(torch, zoo, ds, mode, inner)
+        keep(tag, t, res, counts, secs)
+        del t, res
+        torch.cuda.empty_cache()
+    for tag, cudnn in (("bn", False), ("bn_cudnn", True)):
+        res, counts = bn_run(torch, Sync, BN_GLOBAL_BATCH, cudnn=cudnn,
+                             model_parallel=SYNC_RANKS)
+        arrays.update({f"{tag}/{k}": v for k, v in state_host(res).items()})
+        info["launches"][tag] = counts
+    seq = make_grid(1, SYNC_RANKS, "seq", data_axis=False).inner
+    info["backend"] = seq.backend
+    info["exchanges"] = {}
+    for mode in ("ring", "ulysses"):
+        rows = []
+        for kind, shape, calls in exchange_plan(mode):
+            ms = exchange_ms(torch, np, seq, kind, shape)
+            nbytes = 4 * int(np.prod(shape))
+            # a ring hop sends the whole block, an all-to-all all rows but
+            # the rank's own
+            sent = nbytes if kind == "ring" else nbytes * (SYNC_RANKS - 1) \
+                // SYNC_RANKS
+            rows.append({"kind": kind, "shape": list(shape), "calls": calls,
+                         "ms": ms, "bytes_sent": sent,
+                         "staged": seq.stages("send_recv" if kind == "ring"
+                                              else "all_to_all",
+                                              torch.empty(0,
+                                                          device=seq.device))})
+        info["exchanges"][mode] = {
+            "rows": rows,
+            "bytes_per_step": sum(r["bytes_sent"] * r["calls"] for r in rows),
+            "ms_per_step": sum(r["ms"] * r["calls"] for r in rows)}
+    seq.release()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+    multihost.shutdown()
+    return 0
+
+
+def run_phase21(torch, np, zoo, smi):
+    """Phase 21, tensor and sequence parallelism: two gloo rank processes
+    on the card (NCCL refuses two ranks on one device) against the port's
+    one-rank ``SingleTrainer`` on the same batches. Returns the results
+    and the launch counts of each drive."""
+    from distkeras_tpu_torch import SingleTrainer
+    from distkeras_tpu_torch.parallel.mesh import HOST_STAGED
+
+    t0 = time.monotonic()
+    path = {op: ("pinned host buffers" if op in HOST_STAGED.get("gloo", ())
+                 else "CUDA tensors to gloo")
+            for op in ("send_recv", "all_to_all", "all_gather",
+                       "all_reduce")}
+    log(f"21: gloo exchange path, chosen by the backend: {path}")
+    ds = sync_corpus()
+    refs = {}
+    for flash in (True, False):
+        # the sequence-parallel runs replace the flash hook by their
+        # exchanges: their reference is one rank on dense attention
+        ref, ref_res, _, _ = sync_lm_run(torch, zoo, SingleTrainer, ds,
+                                         flash=flash)
+        refs[flash] = (np.array([h["loss"] for h in ref.get_history()]),
+                       state_host(ref_res), step_ms(ref))
+        del ref, ref_res
+    ref_losses, ref_params, ref_step = refs[True]
+    bn_refs = {tag: state_host(bn_run(torch, SingleTrainer, BN_GLOBAL_BATCH,
+                                      cudnn=cudnn)[0])
+               for tag, cudnn in (("bn", False), ("bn_cudnn", True))}
+    torch.cuda.empty_cache()
+    ranks, infos, wall = run_rank_pair(np, "--tpsp-rank-out", "21",
+                                       TPSP_RANK_TIMEOUT)
+    check(ranks[0].keys() == ranks[1].keys(), "21: the ranks' keys differ")
+    unequal = [k for k in ranks[0]
+               if not np.array_equal(ranks[0][k], ranks[1][k])]
+    check(not unequal, f"21: the ranks differ in {unequal[:5]}")
+    rank0 = ranks[0]
+    out = {"gloo_path": path, "backend": infos[0]["backend"], "wall_s": wall,
+           "reference_losses": ref_losses.tolist(),
+           "reference_step_ms": ref_step, "rank_infos": infos}
+    lm_expected = {k: SYNC_STEPS * n for k, n in LM_STEP_LAUNCHES.items()}
+    sp_expected = {k: SYNC_STEPS * n for k, n in SP_STEP_LAUNCHES.items()}
+    def distances(tag, flash):
+        losses, params, _ = refs[flash]
+        got = rank0[f"{tag}/loss"]
+        rel = float(np.max(np.abs(got - losses) / np.abs(losses)))
+        far = max(float(np.max(np.abs(rank0[f"{tag}/{k}"] - v)))
+                  for k, v in params.items())
+        return rel, far
+
+    failures = []
+    for tag, name, expected, flash in (("tp", "21a", lm_expected, True),
+                                       ("ring", "21b", sp_expected, False),
+                                       ("ulysses", "21c", sp_expected, False)):
+        rel, far = distances(tag, flash)
+        out[tag] = {"losses": rank0[f"{tag}/loss"].tolist(),
+                    "reference": "flash" if flash else "dense",
+                    "max_rel_loss": rel, "max_param_distance": far,
+                    "vs_other_reference": distances(tag, not flash),
+                    "step_ms": [i["step_ms"][tag] for i in infos],
+                    "launches": infos[0]["launches"][tag]}
+        if rel > TPSP_LOSS_RTOL:
+            failures.append(f"{name}: losses differ from SingleTrainer's by "
+                            f"{rel:.3e}")
+        if far > SYNC_PARAM_TOL:
+            failures.append(f"{name}: parameters differ from SingleTrainer's"
+                            f" by {far:.3e}")
+        for info in infos:
+            got = {k: n for k, n in info["launches"][tag].items() if n}
+            if got != expected:
+                failures.append(f"{name}: a rank's launches {got} != "
+                                f"{expected}")
+    for info in infos:
+        for tag in ("bn", "bn_cudnn"):
+            got = {k: n for k, n in info["launches"][tag].items() if n}
+            if got != {"sgd_fused": SYNC_STEPS}:
+                failures.append(f"21d: a rank's launches {got}")
+    for tag, ref_state in bn_refs.items():
+        stats_ok, weights_ok, worst = True, True, {}
+        for k, ref in ref_state.items():
+            got = rank0[f"{tag}/{k}"]
+            worst[k] = float(np.max(np.abs(got - ref)))
+            if k.endswith((".mean", ".var")):
+                stats_ok &= bool(np.allclose(got, ref, rtol=BN_STATS_RTOL,
+                                             atol=BN_STATS_ATOL))
+            else:
+                weights_ok &= worst[k] <= BN_WEIGHT_TOL
+        out[tag] = {"max_abs_diff": max(worst.values()),
+                    "stats_ok": stats_ok, "weights_ok": weights_ok,
+                    "worst": worst}
+    stats_ok, weights_ok = out["bn"]["stats_ok"], out["bn"]["weights_ok"]
+    pb = infos[0]["param_bytes"]
+    out["param_bytes"] = [i["param_bytes"] for i in infos]
+    log(f"21a (TP, data 1 x model 2, 4 steps of 8 x 512): losses within "
+        f"{out['tp']['max_rel_loss']:.2e} of SingleTrainer (flash hook), "
+        f"parameters within {out['tp']['max_param_distance']:.2e} (dense "
+        f"reference: {out['tp']['vs_other_reference']}); each rank holds "
+        f"{pb['held']} of {pb['whole']} parameter bytes "
+        f"({pb['leaves_split']} of {pb['leaves']} leaves split); step "
+        f"{out['tp']['step_ms']} ms (SingleTrainer {ref_step:.1f}); "
+        f"launches a rank {out['tp']['launches']} on {smi}")
+    for tag, name in (("ring", "21b"), ("ulysses", "21c")):
+        ex = infos[0]["exchanges"][tag]
+        out[tag]["exchanges"] = [i["exchanges"][tag] for i in infos]
+        log(f"{name} (SP {tag}{', blockwise inner' if tag == 'ulysses' else ''}"
+            f", seq 2, T 512): losses within {out[tag]['max_rel_loss']:.2e}"
+            f" of SingleTrainer (dense attention), parameters within "
+            f"{out[tag]['max_param_distance']:.2e} (flash reference: "
+            f"{out[tag]['vs_other_reference']}); step "
+            f"{out[tag]['step_ms']} ms; exchanges a step "
+            f"{ex['bytes_per_step']} bytes sent a rank, "
+            f"{ex['ms_per_step']:.1f} ms timed alone "
+            f"({[(r['kind'], r['calls'], round(r['ms'], 3)) for r in ex['rows']]}"
+            f" calls x ms); launches a rank {out[tag]['launches']} on {smi}")
+    log(f"21d (TP cifar10_cnn, model 2 vs 1 rank, pallas_sgd, ATen's "
+        f"convolutions): max |diff| {out['bn']['max_abs_diff']:.2e}, stats "
+        f"within rtol {BN_STATS_RTOL} / atol {BN_STATS_ATOL}: {stats_ok}, "
+        f"weights within {BN_WEIGHT_TOL}: {weights_ok}; with cuDNN's "
+        f"deterministic algorithms on both sides: max |diff| "
+        f"{out['bn_cudnn']['max_abs_diff']:.2e} on {smi}")
+    check(not failures, "; ".join(failures))
+    check(stats_ok, f"21d: moving statistics differ: {out['bn']['worst']}")
+    check(weights_ok, f"21d: weights differ: {out['bn']['worst']}")
+    out["seconds_total"] = time.monotonic() - t0
+    counts = [i["launches"][tag] for i in infos
+              for tag in ("tp", "ring", "ulysses", "bn", "bn_cudnn")]
     out["launches"] = {k: sum(c.get(k, 0) for c in counts)
                        for k in counts[0]}
     return out, counts
@@ -8923,6 +9242,10 @@ def main(argv):
                     help="also profile a decode step and a predict forward")
     ap.add_argument("--sync-rank-out", default=None,
                     help=argparse.SUPPRESS)  # phase 20b's rank processes
+    ap.add_argument("--tpsp-rank-out", default=None,
+                    help=argparse.SUPPRESS)  # phase 21's rank processes
+    ap.add_argument("--phase21-only", action="store_true",
+                    help="build the kernels and run phase 21 alone")
     args = ap.parse_args(argv)
     import torch
 
@@ -8943,6 +9266,8 @@ def main(argv):
         return 1
     if args.sync_rank_out:
         return sync_rank_main(args.sync_rank_out)
+    if args.tpsp_rank_out:
+        return tpsp_rank_main(args.tpsp_rank_out)
     import numpy as np
     import torch.nn.functional as F
 
@@ -8966,6 +9291,15 @@ def main(argv):
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas[{kname}] {line.strip()}")
+
+    if args.phase21_only:
+        tpsp, _ = run_phase21(torch, np, zoo, smi)
+        log(f"phase 21 in {tpsp['seconds_total']:.1f} s, launches "
+            f"{tpsp['launches']} on {smi}")
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"nvidia_smi": smi, "phase21": tpsp}, f, indent=1)
+        return 0
 
     ln_rows = check_layernorm(torch, F)
     flash_rows = check_flash(torch, F)
@@ -9068,6 +9402,9 @@ def main(argv):
     sync, sync_launches = run_phase20(torch, np, zoo, smi)
     log(f"phase 20 in {sync['seconds_total']:.1f} s, launches "
         f"{sync['launches']} on {smi}")
+    tpsp, tpsp_launches = run_phase21(torch, np, zoo, smi)
+    log(f"phase 21 in {tpsp['seconds_total']:.1f} s, launches "
+        f"{tpsp['launches']} on {smi}")
     profile = profile_paths(torch, np, lm, zoo) if args.profile else None
 
     phases = [pred["launches"], gen["launches"], train["launches"],
@@ -9076,6 +9413,7 @@ def main(argv):
               *healing_launches, *paging_launches, *spec_launches,
               *qos_launches, *knobs_launches, *disagg_launches,
               *fleet_launches, *moe_launches, *sync_launches,
+              *tpsp_launches,
               *(r["launches"] for r in async_sim.values())]
     launches = {k: sum(c.get(k, 0) for c in phases) for k in kernels.LAUNCHES}
     check(all(n > 0 for n in launches.values()),
@@ -9146,7 +9484,7 @@ def main(argv):
                        "phase14": spec, "phase15": qos,
                        "phase16": knobs, "phase17": disagg,
                        "phase18": fleet, "phase19": moe,
-                       "phase20": sync,
+                       "phase20": sync, "phase21": tpsp,
                        "profile": profile,
                        "flash_infinite_q": inf_rows},
                       f, indent=1)

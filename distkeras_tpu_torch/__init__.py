@@ -42,7 +42,11 @@ every path, and single-device blockwise attention
 ``SynchronousDistributedTrainer`` with global-batch ``BatchNorm`` and
 ZeRO-1, one process per rank over ``torch.distributed``
 (``parallel.multihost``, ``parallel.mesh``), launched by
-``job_deployment.Job``.
+``job_deployment.Job``; tensor parallelism for training
+(``SynchronousDistributedTrainer(model_parallel=)``,
+``parallel.tensor_parallel``) and sequence parallelism
+(``SequenceParallelTrainer`` over the ring of
+``parallel.ring_attention`` or the all-to-alls of ``parallel.ulysses``).
 Kernels (``kernels/csrc``): LayerNorm forward and backward,
 FlashAttention forward and backward (dQ, dK/dV), the fused multi-tensor
 Adam, and the fused multi-tensor SGD without and with momentum.
@@ -120,6 +124,7 @@ from distkeras_tpu_torch.trainers import (
     DistributedTrainer,
     DynSGD,
     EnsembleTrainer,
+    SequenceParallelTrainer,
     SingleTrainer,
     SynchronousDistributedTrainer,
     Trainer,
@@ -181,6 +186,7 @@ __all__ = [
     "SamplingParams",
     "Sequential",
     "SequenceGenerator",
+    "SequenceParallelTrainer",
     "ServingEngine",
     "ShardWriter",
     "SingleTrainer",

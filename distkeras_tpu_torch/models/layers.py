@@ -17,6 +17,18 @@ the output shape; ``forward`` computes, in training mode under
 ``utils.rng``; their bits match JAX's in distribution only.
 ``get_config`` is JSON-identical to the JAX layer's.
 
+Under tensor parallelism (``parallel.tensor_parallel.attach_model_group``)
+a layer holds only its rank's shard of each leaf the rule splits (the
+trailing dimension) and ``model_group`` is set: ``Dense``, ``Conv2D``,
+``Embedding`` and the attention projections compute their own output
+columns and gather them over the group, and a split 1-D leaf that a layer
+needs whole (``LayerNorm``'s and ``BatchNorm``'s ``gamma``/``beta``) is
+gathered at use. Under sequence parallelism (``parallel.mesh.
+attach_seq_group``) ``seq_group`` is set on the layers that see the
+whole sequence: ``Embedding`` adds the positions at the rank's offset,
+``GlobalAvgPool1D`` averages over the global sequence and dropout keeps
+the rank's tokens of the global mask.
+
 ``Dense.kernel`` keeps the JAX layout ``(in, out)``: ``y = x @ kernel``.
 Images stay NHWC at every layer boundary and ``Conv2D.kernel`` stays HWIO;
 the convolutions and pools view NHWC memory as cuDNN's channels-last NCHW
@@ -141,6 +153,21 @@ class Layer(nn.Module):
 
     # True for layers that take ``forward(x, rng=seed)`` (dropout)
     uses_train_rng = False
+    #: tensor parallelism: the model group (a ``parallel.mesh.DataMesh``)
+    #: whose rank holds only its shard of each leaf named in
+    #: ``model_split`` ({leaf: whole shape}); None otherwise
+    model_group = None
+    model_split = {}
+
+    def _split(self, name):
+        """True when this rank holds only its shard of leaf ``name``."""
+        return self.model_group is not None and name in self.model_split
+
+    def _whole(self, name):
+        """Leaf ``name`` whole: gathered over the model group when split
+        (the gather's backward keeps the rank's slice of its gradient)."""
+        leaf = getattr(self, name)
+        return self.model_group.gather(leaf, -1) if self._split(name) else leaf
 
     def init(self, gen, in_shape):
         return in_shape
@@ -186,9 +213,14 @@ class Dense(Layer):
         return (*in_shape[:-1], self.units)
 
     def forward(self, x):
+        split = self._split("kernel")
+        if split:  # this rank's output columns, gathered
+            x = self.model_group.copy_in(x)
         y = qmatmul(x, self.kernel)
         if self.use_bias:
             y = y + self.bias.to(x.dtype)
+        if split:
+            y = self.model_group.gather(y, -1)
         return get_activation(self.activation)(y)
 
     def get_config(self):
@@ -279,6 +311,9 @@ class Conv2D(Layer):
                              self.padding), self.filters)
 
     def forward(self, x):
+        split = self._split("kernel")
+        if split:  # this rank's output channels, gathered
+            x = self.model_group.copy_in(x)
         w = _HWIOGrad.apply(self.kernel).to(x.dtype).permute(3, 2, 0, 1)
         xc, pad = _pad_nchw(x.permute(0, 3, 1, 2), self.kernel_size,
                             self.strides, self.padding, 0.0)
@@ -286,6 +321,8 @@ class Conv2D(Layer):
                      stride=self.strides, padding=pad).permute(0, 2, 3, 1)
         if self.use_bias:
             y = y + self.bias.to(x.dtype)
+        if split:
+            y = self.model_group.gather(y, -1)
         return get_activation(self.activation)(y)
 
     def get_config(self):
@@ -371,22 +408,29 @@ class Flatten(Layer):
         return x.reshape(x.shape[0], -1)
 
 
-def _dropout(x, rate, seed, group=None):
+def _dropout(x, rate, seed, group=None, seq_group=None):
     """Inverted dropout of ``x`` with its mask drawn from ``seed`` on x's
     device — the one copy, shared by ``Dropout`` and the residual dropout
     of ``TransformerBlock``. Under a data group of N ranks (``group``, a
     ``parallel.mesh.DataMesh``) ``x`` is the rank's rows of the global
-    batch: the mask of the global batch is drawn and the rank's rows kept,
-    so N ranks drop what one device would at the global batch."""
+    batch, under a sequence group (``seq_group``) its tokens of the global
+    sequence (axis 1): the mask of the global batch is drawn and the
+    rank's rows and tokens kept, so the ranks drop what one device would
+    at the global batch."""
     keep = 1.0 - rate
     gen = torch.Generator(device=x.device).manual_seed(int(seed))
-    if group is None:
-        mask = torch.rand(x.shape, generator=gen, device=x.device)
-    else:
+    shape = list(x.shape)
+    if group is not None:
+        shape[0] *= group.num_workers
+    if seq_group is not None:
+        shape[1] *= seq_group.num_workers
+    mask = torch.rand(shape, generator=gen, device=x.device)
+    if group is not None:
         b = x.shape[0]
-        mask = torch.rand((group.num_workers * b, *x.shape[1:]),
-                          generator=gen, device=x.device)
         mask = mask[group.rank * b:(group.rank + 1) * b]
+    if seq_group is not None:
+        t = x.shape[1]
+        mask = mask[:, seq_group.rank * t:(seq_group.rank + 1) * t]
     return torch.where(mask < keep, x / keep, torch.zeros_like(x)).to(x.dtype)
 
 
@@ -398,8 +442,10 @@ class Dropout(Layer):
 
     uses_train_rng = True
     #: the data group of a synchronous run (``parallel.mesh.
-    #: attach_data_group``), None otherwise
+    #: attach_data_group``) and the sequence group of a sequence-parallel
+    #: one (``attach_seq_group``), None otherwise
     data_group = None
+    seq_group = None
 
     def __init__(self, rate):
         super().__init__()
@@ -410,7 +456,7 @@ class Dropout(Layer):
             return x
         if rng is None:
             raise ValueError("Dropout in training mode requires an rng seed")
-        return _dropout(x, self.rate, rng, self.data_group)
+        return _dropout(x, self.rate, rng, self.data_group, self.seq_group)
 
     def get_config(self):
         return {"layer": "Dropout", "rate": self.rate}
@@ -431,7 +477,11 @@ class Activation(Layer):
 
 @register_layer
 class Embedding(Layer):
-    """Token embedding (+ optional learned positions) for (B, T) int ids."""
+    """Token embedding (+ optional learned positions) for (B, T) int ids.
+    Under a sequence group the ids are the rank's tokens of the global
+    sequence and take the positions at its offset."""
+
+    seq_group = None
 
     def __init__(self, vocab_size, dim, with_positions=True):
         super().__init__()
@@ -449,7 +499,11 @@ class Embedding(Layer):
     def forward(self, x):
         y = self.tokens[x.long()]
         if self.with_positions:
-            y = y + self.positions[None, : y.shape[1]]
+            t = y.shape[1]
+            off = 0 if self.seq_group is None else self.seq_group.rank * t
+            y = y + self.positions[None, off:off + t]
+        if self._split("tokens"):
+            y = self.model_group.gather(y, -1)
         return y
 
     def get_config(self):
@@ -482,13 +536,14 @@ class LayerNorm(Layer):
         return in_shape
 
     def forward(self, x):
+        gamma, beta = self._whole("gamma"), self._whole("beta")
         if self.norm_fn is not None:
-            return self.norm_fn(x, self.gamma, self.beta, self.epsilon)
+            return self.norm_fn(x, gamma, beta, self.epsilon)
         from distkeras_tpu_torch.ops.fused_layernorm import (
             _reference_layer_norm,
         )
 
-        return _reference_layer_norm(x, self.gamma, self.beta, self.epsilon)
+        return _reference_layer_norm(x, gamma, beta, self.epsilon)
 
     def get_config(self):
         if self.norm_fn is not None:
@@ -502,14 +557,20 @@ class LayerNorm(Layer):
 
 @register_layer
 class GlobalAvgPool1D(Layer):
-    """(B, T, D) -> (B, D): mean over the sequence axis."""
+    """(B, T, D) -> (B, D): mean over the sequence axis (under a
+    sequence group, over the global sequence: every rank's sum, summed)."""
+
+    seq_group = None
 
     def init(self, gen, in_shape):
         t, d = in_shape
         return (d,)
 
     def forward(self, x):
-        return x.mean(dim=1)
+        g = self.seq_group
+        if g is None:
+            return x.mean(dim=1)
+        return g.sum(x.sum(dim=1)) / (x.shape[1] * g.num_workers)
 
 
 @register_layer
@@ -554,18 +615,32 @@ class MultiHeadSelfAttention(Layer):
 
         b, t, _ = x.shape
         h = self.num_heads
-        hd = qshape(self.wq)[1] // h
+        g = self.model_group
+        hd = self.model_split.get("wq", qshape(self.wq))[1] // h
 
         def proj(w):
             return qmatmul(x, w).reshape(b, t, h, hd)
 
-        q, k, v = proj(self.wq), proj(self.wk), proj(self.wv)
+        if self._split("wq"):
+            # this rank's columns of q, k and v in one gather; attention
+            # then runs over every head
+            xc = g.copy_in(x)
+            cols = torch.cat([qmatmul(xc, w)
+                              for w in (self.wq, self.wk, self.wv)], -1)
+            qkv = g.gather(cols, -1).view(b, t, g.num_workers, 3, -1)
+            q, k, v = (qkv[:, :, :, i].reshape(b, t, h, hd)
+                       for i in range(3))
+        else:
+            q, k, v = proj(self.wq), proj(self.wk), proj(self.wv)
         attn = self.attention_fn or dense_attention
-        o = attn(q, k, v, causal=self.causal)
-        o = qmatmul(o.reshape(b, t, h * hd), self.wo)
+        o = attn(q, k, v, causal=self.causal).reshape(b, t, h * hd)
+        split = self._split("wo")
+        if split:
+            o = g.copy_in(o)
+        o = qmatmul(o, self.wo)
         if self.use_bias:
             o = o + self.bo.to(x.dtype)
-        return o
+        return g.gather(o, -1) if split else o
 
     def get_config(self):
         if self.attention_fn is not None:
@@ -596,6 +671,7 @@ class TransformerBlock(Layer):
     (identity in eval), its masks drawn from seeds split off ``rng``."""
 
     data_group = None  # see Dropout.data_group
+    seq_group = None
 
     def __init__(self, num_heads, mlp_ratio=4, causal=False, remat=False,
                  dropout=0.0):
@@ -642,11 +718,11 @@ class TransformerBlock(Layer):
                     "an rng seed"
                 )
             r1, r2 = split_seed(rng, 2)
-        g = self.data_group
+        g, s = self.data_group, self.seq_group
         a = self.mhsa(self.ln1(x))
-        x = x + (_dropout(a, self.dropout, r1, g) if drop else a)
+        x = x + (_dropout(a, self.dropout, r1, g, s) if drop else a)
         h = self.fc2(self.fc1(self.ln2(x)))
-        return x + (_dropout(h, self.dropout, r2, g) if drop else h)
+        return x + (_dropout(h, self.dropout, r2, g, s) if drop else h)
 
     def get_config(self):
         return {
@@ -742,9 +818,9 @@ class BatchNorm(Layer):
         inv = torch.rsqrt(var + self.epsilon)
         y = (x - mean.to(x.dtype)) * inv.to(x.dtype)
         if self.scale:
-            y = y * self.gamma.to(x.dtype)
+            y = y * self._whole("gamma").to(x.dtype)
         if self.center:
-            y = y + self.beta.to(x.dtype)
+            y = y + self._whole("beta").to(x.dtype)
         return y
 
     def get_config(self):

@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from distkeras_tpu_torch.ops.losses import _token_mean, _token_targets
+
 
 def accuracy(y_pred, y_true):
     """Fraction of argmax matches. y_true may be one-hot or integer ids."""
@@ -15,11 +17,17 @@ def accuracy(y_pred, y_true):
     return torch.mean((pred_ids == true_ids).float())
 
 
-def next_token_accuracy(y_pred, y_true):
+def next_token_accuracy(y_pred, y_true, seq_group=None):
     """Causal-LM companion to ``losses.next_token_crossentropy``: position
-    t's logits (B, T, V) are scored against token t+1 (B, T)."""
-    pred_ids = torch.argmax(y_pred[:, :-1], dim=-1)
-    return torch.mean((pred_ids == y_true[:, 1:].to(pred_ids.dtype)).float())
+    t's logits (B, T, V) are scored against token t+1 (B, T); under a
+    sequence group as the loss is."""
+    logits, targets = _token_targets(y_pred, y_true, seq_group)
+    pred_ids = torch.argmax(logits, dim=-1)
+    hits = (pred_ids == targets.to(pred_ids.dtype)).float()
+    return _token_mean(hits, y_true, seq_group)
+
+
+next_token_accuracy.scores_tokens = True
 
 
 _METRICS = {

@@ -1,6 +1,8 @@
 """Data parallelism over ``torch.distributed`` (the data group, ZeRO-1,
-the multi-process bootstrap), single-device attention (dense, blockwise,
-the hook helpers) and the single-device mixture-of-experts layer."""
+the multi-process bootstrap), the 2-D grids of tensor and sequence
+parallelism (``mesh.GridMesh``, ``tensor_parallel``, the ring and
+Ulysses attention), single-device attention (dense, blockwise, the hook
+helpers) and the single-device mixture-of-experts layer."""
 
 from distkeras_tpu_torch.parallel.expert_parallel import (
     MoE,
@@ -9,12 +11,16 @@ from distkeras_tpu_torch.parallel.expert_parallel import (
 )
 from distkeras_tpu_torch.parallel.mesh import (
     DataMesh,
+    GridMesh,
     ZeroShards,
     all_reduce_mean,
     attach_data_group,
+    attach_seq_group,
     detach_data_group,
+    detach_seq_group,
     host_gather,
     local_devices,
+    make_grid,
     make_mesh,
     replicate,
     shard_batch,
@@ -23,7 +29,23 @@ from distkeras_tpu_torch.parallel.mesh import (
 )
 from distkeras_tpu_torch.parallel.ring_attention import (
     attach_blockwise_attention,
+    attach_ring_attention,
     blockwise_attention,
     dense_attention,
     detach_ring_attention,
+    ring_attention,
+    shard_sequence,
+)
+from distkeras_tpu_torch.parallel.tensor_parallel import (
+    PartitionSpec,
+    attach_model_group,
+    describe_shardings,
+    detach_model_group,
+    leaf_partition_spec,
+    make_dp_tp_mesh,
+    shard_params,
+)
+from distkeras_tpu_torch.parallel.ulysses import (
+    attach_ulysses_attention,
+    ulysses_attention,
 )

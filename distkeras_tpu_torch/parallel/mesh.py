@@ -11,11 +11,23 @@ place the model, cut each rank's rows out of a global batch, all-reduce
 the gradients in one flat bucket and shard the optimizer state (ZeRO-1).
 
 Collectives go through the ``DataMesh`` methods. Gloo takes CUDA tensors
-itself (it stages them through the host), so two ranks can share one
-card over gloo, where NCCL refuses two ranks on one device.
+itself for the all-reduce, the broadcast, the all-gather and the
+all-to-all (it stages them through the host), so two ranks can share one
+card over gloo, where NCCL refuses two ranks on one device; the ring's
+send/recv, which gloo refuses CUDA tensors for, goes through pinned host
+buffers (``HOST_STAGED``).
+
+The 2-D grids of tensor and sequence parallelism are a ``GridMesh``: a
+data group beside a model or sequence group, rank ``d * K + i`` at data
+index d and inner index i (the order ``np.array(devs).reshape(D, K)``
+gives devices in the JAX package). Layers and the attention exchanges
+call the autograd-aware collectives on a group (``DataMesh.copy_in``,
+``gather``, ``sum``, ``ring_step``, ``all_to_all``), whose backward is
+the transpose the loss needs.
 
 Left out: ``force_cpu_mesh`` (a JAX virtual-device knob: the port's CPU
-ranks are processes) and ``serving_mesh`` (tensor-parallel serving).
+ranks are processes) and ``serving_mesh`` (tensor-parallel serving,
+ROADMAP A13 item 5).
 """
 
 from __future__ import annotations
@@ -58,6 +70,35 @@ class DataMesh:
     device: torch.device
     _buffers: dict = field(default_factory=dict, repr=False)
 
+    axis_names = ("data",)
+
+    @property
+    def shape(self):
+        return {"data": self.num_workers}
+
+    @property
+    def backend(self):
+        """The group's ``torch.distributed`` backend ("gloo", "nccl"), or
+        None for a group of one."""
+        return None if self.group is None else dist.get_backend(self.group)
+
+    def stages(self, op, t):
+        """True when collective ``op`` of this group goes through host
+        buffers for ``t``: a CUDA tensor on a backend listed in
+        ``HOST_STAGED`` for ``op``."""
+        return t.is_cuda and op in HOST_STAGED.get(self.backend, ())
+
+    def host_buffer(self, key, shape, dtype):
+        """A pinned host buffer kept for reuse under ``key`` (the staging
+        of an exchange that goes through the host)."""
+        key = ("host", key)
+        buf = self._buffers.get(key)
+        if buf is None or buf.shape != tuple(shape) or buf.dtype != dtype:
+            buf = torch.empty(shape, dtype=dtype,
+                              pin_memory=torch.cuda.is_available())
+            self._buffers[key] = buf
+        return buf
+
     def buffer(self, key, numel, dtype):
         """A flat buffer kept for reuse under ``key`` (the gradient bucket
         and the ZeRO gather land at the same addresses every step, so the
@@ -97,6 +138,152 @@ class DataMesh:
         if self.group is not None:
             dist.barrier(group=self.group)
 
+    def send_recv_(self, out, t, shift=1):
+        """One hop around the ring: ``t`` goes to rank ``rank + shift`` and
+        ``out`` receives rank ``rank - shift``'s (both mod the group
+        size), in one ``batch_isend_irecv``."""
+        if self.group is None:
+            return out.copy_(t)
+        n = self.num_workers
+        dst = dist.get_global_rank(self.group, (self.rank + shift) % n)
+        src = dist.get_global_rank(self.group, (self.rank - shift) % n)
+        staged = self.stages("send_recv", t)
+        if staged:
+            send = self.host_buffer("send", t.shape, t.dtype)
+            send.copy_(t)
+            recv = self.host_buffer("recv", t.shape, t.dtype)
+        else:
+            send, recv = t.contiguous(), out
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send, dst, self.group),
+            dist.P2POp(dist.irecv, recv, src, self.group),
+        ])
+        for req in reqs:
+            req.wait()
+        if staged:
+            out.copy_(recv)
+        return out
+
+    def all_to_all_(self, out, t):
+        """``out[j]`` <- rank j's ``t[rank]``: ``t`` and ``out`` are (n, ...)
+        and contiguous, row j going to and coming from rank j."""
+        if self.group is None:
+            return out.copy_(t)
+        dist.all_to_all_single(out, t, group=self.group)
+        return out
+
+    # -- autograd-aware collectives (identities in a group of one) ---------
+
+    def copy_in(self, x):
+        """``x`` entering a computation split over the group: the
+        identity forward, the sum of the ranks' gradients backward."""
+        return x if self.group is None else _CopyIn.apply(x, self)
+
+    def gather(self, x, dim):
+        """Every rank's ``x`` concatenated along ``dim`` in rank order;
+        backward keeps the rank's slice of the gradient."""
+        return x if self.group is None else _Gather.apply(x, self, dim)
+
+    def sum(self, x):
+        """The sum of every rank's ``x``; backward sums the gradients too
+        (each rank's copy of the result feeds that rank's loss)."""
+        return x if self.group is None else _Sum.apply(x, self)
+
+    def ring_step(self, x):
+        """Rank ``rank - 1``'s ``x`` (one hop forward around the ring);
+        backward sends the gradient one hop back."""
+        return x if self.group is None else _RingStep.apply(x, self)
+
+    def all_to_all(self, x, split_dim, concat_dim):
+        """JAX's tiled ``all_to_all``: ``x`` split in n chunks along
+        ``split_dim``, chunk j sent to rank j, the chunks received
+        concatenated along ``concat_dim`` in rank order; backward is the
+        reverse exchange."""
+        if self.group is None:
+            return x
+        return _AllToAll.apply(x, self, split_dim, concat_dim)
+
+
+#: the collectives a backend does not take CUDA tensors for: with such a
+#: group they go through pinned host buffers. Chosen per backend up
+#: front, never by catching an error. Gloo takes CUDA tensors for the
+#: all-reduce, the broadcast, the all-gather and ``all_to_all_single``,
+#: and refuses them for send/recv (``gloo_probe.py`` on an H100, torch
+#: 2.11: "writev ... Bad address").
+HOST_STAGED = {"gloo": frozenset({"send_recv"})}
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce_(g.clone()), None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        dim = dim % x.ndim
+        ctx.mesh, ctx.dim, ctx.size = mesh, dim, x.shape[dim]
+        part = x.contiguous()
+        out = torch.empty(mesh.num_workers * part.numel(), dtype=x.dtype,
+                          device=x.device)
+        mesh.all_gather_(out, part)
+        return torch.cat(out.view(mesh.num_workers, *part.shape).unbind(0),
+                         dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        piece = g.narrow(ctx.dim, ctx.mesh.rank * ctx.size, ctx.size)
+        return piece.contiguous(), None, None
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return mesh.all_reduce_(x.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce_(g.clone()), None
+
+
+class _RingStep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        x = x.contiguous()
+        return mesh.send_recv_(torch.empty_like(x), x, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        return ctx.mesh.send_recv_(torch.empty_like(g), g, -1), None
+
+
+def _exchange(x, mesh, split_dim, concat_dim):
+    n = mesh.num_workers
+    send = torch.stack(x.chunk(n, dim=split_dim)).contiguous()
+    recv = mesh.all_to_all_(torch.empty_like(send), send)
+    return torch.cat(recv.unbind(0), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, split_dim, concat_dim):
+        ctx.mesh, ctx.dims = mesh, (split_dim, concat_dim)
+        return _exchange(x, mesh, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return _exchange(g, ctx.mesh, concat_dim, split_dim), None, None, None
+
 
 def make_mesh(num_workers=None, device=None) -> DataMesh:
     """The data group over every process of the job
@@ -125,6 +312,79 @@ def make_mesh(num_workers=None, device=None) -> DataMesh:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", rank % torch.cuda.device_count())
     return DataMesh(n, rank, group, dev)
+
+
+@dataclass(eq=False)
+class GridMesh:
+    """One rank's view of a 2-D grid of D x K ranks: ``axis_names`` is
+    ("data", inner) with inner "model" (tensor parallelism) or "seq"
+    (sequence parallelism), or (inner,) alone for a grid without a data
+    axis (D = 1). ``data`` is the rank's data group (the D ranks of its
+    inner index), ``inner`` its inner group (the K ranks of its data
+    index) and ``world`` every rank, each a ``DataMesh``."""
+
+    axis_names: tuple
+    data: DataMesh
+    inner: DataMesh
+    world: DataMesh
+
+    @property
+    def shape(self):
+        inner = {self.axis_names[-1]: self.inner.num_workers}
+        if "data" in self.axis_names:
+            return {"data": self.data.num_workers, **inner}
+        return inner
+
+    @property
+    def device(self):
+        return self.world.device
+
+    def release(self):
+        for m in (self.data, self.inner, self.world):
+            m.release()
+
+
+def make_grid(data_parallel, inner_size, inner_name, device=None,
+              data_axis=True) -> GridMesh:
+    """The (data, ``inner_name``) grid over every process of the job:
+    ``data_parallel * inner_size`` must be the world size (one process
+    per rank). Every rank creates every subgroup, in the same order;
+    a group of one has no process group (its collectives are the
+    identity). ``data_axis=False`` names only the inner axis (D = 1)."""
+    world = make_mesh(None, device) if dist.is_initialized() else None
+    d_n, k = int(data_parallel), int(inner_size)
+    n = 1 if world is None else world.num_workers
+    if world is None and d_n * k > 1:
+        raise ValueError(
+            f"a {d_n} x {k} grid needs {d_n * k} processes: start one "
+            "process per rank and call distkeras_tpu_torch.parallel."
+            "multihost.initialize() in each (job_deployment.Job does both)"
+        )
+    if d_n * k != n:
+        raise ValueError(
+            f"a data={d_n} x {inner_name}={k} grid needs {d_n * k} ranks, "
+            f"the job has {n}; the port runs one process per rank"
+        )
+    if world is None:
+        world = make_mesh(1, device)
+    d, i = divmod(world.rank, k)
+    inner_groups = [_new_group([dd * k + j for j in range(k)])
+                    for dd in range(d_n)]
+    data_groups = [_new_group([dd * k + j for dd in range(d_n)])
+                   for j in range(k)]
+    names = ("data", inner_name) if data_axis or d_n > 1 else (inner_name,)
+    return GridMesh(
+        names,
+        data=DataMesh(d_n, d, data_groups[i], world.device),
+        inner=DataMesh(k, i, inner_groups[d], world.device),
+        world=world,
+    )
+
+
+def _new_group(ranks):
+    """A process group over ``ranks`` (every process calls this for every
+    group); None for a group of one."""
+    return dist.new_group(ranks) if len(ranks) > 1 else None
 
 
 def replicate(model, mesh: DataMesh):
@@ -246,25 +506,26 @@ def shard_opt_state_zero(opt_state, mesh: DataMesh):
     return _tree_map(cut, opt_state)
 
 
-def host_gather(tree, mesh: DataMesh | None = None, like=None):
+def host_gather(tree, mesh: DataMesh | None = None, like=None, dim=None):
     """The tree as host numpy arrays, leaves sharded over the group
     gathered whole first: a leaf whose shape differs from its counterpart
     in ``like`` (the full-shaped tree, e.g. on the meta device) is
-    all-gathered along ``zero_leaf_sharding`` of the full shape. Every rank
-    must call it (it runs collectives)."""
+    all-gathered along ``dim``, or by default along
+    ``zero_leaf_sharding`` of the full shape. Every rank must call it (it
+    runs collectives)."""
     if like is None:
         return to_host(tree)
 
     def fix(x, ref):
         if not isinstance(x, torch.Tensor) or tuple(x.shape) == tuple(ref.shape):
             return x
-        dim = zero_leaf_sharding(mesh, ref)
+        axis = zero_leaf_sharding(mesh, ref) if dim is None else dim
         part = x.contiguous()
         out = torch.empty(mesh.num_workers * part.numel(), dtype=part.dtype,
                           device=part.device)
         mesh.all_gather_(out, part)
         pieces = out.view(mesh.num_workers, *part.shape).unbind(0)
-        return torch.cat(pieces, dim=dim)
+        return torch.cat(pieces, dim=axis)
 
     return to_host(_tree_map(fix, tree, like))
 
@@ -370,7 +631,7 @@ def attach_data_group(model, mesh: DataMesh):
                 "a mixture-of-experts model under data parallelism routes "
                 "each rank's tokens with the capacity of its own rows, "
                 "where the JAX package routes the global batch; the expert "
-                "mesh comes with ROADMAP A13"
+                "mesh comes with ROADMAP A13 item 3"
             )
         if hasattr(layer, "data_group"):
             layer.data_group = mesh
@@ -382,3 +643,36 @@ def detach_data_group(model):
     for layer in walk_layers(model):
         if getattr(layer, "data_group", None) is not None:
             layer.data_group = None
+
+
+def attach_seq_group(model, mesh: DataMesh):
+    """Give the layers whose result depends on the whole sequence the
+    sequence group of a run whose token axis is split over ``mesh``:
+    ``Embedding`` adds the positions at the rank's offset,
+    ``GlobalAvgPool1D`` takes the mean over the global sequence, and
+    ``Dropout`` and the residual dropout of ``TransformerBlock`` keep the
+    rank's tokens of the global mask. A group of one attaches nothing.
+    Returns the number of layers attached; ``detach_seq_group`` undoes
+    it."""
+    if mesh.num_workers <= 1:
+        return 0
+    n = 0
+    for layer in walk_layers(model):
+        name = type(layer).__name__
+        if name in ("BatchNorm", "MoE"):
+            raise NotImplementedError(
+                f"{name} under sequence parallelism would take its "
+                "statistics or its routing capacity over the rank's "
+                "tokens alone; the port splits the token axis of "
+                "attention models without them"
+            )
+        if hasattr(layer, "seq_group"):
+            layer.seq_group = mesh
+            n += 1
+    return n
+
+
+def detach_seq_group(model):
+    for layer in walk_layers(model):
+        if getattr(layer, "seq_group", None) is not None:
+            layer.seq_group = None

@@ -15,8 +15,10 @@ so do the async trainers' commit and pull compression, their socket tier
 (``serve_socket``, ``remote_ps``) and warm-standby failover
 (``standby``). The synchronous trainer runs one process per rank over
 ``torch.distributed`` (``parallel.multihost``, ``parallel.mesh``), with
-ZeRO-1 optimizer sharding; the sequence- and pipeline-parallel trainers
-and the tensor/expert meshes are still to port (ROADMAP A13).
+ZeRO-1 optimizer sharding or tensor parallelism (``model_parallel=``,
+``parallel.tensor_parallel``); ``SequenceParallelTrainer`` splits the
+token axis over ring or Ulysses attention. The pipeline-parallel trainer
+and the expert mesh are still to port (ROADMAP A13 items 3-4).
 """
 
 from __future__ import annotations
@@ -27,10 +29,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from distkeras_tpu_torch.data.prefetch import Prefetcher
 from distkeras_tpu_torch.networking import RetryPolicy
 
+from distkeras_tpu_torch.ops.losses import with_seq_group
 from distkeras_tpu_torch.ops.optimizers import (
     effective_learning_rate,
     export_state,
@@ -48,13 +52,30 @@ from distkeras_tpu_torch.parameter_servers import (
 from distkeras_tpu_torch.parallel.mesh import (
     ZeroShards,
     attach_data_group,
+    attach_seq_group,
     detach_data_group,
+    detach_seq_group,
     host_gather,
+    make_grid,
     make_mesh,
     rank_rows,
     replicate,
     shard_opt_state_zero,
 )
+from distkeras_tpu_torch.parallel.ring_attention import (
+    attach_ring_attention,
+    detach_ring_attention,
+    shard_sequence,
+)
+from distkeras_tpu_torch.parallel.tensor_parallel import (
+    attach_model_group,
+    detach_model_group,
+    make_dp_tp_mesh,
+    shard_tree,
+    whole_named_parameters,
+    whole_shapes,
+)
+from distkeras_tpu_torch.parallel.ulysses import attach_ulysses_attention
 from distkeras_tpu_torch.utils.checkpoint import Checkpointer
 from distkeras_tpu_torch.utils.compression import (
     parse_compress_spec,
@@ -471,8 +492,18 @@ class SynchronousDistributedTrainer(Trainer):
     checkpoints, ZeRO moments gathered whole, the other ranks wait for it,
     and every rank restores.
 
-    ``model_parallel`` and ``expert_parallel`` wait for the port's
-    tensor-parallel and expert meshes (ROADMAP A13)."""
+    ``model_parallel=k`` adds tensor parallelism: a 2-D (data, model)
+    grid of ``num_workers`` x k processes (``parallel.tensor_parallel.
+    make_dp_tp_mesh``; ``num_workers`` stays the data width, the world is
+    data x k; ``mesh``: such a ``GridMesh``). Each rank stores only its
+    shard of every leaf ``leaf_partition_spec`` splits, and its layers
+    compute their own output columns and gather them over the model group;
+    the optimizer (the fused kernels too) runs on the shards, and each
+    shard's gradients are all-reduced over its data group. Checkpoints
+    hold whole leaves (the model group's shards gathered, rank 0 writes);
+    every rank restores and re-shards; the returned model holds whole
+    leaves. ``expert_parallel`` waits for the port's expert mesh (ROADMAP
+    A13 item 3)."""
 
     def __init__(
         self,
@@ -492,51 +523,101 @@ class SynchronousDistributedTrainer(Trainer):
         **kwargs,
     ):
         super().__init__(*args, **kwargs)
-        for name, value in (("model_parallel", model_parallel),
-                            ("expert_parallel", expert_parallel)):
-            if value:
-                raise NotImplementedError(
-                    f"{name}= needs the port's tensor-parallel and expert "
-                    "meshes over torch.distributed (ROADMAP A13); the port "
-                    "runs pure data parallelism"
-                )
-        if mesh is None:
-            mesh = make_mesh(num_workers, device)
-        elif num_workers is not None and int(num_workers) != mesh.num_workers:
+        self.model_parallel = int(model_parallel) if model_parallel else None
+        if self.model_parallel and expert_parallel:
             raise ValueError(
-                f"num_workers={num_workers} but the mesh has "
-                f"{mesh.num_workers} ranks"
+                "model_parallel and expert_parallel cannot combine on this "
+                "trainer (their parameter sharding rules conflict); pick one"
             )
+        if expert_parallel:
+            raise NotImplementedError(
+                "expert_parallel= needs the port's expert mesh over "
+                "torch.distributed (ROADMAP A13 item 3)"
+            )
+        self.shard_opt_state = bool(shard_opt_state)
+        if self.shard_opt_state and self.model_parallel:
+            raise ValueError(
+                "shard_opt_state (ZeRO-1) applies to the pure data-parallel "
+                "path; model_parallel/expert_parallel already shard their "
+                "optimizer state along their own mesh axes"
+            )
+        if self.model_parallel:
+            mesh = self._grid(mesh, num_workers, device)
+            self._data, self._world = mesh.data, mesh.world
+        else:
+            if mesh is None:
+                mesh = make_mesh(num_workers, device)
+            elif (num_workers is not None
+                  and int(num_workers) != mesh.num_workers):
+                raise ValueError(
+                    f"num_workers={num_workers} but the mesh has "
+                    f"{mesh.num_workers} ranks"
+                )
+            self._data = self._world = mesh
         self.mesh = mesh
-        self.num_workers = mesh.num_workers
+        self.num_workers = self._data.num_workers
         self.device = mesh.device
         check_model_device(self.model, mesh.device)
-        self.shard_opt_state = bool(shard_opt_state)
-        if self.shard_opt_state and getattr(self.optimizer, "trust_ratio",
-                                            False):
+        if ((self.shard_opt_state or self.model_parallel)
+                and getattr(self.optimizer, "trust_ratio", False)):
             raise ValueError(
-                "shard_opt_state (ZeRO-1) updates each rank's slice alone; "
-                "lamb's trust ratio needs the norms of whole leaves"
+                "shard_opt_state (ZeRO-1) and model_parallel update each "
+                "rank's slice alone; lamb's trust ratio needs the norms of "
+                "whole leaves"
             )
         self.window = int(window)
         self.prefetch = int(prefetch)
         self.device_resident = bool(device_resident)
         self._init_checkpointing(checkpoint_dir, checkpoint_every, max_to_keep)
 
+    def _grid(self, mesh, num_workers, device):
+        """The (data, model) grid of ``model_parallel=k``: the given mesh
+        (it must have a "model" axis of size k) or one over every process
+        of the job, ``num_workers`` (default world / k) wide in data."""
+        k = self.model_parallel
+        if mesh is not None:
+            if mesh.shape.get("model") != k:
+                raise ValueError(
+                    f"mesh {dict(mesh.shape)} does not have a 'model' axis "
+                    f"of size {k}"
+                )
+            return mesh
+        n = dist.get_world_size() if dist.is_initialized() else 1
+        if num_workers:
+            dp = int(num_workers)
+        else:
+            dp, rem = divmod(n, k)
+            if rem:
+                raise ValueError(
+                    f"model_parallel={k} does not divide the {n} available "
+                    "devices"
+                )
+        if dp < 1 or dp * k > n:
+            raise ValueError(
+                f"need {max(dp, 1) * k} devices for data={dp} x model={k}, "
+                f"have {n}"
+            )
+        return make_dp_tp_mesh(dp, k, device)
+
     def _train(self, dataset, shuffle=False, resume=False):
         self.history.record_training_start()
         mesh = self.mesh
         model = self.model.copy().to(mesh.device)
         core = self._make_core(model)
-        core.mesh = mesh
-        attach_data_group(model, mesh)
+        core.mesh = self._data
+        attach_data_group(model, self._data)
+        done = False
         try:
             carry = self._start(core, model, resume)
             if self.device_resident:
                 self._train_resident(dataset, shuffle, core, model, *carry)
             else:
                 self._train_streamed(dataset, shuffle, core, model, *carry)
+            done = True
         finally:
+            # the shards gathered whole after a run that ended well; after
+            # a failure the peers may be gone, so the groups are dropped
+            detach_model_group(model, gather=done)
             detach_data_group(model)
             mesh.release()
         self.history.record_training_end()
@@ -545,8 +626,8 @@ class SynchronousDistributedTrainer(Trainer):
     def _start(self, core, model, resume):
         """(opt_state, rng, start epoch): rank 0's weights broadcast, or
         the latest checkpoint read by every rank; the optimizer state on
-        the rank's ZeRO slices when sharded."""
-        mesh = self.mesh
+        the rank's ZeRO slices when sharded, on its shards under tensor
+        parallelism."""
         restored = self._restore_latest() if resume else None
         rng, start_epoch, saved = RngSeq(self.seed), 0, None
         if restored is not None:
@@ -558,21 +639,25 @@ class SynchronousDistributedTrainer(Trainer):
                 rng.set_state(trees["rng"])
             start_epoch = int(meta["epoch"])
         else:
-            replicate(model, mesh)
+            replicate(model, self._world)
+        if self.model_parallel:
+            attach_model_group(model, self.mesh)
         params = list(model.parameters())
         if self.shard_opt_state:
-            core.zero = ZeroShards(params, mesh)
+            core.zero = ZeroShards(params, self._data)
             params = core.zero.local
         opt_state = core.init_opt_state(params)
         if saved is not None:
             if self.shard_opt_state:
-                saved = shard_opt_state_zero(saved, mesh)
+                saved = shard_opt_state_zero(saved, self._data)
+            elif self.model_parallel:
+                saved = shard_tree(saved, self.mesh)
             load_state(core.optimizer, opt_state, saved)
         return opt_state, rng, start_epoch
 
     def _train_streamed(self, dataset, shuffle, core, model, opt_state, rng,
                         start_epoch):
-        mesh = self.mesh
+        mesh = self._data
         cols = [self.features_col, self.label_col]
         global_batch = self.batch_size * mesh.num_workers
 
@@ -600,7 +685,7 @@ class SynchronousDistributedTrainer(Trainer):
         ships only its columns of the (W, global batch) index matrix.
         Batch contents match the streamed path's, so the trajectories are
         bit-identical."""
-        mesh = self.mesh
+        mesh = self._data
         global_batch = self.batch_size * mesh.num_workers
         n = len(dataset)
         data_x, data_y = resident_arrays(dataset, self.features_col,
@@ -627,30 +712,241 @@ class SynchronousDistributedTrainer(Trainer):
         self.history.record_window(0, samples, time.perf_counter() - t0)
 
     def _save_epoch_checkpoint(self, done, model, opt_state, rng):
-        """The snapshot of ``SingleTrainer`` with the ZeRO moments
-        gathered to full leaves (a collective every rank joins); rank 0
-        writes it while the others wait at a barrier."""
+        """The snapshot of ``SingleTrainer`` with the ZeRO moments, or the
+        tensor-parallel shards and their moments, gathered to whole leaves
+        (collectives every rank joins); rank 0 writes it while the others
+        wait at a barrier."""
         if self.checkpointer is None or not self._should_checkpoint(done):
             return
-        mesh = self.mesh
         saved = export_state(self.optimizer, opt_state)
-        if self.shard_opt_state:
-            meta = [torch.empty_like(p, device="meta")
-                    for p in model.parameters()]
+        params = dict(model.named_parameters())
+        if self.shard_opt_state or self.model_parallel:
+            meta = [torch.empty(shape, dtype=p.dtype, device="meta")
+                    for p, shape in zip(model.parameters(),
+                                        whole_shapes(model).values())]
             like = export_state(self.optimizer, self.optimizer.init(meta))
-            saved = host_gather(saved, mesh, like=like)
-        if mesh.rank == 0:
+        if self.shard_opt_state:
+            saved = host_gather(saved, self._data, like=like)
+        elif self.model_parallel:
+            saved = host_gather(saved, self.mesh.inner, like=like, dim=-1)
+            params = whole_named_parameters(model)
+        if self._world.rank == 0:
             self.checkpointer.save(
                 done,
                 {
-                    "params": dict(model.named_parameters()),
+                    "params": params,
                     "state": dict(model.named_buffers()),
                     "opt_state": saved,
                     "rng": rng.get_state(),
                 },
                 {"epoch": done},
             )
-        mesh.barrier()
+        self._world.barrier()
+
+
+class SequenceParallelTrainer(Trainer):
+    """Sequence-parallel training over ring or Ulysses attention (JAX:
+    ``SequenceParallelTrainer``).
+
+    One process per rank, as ``SynchronousDistributedTrainer``: the TOKEN
+    axis of every batch is split over a sequence group of ``num_workers``
+    ranks (default: the job's world size), each rank holding T/N tokens,
+    and every ``MultiHeadSelfAttention`` of the working copy is pointed at
+    the scheme ``sp_mode`` picks:
+
+    - ``"ring"`` (``parallel.ring_attention``): K/V blocks rotate one hop
+      a step with an online softmax; no head-count constraint.
+    - ``"ulysses"`` (``parallel.ulysses``): one all-to-all re-shards
+      tokens into head slices, each rank attends over the FULL sequence
+      for its heads (``sp_inner="dense"`` or ``"blockwise"``), a second
+      restores the token split; num_heads must divide by the group size.
+
+    ``data_parallel=D > 1`` makes it a 2-D (data, seq) grid of D x N
+    ranks: the batch splits over "data" too, and each data slice runs its
+    own ring. ``batch_size`` is the global batch (rows x the whole
+    sequence), as in the JAX trainer. Params are replicated; each rank
+    computes its tokens' share of the global loss (``ops.losses.
+    with_seq_group``: the next-token shift crosses the shard boundary),
+    and the gradients are averaged over every rank of the grid after the
+    exchanges' transposes ran in the backward. ``Embedding``,
+    ``GlobalAvgPool1D`` and dropout see the global sequence
+    (``parallel.mesh.attach_seq_group``). ``mesh``: a ``GridMesh`` with a
+    "seq" axis (``parallel.mesh.make_grid``). ``device=None`` means CUDA.
+    The checkpoint options are ``SingleTrainer``'s (rank 0 writes; every
+    rank restores). Per-epoch ``validation_data`` is not ported: evaluate
+    the returned model instead.
+
+    The hooks are detached when training ends, from the working copy and
+    from the caller's model (as JAX detaches them), so both compute dense
+    attention; attach ``attach_ring_attention`` /
+    ``attach_ulysses_attention`` again to run sharded."""
+
+    supports_validation = False
+
+    def __init__(
+        self,
+        *args,
+        num_workers=None,
+        window=8,
+        mesh=None,
+        data_parallel=1,
+        prefetch=0,
+        checkpoint_dir=None,
+        checkpoint_every=1,
+        max_to_keep=3,
+        sp_mode="ring",
+        sp_inner="dense",
+        device=None,
+        **kwargs,
+    ):
+        super().__init__(*args, **kwargs)
+        if sp_mode not in ("ring", "ulysses"):
+            raise ValueError(
+                f"sp_mode must be 'ring' or 'ulysses'; got {sp_mode!r}"
+            )
+        if sp_inner not in ("dense", "blockwise"):
+            raise ValueError(
+                f"sp_inner must be 'dense' or 'blockwise'; got {sp_inner!r}"
+            )
+        self.sp_mode = sp_mode
+        self.sp_inner = sp_inner
+        if mesh is not None:
+            names = getattr(mesh, "axis_names", ())
+            if "seq" not in names:
+                raise ValueError(f"mesh {dict(mesh.shape)} has no 'seq' axis")
+            if int(data_parallel) > 1 and "data" not in names:
+                raise ValueError(
+                    f"data_parallel={data_parallel} conflicts with the "
+                    f"supplied mesh {dict(mesh.shape)} — give the mesh a "
+                    "'data' axis or drop data_parallel"
+                )
+        else:
+            n = (int(num_workers) if num_workers
+                 else dist.get_world_size() if dist.is_initialized() else 1)
+            dp = int(data_parallel)
+            if dp > 1:
+                if n % dp:
+                    raise ValueError(
+                        f"{n} devices not divisible by data_parallel={dp}"
+                    )
+                mesh = make_grid(dp, n // dp, "seq", device)
+            else:
+                mesh = make_grid(1, n, "seq", device, data_axis=False)
+        self.mesh = mesh
+        self.seq_size = int(mesh.shape["seq"])
+        self.data_size = int(mesh.shape.get("data", 1))
+        self.num_workers = self.seq_size * self.data_size
+        self.device = mesh.device
+        check_model_device(self.model, mesh.device)
+        self.window = int(window)
+        self.prefetch = int(prefetch)
+        self._init_checkpointing(checkpoint_dir, checkpoint_every, max_to_keep)
+
+    def _train(self, dataset, shuffle=False, resume=False):
+        mesh = self.mesh
+        model = self.model.copy().to(mesh.device)
+        try:
+            if self.sp_mode == "ulysses":
+                attached = attach_ulysses_attention(model, mesh, "seq",
+                                                    inner=self.sp_inner)
+            else:
+                attached = attach_ring_attention(model, mesh, "seq")
+            if attached == 0:
+                raise ValueError(
+                    "model has no MultiHeadSelfAttention layers — sequence "
+                    "parallelism needs an attention model "
+                    "(zoo.transformer_classifier)"
+                )
+            self.history.record_training_start()
+            core = self._make_core(model)
+            core.mesh = mesh.world
+            core.loss_fn = with_seq_group(core.loss_fn, mesh.inner)
+            core.metric_fns = [with_seq_group(f, mesh.inner)
+                               for f in core.metric_fns]
+            attach_data_group(model, mesh.data)
+            attach_seq_group(model, mesh.inner)
+            self._train_streamed(dataset, shuffle, core, model,
+                                 *self._start(core, model, resume))
+        finally:
+            # the hooks close over live groups: neither the caller's model
+            # nor the returned one keeps them
+            detach_seq_group(model)
+            detach_data_group(model)
+            detach_ring_attention(model)
+            detach_ring_attention(self.model)
+            mesh.release()
+        self.history.record_training_end()
+        return self._finish(model)
+
+    def _start(self, core, model, resume):
+        """(opt_state, rng, start epoch): rank 0's weights broadcast, or
+        the latest checkpoint read by every rank."""
+        restored = self._restore_latest() if resume else None
+        rng, start_epoch, saved = RngSeq(self.seed), 0, None
+        if restored is not None:
+            _, trees, meta = restored
+            params_from_jax(model, trees["params"])
+            state_from_jax(model, trees.get("state", {}))
+            saved = self._reconcile_opt_state(trees["opt_state"], core)
+            if trees.get("rng") is not None:
+                rng.set_state(trees["rng"])
+            start_epoch = int(meta["epoch"])
+        else:
+            replicate(model, self.mesh.world)
+        opt_state = core.init_opt_state(list(model.parameters()))
+        if saved is not None:
+            load_state(core.optimizer, opt_state, saved)
+        return opt_state, rng, start_epoch
+
+    def _train_streamed(self, dataset, shuffle, core, model, opt_state, rng,
+                        start_epoch):
+        mesh = self.mesh
+        cols = [self.features_col, self.label_col]
+
+        def prepare(batches):
+            # host staging (prefetch thread): this rank's rows and tokens;
+            # the labels keep the whole sequence (the next-token loss reads
+            # the token after the rank's last)
+            xs, ys = stack_window(batches, self.features_col, self.label_col)
+            if xs.shape[2] % self.seq_size:
+                raise ValueError(
+                    f"sequence length {xs.shape[2]} is not divisible by the "
+                    f"'seq' mesh size {self.seq_size} — pad the sequences "
+                    "or change the mesh"
+                )
+            if xs.shape[1] % self.data_size:
+                raise ValueError(
+                    f"batch size {xs.shape[1]} is not divisible by the "
+                    f"'data' mesh size {self.data_size}"
+                )
+            xs = shard_sequence(rank_rows(xs, mesh.data, axis=1), mesh,
+                                axis=2)
+            ys = rank_rows(ys, mesh.data, axis=1)
+            return to_device(xs, mesh.device), to_device(ys, mesh.device)
+
+        for epoch in range(start_epoch, self.num_epoch):
+            ds = dataset.shuffle(self.seed + epoch) if shuffle else dataset
+            with Prefetcher(iter_windows(ds, self.batch_size, cols,
+                                         self.window),
+                            prepare, depth=self.prefetch) as staged:
+                for xs, ys in staged:
+                    t0 = time.perf_counter()
+                    opt_state, mets = core.window(model, opt_state, rng, xs,
+                                                  ys)
+                    self.history.extend(0, _metrics_to_records(mets))
+                    self.history.record_window(
+                        0, xs.shape[0] * self.batch_size,
+                        time.perf_counter() - t0)
+            self._epoch_end(core, epoch, model, opt_state, rng)
+
+    def _save_epoch_checkpoint(self, done, model, opt_state, rng):
+        """``SingleTrainer``'s snapshot (the parameters are replicated):
+        rank 0 writes it while the others wait at a barrier."""
+        if self.checkpointer is None or not self._should_checkpoint(done):
+            return
+        if self.mesh.world.rank == 0:
+            super()._save_epoch_checkpoint(done, model, opt_state, rng)
+        self.mesh.world.barrier()
 
 
 def _build_member(model, seed):

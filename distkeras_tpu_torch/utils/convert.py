@@ -39,10 +39,14 @@ def _flatten(tree, prefix=""):
             yield key, np.asarray(v)
 
 
-def _load(own, tree, what):
+def _load(own, tree, what, cuts=None):
     """Copy the leaves of ``tree`` into the tensors ``own`` ({name:
-    tensor}) in place; keys and shapes must match exactly."""
+    tensor}) in place; keys and shapes must match exactly, after each
+    array named in ``cuts`` ({name: fn}) is cut by its function."""
     flat = dict(_flatten(tree))
+    for name, cut in (cuts or {}).items():
+        if name in flat:
+            flat[name] = cut(flat[name])
     missing, extra = sorted(set(own) - set(flat)), sorted(set(flat) - set(own))
     if missing or extra:
         raise ValueError(
@@ -61,11 +65,30 @@ def _load(own, tree, what):
             t.copy_(torch.from_numpy(host).to(t.dtype))
 
 
+def _shard_cuts(model):
+    """{parameter name: fn} cutting a whole leaf to this rank's shard, for
+    each leaf a tensor-parallel model holds split
+    (``parallel.tensor_parallel.attach_model_group``: the trailing
+    dimension's i-th of K parts)."""
+    cuts = {}
+    for prefix, layer in model.named_modules():
+        group = getattr(layer, "model_group", None)
+        for leaf in getattr(layer, "model_split", {}) if group else ():
+            def cut(a, k=group.num_workers, i=group.rank):
+                a = np.asarray(a)
+                c = a.shape[-1] // k
+                return a[..., i * c:(i + 1) * c]
+            cuts[f"{prefix}.{leaf}" if prefix else leaf] = cut
+    return cuts
+
+
 def params_from_jax(model, params):
     """Copy a JAX params tree (leaves as numpy or anything ``np.asarray``
     takes) into ``model``'s parameters in place; returns the model. Keys
-    and shapes must match exactly."""
-    _load(dict(model.named_parameters()), params, "params")
+    and shapes must match exactly; a tensor-parallel model takes this
+    rank's shard of each whole leaf it holds split."""
+    _load(dict(model.named_parameters()), params, "params",
+          _shard_cuts(model))
     return model
 
 

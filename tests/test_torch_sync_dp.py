@@ -540,7 +540,7 @@ def test_more_workers_than_processes_names_initialize():
         tmesh.make_mesh(2, device="cpu")
 
 
-@pytest.mark.parametrize("knob", ["model_parallel", "expert_parallel"])
+@pytest.mark.parametrize("knob", ["expert_parallel"])
 def test_tensor_and_expert_parallel_wait_for_a13(knob):
     m = zoo.mnist_mlp(hidden=8, device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):
