@@ -454,6 +454,24 @@ Phases, each fatal on failure (exit code 1, no result line):
    each rank; the exchanges' bytes and times a step printed. 21d: tensor parallelism on config 4's CNN, model 2,
    ``pallas_sgd``, against one rank within 20c's bars. ``--phase21-only``
    builds the kernels and runs phase 21 alone.
+22. The expert mesh and pipeline parallelism: two gloo rank processes on
+   the card (``--p22-rank-out DIR`` is the rank mode), 4 steps of phase
+   5's global 8 x 512 batches with ``pallas_adam`` and both hooks, against
+   the port's one-rank ``SingleTrainer``. 22a:
+   ``SynchronousDistributedTrainer(expert_parallel=2)`` on phase 19's MoE
+   LM, each rank holding half of the expert bytes (printed); 22b: the
+   same MoE LM under pure data parallelism at 4 rows a rank, routing the
+   global batch. Both: the first step's routing (every token's expert, or
+   dropped) equal to one rank's in every MoE layer, losses within 1e-4
+   relative, parameters within 1e-4, exactly 4 x (17, 17, 8, 8, 8, 1)
+   launches on each rank. 22c: ``PipelineParallelTrainer`` at S = 2 with
+   4 microbatches on phase 5's LM (4 blocks a rank), the same bars, and
+   exactly 4 x the lockstep schedule's launches on each rank (every stage
+   runs its 4 blocks at each of the 5 ticks, forward and backward: 20
+   flash forward, dQ and dK/dV, 41 LayerNorm forward and backward, 1
+   Adam); the exchanges' bytes and times a step, timed alone, and their
+   share of the step printed. ``--phase22-only`` builds the kernels and
+   runs phase 22 alone.
 
 ``--profile`` adds where the time goes: the MoE LM's decode step beside
 the dense LM's (19a), a decode step (dense, paged, on
@@ -8536,6 +8554,21 @@ def sp_lm_run(torch, zoo, ds, mode, inner="dense"):
     return trainer, result, kernels.launch_counts(), time.monotonic() - t0
 
 
+def timed_ms(torch, np, group, call, reps=5):
+    """Mean host time of ``call()`` on this group, the card synced and the
+    ranks met around it."""
+    call()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        group.barrier()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.mean(times))
+
+
 def exchange_ms(torch, np, group, kind, shape, reps=5):
     """Mean host time of one exchange of an f32 tensor of ``shape`` on
     this group, the card synced around it: a ring hop
@@ -8549,16 +8582,7 @@ def exchange_ms(torch, np, group, kind, shape, reps=5):
     else:
         def call():
             group.all_to_all_(out, x)
-    call()
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        group.barrier()
-        t0 = time.perf_counter()
-        call()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return float(np.mean(times))
+    return timed_ms(torch, np, group, call, reps)
 
 
 def exchange_plan(mode, n=SYNC_RANKS, b=8, t=512, h=8, d=64, layers=8):
@@ -8784,6 +8808,380 @@ def run_phase21(torch, np, zoo, smi):
     out["seconds_total"] = time.monotonic() - t0
     counts = [i["launches"][tag] for i in infos
               for tag in ("tp", "ring", "ulysses", "bn", "bn_cudnn")]
+    out["launches"] = {k: sum(c.get(k, 0) for c in counts)
+                       for k in counts[0]}
+    return out, counts
+
+
+# ------------------------------------------------------------------ phase 22
+
+
+P22_RTOL = 1e-4  # 22a-22c losses vs one rank, relative
+P22_PARAM_TOL = 1e-4  # 22a-22c parameters vs one rank, max absolute
+#: 22b vs one rank once a routing tie has flipped: 4 rows a rank change
+#: the GEMMs' rounding (router logits 1e-5 apart), a token whose top two
+#: logits are closer than that can take the other expert, and Adam moves
+#: the entries whose gradient that flips by up to lr a step
+P22B_FIRST_RTOL = 1e-5  # the first step's loss, before any update
+P22B_RTOL = 1e-3  # every step's loss (phase 21's bar)
+P22B_PARAM_TOL = 2 * 1e-3 * SYNC_STEPS  # trained parameters, max absolute
+P22_RANK_TIMEOUT = 360  # seconds a phase-22 rank may take, spawn included
+PIPE_MICRO = 4  # 22c's microbatches
+PIPE_TICKS = PIPE_MICRO + SYNC_RANKS - 1  # the lockstep GPipe schedule
+#: 22c's launches a step on each rank: every stage runs its 4 blocks at
+#: every tick of the lockstep schedule, forward and backward, and the
+#: final LayerNorm once
+PIPE_STEP_LAUNCHES = {
+    "flash_fwd": PIPE_TICKS * 4, "flash_bwd_dq": PIPE_TICKS * 4,
+    "flash_bwd_dkv": PIPE_TICKS * 4, "layernorm_fwd": PIPE_TICKS * 8 + 1,
+    "layernorm_bwd": PIPE_TICKS * 8 + 1, "adam_fused": 1}
+
+
+def first_routes(torch, model, rec):
+    """Forward hooks on the MoE layers of ``model`` (the trainer's copy
+    carries them) recording each layer's routing of the first forward,
+    global over the layer's data group — per token its expert, or -1
+    where the capacity drops it — with the rank's router logits and the
+    capacity."""
+    from distkeras_tpu_torch.parallel.expert_parallel import MoE, route_global
+
+    moe = [l for l in model.layers if isinstance(l, MoE)]
+
+    def hook(layer, args, out):
+        if len(rec) >= len(moe):
+            return
+        x = args[0]
+        data = layer.data_group
+        if data is not None and data.num_workers <= 1:
+            data = None
+        with torch.no_grad():
+            logits = x.reshape(-1, x.shape[-1]).float() @ layer.router
+            idx, pos, _, cap, _ = route_global(logits, layer.capacity_factor,
+                                               data)
+        rec.append((torch.where(pos < cap, idx, -1).reshape(x.shape[:-1])
+                    .cpu().numpy(), logits.cpu().numpy(), cap))
+
+    for layer in moe:
+        layer.register_forward_hook(hook)
+
+
+def p22_run(torch, zoo, cls, ds, moe, batch_size=8, **kw):
+    """Phase 5's trainer configuration (``pallas_adam``, both hooks, seed
+    0, two windows of 2 steps) on a fresh MoE LM (``moe``) or d512/L8 LM;
+    the launch counts are set to 0 just before ``train`` and read just
+    after. Returns (trainer, result, counts, seconds, first routes)."""
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.ops.flash_attention import attach_flash_attention
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+
+    model = make_moe(zoo) if moe else make_lm(zoo)
+    check(attach_flash_attention(model) == 8, "22: flash hook not on 8")
+    check(attach_fused_layernorm(model) == 17, "22: LN hook not on 17")
+    routes = []
+    if moe:
+        first_routes(torch, model, routes)
+    trainer = cls(model, "pallas_adam", "next_token_crossentropy",
+                  metrics=["next_token_accuracy"], batch_size=batch_size,
+                  window=SYNC_WINDOW, learning_rate=1e-3, seed=0, **kw)
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    result = trainer.train(ds, shuffle=True)
+    torch.cuda.synchronize()
+    return (trainer, result, kernels.launch_counts(),
+            time.monotonic() - t0, routes)
+
+
+def pipe_exchanges(torch, np, group, b=8, t=512, d=512):
+    """(kind, bytes a rank sends, calls a step, ms alone) of 22c's
+    exchanges: the ring hop of one f32 microbatch activation (b/M rows)
+    at every tick but the last, forward and backward; the all-gather of
+    the (M, b/M, t, d) outputs over the pipe group; the all-reduce of the
+    pre-block layers' (b, t, d) input gradient (the copy's backward)."""
+    mb = b // PIPE_MICRO
+    hop = torch.randn(mb, t, d, device=group.device)
+    hop_out = torch.empty_like(hop)
+    outs = torch.randn(b, t, d, device=group.device)
+    gathered = torch.empty(group.num_workers * outs.numel(),
+                           device=group.device)
+    grad = torch.randn(b, t, d, device=group.device)
+    n = group.num_workers
+    rows = [
+        ("ring hop", hop.numel() * 4, 2 * (PIPE_TICKS - 1),
+         timed_ms(torch, np, group, lambda: group.send_recv_(hop_out, hop))),
+        ("output all-gather", outs.numel() * 4, 1,
+         timed_ms(torch, np, group,
+                  lambda: group.all_gather_(gathered, outs))),
+        ("input-gradient all-reduce", grad.numel() * 4 * (n - 1) // n, 1,
+         timed_ms(torch, np, group, lambda: group.all_reduce_(grad))),
+    ]
+    return [{"kind": k, "bytes_sent": nb, "calls": c, "ms": ms}
+            for k, nb, c, ms in rows]
+
+
+def check_routes(np, out, tag, name, ranks, ref, cap):
+    """The first step's routing of every MoE layer (B, T, layers): (1) the
+    ranks' kept mask is one rank's routing rule applied to the ranks' own
+    logits put together in global token order (the global batch's
+    capacity and queue places, bit for bit); (2) against the one-rank run:
+    22a's ranks hold every row and route exactly alike; in 22b every
+    token whose top-1 expert differs from the one-rank run's has its top
+    two router logits there closer than twice the layer's largest logit
+    difference between the two runs (a rounding tie), and through (1)
+    every other difference (a kept token dropped, or the reverse) follows
+    from such a tie's shift of its expert's queue. Returns the
+    failures."""
+    import torch
+
+    from distkeras_tpu_torch.parallel.expert_parallel import _route
+
+    failures = []
+    mine = [r[f"{tag}/routes"] for r in ranks]
+    logits = [r[f"{tag}/logits"] for r in ranks]
+    if tag == "ep":
+        routes, glob = mine[0], logits[0]
+        if not all(np.array_equal(m, mine[0]) for m in mine[1:]):
+            failures.append(f"{name}: the ranks route differently")
+    else:
+        routes = np.concatenate(mine)
+        glob = np.concatenate(logits, axis=1)
+    rule_ok = True
+    for layer in range(glob.shape[0]):
+        idx, pos, _, _ = _route(torch.from_numpy(glob[layer]), cap)
+        want = np.where(pos.numpy() < cap, idx.numpy(), -1)
+        rule_ok &= bool(np.array_equal(want, routes[..., layer].reshape(-1)))
+    if not rule_ok:
+        failures.append(f"{name}: the ranks' routing is not one rank's rule "
+                        "on their logits (global capacity and places)")
+    ref_routes, ref_logits = ref["routes"], ref["logits"]
+    differ = routes != ref_routes
+    ties, untied = 0, 0
+    for layer in range(ref_logits.shape[0]):
+        flips = np.nonzero(np.argmax(glob[layer], axis=1)
+                           != np.argmax(ref_logits[layer], axis=1))[0]
+        if not len(flips):
+            continue
+        drift = float(np.max(np.abs(glob[layer] - ref_logits[layer])))
+        top2 = np.sort(ref_logits[layer][flips], axis=1)[:, -2:]
+        tied = (top2[:, 1] - top2[:, 0]) <= 2 * drift
+        ties += int(np.sum(tied))
+        untied += int(np.sum(~tied))
+    out[tag].update({"routing_rule_exact": rule_ok,
+                     "routes_differing": int(np.sum(differ)),
+                     "routing_ties": ties,
+                     "max_logit_drift": float(np.max(np.abs(
+                         glob - ref_logits))),
+                     "dropped": int(np.sum(ref_routes < 0)),
+                     "tokens_routed": int(ref_routes.size),
+                     "capacity": cap})
+    if untied or (tag == "ep" and differ.any()):
+        failures.append(f"{name}: the first step's routing differs from one "
+                        f"rank's at {int(np.sum(differ))} of {differ.size} "
+                        f"(token, layer) places; {untied} top-1 experts "
+                        "differ beyond a rounding tie")
+    return failures
+
+
+def p22_rank_main(out_dir):
+    """A phase-22 rank: joins the gloo group from the ``DKT_*`` env (two
+    processes on the one card) and runs 22a (``expert_parallel=2`` on the
+    MoE LM), 22b (pure data parallelism on it) and 22c
+    (``PipelineParallelTrainer`` at S = 2 on phase 5's LM), then times
+    22c's exchanges alone; writes its results, launch counts and times."""
+    import numpy as np
+    import torch
+
+    from distkeras_tpu_torch import PipelineParallelTrainer
+    from distkeras_tpu_torch import SynchronousDistributedTrainer as Sync
+    from distkeras_tpu_torch.models import zoo
+    from distkeras_tpu_torch.parallel import expert_parallel as ep
+    from distkeras_tpu_torch.parallel import multihost
+    from distkeras_tpu_torch.parallel.mesh import make_grid
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(multihost.initialize(timeout=P22_RANK_TIMEOUT),
+          "22: the rank did not join a group")
+    rank = multihost.process_id()
+    ds = sync_corpus()
+    arrays = {}
+    info = {"launches": {}, "seconds": {}, "step_ms": {}}
+
+    def keep(tag, trainer, res, counts, secs, routes):
+        arrays.update({f"{tag}/{k}": v for k, v in state_host(res).items()})
+        arrays[f"{tag}/loss"] = np.array(
+            [h["loss"] for h in trainer.get_history()])
+        if routes:
+            arrays[f"{tag}/routes"] = np.stack([r[0] for r in routes], -1)
+            arrays[f"{tag}/logits"] = np.stack([r[1] for r in routes])
+            info["capacity"] = routes[0][2]
+        info["launches"][tag], info["seconds"][tag] = counts, secs
+        info["step_ms"][tag] = step_ms(trainer)
+
+    run = p22_run(torch, zoo, Sync, ds, True, expert_parallel=SYNC_RANKS,
+                  device_resident=True)
+    check(run[0].mesh.shape == {"data": 1, "expert": SYNC_RANKS},
+          f"22a: mesh {run[0].mesh.shape}")
+    keep("ep", *run)
+    grid = run[0].mesh
+    del run
+    moe = make_moe(zoo)
+
+    def expert_bytes():
+        return sum(l.wi.numel() * 4 + l.wo.numel() * 4 for l in moe.layers
+                   if isinstance(l, ep.MoE))
+
+    whole = expert_bytes()
+    ep.attach_expert_mesh(moe, grid)
+    info["expert_bytes"] = {"whole": whole, "held": expert_bytes()}
+    del moe, grid
+    torch.cuda.empty_cache()
+    run = p22_run(torch, zoo, Sync, ds, True, batch_size=8 // SYNC_RANKS,
+                  device_resident=True)
+    check(run[0].mesh.shape == {"data": SYNC_RANKS},
+          f"22b: mesh {run[0].mesh.shape}")
+    keep("dp", *run)
+    del run
+    torch.cuda.empty_cache()
+    run = p22_run(torch, zoo, PipelineParallelTrainer, ds, False,
+                  num_micro=PIPE_MICRO)
+    check(run[0].mesh.shape == {"pipe": SYNC_RANKS},
+          f"22c: mesh {run[0].mesh.shape}")
+    keep("pipe", *run)
+    del run
+    torch.cuda.empty_cache()
+    pipe = make_grid(1, SYNC_RANKS, "pipe", data_axis=False).inner
+    info["backend"] = pipe.backend
+    rows = pipe_exchanges(torch, np, pipe)
+    info["exchanges"] = {
+        "rows": rows,
+        "bytes_per_step": sum(r["bytes_sent"] * r["calls"] for r in rows),
+        "ms_per_step": sum(r["ms"] * r["calls"] for r in rows)}
+    pipe.release()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+    multihost.shutdown()
+    return 0
+
+
+def run_phase22(torch, np, zoo, smi):
+    """Phase 22, the expert mesh and pipeline parallelism: two gloo rank
+    processes on the card (NCCL refuses two ranks on one device) against
+    the port's one-rank ``SingleTrainer`` on the same batches. Returns the
+    results and the launch counts of each drive."""
+    from distkeras_tpu_torch import SingleTrainer
+
+    t0 = time.monotonic()
+    ds = sync_corpus()
+    refs = {}
+    for tag, moe in (("moe", True), ("lm", False)):
+        t, res, counts, _, routes = p22_run(torch, zoo, SingleTrainer, ds,
+                                            moe, device_resident=True)
+        refs[tag] = {"loss": np.array([h["loss"] for h in t.get_history()]),
+                     "params": state_host(res), "step_ms": step_ms(t),
+                     "routes": (np.stack([r[0] for r in routes], -1)
+                                if routes else None),
+                     "logits": (np.stack([r[1] for r in routes])
+                                if routes else None)}
+        del t, res
+    torch.cuda.empty_cache()
+    ranks, infos, wall = run_rank_pair(np, "--p22-rank-out", "22",
+                                       P22_RANK_TIMEOUT)
+    check(ranks[0].keys() == ranks[1].keys(), "22: the ranks' keys differ")
+    unequal = [k for k in ranks[0] if not k.startswith("dp/")
+               and not np.array_equal(ranks[0][k], ranks[1][k])]
+    unequal += [k for k in ranks[0] if k.startswith("dp/")
+                and not k.endswith(("/routes", "/logits"))
+                and not np.array_equal(ranks[0][k], ranks[1][k])]
+    check(not unequal, f"22: the ranks differ in {unequal[:5]}")
+    rank0 = ranks[0]
+    out = {"backend": infos[0]["backend"], "wall_s": wall,
+           "rank_infos": infos,
+           "reference_step_ms": {k: v["step_ms"] for k, v in refs.items()}}
+    failures = []
+    expected = {
+        "ep": {k: SYNC_STEPS * n for k, n in LM_STEP_LAUNCHES.items()},
+        "dp": {k: SYNC_STEPS * n for k, n in LM_STEP_LAUNCHES.items()},
+        "pipe": {k: SYNC_STEPS * n for k, n in PIPE_STEP_LAUNCHES.items()},
+    }
+    for tag, name, ref_tag in (("ep", "22a", "moe"), ("dp", "22b", "moe"),
+                               ("pipe", "22c", "lm")):
+        ref = refs[ref_tag]
+        got = rank0[f"{tag}/loss"]
+        rel = np.abs(got - ref["loss"]) / np.abs(ref["loss"])
+        trained = [k for k in ref["params"] if not k.endswith("aux_loss")]
+        far = max(float(np.max(np.abs(rank0[f"{tag}/{k}"] - ref["params"][k])))
+                  for k in trained)
+        aux_far = max([float(np.max(np.abs(rank0[f"{tag}/{k}"] - v)))
+                       for k, v in ref["params"].items()
+                       if k.endswith("aux_loss")], default=0.0)
+        out[tag] = {"losses": got.tolist(),
+                    "reference_losses": ref["loss"].tolist(),
+                    "max_rel_loss": float(np.max(rel)),
+                    "first_rel_loss": float(rel[0]),
+                    "max_param_distance": far,
+                    "max_aux_loss_distance": aux_far,
+                    "step_ms": [i["step_ms"][tag] for i in infos],
+                    "launches": infos[0]["launches"][tag]}
+        rtol, ptol = ((P22B_RTOL, P22B_PARAM_TOL) if tag == "dp"
+                      else (P22_RTOL, P22_PARAM_TOL))
+        if tag == "dp" and rel[0] > P22B_FIRST_RTOL:
+            failures.append(f"{name}: the first step's loss differs from "
+                            f"one rank's by {rel[0]:.3e}")
+        if np.max(rel) > rtol:
+            failures.append(f"{name}: losses differ from one rank's by "
+                            f"{np.max(rel):.3e}")
+        if far > ptol or (tag != "dp" and aux_far > ptol):
+            failures.append(f"{name}: parameters differ from one rank's by "
+                            f"{far:.3e} (aux_loss buffers {aux_far:.3e})")
+        for info in infos:
+            launched = {k: n for k, n in info["launches"][tag].items() if n}
+            if launched != expected[tag]:
+                failures.append(f"{name}: a rank's launches {launched} != "
+                                f"{expected[tag]}")
+        if ref["routes"] is not None:
+            failures += check_routes(np, out, tag, name, ranks, ref,
+                                     infos[0]["capacity"])
+    eb = [i["expert_bytes"] for i in infos]
+    out["expert_bytes"] = eb
+    if any(e["held"] * SYNC_RANKS != e["whole"] for e in eb):
+        failures.append(f"22a: a rank holds {eb} expert bytes")
+    ex = infos[0]["exchanges"]
+    out["pipe"]["exchanges"] = [i["exchanges"] for i in infos]
+    pipe_step = max(out["pipe"]["step_ms"])
+    out["pipe"]["exchange_share"] = ex["ms_per_step"] / pipe_step
+    for tag, name, what in (("ep", "22a", "EP, data 1 x expert 2"),
+                            ("dp", "22b", "pure DP 2, global routing")):
+        o = out[tag]
+        log(f"{name} ({what}, MoE LM, 4 steps of 8 x 512): losses within "
+            f"{o['max_rel_loss']:.2e} of SingleTrainer (first step "
+            f"{o['first_rel_loss']:.2e}), trained parameters within "
+            f"{o['max_param_distance']:.2e} (aux_loss buffers "
+            f"{o['max_aux_loss_distance']:.2e}); first step's routing: the "
+            f"global rule exact on the ranks' logits: "
+            f"{o['routing_rule_exact']}, {o['routes_differing']} of "
+            f"{o['tokens_routed']} (token, layer) places differ from one "
+            f"rank's, {o['routing_ties']} top-1 flips at rounding ties (logits "
+            f"{o['max_logit_drift']:.2e} apart), {o['dropped']} dropped at "
+            f"capacity {o['capacity']}; step {o['step_ms']} ms "
+            f"(SingleTrainer {refs['moe']['step_ms']:.1f}); launches a rank "
+            f"{o['launches']} on {smi}")
+    log(f"22a: a rank holds {eb[0]['held']} of {eb[0]['whole']} expert "
+        f"bytes")
+    log(f"22c (pipeline S 2, {PIPE_MICRO} microbatches, d512/L8, 4 blocks a "
+        f"rank): losses within {out['pipe']['max_rel_loss']:.2e} of "
+        f"SingleTrainer, parameters within "
+        f"{out['pipe']['max_param_distance']:.2e}; step "
+        f"{out['pipe']['step_ms']} ms (SingleTrainer "
+        f"{refs['lm']['step_ms']:.1f}); exchanges a step "
+        f"{ex['bytes_per_step']} bytes sent a rank, {ex['ms_per_step']:.1f} "
+        f"ms timed alone ({[(r['kind'], r['bytes_sent'], r['calls'], round(r['ms'], 3)) for r in ex['rows']]}"
+        f" kind, bytes, calls, ms), {out['pipe']['exchange_share']:.1%} of "
+        f"the step; launches a rank {out['pipe']['launches']} on {smi}")
+    check(not failures, "; ".join(failures))
+    out["seconds_total"] = time.monotonic() - t0
+    counts = [i["launches"][tag] for i in infos
+              for tag in ("ep", "dp", "pipe")]
     out["launches"] = {k: sum(c.get(k, 0) for c in counts)
                        for k in counts[0]}
     return out, counts
@@ -9246,6 +9644,10 @@ def main(argv):
                     help=argparse.SUPPRESS)  # phase 21's rank processes
     ap.add_argument("--phase21-only", action="store_true",
                     help="build the kernels and run phase 21 alone")
+    ap.add_argument("--p22-rank-out", default=None,
+                    help=argparse.SUPPRESS)  # phase 22's rank processes
+    ap.add_argument("--phase22-only", action="store_true",
+                    help="build the kernels and run phase 22 alone")
     args = ap.parse_args(argv)
     import torch
 
@@ -9268,6 +9670,8 @@ def main(argv):
         return sync_rank_main(args.sync_rank_out)
     if args.tpsp_rank_out:
         return tpsp_rank_main(args.tpsp_rank_out)
+    if args.p22_rank_out:
+        return p22_rank_main(args.p22_rank_out)
     import numpy as np
     import torch.nn.functional as F
 
@@ -9299,6 +9703,14 @@ def main(argv):
         if args.out:
             with open(args.out, "w") as f:
                 json.dump({"nvidia_smi": smi, "phase21": tpsp}, f, indent=1)
+        return 0
+    if args.phase22_only:
+        epp, _ = run_phase22(torch, np, zoo, smi)
+        log(f"phase 22 in {epp['seconds_total']:.1f} s, launches "
+            f"{epp['launches']} on {smi}")
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"nvidia_smi": smi, "phase22": epp}, f, indent=1)
         return 0
 
     ln_rows = check_layernorm(torch, F)
@@ -9405,6 +9817,9 @@ def main(argv):
     tpsp, tpsp_launches = run_phase21(torch, np, zoo, smi)
     log(f"phase 21 in {tpsp['seconds_total']:.1f} s, launches "
         f"{tpsp['launches']} on {smi}")
+    epp, epp_launches = run_phase22(torch, np, zoo, smi)
+    log(f"phase 22 in {epp['seconds_total']:.1f} s, launches "
+        f"{epp['launches']} on {smi}")
     profile = profile_paths(torch, np, lm, zoo) if args.profile else None
 
     phases = [pred["launches"], gen["launches"], train["launches"],
@@ -9413,7 +9828,7 @@ def main(argv):
               *healing_launches, *paging_launches, *spec_launches,
               *qos_launches, *knobs_launches, *disagg_launches,
               *fleet_launches, *moe_launches, *sync_launches,
-              *tpsp_launches,
+              *tpsp_launches, *epp_launches,
               *(r["launches"] for r in async_sim.values())]
     launches = {k: sum(c.get(k, 0) for c in phases) for k in kernels.LAUNCHES}
     check(all(n > 0 for n in launches.values()),
@@ -9485,6 +9900,7 @@ def main(argv):
                        "phase16": knobs, "phase17": disagg,
                        "phase18": fleet, "phase19": moe,
                        "phase20": sync, "phase21": tpsp,
+                       "phase22": epp,
                        "profile": profile,
                        "flash_infinite_q": inf_rows},
                       f, indent=1)

@@ -46,7 +46,11 @@ ZeRO-1, one process per rank over ``torch.distributed``
 (``SynchronousDistributedTrainer(model_parallel=)``,
 ``parallel.tensor_parallel``) and sequence parallelism
 (``SequenceParallelTrainer`` over the ring of
-``parallel.ring_attention`` or the all-to-alls of ``parallel.ulysses``).
+``parallel.ring_attention`` or the all-to-alls of ``parallel.ulysses``);
+expert parallelism (``SynchronousDistributedTrainer(expert_parallel=)``,
+the expert mesh of ``parallel.expert_parallel``, with global-batch
+routing under any data group) and pipeline parallelism
+(``PipelineParallelTrainer`` over ``parallel.pipeline_parallel``).
 Kernels (``kernels/csrc``): LayerNorm forward and backward,
 FlashAttention forward and backward (dQ, dK/dV), the fused multi-tensor
 Adam, and the fused multi-tensor SGD without and with momentum.
@@ -124,6 +128,7 @@ from distkeras_tpu_torch.trainers import (
     DistributedTrainer,
     DynSGD,
     EnsembleTrainer,
+    PipelineParallelTrainer,
     SequenceParallelTrainer,
     SingleTrainer,
     SynchronousDistributedTrainer,
@@ -186,6 +191,7 @@ __all__ = [
     "SamplingParams",
     "Sequential",
     "SequenceGenerator",
+    "PipelineParallelTrainer",
     "SequenceParallelTrainer",
     "ServingEngine",
     "ShardWriter",

@@ -1,12 +1,16 @@
 """Data parallelism over ``torch.distributed`` (the data group, ZeRO-1,
-the multi-process bootstrap), the 2-D grids of tensor and sequence
-parallelism (``mesh.GridMesh``, ``tensor_parallel``, the ring and
-Ulysses attention), single-device attention (dense, blockwise, the hook
-helpers) and the single-device mixture-of-experts layer."""
+the multi-process bootstrap), the 2-D grids of tensor, sequence, expert
+and pipeline parallelism (``mesh.GridMesh``, ``tensor_parallel``, the
+ring and Ulysses attention, the expert mesh, ``pipeline_parallel``),
+single-device attention (dense, blockwise, the hook helpers) and the
+mixture-of-experts layer."""
 
 from distkeras_tpu_torch.parallel.expert_parallel import (
     MoE,
+    attach_expert_mesh,
+    detach_expert_mesh,
     moe_ffn,
+    shard_moe_params,
     switch_route,
 )
 from distkeras_tpu_torch.parallel.mesh import (
@@ -26,6 +30,12 @@ from distkeras_tpu_torch.parallel.mesh import (
     shard_batch,
     shard_opt_state_zero,
     zero_leaf_sharding,
+)
+from distkeras_tpu_torch.parallel.pipeline_parallel import (
+    pipeline_apply,
+    shard_stacked_params,
+    stack_block_params,
+    unstack_block_params,
 )
 from distkeras_tpu_torch.parallel.ring_attention import (
     attach_blockwise_attention,

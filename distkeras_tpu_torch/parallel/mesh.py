@@ -17,10 +17,10 @@ card over gloo, where NCCL refuses two ranks on one device; the ring's
 send/recv, which gloo refuses CUDA tensors for, goes through pinned host
 buffers (``HOST_STAGED``).
 
-The 2-D grids of tensor and sequence parallelism are a ``GridMesh``: a
-data group beside a model or sequence group, rank ``d * K + i`` at data
-index d and inner index i (the order ``np.array(devs).reshape(D, K)``
-gives devices in the JAX package). Layers and the attention exchanges
+The 2-D grids of tensor, sequence, expert and pipeline parallelism are a
+``GridMesh``: a data group beside a model, sequence, expert or pipe
+group, rank ``d * K + i`` at data index d and inner index i (the order
+``np.array(devs).reshape(D, K)`` gives devices in the JAX package). Layers and the attention exchanges
 call the autograd-aware collectives on a group (``DataMesh.copy_in``,
 ``gather``, ``sum``, ``ring_step``, ``all_to_all``), whose backward is
 the transpose the loss needs.
@@ -314,14 +314,21 @@ def make_mesh(num_workers=None, device=None) -> DataMesh:
     return DataMesh(n, rank, group, dev)
 
 
+#: the inner axes of a ``GridMesh``: tensor, sequence, expert and
+#: pipeline parallelism
+GRID_AXES = ("model", "seq", "expert", "pipe")
+
+
 @dataclass(eq=False)
 class GridMesh:
     """One rank's view of a 2-D grid of D x K ranks: ``axis_names`` is
-    ("data", inner) with inner "model" (tensor parallelism) or "seq"
-    (sequence parallelism), or (inner,) alone for a grid without a data
-    axis (D = 1). ``data`` is the rank's data group (the D ranks of its
-    inner index), ``inner`` its inner group (the K ranks of its data
-    index) and ``world`` every rank, each a ``DataMesh``."""
+    ("data", inner) with inner "model" (tensor parallelism), "seq"
+    (sequence parallelism) or "expert" (expert parallelism), ("pipe",
+    "data") for pipeline parallelism (JAX's axis order), or (inner,)
+    alone for a grid without a data axis (D = 1). ``data`` is the rank's
+    data group (the D ranks of its inner index), ``inner`` its inner
+    group (the K ranks of its data index) and ``world`` every rank, each
+    a ``DataMesh``."""
 
     axis_names: tuple
     data: DataMesh
@@ -329,11 +336,13 @@ class GridMesh:
     world: DataMesh
 
     @property
+    def inner_name(self):
+        return next(a for a in self.axis_names if a != "data")
+
+    @property
     def shape(self):
-        inner = {self.axis_names[-1]: self.inner.num_workers}
-        if "data" in self.axis_names:
-            return {"data": self.data.num_workers, **inner}
-        return inner
+        return {a: (self.data if a == "data" else self.inner).num_workers
+                for a in self.axis_names}
 
     @property
     def device(self):
@@ -350,7 +359,12 @@ def make_grid(data_parallel, inner_size, inner_name, device=None,
     ``data_parallel * inner_size`` must be the world size (one process
     per rank). Every rank creates every subgroup, in the same order;
     a group of one has no process group (its collectives are the
-    identity). ``data_axis=False`` names only the inner axis (D = 1)."""
+    identity). ``data_axis=False`` names only the inner axis (D = 1).
+    ``inner_name``: one of ``GRID_AXES``."""
+    if inner_name not in GRID_AXES:
+        raise ValueError(
+            f"inner axis must be one of {GRID_AXES}; got {inner_name!r}"
+        )
     world = make_mesh(None, device) if dist.is_initialized() else None
     d_n, k = int(data_parallel), int(inner_size)
     n = 1 if world is None else world.num_workers
@@ -372,7 +386,12 @@ def make_grid(data_parallel, inner_size, inner_name, device=None,
                     for dd in range(d_n)]
     data_groups = [_new_group([dd * k + j for dd in range(d_n)])
                    for j in range(k)]
-    names = ("data", inner_name) if data_axis or d_n > 1 else (inner_name,)
+    if not (data_axis or d_n > 1):
+        names = (inner_name,)
+    elif inner_name == "pipe":
+        names = ("pipe", "data")
+    else:
+        names = ("data", inner_name)
     return GridMesh(
         names,
         data=DataMesh(d_n, d, data_groups[i], world.device),
@@ -530,6 +549,26 @@ def host_gather(tree, mesh: DataMesh | None = None, like=None, dim=None):
     return to_host(_tree_map(fix, tree, like))
 
 
+def shard_like(tree, whole, held, group: DataMesh):
+    """This rank's parts of a tree of whole leaves (a restored optimizer
+    state) for leaves split over ``group``: each leaf whose shape in
+    ``whole`` (the tree's layout at whole shapes) differs from its shape
+    in ``held`` (at the shapes this rank holds) is cut along the one
+    dimension where they differ to the group rank's part; every other
+    leaf is kept as it is."""
+    def cut(x, w, h):
+        if not hasattr(x, "shape") or tuple(w.shape) == tuple(h.shape):
+            return x
+        dim = next(i for i, (a, b) in enumerate(zip(w.shape, h.shape))
+                   if a != b)
+        c = h.shape[dim]
+        index = [slice(None)] * len(w.shape)
+        index[dim] = slice(group.rank * c, (group.rank + 1) * c)
+        return x[tuple(index)]
+
+    return _tree_map(cut, tree, whole, held)
+
+
 def _tree_map(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v, *(r[k] for r in rest))
@@ -619,20 +658,15 @@ def attach_data_group(model, mesh: DataMesh):
     """Give the layers whose result depends on the whole batch the group
     for a run: ``BatchNorm`` takes its statistics over the global batch,
     ``Dropout`` and the residual dropout of ``TransformerBlock`` draw the
-    global batch's mask and keep the rank's rows. A group of one attaches
-    nothing. Returns the number of layers attached; ``detach_data_group``
-    undoes it."""
+    global batch's mask and keep the rank's rows, and ``MoE`` routes the
+    global batch (its capacity and each token's place in its expert's
+    queue over every rank's tokens, and the load-balance loss over the
+    global batch). A group of one attaches nothing. Returns the number of
+    layers attached; ``detach_data_group`` undoes it."""
     if mesh.num_workers <= 1:
         return 0
     n = 0
     for layer in walk_layers(model):
-        if type(layer).__name__ == "MoE":
-            raise NotImplementedError(
-                "a mixture-of-experts model under data parallelism routes "
-                "each rank's tokens with the capacity of its own rows, "
-                "where the JAX package routes the global batch; the expert "
-                "mesh comes with ROADMAP A13 item 3"
-            )
         if hasattr(layer, "data_group"):
             layer.data_group = mesh
             n += 1

@@ -13,7 +13,9 @@ the optimizer moments live on the shards. ``Dense``, ``Conv2D``,
 columns and gather them over the model group; the input enters through a
 copy whose backward sums the ranks' input gradients; a split 1-D leaf a
 layer needs whole (``LayerNorm``'s, ``BatchNorm``'s ``gamma``/``beta``)
-is gathered at use (``models.layers``). Everything after a gather is
+is gathered at use (``models.layers``). ``MoE`` computes its columns of
+the router logits, of the experts' hidden activations and of their
+output, and gathers each (``parallel.expert_parallel``). Everything after a gather is
 computed alike on every rank of the model group, so each holds the whole
 gradient of what it stores: the trainer reduces gradients over the data
 group only.
@@ -74,13 +76,21 @@ def _model_group(mesh, axis_name="model"):
     return mesh
 
 
+def _owner(model, name):
+    """(layer, leaf name) of a parameter name."""
+    prefix, _, leaf = name.rpartition(".")
+    return (model.get_submodule(prefix) if prefix else model), leaf
+
+
 def whole_shapes(model):
-    """{parameter name: whole shape}, split leaves at their whole shape."""
+    """{parameter name: whole shape}, leaves split over a model group
+    (``model_split``) or an expert group (``MoE.expert_split``) at their
+    whole shape."""
     out = {}
     for name, p in model.named_parameters():
-        prefix, _, leaf = name.rpartition(".")
-        layer = model.get_submodule(prefix) if prefix else model
-        split = getattr(layer, "model_split", {})
+        layer, leaf = _owner(model, name)
+        split = {**getattr(layer, "model_split", {}),
+                 **getattr(layer, "expert_split", {})}
         out[name] = tuple(split.get(leaf, p.shape))
     return out
 
@@ -102,7 +112,7 @@ def shard_leaf(whole, group):
 
 #: the layers whose forward computes from split leaves (``models.layers``)
 _SPLIT_LAYERS = frozenset({"Dense", "Conv2D", "Embedding", "LayerNorm",
-                           "BatchNorm", "MultiHeadSelfAttention"})
+                           "BatchNorm", "MultiHeadSelfAttention", "MoE"})
 
 
 def attach_model_group(model, mesh, axis_name="model") -> int:
@@ -111,8 +121,7 @@ def attach_model_group(model, mesh, axis_name="model") -> int:
     (a contiguous parameter of its own) and its layer computes through
     the group. Returns the number of leaves split; ``detach_model_group``
     gathers them back whole. Raises for a layer that holds a split leaf
-    and has no tensor-parallel forward (``MoE``: ROADMAP A13 item 3)
-    before it changes anything."""
+    and has no tensor-parallel forward before it changes anything."""
     group = _model_group(mesh, axis_name)
     if group.num_workers <= 1:
         return 0
@@ -125,10 +134,7 @@ def attach_model_group(model, mesh, axis_name="model") -> int:
             kind = type(layer).__name__
             if kind not in _SPLIT_LAYERS:
                 raise NotImplementedError(
-                    f"{kind} has no tensor-parallel forward"
-                    + (": an MoE model needs the expert mesh (ROADMAP A13 "
-                       "item 3)" if kind == "MoE" else "")
-                )
+                    f"{kind} has no tensor-parallel forward")
             plan.append((layer, names))
     for layer, names in plan:
         split = {}
@@ -158,16 +164,19 @@ def detach_model_group(model, gather=True):
 
 
 def whole_named_parameters(model):
-    """{name: whole tensor} of a (possibly split) model, split leaves
-    all-gathered (a collective every rank of the group joins)."""
+    """{name: whole tensor} of a (possibly split) model, leaves split over
+    a model group all-gathered along their trailing dimension and those
+    split over an expert group along their leading one (collectives
+    every rank of the group joins)."""
     out = {}
     with torch.no_grad():
         for name, p in model.named_parameters():
-            prefix, _, leaf = name.rpartition(".")
-            layer = model.get_submodule(prefix) if prefix else model
+            layer, leaf = _owner(model, name)
             p = p.detach()
             if leaf in getattr(layer, "model_split", {}):
                 p = layer.model_group.gather(p, -1)
+            elif leaf in getattr(layer, "expert_split", {}):
+                p = layer.expert_group.gather(p, 0)
             out[name] = p
     return out
 
@@ -177,20 +186,3 @@ def shard_params(model, mesh, axis_name="model"):
     (``attach_model_group``); returns the model."""
     attach_model_group(model, mesh, axis_name)
     return model
-
-
-def shard_tree(tree, mesh, axis_name="model"):
-    """This rank's shards of a tree of whole leaves (a restored optimizer
-    state): every leaf the rule splits cut to its shard."""
-    from distkeras_tpu_torch.parallel.mesh import _tree_map
-
-    group = _model_group(mesh, axis_name)
-
-    def cut(x):
-        if not hasattr(x, "shape") or leaf_partition_spec(
-                x.shape, group.num_workers, axis_name) == P():
-            return x
-        c = x.shape[-1] // group.num_workers
-        return x[..., group.rank * c:(group.rank + 1) * c]
-
-    return _tree_map(cut, tree)

@@ -15,14 +15,16 @@ so do the async trainers' commit and pull compression, their socket tier
 (``serve_socket``, ``remote_ps``) and warm-standby failover
 (``standby``). The synchronous trainer runs one process per rank over
 ``torch.distributed`` (``parallel.multihost``, ``parallel.mesh``), with
-ZeRO-1 optimizer sharding or tensor parallelism (``model_parallel=``,
-``parallel.tensor_parallel``); ``SequenceParallelTrainer`` splits the
-token axis over ring or Ulysses attention. The pipeline-parallel trainer
-and the expert mesh are still to port (ROADMAP A13 items 3-4).
+ZeRO-1 optimizer sharding, tensor parallelism (``model_parallel=``,
+``parallel.tensor_parallel``) or expert parallelism (``expert_parallel=``,
+``parallel.expert_parallel``); ``SequenceParallelTrainer`` splits the
+token axis over ring or Ulysses attention, and ``PipelineParallelTrainer``
+splits a block tower into GPipe stages (``parallel.pipeline_parallel``).
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import threading
 import time
@@ -30,6 +32,8 @@ import time
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch import nn
+from torch.func import functional_call
 
 from distkeras_tpu_torch.data.prefetch import Prefetcher
 from distkeras_tpu_torch.networking import RetryPolicy
@@ -49,6 +53,10 @@ from distkeras_tpu_torch.parameter_servers import (
     RemoteParameterServerClient,
     SocketParameterServer,
 )
+from distkeras_tpu_torch.parallel.expert_parallel import (
+    attach_expert_mesh,
+    detach_expert_mesh,
+)
 from distkeras_tpu_torch.parallel.mesh import (
     ZeroShards,
     attach_data_group,
@@ -60,8 +68,10 @@ from distkeras_tpu_torch.parallel.mesh import (
     make_mesh,
     rank_rows,
     replicate,
+    shard_like,
     shard_opt_state_zero,
 )
+from distkeras_tpu_torch.parallel.pipeline_parallel import pipeline_stage
 from distkeras_tpu_torch.parallel.ring_attention import (
     attach_ring_attention,
     detach_ring_attention,
@@ -70,8 +80,6 @@ from distkeras_tpu_torch.parallel.ring_attention import (
 from distkeras_tpu_torch.parallel.tensor_parallel import (
     attach_model_group,
     detach_model_group,
-    make_dp_tp_mesh,
-    shard_tree,
     whole_named_parameters,
     whole_shapes,
 )
@@ -81,7 +89,12 @@ from distkeras_tpu_torch.utils.compression import (
     parse_compress_spec,
     validate_pull_compress,
 )
-from distkeras_tpu_torch.utils.convert import params_from_jax, state_from_jax
+from distkeras_tpu_torch.models.sequential import walk_layers
+from distkeras_tpu_torch.utils.convert import (
+    BLOCKS,
+    params_from_jax,
+    state_from_jax,
+)
 from distkeras_tpu_torch.utils.device import (
     check_model_device,
     local_devices,
@@ -115,6 +128,17 @@ from distkeras_tpu_torch.workers import (
 )
 
 logger = logging.getLogger(__name__)
+
+
+def _state_at(optimizer, params, shapes=None):
+    """The exported state layout ``optimizer`` gives ``params`` at
+    ``shapes`` (default: their own), built on the meta device: no moment
+    is allocated."""
+    params = list(params)
+    shapes = [p.shape for p in params] if shapes is None else list(shapes)
+    meta = [torch.empty(shape, dtype=p.dtype, device="meta")
+            for p, shape in zip(params, shapes)]
+    return export_state(optimizer, optimizer.init(meta))
 
 
 def _maybe_len(dataset):
@@ -266,7 +290,7 @@ class Trainer:
         ):
             x, y = (torch.as_tensor(batch[c], device=device)
                     for c in (self.features_col, self.label_col))
-            results.append(core.eval_step(model, x, y))
+            results.append(self._eval_batch(core, model, x, y))
             sizes.append(len(x))
         if not results:
             return None
@@ -284,6 +308,10 @@ class Trainer:
         if self.metrics_logger is not None:
             self.metrics_logger.log(event="validation", epoch=epoch, **avg)
         return avg
+
+    def _eval_batch(self, core, model, x, y):
+        """One validation batch's loss and metrics (0-d device tensors)."""
+        return core.eval_step(model, x, y)
 
     # -- checkpointing ------------------------------------------------------
 
@@ -313,15 +341,14 @@ class Trainer:
         self._run_validation(core, model, epoch + 1)
         self._save_epoch_checkpoint(epoch + 1, model, opt_state, rng)
 
-    def _reconcile_opt_state(self, candidate, core):
+    def _reconcile_opt_state(self, candidate, core, shapes=None):
         """The restored optimizer state, or None when the checkpoint holds
-        another layout (another optimizer, or a JAX optax state not yet
-        converted by ``utils.convert.opt_state_from_jax``). The reference
-        layout is built on the meta device: no moment is allocated."""
-        meta_params = [torch.empty_like(p, device="meta")
-                       for p in core.model.parameters()]
-        reference = export_state(core.optimizer,
-                                 core.init_opt_state(meta_params))
+        another layout (another optimizer, a pipeline trainer's stacked
+        moments, or a JAX optax state not yet converted by
+        ``utils.convert.opt_state_from_jax``). The reference layout is
+        built on the meta device at ``shapes`` (default: the core's
+        parameters'): no moment is allocated."""
+        reference = _state_at(core.optimizer, core.model.parameters(), shapes)
         if tree_signature(candidate) == tree_signature(reference):
             return candidate
         logger.warning(
@@ -502,8 +529,23 @@ class SynchronousDistributedTrainer(Trainer):
     shard's gradients are all-reduced over its data group. Checkpoints
     hold whole leaves (the model group's shards gathered, rank 0 writes);
     every rank restores and re-shards; the returned model holds whole
-    leaves. ``expert_parallel`` waits for the port's expert mesh (ROADMAP
-    A13 item 3)."""
+    leaves.
+
+    ``expert_parallel=k`` adds expert parallelism: a 2-D (data, expert)
+    grid (``parallel.mesh.make_grid(num_workers, k, "expert")``; ``mesh``:
+    such a ``GridMesh``). Each rank keeps its E/k experts of every MoE
+    layer (``parallel.expert_parallel.attach_expert_mesh``, attached for
+    the run and detached after it), computes them on its kept tokens and
+    gathers the expert outputs over the expert group; everything else is
+    replicated. Checkpoints, restore and the returned model are as under
+    ``model_parallel``. ``model_parallel`` and ``expert_parallel`` do not
+    combine, and neither takes ``shard_opt_state``.
+
+    A model with ``MoE`` layers routes the GLOBAL batch under any data
+    group (pure data parallelism too), as the JAX package's GSPMD view
+    does: the capacity and each token's place in its expert's queue count
+    every rank's tokens, and the load-balance loss is the global batch's
+    (``parallel.expert_parallel``)."""
 
     def __init__(
         self,
@@ -524,24 +566,25 @@ class SynchronousDistributedTrainer(Trainer):
     ):
         super().__init__(*args, **kwargs)
         self.model_parallel = int(model_parallel) if model_parallel else None
-        if self.model_parallel and expert_parallel:
+        self.expert_parallel = (int(expert_parallel) if expert_parallel
+                                else None)
+        if self.model_parallel and self.expert_parallel:
             raise ValueError(
                 "model_parallel and expert_parallel cannot combine on this "
                 "trainer (their parameter sharding rules conflict); pick one"
             )
-        if expert_parallel:
-            raise NotImplementedError(
-                "expert_parallel= needs the port's expert mesh over "
-                "torch.distributed (ROADMAP A13 item 3)"
-            )
         self.shard_opt_state = bool(shard_opt_state)
-        if self.shard_opt_state and self.model_parallel:
+        if self.shard_opt_state and (self.model_parallel
+                                     or self.expert_parallel):
             raise ValueError(
                 "shard_opt_state (ZeRO-1) applies to the pure data-parallel "
                 "path; model_parallel/expert_parallel already shard their "
                 "optimizer state along their own mesh axes"
             )
-        if self.model_parallel:
+        self._sharded = (("model", self.model_parallel) if self.model_parallel
+                         else ("expert", self.expert_parallel)
+                         if self.expert_parallel else None)
+        if self._sharded:
             mesh = self._grid(mesh, num_workers, device)
             self._data, self._world = mesh.data, mesh.world
         else:
@@ -558,12 +601,12 @@ class SynchronousDistributedTrainer(Trainer):
         self.num_workers = self._data.num_workers
         self.device = mesh.device
         check_model_device(self.model, mesh.device)
-        if ((self.shard_opt_state or self.model_parallel)
+        if ((self.shard_opt_state or self._sharded)
                 and getattr(self.optimizer, "trust_ratio", False)):
             raise ValueError(
-                "shard_opt_state (ZeRO-1) and model_parallel update each "
-                "rank's slice alone; lamb's trust ratio needs the norms of "
-                "whole leaves"
+                "shard_opt_state (ZeRO-1), model_parallel and "
+                "expert_parallel update each rank's slice alone; lamb's "
+                "trust ratio needs the norms of whole leaves"
             )
         self.window = int(window)
         self.prefetch = int(prefetch)
@@ -571,15 +614,16 @@ class SynchronousDistributedTrainer(Trainer):
         self._init_checkpointing(checkpoint_dir, checkpoint_every, max_to_keep)
 
     def _grid(self, mesh, num_workers, device):
-        """The (data, model) grid of ``model_parallel=k``: the given mesh
-        (it must have a "model" axis of size k) or one over every process
-        of the job, ``num_workers`` (default world / k) wide in data."""
-        k = self.model_parallel
+        """The (data, model) grid of ``model_parallel=k`` or the (data,
+        expert) grid of ``expert_parallel=k``: the given mesh (it must
+        have that axis at size k) or one over every process of the job,
+        ``num_workers`` (default world / k) wide in data."""
+        axis_name, k = self._sharded
         if mesh is not None:
-            if mesh.shape.get("model") != k:
+            if getattr(mesh, "shape", {}).get(axis_name) != k:
                 raise ValueError(
-                    f"mesh {dict(mesh.shape)} does not have a 'model' axis "
-                    f"of size {k}"
+                    f"mesh {dict(mesh.shape)} does not have a "
+                    f"'{axis_name}' axis of size {k}"
                 )
             return mesh
         n = dist.get_world_size() if dist.is_initialized() else 1
@@ -589,15 +633,15 @@ class SynchronousDistributedTrainer(Trainer):
             dp, rem = divmod(n, k)
             if rem:
                 raise ValueError(
-                    f"model_parallel={k} does not divide the {n} available "
-                    "devices"
+                    f"{axis_name}_parallel={k} does not divide the {n} "
+                    "available devices"
                 )
         if dp < 1 or dp * k > n:
             raise ValueError(
-                f"need {max(dp, 1) * k} devices for data={dp} x model={k}, "
-                f"have {n}"
+                f"need {max(dp, 1) * k} devices for data={dp} x "
+                f"{axis_name}={k}, have {n}"
             )
-        return make_dp_tp_mesh(dp, k, device)
+        return make_grid(dp, k, axis_name, device)
 
     def _train(self, dataset, shuffle=False, resume=False):
         self.history.record_training_start()
@@ -618,6 +662,7 @@ class SynchronousDistributedTrainer(Trainer):
             # the shards gathered whole after a run that ended well; after
             # a failure the peers may be gone, so the groups are dropped
             detach_model_group(model, gather=done)
+            detach_expert_mesh(model, gather=done)
             detach_data_group(model)
             mesh.release()
         self.history.record_training_end()
@@ -642,6 +687,12 @@ class SynchronousDistributedTrainer(Trainer):
             replicate(model, self._world)
         if self.model_parallel:
             attach_model_group(model, self.mesh)
+        elif self.expert_parallel and attach_expert_mesh(model,
+                                                         self.mesh) == 0:
+            raise ValueError(
+                "expert_parallel needs a model with MoE layers "
+                "(zoo.moe_transformer_classifier)"
+            )
         params = list(model.parameters())
         if self.shard_opt_state:
             core.zero = ZeroShards(params, self._data)
@@ -650,10 +701,16 @@ class SynchronousDistributedTrainer(Trainer):
         if saved is not None:
             if self.shard_opt_state:
                 saved = shard_opt_state_zero(saved, self._data)
-            elif self.model_parallel:
-                saved = shard_tree(saved, self.mesh)
+            elif self._sharded:
+                saved = shard_like(saved, self._whole_state(model),
+                                   export_state(self.optimizer, opt_state),
+                                   self.mesh.inner)
             load_state(core.optimizer, opt_state, saved)
         return opt_state, rng, start_epoch
+
+    def _whole_state(self, model):
+        return _state_at(self.optimizer, model.parameters(),
+                         whole_shapes(model).values())
 
     def _train_streamed(self, dataset, shuffle, core, model, opt_state, rng,
                         start_epoch):
@@ -720,15 +777,13 @@ class SynchronousDistributedTrainer(Trainer):
             return
         saved = export_state(self.optimizer, opt_state)
         params = dict(model.named_parameters())
-        if self.shard_opt_state or self.model_parallel:
-            meta = [torch.empty(shape, dtype=p.dtype, device="meta")
-                    for p, shape in zip(model.parameters(),
-                                        whole_shapes(model).values())]
-            like = export_state(self.optimizer, self.optimizer.init(meta))
         if self.shard_opt_state:
-            saved = host_gather(saved, self._data, like=like)
-        elif self.model_parallel:
-            saved = host_gather(saved, self.mesh.inner, like=like, dim=-1)
+            saved = host_gather(saved, self._data,
+                                like=self._whole_state(model))
+        elif self._sharded:
+            saved = host_gather(saved, self.mesh.inner,
+                                like=self._whole_state(model),
+                                dim=-1 if self.model_parallel else 0)
             params = whole_named_parameters(model)
         if self._world.rank == 0:
             self.checkpointer.save(
@@ -773,15 +828,15 @@ class SequenceParallelTrainer(Trainer):
     (``parallel.mesh.attach_seq_group``). ``mesh``: a ``GridMesh`` with a
     "seq" axis (``parallel.mesh.make_grid``). ``device=None`` means CUDA.
     The checkpoint options are ``SingleTrainer``'s (rank 0 writes; every
-    rank restores). Per-epoch ``validation_data`` is not ported: evaluate
-    the returned model instead.
+    rank restores). Per-epoch ``validation_data`` is evaluated through the
+    same exchanges: every rank takes its tokens of each validation batch
+    (all its rows) and the ranks' shares are averaged over the sequence
+    group, so every rank records the global batch's metrics.
 
     The hooks are detached when training ends, from the working copy and
     from the caller's model (as JAX detaches them), so both compute dense
     attention; attach ``attach_ring_attention`` /
     ``attach_ulysses_attention`` again to run sharded."""
-
-    supports_validation = False
 
     def __init__(
         self,
@@ -939,6 +994,16 @@ class SequenceParallelTrainer(Trainer):
                         time.perf_counter() - t0)
             self._epoch_end(core, epoch, model, opt_state, rng)
 
+    def _eval_batch(self, core, model, x, y):
+        """A validation batch through the exchanges: this rank's tokens of
+        every row (the loss and metrics are its share, scaled as in
+        training), averaged over the sequence group."""
+        seq = self.mesh.inner
+        mets = core.eval_step(model, shard_sequence(x, self.mesh, axis=1), y)
+        names = list(mets)
+        mean = seq.all_reduce_(torch.stack([mets[k].float() for k in names]))
+        return dict(zip(names, (mean / seq.num_workers).unbind(0)))
+
     def _save_epoch_checkpoint(self, done, model, opt_state, rng):
         """``SingleTrainer``'s snapshot (the parameters are replicated):
         rank 0 writes it while the others wait at a barrier."""
@@ -946,6 +1011,319 @@ class SequenceParallelTrainer(Trainer):
             return
         if self.mesh.world.rank == 0:
             super()._save_epoch_checkpoint(done, model, opt_state, rng)
+        self.mesh.world.barrier()
+
+
+class _PipelineModelShim(nn.Module):
+    """The model a pipeline rank trains: the layers before the block run
+    and after it (the caller's working copy's own layer objects, whole on
+    every rank), and this rank's stage of the run — a copy of one block
+    registered as ``"__blocks__"`` whose parameters are the stage's
+    stacked leaves (depth/S, ...), applied block by block through
+    ``torch.func.functional_call`` in the GPipe schedule
+    (``parallel.pipeline_parallel.pipeline_stage``). Parameter names are
+    the JAX trainer's layout: ``"{i}.*"`` for the other layers,
+    ``"__blocks__.*"`` for the stack. The pre-block output enters the
+    schedule through a copy whose backward sums the pipe group's
+    gradients, so the layers before the run (whose output only stage 0
+    reads) get their gradient on every rank; the layers after it compute
+    the same loss on every rank and keep their own gradient."""
+
+    def __init__(self, model, pre_idx, block_idx, post_idx, group,
+                 num_micro):
+        super().__init__()
+        self.pre_idx, self.post_idx = list(pre_idx), list(post_idx)
+        self.num_layers = len(model.layers)
+        self.group, self.num_micro = group, num_micro
+        for i in self.pre_idx:
+            self.add_module(str(i), model.layers[i])
+        n = len(block_idx) // group.num_workers
+        mine = block_idx[group.rank * n:(group.rank + 1) * n]
+        stack = copy.deepcopy(model.layers[block_idx[0]])
+        with torch.no_grad():
+            for name, _ in list(stack.named_parameters()):
+                owner, leaf = _module_leaf(stack, name)
+                parts = [model.layers[i].get_parameter(name).detach()
+                         for i in mine]
+                setattr(owner, leaf, nn.Parameter(torch.stack(parts)))
+        self.add_module(BLOCKS, stack)
+        for i in self.post_idx:
+            self.add_module(str(i), model.layers[i])
+        self.layers = ([model.layers[i] for i in self.pre_idx] + [stack]
+                       + [model.layers[i] for i in self.post_idx])
+
+    def stage(self):
+        """{leaf name: this rank's (depth/S, ...) stacked parameter}."""
+        return dict(getattr(self, BLOCKS).named_parameters())
+
+    def forward(self, x, rng=None):
+        rngs = (split_seed(rng, self.num_layers) if rng is not None
+                else [None] * self.num_layers)
+
+        def run(i, h):
+            layer = self.get_submodule(str(i))
+            return layer(h, rng=rngs[i]) if layer.uses_train_rng else layer(h)
+
+        h = x
+        for i in self.pre_idx:
+            h = run(i, h)
+        stack = getattr(self, BLOCKS)
+
+        def block_apply(params, hh):
+            return functional_call(stack, params, (hh,))
+
+        h = pipeline_stage(self.stage(), self.group.copy_in(h), block_apply,
+                           self.group, self.num_micro)
+        for i in self.post_idx:
+            h = run(i, h)
+        return h
+
+
+def _module_leaf(module, name):
+    prefix, _, leaf = name.rpartition(".")
+    return (module.get_submodule(prefix) if prefix else module), leaf
+
+
+class PipelineParallelTrainer(Trainer):
+    """Pipeline-parallel training: GPipe microbatching over a "pipe" group
+    (JAX: ``PipelineParallelTrainer``).
+
+    One process per rank, as ``SynchronousDistributedTrainer``. The model
+    must contain a contiguous run of identically configured, stateless,
+    rng-free blocks (``zoo.transformer_lm``'s or
+    ``zoo.transformer_classifier``'s TransformerBlock tower) whose length
+    divides the pipe group's size S. Rank i of the pipe group holds blocks
+    ``[i*depth/S, (i+1)*depth/S)`` stacked on a leading block axis (the
+    fused optimizer kernels and their moments run on the stacked leaves),
+    and every step runs the GPipe schedule over ``num_micro`` (default S)
+    microbatches: activations hop one stage down the ring, and the
+    backward retraces it (``parallel.pipeline_parallel``). The layers
+    before and after the run are whole on every rank.
+
+    ``num_workers``: the pipe width (default: the job's world size).
+    ``data_parallel=D > 1`` makes it a 2-D (pipe, data) grid of S x D
+    ranks (``num_workers`` ranks in all): each data slice pipelines its
+    rows of every batch through its own ring, and the gradients are
+    averaged over the data group. ``batch_size`` is the global batch and
+    must divide by ``num_micro * data_parallel``. ``mesh``: a
+    ``parallel.mesh.GridMesh`` with a "pipe" axis. ``device=None`` means
+    CUDA. ``accum_steps`` composes: each accumulation microbatch runs the
+    whole schedule over its rows. The returned model is a normal model,
+    the blocks unstacked; checkpoints store the parameters in the normal
+    per-layer layout and the optimizer moments in the pipeline layout
+    (whole stacks), which another trainer's resume reinitializes with a
+    warning. Rank 0 writes them; every rank restores."""
+
+    supports_validation = False
+
+    def __init__(
+        self,
+        *args,
+        num_workers=None,
+        window=8,
+        mesh=None,
+        num_micro=None,
+        data_parallel=1,
+        prefetch=0,
+        checkpoint_dir=None,
+        checkpoint_every=1,
+        max_to_keep=3,
+        device=None,
+        **kwargs,
+    ):
+        super().__init__(*args, **kwargs)
+        if mesh is not None:
+            names = getattr(mesh, "axis_names", ())
+            if "pipe" not in names:
+                raise ValueError(f"mesh {dict(mesh.shape)} has no 'pipe' axis")
+            if int(data_parallel) > 1 and "data" not in names:
+                raise ValueError(
+                    f"data_parallel={data_parallel} conflicts with the "
+                    f"supplied mesh {dict(mesh.shape)} — give the mesh a "
+                    "'data' axis or drop data_parallel"
+                )
+        else:
+            n = (int(num_workers) if num_workers
+                 else dist.get_world_size() if dist.is_initialized() else 1)
+            dp = int(data_parallel)
+            if dp > 1:
+                if n % dp:
+                    raise ValueError(
+                        f"{n} devices not divisible by data_parallel={dp}"
+                    )
+                mesh = make_grid(dp, n // dp, "pipe", device)
+            else:
+                mesh = make_grid(1, n, "pipe", device, data_axis=False)
+        self.mesh = mesh
+        self.pipe_size = int(mesh.shape["pipe"])
+        self.data_size = int(mesh.shape.get("data", 1))
+        self.num_workers = self.pipe_size  # the stage count lays out blocks
+        self.num_micro = int(num_micro) if num_micro else self.pipe_size
+        self.device = mesh.device
+        check_model_device(self.model, mesh.device)
+        self.window = int(window)
+        self.prefetch = int(prefetch)
+        self._init_checkpointing(checkpoint_dir, checkpoint_every, max_to_keep)
+
+    def _find_block_run(self):
+        """The longest contiguous run of identically configured layers
+        whose length divides the pipe size; it must also hold no state
+        (buffers) and draw no train-time rng."""
+        layers = self.model.layers
+        runs, start = [], 0
+        for i in range(1, len(layers) + 1):
+            if i == len(layers) or (
+                    layers[i].get_config() != layers[start].get_config()):
+                runs.append((start, i))
+                start = i
+        runs.sort(key=lambda r: r[1] - r[0], reverse=True)
+        for s, e in runs:
+            depth = e - s
+            if depth >= self.num_workers and depth % self.num_workers == 0:
+                stateless = all(not list(layers[i].buffers())
+                                for i in range(s, e))
+                rng_free = all(not sub.uses_train_rng
+                               for sub in walk_layers(layers[s:e]))
+                if stateless and rng_free:
+                    return list(range(s, e))
+        raise ValueError(
+            "no contiguous run of >= num_workers identically-configured "
+            "stateless blocks divisible by the pipe mesh size "
+            f"({self.num_workers}) — pipeline parallelism needs a "
+            "homogeneous block tower (zoo.transformer_classifier)"
+        )
+
+    def _whole_stage_shapes(self, shim):
+        """The shim's parameter shapes with the stage stacks at the whole
+        tower's depth (the checkpoint's moment layout)."""
+        stacked = {id(p) for p in shim.stage().values()}
+        return [(p.shape[0] * self.pipe_size, *p.shape[1:])
+                if id(p) in stacked else tuple(p.shape)
+                for p in shim.parameters()]
+
+    def _train(self, dataset, shuffle=False, resume=False):
+        self.history.record_training_start()
+        block_idx = self._find_block_run()
+        pre_idx = [i for i in range(block_idx[0])]
+        post_idx = list(range(block_idx[-1] + 1, len(self.model.layers)))
+        mesh = self.mesh
+        model = self.model.copy().to(mesh.device)
+        restored = self._restore_latest() if resume else None
+        rng, start_epoch = RngSeq(self.seed), 0
+        if restored is not None:
+            _, trees, meta = restored
+            params_from_jax(model, trees["params"])
+            state_from_jax(model, trees.get("state", {}))
+            if trees.get("rng") is not None:
+                rng.set_state(trees["rng"])
+            start_epoch = int(meta["epoch"])
+        else:
+            replicate(model, mesh.world)
+        shim = _PipelineModelShim(model, pre_idx, block_idx, post_idx,
+                                  mesh.inner, self.num_micro)
+        attach_data_group(shim, mesh.data)
+        try:
+            core = self._make_core(shim)
+            core.mesh = mesh.data
+            opt_state = core.init_opt_state(list(shim.parameters()))
+            if restored is not None:
+                whole = self._whole_stage_shapes(shim)
+                saved = self._reconcile_opt_state(
+                    restored[1]["opt_state"], core, shapes=whole)
+                if saved is not None:
+                    # same pipeline geometry: each rank takes its stages'
+                    # moments; a foreign layout keeps the fresh init
+                    saved = shard_like(
+                        saved, _state_at(self.optimizer, shim.parameters(),
+                                         whole),
+                        export_state(self.optimizer, opt_state), mesh.inner)
+                    load_state(core.optimizer, opt_state, saved)
+            self._train_streamed(dataset, shuffle, core, shim, opt_state,
+                                 rng, start_epoch, block_idx)
+            self._unstack_into(model, shim, block_idx)
+        finally:
+            detach_data_group(shim)
+            mesh.release()
+        self.history.record_training_end()
+        return self._finish(model)
+
+    def _whole_stack(self, shim):
+        """{leaf: the whole (depth, ...) stack}, every stage's blocks
+        all-gathered over the pipe group (a collective every rank
+        joins)."""
+        with torch.no_grad():
+            return {name: self.mesh.inner.gather(p.detach(), 0)
+                    for name, p in shim.stage().items()}
+
+    def _unstack_into(self, model, shim, block_idx):
+        """The trained stages written back into the working copy's blocks
+        (the layers before and after the run trained in place)."""
+        with torch.no_grad():
+            for name, whole in self._whole_stack(shim).items():
+                for j, i in enumerate(block_idx):
+                    model.layers[i].get_parameter(name).copy_(whole[j])
+
+    def _train_streamed(self, dataset, shuffle, core, shim, opt_state, rng,
+                        start_epoch, block_idx):
+        mesh = self.mesh
+        cols = [self.features_col, self.label_col]
+        per = self.data_size * self.num_micro
+
+        def prepare(batches):
+            # host staging (prefetch thread): this data rank's rows
+            xs, ys = stack_window(batches, self.features_col, self.label_col)
+            if xs.shape[1] % per:
+                raise ValueError(
+                    f"batch size {xs.shape[1]} must divide by num_micro*"
+                    f"data_parallel = {self.num_micro}*{self.data_size}"
+                )
+            return tuple(to_device(rank_rows(a, mesh.data, axis=1),
+                                   mesh.device) for a in (xs, ys))
+
+        for epoch in range(start_epoch, self.num_epoch):
+            ds = dataset.shuffle(self.seed + epoch) if shuffle else dataset
+            with Prefetcher(iter_windows(ds, self.batch_size, cols,
+                                         self.window),
+                            prepare, depth=self.prefetch) as staged:
+                for xs, ys in staged:
+                    t0 = time.perf_counter()
+                    opt_state, mets = core.window(shim, opt_state, rng, xs,
+                                                  ys)
+                    self.history.extend(0, _metrics_to_records(mets))
+                    self.history.record_window(
+                        0, xs.shape[0] * self.batch_size,
+                        time.perf_counter() - t0)
+            self._pipeline_checkpoint(epoch + 1, shim, opt_state, rng,
+                                      block_idx)
+
+    def _pipeline_checkpoint(self, done, shim, opt_state, rng, block_idx):
+        """The parameters in the normal per-layer layout (the stages
+        gathered and unstacked) and the optimizer moments in the pipeline
+        layout, whole stacks (collectives every rank joins); rank 0 writes
+        while the others wait at a barrier."""
+        if self.checkpointer is None or not self._should_checkpoint(done):
+            return
+        saved = host_gather(
+            export_state(self.optimizer, opt_state), self.mesh.inner,
+            like=_state_at(self.optimizer, shim.parameters(),
+                           self._whole_stage_shapes(shim)),
+            dim=0)
+        params = {name: p for name, p in shim.named_parameters()
+                  if not name.startswith(BLOCKS + ".")}
+        for name, whole in self._whole_stack(shim).items():
+            for j, i in enumerate(block_idx):
+                params[f"{i}.{name}"] = whole[j]
+        if self.mesh.world.rank == 0:
+            self.checkpointer.save(
+                done,
+                {
+                    "params": params,
+                    "state": dict(shim.named_buffers()),
+                    "opt_state": saved,
+                    "rng": rng.get_state(),
+                },
+                {"epoch": done},
+            )
         self.mesh.world.barrier()
 
 

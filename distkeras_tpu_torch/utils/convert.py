@@ -12,6 +12,12 @@ attention projections stay ``(d, heads*head_dim)`` and
 ``(heads*head_dim, d)``. So both packages compute the same function on the
 same numbers. Quantized leaves are not bridged.
 
+The pipeline trainers keep a homogeneous run of blocks stacked on a
+leading block axis under the key ``"__blocks__"`` (JAX's
+``PipelineParallelTrainer`` layout); ``stack_blocks`` and
+``unstack_blocks`` convert a tree between that layout and the per-layer
+one, and ``params_from_jax`` takes either.
+
 ``opt_state_from_jax`` brings a JAX optimizer state — optax's chains, as
 the port's codec decodes them (anonymous namedtuples), or the fused
 optimizers' plain tuples — into the layout the port's optimizer exports
@@ -82,11 +88,71 @@ def _shard_cuts(model):
     return cuts
 
 
+#: the key of the stacked block run in the pipeline layout
+BLOCKS = "__blocks__"
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _stacked_depth(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return np.shape(tree)[0]
+
+
+def stack_blocks(tree, block_idx):
+    """A per-layer tree (``{"0": ..., "1": ...}``, the JAX package's params
+    or state layout) -> the pipeline layout: layers ``block_idx`` (one
+    structure) stacked on a leading block axis under ``"__blocks__"`` (numpy
+    leaves), every other layer as it is."""
+    block_idx = [int(i) for i in block_idx]
+    parts = [tree[str(i)] for i in block_idx]
+
+    def stack(*leaves):
+        return np.stack([np.asarray(a) for a in leaves])
+
+    def zip_map(first, *rest):
+        if isinstance(first, dict):
+            return {k: zip_map(first[k], *(r[k] for r in rest))
+                    for k in first}
+        return stack(first, *rest)
+
+    out = {k: v for k, v in tree.items() if int(k) not in block_idx}
+    out[BLOCKS] = zip_map(*parts)
+    return out
+
+
+def unstack_blocks(tree, block_idx):
+    """Inverse of ``stack_blocks``: the ``"__blocks__"`` leaves split back
+    into layers ``block_idx`` (numpy), every other layer as it is."""
+    block_idx = [int(i) for i in block_idx]
+    stacked = tree[BLOCKS]
+    depth = _stacked_depth(stacked)
+    if depth != len(block_idx):
+        raise ValueError(
+            f"{BLOCKS} holds {depth} blocks, the layout names "
+            f"{len(block_idx)}"
+        )
+    out = {k: v for k, v in tree.items() if k != BLOCKS}
+    for j, i in enumerate(block_idx):
+        out[str(i)] = _map(lambda a, j=j: np.asarray(a)[j], stacked)
+    return out
+
+
 def params_from_jax(model, params):
     """Copy a JAX params tree (leaves as numpy or anything ``np.asarray``
     takes) into ``model``'s parameters in place; returns the model. Keys
     and shapes must match exactly; a tensor-parallel model takes this
-    rank's shard of each whole leaf it holds split."""
+    rank's shard of each whole leaf it holds split. A tree in the
+    pipeline layout (``"__blocks__"``, JAX's ``PipelineParallelTrainer``)
+    is unstacked into the layers it does not name."""
+    if BLOCKS in params:
+        params = unstack_blocks(params, [i for i in range(len(model.layers))
+                                         if str(i) not in params])
     _load(dict(model.named_parameters()), params, "params",
           _shard_cuts(model))
     return model

@@ -127,8 +127,10 @@ def test_moe_ffn_and_gradients_match_jax(cf):
 
 
 def test_expert_mesh_is_absent_from_the_signatures():
-    """The expert mesh waits for the multi-card slices: passing one fails
-    loudly instead of computing unsharded."""
+    """``moe_ffn`` takes a ``parallel.mesh`` group or grid as its mesh
+    and fails loudly on anything else instead of computing unsharded; the
+    layer takes its groups from the attach helpers, not its constructor
+    (``tests/test_torch_expert_parallel.py`` runs the mesh)."""
     p, x, _ = _ffn_case(3)
     tp = {k: torch.tensor(v) for k, v in p.items()}
     with pytest.raises(TypeError):

@@ -55,6 +55,9 @@ RUNS = {
 }
 ATTENTION = [("ring", "dense"), ("ulysses", "dense"),
              ("ulysses", "blockwise")]
+#: runs that also evaluate per-epoch validation_data: the first VAL_ROWS
+#: rows of their data, a ragged last batch included
+VALIDATED = {"cls_ring": 48, "lm_ulysses": 24}
 
 _RANK_SCRIPT = textwrap.dedent(
     """
@@ -124,7 +127,11 @@ _RANK_SCRIPT = textwrap.dedent(
     lm_data = Dataset({"features": inputs["lm_x"], "label": inputs["lm_x"]})
     for tag, kind, mode, dp, opt in RUNS[world]:
         m = model(kind)
-        kw = CLS_TRAIN if kind == "cls" else LM_TRAIN
+        kw = dict(CLS_TRAIN if kind == "cls" else LM_TRAIN)
+        rows = VALIDATED.get(tag) if world == 2 else None
+        if rows:
+            kw["validation_data"] = (cls_data if kind == "cls"
+                                     else lm_data).take(rows)
         t = SequenceParallelTrainer(m, opt, sp_mode=mode,
                                     data_parallel=dp, device="cpu", **kw)
         assert t.num_workers == world
@@ -136,6 +143,11 @@ _RANK_SCRIPT = textwrap.dedent(
             [t.mesh.shape.get("data", 0), t.mesh.shape["seq"]])
         results[tag + "/loss"] = np.array(
             [h["loss"] for h in t.get_history()])
+        if rows:
+            hist = t.get_validation_history()
+            results[tag + "/val"] = np.array(
+                [[v[k] for k in sorted(v)] for v in hist])
+            results[tag + "/val_keys"] = np.array(sorted(hist[0]))
         for name, p in res.state_dict().items():
             results[tag + "/" + name] = p.numpy()
     np.savez(f"{out_dir}/rank{rank}.npz", **results)
@@ -156,7 +168,7 @@ def _launch(tmp_path, n, inputs):
     consts = "".join(f"{k} = {v!r}\n" for k, v in (
         ("ATTENTION", ATTENTION), ("BLOCK", BLOCK), ("CLS", CLS),
         ("LMC", LMC), ("CLS_TRAIN", CLS_TRAIN), ("LM_TRAIN", LM_TRAIN),
-        ("RUNS", RUNS)))
+        ("RUNS", RUNS), ("VALIDATED", VALIDATED)))
     script.write_text(consts + _RANK_SCRIPT)
     np.savez(tmp_path / "inputs.npz", **inputs)
     out = tmp_path / "out"
@@ -232,7 +244,7 @@ def _jax_attention(inputs, n, mode, inner, causal):
                                        for c, x in zip("qkv", grads)}}
 
 
-def _jax_train(inputs, kind, mode, n, dp, opt):
+def _jax_train(inputs, kind, mode, n, dp, opt, val_rows=None):
     from distkeras_tpu.data.dataset import Dataset as JDataset
     from distkeras_tpu.models import zoo as jzoo
     from distkeras_tpu.trainers import SequenceParallelTrainer as JSP
@@ -247,9 +259,12 @@ def _jax_train(inputs, kind, mode, n, dp, opt):
         data = JDataset({"features": inputs["lm_x"], "label": inputs["lm_x"]})
         kw = LM_TRAIN
     mesh = dict(data_parallel=dp) if dp > 1 else dict(num_workers=n)
+    if val_rows:
+        kw = dict(kw, validation_data=data.take(val_rows))
     t = JSP(jm, opt, sp_mode=mode, **mesh, **kw)
     res = t.train(data, shuffle=True)
-    return [h["loss"] for h in t.get_history()], res
+    return [h["loss"] for h in t.get_history()], res, \
+        t.get_validation_history()
 
 
 def _world(tmp_path_factory, n):
@@ -258,7 +273,8 @@ def _world(tmp_path_factory, n):
     attention = {(mode, inner, causal): _jax_attention(inputs, n, mode,
                                                        inner, causal)
                  for mode, inner in ATTENTION for causal in (False, True)}
-    trained = {tag: _jax_train(inputs, kind, mode, n, dp, opt)
+    trained = {tag: _jax_train(inputs, kind, mode, n, dp, opt,
+                               VALIDATED.get(tag) if n == 2 else None)
                for tag, kind, mode, dp, opt in RUNS[n]}
     return ranks, attention, trained
 
@@ -316,12 +332,30 @@ def test_trainer_matches_jax(world):
         port = _case(ranks[0], tag)
         want_mesh = [dp, n // dp] if dp > 1 else [0, n]
         assert list(port.pop("mesh")) == want_mesh, tag
-        jlosses, jres = trained[tag]
+        jlosses, jres, _ = trained[tag]
+        port.pop("val", None)
+        port.pop("val_keys", None)
         np.testing.assert_allclose(port["loss"], jlosses, rtol=1e-4,
                                    err_msg=tag)
         for name, v in _flat_jax(jres.params).items():
             np.testing.assert_allclose(port[name], v, atol=1e-4, rtol=0,
                                        err_msg=f"{tag} {name}")
+
+
+@pytest.mark.parametrize("tag", sorted(VALIDATED))
+def test_validation_history_matches_jax(two_ranks, tag):
+    """Per-epoch ``validation_data`` (a ragged last batch included), ring
+    and Ulysses at seq 2: every rank records JAX's ``val_*`` metrics."""
+    ranks, _, trained = two_ranks
+    want = trained[tag][2]
+    assert len(want) == 1
+    names = sorted(want[0])
+    for res in ranks:
+        got = _case(res, tag)
+        assert list(got["val_keys"]) == names
+        np.testing.assert_allclose(
+            got["val"], [[v[k] for k in names] for v in want], rtol=1e-4,
+            err_msg=tag)
 
 
 def test_ranks_end_bit_equal(world):
@@ -458,5 +492,5 @@ def test_validation_errors():
         ulysses_attention(q, q, q, _seq_group(4))
     with pytest.raises(ValueError, match="inner must be"):
         ulysses_attention(q, q, q, _seq_group(2), inner="flash")
-    with pytest.raises(TypeError, match="validation_data"):
-        SequenceParallelTrainer(m, "adam", validation_data=object(), **kw)
+    t = SequenceParallelTrainer(m, "adam", validation_data=object(), **kw)
+    assert t.supports_validation and t.validation_data is not None

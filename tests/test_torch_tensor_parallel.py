@@ -408,8 +408,33 @@ def test_bad_model_parallel_configs_rejected():
 
 
 def test_moe_layer_refuses_a_model_group():
+    """``MoE`` takes a model group now: its router, ``wi`` and ``wo`` are
+    split along their trailing dimension like every other leaf (JAX's
+    placement; ``tests/test_torch_expert_parallel.py`` trains it against
+    JAX's ``model_parallel=2``), and a layer without a tensor-parallel
+    forward is still refused before anything changes."""
     m = zoo.moe_transformer_lm(61, 32, 32, 2, 1, num_experts=2,
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="A13 item 3"):
-        ttp.attach_model_group(m, _fake_grid())
+    whole = {n: tuple(p.shape) for n, p in m.named_parameters()}
+    assert ttp.attach_model_group(m, _fake_grid()) == len(whole) - 2
+    moe = m.layers[2]
+    assert moe.model_split == {"router": (32, 2), "wi": (2, 32, 128),
+                               "wo": (2, 128, 32)}
+    assert tuple(moe.router.shape) == (32, 1)
+    assert tuple(moe.wi.shape) == (2, 32, 64)
+    assert tuple(moe.wo.shape) == (2, 128, 16)
+    assert ttp.whole_shapes(m) == whole
+    ttp.detach_model_group(m, gather=False)
     assert all(getattr(l, "model_group", None) is None for l in m.modules())
+
+    from distkeras_tpu_torch.models.layers import Dense
+    from distkeras_tpu_torch.models.sequential import Sequential
+
+    class Odd(Dense):
+        pass
+
+    odd = Sequential([Odd(4)]).build((8,), device="cpu")
+    with pytest.raises(NotImplementedError, match="Odd has no tensor-"
+                                                  "parallel forward"):
+        ttp.attach_model_group(odd, _fake_grid())
+    assert odd.layers[0].model_group is None
