@@ -472,6 +472,24 @@ Phases, each fatal on failure (exit code 1, no result line):
    Adam); the exchanges' bytes and times a step, timed alone, and their
    share of the step printed. ``--phase22-only`` builds the kernels and
    runs phase 22 alone.
+23. The serving mesh: ``ServingEngine(mesh="tp:N")`` with its N shards on
+   the one card (``serving_mesh(..., devices=[cuda:0] * N)``), held
+   against the solo engine. 23a: tp:2 on phase 4's mix with phase 4's LM,
+   dense and paged: replies equal solo's (a greedy reply may leave solo's
+   only at a tie, solo's top two cached-path logits within 1e-5 relative;
+   the ties are counted), sampled replays identical, B7 exactly what the
+   programs imply (17 a decode step, 16 a prefill chunk: the LayerNorms
+   run once on the home device, not once a shard), ``mesh`` on health,
+   stats and the gauges, ``kv_shard_bytes * 2 == kv_bytes_total``. Then a
+   dense step with 8 busy slots at tp:1, tp:2 and tp:4: wall (median of
+   three turns) and device time, kernels and B7 a step (17 at each N).
+   23c: speculative verify at tp:2 with a ``ModelDrafter`` of 14c's small
+   draft, six greedy requests, verify steps on solo and tp:2, replies
+   equal. 23d: a DKTX frame from a solo ``role="prefill"`` engine decoded
+   by a tp:2 ``role="decode"`` engine, equal to a solo unified engine's
+   reply. 23b: tp:4 on phase 19's MoE LM (2 experts a shard), paged, four
+   greedy requests and an n=2 fork, 23a's bars. ``--phase23-only`` builds
+   the kernels and runs phase 23 alone.
 
 ``--profile`` adds where the time goes: the MoE LM's decode step beside
 the dense LM's (19a), a decode step (dense, paged, on
@@ -1374,13 +1392,10 @@ def run_predict(torch, np, lm):
     return {"seconds": secs, "launches": counts, "max_abs_err": err}
 
 
-def run_generate(torch, np, lm):
-    from distkeras_tpu_torch import kernels
-    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
-    from distkeras_tpu_torch.predictors import CachedSequenceGenerator
-    from distkeras_tpu_torch.serving.engine import ServingEngine
-
-    check(attach_fused_layernorm(lm) == 17, "LN hook not on 17 norms")
+def phase4_mix(np):
+    """Phase 4's 16 requests: prompts of 16-256 tokens, 32-64 new tokens,
+    every fourth one sampled (the last two of those top-k/top-p
+    filtered)."""
     rng = np.random.default_rng(5)
     reqs = []
     for i in range(16):
@@ -1392,6 +1407,17 @@ def run_generate(torch, np, lm):
             if i >= 8:
                 sampling.update(top_k=50, top_p=0.9)
         reqs.append((prompt, n_new, sampling))
+    return reqs
+
+
+def run_generate(torch, np, lm):
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+    from distkeras_tpu_torch.predictors import CachedSequenceGenerator
+    from distkeras_tpu_torch.serving.engine import ServingEngine
+
+    check(attach_fused_layernorm(lm) == 17, "LN hook not on 17 norms")
+    reqs = phase4_mix(np)
     eng = ServingEngine(lm, num_slots=8).start()
     try:
         eng._stepper.warmup()
@@ -9187,6 +9213,305 @@ def run_phase22(torch, np, zoo, smi):
     return out, counts
 
 
+# ------------------------------------------------------------------ phase 23
+
+#: the meshes phase 23 serves on, every shard on the one card
+P23_WAYS = (2, 4)
+#: a greedy reply may leave solo's only where solo's top two logits are
+#: this close (relative): the mesh's partial sums round differently
+P23_TIE_RTOL = 1e-5
+P23_STEPS = 20  # decode steps a wall averages over (a profile: half)
+
+
+def p23_mesh(torch, n):
+    from distkeras_tpu_torch.parallel.mesh import serving_mesh
+
+    return serving_mesh(f"tp:{n}", devices=[torch.device("cuda", 0)] * n)
+
+
+def p23_compare(torch, np, lm, got, want, reqs, tag):
+    """``got`` against solo's replies ``want``: equal, or (greedy only)
+    leaving solo at one position where solo's top two cached-path logits
+    are within ``P23_TIE_RTOL`` relative and ``got`` took the second. An n
+    > 1 reply is a list of completions. Returns the number of such ties."""
+    from distkeras_tpu_torch.predictors import CachedSequenceGenerator
+
+    gen, ties = None, 0
+    for g, w, (p, n, s) in zip(got, want, reqs):
+        gs, ws = (g, w) if isinstance(w, list) else ([g], [w])
+        check(len(gs) == len(ws), f"{tag}: {len(gs)} completions, solo "
+              f"{len(ws)}")
+        for a, b in zip(gs, ws):
+            check(isinstance(a, np.ndarray) and len(a) == len(b),
+                  f"{tag}: a reply did not finish: {a!r:.200}")
+            if np.array_equal(a, b):
+                continue
+            check(s is None, f"{tag}: a sampled reply differs from solo's")
+            j = int(np.flatnonzero(a != b)[0])
+            gen = gen or CachedSequenceGenerator(lm)
+            lg = cached_forced_logits(torch, np, gen, b[: j + 1], j,
+                                      False)[-1]
+            top = np.argsort(lg)[::-1][:2]
+            gap = float(lg[top[0]] - lg[top[1]])
+            check(int(b[j]) == int(top[0]) and int(a[j]) == int(top[1])
+                  and gap <= P23_TIE_RTOL * abs(float(lg[top[0]])),
+                  f"{tag}: a greedy reply leaves solo's at position {j} "
+                  f"(token {a[j]} for {b[j]}), not at a tie (top two "
+                  f"{top.tolist()}, gap {gap:.3e})")
+            ties += 1
+    return ties
+
+
+def p23_serve(torch, np, lm, reqs, tag, mesh=None, **kw):
+    """The mix on a ``ServingEngine`` (8 slots, ``mesh``): replies, under
+    a mesh the sampled ones replayed, health, stats and gauges, with B7
+    counted against the programs run (``counted``). Returns (that,
+    counts)."""
+    from distkeras_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(lm, num_slots=8, mesh=mesh, prefix_cache=False,
+                        watchdog_interval=60.0, **kw).start()
+    try:
+        def drive():
+            outs, secs = serve_mix(eng, reqs)
+            replay = [eng.generate(p, n, sampling=s, timeout=600)
+                      for p, n, s in reqs if s is not None and mesh]
+            return outs, replay, secs
+
+        (outs, replay, secs), counts = counted(torch, lm, tag, drive)
+        gauges = {g["name"]: g["value"] for g in eng.metrics_snapshot()
+                  if g["kind"] == "gauge"}
+        res = {"outs": outs, "seconds": secs, "health": eng.health(),
+               "stats": eng.stats(), "gauges": gauges,
+               "kv_bytes_total": eng._stepper.kv_bytes_total()}
+    finally:
+        eng.stop()
+    sampled = [o for o, (_, _, s) in zip(outs, reqs) if s is not None]
+    check(all(np.array_equal(a, b) for a, b in zip(sampled, replay)),
+          f"{tag}: a sampled request did not replay identically")
+    return res, counts
+
+
+def p23_geometry(res, n, tag):
+    """The geometry surfaces of a tp:n engine's ``p23_serve`` result."""
+    h, st, g = res["health"], res["stats"], res["gauges"]
+    spec = f"tp:{n}"
+    check(h["mesh"] == spec and st["mesh"] == spec,
+          f"{tag}: health/stats report {h['mesh']}/{st['mesh']}")
+    check(h["kv_shard_bytes"] * n == res["kv_bytes_total"],
+          f"{tag}: {h['kv_shard_bytes']} K/V bytes a shard of "
+          f"{res['kv_bytes_total']}")
+    check(g["serving_mesh_devices"] == n
+          and g["serving_kv_shard_bytes"] == h["kv_shard_bytes"],
+          f"{tag}: the gauges read {g['serving_mesh_devices']}, "
+          f"{g['serving_kv_shard_bytes']}")
+    if st["paged"]["enabled"]:
+        check(st["paged"]["mesh"] == spec, f"{tag}: paged_stats mesh "
+              f"{st['paged']['mesh']}")
+
+
+def p23_step_times(torch, np, lm, smi):
+    """Per-step wall and device time of a dense decode step with 8 busy
+    slots (64-token prompts) at tp:1, tp:2 and tp:4 on the one card,
+    walls the median of three turns, and B7's launches in one step."""
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.serving.engine import DecodeStepper
+
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, 8192, 64) for _ in range(8)]
+    active = np.ones(8, bool)
+    steppers = {}
+    for n in (1, *P23_WAYS):
+        st = DecodeStepper(lm, num_slots=8,
+                           mesh=None if n == 1 else p23_mesh(torch, n))
+        for i, p in enumerate(prompts):
+            st.admit(i, p)
+        st.step(active)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        st.step(active)
+        torch.cuda.synchronize()
+        steppers[n] = (st, kernels.launch_counts()["layernorm_fwd"])
+
+    def wall_ms(st):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(P23_STEPS):
+            st.step(active)
+        torch.cuda.synchronize()
+        return (time.monotonic() - t0) / P23_STEPS * 1e3
+
+    walls = {n: [] for n in steppers}
+    order = list(steppers)
+    for r in range(3):
+        for n in order[r:] + order[:r]:
+            walls[n].append(wall_ms(steppers[n][0]))
+    out = {}
+    for n, (st, ln) in steppers.items():
+        dev = device_profile(torch, lambda st=st: st.step(active),
+                             P23_STEPS // 2)
+        out[f"tp:{n}"] = {
+            "wall_ms": float(np.median(walls[n])), "wall_ms_turns": walls[n],
+            "device_ms": dev["device_ms"], "kernels": dev["kernels"],
+            "device_ms_by_category": dev["device_ms_by_category"],
+            "b7_per_step": ln, "kv_bytes_total": st.kv_bytes_total(),
+            "kv_shard_bytes": st.kv_shard_bytes(),
+            "top_kernels": dev["top_kernels"][:5]}
+        log(f"23 step tp:{n} (dense, 8 busy slots, d512/L8): wall "
+            f"{out[f'tp:{n}']['wall_ms']:.3f} ms (turns "
+            f"{[round(w, 3) for w in walls[n]]}), device "
+            f"{dev['device_ms']} ms ({dev['device_ms_by_category']}), "
+            f"{dev['kernels']} kernels a step, B7 {ln} a step, K/V "
+            f"{st.kv_shard_bytes()} bytes a shard of {st.kv_bytes_total()} "
+            f"on {smi}")
+        for k in dev["top_kernels"][:3]:
+            log(f"  {k}")
+    for n in steppers:
+        check(out[f"tp:{n}"]["b7_per_step"] == 17,
+              f"23: B7 launched {out[f'tp:{n}']['b7_per_step']} times in "
+              f"a tp:{n} decode step (17 solo)")
+        check(out[f"tp:{n}"]["kv_bytes_total"] == out["tp:1"][
+            "kv_bytes_total"], "23: the K/V total changes with the mesh")
+    del steppers
+    return out
+
+
+def run_phase23(torch, np, zoo, smi):
+    """Phase 23, the serving mesh: ``ServingEngine(mesh="tp:N")`` with its
+    N shards on the one card (``devices=[cuda:0] * N``, the port's
+    counterpart of JAX's virtual devices), held against the solo engine.
+    Returns the results and the launch counts of each drive."""
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+    from distkeras_tpu_torch.serving import ModelDrafter, ServingEngine
+    from distkeras_tpu_torch.serving.sampling import SamplingParams
+
+    t0 = time.monotonic()
+    out, launches = {}, []
+    lm = make_lm(zoo)
+    check(attach_fused_layernorm(lm) == 17, "LN hook not on 17 norms")
+    reqs = phase4_mix(np)
+    # 23a: tp:2 on phase 4's mix, dense and paged
+    t_a = time.monotonic()
+    for paged in (False, True):
+        kind = "paged" if paged else "dense"
+        solo, c0 = p23_serve(torch, np, lm, reqs, f"23a solo {kind}",
+                             paged=paged)
+        tp2, c2 = p23_serve(torch, np, lm, reqs, f"23a tp:2 {kind}",
+                            mesh=p23_mesh(torch, 2), paged=paged)
+        launches += [c0, c2]
+        ties = p23_compare(torch, np, lm, tp2["outs"], solo["outs"], reqs,
+                           f"23a tp:2 {kind}")
+        p23_geometry(tp2, 2, f"23a tp:2 {kind}")
+        check(solo["health"]["mesh"] is None, "23a: solo reports a mesh")
+        n_tok = sum(len(o) - len(p) for o, (p, _, _) in zip(solo["outs"],
+                                                            reqs))
+        out[f"23a_{kind}"] = {
+            "ties": ties, "tokens": n_tok,
+            "solo_tokens_per_s": n_tok / solo["seconds"],
+            "tp2_tokens_per_s": n_tok / tp2["seconds"],
+            "kv_shard_bytes": tp2["health"]["kv_shard_bytes"],
+            "kv_bytes_total": tp2["kv_bytes_total"],
+            "b7": {"solo": c0["layernorm_fwd"], "tp:2": c2["layernorm_fwd"]}}
+        log(f"23a ({kind}, phase 4's 16 requests): tp:2 replies equal solo's "
+            f"({ties} greedy ties), sampled replays identical, B7 as the "
+            f"programs imply ({out[f'23a_{kind}']['b7']}), mesh tp:2 on "
+            f"health/stats/gauges, K/V {tp2['health']['kv_shard_bytes']} "
+            f"bytes a shard of {tp2['kv_bytes_total']}; tokens/s solo "
+            f"{out[f'23a_{kind}']['solo_tokens_per_s']:.1f}, tp:2 "
+            f"{out[f'23a_{kind}']['tp2_tokens_per_s']:.1f} on {smi}")
+    t_s = time.monotonic()
+    out["steps"] = p23_step_times(torch, np, lm, smi)
+    t_c = time.monotonic()
+    # 23c: speculative verify at tp:2 with a small model drafter; the
+    # draft bank stays solo
+    draft = small_draft(zoo)
+    spec_reqs = [r for r in reqs if r[2] is None][:6]
+    spec = {}
+    for tag, mesh in (("solo", None), ("tp:2", p23_mesh(torch, 2))):
+        eng = ServingEngine(lm, num_slots=8, mesh=mesh, prefix_cache=False,
+                            speculative=ModelDrafter(draft), draft_k=4,
+                            watchdog_interval=60.0).start()
+        try:
+            (outs, _), counts = counted_all(
+                torch, f"23c {tag}", lambda eng=eng: serve_mix(eng, spec_reqs))
+            spec[tag] = (outs, eng._stepper.spec_verify_steps)
+        finally:
+            eng.stop()
+        launches.append(counts)
+        check(spec[tag][1] > 0, f"23c: the {tag} engine ran no verify")
+    ties = p23_compare(torch, np, lm, spec["tp:2"][0], spec["solo"][0],
+                       spec_reqs, "23c")
+    out["23c"] = {"verify_steps": {k: v[1] for k, v in spec.items()},
+                  "ties": ties}
+    log(f"23c (ModelDrafter d256/L2, draft_k 4, 6 greedy requests): tp:2 "
+        f"replies equal solo's ({ties} ties), verify steps "
+        f"{out['23c']['verify_steps']} on {smi}")
+    # 23d: a DKTX frame from a solo prefill engine into a tp:2 decode one
+    t_d = time.monotonic()
+    p, n, _ = reqs[0]
+    pre = ServingEngine(lm, num_slots=2, role="prefill", prefix_cache=False,
+                        watchdog_interval=60.0).start()
+    dec = ServingEngine(lm, num_slots=2, role="decode", prefix_cache=False,
+                        mesh=p23_mesh(torch, 2),
+                        watchdog_interval=60.0).start()
+    uni = ServingEngine(lm, num_slots=2, prefix_cache=False,
+                        watchdog_interval=60.0).start()
+    try:
+        def handoff():
+            frame = pre.prefill(p, n)[0]
+            return (dec.wait(dec.resume(frame, n), timeout=600),
+                    uni.generate(p, n, timeout=600), len(frame))
+
+        (got, want, nbytes), counts = counted_all(torch, "23d", handoff)
+    finally:
+        for e in (pre, dec, uni):
+            e.stop()
+    launches.append(counts)
+    ties = p23_compare(torch, np, lm, [got], [want], [(p, n, None)], "23d")
+    out["23d"] = {"frame_bytes": nbytes, "ties": ties}
+    log(f"23d: a {nbytes}-byte DKTX frame from a solo prefill engine "
+        f"decodes on a tp:2 engine as on a solo unified one ({ties} ties) "
+        f"on {smi}")
+    del lm, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 23b: tp:4 on the MoE LM, paged, greedy and an n = 2 fork
+    t_b = time.monotonic()
+    moe = make_moe(zoo)
+    check(attach_fused_layernorm(moe) == 17, "LN hook not on the MoE's 17")
+    moe_reqs = [r for r in reqs if r[2] is None][:4] + [
+        (reqs[3][0], 32, SamplingParams(temperature=0.9, seed=123, n=2))]
+    solo, c0 = p23_serve(torch, np, moe, moe_reqs, "23b solo", paged=True)
+    tp4, c4 = p23_serve(torch, np, moe, moe_reqs, "23b tp:4",
+                        mesh=p23_mesh(torch, 4), paged=True)
+    launches += [c0, c4]
+    ties = p23_compare(torch, np, moe, tp4["outs"], solo["outs"], moe_reqs,
+                       "23b")
+    p23_geometry(tp4, 4, "23b")
+    out["23b"] = {"ties": ties,
+                  "kv_shard_bytes": tp4["health"]["kv_shard_bytes"],
+                  "kv_bytes_total": tp4["kv_bytes_total"],
+                  "forked_slots": tp4["stats"]["forked_slots"],
+                  "b7": {"solo": c0["layernorm_fwd"],
+                         "tp:4": c4["layernorm_fwd"]}}
+    check(out["23b"]["forked_slots"] >= 1, "23b: the n=2 group never forked")
+    log(f"23b (MoE LM d512/L8, 8 experts, 2 a shard, paged, 4 greedy + an "
+        f"n=2 fork): tp:4 replies equal solo's ({ties} ties), B7 "
+        f"{out['23b']['b7']}, K/V {out['23b']['kv_shard_bytes']} bytes a "
+        f"shard of {out['23b']['kv_bytes_total']} on {smi}")
+    del moe
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds_total"] = time.monotonic() - t0
+    out["seconds"] = {"setup": t_a - t0, "23a": t_s - t_a,
+                      "steps": t_c - t_s, "23c": t_d - t_c, "23d": t_b - t_d,
+                      "23b": time.monotonic() - t_b}
+    log(f"23: seconds {out['seconds']}")
+    out["launches"] = {k: sum(c.get(k, 0) for c in launches)
+                       for k in launches[0]}
+    return out, launches
+
+
 def baseline_leaf_shapes():
     """The parameter shapes of configs 2-5's models (built on the CPU: only
     their leaf tables matter to phases 2b/2c)."""
@@ -9648,6 +9973,8 @@ def main(argv):
                     help=argparse.SUPPRESS)  # phase 22's rank processes
     ap.add_argument("--phase22-only", action="store_true",
                     help="build the kernels and run phase 22 alone")
+    ap.add_argument("--phase23-only", action="store_true",
+                    help="build the kernels and run phase 23 alone")
     args = ap.parse_args(argv)
     import torch
 
@@ -9711,6 +10038,14 @@ def main(argv):
         if args.out:
             with open(args.out, "w") as f:
                 json.dump({"nvidia_smi": smi, "phase22": epp}, f, indent=1)
+        return 0
+    if args.phase23_only:
+        mesh, _ = run_phase23(torch, np, zoo, smi)
+        log(f"phase 23 in {mesh['seconds_total']:.1f} s, launches "
+            f"{mesh['launches']} on {smi}")
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"nvidia_smi": smi, "phase23": mesh}, f, indent=1)
         return 0
 
     ln_rows = check_layernorm(torch, F)
@@ -9820,6 +10155,9 @@ def main(argv):
     epp, epp_launches = run_phase22(torch, np, zoo, smi)
     log(f"phase 22 in {epp['seconds_total']:.1f} s, launches "
         f"{epp['launches']} on {smi}")
+    mesh, mesh_launches = run_phase23(torch, np, zoo, smi)
+    log(f"phase 23 in {mesh['seconds_total']:.1f} s, launches "
+        f"{mesh['launches']} on {smi}")
     profile = profile_paths(torch, np, lm, zoo) if args.profile else None
 
     phases = [pred["launches"], gen["launches"], train["launches"],
@@ -9828,7 +10166,7 @@ def main(argv):
               *healing_launches, *paging_launches, *spec_launches,
               *qos_launches, *knobs_launches, *disagg_launches,
               *fleet_launches, *moe_launches, *sync_launches,
-              *tpsp_launches, *epp_launches,
+              *tpsp_launches, *epp_launches, *mesh_launches,
               *(r["launches"] for r in async_sim.values())]
     launches = {k: sum(c.get(k, 0) for c in phases) for k in kernels.LAUNCHES}
     check(all(n > 0 for n in launches.values()),
@@ -9900,7 +10238,7 @@ def main(argv):
                        "phase16": knobs, "phase17": disagg,
                        "phase18": fleet, "phase19": moe,
                        "phase20": sync, "phase21": tpsp,
-                       "phase22": epp,
+                       "phase22": epp, "phase23": mesh,
                        "profile": profile,
                        "flash_infinite_q": inf_rows},
                       f, indent=1)

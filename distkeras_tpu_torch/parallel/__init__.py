@@ -1,7 +1,8 @@
 """Data parallelism over ``torch.distributed`` (the data group, ZeRO-1,
 the multi-process bootstrap), the 2-D grids of tensor, sequence, expert
 and pipeline parallelism (``mesh.GridMesh``, ``tensor_parallel``, the
-ring and Ulysses attention, the expert mesh, ``pipeline_parallel``),
+ring and Ulysses attention, the expert mesh, ``pipeline_parallel``), the
+serving mesh (``serving_mesh``, ``shard_decode_params``),
 single-device attention (dense, blockwise, the hook helpers) and the
 mixture-of-experts layer."""
 
@@ -16,6 +17,7 @@ from distkeras_tpu_torch.parallel.expert_parallel import (
 from distkeras_tpu_torch.parallel.mesh import (
     DataMesh,
     GridMesh,
+    ServingMesh,
     ZeroShards,
     all_reduce_mean,
     attach_data_group,
@@ -27,6 +29,7 @@ from distkeras_tpu_torch.parallel.mesh import (
     make_grid,
     make_mesh,
     replicate,
+    serving_mesh,
     shard_batch,
     shard_opt_state_zero,
     zero_leaf_sharding,
@@ -49,10 +52,13 @@ from distkeras_tpu_torch.parallel.ring_attention import (
 from distkeras_tpu_torch.parallel.tensor_parallel import (
     PartitionSpec,
     attach_model_group,
+    decode_param_specs,
+    describe_decode_shardings,
     describe_shardings,
     detach_model_group,
     leaf_partition_spec,
     make_dp_tp_mesh,
+    shard_decode_params,
     shard_params,
 )
 from distkeras_tpu_torch.parallel.ulysses import (

@@ -233,6 +233,33 @@ def moe_nodrop(params, x):
     return (sel * gate.to(x.dtype)[:, None]).reshape(x.shape)
 
 
+def moe_nodrop_shards(router, experts, x):
+    """``moe_nodrop`` with the experts split over a serving mesh:
+    ``experts`` holds, per shard, its ``(wi, wo, first)`` (experts
+    ``[first, first + len(wi))``, on the shard's device). The router runs
+    once on x's (home) device; each shard computes its experts on every
+    token and keeps the tokens routed to them, and the shards' partials
+    are summed on home in shard order, where each token holds exactly one
+    nonzero part: ``moe_nodrop``'s value. Returns the branch alone."""
+    d = x.shape[-1]
+    tokens = x.reshape(-1, d)
+    _, idx, gate = _top1(tokens.float() @ router)
+    parts = []
+    for wi, wo, first in experts:
+        t = tokens.to(wi.device)
+        h = _gelu(torch.matmul(t, wi.to(x.dtype)))  # (E/N, S, H)
+        out = torch.matmul(h, wo.to(x.dtype))  # (E/N, S, D)
+        local = idx.to(wi.device) - first
+        mine = (local >= 0) & (local < wi.shape[0])
+        sel = out[local.clamp(0, wi.shape[0] - 1),
+                  torch.arange(t.shape[0], device=t.device)]
+        g = gate.to(wi.device).to(x.dtype)[:, None]
+        parts.append(torch.where(mine[:, None], sel * g, 0.0))
+    from distkeras_tpu_torch.parallel.mesh import sum_shards
+
+    return sum_shards(parts, x.device).reshape(x.shape)
+
+
 @register_layer
 class MoE(Layer):
     """Mixture-of-experts FFN layer (a drop-in Dense-pair replacement):

@@ -25,9 +25,12 @@ call the autograd-aware collectives on a group (``DataMesh.copy_in``,
 ``gather``, ``sum``, ``ring_step``, ``all_to_all``), whose backward is
 the transpose the loss needs.
 
+The serving mesh is another thing: ``serving_mesh`` names the N devices
+ONE process drives for tensor-parallel decode (``ServingEngine(mesh=
+"tp:N")``), a ``ServingMesh``; no process group is involved.
+
 Left out: ``force_cpu_mesh`` (a JAX virtual-device knob: the port's CPU
-ranks are processes) and ``serving_mesh`` (tensor-parallel serving,
-ROADMAP A13 item 5).
+ranks are processes, and a serving mesh repeats one device instead).
 """
 
 from __future__ import annotations
@@ -314,6 +317,96 @@ def make_mesh(num_workers=None, device=None) -> DataMesh:
     return DataMesh(n, rank, group, dev)
 
 
+@dataclass(frozen=True, eq=False)
+class ServingMesh:
+    """A tensor-parallel serving mesh: the ``devices`` ONE process drives
+    over one axis (``axis_name``). Shard i of every split leaf and of the
+    K/V lives on ``devices[i]``; the replicated work runs once on
+    ``home``, ``devices[0]``. A pool may repeat one device (N shards on
+    one card, or on the CPU): the port's counterpart of the JAX
+    package's virtual devices (``force_cpu_mesh``), which exercises
+    every sharded code path on one device."""
+
+    devices: tuple
+    axis_name: str = "model"
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def shape(self) -> dict:
+        return {self.axis_name: self.size}
+
+    @property
+    def axis_names(self) -> tuple:
+        return (self.axis_name,)
+
+    @property
+    def home(self) -> torch.device:
+        return self.devices[0]
+
+
+def sum_shards(parts, home):
+    """The sum of per-shard partials on ``home``, in shard order: the one
+    collective of a serving-mesh pair (the psum JAX's partitioner
+    inserts). One part is returned as it is."""
+    out = parts[0].to(home)
+    for part in parts[1:]:
+        out = out + part.to(home)
+    return out
+
+
+def serving_mesh(spec, *, devices=None, axis_name="model", device=None
+                 ) -> ServingMesh:
+    """THE serving-mesh constructor (``ServingEngine``, ``DecodeStepper``
+    and the tests resolve their tensor-parallel mesh here). ``spec``
+    forms: ``"tp:N"`` (N-way tensor parallelism over the first N devices
+    of the pool), an int N (the same), or a ``ServingMesh``, passed
+    through once it carries ``axis_name``. The pool is ``devices`` (a
+    list of ``torch.device``s, which may repeat one device), else every
+    CUDA card of this host (``local_devices``; ``device="cpu"`` makes it
+    the one CPU device, ``device=None`` means CUDA and raises without a
+    GPU). Validation is loud and happens here, at construction: an
+    unknown spec, fewer than one device, or more ways than the pool has
+    devices (naming both numbers) raise ``ValueError``, so a misplaced
+    replica fails its boot instead of its first step. A training mesh
+    (``DataMesh``, ``GridMesh``: process groups) is refused too."""
+    if hasattr(spec, "axis_names"):
+        if axis_name not in spec.axis_names:
+            raise ValueError(
+                f"serving mesh must carry a {axis_name!r} axis; got "
+                f"axes {spec.axis_names}"
+            )
+        if not isinstance(spec, ServingMesh):
+            raise ValueError(
+                f"{type(spec).__name__} is a mesh of processes; a serving "
+                "mesh is one process's devices (serving_mesh('tp:N'))"
+            )
+        return spec
+    if isinstance(spec, str):
+        kind, sep, num = spec.partition(":")
+        if kind != "tp" or not sep or not num.isdigit():
+            raise ValueError(
+                f"unrecognized serving mesh spec {spec!r}; expected "
+                f"'tp:N', an int, or a ServingMesh"
+            )
+        n = int(num)
+    else:
+        n = int(spec)
+    if n < 1:
+        raise ValueError(f"serving mesh needs >= 1 device; got tp:{n}")
+    devs = list(devices) if devices is not None else local_devices(
+        None, device)
+    if n > len(devs):
+        raise ValueError(
+            f"serving mesh 'tp:{n}' needs {n} devices but only "
+            f"{len(devs)} are available — shrink the mesh or run on a "
+            f"host with more devices"
+        )
+    return ServingMesh(tuple(torch.device(d) for d in devs[:n]), axis_name)
+
+
 #: the inner axes of a ``GridMesh``: tensor, sequence, expert and
 #: pipeline parallelism
 GRID_AXES = ("model", "seq", "expert", "pipe")
@@ -415,18 +508,28 @@ def replicate(model, mesh: DataMesh):
     return model
 
 
-def rank_rows(arr, mesh: DataMesh, axis=0):
+def rank_rows(arr, mesh: DataMesh, axis=0, accum=1):
     """Rank r's rows ``[r*B, (r+1)*B)`` of a global batch along ``axis``
-    (the rows GSPMD gives device r under ``P("data")``)."""
-    n = arr.shape[axis]
-    if n % mesh.num_workers:
+    (the rows GSPMD gives device r under ``P("data")``). With ``accum=k``
+    the global batch is k accumulation microbatches of consecutive rows
+    (the JAX worker's ``reshape(k, B // k)``), each sharded over the
+    ranks on its own: the rank takes its rows of microbatch 0, then of
+    microbatch 1, ..., so that splitting its rows into k consecutive
+    parts (``WorkerCore._batch_grads``) gives it its rows of each global
+    microbatch."""
+    n, d = arr.shape[axis], mesh.num_workers
+    if n % (d * accum):
         raise ValueError(
             f"global batch of {n} rows does not split over "
-            f"{mesh.num_workers} ranks"
+            f"{d} ranks" + (f" x {accum} microbatches" if accum > 1 else "")
         )
-    b = n // mesh.num_workers
+    b = n // (d * accum)
     index = [slice(None)] * arr.ndim
-    index[axis] = slice(mesh.rank * b, (mesh.rank + 1) * b)
+    if accum == 1:
+        index[axis] = slice(mesh.rank * b, (mesh.rank + 1) * b)
+        return arr[tuple(index)]
+    starts = np.arange(accum) * (n // accum) + mesh.rank * b
+    index[axis] = (starts[:, None] + np.arange(b)[None, :]).ravel()
     return arr[tuple(index)]
 
 

@@ -20,8 +20,15 @@ computed alike on every rank of the model group, so each holds the whole
 gradient of what it stores: the trainer reduces gradients over the data
 group only.
 
-The serving placement (``decode_param_specs``, ``shard_decode_params``,
-Megatron's paired column/row split) is ROADMAP A13 item 5.
+The serving half places a causal LM for tensor-parallel decode over a
+``ServingMesh`` (``parallel.mesh.serving_mesh``), ONE process driving N
+shard devices: Megatron's pairs, QKV by column (so by head) with the
+output projection by row, and the MLP's ``fc1`` by column with ``fc2`` by
+row (``decode_param_specs``); MoE expert stacks split their expert axis
+over the same mesh. ``shard_decode_params`` makes the decode path's own
+copies of each shard's leaves on its device; each pair then runs shard by
+shard and its row products are summed on the home device (the psum JAX's
+partitioner inserts, made explicit in ``predictors.CachedSequenceGenerator``).
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch
 from torch import nn
 
 from distkeras_tpu_torch.models.sequential import walk_layers
+from distkeras_tpu_torch.ops.quantization import Int4Weight, params_tree
 from distkeras_tpu_torch.parallel.mesh import GridMesh, make_grid
 
 
@@ -186,3 +194,165 @@ def shard_params(model, mesh, axis_name="model"):
     (``attach_model_group``); returns the model."""
     attach_model_group(model, mesh, axis_name)
     return model
+
+
+# -- serving: the decode placement -------------------------------------------
+#
+# QKV column-sharded (equivalently head-sharded: their output dimension is
+# heads x head_dim) with the output projection row-sharded, and the MLP's
+# fc1 by column with fc2 by row, so each block runs shard-local until one
+# sum of partials per pair returns the activations to the home device.
+# Embeddings, LayerNorms and the vocabulary head stay whole, read on the
+# home device. MoE expert stacks split their expert axis over the same
+# axis (``expert_parallel.moe_group_specs``).
+
+
+def _pair_specs(spec, leaf, axis_size, axis_name):
+    """The spec of one weight of a pair (``spec`` "col" or "row"): an int8
+    ``{"q", "s"}`` group shards ``q`` like the f32 matrix, its
+    per-output-column scales following a column shard and staying whole
+    under a row shard; a packed ``Int4Weight`` stays whole (its two
+    values a byte along the in dimension do not split over a row shard).
+    A dimension the axis does not divide stays whole rather than raise:
+    the head count, the one constraint correctness needs, is checked by
+    the stepper before any placement."""
+    if isinstance(leaf, Int4Weight):
+        return P()
+    mat = leaf["q"] if isinstance(leaf, dict) else leaf
+    shape = tuple(mat.shape)
+    if len(shape) != 2:
+        return P()
+    d = shape[1] if spec == "col" else shape[0]
+    if d % axis_size or d < axis_size:
+        return P()
+    qspec = P(None, axis_name) if spec == "col" else P(axis_name, None)
+    if isinstance(leaf, dict):  # int8 {"q", "s"}
+        return {"q": qspec, "s": P(axis_name) if spec == "col" else P()}
+    return qspec
+
+
+def decode_param_specs(params, axis_size, axis_name="model"):
+    """Partition specs of a causal LM's params tree (the JAX package's
+    layout, ``ops.quantization.params_tree``; a model is read through it)
+    under serving tensor parallelism: a tree shaped like ``params`` whose
+    leaves are ``PartitionSpec``s (an int8 group expands to per-field
+    specs)."""
+    from distkeras_tpu_torch.parallel.expert_parallel import (
+        is_moe_group,
+        moe_group_specs,
+    )
+
+    if isinstance(params, nn.Module):
+        params = params_tree(params)
+
+    def vec_spec(leaf):
+        n = tuple(leaf.shape)
+        if len(n) == 1 and n[0] % axis_size == 0 and n[0] >= axis_size:
+            return P(axis_name)
+        return P()
+
+    def group(node, kind):
+        out = {}
+        for k, v in node.items():
+            if kind == "mhsa" and k in ("wq", "wk", "wv"):
+                out[k] = _pair_specs("col", v, axis_size, axis_name)
+            elif kind == "mhsa" and k == "wo":
+                out[k] = _pair_specs("row", v, axis_size, axis_name)
+            elif kind == "fc1" and k == "kernel":
+                out[k] = _pair_specs("col", v, axis_size, axis_name)
+            elif kind == "fc1" and k == "bias":
+                out[k] = vec_spec(v)
+            elif kind == "fc2" and k == "kernel":
+                out[k] = _pair_specs("row", v, axis_size, axis_name)
+            else:
+                out[k] = P()  # bo, fc2's bias, anything unrecognized
+        return out
+
+    def moe_specs(node):
+        tmpl = moe_group_specs(axis_name)
+        out = {}
+        for k, v in node.items():
+            spec = tmpl.get(k, P())
+            if spec != P():
+                e = v.shape[0] if v.ndim else 0
+                if e % axis_size or e < axis_size:
+                    spec = P()
+            out[k] = spec
+        return out
+
+    def walk(node):
+        if is_moe_group(node):
+            return moe_specs(node)
+        if isinstance(node, dict):
+            return {k: (group(v, k) if k in ("mhsa", "fc1", "fc2")
+                        and isinstance(v, dict) else walk(v))
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return P()  # embeddings, LayerNorms, the head, biases: whole
+
+    return walk(params)
+
+
+def _shard_of(leaf, spec, i, n, device):
+    """Shard ``i`` of ``n`` of one leaf under ``spec`` (whole when the spec
+    names no axis), a contiguous copy of its own on ``device``."""
+    part = leaf.detach()
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            c = part.shape[dim] // n
+            part = part.narrow(dim, i * c, c)
+    return part.to(device, copy=True, memory_format=torch.contiguous_format)
+
+
+def shard_decode_params(model, mesh, axis_name="model"):
+    """Place a causal LM for serving decode over ``mesh`` (a
+    ``ServingMesh``): one params tree per shard, in the JAX package's
+    layout, holding the decode path's OWN contiguous copy of the shard's
+    part of every leaf ``decode_param_specs`` splits, on the shard's
+    device (a split int8 group's whole scales are copied there too).
+    Leaves that stay whole are the model's own, read on the home device.
+    The model's parameters, and the predict path reading them, are not
+    touched."""
+    tree = params_tree(model)
+    n = mesh.shape[axis_name]
+    specs = decode_param_specs(tree, n, axis_name)
+
+    def place(node, spec, i, dev, split):
+        if isinstance(spec, P):
+            if spec == P() and not split:
+                return node
+            return _shard_of(node, spec, i, n, dev)
+        if isinstance(node, dict) and "q" in node and "s" in node:
+            return {k: place(node[k], spec[k], i, dev, True) for k in node}
+        if isinstance(node, dict):
+            return {k: place(node[k], spec[k], i, dev, False) for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(place(v, s, i, dev, False)
+                              for v, s in zip(node, spec))
+        return node
+
+    return [place(tree, specs, i, dev, False)
+            for i, dev in enumerate(mesh.devices)]
+
+
+def describe_decode_shardings(params, mesh, axis_name="model"):
+    """{"/"-joined path: spec} over ``decode_param_specs`` (tests, docs);
+    ``params`` a params tree or a model."""
+    specs = decode_param_specs(params, mesh.shape[axis_name], axis_name)
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, P):  # before tuple: P subclasses tuple
+            out[path] = node
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}" if path else k)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}/{i}")
+        else:
+            out[path] = node
+
+    walk(specs, "")
+    return out

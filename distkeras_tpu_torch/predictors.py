@@ -21,8 +21,14 @@ import torch
 
 from distkeras_tpu_torch.data.dataset import Dataset
 from distkeras_tpu_torch.models.sequential import walk_layers
+from distkeras_tpu_torch.models.layers import get_activation
 from distkeras_tpu_torch.ops.quantization import qmatmul, qshape
-from distkeras_tpu_torch.parallel.expert_parallel import MoE, moe_nodrop
+from distkeras_tpu_torch.parallel.expert_parallel import (
+    MoE,
+    moe_nodrop,
+    moe_nodrop_shards,
+)
+from distkeras_tpu_torch.parallel.mesh import sum_shards
 from distkeras_tpu_torch.utils.device import check_model_device
 
 
@@ -249,6 +255,87 @@ class SequenceGenerator:
             self._masked_write(ctx, lens, steps, pos, tok)
 
 
+def _per_shard(t):
+    """A K/V argument as one tensor per shard (a lone tensor is solo)."""
+    return t if isinstance(t, list) else [t]
+
+
+class _StageShards:
+    """One (block, optional MoE) stage over a serving mesh: each shard's
+    leaves (``parallel.tensor_parallel.shard_decode_params``'s trees, at
+    layer keys ``bi`` and ``mi``) and device. Each shard computes its
+    heads' q, k and v from the home LayerNorm output, hands them to the
+    program's ``attend`` (its K/V writes and its attention) and projects
+    them by its rows of ``wo``; the MLP and the experts likewise, every
+    row product summed on home (``sum_shards``). A weight the mesh does not
+    split (a packed int4 matrix, an indivisible dimension) runs whole on
+    home: the projection's heads are then cut out for each shard, the
+    shards' attention outputs joined for ``wo``."""
+
+    def __init__(self, trees, specs, bi, mi, devices, heads, head_dim):
+        from distkeras_tpu_torch.parallel.tensor_parallel import P
+
+        def split(spec):
+            return spec != P()
+
+        self.devices, self.home = list(devices), devices[0]
+        self.heads, self.head_dim = heads, head_dim
+        sp, mh = specs[bi]["mhsa"], [t[bi]["mhsa"] for t in trees]
+        self.proj = {w: ([m[w] for m in mh] if split(sp[w]) else None)
+                     for w in ("wq", "wk", "wv")}
+        self.wo = [m["wo"] for m in mh] if split(sp["wo"]) else None
+        f1, f2 = specs[bi]["fc1"], specs[bi]["fc2"]
+        self.fc = None
+        if split(f1["kernel"]) and split(f2["kernel"]) and (
+                "bias" not in f1 or split(f1["bias"])):
+            self.fc = [(t[bi]["fc1"]["kernel"], t[bi]["fc1"].get("bias"),
+                        t[bi]["fc2"]["kernel"]) for t in trees]
+        self.experts = None
+        if mi is not None and split(specs[mi]["wi"]):
+            e = trees[0][mi]["wi"].shape[0]
+            self.experts = [(t[mi]["wi"], t[mi]["wo"], i * e)
+                            for i, t in enumerate(trees)]
+
+    def attention(self, mh, h_, attend):
+        """The attention branch before its bias: (..., d) on home."""
+        lead, nh, hd = h_.shape[:-1], self.heads, self.head_dim
+        whole, parts = {}, []
+        for i, dev in enumerate(self.devices):
+            hs = h_.to(dev)
+            qkv = []
+            for w in ("wq", "wk", "wv"):
+                ws = self.proj[w]
+                if ws is not None:
+                    qkv.append(qmatmul(hs, ws[i]).reshape(*lead, nh, hd))
+                    continue
+                if w not in whole:
+                    whole[w] = qmatmul(h_, getattr(mh, w)).reshape(
+                        *lead, -1, hd)
+                qkv.append(whole[w][..., i * nh:(i + 1) * nh, :].to(dev))
+            o = attend(i, *qkv)
+            parts.append(o if self.wo is None else
+                         qmatmul(o.reshape(*lead, nh * hd), self.wo[i]))
+        if self.wo is not None:
+            return sum_shards(parts, self.home)
+        o = torch.cat([o.to(self.home) for o in parts], dim=-2)
+        return qmatmul(o.reshape(*lead, -1), mh.wo)
+
+    def mlp(self, blk, h2):
+        """``fc2(fc1(h2))``, fc1's columns and fc2's rows shard by shard."""
+        act = get_activation(blk.fc1.activation)
+        parts = []
+        for dev, (k1, b1, k2) in zip(self.devices, self.fc):
+            hs = h2.to(dev)
+            y = qmatmul(hs, k1)
+            if b1 is not None:
+                y = y + b1.to(hs.dtype)
+            parts.append(qmatmul(act(y), k2))
+        y = sum_shards(parts, self.home)
+        if blk.fc2.use_bias:
+            y = y + blk.fc2.bias.to(y.dtype)
+        return get_activation(blk.fc2.activation)(y)
+
+
 class CachedSequenceGenerator(SequenceGenerator):
     """KV-cache decoding for ``zoo.transformer_lm``-shaped models: the
     prompt prefills each block's (B, T, H, Dh) caches in one pass, then
@@ -342,68 +429,111 @@ class CachedSequenceGenerator(SequenceGenerator):
         self._head = layers[-1]
         self.num_heads = blocks[0].mhsa.num_heads
         self.head_dim = qshape(blocks[0].mhsa.wq)[1] // self.num_heads
+        self._shards = {}  # block -> _StageShards under a serving mesh
 
     _moe_nodrop = staticmethod(moe_nodrop)
 
+    def shard(self, trees, specs, devices):
+        """Run every stage over a serving mesh: ``trees`` and ``specs``
+        are ``parallel.tensor_parallel.shard_decode_params``'s per-shard
+        trees and ``decode_param_specs``, ``devices`` the mesh's (the
+        first is home, where the model lives). Every K/V argument of the
+        stage bodies is then a list of per-shard tensors holding
+        ``num_heads / N`` heads each. Without a call, decode is solo."""
+        n = len(devices)
+        layers = list(self.model.layers)
+        self._shards = {
+            blk: _StageShards(
+                trees, specs, str(layers.index(blk)),
+                None if moe is None else str(layers.index(moe)), devices,
+                self.num_heads // n, self.head_dim)
+            for blk, moe in self._stages
+        }
+
+    def _stage(self, blk, moe, x, attend):
+        """THE per-stage transformer body of every cached program: LN,
+        q/k/v, ``attend(shard, q, k, v)`` (the program's K/V writes and its
+        attention over the heads it was given, returning their (..., H,
+        Dh) output), the output projection and its residual, then the
+        feed-forward tail. Solo, ``attend`` runs once (shard 0, every
+        head); under a mesh once per shard (``_StageShards``)."""
+        mh = blk.mhsa
+        h_ = blk.ln1(x)
+        tp = self._shards.get(blk)
+        if tp is None:
+            lead, nh, hd = h_.shape[:-1], self.num_heads, self.head_dim
+            q = qmatmul(h_, mh.wq).reshape(*lead, nh, hd)
+            k_new = qmatmul(h_, mh.wk).reshape(*lead, nh, hd)
+            v_new = qmatmul(h_, mh.wv).reshape(*lead, nh, hd)
+            o = attend(0, q, k_new, v_new)
+            o = qmatmul(o.reshape(*lead, nh * hd), mh.wo)
+        else:
+            o = tp.attention(mh, h_, attend)
+        if mh.use_bias:
+            o = o + mh.bo
+        return self._ffn(blk, moe, x + o)
+
     def _ffn(self, blk, moe, x):
         """The feed-forward tail of one stage: the block's MLP residual,
-        then the no-drop MoE residual when the stage has one."""
-        x = x + blk.fc2(blk.fc1(blk.ln2(x)))
+        then the no-drop MoE residual when the stage has one (shard by
+        shard under a mesh)."""
+        tp = self._shards.get(blk)
+        if tp is None or tp.fc is None:
+            x = x + blk.fc2(blk.fc1(blk.ln2(x)))
+        else:
+            x = x + tp.mlp(blk, blk.ln2(x))
         if moe is not None:
-            x = x + self._moe_nodrop(moe.expert_params(), x)
+            if tp is None or tp.experts is None:
+                x = x + self._moe_nodrop(moe.expert_params(), x)
+            else:
+                x = x + moe_nodrop_shards(moe.router, tp.experts, x)
         return x
 
     def _stage_chunk(self, blk, moe, x, cache_k, cache_v, pos, qmask):
         """A C-token chunk through one (block, optional MoE) stage against
-        its cache — THE per-stage transformer body (single-token decode is
-        C=1). x: (B, C, d); caches (B, T, H, Dh), written IN PLACE at rows
-        pos..pos+C-1; qmask: (C, T) bool, True where chunk row c may attend
-        position t."""
-        mh = blk.mhsa
-        b, c, _ = x.shape
-        nh, hd = self.num_heads, self.head_dim
-        h_ = blk.ln1(x)
-        q = qmatmul(h_, mh.wq).reshape(b, c, nh, hd)
-        k_new = qmatmul(h_, mh.wk).reshape(b, c, nh, hd)
-        v_new = qmatmul(h_, mh.wv).reshape(b, c, nh, hd)
-        cache_k[:, pos : pos + c] = k_new.to(cache_k.dtype)
-        cache_v[:, pos : pos + c] = v_new.to(cache_v.dtype)
-        scores = torch.einsum("bchd,bthd->bhct", q,
-                              cache_k.to(q.dtype)) / math.sqrt(hd)
-        scores = scores.masked_fill(~qmask[None, None], float("-inf"))
-        w = torch.softmax(scores, dim=-1)
-        o = torch.einsum("bhct,bthd->bchd", w, cache_v.to(w.dtype))
-        o = qmatmul(o.reshape(b, c, nh * hd), mh.wo)
-        if mh.use_bias:
-            o = o + mh.bo
-        return self._ffn(blk, moe, x + o)
+        its cache (single-token decode is C=1). x: (B, C, d); caches (B,
+        T, H, Dh), or one tensor per shard under a mesh, written IN PLACE
+        at rows pos..pos+C-1; qmask: (C, T) bool, True where chunk row c
+        may attend position t."""
+        c = x.shape[1]
+        hd = self.head_dim
+        ks, vs = _per_shard(cache_k), _per_shard(cache_v)
+
+        def attend(i, q, k_new, v_new):
+            ck, cv = ks[i], vs[i]
+            ck[:, pos : pos + c] = k_new.to(ck.dtype)
+            cv[:, pos : pos + c] = v_new.to(cv.dtype)
+            scores = torch.einsum("bchd,bthd->bhct", q,
+                                  ck.to(q.dtype)) / math.sqrt(hd)
+            scores = scores.masked_fill(~qmask.to(ck.device)[None, None],
+                                        float("-inf"))
+            w = torch.softmax(scores, dim=-1)
+            return torch.einsum("bhct,bthd->bchd", w, cv.to(w.dtype))
+
+        return self._stage(blk, moe, x, attend)
 
     def _prefill(self, caches, x):
         """Run the pre-embedded prompt prefix ``x`` (B, PP, d) through every
         stage, filling each cache's first PP rows in place (dense causal
         attention over the prefix); returns the hidden states. MoE stages
         route as the decode steps do, so prefill and per-token outputs
-        agree."""
+        agree. ``caches``: per stage (K, V), each a tensor or, under a
+        mesh, one tensor per shard."""
         from distkeras_tpu_torch.parallel.ring_attention import (
             dense_attention,
         )
 
-        bsz, pp, _ = x.shape
-        nh, hd = self.num_heads, self.head_dim
+        pp = x.shape[1]
         for (blk, moe), (ck, cv) in zip(self._stages, caches):
-            mh = blk.mhsa
-            h_ = blk.ln1(x)
-            q = qmatmul(h_, mh.wq).reshape(bsz, pp, nh, hd)
-            k = qmatmul(h_, mh.wk).reshape(bsz, pp, nh, hd)
-            v = qmatmul(h_, mh.wv).reshape(bsz, pp, nh, hd)
-            ck[:, :pp] = k.to(ck.dtype)
-            cv[:, :pp] = v.to(cv.dtype)
-            # the prefix attends its own f32 K/V, as in JAX
-            o = dense_attention(q, k, v, causal=True)
-            o = qmatmul(o.reshape(bsz, pp, nh * hd), mh.wo)
-            if mh.use_bias:
-                o = o + mh.bo
-            x = self._ffn(blk, moe, x + o)
+            ks, vs = _per_shard(ck), _per_shard(cv)
+
+            def attend(i, q, k, v, ks=ks, vs=vs):
+                ks[i][:, :pp] = k.to(ks[i].dtype)
+                vs[i][:, :pp] = v.to(vs[i].dtype)
+                # the prefix attends its own f32 K/V, as in JAX
+                return dense_attention(q, k, v, causal=True)
+
+            x = self._stage(blk, moe, x, attend)
         return x
 
     def embed(self, tok, pos):

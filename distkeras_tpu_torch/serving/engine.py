@@ -76,8 +76,26 @@ uninterrupted decode on one engine. Each engine carries a random 32-bit
 admission, ``serve_prefix`` answers such a pull from the host prefix
 store, refusing a stale epoch typed.
 
+Tensor-parallel decode: ``ServingEngine(mesh="tp:N")`` (and
+``DecodeStepper(mesh=)``) serves one model over a ``ServingMesh``
+(``parallel.mesh.serving_mesh``) from ONE process and one scheduler
+thread, as the JAX engine drives N devices from one controller. The
+stepper keeps its own per-shard copies of the split weights
+(``parallel.tensor_parallel.shard_decode_params``: attention heads and
+the MLP in Megatron's column/row pairs, MoE experts on their expert axis)
+and one K/V tensor per shard and block, ``num_heads / N`` heads each.
+Every program runs its replicated work once on the home device (the
+context rows, the sampler, the embedding, every LayerNorm, the head) and
+its sharded work once per shard on the shard's device (q/k/v, the K/V
+writes and the attention over the shard's heads, the row products), the
+row products summed on home in shard order. Host bookkeeping (page
+tables, refcounts, prefix entries, sampler state) does not change with
+the mesh, and host K/V rows (prefix-store entries, swaps, DKTX frames)
+keep the full-head layout, so they cross geometries. Greedy output equals
+solo decode token for token on every admission path.
+
 Not ported yet (and absent from the signatures, so passing one fails
-loudly): meshes and CUDA graphs around the decode step.
+loudly): CUDA graphs around the decode step.
 """
 
 from __future__ import annotations
@@ -108,7 +126,11 @@ from distkeras_tpu_torch.obs import (
     dump_postmortem,
     latest_postmortem,
 )
-from distkeras_tpu_torch.ops.quantization import qmatmul
+from distkeras_tpu_torch.parallel.mesh import serving_mesh
+from distkeras_tpu_torch.parallel.tensor_parallel import (
+    decode_param_specs,
+    shard_decode_params,
+)
 from distkeras_tpu_torch.predictors import (
     CachedSequenceGenerator,
     ModelPredictor,
@@ -514,6 +536,24 @@ class DecodeStepper:
     f32; a draft bank inherits its target's). Host rows of a prefix hit
     or a swap keep it (``host_rows``).
 
+    ``mesh``: a tensor-parallel serving mesh, ``"tp:N"``, an int or a
+    ``ServingMesh`` (``parallel.mesh.serving_mesh``; a spec draws on every
+    CUDA card, or on the one CPU device when the model lives there). It is
+    resolved first, and ``num_heads % N`` is checked, before anything is
+    allocated: a bad mesh raises ``ValueError`` here, never at a step. The
+    stepper then shards its OWN copy of the weights
+    (``parallel.tensor_parallel.shard_decode_params``; the model's
+    parameters are untouched) and keeps, per block, one K/V tensor per
+    shard holding ``num_heads / N`` heads (``_kv``). The model lives on
+    the mesh's home device (``devices[0]``), which is ``device``: the
+    context rows, the sampler, the embedding, every LayerNorm and the head
+    run there once a program, and the per-shard work on each shard's
+    device (``predictors.CachedSequenceGenerator._stage``). Host
+    bookkeeping is the solo bank's; host K/V rows join the shards' heads.
+    ``mesh_spec``/``mesh_devices``/``kv_shard_bytes()`` report the
+    geometry. A ``ModelDrafter``'s bank stays solo. ``mesh=None`` leaves
+    every program bit for bit as it was.
+
     Grammar: a slot admitted with ``sampling.grammar`` (``begin_admit``'s
     ``eos_id`` feeds the forced-EOS fallback) is constrained. A step or
     verify with a constrained ACTIVE slot runs the masked variant of its
@@ -529,13 +569,42 @@ class DecodeStepper:
                  compile_ledger=None, prefix_cache=None, paged=False,
                  page_size=16, num_pages=None, recorder=None,
                  speculative=None, draft_k=4, spec_mode="rejection",
-                 scratch=None, _quiet=False):
+                 scratch=None, mesh=None, _quiet=False):
         # the generator's model-family validation, block parsing and
         # per-stage bodies, reused wholesale
         self._gen = CachedSequenceGenerator(
             model, temperature=temperature, seed=seed, top_k=top_k,
             top_p=top_p, kv_dtype=kv_dtype, device=device,
         )
+        # the serving mesh, resolved FIRST (before any allocation): a bad
+        # mesh fails the boot, never the first step
+        self.mesh = None
+        self._nh = self._gen.num_heads
+        if mesh is not None:
+            self.mesh = serving_mesh(mesh, device=self._gen.device)
+            ways = self.mesh.size
+            if self._nh % ways:
+                raise ValueError(
+                    f"cannot shard {self._nh} attention heads over mesh "
+                    f"'tp:{ways}': the model axis must divide num_heads — "
+                    f"pick a mesh that divides the head count or serve "
+                    f"this bundle solo"
+                )
+            if self.mesh.home != self._gen.device:
+                raise ValueError(
+                    f"the model lives on {self._gen.device} but the "
+                    f"serving mesh's home device is {self.mesh.home}; "
+                    f"build the model on the mesh's first device"
+                )
+            # the stepper's OWN per-shard copies: the model's parameters
+            # (and the predict path reading them) stay untouched
+            self._params = shard_decode_params(model, self.mesh)
+            self._gen.shard(self._params, decode_param_specs(
+                model, ways), self.mesh.devices)
+            self._devices = list(self.mesh.devices)
+        else:
+            self._params = None
+            self._devices = [self._gen.device]
         self.kv_dtype = self._gen.kv_dtype
         # host K/V rows' numpy dtype (bf16 rides as its uint16 bits)
         self._host_dt = host_rows(torch.zeros(0, dtype=self.kv_dtype)).dtype
@@ -563,7 +632,7 @@ class DecodeStepper:
         self._lens_cap = self.max_len + max(0, int(scratch) - 1)
         self._quiet = bool(_quiet)
         b, t = self.num_slots, self._tp
-        self._nh, self._hd = self._gen.num_heads, self._gen.head_dim
+        self._hd = self._gen.head_dim
         self._ctx = torch.zeros((b, t), dtype=torch.int64, device=self.device)
         self.paged = bool(paged)
         self.page_size = int(page_size)
@@ -583,13 +652,9 @@ class DecodeStepper:
             self._max_pages_bucket = max(
                 1, 1 << (pages_per_slot - 1).bit_length()
             )
-            shape = (int(num_pages), self.page_size, self._nh, self._hd)
+            self._kv = self._new_kv((int(num_pages), self.page_size))
             self._caches = None
-            self._pools = [
-                (torch.zeros(shape, dtype=self.kv_dtype, device=self.device),
-                 torch.zeros(shape, dtype=self.kv_dtype, device=self.device))
-                for _ in self._gen._blocks
-            ]
+            self._pools = self._solo_view()
             self._tables: list[list[int]] = [[] for _ in range(b)]
             self.prefix_index = DevicePrefixIndex(self._kv_alloc)
             t_ext = self._max_pages_bucket * self.page_size
@@ -597,7 +662,8 @@ class DecodeStepper:
             self._kv_alloc = None
             self.prefix_index = None
             self._pools = None
-            self._caches = self._gen.new_caches(b, t)
+            self._kv = self._new_kv((b, t))
+            self._caches = self._solo_view()
             t_ext = t
         self._lens = np.ones((b,), np.int64)  # host mirror; >= 1 always
         self._rows = torch.arange(b, device=self.device)
@@ -662,6 +728,62 @@ class DecodeStepper:
         armed against live traffic must not trip on the draft's steps."""
         if not self._quiet:
             faults.fire(site, **ctx)
+
+    # -- the serving mesh ----------------------------------------------------
+
+    @property
+    def mesh_spec(self):
+        """``"tp:N"`` under a serving mesh, None solo: the geometry
+        ``health``, ``stats`` and the fleet's replica books carry."""
+        return None if self.mesh is None else f"tp:{self.mesh.size}"
+
+    @property
+    def mesh_devices(self) -> int:
+        return 1 if self.mesh is None else self.mesh.size
+
+    def _new_kv(self, lead):
+        """Per block, the (K, V) pair of zero tensors of each shard:
+        ``lead + (heads per shard, head_dim)`` on the shard's device (the
+        JAX package's ``PartitionSpec(None, None, "model")``)."""
+        shape = (*lead, self._nh // len(self._devices), self._hd)
+
+        def zeros():
+            return [torch.zeros(shape, dtype=self.kv_dtype, device=d)
+                    for d in self._devices]
+
+        return [(zeros(), zeros()) for _ in self._gen._blocks]
+
+    def _solo_view(self):
+        """``_caches``/``_pools``, the per-block (K, V) of a solo bank (the
+        tensors the programs write); None under a mesh, whose K/V is
+        ``_kv``'s per-shard lists."""
+        if self.mesh is not None:
+            return None
+        return [(ks[0], vs[0]) for ks, vs in self._kv]
+
+    def _on_shards(self, *ts):
+        """``ts`` on each shard's device, one tuple per shard: how tables,
+        positions and masks reach the shards (solo, and where a shard
+        lives on home, the same tensors)."""
+        if len(self._devices) == 1:
+            return [ts]
+        return [tuple(t.to(d) for t in ts) for d in self._devices]
+
+    def _join_heads(self, parts):
+        """Per-shard (..., H/N, Dh) rows joined on home into the full
+        (..., H, Dh) layout host rows keep."""
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([p.to(self.device) for p in parts], dim=-2)
+
+    def _split_heads(self, rows):
+        """Full-head (..., H, Dh) rows on home cut into each shard's heads,
+        on its device."""
+        if len(self._devices) == 1:
+            return [rows]
+        h = self._nh // len(self._devices)
+        return [rows[..., i * h:(i + 1) * h, :].to(d)
+                for i, d in enumerate(self._devices)]
 
     # -- host inputs and program mints --------------------------------------
 
@@ -728,15 +850,15 @@ class DecodeStepper:
     # -- observability --------------------------------------------------------
 
     def kv_bytes_total(self) -> int:
-        """Bytes of every K/V pool (paged) or cache bank (dense)."""
-        arrs = self._pools if self.paged else self._caches
-        return sum(2 * ck.numel() * ck.element_size() for ck, _ in arrs)
+        """Bytes of every K/V pool (paged) or cache bank (dense), over
+        every shard: the same at every mesh size for one config."""
+        return sum(t.numel() * t.element_size()
+                   for ks, vs in self._kv for t in (*ks, *vs))
 
     def kv_shard_bytes(self) -> int:
         """K/V bytes RESIDENT PER SHARD — the number a capacity planner
-        compares against one device's memory. The port decodes on one
-        device, so this is ``kv_bytes_total()``."""
-        return self.kv_bytes_total()
+        compares against one device's memory."""
+        return self.kv_bytes_total() // self.mesh_devices
 
     def paged_stats(self) -> dict:
         """Pool, allocator and device-prefix-index observability for the
@@ -745,7 +867,11 @@ class DecodeStepper:
             return {"enabled": False}
         out = {"enabled": True}
         out.update(self._kv_alloc.stats())
+        # the pool's total bytes do not depend on the mesh; what tp:N
+        # changes is how many land on each shard
+        out["mesh"] = self.mesh_spec
         out["kv_bytes_total"] = self.kv_bytes_total()
+        out["kv_shard_bytes"] = self.kv_shard_bytes()
         out["device_prefix"] = self.prefix_index.stats()
         out["compiled_step_buckets"] = self._buckets("paged_step")
         out["compiled_chunk_buckets"] = self._buckets("paged_chunk")
@@ -1054,9 +1180,9 @@ class DecodeStepper:
             self._spec_pending = None
 
     def _page_copy(self, src_pg, dst_pg):
-        for pk, pv in self._pools:
-            pk[dst_pg] = pk[src_pg]
-            pv[dst_pg] = pv[src_pg]
+        for ks, vs in self._kv:
+            for pool in (*ks, *vs):
+                pool[dst_pg] = pool[src_pg]
 
     def _row_copy(self, src, dst):
         self._ctx[dst] = self._ctx[src]
@@ -1192,11 +1318,11 @@ class DecodeStepper:
         return target - pos
 
     def _slot_caches(self, slot):
-        """(1, T, H, Dh) views of one slot's cache rows: writes through
-        them land in the bank."""
+        """Per block, each shard's (1, T, H/N, Dh) views of one slot's
+        cache rows: writes through them land in the bank."""
         return [
-            (ck[slot : slot + 1], cv[slot : slot + 1])
-            for ck, cv in self._caches
+            ([k[slot : slot + 1] for k in ks], [v[slot : slot + 1] for v in vs])
+            for ks, vs in self._kv
         ]
 
     def _prefill_full(self, slot, prompt):
@@ -1228,7 +1354,7 @@ class DecodeStepper:
         generator's ``_stage_chunk`` against it (the dense chunk's math),
         then scatter the chunk's K/V rows back to their pages."""
         gen, ps = self._gen, self.page_size
-        nh, hd = self._nh, self._hd
+        hd = self._hd
         pbt = self._max_pages_bucket
         tg = pbt * ps
         trow = self._table_row(slot, pbt)
@@ -1239,9 +1365,10 @@ class DecodeStepper:
         pos_d = torch.arange(pos, pos + n, device=self.device)
         x = gen.embed(toks[None], pos_d)
         qmask = self._t_idx[None, :tg] <= pos_d[:, None]
-        for (blk, moe), (pk, pv) in zip(gen._stages, self._pools):
-            rk = pk[trow_d].reshape(1, tg, nh, hd)
-            rv = pv[trow_d].reshape(1, tg, nh, hd)
+        at = self._on_shards(trow_d, fpos_d)
+        for (blk, moe), (ks, vs) in zip(gen._stages, self._kv):
+            rk = [pk[a[0]].reshape(1, tg, -1, hd) for pk, a in zip(ks, at)]
+            rv = [pv[a[0]].reshape(1, tg, -1, hd) for pv, a in zip(vs, at)]
             x = gen._stage_chunk(blk, moe, x, rk, rv, pos, qmask)
             # index_put_ picks an arbitrary winner among duplicate indices
             # on CUDA. ``fpos`` holds n distinct (page, offset) pairs of
@@ -1251,8 +1378,8 @@ class DecodeStepper:
             # slot's table. Only a warm-up with an empty table maps several
             # positions onto the sentinel page, whose contents nothing
             # reads unmasked.
-            pk.view(-1, nh, hd)[fpos_d] = rk[0, pos : pos + n]
-            pv.view(-1, nh, hd)[fpos_d] = rv[0, pos : pos + n]
+            for pool, rows, a in (*zip(ks, rk, at), *zip(vs, rv, at)):
+                pool.view(-1, pool.shape[2], hd)[a[1]] = rows[0, pos : pos + n]
 
     def _finish_admit(self, slot):
         """Admission complete: drop the pending state, register (paged)
@@ -1287,21 +1414,23 @@ class DecodeStepper:
     @torch.no_grad()
     def _fetch_rows(self, slot, p):
         """Per-block host ``(k, v)`` rows of ``slot``'s positions
-        ``0..p-1``, in one device->host copy."""
-        nh, hd = self._nh, self._hd
+        ``0..p-1``, every shard's heads joined (the solo layout host rows
+        keep, whatever the mesh), in one device->host copy."""
+        hd = self._hd
         if self.paged:
             npg = -(-p // self.page_size)
             idx = self._to_dev(np.asarray(self._tables[slot][:npg], np.int64))
-            rows = torch.stack([
-                torch.stack([pk[idx].reshape(-1, nh, hd)[:p],
-                             pv[idx].reshape(-1, nh, hd)[:p]])
-                for pk, pv in self._pools
-            ])
+            at = self._on_shards(idx)
+
+            def part(pools):
+                return self._join_heads([
+                    pool[a[0]].reshape(-1, pool.shape[2], hd)[:p]
+                    for pool, a in zip(pools, at)])
         else:
-            rows = torch.stack([
-                torch.stack([ck[slot, :p], cv[slot, :p]])
-                for ck, cv in self._caches
-            ])
+            def part(banks):
+                return self._join_heads([bank[slot, :p] for bank in banks])
+        rows = torch.stack([torch.stack([part(ks), part(vs)])
+                            for ks, vs in self._kv])
         host = host_rows(rows)
         return [(host[si, 0], host[si, 1]) for si in range(host.shape[0])]
 
@@ -1338,14 +1467,14 @@ class DecodeStepper:
         return self._to_dev(host)
 
     def _restore_dense(self, slot, host):
-        rows = self._kv_to_dev(host)
         pb = host.shape[2]
-        for si, (ck, cv) in enumerate(self._caches):
-            ck[slot, :pb] = rows[0, si]
-            cv[slot, :pb] = rows[1, si]
+        for i, rows in enumerate(self._split_heads(self._kv_to_dev(host))):
+            for si, (ks, vs) in enumerate(self._kv):
+                ks[i][slot, :pb] = rows[0, si]
+                vs[i][slot, :pb] = rows[1, si]
 
     def _restore_paged(self, slot, host, pbt):
-        ps, nh, hd = self.page_size, self._nh, self._hd
+        ps, hd = self.page_size, self._hd
         pb = host.shape[2]
         trow = self._table_row(slot, pbt)
         pvec = np.arange(pb)
@@ -1354,10 +1483,12 @@ class DecodeStepper:
         # past the table maps to the sentinel page
         fpos = self._to_dev(trow[np.minimum(pvec // ps, pbt - 1)] * ps
                             + pvec % ps)
-        rows = self._kv_to_dev(host)
-        for si, (pk, pv) in enumerate(self._pools):
-            pk.view(-1, nh, hd)[fpos] = rows[0, si]
-            pv.view(-1, nh, hd)[fpos] = rows[1, si]
+        parts = self._split_heads(self._kv_to_dev(host))
+        for i, ((f,), rows) in enumerate(zip(self._on_shards(fpos), parts)):
+            for si, (ks, vs) in enumerate(self._kv):
+                pk, pv = ks[i], vs[i]
+                pk.view(-1, pk.shape[2], hd)[f] = rows[0, si]
+                pv.view(-1, pv.shape[2], hd)[f] = rows[1, si]
 
     def release(self, slot: int) -> None:
         self._lens[slot] = 1  # keep pos = lens-1 in range while parked
@@ -1628,7 +1759,7 @@ class DecodeStepper:
         as f32."""
         gen = self._gen
         b, t = self.num_slots, self._tp
-        nh, hd = self._nh, self._hd
+        hd = self._hd
         rows = self._rows
         sampled = bool((self._temps > 0.0).any())
         head = [active.astype(np.int64), lens, self._topk, self._seeds,
@@ -1649,38 +1780,37 @@ class DecodeStepper:
         x = gen.embed(self._ctx[rows, pos], pos)
         keep = act[:, None, None]
         t_mask = (self._t_idx[None, :t_ext] <= pos[:, None])[:, None, :]
-        for li, (blk, moe) in enumerate(gen._stages):
-            mh = blk.mhsa
-            h_ = blk.ln1(x)
-            q = qmatmul(h_, mh.wq).reshape(b, nh, hd)
-            k_new = qmatmul(h_, mh.wk).reshape(b, nh, hd)
-            v_new = qmatmul(h_, mh.wv).reshape(b, nh, hd)
-            if pbt is None:
-                ck, cv = self._caches[li]
-                ck[rows, pos] = torch.where(keep, k_new.to(ck.dtype),
-                                            ck[rows, pos])
-                cv[rows, pos] = torch.where(keep, v_new.to(cv.dtype),
-                                            cv[rows, pos])
-            else:
-                pk, pv = self._pools[li]
-                # index_put_ picks an arbitrary winner among duplicate
-                # indices on CUDA: the active rows' (page, offset) targets
-                # are distinct pages each holds alone (``write_targets``),
-                # and every inactive row writes the sentinel page, whose
-                # contents nothing reads unmasked
-                pk[ints[5], ints[6]] = k_new.to(pk.dtype)
-                pv[ints[5], ints[6]] = v_new.to(pv.dtype)
-                ck = pk[tables].reshape(b, t_ext, nh, hd)
-                cv = pv[tables].reshape(b, t_ext, nh, hd)
-            scores = torch.einsum("bhd,bthd->bht", q,
-                                  ck.to(q.dtype)) / math.sqrt(hd)
-            scores = scores.masked_fill(~t_mask, float("-inf"))
-            w = torch.softmax(scores, dim=-1)
-            o = torch.einsum("bht,bthd->bhd", w, cv.to(w.dtype))
-            o = qmatmul(o.reshape(b, nh * hd), mh.wo)
-            if mh.use_bias:
-                o = o + mh.bo
-            x = gen._ffn(blk, moe, x + o)
+        at = self._on_shards(rows, pos, keep, t_mask, *(
+            () if pbt is None else (ints[5], ints[6], tables)))
+        for (blk, moe), (ks, vs) in zip(gen._stages, self._kv):
+
+            def attend(i, q, k_new, v_new):
+                rows_, pos_, keep_, tm, *paged_at = at[i]
+                if pbt is None:
+                    ck, cv = ks[i], vs[i]
+                    ck[rows_, pos_] = torch.where(keep_, k_new.to(ck.dtype),
+                                                  ck[rows_, pos_])
+                    cv[rows_, pos_] = torch.where(keep_, v_new.to(cv.dtype),
+                                                  cv[rows_, pos_])
+                else:
+                    page, off, tab = paged_at
+                    pk, pv = ks[i], vs[i]
+                    # index_put_ picks an arbitrary winner among duplicate
+                    # indices on CUDA: the active rows' (page, offset)
+                    # targets are distinct pages each holds alone
+                    # (``write_targets``), and every inactive row writes the
+                    # sentinel page, whose contents nothing reads unmasked
+                    pk[page, off] = k_new.to(pk.dtype)
+                    pv[page, off] = v_new.to(pv.dtype)
+                    ck = pk[tab].reshape(b, t_ext, -1, hd)
+                    cv = pv[tab].reshape(b, t_ext, -1, hd)
+                scores = torch.einsum("bhd,bthd->bht", q,
+                                      ck.to(q.dtype)) / math.sqrt(hd)
+                scores = scores.masked_fill(~tm, float("-inf"))
+                w = torch.softmax(scores, dim=-1)
+                return torch.einsum("bht,bthd->bhd", w, cv.to(w.dtype))
+
+            x = gen._stage(blk, moe, x, attend)
         logit = gen._head(gen._final_ln(x))  # (B, V)
         if tmask is not None:
             logit = logit + self._to_dev(tmask)  # grammar: 0 / -inf rows
@@ -1810,7 +1940,7 @@ class DecodeStepper:
         counts."""
         gen = self._gen
         b, c = self.num_slots, self._kb + 1
-        nh, hd = self._nh, self._hd
+        hd = self._hd
         rows = self._rows
         sampled = bool((self._temps > 0.0).any())
         pos = np.clip(np.asarray(lens, np.int64) - 1, 0, self.max_len - 1)
@@ -1841,40 +1971,39 @@ class DecodeStepper:
         keep = act[:, None, None, None]
         t_mask = (self._t_idx[None, None, :t_ext]
                   <= cpos[:, :, None])[:, None]  # (B, 1, C, T)
-        for li, (blk, moe) in enumerate(gen._stages):
-            mh = blk.mhsa
-            h_ = blk.ln1(x)
-            q = qmatmul(h_, mh.wq).reshape(b, c, nh, hd)
-            k_new = qmatmul(h_, mh.wk).reshape(b, c, nh, hd)
-            v_new = qmatmul(h_, mh.wv).reshape(b, c, nh, hd)
-            if pbt is None:
-                # each row's C positions are distinct, and an inactive row
-                # rewrites its own values
-                ck, cv = self._caches[li]
-                ck[rows2, cpos] = torch.where(keep, k_new.to(ck.dtype),
-                                              ck[rows2, cpos])
-                cv[rows2, cpos] = torch.where(keep, v_new.to(cv.dtype),
-                                              cv[rows2, cpos])
-            else:
-                pk, pv = self._pools[li]
-                # index_put_ picks an arbitrary winner among duplicate
-                # indices on CUDA: an active row's C targets are distinct
-                # (page, offset) pairs of pages it holds alone
-                # (``write_targets``); inactive rows write the sentinel
-                # page, whose contents nothing reads unmasked
-                pk[page_d, off_d] = k_new.to(pk.dtype)
-                pv[page_d, off_d] = v_new.to(pv.dtype)
-                ck = pk[tables_d].reshape(b, t_ext, nh, hd)
-                cv = pv[tables_d].reshape(b, t_ext, nh, hd)
-            scores = torch.einsum("bchd,bthd->bhct", q,
-                                  ck.to(q.dtype)) / math.sqrt(hd)
-            scores = scores.masked_fill(~t_mask, float("-inf"))
-            w = torch.softmax(scores, dim=-1)
-            o = torch.einsum("bhct,bthd->bchd", w, cv.to(w.dtype))
-            o = qmatmul(o.reshape(b, c, nh * hd), mh.wo)
-            if mh.use_bias:
-                o = o + mh.bo
-            x = gen._ffn(blk, moe, x + o)
+        at = self._on_shards(rows2, cpos, keep, t_mask, *(
+            () if pbt is None else (page_d, off_d, tables_d)))
+        for (blk, moe), (ks, vs) in zip(gen._stages, self._kv):
+
+            def attend(i, q, k_new, v_new):
+                rows_, cpos_, keep_, tm, *paged_at = at[i]
+                if pbt is None:
+                    # each row's C positions are distinct, and an inactive
+                    # row rewrites its own values
+                    ck, cv = ks[i], vs[i]
+                    ck[rows_, cpos_] = torch.where(
+                        keep_, k_new.to(ck.dtype), ck[rows_, cpos_])
+                    cv[rows_, cpos_] = torch.where(
+                        keep_, v_new.to(cv.dtype), cv[rows_, cpos_])
+                else:
+                    page, off, tab = paged_at
+                    pk, pv = ks[i], vs[i]
+                    # index_put_ picks an arbitrary winner among duplicate
+                    # indices on CUDA: an active row's C targets are
+                    # distinct (page, offset) pairs of pages it holds alone
+                    # (``write_targets``); inactive rows write the sentinel
+                    # page, whose contents nothing reads unmasked
+                    pk[page, off] = k_new.to(pk.dtype)
+                    pv[page, off] = v_new.to(pv.dtype)
+                    ck = pk[tab].reshape(b, t_ext, -1, hd)
+                    cv = pv[tab].reshape(b, t_ext, -1, hd)
+                scores = torch.einsum("bchd,bthd->bhct", q,
+                                      ck.to(q.dtype)) / math.sqrt(hd)
+                scores = scores.masked_fill(~tm, float("-inf"))
+                w = torch.softmax(scores, dim=-1)
+                return torch.einsum("bhct,bthd->bchd", w, cv.to(w.dtype))
+
+            x = gen._stage(blk, moe, x, attend)
         logit = gen._head(gen._final_ln(x))  # (B, C, V)
         if tmask is not None:
             # candidate 0 is a constrained slot's one emission
@@ -1988,8 +2117,18 @@ class ServingEngine:
     budget is spent, and nothing here tries more.
 
     A restart rebuilds the stepper from the same config (a paged engine
-    gets a fresh pool and an empty device prefix index); the host prefix
-    store is kept.
+    gets a fresh pool and an empty device prefix index, a mesh the same
+    shards); the host prefix store is kept.
+
+    ``mesh``: tensor-parallel decode over a serving mesh (``"tp:N"``, an
+    int or a ``ServingMesh``; see ``DecodeStepper``), resolved at load: an
+    unknown spec, a mesh wider than the device pool or a head count it
+    does not divide fails the boot (never a demotion to predict-only).
+    Greedy replies equal the solo engine's on every admission path. The
+    geometry rides ``health()`` (``mesh``, ``kv_shard_bytes``),
+    ``stats()`` (``mesh``, ``paged.mesh``) and the gauges
+    ``serving_mesh_devices`` and ``serving_kv_shard_bytes``. ``predict``
+    reads the model's own weights on its device.
 
     ``kv_dtype``: the dtype of the K/V caches or pools (None: f32;
     ``torch.bfloat16`` halves them and the host rows of prefix entries and
@@ -2041,7 +2180,7 @@ class ServingEngine:
                  num_pages=None, qos=None, history=True,
                  history_interval=1.0, history_capacity=600,
                  trace_ring=8192, overlap=True, shed=False, role="unified",
-                 device=None):
+                 mesh=None, device=None):
         if role not in ("unified", "prefill", "decode"):
             raise ValueError(f"role must be 'unified', 'prefill', or "
                              f"'decode'; got {role!r}")
@@ -2102,6 +2241,10 @@ class ServingEngine:
             # its advertised digest) last moved
             self.registry.gauge("serving_kv_fabric_digest_age_seconds",
                                 fn=store.digest_age)
+        # the serving mesh, resolved LOUDLY at load: an unknown spec or a
+        # mesh wider than the device pool fails the boot, not a step
+        self._mesh = (None if mesh is None
+                      else serving_mesh(mesh, device=self.device))
         # everything a supervisor restart needs to rebuild the device face
         # (a fresh bank or pool and device prefix index; the host prefix
         # store is the same object, so it SURVIVES restarts, and the
@@ -2112,12 +2255,17 @@ class ServingEngine:
             compile_ledger=self.compile_ledger, prefix_cache=store,
             paged=paged, page_size=page_size, num_pages=num_pages,
             recorder=self.recorder, speculative=drafter, draft_k=draft_k,
-            spec_mode=self.spec_mode,
+            spec_mode=self.spec_mode, mesh=self._mesh,
         )
         try:
             self._stepper = DecodeStepper(model, **self._stepper_cfg)
             self._stepper.on_compile = self._extend_grace
         except ValueError as e:
+            if self._mesh is not None:
+                # a mesh asked for sharded decode: demoting to predict-only
+                # would hide a config error (heads the mesh does not
+                # divide), so the boot fails
+                raise
             # non-LM models (and hooked ones) still serve predict;
             # generate replies with this error
             self._decode_err = e
@@ -2193,6 +2341,14 @@ class ServingEngine:
                 else self._stepper.prefix_fetch_failures
             ),
         )
+        # the decode geometry: the devices this replica's decode spans (1
+        # solo) and the K/V bytes resident on each, what a capacity
+        # planner compares against one device's memory
+        reg.gauge("serving_mesh_devices", fn=lambda: (
+            None if self._stepper is None else self._stepper.mesh_devices))
+        reg.gauge("serving_kv_shard_bytes", fn=lambda: (
+            None if self._stepper is None
+            else self._stepper.kv_shard_bytes()))
         # grammar masks applied and forced-EOS fallbacks, read from the
         # live stepper generation
         for name, attr in (("serving_constrained_masks", "constrained_masks"),

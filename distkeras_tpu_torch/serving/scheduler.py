@@ -1578,9 +1578,9 @@ class ContinuousBatcher:
                 "active_slots": sum(s is not None for s in self._slots),
                 "prefilling_slots": len(self._prefill_left),
                 "num_slots": len(self._slots),
-                # decode geometry ("tp:N" in the JAX package): the port
-                # has no serving meshes yet, so every replica reports None
-                "mesh": None,
+                # decode geometry ("tp:N" / None): rides health so the
+                # fleet router and autoscaler see per-replica meshes
+                "mesh": getattr(self.stepper, "mesh_spec", None),
             }
 
     def stats(self) -> dict:

@@ -497,7 +497,9 @@ class SynchronousDistributedTrainer(Trainer):
     launches them). ``batch_size`` is per rank and ``batch_size *
     num_workers`` the global batch: rank r trains on rows ``[r*B,
     (r+1)*B)`` of each global batch, the rows GSPMD gives device r in the
-    JAX package. Every step averages the gradients (after accumulation)
+    JAX package; with ``accum_steps=k`` its rows of each of the global
+    batch's k microbatches (``parallel.mesh.rank_rows``), so every
+    microbatch normalizes and routes JAX's rows. Every step averages the gradients (after accumulation)
     and the metrics over the ranks in one flat-bucket all-reduce, then
     applies the optimizer, so the parameters stay replicated — bit-equal
     on every rank. All ranks draw the same step seed; ``BatchNorm`` takes
@@ -717,12 +719,13 @@ class SynchronousDistributedTrainer(Trainer):
         mesh = self._data
         cols = [self.features_col, self.label_col]
         global_batch = self.batch_size * mesh.num_workers
+        accum = self.accum_steps  # each microbatch sharded as in JAX
 
         def prepare(batches):
             # host staging (prefetch thread): only this rank's rows
             return tuple(
-                to_device(np.stack([rank_rows(b[c], mesh) for b in batches]),
-                          mesh.device)
+                to_device(np.stack([rank_rows(b[c], mesh, accum=accum)
+                                    for b in batches]), mesh.device)
                 for c in cols)
 
         for epoch in range(start_epoch, self.num_epoch):
@@ -744,6 +747,7 @@ class SynchronousDistributedTrainer(Trainer):
         bit-identical."""
         mesh = self._data
         global_batch = self.batch_size * mesh.num_workers
+        accum = self.accum_steps  # each microbatch sharded as in JAX
         n = len(dataset)
         data_x, data_y = resident_arrays(dataset, self.features_col,
                                          self.label_col)
@@ -757,7 +761,7 @@ class SynchronousDistributedTrainer(Trainer):
             ):
                 t0 = time.perf_counter()
                 ix = torch.from_numpy(
-                    rank_rows(idx, mesh, axis=1).astype(np.int64)
+                    rank_rows(idx, mesh, axis=1, accum=accum).astype(np.int64)
                 ).to(mesh.device)
                 opt_state, mets = core.indexed_window(
                     model, opt_state, rng, data_x, data_y, ix)

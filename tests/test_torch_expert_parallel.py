@@ -51,8 +51,12 @@ RUNS = {
         ("ep_sgd", "pallas_sgd", {"expert_parallel": 2}, SGD_AUX),
         ("tp_adam", "pallas_adam", {"model_parallel": 2}, ADAM)],
     2: [("dp_adam", "pallas_adam", {}, ADAM),
-        ("dp_sgd", "pallas_sgd", {}, SGD_AUX)],
+        ("dp_sgd", "pallas_sgd", {}, SGD_AUX),
+        ("dp_accum", "pallas_adam", {}, {**ADAM, "accum_steps": 2})],
 }
+#: route_global calls recorded in the dp_accum run's first step: 2
+#: microbatches x 2 MoE layers, in call order
+ACCUM_CALLS = 4
 
 _RANK_SCRIPT = textwrap.dedent(
     """
@@ -150,8 +154,22 @@ _RANK_SCRIPT = textwrap.dedent(
         for name, p in res.state_dict().items():
             results[tag + "/" + name] = p.numpy()
 
+    route_global, calls = ep.route_global, []
+
+    def recording(logits, capacity_factor, data=None):
+        out = route_global(logits, capacity_factor, data)
+        if len(calls) < ACCUM_CALLS:
+            idx, pos, _, cap, _ = out
+            calls.append((idx.numpy().copy(), (pos < cap).numpy().copy()))
+        return out
+
     for tag, opt, knobs, hyper in RUNS[world]:
+        if tag == "dp_accum":
+            ep.route_global = recording
         run(tag, opt, knobs, hyper)
+        ep.route_global = route_global
+    for i, (idx, kept) in enumerate(calls):
+        results[f"route/{i}/idx"], results[f"route/{i}/kept"] = idx, kept
     if world == 4:
         ckpt = dict(checkpoint_dir=sys.argv[3])
         ep2 = {"expert_parallel": 2}
@@ -176,7 +194,7 @@ def _launch(tmp_path, n, inputs):
     script = tmp_path / "ranks.py"
     consts = "".join(f"{k} = {v!r}\n" for k, v in (
         ("CF", CF), ("GRIDS", GRIDS), ("LM", LM), ("LM_TRAIN", LM_TRAIN),
-        ("ADAM", ADAM), ("RUNS", RUNS)))
+        ("ADAM", ADAM), ("RUNS", RUNS), ("ACCUM_CALLS", ACCUM_CALLS)))
     script.write_text(consts + _RANK_SCRIPT)
     np.savez(tmp_path / "inputs.npz", **inputs)
     out = tmp_path / "out"
@@ -381,13 +399,67 @@ def test_pure_data_parallel_matches_jax(two_ranks, tag):
     _assert_matches_jax(ranks, trained[tag], tag, [2, 0, 0])
 
 
+def _jax_accum_routes(inputs, accum=2):
+    """JAX's routing of the first step's global accumulation microbatches
+    at the initial weights: per (microbatch, MoE layer), in the port's
+    call order, each token's expert and whether it is kept. The first
+    global batch is JAX's shuffled rows ``[0, 2 * batch_size)``, and
+    microbatch j its rows ``[j * B/accum, (j + 1) * B/accum)``."""
+    import jax.numpy as jnp
+    from distkeras_tpu.data.dataset import Dataset as JDataset
+    from distkeras_tpu.models import zoo as jzoo
+    from distkeras_tpu.parallel.expert_parallel import switch_route
+
+    jm = jzoo.moe_transformer_lm(**LM, seed=0)
+    ds = JDataset({"features": inputs["tokens"]}).shuffle(LM_TRAIN["seed"])
+    batch = np.asarray(ds["features"])[: 2 * LM_TRAIN["batch_size"]]
+    out = []
+    for mb in np.split(batch, accum):
+        x = jnp.asarray(mb)
+        for i, layer in enumerate(jm.layers):
+            if "router" in jm.params[str(i)]:
+                logits = x.reshape(-1, x.shape[-1]) @ jm.params[str(i)][
+                    "router"]
+                cap = max(1, int(layer.capacity_factor * logits.shape[0]
+                                 / logits.shape[1]))
+                dispatch, _, _ = switch_route(logits, cap)
+                out.append((np.asarray(jnp.argmax(logits, -1)),
+                            np.asarray(dispatch.sum(axis=(1, 2))) > 0))
+            x, _ = layer.apply(jm.params[str(i)], jm.state[str(i)], x)
+    return out
+
+
+def test_accumulation_routes_jax_microbatches(two_ranks):
+    """``accum_steps=2`` under a data group of 2: each rank's part of each
+    accumulation microbatch is its rows of JAX's GLOBAL microbatch, so the
+    first step routes every token as JAX does (the same expert, the same
+    capacity drops) in both MoE layers of both microbatches, and the
+    losses stay within 1e-5 relative of JAX's 2-worker trainer. Splitting
+    each rank's own rows instead routes other token sets."""
+    ranks, trained, _, inputs = two_ranks
+    want = _jax_accum_routes(inputs)
+    t = LM["seq_len"]
+    for r, res in enumerate(ranks):
+        for i, (widx, wkept) in enumerate(want):
+            n = widx.size // 2  # rank r's tokens of the microbatch
+            np.testing.assert_array_equal(res[f"route/{i}/idx"],
+                                          widx[r * n:(r + 1) * n],
+                                          err_msg=f"rank {r} call {i}")
+            np.testing.assert_array_equal(res[f"route/{i}/kept"],
+                                          wkept[r * n:(r + 1) * n],
+                                          err_msg=f"rank {r} call {i}")
+        assert n == LM_TRAIN["batch_size"] // 2 * t
+        np.testing.assert_allclose(_case(res, "dp_accum")["loss"],
+                                   trained["dp_accum"][0], rtol=1e-5)
+
+
 @pytest.mark.parametrize("world", [2, 4])
 def test_ranks_end_bit_equal(request, world):
     ranks = request.getfixturevalue(
         {2: "two_ranks", 4: "four_ranks"}[world])[0]
     for other in ranks[1:]:
         for k in ranks[0]:
-            if not k.startswith(("ffn_", "shards/")):
+            if not k.startswith(("ffn_", "shards/", "route/")):
                 np.testing.assert_array_equal(other[k], ranks[0][k],
                                               err_msg=k)
 

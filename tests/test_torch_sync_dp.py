@@ -111,6 +111,12 @@ _RANK_SCRIPT = textwrap.dedent(
                          Dense(10, activation="softmax")])
         bn.build((784,), device="cpu")
         run("bn", load(bn, "bn/"), "sgd", mnist, **BN)
+        for feed in ("", "_resident"):
+            bn = Sequential([Dense(32), BatchNorm(), Activation("relu"),
+                             Dense(10, activation="softmax")])
+            bn.build((784,), device="cpu")
+            run("bn_accum" + feed, load(bn, "bn/"), "sgd", mnist,
+                accum_steps=2, device_resident=bool(feed), **BN)
         drop = Sequential([Dense(32, activation="relu"), Dropout(0.5),
                            Dense(10, activation="softmax")])
         drop.build((784,), seed=3, device="cpu")
@@ -252,6 +258,8 @@ def two_ranks(tmp_path_factory):
         "accum": _jax_sync(jzoo.mnist_mlp(hidden=16, seed=0), "sgd", x, y, 2,
                            accum_steps=2, **SGD),
         "bn": _jax_sync(_jax_bn_model(), "sgd", x, y, 2, **BN),
+        "bn_accum": _jax_sync(_jax_bn_model(), "sgd", x, y, 2,
+                              accum_steps=2, **BN),
     }
     drop = Sequential([Dense(32, activation="relu"), Dropout(0.5),
                        Dense(10, activation="softmax")])
@@ -302,6 +310,22 @@ def test_two_ranks_batchnorm_takes_global_batch_stats(two_ranks):
     port = _case(ranks[0], "bn")
     assert {"1.mean", "1.var"} <= set(port)
     _assert_matches_jax(port, jax_runs["bn"], stats=True)
+
+
+@pytest.mark.parametrize("feed", ["streamed", "resident"])
+def test_two_ranks_accumulation_normalizes_jax_microbatches(two_ranks, feed):
+    """BatchNorm at ``accum_steps=2`` under a group of 2: each rank's part
+    of each accumulation microbatch is its rows of JAX's global
+    microbatch, so every microbatch normalizes JAX's rows. Losses within
+    1e-5 relative, moving statistics and weights as above, on both feeds
+    (splitting each rank's own rows normalizes other row sets)."""
+    ranks, jax_runs, _ = two_ranks
+    tag = "bn_accum" + ("_resident" if feed == "resident" else "")
+    for res in ranks:
+        port = _case(res, tag)
+        np.testing.assert_allclose(port["loss"], jax_runs["bn_accum"][0],
+                                   rtol=1e-5)
+        _assert_matches_jax(port, jax_runs["bn_accum"], stats=True)
 
 
 @pytest.mark.parametrize("optimizer", ["adam", "pallas_adam"])
@@ -498,6 +522,28 @@ def test_rank_rows_and_zero_slices_tile_the_whole():
     assert all(s[0][1].shape == (5,) and s[1] == 7 for s in slices)
     with pytest.raises(ValueError, match="does not split"):
         tmesh.rank_rows(np.zeros((6, 2)), tmesh.DataMesh(4, 0, None, None))
+
+
+@pytest.mark.parametrize("accum", [2, 4])
+def test_rank_rows_take_each_microbatch_rows(accum):
+    """With ``accum=k`` rank r takes its rows of each of the k global
+    microbatches, microbatch after microbatch (JAX's reshape(k, B // k),
+    each microbatch sharded over the ranks); its k consecutive parts tile
+    the global microbatches, on either axis."""
+    x = np.arange(16 * 3).reshape(16, 3)
+    ranks = 2
+    parts = [tmesh.rank_rows(x, tmesh.DataMesh(ranks, r, None, None),
+                             accum=accum) for r in range(ranks)]
+    per = 16 // accum // ranks
+    for j, mb in enumerate(np.split(x, accum)):
+        for r in range(ranks):
+            np.testing.assert_array_equal(
+                parts[r][j * per:(j + 1) * per], mb[r * per:(r + 1) * per])
+    np.testing.assert_array_equal(
+        tmesh.rank_rows(x.T, tmesh.DataMesh(ranks, 1, None, None), axis=1,
+                        accum=accum), parts[1].T)
+    with pytest.raises(ValueError, match="microbatches"):
+        tmesh.rank_rows(x[:12], tmesh.DataMesh(4, 0, None, None), accum=2)
 
 
 def test_dropout_under_a_group_keeps_the_global_mask_rows():
