@@ -490,6 +490,26 @@ Phases, each fatal on failure (exit code 1, no result line):
    reply. 23b: tp:4 on phase 19's MoE LM (2 experts a shard), paged, four
    greedy requests and an n=2 fork, 23a's bars. ``--phase23-only`` builds
    the kernels and runs phase 23 alone.
+24. The 3-D composition and the example twins. 24a:
+   ``pipeline_apply(param_specs=)`` over a 2 x 2 x 2 ``Grid3D`` of eight
+   gloo rank processes on the one card (``--p24-rank-out DIR`` is the rank
+   mode), ``tests/test_3d_mesh.py``'s blocks and specs, against
+   ``pipeline_apply`` on one rank: outputs within 1e-5, the data-summed
+   gradients within 2e-4, the rank layout row-major and each rank holding
+   JAX's shard shapes. 24b: every ``examples/*_torch.py`` twin of a JAX
+   example as a subprocess on CUDA at a small size (``P24_LANES`` at a
+   time; the sync modes and the LM's ``--seq-parallel 2`` at two gloo
+   ranks sharing the card), its result lines asserted (``real_digits``
+   above 0.9, the LM's decode counting upward and its speculative decode
+   EXACT), its wall split into start-up, the twin and the training it
+   prints, and the kernel launches of its process and its rank processes
+   counted into the kernels line (the LM twin must launch B3-B8, its rank
+   processes B3, B7 and B8). ``--phase24-only`` builds the kernels and
+   runs phase 24 alone.
+
+``--import-seconds ROOT...`` times ``import distkeras_tpu_torch`` from
+each checkout in fresh interpreters and exits (two commits compared in
+one call).
 
 ``--profile`` adds where the time goes: the MoE LM's decode step beside
 the dense LM's (19a), a decode step (dense, paged, on
@@ -511,6 +531,8 @@ import itertools
 import json
 import math
 import os
+import re
+import signal
 import subprocess
 import sys
 import time
@@ -567,6 +589,29 @@ def nvidia_smi_line():
     )
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+#: fresh interpreters ``--import-seconds`` times for each root
+IMPORT_RUNS = 5
+
+
+def import_seconds(root):
+    """Seconds a fresh interpreter takes to ``import distkeras_tpu_torch``
+    from ``root`` once torch is loaded (what every rank process and twin
+    pays on top of ``import torch``), ``IMPORT_RUNS`` times."""
+    code = ("import sys, time\n"
+            f"sys.path.insert(0, {os.path.abspath(root)!r})\n"
+            "import torch\n"
+            "t = time.perf_counter()\n"
+            "import distkeras_tpu_torch\n"
+            "print(time.perf_counter() - t)\n")
+    out = []
+    for _ in range(IMPORT_RUNS):
+        proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                              capture_output=True, text=True, timeout=120)
+        check(proc.returncode == 0, f"import from {root}: {proc.stderr}")
+        out.append(float(proc.stdout.split()[-1]))
+    return out
 
 
 def call_time_ms(fn, iters=50, warmup=5):
@@ -6627,7 +6672,8 @@ def run_handoff(torch, np, lm, smi, gen_reqs):
                     f"(unified {r['ttft_ms']['unified']['p50']:.1f} ms); "
                     f"tokens/s unified {r['tokens_per_s']['unified']:.1f}, "
                     f"relayed {r['tokens_per_s']['relayed']:.1f}, pushed "
-                    f"{r['tokens_per_s']['pushed']:.1f} on {smi}")
+                    f"{r['tokens_per_s']['pushed']:.1f}; supervisors held "
+                    f"off {r['supervisor_blind_s']} s on {smi}")
     except BaseException:
         for s in keep or ():
             s.shutdown()
@@ -6698,6 +6744,11 @@ def handoff_config(torch, np, lm, tag, srvs, reqs):
         "tokens_per_s": {m: runs[m]["tokens_per_s"] for m in runs},
         "seconds": {m: runs[m]["seconds"] for m in runs},
         "launches": {m: runs[m]["launches"] for m in runs},
+        # the supervisors' own late wakes (a stall of the whole process)
+        "supervisor_blind_s": [
+            e["seconds"] for eng in (uni, pre, dec)
+            for e in eng.recorder.snapshot()
+            if e["kind"] == "engine.watchdog_blind"],
     }, counts_all
 
 
@@ -8407,24 +8458,24 @@ def run_sync_one_rank(torch, np, zoo, smi, ds):
     return out, counts
 
 
-def run_rank_pair(np, flag, tag, timeout):
-    """Two rank processes of this script on the one card, joined in a
-    gloo group through the ``DKT_*`` env (NCCL refuses two ranks on one
-    device), each started with ``flag DIR`` and writing ``rank{r}.npz`` and
-    ``rank{r}.json`` there. Returns (arrays, infos, wall seconds); fails
-    if a rank does not exit 0 within ``timeout``."""
+def run_rank_pair(np, flag, tag, timeout, ranks=SYNC_RANKS):
+    """Two rank processes of this script (``ranks`` of them) on the one
+    card, joined in a gloo group through the ``DKT_*`` env (NCCL refuses
+    two ranks on one device), each started with ``flag DIR`` and writing
+    ``rank{r}.npz`` and ``rank{r}.json`` there. Returns (arrays, infos,
+    wall seconds); fails if a rank does not exit 0 within ``timeout``."""
     import shutil
     import tempfile
 
     out_dir = tempfile.mkdtemp(prefix="ranks_", dir=HERE)
     env = dict(os.environ, DKT_COORDINATOR_ADDRESS=f"127.0.0.1:{free_port()}",
-               DKT_NUM_PROCESSES=str(SYNC_RANKS), DKT_BACKEND="gloo")
+               DKT_NUM_PROCESSES=str(ranks), DKT_BACKEND="gloo")
     t0 = time.monotonic()
     procs = [subprocess.Popen(
         [sys.executable, os.path.join(HERE, "chip_smoke.py"), flag, out_dir],
         env=dict(env, DKT_PROCESS_ID=str(r)), cwd=HERE,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(SYNC_RANKS)]
+        for r in range(ranks)]
     deadline = t0 + timeout
     try:
         logs = [p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0]
@@ -8439,15 +8490,15 @@ def run_rank_pair(np, flag, tag, timeout):
         for r, (p, text) in enumerate(zip(procs, logs)):
             check(p.returncode == 0,
                   f"{tag} rank {r} exited {p.returncode}:\n{text[-3000:]}")
-        ranks = [dict(np.load(os.path.join(out_dir, f"rank{r}.npz")))
-                 for r in range(SYNC_RANKS)]
+        arrays = [dict(np.load(os.path.join(out_dir, f"rank{r}.npz")))
+                  for r in range(ranks)]
         infos = []
-        for r in range(SYNC_RANKS):
+        for r in range(ranks):
             with open(os.path.join(out_dir, f"rank{r}.json")) as f:
                 infos.append(json.load(f))
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
-    return ranks, infos, wall
+    return arrays, infos, wall
 
 
 def run_sync_two_ranks(torch, np, smi, one_rank):
@@ -9512,6 +9563,410 @@ def run_phase23(torch, np, zoo, smi):
     return out, launches
 
 
+# ------------------------------------------------------------------ phase 24
+
+#: 24a: the 3-D grid (pipe x data x model) and tests/test_3d_mesh.py's
+#: blocks, specs, batch and microbatches
+P24_GRID = (2, 2, 2)
+P24_DEPTH, P24_D, P24_HID, P24_BATCH, P24_MICRO = 4, 8, 16, 8, 2
+P24_OUT_TOL = 1e-5  # JAX's own test's bars, f32, another summation order
+P24_GRAD_TOL = 2e-4
+P24_RANK_TIMEOUT = 240  # seconds a phase-24 rank may take, spawn included
+P24_TWIN_TIMEOUT = 300  # seconds a twin may take
+#: twins run at once, each lane's processes on cores / lanes threads
+P24_LANES = 4
+P24_LEAVES = ("w_in", "w_out", "b")
+#: the kernels the language-model twin runs (B3-B8)
+P24_LM_KERNELS = ("adam_fused", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                  "layernorm_fwd", "layernorm_bwd")
+#: those its sequence-parallel rank processes run (the ring takes the
+#: flash hook's place)
+P24_SP_KERNELS = ("adam_fused", "layernorm_fwd", "layernorm_bwd")
+
+
+def p24_inputs(np):
+    """tests/test_3d_mesh.py's blocks (seeds 0 and 2) stacked, and its
+    inputs (seeds 1 and 3)."""
+    out = {}
+    for tag, seed, x_seed in (("fwd", 0, 1), ("grad", 2, 3)):
+        rng = np.random.default_rng(seed)
+        blocks = [{
+            "w_in": (rng.standard_normal((P24_D, P24_HID)) * 0.3).astype(
+                np.float32),
+            "w_out": (rng.standard_normal((P24_HID, P24_D)) * 0.3).astype(
+                np.float32),
+            "b": np.zeros(P24_D, np.float32)} for _ in range(P24_DEPTH)]
+        for k in P24_LEAVES:
+            out[f"{tag}/{k}"] = np.stack([b[k] for b in blocks])
+        out[f"{tag}/x"] = np.random.default_rng(x_seed).standard_normal(
+            (P24_BATCH, P24_D)).astype(np.float32)
+    return out
+
+
+def p24_apply(torch, np, grid):
+    """``pipeline_apply(param_specs=)`` on ``grid`` (a ``Grid3D``): the
+    forward output, and the rank's stage gradients of sum(out ** 2)
+    summed over its data group, with the stage's shapes."""
+    from distkeras_tpu_torch.parallel import pipeline_parallel as pp
+    from distkeras_tpu_torch.parallel.tensor_parallel import PartitionSpec
+
+    P = PartitionSpec
+    specs = {"w_in": P("pipe", None, "model"),
+             "w_out": P("pipe", "model", None), "b": P("pipe")}
+    model = grid.model
+    inputs = p24_inputs(np)
+
+    def block_tp(p, h):
+        part = torch.tanh(model.copy_in(h) @ p["w_in"]) @ p["w_out"]
+        return h + model.reduce_out(part) + p["b"]
+
+    def run(tag):
+        stacked = {k: torch.from_numpy(inputs[f"{tag}/{k}"]).to(grid.device)
+                   for k in P24_LEAVES}
+        stage = pp.shard_stacked_params(stacked, grid, param_specs=specs)
+        for v in stage.values():
+            v.requires_grad_()
+        x = torch.from_numpy(inputs[f"{tag}/x"]).to(grid.device)
+        out = pp.pipeline_apply(stage, x, block_tp, grid,
+                                num_micro=P24_MICRO, batch_axis="data",
+                                param_specs=specs)
+        return stage, out
+
+    res = {"coords": np.array([grid.pipe.rank, grid.data.rank, model.rank])}
+    stage, out = run("fwd")
+    res["out"] = out.detach().cpu().numpy()
+    for k in P24_LEAVES:
+        res["shape/" + k] = np.array(stage[k].shape)
+    stage, out = run("grad")
+    out.square().sum().backward()
+    for k in P24_LEAVES:
+        res["grad/" + k] = grid.data.all_reduce_(stage[k].grad).cpu().numpy()
+    return res
+
+
+def p24_rank_main(out_dir):
+    """A 24a rank: joins the gloo group of 8 from the ``DKT_*`` env (every
+    rank on the one card), runs the 3-D composition on the 2 x 2 x 2
+    grid and writes its outputs, gradients, shapes and seconds."""
+    import numpy as np
+    import torch
+
+    from distkeras_tpu_torch.parallel import multihost
+    from distkeras_tpu_torch.parallel.mesh import make_grid_3d
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check(multihost.initialize(timeout=P24_RANK_TIMEOUT),
+          "24a: the rank did not join a group")
+    rank = multihost.process_id()
+    t0 = time.monotonic()
+    grid = make_grid_3d(*P24_GRID)
+    res = p24_apply(torch, np, grid)
+    torch.cuda.synchronize()
+    info = {"seconds": time.monotonic() - t0, "backend": grid.world.backend,
+            "device": str(grid.device)}
+    grid.release()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+    multihost.shutdown()
+    return 0
+
+
+def p24_shard(a, leaf, p, m):
+    """The shard of a whole stacked leaf at pipe index p, model index m
+    (JAX's ``shard_shape`` placement)."""
+    per = P24_DEPTH // P24_GRID[0]
+    cut = P24_HID // P24_GRID[2]
+    a = a[p * per:(p + 1) * per]
+    if leaf == "w_in":
+        return a[:, :, m * cut:(m + 1) * cut]
+    if leaf == "w_out":
+        return a[:, m * cut:(m + 1) * cut, :]
+    return a
+
+
+def run_p24a(torch, np, smi):
+    """24a: the 3-D composition over 8 gloo rank processes on the card,
+    against ``pipeline_apply`` on one rank (a 1 x 1 x 1 grid)."""
+    from distkeras_tpu_torch.parallel.mesh import make_grid_3d
+
+    ref = p24_apply(torch, np, make_grid_3d(1, 1, 1))
+    n = int(np.prod(P24_GRID))
+    ranks, infos, wall = run_rank_pair(np, "--p24-rank-out", "24a",
+                                       P24_RANK_TIMEOUT, ranks=n)
+    coords = np.stack([r["coords"] for r in ranks])
+    check(np.array_equal(coords, np.stack(np.unravel_index(
+        np.arange(n), P24_GRID), -1)), f"24a: rank layout {coords.tolist()}")
+    out_err = max(float(np.max(np.abs(r["out"] - ref["out"])))
+                  for r in ranks)
+    grad_err = max(
+        float(np.max(np.abs(r["grad/" + k] - p24_shard(
+            ref["grad/" + k], k, r["coords"][0], r["coords"][2]))))
+        for r in ranks for k in P24_LEAVES)
+    want = {"w_in": [P24_DEPTH // 2, P24_D, P24_HID // 2],
+            "w_out": [P24_DEPTH // 2, P24_HID // 2, P24_D],
+            "b": [P24_DEPTH // 2, P24_D]}
+    out = {"grid": list(P24_GRID), "ranks": n, "wall_s": wall,
+           "rank_seconds": [i["seconds"] for i in infos],
+           "backend": infos[0]["backend"], "device": infos[0]["device"],
+           "max_out_err": out_err, "max_grad_err": grad_err,
+           "shard_shapes": want}
+    log(f"24a (pipeline x data x tensor, {P24_GRID[0]} x {P24_GRID[1]} x "
+        f"{P24_GRID[2]} = {n} {infos[0]['backend']} ranks on "
+        f"{infos[0]['device']}): outputs within {out_err:.2e} and data-"
+        f"summed gradients within {grad_err:.2e} of one rank's; wall "
+        f"{wall:.1f} s (the ranks' own work at most "
+        f"{max(out['rank_seconds']):.2f} s) on {smi}")
+    check(out_err <= P24_OUT_TOL, f"24a: outputs {out_err:.3e} from one "
+          f"rank's (bar {P24_OUT_TOL})")
+    check(grad_err <= P24_GRAD_TOL, f"24a: gradients {grad_err:.3e} from "
+          f"one rank's (bar {P24_GRAD_TOL})")
+    for r in ranks:
+        got = {k: r["shape/" + k].tolist() for k in P24_LEAVES}
+        check(got == want, f"24a: a rank holds {got}, not {want}")
+    return out
+
+
+def p24_value(out, marker):
+    check(marker in out, f"no {marker!r} line")
+    return float(out.rsplit(marker, 1)[1].split()[0])
+
+
+def p24_counting(out):
+    rows = [json.loads(line.split(":", 1)[1]) for line in out.splitlines()
+            if line.startswith("greedy decode:")]
+    check(len(rows) == 3, f"{len(rows)} decode rows")
+    for toks in rows:
+        check(toks[-5:] == list(range(toks[-5], toks[-5] + 5)),
+              f"the decode does not count upward: {toks}")
+    return rows
+
+
+def p24_ranked(out, what="sync"):
+    check(f"{what}: 2 rank processes over gloo on the card" in out,
+          "no rank-launch line")
+
+
+def p24_digits(out):
+    acc = p24_value(out, "REAL holdout accuracy")
+    check(acc > 0.9, f"REAL holdout accuracy {acc} <= 0.9")
+    return acc
+
+
+def p24_lm(out):
+    check("serving int8 weight-only (13 quantized matrices)" in out
+          and "decoding from the RELOADED copy" in out, "no bundle lines")
+    rows = p24_counting(out)
+    line = next(l for l in out.splitlines()
+                if l.startswith("speculative decode"))
+    check("(EXACT vs greedy)" in line, line)
+    return {"decode": rows, "speculative": line}
+
+
+def p24_lm_ranks(out):
+    p24_ranked(out, "seq-parallel")
+    return {"decode": p24_counting(out)}
+
+
+#: the lines where a twin prints its own training seconds: the trainers'
+#: ``trained ... in X s``, ``<mode>: X s,``, the sequence-parallel
+#: ``...: X s (`` and the comparison's ``<scheme>: round 1  t=X s``
+P24_TRAIN_LINE = re.compile(
+    r"^(?:trained(?: .*)? in |(?:single|sync|downpour): |sequence-parallel "
+    r"training at .*: |  \w+: round \d+  t=)([0-9.]+) ?s", re.M)
+
+
+def p24_long_context(out):
+    line = next(l for l in out.splitlines() if l.startswith("long-context"))
+    check("ring attention on 2 blocks" in line, line)
+    return p24_value(line, "test accuracy:")
+
+
+def p24_twins(tmp):
+    """(name, twin, arguments, read, processes) of every twin 24b runs on
+    CUDA at a small size; ``read(stdout)`` checks the result lines and
+    returns the result; ``processes`` counts the twin's and its rank
+    processes."""
+
+    def comparison(out):
+        p24_ranked(out, "  SyncDP")
+        with open(os.path.join(tmp, "exp", "optimizer_comparison.json")) as f:
+            res = json.load(f)["results"]
+        check(len(res) == 7, f"{len(res)} schemes")
+        return {r["optimizer"]: r["final_accuracy"] for r in res}
+
+    def digits_sync(out):
+        p24_ranked(out)
+        return p24_digits(out)
+
+    def mnist_sync(out):
+        p24_ranked(out)
+        return p24_value(out, "test accuracy:")
+
+    # the longest first, so that the lanes finish together
+    return [
+        ("optimizer_comparison --workers 2", "optimizer_comparison",
+         ["--n", "2048", "--rounds", "1", "--workers", "2", "--out",
+          os.path.join(tmp, "exp")], comparison, 3),
+        ("mnist sync --workers 2 --zero", "mnist",
+         ["sync", "--workers", "2", "--zero", "--n", "2048", "--epochs",
+          "1"], mnist_sync, 3),
+        ("real_digits sync --workers 2", "real_digits",
+         ["sync", "--workers", "2", "--epochs", "4"], digits_sync, 3),
+        ("language_model --seq-parallel 2 --remat", "language_model",
+         ["--seq", "32", "--rows", "256", "--epochs", "2", "--seq-parallel",
+          "2", "--remat"], p24_lm_ranks, 3),
+        ("real_digits single --int8", "real_digits", ["--int8"],
+         lambda out: [p24_digits(out), p24_value(
+             out, "int8 serving copy: REAL holdout accuracy")], 1),
+        ("diabetes_regression single", "diabetes_regression", [],
+         lambda out: p24_value(out, "REAL holdout R^2"), 1),
+        ("cifar10", "cifar10",
+         ["--n", "1024", "--epochs", "1", "--workers", "2"],
+         lambda out: p24_value(out, "test accuracy:"), 1),
+        ("higgs_workflow", "higgs_workflow",
+         ["--n", "4096", "--epochs", "1", "--workers", "2"],
+         lambda out: p24_value(out, "test accuracy:"), 1),
+        ("language_model --int8 --save-bundle --speculative",
+         "language_model", ["--epochs", "2", "--int8", "--save-bundle",
+                            os.path.join(tmp, "lm.dkt"), "--speculative"],
+         p24_lm, 1),
+        ("long_context", "long_context",
+         ["--seq", "512", "--rows", "128", "--epochs", "1"],
+         p24_long_context, 1),
+    ]
+
+
+#: what a twin's process runs: ``import torch`` and a first CUDA tensor,
+#: timed, then the twin through runpy, timed, and no JAX loaded after
+P24_WRAPPER = """import time
+t0 = time.perf_counter()
+import json, runpy, sys
+import torch
+t1 = time.perf_counter()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+t2 = time.perf_counter()
+sys.path.insert(0, {here!r})
+sys.argv = [{script!r}, *{args!r}]
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+finally:
+    print("P24_TIMES", json.dumps(dict(torch_import_s=t1 - t0,
+          cuda_init_s=t2 - t1, script_s=time.perf_counter() - t2)),
+          flush=True)
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "distkeras_tpu")]
+assert not bad, bad
+"""
+
+
+def run_p24b(smi):
+    """24b: each example twin as a subprocess on CUDA (no ``--cpu``),
+    ``P24_LANES`` at a time, its result lines asserted; returns the rows
+    and the kernel launches each twin made, its rank processes' included
+    (every process writes its counts through ``DKT_LAUNCH_COUNTS_DIR``).
+    A row splits the twin's wall: ``startup_s`` (the interpreter, ``import
+    torch``, the first CUDA context and the exit), ``script_s`` (the twin
+    itself) and ``train_s`` (the training seconds the twin prints)."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from distkeras_tpu_torch.kernels import ENV_COUNTS_DIR
+
+    tmp = tempfile.mkdtemp(prefix="twins_", dir=HERE)
+    # the lanes share the host's cores
+    env = dict(os.environ, OMP_NUM_THREADS=str(
+        max(1, (os.cpu_count() or 1) // P24_LANES)))
+
+    def run(i, twin, args):
+        script = os.path.join(HERE, "examples", f"{twin}_torch.py")
+        code = P24_WRAPPER.format(here=HERE, script=script, args=args)
+        counts_dir = os.path.join(tmp, f"counts{i}")
+        os.mkdir(counts_dir)
+        t0 = time.monotonic()
+        proc = subprocess.Popen(
+            [sys.executable, "-c", code], cwd=tmp,
+            env=dict(env, **{ENV_COUNTS_DIR: counts_dir}),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=P24_TWIN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            # the twin's group: its rank processes go with it
+            os.killpg(proc.pid, signal.SIGKILL)
+            out, err = proc.communicate()
+        wall = time.monotonic() - t0
+        counts = []
+        for name in os.listdir(counts_dir):
+            with open(os.path.join(counts_dir, name)) as f:
+                counts.append(json.load(f))
+        return proc.returncode, out, err, wall, counts
+
+    rows, counts = [], []
+    try:
+        twins = p24_twins(tmp)
+        with ThreadPoolExecutor(P24_LANES) as ex:
+            done = list(ex.map(lambda it: run(it[0], it[1][1], it[1][2]),
+                               enumerate(twins)))
+        for (name, _, _, read, n_procs), (rc, out, err, wall, procs) in zip(
+                twins, done):
+            check(rc == 0, f"24b {name} exited {rc}:\n{out[-2000:]}\n"
+                  f"{err[-3000:]}")
+            times = json.loads(next(
+                l for l in out.splitlines()
+                if l.startswith("P24_TIMES")).split(" ", 1)[1])
+            try:
+                result = read(out)
+            except (SmokeFailure, StopIteration) as e:
+                raise SmokeFailure(
+                    f"24b {name}: {e!r}\n{out[-2000:]}") from e
+            check(len(procs) == n_procs, f"24b {name}: launch counts from "
+                  f"{len(procs)} processes, not {n_procs}")
+            launched = {k: sum(c[k] for c in procs) for k in procs[0]}
+            trained = [float(v) for v in P24_TRAIN_LINE.findall(out)]
+            check(trained, f"24b {name}: no training-seconds line")
+            rows.append({"twin": name, "wall_s": wall,
+                         "startup_s": wall - times["script_s"], **times,
+                         "train_s": sum(trained), "result": result,
+                         "processes": len(procs),
+                         "launches": {k: n for k, n in launched.items()
+                                      if n}})
+            counts.append(launched)
+            log(f"24b {name}: {wall:.1f} s wall = {rows[-1]['startup_s']:.1f}"
+                f" s start-up (import torch {times['torch_import_s']:.1f} s, "
+                f"first CUDA context {times['cuda_init_s']:.1f} s) + "
+                f"{times['script_s']:.1f} s the twin (training "
+                f"{rows[-1]['train_s']:.1f} s as it prints), result "
+                f"{result}, launches {rows[-1]['launches']} from "
+                f"{len(procs)} processes on {smi}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lm = next(r for r in rows if r["twin"].startswith("language_model --int8"))
+    missing = [k for k in P24_LM_KERNELS if not lm["launches"].get(k)]
+    check(not missing, f"24b: the language-model twin never launched "
+          f"{missing}: {lm['launches']}")
+    sp = next(r for r in rows
+              if r["twin"].startswith("language_model --seq-parallel"))
+    missing = [k for k in P24_SP_KERNELS if not sp["launches"].get(k)]
+    check(not missing, f"24b: the language model's rank processes never "
+          f"launched {missing}: {sp['launches']}")
+    return rows, counts
+
+
+def run_phase24(torch, np, zoo, smi):
+    """Phase 24: the 3-D composition (24a) and the example twins (24b).
+    Returns the results and the launch counts of each drive."""
+    t0 = time.monotonic()
+    out = {"24a": run_p24a(torch, np, smi)}
+    torch.cuda.empty_cache()
+    out["24b"], counts = run_p24b(smi)
+    out["seconds_total"] = time.monotonic() - t0
+    out["launches"] = {k: sum(c.get(k, 0) for c in counts)
+                       for k in counts[0]}
+    return out, counts
+
+
 def baseline_leaf_shapes():
     """The parameter shapes of configs 2-5's models (built on the CPU: only
     their leaf tables matter to phases 2b/2c)."""
@@ -9975,6 +10430,14 @@ def main(argv):
                     help="build the kernels and run phase 22 alone")
     ap.add_argument("--phase23-only", action="store_true",
                     help="build the kernels and run phase 23 alone")
+    ap.add_argument("--p24-rank-out", default=None,
+                    help=argparse.SUPPRESS)  # 24a's rank processes
+    ap.add_argument("--phase24-only", action="store_true",
+                    help="build the kernels and run phase 24 alone")
+    ap.add_argument("--import-seconds", nargs="+", metavar="ROOT",
+                    help="time `import distkeras_tpu_torch` from each "
+                         "checkout ROOT in turn, in fresh interpreters, "
+                         "and exit")
     args = ap.parse_args(argv)
     import torch
 
@@ -9999,6 +10462,20 @@ def main(argv):
         return tpsp_rank_main(args.tpsp_rank_out)
     if args.p22_rank_out:
         return p22_rank_main(args.p22_rank_out)
+    if args.p24_rank_out:
+        return p24_rank_main(args.p24_rank_out)
+    if args.import_seconds:
+        rows = []
+        for root in args.import_seconds:
+            vals = import_seconds(root)
+            rows.append({"root": root, "seconds": vals,
+                         "median_s": sorted(vals)[len(vals) // 2]})
+            log(f"import distkeras_tpu_torch from {root}: median "
+                f"{rows[-1]['median_s']:.3f} s of {vals}")
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"imports": rows}, f, indent=1)
+        return 0
     import numpy as np
     import torch.nn.functional as F
 
@@ -10046,6 +10523,14 @@ def main(argv):
         if args.out:
             with open(args.out, "w") as f:
                 json.dump({"nvidia_smi": smi, "phase23": mesh}, f, indent=1)
+        return 0
+    if args.phase24_only:
+        twins, _ = run_phase24(torch, np, zoo, smi)
+        log(f"phase 24 in {twins['seconds_total']:.1f} s, launches "
+            f"{twins['launches']} on {smi}")
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"nvidia_smi": smi, "phase24": twins}, f, indent=1)
         return 0
 
     ln_rows = check_layernorm(torch, F)
@@ -10158,6 +10643,9 @@ def main(argv):
     mesh, mesh_launches = run_phase23(torch, np, zoo, smi)
     log(f"phase 23 in {mesh['seconds_total']:.1f} s, launches "
         f"{mesh['launches']} on {smi}")
+    twins, twin_launches = run_phase24(torch, np, zoo, smi)
+    log(f"phase 24 in {twins['seconds_total']:.1f} s, launches "
+        f"{twins['launches']} on {smi}")
     profile = profile_paths(torch, np, lm, zoo) if args.profile else None
 
     phases = [pred["launches"], gen["launches"], train["launches"],
@@ -10167,6 +10655,7 @@ def main(argv):
               *qos_launches, *knobs_launches, *disagg_launches,
               *fleet_launches, *moe_launches, *sync_launches,
               *tpsp_launches, *epp_launches, *mesh_launches,
+              *twin_launches,
               *(r["launches"] for r in async_sim.values())]
     launches = {k: sum(c.get(k, 0) for c in phases) for k in kernels.LAUNCHES}
     check(all(n > 0 for n in launches.values()),
@@ -10239,6 +10728,7 @@ def main(argv):
                        "phase18": fleet, "phase19": moe,
                        "phase20": sync, "phase21": tpsp,
                        "phase22": epp, "phase23": mesh,
+                       "phase24": twins,
                        "profile": profile,
                        "flash_infinite_q": inf_rows},
                       f, indent=1)

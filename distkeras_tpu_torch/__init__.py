@@ -50,7 +50,12 @@ ZeRO-1, one process per rank over ``torch.distributed``
 expert parallelism (``SynchronousDistributedTrainer(expert_parallel=)``,
 the expert mesh of ``parallel.expert_parallel``, with global-batch
 routing under any data group) and pipeline parallelism
-(``PipelineParallelTrainer`` over ``parallel.pipeline_parallel``).
+(``PipelineParallelTrainer`` over ``parallel.pipeline_parallel``), with
+the 3-D pipeline x data x tensor composition on a ``parallel.mesh.
+Grid3D``; and the examples' bootstrap (``parallel.backend``), which
+raises without a card instead of falling back to the CPU. Every JAX
+package ``__init__``'s names are exported from the same path here, but
+JAX's built ``Model`` handle (``Sequential.build`` returns the module).
 Kernels (``kernels/csrc``): LayerNorm forward and backward,
 FlashAttention forward and backward (dQ, dK/dV), the fused multi-tensor
 Adam, and the fused multi-tensor SGD without and with momentum.
@@ -71,8 +76,16 @@ from distkeras_tpu_torch.data.transformers import (
     OneHotTransformer,
     ReshapeTransformer,
     StandardScaleTransformer,
+    Transformer,
 )
-from distkeras_tpu_torch.evaluators import AccuracyEvaluator, LossEvaluator
+from distkeras_tpu_torch.evaluators import (
+    AccuracyEvaluator,
+    LossEvaluator,
+    PerplexityEvaluator,
+    RSquaredEvaluator,
+)
+from distkeras_tpu_torch.faults import FaultPlan, InjectedFault
+from distkeras_tpu_torch.job_deployment import Job
 from distkeras_tpu_torch.models import zoo
 from distkeras_tpu_torch.models.layers import (
     Activation,
@@ -91,6 +104,13 @@ from distkeras_tpu_torch.models.layers import (
     TransformerBlock,
 )
 from distkeras_tpu_torch.models.sequential import Residual, Sequential
+from distkeras_tpu_torch.networking import RetryPolicy
+from distkeras_tpu_torch.obs import (
+    FlightRecorder,
+    MetricsRegistry,
+    SloSpec,
+    TraceContext,
+)
 from distkeras_tpu_torch.ops.flash_attention import (
     attach_flash_attention,
     flash_attention,
@@ -105,18 +125,23 @@ from distkeras_tpu_torch.ops.optimizers import get_optimizer, get_schedule
 from distkeras_tpu_torch.ops.pallas_kernels import FusedAdam, FusedSGD
 from distkeras_tpu_torch.parameter_servers import (
     ADAGParameterServer,
+    CommitNotAcknowledgedError,
     DeltaParameterServer,
     DynSGDParameterServer,
     ParameterServer,
+    ParameterServerError,
     RemoteParameterServerClient,
     SocketParameterServer,
+    StandbyError,
 )
 from distkeras_tpu_torch.predictors import (
     BeamSearchGenerator,
     CachedSequenceGenerator,
     ModelPredictor,
     SequenceGenerator,
+    SpeculativeGenerator,
 )
+from distkeras_tpu_torch.serving import ServingClient, ServingServer
 from distkeras_tpu_torch.serving.engine import DecodeStepper, ServingEngine
 from distkeras_tpu_torch.serving.sampling import SamplingParams
 from distkeras_tpu_torch.trainers import (
@@ -124,6 +149,7 @@ from distkeras_tpu_torch.trainers import (
     AEASGD,
     DOWNPOUR,
     EAMSGD,
+    AsynchronousDistributedTrainer,
     AveragingTrainer,
     DistributedTrainer,
     DynSGD,
@@ -145,79 +171,97 @@ from distkeras_tpu_torch.utils.profiling import MetricsLogger
 from distkeras_tpu_torch.workers import SingleTrainerWorker, WorkerCore
 
 __all__ = [
+    "AccuracyEvaluator",
+    "Activation",
     "ADAG",
     "ADAGParameterServer",
-    "Activation",
     "AEASGD",
-    "AccuracyEvaluator",
+    "AsynchronousDistributedTrainer",
+    "attach_flash_attention",
+    "attach_fused_layernorm",
     "AveragingTrainer",
-    "BatchNorm",
     "AvgPool2D",
+    "BatchNorm",
     "BeamSearchGenerator",
     "CachedSequenceGenerator",
     "Checkpointer",
+    "CommitNotAcknowledgedError",
     "Conv2D",
     "Dataset",
-    "DOWNPOUR",
     "DecodeStepper",
     "DeltaParameterServer",
     "Dense",
     "DenseTransformer",
     "DistributedTrainer",
+    "DOWNPOUR",
     "Dropout",
     "DynSGD",
     "DynSGDParameterServer",
     "EAMSGD",
-    "EnsembleTrainer",
     "Embedding",
-    "FusedAdam",
-    "Flatten",
-    "FusedSGD",
-    "GlobalAvgPool2D",
-    "GlobalAvgPool1D",
-    "LabelIndexTransformer",
-    "LayerNorm",
-    "LossEvaluator",
-    "MaxPool2D",
-    "MetricsLogger",
-    "MinMaxTransformer",
-    "ModelPredictor",
-    "MultiHeadSelfAttention",
-    "OneHotTransformer",
-    "ParameterServer",
-    "RemoteParameterServerClient",
-    "ReshapeTransformer",
-    "Residual",
-    "SamplingParams",
-    "Sequential",
-    "SequenceGenerator",
-    "PipelineParallelTrainer",
-    "SequenceParallelTrainer",
-    "ServingEngine",
-    "ShardWriter",
-    "SingleTrainer",
-    "SingleTrainerWorker",
-    "SocketParameterServer",
-    "StandardScaleTransformer",
-    "StreamingDataset",
-    "SynchronousDistributedTrainer",
-    "Trainer",
-    "TrainingHistory",
-    "TransformerBlock",
-    "WorkerCore",
-    "attach_flash_attention",
-    "attach_fused_layernorm",
+    "EnsembleTrainer",
+    "FaultPlan",
     "flash_attention",
+    "Flatten",
+    "FlightRecorder",
     "fused_layer_norm",
+    "FusedAdam",
+    "FusedSGD",
     "get_loss",
     "get_metric",
     "get_optimizer",
     "get_schedule",
+    "GlobalAvgPool1D",
+    "GlobalAvgPool2D",
+    "InjectedFault",
+    "Job",
+    "LabelIndexTransformer",
+    "LayerNorm",
     "loaders",
+    "LossEvaluator",
+    "MaxPool2D",
+    "MetricsLogger",
+    "MetricsRegistry",
+    "MinMaxTransformer",
+    "ModelPredictor",
+    "MultiHeadSelfAttention",
+    "OneHotTransformer",
     "open_shards",
     "opt_state_from_jax",
+    "ParameterServer",
+    "ParameterServerError",
     "params_from_jax",
+    "PerplexityEvaluator",
+    "PipelineParallelTrainer",
+    "RemoteParameterServerClient",
+    "ReshapeTransformer",
+    "Residual",
+    "RetryPolicy",
+    "RSquaredEvaluator",
+    "SamplingParams",
+    "SequenceGenerator",
+    "SequenceParallelTrainer",
+    "Sequential",
+    "ServingClient",
+    "ServingEngine",
+    "ServingServer",
+    "ShardWriter",
+    "SingleTrainer",
+    "SingleTrainerWorker",
+    "SloSpec",
+    "SocketParameterServer",
+    "SpeculativeGenerator",
+    "StandardScaleTransformer",
+    "StandbyError",
     "state_from_jax",
+    "StreamingDataset",
+    "SynchronousDistributedTrainer",
+    "TraceContext",
+    "Trainer",
+    "TrainingHistory",
+    "Transformer",
+    "TransformerBlock",
+    "WorkerCore",
     "write_shards",
     "zoo",
 ]

@@ -7,11 +7,17 @@ and ``FusedSGD``);
 this package holds the CUDA sources (``csrc/``), the build module
 (``build``), and the per-kernel launch counters the wrappers bump exactly
 where they launch — so a run can show which kernels its main path went
-through.
+through. With ``DKT_LAUNCH_COUNTS_DIR`` set, every process that imports
+this package writes its counts to ``<dir>/<pid>.json`` when it exits, so
+a harness can add up the launches of a run that spans processes (an
+example and the rank processes it starts).
 """
 
 from __future__ import annotations
 
+import atexit
+import json
+import os
 import threading
 
 import torch
@@ -44,6 +50,19 @@ def reset_launch_counts() -> None:
 def launch_counts() -> dict:
     with _lock:
         return dict(LAUNCHES)
+
+
+#: the directory each process writes its launch counts to at exit
+ENV_COUNTS_DIR = "DKT_LAUNCH_COUNTS_DIR"
+
+
+def _write_counts(out_dir: str) -> None:
+    with open(os.path.join(out_dir, f"{os.getpid()}.json"), "w") as f:
+        json.dump(launch_counts(), f)
+
+
+if os.environ.get(ENV_COUNTS_DIR):
+    atexit.register(_write_counts, os.environ[ENV_COUNTS_DIR])
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}

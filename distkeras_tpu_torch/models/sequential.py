@@ -140,6 +140,42 @@ class Sequential(nn.Module):
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
+    def predict(self, x, batch_size=None):
+        """Inference in eval mode on the current weights: ``x`` (numpy or
+        a tensor) in batches of ``batch_size`` rows (all at once when
+        None), on the model's device; returns a numpy array. The
+        model's mode is restored after."""
+        dev = next(self.parameters()).device
+        x = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
+                            else x)
+        if x.dtype == torch.float64:  # JAX's canonical float32
+            x = x.float()
+        n = x.shape[0]
+        step = n if batch_size is None or n <= batch_size else batch_size
+        was_training = self.training
+        self.eval()
+        try:
+            with torch.no_grad():
+                outs = [self(x[i:i + step].to(dev)).cpu().numpy()
+                        for i in range(0, n, max(step, 1))]
+        finally:
+            self.train(was_training)
+        return np.concatenate(outs, axis=0)
+
+    def summary(self) -> str:
+        """One line a layer with its parameter count, then the total: the
+        JAX package's ``Model.summary`` text."""
+        lines = [f"Model(input_shape={self.input_shape})"]
+        for i, layer in enumerate(self.layers):
+            cfg = {k: v for k, v in layer.get_config().items()
+                   if k != "layer"}
+            args = ", ".join(f"{k}={v!r}" for k, v in cfg.items())
+            n = sum(p.numel() for p in layer.parameters())
+            lines.append(f"  {i}: {type(layer).__name__}({args})  "
+                         f"params={n}")
+        lines.append(f"total params: {self.num_params()}")
+        return "\n".join(lines)
+
     def copy(self) -> "Sequential":
         """An independent model: same layers, hooks and mode, its own
         parameters and buffers."""

@@ -2,9 +2,13 @@
 the multi-process bootstrap), the 2-D grids of tensor, sequence, expert
 and pipeline parallelism (``mesh.GridMesh``, ``tensor_parallel``, the
 ring and Ulysses attention, the expert mesh, ``pipeline_parallel``), the
+3-D pipeline x data x tensor grid (``mesh.Grid3D``), the backend
+bootstrap of the examples (``backend.setup_backend``), the
 serving mesh (``serving_mesh``, ``shard_decode_params``),
 single-device attention (dense, blockwise, the hook helpers) and the
-mixture-of-experts layer."""
+mixture-of-experts layer. JAX's ``force_cpu_mesh``, ``batch_sharding``
+and ``replicated_sharding`` have no counterpart: they make JAX sharding
+objects over virtual devices, and the port's ranks are processes."""
 
 from distkeras_tpu_torch.parallel.expert_parallel import (
     MoE,
@@ -16,6 +20,7 @@ from distkeras_tpu_torch.parallel.expert_parallel import (
 )
 from distkeras_tpu_torch.parallel.mesh import (
     DataMesh,
+    Grid3D,
     GridMesh,
     ServingMesh,
     ZeroShards,
@@ -27,6 +32,7 @@ from distkeras_tpu_torch.parallel.mesh import (
     host_gather,
     local_devices,
     make_grid,
+    make_grid_3d,
     make_mesh,
     replicate,
     serving_mesh,

@@ -25,6 +25,10 @@ call the autograd-aware collectives on a group (``DataMesh.copy_in``,
 ``gather``, ``sum``, ``ring_step``, ``all_to_all``), whose backward is
 the transpose the loss needs.
 
+The 3-D composition of pipeline, data and tensor parallelism is a
+``Grid3D`` (``make_grid_3d``): a pipe, a data and a model group a rank,
+in JAX's ("pipe", "data", "model") order and row-major layout.
+
 The serving mesh is another thing: ``serving_mesh`` names the N devices
 ONE process drives for tensor-parallel decode (``ServingEngine(mesh=
 "tp:N")``), a ``ServingMesh``; no process group is involved.
@@ -182,6 +186,15 @@ class DataMesh:
         identity forward, the sum of the ranks' gradients backward."""
         return x if self.group is None else _CopyIn.apply(x, self)
 
+    def reduce_out(self, x):
+        """``x`` leaving a computation split over the group when every
+        rank computes the same loss from the result (a model group's
+        replicated loss): the sum of every rank's ``x`` forward, the
+        identity backward. The pair of ``copy_in`` (Megatron's f and g);
+        together they give what JAX's ``lax.psum`` over a tensor axis
+        differentiates to."""
+        return x if self.group is None else _ReduceOut.apply(x, self)
+
     def gather(self, x, dim):
         """Every rank's ``x`` concatenated along ``dim`` in rank order;
         backward keeps the rank's slice of the gradient."""
@@ -225,6 +238,16 @@ class _CopyIn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.mesh.all_reduce_(g.clone()), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.all_reduce_(x.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 class _Gather(torch.autograd.Function):
@@ -491,6 +514,86 @@ def make_grid(data_parallel, inner_size, inner_name, device=None,
         inner=DataMesh(k, i, inner_groups[d], world.device),
         world=world,
     )
+
+
+#: the axes of a ``Grid3D``, JAX's order for the 3-D composition
+GRID3_AXES = ("pipe", "data", "model")
+
+
+@dataclass(eq=False)
+class Grid3D:
+    """One rank's view of a 3-D grid of P x D x M ranks, axes ("pipe",
+    "data", "model") in JAX's order: rank ``(p * D + d) * M + m`` at pipe
+    index p, data index d and model index m, the row-major layout
+    ``Mesh(devices.reshape(P, D, M))`` gives. ``pipe``, ``data`` and
+    ``model`` are the rank's groups along each axis (the ranks that share
+    its other two indices) and ``world`` every rank, each a ``DataMesh``
+    (pipeline x data x tensor: ``pipeline_parallel.pipeline_apply(...,
+    param_specs=)``)."""
+
+    pipe: DataMesh
+    data: DataMesh
+    model: DataMesh
+    world: DataMesh
+
+    axis_names = GRID3_AXES
+
+    def axis(self, axis_name):
+        """The rank's group along ``axis_name``."""
+        if axis_name not in GRID3_AXES:
+            raise ValueError(
+                f"mesh {self.shape} has no {axis_name!r} axis")
+        return getattr(self, axis_name)
+
+    @property
+    def shape(self):
+        return {a: self.axis(a).num_workers for a in GRID3_AXES}
+
+    @property
+    def device(self):
+        return self.world.device
+
+    def release(self):
+        for m in (self.pipe, self.data, self.model, self.world):
+            m.release()
+
+
+def make_grid_3d(pipe_parallel, data_parallel, model_parallel,
+                 device=None) -> Grid3D:
+    """The ("pipe", "data", "model") grid over every process of the job:
+    ``pipe_parallel * data_parallel * model_parallel`` must be the world
+    size (one process per rank). Every rank creates every subgroup in the
+    same order (the pipe groups, then the data groups, then the model
+    groups); a group of one has no process group."""
+    sizes = (int(pipe_parallel), int(data_parallel), int(model_parallel))
+    p_n, d_n, m_n = sizes
+    world = make_mesh(None, device) if dist.is_initialized() else None
+    n = 1 if world is None else world.num_workers
+    if math.prod(sizes) != n:
+        raise ValueError(
+            f"a pipe={p_n} x data={d_n} x model={m_n} grid needs "
+            f"{math.prod(sizes)} ranks, the job has {n}; the port runs one "
+            "process per rank"
+        )
+    if world is None:
+        world = make_mesh(1, device)
+
+    def rank(p, d, m):
+        return (p * d_n + d) * m_n + m
+
+    p, rest = divmod(world.rank, d_n * m_n)
+    d, m = divmod(rest, m_n)
+    pipes = {(dd, mm): _new_group([rank(pp, dd, mm) for pp in range(p_n)])
+             for dd in range(d_n) for mm in range(m_n)}
+    datas = {(pp, mm): _new_group([rank(pp, dd, mm) for dd in range(d_n)])
+             for pp in range(p_n) for mm in range(m_n)}
+    models = {(pp, dd): _new_group([rank(pp, dd, mm) for mm in range(m_n)])
+              for pp in range(p_n) for dd in range(d_n)}
+    dev = world.device
+    return Grid3D(pipe=DataMesh(p_n, p, pipes[d, m], dev),
+                  data=DataMesh(d_n, d, datas[p, m], dev),
+                  model=DataMesh(m_n, m, models[p, d], dev),
+                  world=world)
 
 
 def _new_group(ranks):

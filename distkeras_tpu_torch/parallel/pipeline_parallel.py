@@ -23,8 +23,19 @@ the loss every rank computes from the outputs counts once, as JAX's
 replicated output does. Each rank holds ``depth / S`` consecutive blocks
 (``shard_stacked_params``).
 
-Left out: ``param_specs`` (3-D pipeline x data x tensor composition,
-which JAX's trainer never passes; ROADMAP Queue A).
+The 3-D composition (pipeline x data x tensor, ``param_specs=``) runs on
+a ``mesh.Grid3D``: every spec leads with the pipe axis, and a weight
+dimension a spec names ``"model"`` is cut to the rank's ``1 / M`` slice
+in model-rank order (JAX's ``shard_shape``). ``block_apply`` then sees
+the rank's weight shards and owns the model group's collectives, as
+JAX's block calls ``lax.psum(..., "model")``: every model rank computes
+the same loss, so the block's split branch reads its input through
+``model.copy_in`` and returns through ``model.reduce_out`` (Megatron's
+pair; ``DataMesh.sum``, whose backward sums the gradients again, would
+count them M times). The model ranks of a stage run the lockstep
+schedule together, so they call those collectives at every tick, the
+bubble ticks too. Each rank's gradients are then JAX's for its shards
+over its data rank's rows: summed over the data group they are JAX's.
 """
 
 from __future__ import annotations
@@ -32,12 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from distkeras_tpu_torch.parallel.mesh import _tree_map
-
-_PARAM_SPECS = (
-    "param_specs (pipeline x tensor composition) is not ported; see "
-    "ROADMAP Queue A"
-)
+from distkeras_tpu_torch.parallel.mesh import Grid3D, _tree_map
 
 
 def _leaves(tree):
@@ -74,8 +80,11 @@ class StageParams(dict):
 
 
 def _pipe_group(mesh, axis_name):
-    """The group the blocks are split over: a ``GridMesh``'s inner group
-    (its inner axis must be ``axis_name``) or a ``DataMesh`` itself."""
+    """The group the blocks are split over: a ``Grid3D``'s group of that
+    name, a ``GridMesh``'s inner group (its inner axis must be
+    ``axis_name``) or a ``DataMesh`` itself."""
+    if isinstance(mesh, Grid3D):
+        return mesh.axis(axis_name)
     if hasattr(mesh, "inner"):
         if mesh.inner_name != axis_name:
             raise ValueError(f"mesh {mesh.shape} has no {axis_name!r} axis")
@@ -91,25 +100,98 @@ def _check_depth(depth, size, axis_name):
         )
 
 
-def shard_stacked_params(stacked_params, mesh, axis_name="pipe",
-                         param_specs=None):
-    """This rank's stage of a stacked block tree: rank i of the pipe
-    group keeps blocks ``[i*depth/S, (i+1)*depth/S)``, each leaf a
-    contiguous copy (a ``StageParams`` that remembers ``depth``)."""
-    if param_specs is not None:
-        raise NotImplementedError(_PARAM_SPECS)
+def _check_specs(param_specs, axis_name, stacked_params):
+    """JAX's check: every spec leads with the pipe block axis; and the
+    spec tree has the stack's structure."""
+    if not _same_tree(stacked_params, param_specs):
+        raise ValueError(
+            "param_specs must give one spec for each leaf of the stacked "
+            "params, in the same tree"
+        )
+    for spec in _spec_leaves(param_specs):
+        if not spec or spec[0] != axis_name:
+            raise ValueError(
+                f"param_specs must lead with the {axis_name!r} block "
+                f"axis, got {spec}"
+            )
+
+
+def _spec_leaves(specs):
+    """The specs of a spec tree: a tuple of axis names (or None) is one
+    spec (a ``PartitionSpec`` or a plain tuple), dicts and lists nest."""
+    if isinstance(specs, dict):
+        return [s for v in specs.values() for s in _spec_leaves(v)]
+    if isinstance(specs, list) or (
+            isinstance(specs, tuple)
+            and any(isinstance(v, (dict, list, tuple)) for v in specs)):
+        return [s for v in specs for s in _spec_leaves(v)]
+    return [specs]
+
+
+def _same_tree(tree, specs):
+    if isinstance(tree, dict):
+        return (isinstance(specs, dict) and specs.keys() == tree.keys()
+                and all(_same_tree(tree[k], specs[k]) for k in tree))
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "shape"):
+        return (isinstance(specs, (list, tuple)) and len(specs) == len(tree)
+                and all(_same_tree(t, x) for t, x in zip(tree, specs)))
+    return _spec_leaves(specs) == [specs]
+
+
+def _stage_of(stacked_params, mesh, axis_name, param_specs, copy):
+    """This rank's part of the whole stack: its ``depth / S`` blocks and,
+    on each later dimension a leaf's spec names a mesh axis, its slice in
+    that group's rank order. ``copy``: contiguous copies, else views (the
+    gradients then land in the whole stack)."""
     group = _pipe_group(mesh, axis_name)
     depth = _leaves(stacked_params)[0].shape[0]
     _check_depth(depth, group.num_workers, axis_name)
     n = depth // group.num_workers
 
-    def cut(a):
+    def cut(a, spec=()):
         part = a[group.rank * n:(group.rank + 1) * n]
+        for dim, name in enumerate(tuple(spec)[1:], start=1):
+            if name is None:
+                continue
+            if not isinstance(mesh, Grid3D):
+                raise ValueError(
+                    f"param_specs name the {name!r} axis: pass a Grid3D "
+                    "(parallel.mesh.make_grid_3d)"
+                )
+            g = mesh.axis(name)
+            if part.shape[dim] % g.num_workers:
+                raise ValueError(
+                    f"dimension {dim} of a leaf of shape {tuple(a.shape)} "
+                    f"not divisible by mesh axis {name}={g.num_workers}"
+                )
+            k = part.shape[dim] // g.num_workers
+            part = part[(slice(None),) * dim + (slice(g.rank * k,
+                                                      (g.rank + 1) * k),)]
+        if not copy:
+            return part
         if isinstance(part, torch.Tensor):
             return part.contiguous()
         return np.ascontiguousarray(part)
 
-    out = StageParams(_tree_map(cut, dict(stacked_params)))
+    if param_specs is None:
+        return _tree_map(cut, stacked_params), depth
+    return _tree_map(cut, stacked_params, param_specs), depth
+
+
+def shard_stacked_params(stacked_params, mesh, axis_name="pipe",
+                         param_specs=None):
+    """This rank's stage of a stacked block tree: rank i of the pipe
+    group keeps blocks ``[i*depth/S, (i+1)*depth/S)``, each leaf a
+    contiguous copy (a ``StageParams`` that remembers ``depth``).
+    ``param_specs`` (a tree of ``PartitionSpec``s or tuples matching the
+    stack, each leading with ``axis_name``): the 3-D composition, each
+    leaf also cut to the rank's slice on every dimension its spec names
+    a mesh axis (module docstring)."""
+    if param_specs is not None:
+        _check_specs(param_specs, axis_name, stacked_params)
+    stage, depth = _stage_of(stacked_params, mesh, axis_name, param_specs,
+                             copy=True)
+    out = StageParams(stage)
     out.depth = depth
     return out
 
@@ -167,9 +249,15 @@ def pipeline_apply(stacked_params, x, block_apply, mesh, axis_name="pipe",
     ``batch_axis``: the mesh's data axis (2-D pipeline x data): each data
     rank pipelines its part of every microbatch through its own ring and
     the outputs are gathered over the data group (the whole batch again
-    on every rank)."""
+    on every rank).
+
+    ``param_specs``: the 3-D composition on a ``Grid3D`` (module
+    docstring): every spec must lead with ``axis_name`` (a ``ValueError``
+    before any collective); a whole stack is cut to the rank's shards,
+    and ``block_apply`` sees them and owns the model group's
+    collectives."""
     if param_specs is not None:
-        raise NotImplementedError(_PARAM_SPECS)
+        _check_specs(param_specs, axis_name, stacked_params)
     group = _pipe_group(mesh, axis_name)
     if isinstance(stacked_params, StageParams):
         depth, stage = stacked_params.depth, stacked_params
@@ -190,9 +278,8 @@ def pipeline_apply(stacked_params, x, block_apply, mesh, axis_name="pipe",
             f"{batch_axis}={data.num_workers}"
         )
     if stage is None:
-        n = depth // group.num_workers
-        stage = _tree_map(lambda a: a[group.rank * n:(group.rank + 1) * n],
-                          stacked_params)
+        stage, _ = _stage_of(stacked_params, mesh, axis_name, param_specs,
+                             copy=False)
     if data is None:
         return pipeline_stage(stage, x, block_apply, group, num_micro)
     part = mb // data.num_workers

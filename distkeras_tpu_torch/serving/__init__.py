@@ -81,6 +81,7 @@ from distkeras_tpu_torch.serving.scheduler import (
 from distkeras_tpu_torch.serving.sampling import (
     SamplingParams,
     TokenMaskCompiler,
+    seed_for_completion,
 )
 from distkeras_tpu_torch.serving.paging import PageAllocator
 from distkeras_tpu_torch.serving.qos import QosPolicy, TokenBucket
@@ -174,6 +175,7 @@ __all__ = [
     "decode_state",
     "encode_state",
     "local_replica_factory",
+    "seed_for_completion",
     "serve",
     "signals_from_router",
 ]

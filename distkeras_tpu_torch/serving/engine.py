@@ -100,10 +100,13 @@ loudly): CUDA graphs around the decode step.
 
 from __future__ import annotations
 
+import logging
 import math
 import os
+import sys
 import threading
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -163,6 +166,18 @@ from distkeras_tpu_torch.serving.scheduler import (
     WrongRoleError,
 )
 from distkeras_tpu_torch.utils.device import check_model_device
+
+logger = logging.getLogger(__name__)
+
+
+def _thread_stack(th, limit=8) -> list:
+    """The innermost ``limit`` frames of live thread ``th`` as
+    ``file:line function``, innermost last ([] once it has ended)."""
+    frame = sys._current_frames().get(th.ident)
+    if frame is None:
+        return []
+    return [f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+            for f in traceback.extract_stack(frame)[-limit:]]
 
 
 def _bucket_pow2(n: int, cap: int) -> int:
@@ -2114,7 +2129,13 @@ class ServingEngine:
     the fault seams' ``delay``. A scheduler hung inside a CUDA call is not
     cured by abandoning its thread — the device and its stream are shared
     with the next generation — so that case ends in ``degraded`` once the
-    budget is spent, and nothing here tries more.
+    budget is spent, and nothing here tries more. A stall of the whole
+    process (a long hold of the GIL, a collector pause, the host not
+    running it) silences the supervisor too: when its own poll comes more
+    than half an interval late it cannot tell a wedge from that stall,
+    so it counts the scheduler's silence from its own wake
+    (``engine.watchdog_blind`` on the tape). A trip logs a warning naming
+    the scheduler's innermost frames, also on the tape (``stack``).
 
     A restart rebuilds the stepper from the same config (a paged engine
     gets a fresh pool and an empty device prefix index, a mesh the same
@@ -2303,6 +2324,9 @@ class ServingEngine:
 
             self.metrics = MetricsLogger(metrics_path)
         self._thread = None
+        #: every scheduler thread this engine started, oldest first (a
+        #: restart adds one; a superseded one exits when it wakes)
+        self.scheduler_threads = []
         self._stop_evt = threading.Event()
         self._started = False
         # supervisor state: the scheduler loop stamps _heartbeat every
@@ -2532,6 +2556,7 @@ class ServingEngine:
             target=self._loop, args=(batcher,), name="serving-engine",
             daemon=True,
         )
+        self.scheduler_threads.append(self._thread)
         self._thread.start()
 
     def _loop(self, batcher):
@@ -2575,33 +2600,48 @@ class ServingEngine:
         typed) and replaced, and the zombie exits at its next iteration
         through the superseded check. The history ring's cadence rides
         this poll loop, so the time series keeps ticking through a
-        wedge."""
+        wedge. Silence is counted only while the supervisor watched: a
+        wake more than half an interval after the last one (the process
+        stalled, not just the scheduler) restarts the count."""
         poll = max(0.01, min(0.05, self.watchdog_interval / 4))
+        blind_after = max(4 * poll, self.watchdog_interval / 2)
+        seen = watched_from = time.monotonic()
         while not self._stop_evt.is_set():
             self._crash_evt.wait(timeout=poll)
             self._crash_evt.clear()
             if self._stop_evt.is_set():
                 return
+            now = time.monotonic()
+            gap, seen = now - seen, now
+            if gap > blind_after:
+                watched_from = now
+                self._record("engine.watchdog_blind", seconds=round(gap, 3))
             if self.history is not None:
                 self.history.maybe_snap()  # cadence-guarded
             th = self._thread
             if th is None or self._failed:
                 continue
-            now = time.monotonic()
             dead = not th.is_alive()
             wedged = (
-                now - self._heartbeat > self.watchdog_interval
+                now - max(self._heartbeat, watched_from)
+                > self.watchdog_interval
                 and now > self._grace_until  # mints are not wedges
             )
             if not dead and not wedged:
                 continue
             self._watchdog_trips += 1
+            age = now - self._heartbeat
+            stack = [] if dead else _thread_stack(th)
             self._record(
                 "engine.watchdog_trip", dead=dead, wedged=wedged,
-                restarts=self._restarts,
-                heartbeat_age=round(now - self._heartbeat, 3),
-                last_crash=self._last_crash,
+                restarts=self._restarts, heartbeat_age=round(age, 3),
+                last_crash=self._last_crash, stack=stack,
             )
+            logger.warning(
+                "serving engine watchdog trip: scheduler %s, no heartbeat "
+                "for %.3f s%s", "crashed" if dead else "wedged", age,
+                f" ({self._last_crash})" if dead else
+                "; innermost frames: " + " <- ".join(reversed(stack)))
             if self.metrics is not None:
                 self.metrics.log(event="serving_watchdog_trip", dead=dead,
                                  wedged=wedged, restarts=self._restarts)

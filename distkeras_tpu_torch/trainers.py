@@ -104,6 +104,7 @@ from distkeras_tpu_torch.utils.history import TrainingHistory
 from distkeras_tpu_torch.utils.profiling import MetricsLogger
 from distkeras_tpu_torch.utils.profiling import trace as profiler_trace
 from distkeras_tpu_torch.utils.rng import RngSeq, split_seed
+from distkeras_tpu_torch.utils.serialization import serialize_model
 from distkeras_tpu_torch.utils.tree import (
     copy_tree_,
     to_host,
@@ -273,6 +274,11 @@ class Trainer:
 
     def get_validation_history(self):
         return self.history.get_validation_history()
+
+    def serialize(self) -> bytes:
+        """The trainer's model as ``utils.serialization.serialize_model``
+        bytes (architecture and weights)."""
+        return serialize_model(self.model)
 
     def _run_validation(self, core, model, epoch):
         """Evaluate ``validation_data`` with the current weights and record

@@ -46,6 +46,30 @@ def tree_mean(trees):
     return tree_scale(acc, 1.0 / len(trees))
 
 
+def tree_zeros_like(a):
+    """Zeros shaped like each leaf, key-wise."""
+    return {k: torch.zeros_like(x) if isinstance(x, torch.Tensor)
+            else np.zeros_like(x) for k, x in a.items()}
+
+
+def _vdot(x, y):
+    if isinstance(x, torch.Tensor):
+        return torch.vdot(x.reshape(-1), torch.as_tensor(y).reshape(-1))
+    return np.vdot(x, y)
+
+
+def tree_dot(a, b):
+    """Sum of element-wise products across all leaves: a 0-d tensor for
+    tensor leaves, a numpy scalar for arrays."""
+    return sum(_vdot(x, y) for _, x, y in _zip(a, b))
+
+
+def tree_norm(a):
+    """Global L2 norm across all leaves."""
+    sq = tree_dot(a, a)
+    return torch.sqrt(sq) if isinstance(sq, torch.Tensor) else np.sqrt(sq)
+
+
 def host_copy(a):
     """Owned CPU copy of every tensor (detached), e.g. to seed a worker
     with weights that its in-place updates must not reach."""

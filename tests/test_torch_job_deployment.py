@@ -5,12 +5,19 @@ env, the dry-run commands, the single-process no-op, and how
 but the actual ssh hop is tested offline; the multi-process launches are
 in ``test_torch_sync_dp.py``."""
 
+import os
+import subprocess
 import tarfile
+import time
 
 import pytest
 import torch.distributed as dist
 
-from distkeras_tpu_torch.job_deployment import Job
+from distkeras_tpu_torch.job_deployment import (
+    Job,
+    local_address,
+    run_local_ranks,
+)
 from distkeras_tpu_torch.parallel import multihost
 
 
@@ -88,6 +95,81 @@ def test_run_local_executes_bundle(tmp_path, script):
     # one process: initialize() is a no-op and the job is rank 0 of 1
     assert "pid False" in proc.stdout
     assert "rank 0 1" in proc.stdout
+
+
+def test_run_local_ranks_shares_cores_and_absolutizes_paths(tmp_path,
+                                                            capsys):
+    """Every rank of a local job runs in a directory of its own, with its
+    share of the host's cores; a path flag's value reaches it absolute,
+    and the label's line and rank 0's output are printed. A failing rank
+    raises with its output."""
+    script = tmp_path / "ranks.py"
+    script.write_text(
+        "import os, sys\n"
+        "print('RANK', os.environ['DKT_PROCESS_ID'], "
+        "os.environ['OMP_NUM_THREADS'], sys.argv[1:])\n"
+        "sys.exit(3 if sys.argv[-1] == 'fail' else 0)\n")
+    run_local_ranks(str(script), 2, ["--out", "rel/x", "keep"],
+                    path_flags=("--out",), label="demo", device="cpu")
+    threads = str(max(1, (os.cpu_count() or 1) // 2))
+    want = ["--out", os.path.abspath("rel/x"), "keep"]
+    if "OMP_NUM_THREADS" in os.environ:
+        threads = os.environ["OMP_NUM_THREADS"]
+    assert capsys.readouterr().out == (
+        f"demo: 2 rank processes over gloo on the CPU\n"
+        f"RANK 0 {threads} {want}\n")
+    with pytest.raises(RuntimeError, match="rank 0 of 2 exited 3"):
+        run_local_ranks(str(script), 2, ["fail"], device="cpu")
+
+
+_WAITER = (
+    "import os, sys, time\n"
+    "rank = os.environ['DKT_PROCESS_ID']\n"
+    "with open(os.path.join(sys.argv[1], 'pid' + rank), 'w') as f:\n"
+    "    f.write(str(os.getpid()))\n"
+    "if rank == '1' and sys.argv[2] == 'fail':\n"
+    "    time.sleep(1.0)\n"
+    "    sys.exit(3)\n"
+    "time.sleep(600)\n"
+)
+
+
+def _gone(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return True
+    return False
+
+
+@pytest.mark.parametrize("how", ["fail", "timeout"])
+def test_run_local_all_ends_every_rank(tmp_path, how):
+    """The first rank to exit non-zero, or the launch's timeout, ends the
+    launch at once: the peers still waiting are killed, not left to wait
+    for the group's timeout, and the error names the rank that failed."""
+    script = tmp_path / "wait.py"
+    script.write_text(_WAITER)
+    job = Job(str(script), num_hosts=2, coordinator_address=local_address(),
+              script_args=[str(tmp_path), how])
+    want = RuntimeError if how == "fail" else subprocess.TimeoutExpired
+    t0 = time.monotonic()
+    with pytest.raises(want, match="rank 1 of 2 exited 3" if how == "fail"
+                       else None):
+        job.run_local_all(str(tmp_path / "wd"), timeout=5.0)
+    assert time.monotonic() - t0 < 30
+    pids = [int((tmp_path / f"pid{r}").read_text()) for r in range(2)]
+    assert all(_gone(pid) for pid in pids), pids
+
+
+def test_local_ranks_share_the_kernel_build_dir(tmp_path, script):
+    """A local rank's unpacked package builds its kernels into this
+    package's build directory, so a launch reuses what the checkout has
+    built."""
+    from distkeras_tpu_torch.kernels.build import BUILD_DIR
+
+    Job(script).run_local(workdir=str(tmp_path / "wd"), timeout=60)
+    link = tmp_path / "wd" / "distkeras_tpu_torch" / "kernels" / "_build"
+    assert link.is_symlink() and link.resolve() == BUILD_DIR.resolve()
 
 
 def test_missing_script_raises(tmp_path):

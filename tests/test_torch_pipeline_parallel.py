@@ -431,10 +431,15 @@ def test_divisibility_errors():
         tpp.pipeline_apply(tpp.stack_block_params(_blocks(2)),
                            torch.zeros(6, D), apply, _fake_pipe(2, 2),
                            num_micro=2, batch_axis="data")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # param_specs (the 3-D composition) are checked before anything runs
+    with pytest.raises(ValueError, match="one spec for each leaf"):
         tpp.pipeline_apply(tpp.stack_block_params(_blocks(4)),
                            torch.zeros(8, D), apply, _fake_pipe(4),
                            param_specs={})
+    with pytest.raises(ValueError, match="must lead with the 'pipe'"):
+        tpp.pipeline_apply(tpp.stack_block_params(_blocks(4)),
+                           torch.zeros(8, D), apply, _fake_pipe(4),
+                           param_specs={"w": (None, "model"), "b": ("pipe",)})
 
 
 def _data(n=32):

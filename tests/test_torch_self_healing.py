@@ -385,14 +385,71 @@ def test_watchdog_detects_wedged_scheduler(lms):
             with pytest.raises(InternalError, match="wedged"):
                 inflight.result(timeout=30)
             assert 0 < len(inflight.tokens) < 20
+            # the trip names where the scheduler was: the seam's sleep
+            (trip,) = [e for e in eng.recorder.snapshot()
+                       if e["kind"] == "engine.watchdog_trip"]
+            assert trip["stack"][-1].endswith(" _fire"), trip["stack"]
             _wait(lambda: eng.health()["status"] == "serving"
                   and eng.health()["restarts"] == 1, msg="wedge recovery")
             np.testing.assert_array_equal(
                 eng.generate(prompt, 5, timeout=60), want)
-        _wait(lambda: sum(t.name == "serving-engine"
-                          for t in threading.enumerate()) == 1,
+        # this engine's own scheduler threads: another engine's (a JAX
+        # engine's, or one left by an earlier test) share the name
+        _wait(lambda: sum(t.is_alive() for t in eng.scheduler_threads) == 1,
               msg="the zombie scheduler exits")
+        assert len(eng.scheduler_threads) == 2
+        assert all(t.name == "serving-engine" for t in eng.scheduler_threads)
     finally:
+        eng.stop()
+
+
+class _HeldOff(threading.Event):
+    """The supervisor's wake event: ``hold`` seconds are slept before its
+    next wait, as a stall of the whole process would hold it off."""
+
+    hold = 0.0
+
+    def wait(self, timeout=None):
+        hold, self.hold = self.hold, 0.0
+        time.sleep(hold)
+        return super().wait(timeout)
+
+
+def test_watchdog_counts_only_watched_silence(lms):
+    """A scheduler silent for 5 s while the supervisor was itself held off
+    for 4.8 s of it (a stall of the whole process, not of the scheduler)
+    is no wedge: the silence counts from the supervisor's late wake, the
+    request completes with no trip, and the stall is on the tape."""
+    _, lm, ref = lms
+    prompt = np.arange(2, 7, dtype=np.int32)
+    want = ref.generate(prompt[None], steps=8)[0]
+    eng = ServingEngine(lm, num_slots=2, watchdog_interval=2.0,
+                        watchdog_grace=30.0, device="cpu")
+    held = eng._crash_evt = _HeldOff()
+    eng.start()
+
+    def hold_supervisor(site, action, ctx):
+        if site == "scheduler.loop":
+            held.hold = 4.8
+
+    plan = FaultPlan().arm("scheduler.loop", action="delay", delay=5.0,
+                           times=1, after=3, when=lambda ctx: ctx["busy"])
+    faults.add_observer(hold_supervisor)
+    try:
+        np.testing.assert_array_equal(eng.generate(prompt, 8, timeout=60),
+                                      want)
+        eng._grace_until = 0.0  # warm: arm the wedge detector
+        with plan:
+            got = eng.generate(prompt, 8, timeout=60)
+        assert plan.fired("scheduler.loop") == 1
+        np.testing.assert_array_equal(got, want)
+        h = eng.health()
+        assert h["watchdog_trips"] == 0 and h["restarts"] == 0
+        blind = [e["seconds"] for e in eng.recorder.snapshot()
+                 if e["kind"] == "engine.watchdog_blind"]
+        assert blind and max(blind) >= 4.5, blind
+    finally:
+        faults.remove_observer(hold_supervisor)
         eng.stop()
 
 
