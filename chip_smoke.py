@@ -506,6 +506,25 @@ Phases, each fatal on failure (exit code 1, no result line):
    counted into the kernels line (the LM twin must launch B3-B8, its rank
    processes B3, B7 and B8). ``--phase24-only`` builds the kernels and
    runs phase 24 alone.
+25. The chaos soaks and the operator tools (``tools/*_torch.py``) as a
+   user runs them, each held to its own acceptance bar. 25a:
+   ``soak_serving_torch.run_soak`` in process on phase 4's
+   ``transformer_lm(8192, 512, 512, 8, 8)`` with the LayerNorm hook
+   (paged, self-draft speculative, the storm phase, 4 clients, 10 s);
+   25b: ``run_disagg_soak`` at its default model; 25c: the training
+   soak's phases in a subprocess, the ledger phase at full scale and the
+   training phase at smoke scale (its DOWNPOUR launches B1; the full
+   training phase's accuracy floor needs a device per worker); 25d:
+   ``soak_fleet_torch.py --smoke`` and ``--fabric --smoke`` as
+   subprocesses whose replicas load the kernels this process built; 25e: ``dkt_top_torch.py --once`` and ``dkt_postmortem_torch.py
+   --host`` against 25a's live server (the latter after its first
+   watchdog trip) and ``dkt_top_torch.py --ps`` against 25c's standby.
+   25c and 25d start together after 25a and run beside 25b.
+   Each part prints its wall, fired faults by site, restarts, watchdog
+   trips and the supervisors' late wakes, and the B1/B4/B7 launches it
+   added (every process of a part writes its counts through
+   ``DKT_LAUNCH_COUNTS_DIR``). ``--phase25-only`` builds the kernels and
+   runs phase 25 alone.
 
 ``--import-seconds ROOT...`` times ``import distkeras_tpu_torch`` from
 each checkout in fresh interpreters and exits (two commits compared in
@@ -577,8 +596,21 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+_T0 = time.monotonic()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """A result line, stamped with the seconds since the script started
+    (the per-phase walls a cut is chosen from)."""
+    print(f"[{time.monotonic() - _T0:7.1f} s] {msg}", flush=True)
+
+
+def ab_turns(a, b):
+    """The fresh-engine turns of an A/B comparison (12a, 14b, 15a, 16a).
+    They ran A, B, B, A before phase 25 was added, and are cut to A, B to
+    make room for it (PERF.md section 4, "Cut:"). Both paths still run, with every
+    bar; a ratio is then one turn's against the other's."""
+    return (a, b)
 
 
 def nvidia_smi_line():
@@ -3908,10 +3940,10 @@ def bubble_ms(np, eng):
 
 def run_loop_ab(torch, np, lm, smi, gen_reqs, gen_outs):
     """12a: phase 4's mix on a fresh sequential or overlapped engine, in
-    turns (sequential, overlapped, overlapped, sequential), so both modes
-    see the same card state. A fresh engine per run: the overlap ledger
-    measures iteration wall collect to collect, so an idle gap between two
-    runs on one engine would count as bubble. 12d reads the compile ledger
+    turns (``ab_turns``), so both modes see the same card state. A fresh
+    engine per run: the overlap ledger measures iteration wall collect to
+    collect, so an idle gap between two runs on one engine would count as
+    bubble. 12d reads the compile ledger
     of the last overlapped engine."""
     from distkeras_tpu_torch import kernels
 
@@ -3919,7 +3951,7 @@ def run_loop_ab(torch, np, lm, smi, gen_reqs, gen_outs):
     counts_all = []
     keep = None
     try:
-        for overlap in (False, True, True, False):
+        for overlap in ab_turns(False, True):
             eng = hooked_engine(lm, overlap=overlap)
             try:
                 kernels.reset_launch_counts()
@@ -4886,17 +4918,17 @@ def run_spec_ngram_mix(torch, np, lm, smi, gen, gen_reqs, gen_outs):
 
 def run_spec_templated(torch, np, lm, smi, reqs):
     """14b: templated traffic on a plain and an n-gram engine, in turns
-    (plain, n-gram, n-gram, plain), each engine fresh."""
+    (``ab_turns``), each engine fresh."""
     runs, counts_all, outs_by = {"plain": [], "ngram": []}, [], {}
-    for mode in ("plain", "ngram", "ngram", "plain"):
+    for mode in ab_turns("plain", "ngram"):
         kw = {"speculative": "ngram", "draft_k": 4} if mode == "ngram" else {}
         res, counts, outs, _, _ = drive_spec(torch, np, lm, f"14b {mode}",
                                              reqs, [lm], **kw)
         runs[mode].append(res)
         counts_all.append(counts)
         outs_by.setdefault(mode, outs)
-    plain = sum(r["tokens_per_s"] for r in runs["plain"]) / 2
-    spec = sum(r["tokens_per_s"] for r in runs["ngram"]) / 2
+    plain = sum(r["tokens_per_s"] for r in runs["plain"]) / len(runs["plain"])
+    spec = sum(r["tokens_per_s"] for r in runs["ngram"]) / len(runs["ngram"])
     out = {"plain": runs["plain"], "ngram": runs["ngram"],
            "plain_tokens_per_s": plain, "ngram_tokens_per_s": spec,
            "ratio": spec / plain,
@@ -5320,7 +5352,7 @@ def paired(books):
 def run_preemption(torch, np, lm, smi, paging):
     """15a: 8 priority-0 requests fill the bank, 4 priority-2 ones arrive
     once all 8 decode; with ``QosPolicy(preempt=True)`` and without a
-    policy, in turns (policy, plain, plain, policy), each engine fresh."""
+    policy, in turns (``ab_turns``), each engine fresh."""
     from distkeras_tpu_torch import kernels
     from distkeras_tpu_torch.serving import QosPolicy
 
@@ -5328,7 +5360,7 @@ def run_preemption(torch, np, lm, smi, paging):
     reqs = lo + hi
     runs = {"qos": [], "plain": []}
     counts_all, refs = [], None
-    for mode in ("qos", "plain", "plain", "qos"):
+    for mode in ab_turns("qos", "plain"):
         eng = qos_engine(lm, qos=QosPolicy(preempt=True)
                          if mode == "qos" else None)
         meter = swap_meter(eng)
@@ -5395,9 +5427,9 @@ def run_preemption(torch, np, lm, smi, paging):
         "swap_in_ms_mean": mean(q[0]["swap_in_ms"]),
         "swap_bytes_mean": mean(q[0]["swap_bytes"]),
     }
-    log(f"15a preemption: {q[0]['books']['preemptions']} / "
-        f"{q[1]['books']['preemptions']} preemptions = resumes, 0 aborts, 0 "
-        f"storms; priority-2 TTFT p50 {res['hi_ttft_p50_qos_s']} s with the "
+    log(f"15a preemption: {[r['books']['preemptions'] for r in q]} "
+        f"preemptions = resumes, 0 aborts, 0 storms; priority-2 TTFT p50 "
+        f"{res['hi_ttft_p50_qos_s']} s with the "
         f"policy, {res['hi_ttft_p50_plain_s']} s without (in turns); swap-out"
         f" {res['swap_out_ms_mean']:.2f} ms, swap-in "
         f"{res['swap_in_ms_mean']:.2f} ms host wall, "
@@ -5405,7 +5437,7 @@ def run_preemption(torch, np, lm, smi, paging):
         f"({q[0]['swap_tokens']} tokens); tokens/s {res['qos_tokens_per_s']:.1f}"
         f" with the policy, {res['plain_tokens_per_s']:.1f} without, 13a's "
         f"paged mix {res['paged_mix_tokens_per_s_13a']:.1f}; replies equal "
-        f"in all four turns, argmax gap {gap:.2e}; B7 "
+        f"in every turn, argmax gap {gap:.2e}; B7 "
         f"{[c['layernorm_fwd'] for c in counts_all]} on {smi}")
     return res, counts_all, refs
 
@@ -5867,7 +5899,7 @@ def kv_argmax_gap(torch, np, lm, outs, reqs, kv_dtype, chunked):
 
 def run_kv_dtype_mix(torch, np, lm, smi, gen_reqs):
     """16a: phase 4's 16-request mix on fresh dense and paged engines with
-    f32 and bf16 caches, in turns (f32, bf16, bf16, f32) per layout. Dense
+    f32 and bf16 caches, in turns (``ab_turns``) per layout. Dense
     engines admit each prompt whole (``prefill_chunk=None``), so the
     teacher-forced reference runs their prefill; paged ones chunk."""
     from distkeras_tpu_torch import kernels
@@ -5878,7 +5910,7 @@ def run_kv_dtype_mix(torch, np, lm, smi, gen_reqs):
               else {"paged": True})
         runs = {"float32": [], "bfloat16": []}
         outs = {}
-        for dtn in ("float32", "bfloat16", "bfloat16", "float32"):
+        for dtn in ab_turns("float32", "bfloat16"):
             dt = getattr(torch, dtn)
             eng = hooked_engine(lm, kv_dtype=dt, prefix_cache=False, **kw)
             try:
@@ -6625,55 +6657,56 @@ def run_handoff(torch, np, lm, smi, gen_reqs):
     ``role="decode"`` engine, relayed and pushed, against a unified engine
     of the same layout and ``kv_dtype`` on the same admission path (dense
     admits each prompt whole, paged chunks), each behind its own
-    ``ServingServer``; dense and paged, f32 and bf16 caches. The dense f32
+    ``ServingServer``; dense with f32 caches and paged with bf16. The dense f32
     servers are returned alive for 17c."""
     from distkeras_tpu_torch.serving import ServingServer
 
     res, counts_all, keep = {}, [], None
     try:
-        for layout in ("dense", "paged"):
-            for dtn in ("float32", "bfloat16"):
-                tag = f"17a {layout} {dtn}"
-                kw = dict({"prefill_chunk": None} if layout == "dense"
-                          else {"paged": True},
-                          kv_dtype=getattr(torch, dtn), prefix_cache=False)
-                srvs = [ServingServer(hooked_engine(lm, role=role,
-                                                    **kw)).start()
-                        for role in ("unified", "prefill", "decode")]
-                uni, pre, dec = (s.engine for s in srvs)
-                try:
-                    r, counts = handoff_config(torch, np, lm, tag, srvs,
-                                               gen_reqs)
-                finally:
-                    if layout == "dense" and dtn == "float32":
-                        keep = srvs
-                    else:
-                        for s in srvs:
-                            s.shutdown()
-                check(pre.stats()["steps"] == 0
-                      and dec.stats()["prefill_chunks"] == 0,
-                      f"{tag}: the prefill engine took a decode step or the "
-                      f"decode engine prefilled: {pre.stats()['steps']} "
-                      f"steps, {dec.stats()['prefill_chunks']} chunks")
-                res[f"{layout}_{dtn}"] = r
-                counts_all += counts
-                log(f"{tag}: replies equal the unified engine's, relayed "
-                    f"and pushed; frame {r['frame_bytes']['max']} bytes at "
-                    f"prompt {r['frame_bytes']['max_prompt']} (mix total "
-                    f"{r['frame_bytes']['total']}); encode p50 "
-                    f"{r['encode_ms']['p50']:.2f} ms, wire p50 "
-                    f"{r['wire_ms']['p50']:.2f} ms, decode p50 "
-                    f"{r['decode_ms']['p50']:.2f} ms, export swap-out p50 "
-                    f"{r['swap_out_ms']['p50']:.2f} ms, resume swap-in p50 "
-                    f"{r['swap_in_ms']['p50']:.2f} ms a request; TTFT p50 "
-                    f"prefill side {r['ttft_ms']['prefill_side']['p50']:.1f}"
-                    f" + decode side "
-                    f"{r['ttft_ms']['decode_side']['p50']:.1f} ms "
-                    f"(unified {r['ttft_ms']['unified']['p50']:.1f} ms); "
-                    f"tokens/s unified {r['tokens_per_s']['unified']:.1f}, "
-                    f"relayed {r['tokens_per_s']['relayed']:.1f}, pushed "
-                    f"{r['tokens_per_s']['pushed']:.1f}; supervisors held "
-                    f"off {r['supervisor_blind_s']} s on {smi}")
+        # dense f32 and paged bf16: each layout and each cache dtype once
+        # (all four pairs ran before phase 25; two were cut to make room)
+        for layout, dtn in (("dense", "float32"), ("paged", "bfloat16")):
+            tag = f"17a {layout} {dtn}"
+            kw = dict({"prefill_chunk": None} if layout == "dense"
+                      else {"paged": True},
+                      kv_dtype=getattr(torch, dtn), prefix_cache=False)
+            srvs = [ServingServer(hooked_engine(lm, role=role,
+                                                **kw)).start()
+                    for role in ("unified", "prefill", "decode")]
+            uni, pre, dec = (s.engine for s in srvs)
+            try:
+                r, counts = handoff_config(torch, np, lm, tag, srvs,
+                                           gen_reqs)
+            finally:
+                if layout == "dense" and dtn == "float32":
+                    keep = srvs
+                else:
+                    for s in srvs:
+                        s.shutdown()
+            check(pre.stats()["steps"] == 0
+                  and dec.stats()["prefill_chunks"] == 0,
+                  f"{tag}: the prefill engine took a decode step or the "
+                  f"decode engine prefilled: {pre.stats()['steps']} "
+                  f"steps, {dec.stats()['prefill_chunks']} chunks")
+            res[f"{layout}_{dtn}"] = r
+            counts_all += counts
+            log(f"{tag}: replies equal the unified engine's, relayed "
+                f"and pushed; frame {r['frame_bytes']['max']} bytes at "
+                f"prompt {r['frame_bytes']['max_prompt']} (mix total "
+                f"{r['frame_bytes']['total']}); encode p50 "
+                f"{r['encode_ms']['p50']:.2f} ms, wire p50 "
+                f"{r['wire_ms']['p50']:.2f} ms, decode p50 "
+                f"{r['decode_ms']['p50']:.2f} ms, export swap-out p50 "
+                f"{r['swap_out_ms']['p50']:.2f} ms, resume swap-in p50 "
+                f"{r['swap_in_ms']['p50']:.2f} ms a request; TTFT p50 "
+                f"prefill side {r['ttft_ms']['prefill_side']['p50']:.1f}"
+                f" + decode side "
+                f"{r['ttft_ms']['decode_side']['p50']:.1f} ms "
+                f"(unified {r['ttft_ms']['unified']['p50']:.1f} ms); "
+                f"tokens/s unified {r['tokens_per_s']['unified']:.1f}, "
+                f"relayed {r['tokens_per_s']['relayed']:.1f}, pushed "
+                f"{r['tokens_per_s']['pushed']:.1f}; supervisors held "
+                f"off {r['supervisor_blind_s']} s on {smi}")
     except BaseException:
         for s in keep or ():
             s.shutdown()
@@ -7974,8 +8007,8 @@ def run_moe_serving(torch, np, moe, smi, gen, gen_reqs):
 
 
 def run_moe_spec_chunked(torch, np, moe, smi, gen_reqs, refs):
-    """19b: an n-gram speculative engine on phase 4's mix, and the
-    templated 16-request mix through 32-position prefill chunks."""
+    """19b: an n-gram speculative engine on phase 4's mix, and 8 of the
+    templated mix's requests through 32-position prefill chunks."""
     out, counts = {}, []
     res, c = serve_moe(torch, np, moe, "19b n-gram", gen_reqs, refs,
                        speculative="ngram", draft_k=4)
@@ -7984,13 +8017,16 @@ def run_moe_spec_chunked(torch, np, moe, smi, gen_reqs, refs):
     log(f"19b n-gram on phase 4's mix: {res['tokens_per_s']:.1f} tokens/s; "
         f"greedy replies = solo decode; books {res['speculative']}; B7 "
         f"{c['layernorm_fwd']} = the program calls' on {smi}")
-    reqs = templated_mix(np)
+    # the first 8 of the 16 templated requests (the rest were cut to make
+    # room for phase 25; every prompt still spans 5-7 chunks)
+    reqs = templated_mix(np)[:8]
     trefs = solo_refs(moe, reqs)
     res, c = serve_moe(torch, np, moe, "19b chunked", reqs, trefs,
                        prefill_chunk=32)
     out["chunked"] = res
     counts.append(c)
-    log(f"19b chunked (16 requests, 136-200-token prompts in 32-position "
+    log(f"19b chunked ({len(reqs)} requests, 136-200-token prompts in "
+        f"32-position "
         f"chunks): {res['tokens_per_s']:.1f} tokens/s, "
         f"{res['prefill_chunks']} chunks; greedy replies = solo decode; "
         f"B7 {c['layernorm_fwd']} = the program calls' on {smi}")
@@ -9967,6 +10003,477 @@ def run_phase24(torch, np, zoo, smi):
     return out, counts
 
 
+# ---------------------------------------------------------------- phase 25
+
+#: the operator tools' twins (``tools/*_torch.py``) phase 25 drives
+TOOLS = os.path.join(HERE, "tools")
+#: 25a's soak at full width: ``transformer_lm(8192, 512, 512, 8, 8)``
+P25_SERVE_SECONDS = 10.0
+P25_CLIENTS = 4
+#: the kernels whose launches each part of phase 25 reports
+P25_KERNELS = ("sgd_fused", "flash_fwd", "layernorm_fwd")
+P25_TIMEOUT = 300  # seconds a soak subprocess may take
+
+#: a tool process started ahead of its target: it pays ``import torch``
+#: and the tool's imports while the phase runs, then waits for ``go`` (a
+#: file holding the tool's arguments) and runs the tool's ``main``
+P25_TOOL_WAITER = """import os, sys, time
+sys.path.insert(0, {tools!r})
+sys.path.insert(0, {here!r})
+import torch
+import {tool} as tool
+deadline = time.monotonic() + {timeout}
+while not os.path.exists({go!r}):
+    if time.monotonic() > deadline:
+        sys.exit("{tool}: no target within {timeout} s")
+    time.sleep(0.01)
+code = tool.main(open({go!r}).read().split())
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "distkeras_tpu")]
+assert not bad, bad
+sys.exit(code)
+"""
+
+#: 25c's training soak, through the tool's own phases (``run_soak`` and
+#: ``main`` without their one-size switch): the ledger phase at full scale
+#: (4 workers x 40 windows) and the training phase at smoke scale, with
+#: every parameter server's port written to ``ports`` as it starts (the
+#: target of 25e's ``dkt_top_torch.py --ps``). The full-scale training
+#: phase's convergence floor needs each worker on a device of its own (the
+#: JAX tool forces 8 virtual CPU devices for it); on one card, as on one JAX
+#: device, threads-mode workers run in lockstep and miss it (PERF.md, §7)
+P25_TRAIN_WRAPPER = """import json, os, sys, time
+sys.path.insert(0, {here!r})
+sys.path.insert(0, {tools!r})
+from distkeras_tpu_torch import parameter_servers as ps
+start, stop, started = (ps.SocketParameterServer.start,
+                        ps.SocketParameterServer.stop, [])
+def recording(self, *a, **k):
+    out = start(self, *a, **k)
+    started.append(self)
+    with open({ports!r}, "a") as f:
+        f.write(f"{{self.port}}\\n")
+    return out
+def holding(self, *a, **k):
+    # the ledger phase's standby stays up until 25e has scraped it
+    if len(started) > 1 and self is started[1]:
+        t = time.monotonic()
+        while (not os.path.exists({scraped!r})
+               and time.monotonic() - t < 60):
+            time.sleep(0.01)
+    return stop(self, *a, **k)
+ps.SocketParameterServer.start = recording
+ps.SocketParameterServer.stop = holding
+import soak_training_torch as st
+device = st.check_device(False)
+ledger = st.run_ledger_phase(workers=4, windows=40, seed=0)
+training = st.run_training_phase(seed=0, smoke=True, device=device)
+summary = {{"phases": {{"ledger": ledger, "training": training}},
+           "ok": bool(ledger["ok"] and training["ok"])}}
+json.dump(summary, sys.stdout, indent=2, default=str)
+print()
+sys.exit(0 if summary["ok"] else 1)
+"""
+
+
+def p25_go(path, args):
+    """Hand a waiting tool process its arguments (atomically)."""
+    with open(path + ".tmp", "w") as f:
+        f.write(" ".join(str(a) for a in args))
+    os.replace(path + ".tmp", path)
+
+
+def p25_spawn(code, cwd, env, out_path):
+    """A subprocess in a process group of its own, its stdout and stderr to
+    files (a long soak summary must not fill a pipe)."""
+    out = open(out_path, "w")
+    err = open(out_path + ".err", "w")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=cwd, env=env,
+                            stdout=out, stderr=err, text=True,
+                            start_new_session=True)
+    proc._p25_files = (out, err, out_path)
+    return proc
+
+
+def p25_wait(proc, timeout, what):
+    """Wait for ``proc``; past ``timeout`` its whole group goes. Returns
+    (returncode, stdout, stderr)."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        log(f"{what}: killed after {timeout} s")
+    out, err, path = proc._p25_files
+    out.close()
+    err.close()
+    with open(path) as f:
+        stdout = f.read()
+    with open(path + ".err") as f:
+        stderr = f.read()
+    return proc.returncode, stdout, stderr
+
+
+def p25_counts(counts_dir):
+    """Summed launch counts of every process that wrote one there."""
+    total = {}
+    files = os.listdir(counts_dir)
+    for name in files:
+        with open(os.path.join(counts_dir, name)) as f:
+            for k, n in json.load(f).items():
+                total[k] = total.get(k, 0) + n
+    return total, len(files)
+
+
+def p25_watchdog(engines):
+    """What the engines' supervisors saw: trips (with the scheduler's
+    innermost frames for a wedge) and their own late wakes."""
+    trips, blind = [], []
+    for eng in engines:
+        for e in eng.recorder.snapshot():
+            if e["kind"] == "engine.watchdog_trip":
+                trips.append({k: e.get(k) for k in
+                              ("dead", "wedged", "heartbeat_age",
+                               "last_crash", "stack")})
+            elif e["kind"] == "engine.watchdog_blind":
+                blind.append(e["seconds"])
+    return {"trips": trips, "blind_s": blind}
+
+
+def p25_servers():
+    """Record every ``ServingServer`` started until the returned ``undo``
+    runs (25a's and 25b's engines are made inside the soaks)."""
+    from distkeras_tpu_torch.serving import server as server_mod
+
+    seen = []
+    start = server_mod.ServingServer.start
+
+    def recording(self, *a, **k):
+        out = start(self, *a, **k)
+        seen.append(self)
+        return out
+
+    server_mod.ServingServer.start = recording
+
+    def undo():
+        server_mod.ServingServer.start = start
+
+    return seen, undo
+
+
+def run_p25a(torch, zoo, tmp, waiters):
+    """25a: ``soak_serving_torch.run_soak`` in process at full width
+    (paged, self-draft speculative, the storm phase, 4 clients); while it
+    runs, 25e's ``dkt_top_torch.py --once`` scrapes its server and, after
+    the first watchdog trip, ``dkt_postmortem_torch.py --host`` reads the
+    trip's bundle through the ``postmortem`` verb."""
+    import threading
+
+    import soak_serving_torch
+
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
+
+    lm = make_lm(zoo)
+    attach_fused_layernorm(lm)
+    servers, undo = p25_servers()
+    tools_done = threading.Event()
+
+    def point_tools():
+        """Once the soak's server is up: dkt_top now; dkt_postmortem at
+        the first trip (its bundle is then on the server). The server's
+        shutdown waits (at most a minute) until both tools have exited:
+        a trip late in the soak must still find the server."""
+        try:
+            while not servers:
+                time.sleep(0.01)
+            srv = servers[0]
+            shutdown = srv.shutdown
+
+            def held(*a, **k):
+                tools_done.wait(timeout=60)
+                return shutdown(*a, **k)
+
+            srv.shutdown = held
+            p25_go(waiters["top"][1], ["127.0.0.1", srv.port, "--once"])
+            while srv.engine.stats()["watchdog_trips"] < 1:
+                time.sleep(0.02)
+            p25_go(waiters["pm"][1],
+                   ["--host", "127.0.0.1", "--port", srv.port])
+            for name in ("top", "pm"):
+                waiters[name][0].wait(timeout=60)
+        finally:
+            tools_done.set()
+
+    pointer = threading.Thread(target=point_tools, daemon=True)
+    pointer.start()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    try:
+        summary = soak_serving_torch.run_soak(
+            model=lm, clients=P25_CLIENTS, duration=P25_SERVE_SECONDS,
+            seed=0)
+    finally:
+        undo()
+    wall = time.monotonic() - t0
+    launches = kernels.launch_counts()
+    del lm
+    torch.cuda.empty_cache()
+    return summary, wall, launches, servers[0].engine
+
+
+def p25_tools(waiters):
+    """25e's replies from 25a's server: a scrape of the live server's
+    table, and the trip's incident timeline."""
+    tools = {}
+    for name, marker in (("top", "serving_scheduler_completed"),
+                         ("pm", "reason=watchdog_trip")):
+        rc, out, err = p25_wait(waiters[name][0], 60, f"25e {name}")
+        check(rc == 0 and marker in out,
+              f"25e {name} exited {rc}:\n{out[-2000:]}\n{err[-2000:]}")
+        tools[name] = {"rc": rc, "lines": len(out.splitlines())}
+    return tools
+
+
+def p25_serving_bars(summary, tag):
+    """The serving soak's own acceptance bar, every item named."""
+    check(summary["ok"], f"{tag}: the soak's bar failed: "
+          + json.dumps({k: summary.get(k) for k in (
+              "hung", "typed_errors", "untyped_errors", "untyped_samples",
+              "corrupt_outputs",
+              "divergent_replays", "grammar_violations", "trace_incomplete",
+              "postmortems", "postmortems_naming_seam", "qos", "storm",
+              "shed", "compiles")}, default=str)[:4000])
+
+
+def run_phase25(torch, np, zoo, smi):
+    """Phase 25: the chaos soaks and operator tools as a user runs them,
+    on the card. 25a ``soak_serving_torch.run_soak`` at full width in
+    process; 25b ``run_disagg_soak`` at its default model; 25c the
+    training soak's ledger phase at full scale and its training phase at
+    smoke scale, in a subprocess; 25d
+    ``soak_fleet_torch.py --smoke`` and ``--fabric --smoke`` as
+    subprocesses (their replicas load the kernels this process built);
+    25e ``dkt_top_torch.py --once`` and ``dkt_postmortem_torch.py --host``
+    against 25a's live server and ``dkt_top_torch.py --ps`` against 25c's
+    parameter server. 25c and 25d start together after 25a and run beside
+    25b. Each part holds its tool's own bar. Returns the results and each
+    part's launch counts."""
+    import shutil
+    import tempfile
+    import threading
+
+    from distkeras_tpu_torch import kernels
+    from distkeras_tpu_torch.kernels import ENV_COUNTS_DIR
+
+    if TOOLS not in sys.path:
+        sys.path.insert(0, TOOLS)
+    import soak_serving_torch
+
+    t0 = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="soaks_", dir=HERE)
+    env = dict(os.environ)
+    out, counts = {}, []
+    waiters, procs = {}, {}
+    try:
+        # the three tool processes start now: their `import torch` runs
+        # while 25a warms
+        for name, tool in (("top", "dkt_top_torch"),
+                           ("pm", "dkt_postmortem_torch"),
+                           ("ps", "dkt_top_torch")):
+            go = os.path.join(tmp, f"go_{name}")
+            code = P25_TOOL_WAITER.format(tools=TOOLS, here=HERE, tool=tool,
+                                          go=go, timeout=P25_TIMEOUT)
+            waiters[name] = (p25_spawn(code, tmp, env,
+                                       os.path.join(tmp, f"tool_{name}")), go)
+
+        summary, wall, launches, eng = run_p25a(torch, zoo, tmp, waiters)
+        p25_serving_bars(summary, "25a")
+        tools = p25_tools(waiters)
+        check(launches.get("layernorm_fwd", 0) > 0,
+              f"25a: B7 never launched: {launches}")
+        out["25a"] = {
+            "wall_s": wall, "model": "transformer_lm(8192, 512, 512, 8, 8)",
+            "completed": summary["completed"],
+            "sampled_completed": summary["sampled_completed"],
+            "typed_errors": summary["typed_errors"],
+            "fired_by_site": summary["fired_by_site"],
+            "engine": summary["engine"], "qos": summary["qos"],
+            "storm": {k: summary["storm"][k] for k in
+                      ("attempts", "ok", "typed", "accounting_exact")},
+            "sheds": summary["shed"]["gate"]["sheds"],
+            "speculative": summary["speculative"],
+            "postmortems": summary["postmortems"],
+            "compiles": {k: summary["compiles"][k] for k in
+                         ("total", "serving", "rewarms", "storms")},
+            "overlap_efficiency": summary["overlap"].get("efficiency"),
+            "watchdog": p25_watchdog([eng]), "tools": tools,
+            "launches": {k: launches.get(k, 0) for k in P25_KERNELS},
+        }
+        counts.append(launches)
+        log(f"25a serving soak, transformer_lm d512/L8: {wall:.1f} s, "
+            f"completed {summary['completed']} greedy + "
+            f"{summary['sampled_completed']} sampled, typed "
+            f"{summary['typed_errors']}, fired {summary['fired_by_site']}, "
+            f"engine {summary['engine']}, storm "
+            f"{out['25a']['storm']}, sheds {out['25a']['sheds']}, watchdog "
+            f"{out['25a']['watchdog']}, launches {out['25a']['launches']}; "
+            f"25e dkt_top --once and dkt_postmortem --host on its server: "
+            f"{tools} on {smi}")
+
+        # 25c and 25d run as processes of their own, all at once and
+        # beside 25b (the host has the cores; each keeps its own counts)
+        cdir = os.path.join(tmp, "counts_c")
+        os.mkdir(cdir)
+        ports = os.path.join(tmp, "ps_ports")
+        scraped = os.path.join(tmp, "ps_scraped")
+        code = P25_TRAIN_WRAPPER.format(here=HERE, tools=TOOLS, ports=ports,
+                                        scraped=scraped)
+        # wall clocks: a part's wall runs to its summary's last write
+        started = {"25c": time.time()}
+        procs["25c"] = p25_spawn(code, tmp,
+                                 dict(env, **{ENV_COUNTS_DIR: cdir}),
+                                 os.path.join(tmp, "soak_training"))
+
+        def point_ps():
+            """dkt_top --ps at the ledger phase's standby (it serves the
+            metrics action as a standby and after its promotion), which
+            stays up until the scrape is over."""
+            proc = procs["25c"]
+            while proc.poll() is None:
+                if os.path.exists(ports):
+                    with open(ports) as f:
+                        lines = f.read().split()
+                    if len(lines) >= 2:
+                        p25_go(waiters["ps"][1],
+                               ["127.0.0.1", lines[1], "--once", "--ps"])
+                        try:
+                            waiters["ps"][0].wait(timeout=60)
+                        finally:
+                            open(scraped, "w").close()
+                        return
+                time.sleep(0.005)
+
+        pointer = threading.Thread(target=point_ps, daemon=True)
+        pointer.start()
+        fleet_args = {"fleet": ["--smoke"], "fabric": ["--fabric", "--smoke"]}
+        script = os.path.join(TOOLS, "soak_fleet_torch.py")
+        for part, args in fleet_args.items():
+            ddir = os.path.join(tmp, f"counts_{part}")
+            os.mkdir(ddir)
+            code = (f"import runpy, sys\nsys.argv = [{script!r}, "
+                    f"*{args!r}]\nrunpy.run_path({script!r}, "
+                    f"run_name='__main__')\n")
+            started[part] = time.time()
+            procs[part] = p25_spawn(code, tmp,
+                                    dict(env, **{ENV_COUNTS_DIR: ddir}),
+                                    os.path.join(tmp, f"soak_{part}"))
+
+        servers, undo = p25_servers()
+        kernels.reset_launch_counts()
+        t1 = time.monotonic()
+        try:
+            summary = soak_serving_torch.run_disagg_soak(seed=0)
+        finally:
+            undo()
+        wall = time.monotonic() - t1
+        launches = kernels.launch_counts()
+        check(summary["ok"], "25b: the disagg soak's bar failed: "
+              + json.dumps(summary, default=str)[:4000])
+        check(launches.get("layernorm_fwd", 0) > 0,
+              f"25b: B7 never launched: {launches}")
+        out["25b"] = {
+            "wall_s": wall, "completed": summary["completed"],
+            "streamed_completed": summary["streamed_completed"],
+            "completed_after_kill": summary["completed_after_kill"],
+            "typed_errors": summary["typed_errors"],
+            "fired_by_site": summary["fired_by_site"],
+            "router": summary["router"],
+            "watchdog": p25_watchdog([s.engine for s in servers]),
+            "launches": {k: launches.get(k, 0) for k in P25_KERNELS},
+        }
+        counts.append(launches)
+        log(f"25b disagg soak: {wall:.1f} s, completed "
+            f"{summary['completed']} ({summary['streamed_completed']} "
+            f"streamed), after the kills {summary['completed_after_kill']}, "
+            f"fired {summary['fired_by_site']}, router {summary['router']}, "
+            f"watchdog {out['25b']['watchdog']}, launches "
+            f"{out['25b']['launches']} on {smi}")
+        torch.cuda.empty_cache()
+
+        rc, stdout, stderr = p25_wait(procs["25c"], P25_TIMEOUT, "25c")
+        wall = os.path.getmtime(procs["25c"]._p25_files[2]) - started["25c"]
+        check(rc == 0, f"25c the training soak exited {rc}:\n"
+              f"{stdout[-3000:]}\n{stderr[-3000:]}")
+        summary = json.loads(stdout)
+        launched, nprocs = p25_counts(cdir)
+        check(launched.get("sgd_fused", 0) > 0,
+              f"25c: B1 never launched: {launched}")
+        rc, top, err = p25_wait(waiters["ps"][0], 60, "25e ps")
+        check(rc == 0 and "training_ps_commits" in top,
+              f"25e dkt_top --ps exited {rc}:\n{top[-2000:]}\n{err[-2000:]}")
+        ledger, training = (summary["phases"]["ledger"],
+                            summary["phases"]["training"])
+        out["25c"] = {
+            "wall_s": wall, "ledger": {k: ledger[k] for k in (
+                "applied_updates", "expected_updates", "exactly_once",
+                "promote_reason", "fired_by_site", "postmortem_names_seam")},
+            "training": {k: training[k] for k in (
+                "expected_updates", "accuracy_clean", "accuracy_faulted",
+                "ledger_match")},
+            "failovers": training["faulted"]["failovers"],
+            "promotions": len(training["faulted"]["promotions"]),
+            "ps_scrape_lines": len(top.splitlines()),
+            "processes": nprocs,
+            "launches": {k: launched.get(k, 0) for k in P25_KERNELS},
+        }
+        counts.append(launched)
+        log(f"25c training soak (ledger 4 x 40, training smoke): {wall:.1f} "
+            f"s, ledger {out['25c']['ledger']}, training "
+            f"{out['25c']['training']}, failovers {out['25c']['failovers']}, "
+            f"launches {out['25c']['launches']}; 25e dkt_top --ps on the "
+            f"standby: {out['25c']['ps_scrape_lines']} lines on {smi}")
+
+        # 25d: the fleet and fabric smokes, their replicas processes too
+        for part, args in fleet_args.items():
+            rc, stdout, stderr = p25_wait(procs[part], P25_TIMEOUT,
+                                          f"25d {part}")
+            wall = os.path.getmtime(procs[part]._p25_files[2]) - started[part]
+            check(rc == 0, f"25d soak_fleet_torch.py {' '.join(args)} exited "
+                  f"{rc}:\n{stdout[-3000:]}\n{stderr[-3000:]}")
+            summary = json.loads(stdout)
+            launched, nprocs = p25_counts(os.path.join(tmp, f"counts_{part}"))
+            check(launched.get("layernorm_fwd", 0) > 0,
+                  f"25d {part}: B7 never launched: {launched}")
+            if part == "fleet":
+                row = {k: summary[k] for k in (
+                    "completed", "typed_errors", "fired_by_site", "kill",
+                    "autoscale", "deploy", "ejections", "postmortems",
+                    "compile_storms")}
+                row["replaced"] = len(summary["rollover"]["replaced"])
+                row["hedges"] = summary["resilience"]["hedges"]
+            else:
+                row = {ph: {k: summary[ph].get(k) for k in (
+                    "completed", "typed_errors", "peer", "router",
+                    "pairing_balanced", "probe_identical")}
+                    for ph in ("fetch", "push")}
+            row.update(wall_s=wall, processes_counted=nprocs,
+                       launches={k: launched.get(k, 0) for k in P25_KERNELS})
+            out[f"25d_{part}"] = row
+            counts.append(launched)
+            log(f"25d {part} smoke: {wall:.1f} s, {json.dumps(row)} on "
+                f"{smi}")
+    finally:
+        for proc in [w[0] for w in waiters.values()] + list(procs.values()):
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds_total"] = time.monotonic() - t0
+    out["launches"] = {k: sum(c.get(k, 0) for c in counts)
+                       for k in kernels.LAUNCHES}
+    return out, counts
+
+
 def baseline_leaf_shapes():
     """The parameter shapes of configs 2-5's models (built on the CPU: only
     their leaf tables matter to phases 2b/2c)."""
@@ -10434,6 +10941,8 @@ def main(argv):
                     help=argparse.SUPPRESS)  # 24a's rank processes
     ap.add_argument("--phase24-only", action="store_true",
                     help="build the kernels and run phase 24 alone")
+    ap.add_argument("--phase25-only", action="store_true",
+                    help="build the kernels and run phase 25 alone")
     ap.add_argument("--import-seconds", nargs="+", metavar="ROOT",
                     help="time `import distkeras_tpu_torch` from each "
                          "checkout ROOT in turn, in fresh interpreters, "
@@ -10523,6 +11032,14 @@ def main(argv):
         if args.out:
             with open(args.out, "w") as f:
                 json.dump({"nvidia_smi": smi, "phase23": mesh}, f, indent=1)
+        return 0
+    if args.phase25_only:
+        soaks, _ = run_phase25(torch, np, zoo, smi)
+        log(f"phase 25 in {soaks['seconds_total']:.1f} s, launches "
+            f"{soaks['launches']} on {smi}")
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"nvidia_smi": smi, "phase25": soaks}, f, indent=1)
         return 0
     if args.phase24_only:
         twins, _ = run_phase24(torch, np, zoo, smi)
@@ -10646,6 +11163,9 @@ def main(argv):
     twins, twin_launches = run_phase24(torch, np, zoo, smi)
     log(f"phase 24 in {twins['seconds_total']:.1f} s, launches "
         f"{twins['launches']} on {smi}")
+    soaks, soak_launches = run_phase25(torch, np, zoo, smi)
+    log(f"phase 25 in {soaks['seconds_total']:.1f} s, launches "
+        f"{soaks['launches']} on {smi}")
     profile = profile_paths(torch, np, lm, zoo) if args.profile else None
 
     phases = [pred["launches"], gen["launches"], train["launches"],
@@ -10655,7 +11175,7 @@ def main(argv):
               *qos_launches, *knobs_launches, *disagg_launches,
               *fleet_launches, *moe_launches, *sync_launches,
               *tpsp_launches, *epp_launches, *mesh_launches,
-              *twin_launches,
+              *twin_launches, *soak_launches,
               *(r["launches"] for r in async_sim.values())]
     launches = {k: sum(c.get(k, 0) for c in phases) for k in kernels.LAUNCHES}
     check(all(n > 0 for n in launches.values()),
@@ -10728,7 +11248,7 @@ def main(argv):
                        "phase18": fleet, "phase19": moe,
                        "phase20": sync, "phase21": tpsp,
                        "phase22": epp, "phase23": mesh,
-                       "phase24": twins,
+                       "phase24": twins, "phase25": soaks,
                        "profile": profile,
                        "flash_infinite_q": inf_rows},
                       f, indent=1)

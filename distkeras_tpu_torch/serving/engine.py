@@ -100,6 +100,7 @@ loudly): CUDA graphs around the decode step.
 
 from __future__ import annotations
 
+import json
 import logging
 import math
 import os
@@ -2652,6 +2653,10 @@ class ServingEngine:
                 "last_crash": self._last_crash,
             })
             self._restart(dead)
+            # the restart ran HERE (rebuild and warm-up): the time it took
+            # is the supervisor's own work, not a late wake, and the new
+            # scheduler's silence counts from now
+            seen = watched_from = time.monotonic()
 
     def _record(self, event, **fields):
         if self.recorder is not None:
@@ -2701,7 +2706,6 @@ class ServingEngine:
         # published before the restart count, which readers poll
         self.last_restart = {"seconds": time.monotonic() - t0,
                              "warmup_seconds": warm_s}
-        self._restarts += 1
         self._stepper = stepper
         # a new scheduler generation is a new KV epoch: a sibling routing
         # on the old digest is refused typed ``stale_epoch``
@@ -2709,6 +2713,9 @@ class ServingEngine:
         batcher = ContinuousBatcher(stepper, **self._batcher_cfg)
         self.batcher = batcher
         self._launch_scheduler(batcher)
+        # counted once the new scheduler runs: a reader that sees the count
+        # submits to the new batcher, never the stopped one
+        self._restarts += 1
         self._record("engine.restarted", restarts=self._restarts)
         if self.metrics is not None:
             self.metrics.log(event="serving_engine_restarted",
@@ -3221,6 +3228,10 @@ class ServingEngine:
             watchdog_grace=self.watchdog_grace,
             max_restarts=self.max_restarts,
         )
+        # the bundle is served by the ``postmortem`` verb as JSON: config
+        # values JSON cannot carry (a ``QosPolicy``) go as their repr, as
+        # the bundle's file has them
+        cfg = json.loads(json.dumps(cfg, default=repr))
         bundle, path = dump_postmortem(
             self.postmortem_dir, "serving_engine", reason,
             recorder=self.recorder, metrics=self.metrics_snapshot(),

@@ -58,7 +58,10 @@ def _split(x):
     hi = torch.where(inf | nan, x, hi)
     fin = torch.where(inf, 0.0, hi)
     lo = torch.where(inf, 0.0, torch.where(nan, x, lo))
-    return hi, fin, lo
+    # torch.where keeps the strides of a transposed x, and a CPU GEMM may
+    # round a strided operand's sums in another order than a contiguous
+    # one's: hand every product contiguous operands, as _split_plain does.
+    return hi.contiguous(), fin.contiguous(), lo.contiguous()
 
 
 def _mm3_plain(a, b):

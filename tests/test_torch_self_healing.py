@@ -30,6 +30,7 @@ from distkeras_tpu_torch.faults import FaultPlan
 from distkeras_tpu_torch.models import zoo
 from distkeras_tpu_torch.obs import TraceContext, request_spans
 from distkeras_tpu_torch.serving import (
+    DecodeStepper,
     ServingClient,
     ServingEngine,
     ServingError,
@@ -450,6 +451,70 @@ def test_watchdog_counts_only_watched_silence(lms):
         assert blind and max(blind) >= 4.5, blind
     finally:
         faults.remove_observer(hold_supervisor)
+        eng.stop()
+
+
+def test_restart_time_is_not_a_blind_gap(lms, monkeypatch):
+    """The supervisor rebuilds and warms the stepper itself on a restart;
+    a warm-up longer than half an interval is its own work, not a late
+    wake: no ``engine.watchdog_blind`` is taped for it, and the restarted
+    engine serves."""
+    _, lm, ref = lms
+    prompt = np.arange(2, 7, dtype=np.int32)
+    want = ref.generate(prompt[None], steps=6)[0]
+    eng = ServingEngine(lm, num_slots=2, watchdog_interval=2.0,
+                        restart_backoff=0.01, device="cpu").start()
+    warmup = DecodeStepper.warmup
+
+    def slow_warmup(self, *a, **k):
+        time.sleep(1.5)  # past half the interval, the blind threshold
+        return warmup(self, *a, **k)
+
+    try:
+        np.testing.assert_array_equal(eng.generate(prompt, 6, timeout=60),
+                                      want)
+        monkeypatch.setattr(DecodeStepper, "warmup", slow_warmup)
+        with FaultPlan().arm("scheduler.loop", times=1):
+            _wait(lambda: eng.health()["restarts"] == 1, 30)
+        np.testing.assert_array_equal(eng.generate(prompt, 6, timeout=60),
+                                      want)
+        assert eng.last_restart["warmup_seconds"] >= 1.5
+        time.sleep(0.3)  # several supervisor wakes after the restart
+        blind = [e["seconds"] for e in eng.recorder.snapshot()
+                 if e["kind"] == "engine.watchdog_blind"]
+        assert blind == [], blind
+    finally:
+        eng.stop()
+
+
+def test_restart_count_is_published_with_the_new_scheduler(lms,
+                                                          monkeypatch):
+    """A reader that sees ``restarts`` grow submits to the new scheduler:
+    the count moves only once the new batcher is in place and running
+    (with a slow batcher build, a submit right after the count would meet
+    the stopped one and fail "restarting")."""
+    from distkeras_tpu_torch.serving import engine as engine_mod
+
+    _, lm, ref = lms
+    prompt = np.arange(2, 7, dtype=np.int32)
+    want = ref.generate(prompt[None], steps=4)[0]
+    eng = ServingEngine(lm, num_slots=2, watchdog_interval=2.0,
+                        restart_backoff=0.01, device="cpu").start()
+    old = eng.batcher
+
+    class SlowBatcher(engine_mod.ContinuousBatcher):
+        def __init__(self, *a, **k):
+            time.sleep(0.5)
+            super().__init__(*a, **k)
+
+    try:
+        monkeypatch.setattr(engine_mod, "ContinuousBatcher", SlowBatcher)
+        with FaultPlan().arm("scheduler.loop", times=1):
+            _wait(lambda: eng.health()["restarts"] == 1, 30)
+        assert eng.batcher is not old
+        np.testing.assert_array_equal(eng.generate(prompt, 4, timeout=60),
+                                      want)
+    finally:
         eng.stop()
 
 
