@@ -48,8 +48,14 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``sgd_momentum_fused`` (B2) in f32 with momentum 0.9 plain and Nesterov
    and in bf16 with Nesterov, two steps each, and ``sgd_fused`` in f32
    over ``cifar10_cnn``'s 16 and ``higgs_mlp``'s 6 leaves (phase 7's
-   tables) and over 4 x ``higgs_mlp``'s 6 (phase 9's replicas): bit-equal (the same operation order, every step rounded),
-   timed as in phase 2.
+   tables) and over 4 x ``higgs_mlp``'s 6 (phase 9's replicas): bit-equal
+   (the same operation order, every step rounded), timed as in phase 2,
+   each row with its share of the bound. B2 Nesterov in f16,
+   and in bf16 on leaves that are views at a 1-element offset (p, g and m
+   off the 16-byte grid), are held bit-equal untimed. Then, measurement
+   only, ``adam_fused`` (B3) with bf16 parameters at the 110 leaves, beside
+   ``torch.optim.Adam(fused=True)`` (whose moments are bf16 there).
+   ``--phase2c-only`` builds the kernels and runs phases 2b and 2c alone.
 3. Predict: a ``ServingEngine`` on ``transformer_lm(8192, 512, 512, 8, 8)``
    (random weights from a seed) with the flash and LayerNorm hooks answers
    ``predict`` on 8 full 512-token sequences; the logits must agree with
@@ -696,15 +702,25 @@ def device_time_ms(fn, iters=20, reps=5, stream=None):
     return start.elapsed_time(end) / (reps * iters)
 
 
-def timings(kernel, plain, library, library_stream=None):
+#: calls of an optimizer's plain version per captured graph and per eager
+#: timing: each call is a few hundred kernels over the whole table and
+#: takes milliseconds, so 4 calls time it as well as 20 do at a fifth of
+#: the capture (the cut that pays for phase 2c's added rows)
+PLAIN_OPTIMIZER_ITERS = 4
+
+
+def timings(kernel, plain, library, library_stream=None, plain_iters=None):
     """Device and eager per-call times of the kernel, its plain version
     and the library call (each a zero-argument callable; a library call
-    that is an autograd backward names the stream its forward ran on)."""
+    that is an autograd backward names the stream its forward ran on).
+    ``plain_iters``: calls of the plain version per graph and per eager
+    timing (default: as the kernel's)."""
     out = {}
     for key, fn, stream in (("", kernel, None), ("plain_", plain, None),
                             ("library_", library, library_stream)):
-        out[f"{key}ms"] = device_time_ms(fn, stream=stream)
-        out[f"{key}call_ms"] = call_time_ms(fn)
+        kw = {"iters": plain_iters} if key == "plain_" and plain_iters else {}
+        out[f"{key}ms"] = device_time_ms(fn, stream=stream, **kw)
+        out[f"{key}call_ms"] = call_time_ms(fn, **kw)
     return out
 
 
@@ -948,9 +964,10 @@ def check_flash(torch, F):
 # ----------------------------------------------------------------- phase 2b
 
 
-def check_adam(torch, shapes, model=None):
+def check_adam(torch, shapes, model=None, dname="float32"):
     """adam_fused vs its plain version over one model's leaf shapes, from
-    step count 4 (so c1/c2 are not the first step's)."""
+    step count 4 (so c1/c2 are not the first step's); ``dname`` the
+    parameters' and gradients' dtype (the moments stay f32)."""
     from distkeras_tpu_torch.ops.pallas_kernels import (
         _TableCache,
         adam_fused,
@@ -962,7 +979,10 @@ def check_adam(torch, shapes, model=None):
     def rand(scale, fn=torch.randn):
         return [fn(s, device="cuda", generator=gen) * scale for s in shapes]
 
-    params, grads, ms = rand(0.05), rand(1e-3), rand(1e-4)
+    dtype = getattr(torch, dname)
+    params = [p.to(dtype) for p in rand(0.05)]
+    grads = [g.to(dtype) for g in rand(1e-3)]
+    ms = rand(1e-4)
     vs = [v * v for v in rand(1e-3)]
     hyper = (1e-3, 0.9, 0.999, 1e-8)
 
@@ -977,14 +997,16 @@ def check_adam(torch, shapes, model=None):
     rp, rm, rv, rs = state()
     adam_step_plain(rp, grads, rm, rv, rs, *hyper)
     torch.cuda.synchronize()
-    err = max(float((a - b).abs().max())
+    err = max(float((a.float() - b.float()).abs().max())
               for a, b in zip(kp + km + kv, rp + rm + rv))
     steps = (ks.tolist(), rs.tolist())
     ok = err <= ADAM_TOL and steps == ([5, 0], [5, 0])
     n = sum(p.numel() for p in params)
+    # p read and written, g read, f32 m and v read and written
+    nbytes = (3 * params[0].element_size() + 16) * n
     # timed over enough copies (each with its own table) to miss the L2
     gsets = [grads] + [[g.clone() for g in grads]
-                       for _ in range(cold_sets(28 * n) - 1)]
+                       for _ in range(cold_sets(nbytes) - 1)]
     ksets = [(kp, grads, km, kv, ks, *hyper, table)] + [
         (*state()[:1], g, *state()[1:], *hyper, _TableCache())
         for g in gsets[1:]]
@@ -1005,14 +1027,18 @@ def check_adam(torch, shapes, model=None):
         lambda: adam_fused(*knxt()),
         lambda: adam_step_plain(*pnxt()),
         lambda: lnxt().step(),
+        plain_iters=PLAIN_OPTIMIZER_ITERS,
     )
-    bound_ms, bound_by = bound(28 * n, 14 * n, "float32")
+    bound_ms, bound_by = bound(nbytes, 14 * n, "float32")
     row = {
-        "shape": [len(shapes), n], "dtype": "float32", "max_abs_err": err,
+        "shape": [len(shapes), n], "dtype": dname, "max_abs_err": err,
         "model": model, "input_sets": len(ksets), "steps_after": steps,
         "table_builds": table.builds,
         "grad_pointer_uploads": table.grad_uploads, "ok": ok,
         **times, "bound_ms": bound_ms, "bound_by": bound_by,
+        "share_of_bound": bound_ms / times["ms"],
+        # torch's fused Adam keeps its moments in the parameters' dtype
+        "library_moments": dname,
     }
     log(f"adam_fused {row}")
     check(ok, f"adam_fused disagrees with its plain version: {row}")
@@ -1047,12 +1073,24 @@ SGD_CASES = ((0.0, False, "float32"), (0.9, False, "float32"),
              (0.9, True, "bfloat16"))
 
 
-def check_sgd(torch, shapes, model=None, cases=SGD_CASES):
+def offset_views(torch, ts, offset):
+    """Each tensor copied into a buffer of its own at an element offset: a
+    contiguous view whose pointer is off the 16-byte grid for offset 1."""
+    if not offset:
+        return [t.clone() for t in ts]
+    return [torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+            [offset:].view(t.shape).copy_(t) for t in ts]
+
+
+def check_sgd(torch, shapes, model=None, cases=SGD_CASES, offset=0,
+              timed=True):
     """sgd_fused (B1) and sgd_momentum_fused (B2) vs their plain versions
     over one model's leaf shapes (by default: f32 with momentum 0, 0.9 and
     0.9 Nesterov, and one bf16 set of each kernel). Bit-equal: the same
     operation order, each step rounded (``__f*_rn``), the same final
-    rounding to bf16."""
+    rounding to bf16 and f16. ``offset`` 1 puts every p, g and m of the
+    kernel's launch off the 16-byte grid (its scalar path); ``timed``
+    False checks without timing."""
     from distkeras_tpu_torch.ops.pallas_kernels import (
         _TableCache,
         sgd_fused,
@@ -1073,30 +1111,50 @@ def check_sgd(torch, shapes, model=None, cases=SGD_CASES):
                  .to(dtype) for s in shapes]
         ms = [torch.randn(s, device="cuda", generator=gen) * 1e-2
               for s in shapes]
-        kp, km = [p.clone() for p in params], [m.clone() for m in ms]
+        kp, km = offset_views(torch, params, offset), offset_views(
+            torch, ms, offset)
+        kg = offset_views(torch, grads, offset) if offset else grads
         rp, rm = [p.clone() for p in params], [m.clone() for m in ms]
         tables = _TableCache()
         if mu == 0.0:
             kname = "sgd_fused"
-            kernel_fn = lambda: sgd_fused(kp, grads, lr, tables)  # noqa: E731
+            kernel_fn = lambda: sgd_fused(kp, kg, lr, tables)  # noqa: E731
             plain_fn = lambda: sgd_step_plain(rp, grads, lr)  # noqa: E731
         else:
             kname = "sgd_momentum_fused"
             kernel_fn = lambda: sgd_momentum_fused(  # noqa: E731
-                kp, grads, km, lr, mu, nesterov, tables)
+                kp, kg, km, lr, mu, nesterov, tables)
             plain_fn = lambda: sgd_momentum_step_plain(  # noqa: E731
                 rp, grads, rm, lr, mu, nesterov)
         for _ in range(2):  # two steps: the momenta feed back
             kernel_fn()
             plain_fn()
         torch.cuda.synchronize()
+        if mu == 0.0:
+            km, rm = [], []
         err = max(float((a.float() - b.float()).abs().max())
                   for a, b in zip(kp + km, rp + rm))
         equal = all(torch.equal(a, b) for a, b in zip(kp + km, rp + rm))
+        misaligned = all(t.data_ptr() % 16 for t in kp + kg + km)
         isz = torch.tensor([], dtype=dtype).element_size()
         nbytes = 3 * isz * n + (8 * n if mu else 0)
+        row = {
+            "shape": [len(shapes), n], "dtype": dname, "model": model,
+            "momentum": mu, "nesterov": nesterov, "storage_offset": offset,
+            "max_abs_err": err, "bit_equal": equal,
+            "ok": equal and (misaligned or not offset),
+            "table_builds": tables.builds,
+            "grad_pointer_uploads": tables.grad_uploads,
+        }
+        if not timed:
+            log(f"{kname} {row}")
+            check(row["ok"], f"{kname} differs from its plain version: "
+                             f"{row}")
+            rows[kname].append(row)
+            del params, grads, ms, kp, km, kg, rp, rm
+            continue
         # timed over enough copies (each with its own table) to miss the L2
-        sets = [(kp, grads, km, tables, rp, rm)] + [
+        sets = [(kp, kg, km, tables, rp, rm)] + [
             ([p.clone() for p in params], [g.clone() for g in grads],
              [m.clone() for m in ms], _TableCache(),
              [p.clone() for p in params], [m.clone() for m in ms])
@@ -1122,23 +1180,62 @@ def check_sgd(torch, shapes, model=None, cases=SGD_CASES):
                 sgd_momentum_step_plain(p_, g_, m_, lr, mu, nesterov)
         for _ in sets:  # every table built before the graph capture
             kernel_fn()
-        times = timings(kernel_fn, plain_fn, lambda: lnxt()())
+        times = timings(kernel_fn, plain_fn, lambda: lnxt()(),
+                        plain_iters=PLAIN_OPTIMIZER_ITERS)
         lib_name = libs[0][1]
         flops = (2 + (2 if mu else 0) + (2 if nesterov else 0)) * n
         bound_ms, bound_by = bound(nbytes, flops, "float32")
-        row = {
-            "shape": [len(shapes), n], "dtype": dname, "model": model,
-            "input_sets": len(sets), "momentum": mu,
-            "nesterov": nesterov, "max_abs_err": err, "bit_equal": equal,
-            "ok": equal, "table_builds": tables.builds,
-            "grad_pointer_uploads": tables.grad_uploads, **times,
-            "library": lib_name, "bound_ms": bound_ms, "bound_by": bound_by,
-        }
+        row.update(input_sets=len(sets), **times, library=lib_name,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   share_of_bound=bound_ms / times["ms"])
         log(f"{kname} {row}")
-        check(equal, f"{kname} differs from its plain version: {row}")
+        check(row["ok"], f"{kname} differs from its plain version: {row}")
         rows[kname].append(row)
-        del params, grads, ms, kp, km, rp, rm, sets, libs
+        del params, grads, ms, kp, km, kg, rp, rm, sets, libs
     return rows
+
+
+def run_phase2c(torch, lm_shapes):
+    """Phases 2b and 2c: ``adam_fused`` (B3) and ``sgd_fused`` /
+    ``sgd_momentum_fused`` (B1, B2) against their plain versions at the
+    LM's leaves (``lm_shapes``), at BASELINE configs 2-5's (phase 7) and at
+    the member-stacked tables (phase 9). Returns (B3 rows, {kernel: B1/B2
+    rows})."""
+    adam_rows = [check_adam(torch, lm_shapes, "transformer_lm d512/L8")]
+    sgd_rows = check_sgd(torch, lm_shapes, "transformer_lm d512/L8")
+    # B1/B2 in f16, and on leaves that are views at a 1-element offset
+    # (p, g and m off the 16-byte grid: the scalar path), checked untimed
+    for kname, rows in check_sgd(
+            torch, lm_shapes, "transformer_lm d512/L8",
+            cases=((0.9, True, "float16"),), timed=False).items():
+        sgd_rows[kname] += rows
+    for kname, rows in check_sgd(
+            torch, lm_shapes, "transformer_lm d512/L8, 1-element offset",
+            cases=((0.9, True, "bfloat16"),), offset=1,
+            timed=False).items():
+        sgd_rows[kname] += rows
+    # measurement only: B3 with bf16 parameters at the LM's leaves
+    adam_rows.append(check_adam(torch, lm_shapes, "transformer_lm d512/L8",
+                                "bfloat16"))
+    # B3 and B1 at the leaf tables of BASELINE configs 2-5 (phase 7)
+    zoo_shapes = baseline_leaf_shapes()
+    for mname in ("resnet18", "mnist_cnn"):
+        adam_rows.append(check_adam(torch, zoo_shapes[mname], mname))
+    for mname in ("cifar10_cnn", "higgs_mlp"):
+        sgd_rows["sgd_fused"] += check_sgd(
+            torch, zoo_shapes[mname], mname,
+            cases=((0.0, False, "float32"),))["sgd_fused"]
+    # the member-stacked tables of phase 9, one launch over every member's
+    # leaves: 4 x mnist_cnn and 2 x d512/L8 (Ensemble), 4 x higgs_mlp
+    # (Averaging)
+    adam_rows.append(check_adam(torch, zoo_shapes["mnist_cnn"] * 4,
+                                "4 x mnist_cnn, vmapped members"))
+    adam_rows.append(check_adam(torch, lm_shapes * 2,
+                                "2 x transformer_lm d512/L8, vmapped members"))
+    sgd_rows["sgd_fused"] += check_sgd(
+        torch, zoo_shapes["higgs_mlp"] * 4, "4 x higgs_mlp, vmapped replicas",
+        cases=((0.0, False, "float32"),))["sgd_fused"]
+    return adam_rows, sgd_rows
 
 
 def bf16_bwd_tolerances(torch, q, k, v, do, lse, delta, causal, refs):
@@ -10943,6 +11040,9 @@ def main(argv):
                     help="build the kernels and run phase 24 alone")
     ap.add_argument("--phase25-only", action="store_true",
                     help="build the kernels and run phase 25 alone")
+    ap.add_argument("--phase2c-only", action="store_true",
+                    help="build the kernels and run phases 2b and 2c "
+                         "(the fused optimizers) alone")
     ap.add_argument("--import-seconds", nargs="+", metavar="ROOT",
                     help="time `import distkeras_tpu_torch` from each "
                          "checkout ROOT in turn, in fresh interpreters, "
@@ -11009,6 +11109,16 @@ def main(argv):
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas[{kname}] {line.strip()}")
 
+    if args.phase2c_only:
+        t2 = time.monotonic()
+        lm_shapes = [p.shape for p in make_lm(zoo).parameters()]
+        adam_rows, sgd_rows = run_phase2c(torch, lm_shapes)
+        log(f"phases 2b-2c in {time.monotonic() - t2:.1f} s on {smi}")
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"nvidia_smi": smi, "adam_fused": adam_rows,
+                           **sgd_rows}, f, indent=1)
+        return 0
     if args.phase21_only:
         tpsp, _ = run_phase21(torch, np, zoo, smi)
         log(f"phase 21 in {tpsp['seconds_total']:.1f} s, launches "
@@ -11057,26 +11167,7 @@ def main(argv):
     log(f"transformer_lm d512/L8: {lm.num_params()} parameters in "
         f"{len(list(lm.parameters()))} leaves")
     lm_shapes = [p.shape for p in lm.parameters()]
-    adam_rows = [check_adam(torch, lm_shapes, "transformer_lm d512/L8")]
-    sgd_rows = check_sgd(torch, lm_shapes, "transformer_lm d512/L8")
-    # B3 and B1 at the leaf tables of BASELINE configs 2-5 (phase 7)
-    zoo_shapes = baseline_leaf_shapes()
-    for mname in ("resnet18", "mnist_cnn"):
-        adam_rows.append(check_adam(torch, zoo_shapes[mname], mname))
-    for mname in ("cifar10_cnn", "higgs_mlp"):
-        sgd_rows["sgd_fused"] += check_sgd(
-            torch, zoo_shapes[mname], mname,
-            cases=((0.0, False, "float32"),))["sgd_fused"]
-    # the member-stacked tables of phase 9, one launch over every member's
-    # leaves: 4 x mnist_cnn and 2 x d512/L8 (Ensemble), 4 x higgs_mlp
-    # (Averaging)
-    adam_rows.append(check_adam(torch, zoo_shapes["mnist_cnn"] * 4,
-                                "4 x mnist_cnn, vmapped members"))
-    adam_rows.append(check_adam(torch, lm_shapes * 2,
-                                "2 x transformer_lm d512/L8, vmapped members"))
-    sgd_rows["sgd_fused"] += check_sgd(
-        torch, zoo_shapes["higgs_mlp"] * 4, "4 x higgs_mlp, vmapped replicas",
-        cases=((0.0, False, "float32"),))["sgd_fused"]
+    adam_rows, sgd_rows = run_phase2c(torch, lm_shapes)
     fbwd_rows = check_flash_bwd(torch, F)
     inf_rows = check_flash_infinite_rows(torch)
     lnb_rows = check_layernorm_bwd(torch, F)

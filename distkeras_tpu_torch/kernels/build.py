@@ -82,12 +82,12 @@ KERNELS = {
     "sgd_fused": (
         "sgd_fused.cu",
         "dk_sgd_fused",
-        [_P, _P, _P, _I, _I, _I, _F, _I, _P],
+        [_P, _P, _P, _I, _I, _F, _I, _P],
     ),
     "sgd_momentum_fused": (
         "sgd_fused.cu",
         "dk_sgd_momentum_fused",
-        [_P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _P],
+        [_P, _P, _P, _I, _I, _F, _F, _I, _I, _P],
     ),
 }
 

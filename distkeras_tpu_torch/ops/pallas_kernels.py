@@ -34,25 +34,36 @@ from distkeras_tpu_torch import kernels
 from distkeras_tpu_torch.ops.optimizers import StateIO
 from distkeras_tpu_torch.utils.tree import copy_tree_
 
-#: elements per chunk of the multi-tensor tables (a multiple of 4: float4)
+#: elements per chunk of B3's tables (a multiple of 4: float4)
 CHUNK = 4096
-#: most blocks a multi-tensor kernel launches; they walk the chunks
-#: grid-stride
+#: most blocks B3 launches; they walk the chunks grid-stride (B1 and B2
+#: size their persistent grids to the card themselves)
 MAX_BLOCKS = 1024
+#: bytes of p in one chunk of B1's and B2's tables: 256 threads x 4 packs
+#: of 16 bytes. It is ``sgd_fused.cu``'s ``kChunkBytes`` and changes with
+#: it: the launch passes the chunk only for the kernel to check it
+SGD_CHUNK_BYTES = 16384
 #: parameter sets whose tables one optimizer keeps; the least recently used
 #: beyond this is dropped (a trainer has one set per worker)
 MAX_TABLES = 16
+
+
+def sgd_chunk(dtype) -> int:
+    """Elements per chunk of B1's and B2's tables for parameters of
+    ``dtype``: ``SGD_CHUNK_BYTES`` of it (4096 f32, 8192 bf16 or f16)."""
+    return SGD_CHUNK_BYTES // torch.empty((), dtype=dtype).element_size()
 
 
 class _LeafTable:
     """The device tables a multi-tensor kernel walks for one parameter set:
     leaves (L, k + 1) int64 — the pointers of the k stable buffers of each
     leaf (p, then its moments) and its length — and chunks (C, 2) int64
-    [leaf, start]. The gradients' pointers (L,) int64 sit apart: autograd
-    hands out gradient buffers at new addresses, and only those 8 bytes per
-    leaf are uploaded again, without a host sync."""
+    [leaf, start] of at most ``chunk`` elements. The gradients' pointers
+    (L,) int64 sit apart: autograd hands out gradient buffers at new
+    addresses, and only those 8 bytes per leaf are uploaded again, without
+    a host sync."""
 
-    def __init__(self, buffers):
+    def __init__(self, buffers, chunk=CHUNK):
         params = buffers[0]
         dev = params[0].device
         sizes = [p.numel() for p in params]
@@ -60,11 +71,12 @@ class _LeafTable:
             [[*(t.data_ptr() for t in leaf), n]
              for *leaf, n in zip(*buffers, sizes)],
             dtype=torch.int64).to(dev)
-        starts = [np.arange(0, n, CHUNK) for n in sizes]
+        starts = [np.arange(0, n, chunk) for n in sizes]
         chunks = np.stack([
             np.repeat(np.arange(len(sizes)), [len(s) for s in starts]),
             np.concatenate(starts),
         ], axis=1)
+        self.chunk = chunk
         self.chunks = torch.from_numpy(chunks.astype(np.int64)).to(dev)
         self.n_chunks = len(chunks)
         self.grid = min(self.n_chunks, MAX_BLOCKS)
@@ -87,23 +99,25 @@ class _LeafTable:
 
 class _TableCache:
     """One optimizer's ``_LeafTable``s, one per parameter set, keyed by the
-    stable buffers' pointers and sizes under a lock. ``builds`` counts the
-    tables built and ``grad_uploads`` the gradient-pointer uploads."""
+    chunk size and the stable buffers' pointers and sizes under a lock.
+    ``builds`` counts the tables built and ``grad_uploads`` the
+    gradient-pointer uploads."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._tables = OrderedDict()
         self.builds = self.grad_uploads = 0
 
-    def get(self, buffers, grads):
+    def get(self, buffers, grads, chunk=CHUNK):
         """(table, gradient pointers) for ``buffers`` — a tuple of leaf
-        lists, the parameters first, then each moment — and ``grads``."""
-        key = tuple((t.data_ptr(), t.numel()) for group in buffers
-                    for t in group)
+        lists, the parameters first, then each moment — and ``grads``,
+        cut into chunks of ``chunk`` elements."""
+        key = (chunk, *((t.data_ptr(), t.numel()) for group in buffers
+                        for t in group))
         with self._lock:
             table = self._tables.get(key)
             if table is None:
-                table = self._tables[key] = _LeafTable(buffers)
+                table = self._tables[key] = _LeafTable(buffers, chunk)
                 self.builds += 1
                 while len(self._tables) > MAX_TABLES:
                     self._tables.popitem(last=False)
@@ -177,23 +191,25 @@ def sgd_momentum_step_plain(params, grads, ms, lr, mu, nesterov):
 
 
 def sgd_fused(params, grads, lr, tables):
-    """Launch B1: every leaf updated in place in one launch. Raises on
+    """Launch B1: every leaf updated in place in one launch, over chunks of
+    ``sgd_chunk`` elements on the card's persistent grid. Raises on
     anything the kernel does not take."""
     dev, code = _check_leaves("sgd_fused", params, grads)
-    table, gptrs = tables.get((params,), grads)
+    table, gptrs = tables.get((params,), grads, sgd_chunk(params[0].dtype))
     _launch("sgd_fused", dev, table.leaves.data_ptr(), gptrs.data_ptr(),
-            table.chunks.data_ptr(), table.n_chunks, CHUNK, table.grid,
-            float(lr), code)
+            table.chunks.data_ptr(), table.n_chunks, table.chunk, float(lr),
+            code)
 
 
 def sgd_momentum_fused(params, grads, ms, lr, mu, nesterov, tables):
     """Launch B2: every leaf and its f32 momentum updated in place in one
-    launch. Raises on anything the kernel does not take."""
+    launch, chunked as B1. Raises on anything the kernel does not take."""
     dev, code = _check_leaves("sgd_momentum_fused", params, grads, (ms,))
-    table, gptrs = tables.get((params, ms), grads)
+    table, gptrs = tables.get((params, ms), grads,
+                              sgd_chunk(params[0].dtype))
     _launch("sgd_momentum_fused", dev, table.leaves.data_ptr(),
-            gptrs.data_ptr(), table.chunks.data_ptr(), table.n_chunks, CHUNK,
-            table.grid, float(lr), float(mu), int(bool(nesterov)), code)
+            gptrs.data_ptr(), table.chunks.data_ptr(), table.n_chunks,
+            table.chunk, float(lr), float(mu), int(bool(nesterov)), code)
 
 
 class FusedSGD(StateIO):

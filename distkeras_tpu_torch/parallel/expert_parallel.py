@@ -31,6 +31,14 @@ package computes over its global view:
   counts of the ranks before it. The load-balance loss is a product of
   two global means: the counts and the router probabilities are summed
   over the group (the probabilities with autograd) before the product.
+- a sequence group (``parallel.mesh.attach_seq_group``, ``seq_group``):
+  each rank holds a contiguous piece of every row's tokens, and the
+  global batch is routed in JAX's flatten order of the global (rows,
+  tokens) array, which interleaves the ranks within each row: the ranks
+  gather their per-(row, expert) counts, and a token's place counts the
+  earlier rows and, within its row, the earlier ranks' pieces
+  (``route_global``). Beside a data group the two compose, the data
+  ranks' rows coming one rank after another. Experts stay replicated.
 - an expert group (``attach_expert_mesh``, ``expert_group``): rank j of
   k holds experts ``[j*E/k, (j+1)*E/k)`` of ``wi`` and ``wo`` as
   contiguous leaves of their own (``shard_moe_params``) and computes
@@ -138,42 +146,75 @@ def _live(group):
     return group if group is not None and group.num_workers > 1 else None
 
 
-def route_global(logits, capacity_factor, data=None):
+def route_global(logits, capacity_factor, data=None, seq=None, rows=1):
     """Top-1 routing of the global batch from this rank's logits (S, E):
     (idx, pos, gate, capacity, aux). ``pos`` is each local token's place
-    in its expert's queue over the global token order (every rank's S
-    tokens, rank by rank), ``capacity`` the global batch's, ``aux`` the
-    global load-balance loss. ``data``: the data group (None: this
-    rank's tokens are the batch)."""
+    in its expert's queue over the global token order, ``capacity`` the
+    global batch's, ``aux`` the global load-balance loss. ``data``: the
+    data group, whose ranks hold consecutive rows, rank by rank (None:
+    this rank's rows are the batch). ``seq``: the sequence group, whose
+    ranks hold consecutive pieces of every row's tokens; the S tokens are
+    then ``rows`` rows of S / rows tokens each (None: the rank holds its
+    rows' whole sequences)."""
     s, e = logits.shape
     probs, idx, gate = _top1(logits)
     onehot = F.one_hot(idx, e)
-    pos = ((torch.cumsum(onehot, dim=0) - 1) * onehot).sum(dim=-1)
-    counts = onehot.sum(dim=0)
     psum = probs.sum(dim=0)
     n = 1
+    if seq is None:
+        pos = ((torch.cumsum(onehot, dim=0) - 1) * onehot).sum(dim=-1)
+        counts = onehot.sum(dim=0)
+    else:
+        pos, counts = _seq_places(onehot, idx, seq, rows)
+        psum = seq.sum(psum)
+        n = seq.num_workers
     if data is not None:
-        n = data.num_workers
-        every = torch.empty(n * e, dtype=counts.dtype, device=counts.device)
-        every = data.all_gather_(every, counts).view(n, e)
+        every = torch.empty(data.num_workers * e, dtype=counts.dtype,
+                            device=counts.device)
+        every = data.all_gather_(every, counts).view(data.num_workers, e)
         pos = pos + every[:data.rank].sum(dim=0)[idx]
         counts = every.sum(dim=0)
         psum = data.sum(psum)
+        n *= data.num_workers
     s_global = n * s
     capacity = max(1, int(capacity_factor * s_global / e))
     aux = e * torch.sum((counts.float() / s_global) * (psum / s_global))
     return idx, pos, gate, capacity, aux
 
 
+def _seq_places(onehot, idx, seq, rows):
+    """(pos, counts) of this rank's tokens under a sequence group: JAX
+    routes the global (rows, tokens) batch flattened row by row, which
+    interleaves the group's pieces within each row. A token's place counts
+    its expert's tokens in every earlier row (on every rank of the group),
+    in the earlier ranks' pieces of its own row, and before it in its own
+    piece; the ranks gather their per-(row, expert) counts for it.
+    ``counts``: the group's per-expert totals over these rows."""
+    s, e = onehot.shape
+    by_row = onehot.view(rows, s // rows, e)
+    pos = ((torch.cumsum(by_row, dim=1) - 1) * by_row).sum(dim=-1)
+    n = seq.num_workers
+    every = torch.empty(n * rows * e, dtype=onehot.dtype,
+                        device=onehot.device)
+    every = seq.all_gather_(every, by_row.sum(dim=1)).view(n, rows, e)
+    row_counts = every.sum(dim=0)
+    offset = (torch.cumsum(row_counts, dim=0) - row_counts
+              + every[:seq.rank].sum(dim=0))
+    pos = pos + offset.gather(1, idx.view(rows, -1))
+    return pos.view(-1), row_counts.sum(dim=0)
+
+
 def _moe(params, x, capacity_factor, data=None, expert=None, model=None,
-         split=()):
+         split=(), seq=None):
     """``moe_ffn`` on this rank's part of its groups (module docstring),
     or on one device when none is given: ``data`` routes the global
-    batch, ``expert`` splits the experts (``wi`` and ``wo`` hold this
-    rank's E/k), ``model`` splits the trailing dimension of each leaf
-    named in ``split``. A token's slot in its expert's batch is its place
-    among the rank's kept tokens of that expert, at most min(capacity,
-    S) of them; the dropped tokens land past the expert rows."""
+    batch, ``seq`` the global sequence of every row (x is (..., T/N, D),
+    the rank's piece of each row), ``expert`` splits the experts (``wi``
+    and ``wo`` hold this rank's E/k), ``model`` splits the trailing
+    dimension of each leaf named in ``split``. A token's slot in its
+    expert's batch is its place among the rank's kept tokens of that
+    expert, at most min(capacity, S) of them; the dropped tokens land past
+    the expert rows."""
     d = x.shape[-1]
     tokens = x.reshape(-1, d)
     s = tokens.shape[0]
@@ -183,8 +224,17 @@ def _moe(params, x, capacity_factor, data=None, expert=None, model=None,
     else:
         logits = tokens.float() @ router
     e = logits.shape[1]
-    idx, pos, gate, capacity, aux = route_global(logits, capacity_factor,
-                                                 data)
+    if seq is None:
+        routed = route_global(logits, capacity_factor, data)
+    else:
+        if x.dim() < 3:
+            raise ValueError(
+                "MoE under a sequence group wants (..., tokens, features) "
+                f"inputs; got {tuple(x.shape)}"
+            )
+        routed = route_global(logits, capacity_factor, data, seq,
+                              s // x.shape[-2])
+    idx, pos, gate, capacity, aux = routed
     kept = pos < capacity
     onehot = F.one_hot(idx, e) * kept[:, None]
     slot = ((torch.cumsum(onehot, dim=0) - 1) * onehot).sum(dim=-1)
@@ -272,13 +322,15 @@ class MoE(Layer):
     ``take_aux_loss``: ``WorkerCore`` adds ``aux_loss_weight`` times the
     sum of every layer's to the training loss.
 
-    ``data_group``, ``expert_group`` and ``model_group`` are the groups of
-    a multi-rank run (module docstring), set and cleared by
-    ``parallel.mesh.attach_data_group``, ``attach_expert_mesh`` and
-    ``parallel.tensor_parallel.attach_model_group``; ``expert_split``
-    holds the whole shapes of the leaves this rank holds a slice of."""
+    ``data_group``, ``seq_group``, ``expert_group`` and ``model_group``
+    are the groups of a multi-rank run (module docstring), set and cleared
+    by ``parallel.mesh.attach_data_group``, ``attach_seq_group``,
+    ``attach_expert_mesh`` and ``parallel.tensor_parallel.
+    attach_model_group``; ``expert_split`` holds the whole shapes of the
+    leaves this rank holds a slice of."""
 
     data_group = None
+    seq_group = None
     expert_group = None
     expert_split = {}
 
@@ -305,7 +357,8 @@ class MoE(Layer):
         out, aux = _moe(self.expert_params(), x, self.capacity_factor,
                         _live(self.data_group), _live(self.expert_group),
                         _live(self.model_group),
-                        split=frozenset(self.model_split))
+                        split=frozenset(self.model_split),
+                        seq=_live(self.seq_group))
         if not recomputing():
             with torch.no_grad():
                 self.aux_loss.copy_(aux)

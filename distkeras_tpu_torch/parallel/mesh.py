@@ -889,22 +889,21 @@ def attach_seq_group(model, mesh: DataMesh):
     """Give the layers whose result depends on the whole sequence the
     sequence group of a run whose token axis is split over ``mesh``:
     ``Embedding`` adds the positions at the rank's offset,
-    ``GlobalAvgPool1D`` takes the mean over the global sequence, and
+    ``GlobalAvgPool1D`` takes the mean over the global sequence,
     ``Dropout`` and the residual dropout of ``TransformerBlock`` keep the
-    rank's tokens of the global mask. A group of one attaches nothing.
-    Returns the number of layers attached; ``detach_seq_group`` undoes
-    it."""
+    rank's tokens of the global mask, and ``MoE`` routes the global
+    tokens in the global batch's order. ``BatchNorm`` is refused. A group
+    of one attaches nothing. Returns the number of layers attached;
+    ``detach_seq_group`` undoes it."""
     if mesh.num_workers <= 1:
         return 0
     n = 0
     for layer in walk_layers(model):
-        name = type(layer).__name__
-        if name in ("BatchNorm", "MoE"):
+        if type(layer).__name__ == "BatchNorm":
             raise NotImplementedError(
-                f"{name} under sequence parallelism would take its "
-                "statistics or its routing capacity over the rank's "
-                "tokens alone; the port splits the token axis of "
-                "attention models without them"
+                "BatchNorm under sequence parallelism would take its "
+                "statistics over the rank's tokens alone; the port splits "
+                "the token axis of models without it"
             )
         if hasattr(layer, "seq_group"):
             layer.seq_group = mesh

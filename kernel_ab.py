@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""This checkout's flash (B4, B5, B6) and LayerNorm-forward (B7) kernels
-against another checkout's, on one CUDA card, in one process.
+"""This checkout's flash (B4, B5, B6), LayerNorm-forward (B7) and SGD (B1,
+B2) kernels against another checkout's, on one CUDA card, in one process.
 
 Run from the repository root: ``python3 kernel_ab.py --base DIR [--out
-FILE]``, where DIR is another checkout of the repository, for instance the
-parent commit unpacked with ``git archive`` into a directory that
-``.gitignore`` lists. It builds ``flash_fwd.cu``, ``flash_bwd.cu`` and
-``layernorm_fwd.cu`` of both checkouts, and a copy of this checkout's
-``layernorm_fwd.cu`` whose row kernel is launched with programmatic
+FILE] [--sgd-only]``, where DIR is another checkout of the repository, for
+instance the parent commit unpacked with ``git archive`` into a directory
+that ``.gitignore`` lists (``--sgd-only`` needs only its
+``distkeras_tpu_torch/kernels``). It builds ``flash_fwd.cu``,
+``flash_bwd.cu``, ``layernorm_fwd.cu`` and ``sgd_fused.cu`` of both
+checkouts, and a copy of this checkout's ``layernorm_fwd.cu`` whose row kernel is launched with programmatic
 dependent launch (PDL: ``cudaLaunchKernelEx`` with programmatic stream
 serialization, ``griddepcontrol.wait`` before the first load), one nvcc per
 source, all started together, and prints each flash kernel's registers and
@@ -25,6 +26,15 @@ spills. Then:
    ``torch.profiler`` with this checkout's forward launcher and with the
    PDL copy, in turns; and a CUDA graph of 17 (matrix product, LayerNorm)
    pairs at the decode shape.
+5. B1 and B2 at the leaf tables ``chip_smoke.py`` phase 2c times (the LM's
+   110 leaves in f32, bf16 and f16, with and without momentum; the CNN
+   tables in f32): each checkout's kernel, each over its own table layout
+   (the base's 4096-element chunks and grid argument where its launcher
+   takes one), must give the plain version's bits after two steps; then
+   their device times in turns base, this, this, base, over input sets
+   rotated past the L2, with the bound and each one's share of it; and, for scale, the rate ATen's ``Tensor.copy_``
+   reaches on 512 MiB (each byte read once and written once).
+   ``--sgd-only`` runs this part alone.
 
 Prints one line per row and, last, a JSON object with the card's name and
 power limit. Imports nothing of JAX.
@@ -120,6 +130,180 @@ def build_all(build, base_csrc):
                 fn.restype = ctypes.c_int
                 fns.setdefault(tag, {})[name] = fn
     return fns
+
+
+def build_sgd(build, base_root):
+    """{tag: {kernel name: (ctypes fn, argument count)}} of
+    ``sgd_fused.cu`` for "base" (the argument lists of the base checkout's
+    own ``build.py``) and "this"."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "base_build", base_root / "distkeras_tpu_torch" / "kernels" /
+        "build.py")
+    base_build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(base_build)
+    out_dir = build.BUILD_DIR / "kernel_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {"base": (base_build.CSRC / "sgd_fused.cu", base_build.KERNELS),
+            "this": (build.CSRC / "sgd_fused.cu", build.KERNELS)}
+    procs = {}
+    for tag, (src, _) in jobs.items():
+        lib = out_dir / f"sgd_{tag}.so"
+        cmd = [build.nvcc_path(), *build.ARCH_FLAGS, "-std=c++17", "-O3",
+               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+               "-o", str(lib), str(src)]
+        procs[tag] = (lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for tag, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for sgd_fused.cu ({tag}):\n{log}")
+        fn_name = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn_name = m.group(1)
+            elif "registers" in line or "spill" in line:
+                print(f"ptxas sgd {tag} {fn_name}: {line.strip()}")
+        cdll = ctypes.CDLL(str(lib))
+        for name in ("sgd_fused", "sgd_momentum_fused"):
+            _, symbol, argtypes = jobs[tag][1][name]
+            fn = getattr(cdll, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns.setdefault(tag, {})[name] = (fn, len(argtypes))
+    return fns
+
+
+#: B1/B2 rows: (leaf table, momentum, Nesterov, dtype); the LM's rows are
+#: chip_smoke.py phase 2c's and PERF.md's
+SGD_ROWS = [("lm", 0.0, False, "float32"), ("lm", 0.0, False, "bfloat16"),
+            ("lm", 0.0, False, "float16"), ("lm", 0.9, False, "float32"),
+            ("lm", 0.9, True, "float32"), ("lm", 0.9, True, "bfloat16"),
+            ("lm", 0.9, True, "float16"), ("cifar10_cnn", 0.0, False,
+                                            "float32"),
+            ("higgs_mlp", 0.0, False, "float32"),
+            ("4 x higgs_mlp", 0.0, False, "float32")]
+#: the base layout's chunk and most blocks (PRs 3-25's launcher)
+BASE_CHUNK, BASE_MAX_BLOCKS = 4096, 1024
+
+
+def sgd_call(torch, tpk, fn, nargs, params, grads, ms, lr, mu, nesterov):
+    """A zero-argument launch of one build of B1/B2 over its own tables of
+    ``params`` (and ``ms``): the base layout when its launcher takes a
+    grid argument (one more than this checkout's), else this one's."""
+    from distkeras_tpu_torch import kernels
+
+    layout_grid = nargs == (9 if mu == 0.0 else 11)
+    chunk = BASE_CHUNK if layout_grid else tpk.sgd_chunk(params[0].dtype)
+    table, gptrs = tpk._TableCache().get(
+        (params, ms) if mu else (params,), grads, chunk)
+    grid = min(table.n_chunks, BASE_MAX_BLOCKS)
+    code = kernels.cuda_dtype_code(params[0].dtype)
+    hyper = (float(lr), float(mu), int(nesterov)) if mu else (float(lr),)
+    head = (table.leaves.data_ptr(), gptrs.data_ptr(),
+            table.chunks.data_ptr(), table.n_chunks, chunk)
+    if layout_grid:
+        head += (grid,)
+
+    def call():
+        err = fn(*head, *hyper, code, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"sgd launch: CUDA error {err}")
+
+    # the buffers and tables live as long as the call
+    call.keep = (table, gptrs, params, grads, ms)
+    return call
+
+
+def copy_rate(torch, chip_smoke, nbytes=512 << 20):
+    """``Tensor.copy_`` of ``nbytes`` f32 from one device buffer to another
+    (each byte read once and written once), the rate as a share of the
+    card's 3.35 TB/s: a library streaming pass to hold the shares of B1
+    and B2 against."""
+    src = torch.randn(nbytes // 4, device="cuda")
+    dst = torch.empty_like(src)
+    us = 1e3 * chip_smoke.device_time_ms(lambda: dst.copy_(src), iters=5)
+    moved = 2 * nbytes
+    row = {"kernel": "Tensor.copy_", "bytes_moved": moved, "us": us,
+           "share_of_hbm_rate": moved / (us * 1e-6) / chip_smoke.HBM_BYTES_PER_S}
+    print(row, flush=True)
+    del src, dst
+    return row
+
+
+def sgd_rows(torch, chip_smoke, fns):
+    from distkeras_tpu_torch.models import zoo
+    from distkeras_tpu_torch.ops import pallas_kernels as tpk
+
+    zshapes = chip_smoke.baseline_leaf_shapes()
+    tables = {"lm": [p.shape for p in chip_smoke.make_lm(zoo).parameters()],
+              "cifar10_cnn": zshapes["cifar10_cnn"],
+              "higgs_mlp": zshapes["higgs_mlp"],
+              "4 x higgs_mlp": zshapes["higgs_mlp"] * 4}
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    rows, lr = [], 0.02
+    for key, mu, nesterov, dname in SGD_ROWS:
+        shapes = tables[key]
+        dtype = getattr(torch, dname)
+        kname = "sgd_momentum_fused" if mu else "sgd_fused"
+        params = [(torch.randn(s, device="cuda", generator=gen) * 0.05)
+                  .to(dtype) for s in shapes]
+        grads = [(torch.randn(s, device="cuda", generator=gen) * 1e-2)
+                 .to(dtype) for s in shapes]
+        ms = [torch.randn(s, device="cuda", generator=gen) * 1e-2
+              for s in shapes] if mu else []
+        n = sum(p.numel() for p in params)
+        isz = params[0].element_size()
+        nbytes = 3 * isz * n + (8 * n if mu else 0)
+        # two steps of the plain version, then of each build on copies
+        rp, rm = [p.clone() for p in params], [m.clone() for m in ms]
+        for _ in range(2):
+            if mu:
+                tpk.sgd_momentum_step_plain(rp, grads, rm, lr, mu, nesterov)
+            else:
+                tpk.sgd_step_plain(rp, grads, lr)
+        equal = {}
+        for tag in fns:
+            kp, km = [p.clone() for p in params], [m.clone() for m in ms]
+            call = sgd_call(torch, tpk, *fns[tag][kname], kp, grads, km, lr,
+                            mu, nesterov)
+            call()
+            call()
+            torch.cuda.synchronize()
+            equal[tag] = all(torch.equal(a, b)
+                             for a, b in zip(kp + km, rp + rm))
+        del rp, rm, kp, km
+        nsets = chip_smoke.cold_sets(nbytes)
+        gsets = [grads] + [[g.clone() for g in grads]
+                           for _ in range(nsets - 1)]
+        calls = {}
+        for tag in fns:
+            sets = [sgd_call(torch, tpk, *fns[tag][kname],
+                             [p.clone() for p in params], g,
+                             [m.clone() for m in ms], lr, mu, nesterov)
+                    for g in gsets]
+            nxt = chip_smoke.rotating(sets)
+            calls[tag] = lambda nxt=nxt: nxt()()
+        reads = {tag: r["reads"] for tag, r in
+                 in_turns(chip_smoke, calls).items()}
+        flops = (2 + (2 if mu else 0) + (2 if nesterov else 0)) * n
+        bound_us = 1e3 * chip_smoke.bound(nbytes, flops, "float32")[0]
+        row = {"kernel": kname, "table": key, "leaves": len(shapes),
+               "elements": n, "dtype": dname, "momentum": mu,
+               "nesterov": nesterov, "input_sets": nsets,
+               "bits_equal_plain": equal, "bound_us": bound_us,
+               "reads_us": reads}
+        for tag, r in reads.items():
+            row[f"{tag}_us"] = sum(r) / len(r)
+            row[f"{tag}_share_of_bound"] = bound_us / row[f"{tag}_us"]
+        print(row, flush=True)
+        rows.append(row)
+        del params, grads, ms, gsets, calls
+        torch.cuda.empty_cache()
+    return rows
 
 
 def flash_calls(torch, fns, q, k, v, do, causal):
@@ -322,6 +506,8 @@ def main(argv):
     ap.add_argument("--base", required=True,
                     help="another checkout of the repository (its root)")
     ap.add_argument("--out", default=None, help="also write the rows here")
+    ap.add_argument("--sgd-only", action="store_true",
+                    help="A/B B1 and B2 alone")
     args = ap.parse_args(argv)
     import torch
 
@@ -336,24 +522,32 @@ def main(argv):
     from pathlib import Path
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    base_csrc = Path(args.base).resolve() / "distkeras_tpu_torch" / "kernels" / "csrc"
-    if not all((base_csrc / s).is_file() for s in SOURCES):
-        print(f"kernel_ab: {base_csrc} lacks {SOURCES}", file=sys.stderr)
+    base_root = Path(args.base).resolve()
+    base_csrc = base_root / "distkeras_tpu_torch" / "kernels" / "csrc"
+    sources = ("sgd_fused.cu",) if args.sgd_only else (*SOURCES,
+                                                        "sgd_fused.cu")
+    if not all((base_csrc / s).is_file() for s in sources):
+        print(f"kernel_ab: {base_csrc} lacks {sources}", file=sys.stderr)
         return 2
     smi = chip_smoke.nvidia_smi_line()
     t0 = time.monotonic()
-    fns = build_all(build, base_csrc)
-    print(f"built {len(fns)} x {SOURCES} in {time.monotonic() - t0:.1f} s",
-          flush=True)
-    result = {"nvidia_smi": smi, "flash": flash_rows(torch, chip_smoke, fns),
-              "layernorm_fwd": ln_rows(torch, chip_smoke, fns),
-              "pdl_paths": pdl_paths(torch, np, chip_smoke, fns)}
+    sgd_fns = build_sgd(build, base_root)
+    fns = None if args.sgd_only else build_all(build, base_csrc)
+    print(f"built {sources} in {time.monotonic() - t0:.1f} s", flush=True)
+    result = {"nvidia_smi": smi}
+    if fns is not None:
+        result.update(flash=flash_rows(torch, chip_smoke, fns),
+                      layernorm_fwd=ln_rows(torch, chip_smoke, fns),
+                      pdl_paths=pdl_paths(torch, np, chip_smoke, fns))
+    result["sgd"] = sgd_rows(torch, chip_smoke, sgd_fns)
+    result["copy_rate"] = copy_rate(torch, chip_smoke)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
-    ok = all(r["bits_equal"] for r in result["flash"]) and all(
-        r["pdl_bits_equal"] for r in result["layernorm_fwd"])
-    print(json.dumps({"nvidia_smi": smi, "flash_bits_equal_and_pdl_same": ok}),
+    ok = all(r["bits_equal"] for r in result.get("flash", ())) and all(
+        r["pdl_bits_equal"] for r in result.get("layernorm_fwd", ())) and all(
+        all(r["bits_equal_plain"].values()) for r in result["sgd"])
+    print(json.dumps({"nvidia_smi": smi, "bits_equal_and_pdl_same": ok}),
           flush=True)
     return 0 if ok else 1
 

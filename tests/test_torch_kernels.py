@@ -524,26 +524,47 @@ def test_adam_kernel_on_card(cuda_device):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
 
 
+def _views(shapes, dtype, device, offset, gen):
+    """Seeded leaves of ``shapes``: with ``offset`` each is a contiguous
+    view at a 1-element offset into a buffer of its own, so its pointer
+    is off the 16-byte grid."""
+    out = []
+    for s in shapes:
+        n = int(np.prod(s))
+        base = torch.randn(n + offset, device=device, generator=gen)
+        out.append(base.to(dtype)[offset:].view(s))
+    return out
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("mu,nesterov,dtype", [
-    (0.0, False, torch.float32), (0.9, False, torch.float32),
-    (0.9, True, torch.float32), (0.0, False, torch.bfloat16),
-    (0.9, True, torch.bfloat16)])
-def test_sgd_kernels_on_card(cuda_device, mu, nesterov, dtype):
+@pytest.mark.parametrize("mu,nesterov,dtype,offset", [
+    (0.0, False, torch.float32, 0), (0.9, False, torch.float32, 0),
+    (0.9, True, torch.float32, 0), (0.0, False, torch.bfloat16, 0),
+    (0.9, True, torch.bfloat16, 0), (0.0, False, torch.float16, 0),
+    (0.9, True, torch.float16, 0), (0.0, False, torch.bfloat16, 1),
+    (0.9, True, torch.float32, 1), (0.9, False, torch.float16, 1)])
+def test_sgd_kernels_on_card(cuda_device, mu, nesterov, dtype, offset):
     """B1/B2 vs their plain versions, 3 steps over leaves that are small,
-    unaligned and larger than a chunk: bit-equal (same operation order,
-    each step rounded, the same rounding to bf16)."""
+    ragged and larger than a chunk: bit-equal (same operation order, each
+    step rounded, the same rounding to bf16/f16). With ``offset`` every p,
+    g and m is a contiguous view at a 1-element offset (the scalar path)."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    shapes = [(513, 7), (1000,), (4096, 3), (12,), (3,)]
-    params = [torch.randn(s, device=cuda_device, generator=gen).to(dtype)
-              for s in shapes]
-    grads = [torch.randn(s, device=cuda_device, generator=gen).to(dtype)
-             for s in shapes]
+    shapes = [(513, 7), (1000,), (4096, 3), (12,), (3,), (8192 * 2 + 9,)]
+    params = _views(shapes, dtype, cuda_device, offset, gen)
+    grads = _views(shapes, dtype, cuda_device, offset, gen)
     opt = tpk.FusedSGD(0.05, momentum=mu, nesterov=nesterov)
     kp = [p.clone() for p in params]
-    km = opt.init(kp)
+    km = []
+    if mu:
+        km = _views(shapes, torch.float32, cuda_device, offset, gen)
+        if offset:
+            assert all(m.data_ptr() % 16 for m in km)
     rp = [p.clone() for p in params]
     rm = [m.clone() for m in km]
+    if offset:
+        kp = [torch.empty(p.numel() + 1, dtype=dtype, device=cuda_device)
+              [1:].view(p.shape).copy_(p) for p in params]
+        assert all(t.data_ptr() % 16 for t in kp + grads)
     kernels.reset_launch_counts()
     for _ in range(3):
         opt.fused_apply(kp, grads, km)
@@ -554,22 +575,70 @@ def test_sgd_kernels_on_card(cuda_device, mu, nesterov, dtype):
     name = "sgd_momentum_fused" if mu else "sgd_fused"
     assert kernels.launch_counts()[name] == 3
     assert opt._tables.builds == 1
-    for a, b in zip(kp + list(km), rp + rm):
+    for a, b in zip(kp + list(km), rp + rm, strict=True):
         assert torch.equal(a, b)
 
 
 def test_sgd_launcher_argtypes_match_the_source():
     """The ctypes argument lists of the two SGD launchers follow their C
-    signatures: pointers, then ints for the chunk walk, float lr (and mu,
-    int nesterov), the dtype code and the stream."""
+    signatures argument by argument: pointers, then ints for the chunk
+    walk (the count and the per-dtype chunk), float lr (and mu, int
+    nesterov), the dtype code and the stream."""
+    import re
+
     P, I, F = build._P, build._I, build._F
-    assert build.KERNELS["sgd_fused"][2] == [P, P, P, I, I, I, F, I, P]
+    assert build.KERNELS["sgd_fused"][2] == [P, P, P, I, I, F, I, P]
     assert build.KERNELS["sgd_momentum_fused"][2] == [
-        P, P, P, I, I, I, F, F, I, I, P]
+        P, P, P, I, I, F, F, I, I, P]
     text = (build.CSRC / "sgd_fused.cu").read_text()
+    c_types = {"const void*": P, "void*": P, "int": I, "float": F}
+    for name in ("sgd_fused", "sgd_momentum_fused"):
+        _, symbol, argtypes = build.KERNELS[name]
+        sig = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', text)
+        args = [re.sub(r"\s*\w+$", "", a.strip())
+                for a in sig.group(1).split(",")]
+        assert [c_types[a] for a in args] == argtypes, name
     assert "__fsub_rn(p, __fmul_rn(lr, g))" in text
-    assert "__float2bfloat16_rn" in text
+    assert "__float2bfloat16_rn" in text and "__floats2bfloat162_rn" in text
     assert "_sgd_kernel" in text and "_sgd_momentum_kernel" in text
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_sgd_chunk_tables_cover_every_element_once(dtype):
+    """B1/B2's chunk table for each dtype: chunks of 16 KiB of p (4096 f32,
+    8192 bf16/f16 elements), each leaf cut into consecutive pieces that
+    cover its elements exactly once, none longer than the chunk, and the
+    leaf table's pointers and lengths the buffers' own."""
+    chunk = tpk.sgd_chunk(dtype)
+    assert chunk * torch.empty((), dtype=dtype).element_size() \
+        == tpk.SGD_CHUNK_BYTES == 16384
+    sizes = [1, 3, 7, chunk - 1, chunk, chunk + 1, 3 * chunk, 2 * chunk + 9]
+    params = [torch.zeros(n, dtype=dtype) for n in sizes]
+    moms = [torch.zeros(n) for n in sizes]
+    cache = tpk._TableCache()
+    table, _ = cache.get((params, moms), params, chunk)
+    assert table.chunk == chunk
+    leaves = table.leaves.numpy()
+    assert leaves.shape == (len(sizes), 3)
+    assert list(leaves[:, 0]) == [p.data_ptr() for p in params]
+    assert list(leaves[:, 1]) == [m.data_ptr() for m in moms]
+    assert list(leaves[:, 2]) == sizes
+    chunks = table.chunks.numpy()
+    assert table.n_chunks == len(chunks) == sum(-(-n // chunk) for n in sizes)
+    for li, n in enumerate(sizes):
+        seen = np.zeros(n, np.int64)
+        for leaf, start in chunks:
+            if leaf == li:
+                end = min(start + chunk, n)
+                assert 0 < end - start <= chunk
+                seen[start:end] += 1
+        assert (seen == 1).all(), (dtype, n)
+    # one table per (chunk, buffers): B3's 4096-element table of the same
+    # buffers is another entry
+    assert cache.get((params, moms), params, chunk)[0] is table
+    assert cache.get((params, moms), params)[0].chunk == tpk.CHUNK
+    assert cache.builds == 1 + (chunk != tpk.CHUNK)
 
 
 @pytest.mark.gpu

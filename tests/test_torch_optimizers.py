@@ -152,6 +152,60 @@ def test_schedule_matches_optax(name, kw):
         np.array([float(port(s)) for s in range(51)], np.float32), got)
 
 
+#: bars of the plain B1/B2 against JAX's Pallas kernels in interpret mode:
+#: XLA may contract the kernel's ``mu * m + g`` (and ``p - lr * g``) into
+#: an FMA, one f32 rounding fewer, so f32 results are held to 2 ulp of the
+#: leaf's largest magnitude (absolute: p - lr * g cancels) and 16-bit
+#: parameters, rounded from those, to one ulp of their type
+F32_ULPS = 2.0 ** -22
+SGD_RTOL = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
+
+
+def _near(got, want, rtol=0.0):
+    atol = 0.0 if rtol else F32_ULPS * float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("mu,nesterov", [(0.0, False), (0.9, False),
+                                         (0.9, True)])
+def test_sgd_plain_versions_match_the_pallas_kernels(dtype, mu, nesterov):
+    """``sgd_step_plain`` / ``sgd_momentum_step_plain`` (what B1/B2 are
+    held bit-equal to on the card) against JAX's ``_leaf_sgd`` /
+    ``_leaf_sgd_momentum`` run through ``pl.pallas_call`` in interpret
+    mode, over leaves above the JAX package's small-leaf cutoff, 3 steps."""
+    from distkeras_tpu.ops import pallas_kernels as jpk
+    from distkeras_tpu_torch.ops import pallas_kernels as tpk
+
+    rng = np.random.default_rng(3)
+    shapes = [(513, 7), (4096, 3)]
+    assert all(np.prod(s) >= jpk._MIN_KERNEL_SIZE for s in shapes)
+    p0 = [(0.05 * rng.standard_normal(s)).astype(np.float32) for s in shapes]
+    gs = [(1e-2 * rng.standard_normal(s)).astype(np.float32) for s in shapes]
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    tp = [torch.from_numpy(p.copy()).to(tdt) for p in p0]
+    tg = [torch.from_numpy(g).to(tdt) for g in gs]
+    tm = [torch.zeros(s) for s in shapes]
+    jp = [jnp.asarray(p).astype(jdt) for p in p0]
+    jg = [jnp.asarray(g).astype(jdt) for g in gs]
+    jm = [jnp.zeros(s, jnp.float32) for s in shapes]
+    for _ in range(3):
+        if mu:
+            tpk.sgd_momentum_step_plain(tp, tg, tm, 0.05, mu, nesterov)
+            out = [jpk._leaf_sgd_momentum(p, g, m, 0.05, mu, nesterov, True)
+                   for p, g, m in zip(jp, jg, jm)]
+            jp, jm = [o[0] for o in out], [o[1] for o in out]
+        else:
+            tpk.sgd_step_plain(tp, tg, 0.05)
+            jp = [jpk._leaf_sgd(p, g, 0.05, True) for p, g in zip(jp, jg)]
+    for t, j in zip(tp, jp):
+        assert t.dtype == tdt and j.dtype == jdt
+        _near(t.float().numpy(), np.asarray(j.astype(jnp.float32)),
+              SGD_RTOL.get(dtype, 0.0))
+    for t, j in zip(tm, jm):
+        _near(t.numpy(), np.asarray(j))
+
+
 def test_optimizer_and_schedule_tables():
     assert set(topt._OPTIMIZERS) == set(jopt._OPTIMIZERS)
     assert set(topt._SCHEDULES) == set(jopt._SCHEDULES)

@@ -9,7 +9,11 @@ trainer at the same mesh on the conftest's 8-device CPU mesh. Same inputs
 (numpy, seeded) and bridged weights on both sides. Tolerances: attention
 outputs 2e-5 and gradients 3e-4 absolute (``tests/test_ulysses.py``'s),
 trainer losses 1e-4 relative and weights 1e-4 absolute
-(``tests/test_torch_sync_dp.py``'s): f32, another summation order.
+(``tests/test_torch_sync_dp.py``'s): f32, another summation order. The
+MoE layer under a sequence group (and a data group beside it) routes the
+global tokens in JAX's order: its output 2e-5 and its gradients 3e-4
+absolute, its load-balance loss 1e-6 (``tests/test_torch_moe.py``'s
+routing bar), and which tokens the capacity keeps exactly.
 """
 
 import socket
@@ -36,6 +40,18 @@ CLS = dict(vocab_size=16, seq_len=64, d_model=32, num_heads=2, depth=2)
 LMC = dict(vocab_size=16, seq_len=64, d_model=32, num_heads=4, depth=2)
 CLS_TRAIN = dict(loss="categorical_crossentropy", batch_size=32,
                  num_epoch=1, label_col="label_onehot", seed=0, window=2)
+MOE = dict(vocab_size=16, seq_len=16, d_model=16, num_heads=2, depth=1,
+           num_experts=2)
+MOE_TRAIN = dict(loss="categorical_crossentropy", batch_size=16,
+                 num_epoch=1, label_col="label_onehot", seed=0, window=2)
+#: the MoE capacity factor of the "moe_drop" runs and of the layer
+#: checks: tight enough that the capacity drops tokens, so which ones
+#: it keeps is decided by the global order
+TIGHT = 0.75
+#: the layer checks: (rows, tokens, features, experts, hidden) of the
+#: global batch, and the (data, seq) grids per world size
+FFN = (4, 16, 8, 4, 16)
+FFN_GRIDS = {2: [(1, 2)], 4: [(2, 2), (1, 4)]}
 LM_TRAIN = dict(loss="next_token_crossentropy", batch_size=16, num_epoch=1,
                 metrics=["next_token_accuracy"], seed=0, window=2)
 #: (tag, model, sp_mode, data_parallel, optimizer) of each trainer run,
@@ -47,11 +63,14 @@ RUNS = {
         ("lm_ring", "lm", "ring", 1, "adam"),
         ("lm_ulysses", "lm", "ulysses", 1, "adam"),
         ("cls_sgd", "cls", "ring", 1, "sgd"),
-        ("lm_sgd", "lm", "ulysses", 1, "sgd")],
+        ("lm_sgd", "lm", "ulysses", 1, "sgd"),
+        ("moe_ring", "moe", "ring", 1, "adam"),
+        ("moe_drop", "moe_drop", "ulysses", 1, "adam")],
     4: [("cls_ring", "cls", "ring", 1, "adam"),
         ("lm_ulysses", "lm", "ulysses", 1, "adam"),
         ("cls_2d", "cls", "ring", 2, "adam"),
-        ("lm_2d", "lm", "ulysses", 2, "sgd")],
+        ("lm_2d", "lm", "ulysses", 2, "sgd"),
+        ("moe_2d", "moe_drop", "ring", 2, "adam")],
 }
 ATTENTION = [("ring", "dense"), ("ulysses", "dense"),
              ("ulysses", "blockwise")]
@@ -73,8 +92,11 @@ _RANK_SCRIPT = textwrap.dedent(
     from distkeras_tpu_torch import SequenceParallelTrainer, zoo
     from distkeras_tpu_torch.data.dataset import Dataset
     from distkeras_tpu_torch.models.layers import MultiHeadSelfAttention
+    from distkeras_tpu_torch.models.sequential import Sequential, walk_layers
     from distkeras_tpu_torch.ops import fused_layernorm as tln
-    from distkeras_tpu_torch.parallel.mesh import make_grid
+    from distkeras_tpu_torch.parallel import expert_parallel as ep
+    from distkeras_tpu_torch.parallel.mesh import (
+        attach_data_group, attach_seq_group, make_grid, rank_rows)
     from distkeras_tpu_torch.parallel.ring_attention import (
         ring_attention, shard_sequence)
     from distkeras_tpu_torch.parallel.ulysses import ulysses_attention
@@ -109,9 +131,57 @@ _RANK_SCRIPT = textwrap.dedent(
                             ("dv", v.grad)):
                 results[tag + name] = t.detach().numpy()
 
+    # the MoE layer on the rank's rows and tokens under its groups: its
+    # output, load-balance loss and input gradient, which tokens the
+    # capacity keeps, and its weights' gradients summed over every rank
+    rows_n, t_n, d_n, e_n, h_n = FFN
+    for dp, sp in FFN_GRIDS[world]:
+        grid = make_grid(dp, sp, "seq", device="cpu", data_axis=dp > 1)
+        t_loc = t_n // sp
+
+        def piece(a):
+            a = rank_rows(a, grid.data)
+            lo = grid.inner.rank * t_loc
+            return torch.from_numpy(a[:, lo:lo + t_loc].copy())
+
+        m = Sequential([ep.MoE(e_n, hidden_ratio=h_n // d_n,
+                               capacity_factor=TIGHT)])
+        m.build((t_n, d_n), device="cpu")
+        layer = m.layers[0]
+        with torch.no_grad():
+            for n in ("router", "wi", "wo"):
+                getattr(layer, n).copy_(torch.from_numpy(inputs["ffn/" + n]))
+        attach_data_group(m, grid.data)
+        assert attach_seq_group(m, grid.inner) == 1
+        x = piece(inputs["ffn/x"]).requires_grad_()
+        y = m(x)
+        # each rank's loss carries the global aux over the world size, so
+        # the ranks' gradients sum to the global loss's
+        ((y * piece(inputs["ffn/g"])).sum()
+         + layer.take_aux_loss() / world).backward()
+        logits = x.detach().reshape(-1, d_n) @ layer.router.detach()
+        _, pos, _, cap, _ = ep.route_global(
+            logits, TIGHT, ep._live(grid.data), seq=grid.inner,
+            rows=x.shape[0])
+        tag = f"ffn_{dp}x{sp}/"
+        results[tag + "kept"] = (pos < cap).reshape(x.shape[:2]).numpy()
+        results[tag + "out"] = y.detach().numpy()
+        results[tag + "aux"] = layer.aux_loss.numpy()
+        results[tag + "dx"] = x.grad.numpy()
+        for n in ("router", "wi", "wo"):
+            results[tag + "d" + n] = grid.world.all_reduce_(
+                getattr(layer, n).grad).numpy()
+        grid.release()
+
     def model(kind):
         if kind == "cls":
             m = zoo.transformer_classifier(**CLS, device="cpu")
+        elif kind.startswith("moe"):
+            m = zoo.moe_transformer_classifier(**MOE, device="cpu")
+            for layer in walk_layers(m):
+                if isinstance(layer, ep.MoE) and kind == "moe_drop":
+                    layer.capacity_factor = TIGHT
+            kind = "moe"
         else:
             m = zoo.transformer_lm(**LMC, device="cpu")
         params_from_jax(m, whole(kind + "/"))
@@ -125,17 +195,19 @@ _RANK_SCRIPT = textwrap.dedent(
     cls_data = Dataset({"features": inputs["cls_x"],
                         "label_onehot": inputs["cls_y"]})
     lm_data = Dataset({"features": inputs["lm_x"], "label": inputs["lm_x"]})
+    moe_data = Dataset({"features": inputs["moe_x"],
+                        "label_onehot": inputs["moe_y"]})
     for tag, kind, mode, dp, opt in RUNS[world]:
         m = model(kind)
-        kw = dict(CLS_TRAIN if kind == "cls" else LM_TRAIN)
+        data = {"cls": cls_data, "lm": lm_data}.get(kind, moe_data)
+        kw = dict({"cls": CLS_TRAIN, "lm": LM_TRAIN}.get(kind, MOE_TRAIN))
         rows = VALIDATED.get(tag) if world == 2 else None
         if rows:
-            kw["validation_data"] = (cls_data if kind == "cls"
-                                     else lm_data).take(rows)
+            kw["validation_data"] = data.take(rows)
         t = SequenceParallelTrainer(m, opt, sp_mode=mode,
                                     data_parallel=dp, device="cpu", **kw)
         assert t.num_workers == world
-        res = t.train(cls_data if kind == "cls" else lm_data, shuffle=True)
+        res = t.train(data, shuffle=True)
         assert all(h is None for h in hooks(m) + hooks(res)), tag
         assert all(getattr(l, "seq_group", None) is None
                    for l in res.modules())
@@ -168,7 +240,9 @@ def _launch(tmp_path, n, inputs):
     consts = "".join(f"{k} = {v!r}\n" for k, v in (
         ("ATTENTION", ATTENTION), ("BLOCK", BLOCK), ("CLS", CLS),
         ("LMC", LMC), ("CLS_TRAIN", CLS_TRAIN), ("LM_TRAIN", LM_TRAIN),
-        ("RUNS", RUNS), ("VALIDATED", VALIDATED)))
+        ("MOE", MOE), ("MOE_TRAIN", MOE_TRAIN), ("TIGHT", TIGHT),
+        ("FFN", FFN), ("FFN_GRIDS", FFN_GRIDS), ("RUNS", RUNS),
+        ("VALIDATED", VALIDATED)))
     script.write_text(consts + _RANK_SCRIPT)
     np.savez(tmp_path / "inputs.npz", **inputs)
     out = tmp_path / "out"
@@ -212,10 +286,49 @@ def _inputs():
     starts = np.random.default_rng(4).integers(0, 16, 64)
     out["lm_x"] = ((starts[:, None] + np.arange(64)[None, :]) % 16).astype(
         np.int32)
+    moe = jloaders.synthetic_sequences(n=64, seq_len=16, vocab=16, seed=0)
+    moe = OneHotTransformer(2, output_col="label_onehot").transform(moe)
+    out["moe_x"] = np.asarray(moe["features"], np.int32)
+    out["moe_y"] = np.asarray(moe["label_onehot"], np.float32)
     for kind, jm in (("cls", jzoo.transformer_classifier(**CLS, seed=0)),
-                     ("lm", jzoo.transformer_lm(**LMC, seed=0))):
+                     ("lm", jzoo.transformer_lm(**LMC, seed=0)),
+                     ("moe", jzoo.moe_transformer_classifier(**MOE, seed=0))):
         out.update({f"{kind}/{k}": v for k, v in _flat_jax(jm.params).items()})
+    rows, t, d, e, h = FFN
+    ffn = np.random.default_rng(5)
+    out["ffn/router"] = ffn.standard_normal((d, e)).astype(np.float32)
+    out["ffn/wi"] = (0.3 * ffn.standard_normal((e, d, h))).astype(np.float32)
+    out["ffn/wo"] = (0.3 * ffn.standard_normal((e, h, d))).astype(np.float32)
+    out["ffn/x"] = ffn.standard_normal((rows, t, d)).astype(np.float32)
+    out["ffn/g"] = ffn.standard_normal((rows, t, d)).astype(np.float32)
     return out
+
+
+def _jax_ffn(inputs):
+    """JAX's MoE layer on the global batch at ``TIGHT``: which tokens the
+    capacity keeps, the output, the load-balance loss and the gradients of
+    sum((x + out) * g) + aux."""
+    import jax
+    import jax.numpy as jnp
+    from distkeras_tpu.parallel import expert_parallel as jep
+
+    p = {n: jnp.asarray(inputs["ffn/" + n]) for n in ("router", "wi", "wo")}
+    x, g = jnp.asarray(inputs["ffn/x"]), jnp.asarray(inputs["ffn/g"])
+
+    def loss(p, x):
+        o, a = jep.moe_ffn(p, x, capacity_factor=TIGHT)
+        return jnp.sum((x + o) * g) + a, (x + o, a)
+
+    (_, (y, aux)), (gp, gx) = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True))(p, x)
+    rows, t, d, e, _ = FFN
+    capacity = max(1, int(TIGHT * rows * t / e))
+    logits = x.reshape(-1, d) @ p["router"]
+    dispatch, _, _ = jep.switch_route(logits, capacity)
+    return {"kept": np.asarray(dispatch.sum(axis=(1, 2)) > 0).reshape(
+                rows, t),
+            "out": np.asarray(y), "aux": np.asarray(aux), "dx": np.asarray(gx),
+            **{"d" + n: np.asarray(v) for n, v in gp.items()}}
 
 
 def _jax_attention(inputs, n, mode, inner, causal):
@@ -247,6 +360,8 @@ def _jax_attention(inputs, n, mode, inner, causal):
 def _jax_train(inputs, kind, mode, n, dp, opt, val_rows=None):
     from distkeras_tpu.data.dataset import Dataset as JDataset
     from distkeras_tpu.models import zoo as jzoo
+    from distkeras_tpu.models.sequential import walk_layers
+    from distkeras_tpu.parallel.expert_parallel import MoE as JMoE
     from distkeras_tpu.trainers import SequenceParallelTrainer as JSP
 
     if kind == "cls":
@@ -254,6 +369,14 @@ def _jax_train(inputs, kind, mode, n, dp, opt, val_rows=None):
         data = JDataset({"features": inputs["cls_x"],
                          "label_onehot": inputs["cls_y"]})
         kw = CLS_TRAIN
+    elif kind.startswith("moe"):
+        jm = jzoo.moe_transformer_classifier(**MOE, seed=0)
+        for layer in walk_layers(jm):
+            if isinstance(layer, JMoE) and kind == "moe_drop":
+                layer.capacity_factor = TIGHT
+        data = JDataset({"features": inputs["moe_x"],
+                         "label_onehot": inputs["moe_y"]})
+        kw = MOE_TRAIN
     else:
         jm = jzoo.transformer_lm(**LMC, seed=0)
         data = JDataset({"features": inputs["lm_x"], "label": inputs["lm_x"]})
@@ -276,6 +399,7 @@ def _world(tmp_path_factory, n):
     trained = {tag: _jax_train(inputs, kind, mode, n, dp, opt,
                                VALIDATED.get(tag) if n == 2 else None)
                for tag, kind, mode, dp, opt in RUNS[n]}
+    trained["ffn"] = _jax_ffn(inputs)
     return ranks, attention, trained
 
 
@@ -358,11 +482,48 @@ def test_validation_history_matches_jax(two_ranks, tag):
             err_msg=tag)
 
 
+def test_moe_layer_routes_the_global_tokens(world):
+    """An MoE under a sequence group (beside a data group at 2 x 2) routes
+    the global batch in JAX's flatten order, which interleaves the
+    sequence ranks within each row: with a capacity that drops tokens,
+    each rank keeps exactly JAX's tokens of its piece, and its output, the
+    load-balance loss and the gradients are JAX's."""
+    ranks, _, trained = world
+    want = trained["ffn"]
+    n = len(ranks)
+    rows, t = FFN[:2]
+    assert not want["kept"].all() and want["kept"].any()
+    for dp, sp in FFN_GRIDS[n]:
+        tag = f"ffn_{dp}x{sp}"
+        for name in ("kept", "out", "dx"):
+            got = np.concatenate([
+                np.concatenate([_case(ranks[d * sp + j], tag)[name]
+                                for j in range(sp)], axis=1)
+                for d in range(dp)])
+            assert got.shape[:2] == (rows, t), (tag, name)
+            if name == "kept":
+                np.testing.assert_array_equal(got, want[name], err_msg=tag)
+            else:
+                np.testing.assert_allclose(
+                    got, want[name], atol=2e-5 if name == "out" else 3e-4,
+                    rtol=0, err_msg=f"{tag} {name}")
+        for res in ranks:
+            got = _case(res, tag)
+            assert abs(float(got["aux"]) - float(want["aux"])) <= 1e-6, tag
+            for name in ("drouter", "dwi", "dwo"):
+                np.testing.assert_allclose(got[name], want[name], atol=3e-4,
+                                           rtol=0, err_msg=f"{tag} {name}")
+
+
+#: result keys that hold the rank's own piece of a global array
+PER_RANK = ("attn/", "ffn_")
+
+
 def test_ranks_end_bit_equal(world):
     ranks, _, _ = world
     for other in ranks[1:]:
         for k in ranks[0]:
-            if not k.startswith("attn/"):
+            if not k.startswith(PER_RANK):
                 np.testing.assert_array_equal(other[k], ranks[0][k],
                                               err_msg=k)
 
@@ -405,6 +566,26 @@ def test_one_rank_is_dense_and_detaches_hooks():
 
 def _seq_group(n, rank=0):
     return tmesh.DataMesh(n, rank, None, torch.device("cpu"))
+
+
+def test_seq_group_takes_moe_and_refuses_batchnorm():
+    """``attach_seq_group`` gives an MoE the group (its routing goes
+    global) and still refuses a BatchNorm, whose statistics under JAX's
+    sequence-parallel trainer are not a result to port to."""
+    from distkeras_tpu_torch.models.layers import BatchNorm, Dense
+    from distkeras_tpu_torch.models.sequential import Sequential
+
+    m = zoo.moe_transformer_classifier(**MOE, device="cpu")
+    group = _seq_group(2)
+    # Embedding, the block (its residual dropout), the MoE and the pool
+    assert tmesh.attach_seq_group(m, group) == 4
+    moe = [l for l in m.modules() if type(l).__name__ == "MoE"]
+    assert [l.seq_group for l in moe] == [group]
+    tmesh.detach_seq_group(m)
+    assert moe[0].seq_group is None
+    bn = Sequential([Dense(4), BatchNorm()]).build((6,), device="cpu")
+    with pytest.raises(NotImplementedError, match="BatchNorm under sequence"):
+        tmesh.attach_seq_group(bn, group)
 
 
 def test_next_token_loss_crosses_the_shard_boundary():
