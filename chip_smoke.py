@@ -488,7 +488,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    run once on the home device, not once a shard), ``mesh`` on health,
    stats and the gauges, ``kv_shard_bytes * 2 == kv_bytes_total``. Then a
    dense step with 8 busy slots at tp:1, tp:2 and tp:4: wall (median of
-   three turns) and device time, kernels and B7 a step (17 at each N).
+   three turns) and B7 a step (17 at each N); its device time and kernels
+   under ``--profile``.
    23c: speculative verify at tp:2 with a ``ModelDrafter`` of 14c's small
    draft, six greedy requests, verify steps on solo and tp:2, replies
    equal. 23d: a DKTX frame from a solo ``role="prefill"`` engine decoded
@@ -531,13 +532,30 @@ Phases, each fatal on failure (exit code 1, no result line):
    added (every process of a part writes its counts through
    ``DKT_LAUNCH_COUNTS_DIR``). ``--phase25-only`` builds the kernels and
    runs phase 25 alone.
+27. The graft entry points (``graft_entry_torch.py``), riding on phase
+   24's launches. 27a: every step of ``dryrun_multichip(8)``
+   (``multichip_steps``: sync-DP, ZeRO-1, TP, the ring, Ulysses, the ring
+   in a data group, the pipeline, pipe x data, the 3-D grid, EP and the
+   ring-attached LM window) inside 24a's eight gloo rank processes, each
+   step held against the same step on one rank within 1e-4 in the rank,
+   on seeded inputs (``multichip_inputs``: JAX's shapes and weights), and
+   the replicated results equal on every rank (``check_multichip``).
+   27b: ``dryrun_multichip(1)`` (one NCCL rank) and
+   ``dryrun_multiprocess(2)`` (two gloo ranks sharing the card: a sync-DP
+   run with equal digests, then a commit over TCP to rank 0's socket PS),
+   in a lane beside 24b's twins, each rank's start-up split. 27c:
+   ``entry()``'s forward on the card, its output shape printed. They
+   launch none of B1-B8 (plain "sgd"/"adam", no flash or LayerNorm hook,
+   as JAX's dryrun). ``--phase27-only`` builds the kernels and runs 24a
+   with 27a, then 27b and 27c.
 
 ``--import-seconds ROOT...`` times ``import distkeras_tpu_torch`` from
 each checkout in fresh interpreters and exits (two commits compared in
 one call).
 
 ``--profile`` adds where the time goes: the MoE LM's decode step beside
-the dense LM's (19a), a decode step (dense, paged, on
+the dense LM's (19a), the decode step's device time at tp:1/2/4 (23), a
+decode step (dense, paged, on
 bf16 caches and grammar-masked), a
 verify window with 8 busy slots, a swap-out, a swap-in and a fork of a
 300-token slot, a predict forward, a training step, an async window and a
@@ -9494,10 +9512,12 @@ def p23_geometry(res, n, tag):
               f"{st['paged']['mesh']}")
 
 
-def p23_step_times(torch, np, lm, smi):
-    """Per-step wall and device time of a dense decode step with 8 busy
-    slots (64-token prompts) at tp:1, tp:2 and tp:4 on the one card,
-    walls the median of three turns, and B7's launches in one step."""
+def p23_step_times(torch, np, lm, smi, profile=False):
+    """Per-step wall of a dense decode step with 8 busy slots (64-token
+    prompts) at tp:1, tp:2 and tp:4 on the one card, the median of three
+    turns, and B7's launches in one step; ``profile`` adds each step's
+    device time and kernels (``torch.profiler``; timing only, so under
+    ``--profile``)."""
     from distkeras_tpu_torch import kernels
     from distkeras_tpu_torch.serving.engine import DecodeStepper
 
@@ -9532,23 +9552,26 @@ def p23_step_times(torch, np, lm, smi):
             walls[n].append(wall_ms(steppers[n][0]))
     out = {}
     for n, (st, ln) in steppers.items():
-        dev = device_profile(torch, lambda st=st: st.step(active),
-                             P23_STEPS // 2)
-        out[f"tp:{n}"] = {
+        row = out[f"tp:{n}"] = {
             "wall_ms": float(np.median(walls[n])), "wall_ms_turns": walls[n],
-            "device_ms": dev["device_ms"], "kernels": dev["kernels"],
-            "device_ms_by_category": dev["device_ms_by_category"],
             "b7_per_step": ln, "kv_bytes_total": st.kv_bytes_total(),
-            "kv_shard_bytes": st.kv_shard_bytes(),
-            "top_kernels": dev["top_kernels"][:5]}
+            "kv_shard_bytes": st.kv_shard_bytes()}
+        dev = None
+        if profile:
+            dev = device_profile(torch, lambda st=st: st.step(active),
+                                 P23_STEPS // 2)
+            row.update(device_ms=dev["device_ms"], kernels=dev["kernels"],
+                       device_ms_by_category=dev["device_ms_by_category"],
+                       top_kernels=dev["top_kernels"][:5])
         log(f"23 step tp:{n} (dense, 8 busy slots, d512/L8): wall "
-            f"{out[f'tp:{n}']['wall_ms']:.3f} ms (turns "
-            f"{[round(w, 3) for w in walls[n]]}), device "
-            f"{dev['device_ms']} ms ({dev['device_ms_by_category']}), "
-            f"{dev['kernels']} kernels a step, B7 {ln} a step, K/V "
-            f"{st.kv_shard_bytes()} bytes a shard of {st.kv_bytes_total()} "
-            f"on {smi}")
-        for k in dev["top_kernels"][:3]:
+            f"{row['wall_ms']:.3f} ms (turns "
+            f"{[round(w, 3) for w in walls[n]]}), "
+            + (f"device {dev['device_ms']} ms "
+               f"({dev['device_ms_by_category']}), {dev['kernels']} kernels "
+               "a step, " if dev else "")
+            + f"B7 {ln} a step, K/V {st.kv_shard_bytes()} bytes a shard of "
+            f"{st.kv_bytes_total()} on {smi}")
+        for k in (dev["top_kernels"][:3] if dev else ()):
             log(f"  {k}")
     for n in steppers:
         check(out[f"tp:{n}"]["b7_per_step"] == 17,
@@ -9560,11 +9583,12 @@ def p23_step_times(torch, np, lm, smi):
     return out
 
 
-def run_phase23(torch, np, zoo, smi):
+def run_phase23(torch, np, zoo, smi, profile=False):
     """Phase 23, the serving mesh: ``ServingEngine(mesh="tp:N")`` with its
     N shards on the one card (``devices=[cuda:0] * N``, the port's
-    counterpart of JAX's virtual devices), held against the solo engine.
-    Returns the results and the launch counts of each drive."""
+    counterpart of JAX's virtual devices), held against the solo engine;
+    ``profile``: the per-step device times too. Returns the results and
+    the launch counts of each drive."""
     from distkeras_tpu_torch.ops.fused_layernorm import attach_fused_layernorm
     from distkeras_tpu_torch.serving import ModelDrafter, ServingEngine
     from distkeras_tpu_torch.serving.sampling import SamplingParams
@@ -9604,7 +9628,7 @@ def run_phase23(torch, np, zoo, smi):
             f"{out[f'23a_{kind}']['solo_tokens_per_s']:.1f}, tp:2 "
             f"{out[f'23a_{kind}']['tp2_tokens_per_s']:.1f} on {smi}")
     t_s = time.monotonic()
-    out["steps"] = p23_step_times(torch, np, lm, smi)
+    out["steps"] = p23_step_times(torch, np, lm, smi, profile)
     t_c = time.monotonic()
     # 23c: speculative verify at tp:2 with a small model drafter; the
     # draft bank stays solo
@@ -9780,7 +9804,8 @@ def p24_apply(torch, np, grid):
 def p24_rank_main(out_dir):
     """A 24a rank: joins the gloo group of 8 from the ``DKT_*`` env (every
     rank on the one card), runs the 3-D composition on the 2 x 2 x 2
-    grid and writes its outputs, gradients, shapes and seconds."""
+    grid, then 27a's steps, and writes its outputs, gradients, shapes,
+    step records and seconds."""
     import numpy as np
     import torch
 
@@ -9798,6 +9823,12 @@ def p24_rank_main(out_dir):
     info = {"seconds": time.monotonic() - t0, "backend": grid.world.backend,
             "device": str(grid.device)}
     grid.release()
+    # 27a: dryrun_multichip(8)'s steps in the same eight processes
+    import graft_entry_torch
+
+    t1 = time.monotonic()
+    info["multichip"] = graft_entry_torch.multichip_steps()
+    info["multichip_s"] = time.monotonic() - t1
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(info, f)
@@ -9820,7 +9851,8 @@ def p24_shard(a, leaf, p, m):
 
 def run_p24a(torch, np, smi):
     """24a: the 3-D composition over 8 gloo rank processes on the card,
-    against ``pipeline_apply`` on one rank (a 1 x 1 x 1 grid)."""
+    against ``pipeline_apply`` on one rank (a 1 x 1 x 1 grid); returns its
+    results and 27a's (the dryrun's steps in the same ranks)."""
     from distkeras_tpu_torch.parallel.mesh import make_grid_3d
 
     ref = p24_apply(torch, np, make_grid_3d(1, 1, 1))
@@ -9857,7 +9889,94 @@ def run_p24a(torch, np, smi):
     for r in ranks:
         got = {k: r["shape/" + k].tolist() for k in P24_LEAVES}
         check(got == want, f"24a: a rank holds {got}, not {want}")
+    return out, run_p27a(infos, wall, smi)
+
+
+def run_p27a(infos, wall, smi):
+    """27a: ``dryrun_multichip(8)``'s steps, run by 24a's rank processes:
+    every rank ran every step within ``ONE_RANK_TOL`` of one rank, and the
+    replicated results agree (``check_multichip``)."""
+    import graft_entry_torch as ge
+
+    try:
+        steps = ge.check_multichip([i["multichip"] for i in infos])
+    except RuntimeError as e:
+        raise SmokeFailure(f"27a: {e}") from e
+    rows = {step: {"max_err": max(max(r["err"].values()) for r in recs),
+                   "max_rank_s": max(r["seconds"] for r in recs),
+                   "replicated": recs[0]["replicated"]}
+            for step, recs in steps.items()}
+    secs = [i["multichip_s"] for i in infos]
+    for step, row in rows.items():
+        log(f"27a {step}: within {row['max_err']:.2e} of one rank (bar "
+            f"{ge.ONE_RANK_TOL}) on every rank, replicated {row['replicated']}"
+            f", {row['max_rank_s']:.3f} s a rank at most")
+    log(f"27a (dryrun_multichip(8) in 24a's {len(infos)} "
+        f"{infos[0]['backend']} ranks on {infos[0]['device']}): "
+        f"{len(rows)} steps in {max(secs):.2f} s a rank at most, inside 24a's "
+        f"launch wall {wall:.1f} s, on {smi}")
+    return {"ranks": len(infos), "steps": rows, "rank_seconds": secs,
+            "launch_wall_s": wall}
+
+
+def p27_rank_times(res):
+    """A dryrun rank's start-up, split, as one log string."""
+    return ", ".join(
+        f"rank {r}: spawn {t['spawn_s']:.1f} s, import torch "
+        f"{t['import_torch_s']:.1f} s, the port {t['import_port_s']:.1f} s, "
+        f"join {t['join_s']:.1f} s ({t['backend']}), steps "
+        f"{t['steps_s']:.1f} s" for r, t in enumerate(res["ranks"]))
+
+
+def run_p27b(smi):
+    """27b: ``dryrun_multichip(1)`` (the one-card topology, one NCCL
+    rank) and ``dryrun_multiprocess(2)``, one after the other (a
+    lane beside 24b's twins)."""
+    import graft_entry_torch as ge
+
+    out = {}
+    t0 = time.monotonic()
+    res = ge.dryrun_multichip(1)
+    wall = time.monotonic() - t0
+    check(list(res["steps"]) == ge.multichip_step_names(1),
+          f"27b: steps {list(res['steps'])}")
+    (times,) = res["ranks"]
+    check(times["backend"] == "nccl" and times["device"] == "cuda:0",
+          f"27b: the one rank ran on {times['backend']} {times['device']}")
+    errs = {step: max(rec["err"].values())
+            for step, (rec,) in res["steps"].items()}
+    out["multichip1"] = {"wall_s": wall, "ranks": res["ranks"],
+                         "max_err": errs}
+    log(f"27b dryrun_multichip(1): {len(errs)} steps, max error "
+        f"{max(errs.values()):.2e} of one rank's, wall {wall:.1f} s ("
+        f"{p27_rank_times(res)}) on {smi}")
+    t0 = time.monotonic()
+    res = ge.dryrun_multiprocess(2)
+    wall = time.monotonic() - t0
+    out["multiproc"] = dict(res, wall_s=wall)
+    log(f"27b dryrun_multiprocess(2): digests {res['digests']} equal, "
+        f"commits {res['commits']}, wall {wall:.1f} s (rank seconds "
+        f"{res['times']}) on {smi}")
     return out
+
+
+def run_p27c(torch, smi):
+    """27c: ``entry()``'s forward on the card."""
+    import graft_entry_torch as ge
+
+    t0 = time.monotonic()
+    fn, (model, x) = ge.entry()
+    out = fn(model, x)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    check(out.device.type == "cuda" and tuple(out.shape) == (8, 10),
+          f"27c: entry output {tuple(out.shape)} on {out.device}")
+    # the zero batch through zero biases: every class at 1/10
+    err = float((out - 0.1).abs().max())
+    check(err <= 1e-6, f"27c: the zero batch's output {err:.2e} from 0.1")
+    log(f"27c entry(): output {tuple(out.shape)} on {out.device}, "
+        f"{wall:.2f} s (model built, one forward) on {smi}")
+    return {"shape": list(out.shape), "wall_s": wall, "max_err_uniform": err}
 
 
 def p24_value(out, marker):
@@ -9993,14 +10112,16 @@ assert not bad, bad
 """
 
 
-def run_p24b(smi):
+def run_p24b(smi, beside=None):
     """24b: each example twin as a subprocess on CUDA (no ``--cpu``),
     ``P24_LANES`` at a time, its result lines asserted; returns the rows
     and the kernel launches each twin made, its rank processes' included
     (every process writes its counts through ``DKT_LAUNCH_COUNTS_DIR``).
     A row splits the twin's wall: ``startup_s`` (the interpreter, ``import
     torch``, the first CUDA context and the exit), ``script_s`` (the twin
-    itself) and ``train_s`` (the training seconds the twin prints)."""
+    itself) and ``train_s`` (the training seconds the twin prints).
+    ``beside``: a function run in a lane of its own while the twins run;
+    its result is returned third."""
     import shutil
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
@@ -10037,6 +10158,8 @@ def run_p24b(smi):
         return proc.returncode, out, err, wall, counts
 
     rows, counts = [], []
+    lane = ThreadPoolExecutor(1)
+    side = lane.submit(beside) if beside is not None else None
     try:
         twins = p24_twins(tmp)
         with ThreadPoolExecutor(P24_LANES) as ex:
@@ -10075,6 +10198,7 @@ def run_p24b(smi):
                 f"{len(procs)} processes on {smi}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+        lane.shutdown(wait=True)
     lm = next(r for r in rows if r["twin"].startswith("language_model --int8"))
     missing = [k for k in P24_LM_KERNELS if not lm["launches"].get(k)]
     check(not missing, f"24b: the language-model twin never launched "
@@ -10084,20 +10208,29 @@ def run_p24b(smi):
     missing = [k for k in P24_SP_KERNELS if not sp["launches"].get(k)]
     check(not missing, f"24b: the language model's rank processes never "
           f"launched {missing}: {sp['launches']}")
-    return rows, counts
+    return rows, counts, None if side is None else side.result()
 
 
-def run_phase24(torch, np, zoo, smi):
-    """Phase 24: the 3-D composition (24a) and the example twins (24b).
-    Returns the results and the launch counts of each drive."""
+def run_phase24(torch, np, zoo, smi, twins=True):
+    """Phase 24: the 3-D composition (24a) and the example twins (24b),
+    and phase 27 on their launches: 27a in 24a's ranks, 27b in a lane
+    beside the twins, 27c after. ``twins=False``: 24a, 27b and 27c
+    alone. Returns phase 24's results and launch counts (27 launches no
+    kernel), and phase 27's results."""
     t0 = time.monotonic()
-    out = {"24a": run_p24a(torch, np, smi)}
+    out, p27 = {}, {}
+    out["24a"], p27["27a"] = run_p24a(torch, np, smi)
     torch.cuda.empty_cache()
-    out["24b"], counts = run_p24b(smi)
+    counts = []
+    if twins:
+        out["24b"], counts, p27["27b"] = run_p24b(smi, lambda: run_p27b(smi))
+    else:
+        p27["27b"] = run_p27b(smi)
+    p27["27c"] = run_p27c(torch, smi)
     out["seconds_total"] = time.monotonic() - t0
     out["launches"] = {k: sum(c.get(k, 0) for c in counts)
-                       for k in counts[0]}
-    return out, counts
+                       for k in (counts[0] if counts else ())}
+    return out, counts, p27
 
 
 # ---------------------------------------------------------------- phase 25
@@ -11040,6 +11173,9 @@ def main(argv):
                     help="build the kernels and run phase 24 alone")
     ap.add_argument("--phase25-only", action="store_true",
                     help="build the kernels and run phase 25 alone")
+    ap.add_argument("--phase27-only", action="store_true",
+                    help="build the kernels and run phase 27 alone (24a "
+                         "with 27a, then 27b and 27c)")
     ap.add_argument("--phase2c-only", action="store_true",
                     help="build the kernels and run phases 2b and 2c "
                          "(the fused optimizers) alone")
@@ -11136,7 +11272,7 @@ def main(argv):
                 json.dump({"nvidia_smi": smi, "phase22": epp}, f, indent=1)
         return 0
     if args.phase23_only:
-        mesh, _ = run_phase23(torch, np, zoo, smi)
+        mesh, _ = run_phase23(torch, np, zoo, smi, profile=args.profile)
         log(f"phase 23 in {mesh['seconds_total']:.1f} s, launches "
             f"{mesh['launches']} on {smi}")
         if args.out:
@@ -11151,13 +11287,15 @@ def main(argv):
             with open(args.out, "w") as f:
                 json.dump({"nvidia_smi": smi, "phase25": soaks}, f, indent=1)
         return 0
-    if args.phase24_only:
-        twins, _ = run_phase24(torch, np, zoo, smi)
+    if args.phase24_only or args.phase27_only:
+        twins, _, entries = run_phase24(torch, np, zoo, smi,
+                                        twins=args.phase24_only)
         log(f"phase 24 in {twins['seconds_total']:.1f} s, launches "
             f"{twins['launches']} on {smi}")
         if args.out:
             with open(args.out, "w") as f:
-                json.dump({"nvidia_smi": smi, "phase24": twins}, f, indent=1)
+                json.dump({"nvidia_smi": smi, "phase24": twins,
+                           "phase27": entries}, f, indent=1)
         return 0
 
     ln_rows = check_layernorm(torch, F)
@@ -11248,12 +11386,13 @@ def main(argv):
     epp, epp_launches = run_phase22(torch, np, zoo, smi)
     log(f"phase 22 in {epp['seconds_total']:.1f} s, launches "
         f"{epp['launches']} on {smi}")
-    mesh, mesh_launches = run_phase23(torch, np, zoo, smi)
+    mesh, mesh_launches = run_phase23(torch, np, zoo, smi,
+                                      profile=args.profile)
     log(f"phase 23 in {mesh['seconds_total']:.1f} s, launches "
         f"{mesh['launches']} on {smi}")
-    twins, twin_launches = run_phase24(torch, np, zoo, smi)
-    log(f"phase 24 in {twins['seconds_total']:.1f} s, launches "
-        f"{twins['launches']} on {smi}")
+    twins, twin_launches, entries = run_phase24(torch, np, zoo, smi)
+    log(f"phase 24 in {twins['seconds_total']:.1f} s (phase 27 riding on "
+        f"it), launches {twins['launches']} on {smi}")
     soaks, soak_launches = run_phase25(torch, np, zoo, smi)
     log(f"phase 25 in {soaks['seconds_total']:.1f} s, launches "
         f"{soaks['launches']} on {smi}")
@@ -11340,6 +11479,7 @@ def main(argv):
                        "phase20": sync, "phase21": tpsp,
                        "phase22": epp, "phase23": mesh,
                        "phase24": twins, "phase25": soaks,
+                       "phase27": entries,
                        "profile": profile,
                        "flash_infinite_q": inf_rows},
                       f, indent=1)

@@ -9,12 +9,24 @@ import torch
 from distkeras_tpu_torch.ops.losses import _token_mean, _token_targets
 
 
-def accuracy(y_pred, y_true):
-    """Fraction of argmax matches. y_true may be one-hot or integer ids."""
+def accuracy(y_pred, y_true, seq_group=None):
+    """Fraction of argmax matches. y_true may be one-hot or integer ids.
+    ``seq_group``: the token axis of ``y_pred`` (B, T/N, V) is split over
+    that group and ``y_true`` holds the ids (B, T) of the whole sequence:
+    the rank scores its own tokens (equal counts, so the mean over the
+    ranks is the whole sequence's)."""
     pred_ids = torch.argmax(y_pred, dim=-1)
-    true_ids = (y_true if y_true.ndim == y_pred.ndim - 1
-                else torch.argmax(y_true, dim=-1))
+    if y_true.ndim != y_pred.ndim - 1:
+        true_ids = torch.argmax(y_true, dim=-1)
+    elif seq_group is not None and y_true.ndim >= 2:
+        t = pred_ids.shape[1]
+        true_ids = y_true[:, seq_group.rank * t:(seq_group.rank + 1) * t]
+    else:
+        true_ids = y_true
     return torch.mean((pred_ids == true_ids).float())
+
+
+accuracy.scores_tokens = True
 
 
 def next_token_accuracy(y_pred, y_true, seq_group=None):

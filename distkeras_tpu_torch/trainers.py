@@ -142,6 +142,43 @@ def _state_at(optimizer, params, shapes=None):
     return export_state(optimizer, optimizer.init(meta))
 
 
+def place_data_parallel(core, model, data):
+    """Put ``core`` and ``model`` on the data group ``data`` as
+    ``SynchronousDistributedTrainer`` trains them: the core averages its
+    gradients and metrics over ``data``, and the model's batch-dependent
+    layers (dropout masks, BatchNorm statistics) see the global batch."""
+    core.mesh = data
+    attach_data_group(model, data)
+
+
+def place_seq_parallel(core, model, mesh, sp_mode="ring", sp_inner="dense"):
+    """Put ``core`` and ``model`` on the (data x) seq grid ``mesh`` as
+    ``SequenceParallelTrainer`` trains them: the ring (or Ulysses, with
+    ``sp_inner``) attached to every attention layer, the core's
+    collectives over the whole grid, its token-scoring loss and metrics
+    bound to the seq group, and the data and seq groups attached to the
+    model. Returns how many attention layers were attached; raises when
+    the model has none."""
+    if sp_mode == "ulysses":
+        attached = attach_ulysses_attention(model, mesh, "seq",
+                                            inner=sp_inner)
+    else:
+        attached = attach_ring_attention(model, mesh, "seq")
+    if attached == 0:
+        raise ValueError(
+            "model has no MultiHeadSelfAttention layers — sequence "
+            "parallelism needs an attention model "
+            "(zoo.transformer_classifier)"
+        )
+    core.mesh = mesh.world
+    core.loss_fn = with_seq_group(core.loss_fn, mesh.inner)
+    core.metric_fns = [with_seq_group(f, mesh.inner)
+                       for f in core.metric_fns]
+    attach_data_group(model, mesh.data)
+    attach_seq_group(model, mesh.inner)
+    return attached
+
+
 def _maybe_len(dataset):
     try:
         return len(dataset)
@@ -656,8 +693,7 @@ class SynchronousDistributedTrainer(Trainer):
         mesh = self.mesh
         model = self.model.copy().to(mesh.device)
         core = self._make_core(model)
-        core.mesh = self._data
-        attach_data_group(model, self._data)
+        place_data_parallel(core, model, self._data)
         done = False
         try:
             carry = self._start(core, model, resume)
@@ -911,25 +947,10 @@ class SequenceParallelTrainer(Trainer):
         mesh = self.mesh
         model = self.model.copy().to(mesh.device)
         try:
-            if self.sp_mode == "ulysses":
-                attached = attach_ulysses_attention(model, mesh, "seq",
-                                                    inner=self.sp_inner)
-            else:
-                attached = attach_ring_attention(model, mesh, "seq")
-            if attached == 0:
-                raise ValueError(
-                    "model has no MultiHeadSelfAttention layers — sequence "
-                    "parallelism needs an attention model "
-                    "(zoo.transformer_classifier)"
-                )
-            self.history.record_training_start()
             core = self._make_core(model)
-            core.mesh = mesh.world
-            core.loss_fn = with_seq_group(core.loss_fn, mesh.inner)
-            core.metric_fns = [with_seq_group(f, mesh.inner)
-                               for f in core.metric_fns]
-            attach_data_group(model, mesh.data)
-            attach_seq_group(model, mesh.inner)
+            place_seq_parallel(core, model, mesh, self.sp_mode,
+                               self.sp_inner)
+            self.history.record_training_start()
             self._train_streamed(dataset, shuffle, core, model,
                                  *self._start(core, model, resume))
         finally:

@@ -52,8 +52,11 @@ TIGHT = 0.75
 #: global batch, and the (data, seq) grids per world size
 FFN = (4, 16, 8, 4, 16)
 FFN_GRIDS = {2: [(1, 2)], 4: [(2, 2), (1, 4)]}
+#: ``accuracy`` on the LM's logits scores each position against its own
+#: token; under a sequence group each rank scores its tokens of the ids
 LM_TRAIN = dict(loss="next_token_crossentropy", batch_size=16, num_epoch=1,
-                metrics=["next_token_accuracy"], seed=0, window=2)
+                metrics=["next_token_accuracy", "accuracy"], seed=0,
+                window=2)
 #: (tag, model, sp_mode, data_parallel, optimizer) of each trainer run,
 #: per world size; plain SGD shows a gradient off by a constant factor,
 #: which Adam's normalization would hide
@@ -213,8 +216,11 @@ _RANK_SCRIPT = textwrap.dedent(
                    for l in res.modules())
         results[tag + "/mesh"] = np.array(
             [t.mesh.shape.get("data", 0), t.mesh.shape["seq"]])
-        results[tag + "/loss"] = np.array(
-            [h["loss"] for h in t.get_history()])
+        hist = t.get_history()
+        results[tag + "/loss"] = np.array([h["loss"] for h in hist])
+        results[tag + "/hist_keys"] = np.array(sorted(hist[0]))
+        results[tag + "/hist"] = np.array(
+            [[h[k] for k in sorted(h)] for h in hist])
         if rows:
             hist = t.get_validation_history()
             results[tag + "/val"] = np.array(
@@ -386,8 +392,7 @@ def _jax_train(inputs, kind, mode, n, dp, opt, val_rows=None):
         kw = dict(kw, validation_data=data.take(val_rows))
     t = JSP(jm, opt, sp_mode=mode, **mesh, **kw)
     res = t.train(data, shuffle=True)
-    return [h["loss"] for h in t.get_history()], res, \
-        t.get_validation_history()
+    return t.get_history(), res, t.get_validation_history()
 
 
 def _world(tmp_path_factory, n):
@@ -449,18 +454,27 @@ def test_attention_matches_jax(world, mode, inner, causal):
 def test_trainer_matches_jax(world):
     """Every run of the launch (the classifier and the causal LM, ring and
     Ulysses, Adam and plain SGD, a (data 2, seq 2) grid at 4 ranks)
-    against JAX's ``SequenceParallelTrainer`` at the same mesh."""
+    against JAX's ``SequenceParallelTrainer`` at the same mesh: the
+    losses, every recorded metric (the LM's ``next_token_accuracy`` and
+    ``accuracy``, the classifier's ``accuracy``) and the weights."""
     ranks, _, trained = world
     n = len(ranks)
     for tag, kind, mode, dp, _ in RUNS[n]:
         port = _case(ranks[0], tag)
         want_mesh = [dp, n // dp] if dp > 1 else [0, n]
         assert list(port.pop("mesh")) == want_mesh, tag
-        jlosses, jres, _ = trained[tag]
+        jhist, jres, _ = trained[tag]
         port.pop("val", None)
         port.pop("val_keys", None)
-        np.testing.assert_allclose(port["loss"], jlosses, rtol=1e-4,
-                                   err_msg=tag)
+        np.testing.assert_allclose(port["loss"], [h["loss"] for h in jhist],
+                                   rtol=1e-4, err_msg=tag)
+        keys = sorted(jhist[0])
+        assert list(port["hist_keys"]) == keys, tag
+        if kind == "lm":
+            assert "accuracy" in keys, tag
+        np.testing.assert_allclose(port["hist"],
+                                   [[h[k] for k in keys] for h in jhist],
+                                   rtol=1e-4, err_msg=f"{tag} {keys}")
         for name, v in _flat_jax(jres.params).items():
             np.testing.assert_allclose(port[name], v, atol=1e-4, rtol=0,
                                        err_msg=f"{tag} {name}")
@@ -605,6 +619,37 @@ def test_next_token_loss_crosses_the_shard_boundary():
             parts = [fn(shard_sequence(logits, _seq_group(n, r)), ids,
                         seq_group=_seq_group(n, r)) for r in range(n)]
             torch.testing.assert_close(torch.stack(parts).mean(), whole)
+
+
+def test_token_accuracy_scores_the_ranks_tokens():
+    """``accuracy`` on a causal LM's logits (the default metric) under a
+    sequence group scores each rank's tokens of the whole ids, so the
+    ranks' mean is JAX's ``accuracy`` of the whole sequence (its GSPMD
+    run scores the global tokens); pooled outputs are scored as JAX
+    scores them."""
+    from distkeras_tpu.ops.metrics import accuracy as jax_accuracy
+
+    from distkeras_tpu_torch.ops.losses import with_seq_group
+    from distkeras_tpu_torch.ops.metrics import accuracy
+
+    rng = np.random.default_rng(3)
+    logits = rng.standard_normal((3, 12, 7)).astype(np.float32)
+    ids = rng.integers(0, 7, (3, 12)).astype(np.int32)
+    ids[:, ::2] = logits.argmax(-1)[:, ::2]  # some hits
+    whole = float(jax_accuracy(logits, ids))
+    assert 0 < whole < 1
+    tl, ti = torch.from_numpy(logits), torch.from_numpy(ids)
+    for n in (2, 3, 4):
+        parts = [with_seq_group(accuracy, _seq_group(n, r))(
+            shard_sequence(tl, _seq_group(n, r)), ti) for r in range(n)]
+        np.testing.assert_allclose(float(torch.stack(parts).mean()), whole,
+                                   rtol=1e-6, err_msg=f"seq {n}")
+    pooled = logits[:, 0]
+    fn = with_seq_group(accuracy, _seq_group(2, 1))
+    for labels in (ids[:, 0], np.eye(7, dtype=np.float32)[ids[:, 0]]):
+        np.testing.assert_allclose(
+            float(fn(torch.from_numpy(pooled), torch.from_numpy(labels))),
+            float(jax_accuracy(pooled, labels)), rtol=1e-6)
 
 
 def test_dropout_keeps_the_ranks_tokens_of_the_global_mask():
